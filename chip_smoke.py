@@ -1,0 +1,517 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+from the root of a checkout, on a machine with an NVIDIA H100 (sm_90a),
+the CUDA toolkit and PyTorch built for CUDA. It builds the hand-written
+kernels from ``src/repro_torch/kernels/csrc`` and runs these phases, each
+a hard failure:
+
+  1. device: a CUDA card must be present; prints its name and power limit;
+  2. build: one nvcc per kernel source, all at once;
+  3. each kernel against its plain PyTorch version on the card, at the
+     serving path's shapes, in float32 and bfloat16; chunked == one-shot
+     bitwise for the paged-attention kernel;
+  4. full-width qwen3-1.7b (float32, random weights from a seed): one
+     prefill chunk and 4 decode steps through ``paged_step`` with the
+     kernels and with the plain versions; logits must agree;
+  5. the continuous-batching engine serves 16 requests at full width;
+     every request completes, logits are finite, and each kernel's launch
+     count is the expected count per step times the steps run;
+  6. per-kernel times (CUDA events) at the decode step's shapes, beside
+     the plain version, one PyTorch library call and the least time the
+     card could take; a profile of a short serving run;
+  7. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+     limit, and as the last line ``{"ok": true, "device": {...}}``.
+
+It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+ARCH = "qwen3-1.7b"
+SEED = 0
+# published H100 SXM peaks (NVIDIA data sheet, dense): memory and the
+# non-tensor-core float32 rate the kernels' fp32 arithmetic runs at
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# K3: the tolerances of tests/test_kernels.py. K5: the kernel's online
+# softmax sums in another order than the plain version's single softmax;
+# bf16 inputs round once more on the way in
+RMS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SERVE_FLAGS = ["--arch", ARCH, "--preset", "full", "--slots", "8",
+               "--page-size", "16", "--pages", "128", "--chunk", "32",
+               "--requests", "16", "--prompt-len", "128", "--gen", "32",
+               "--rate", "0", "--seed", str(SEED)]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean time per call of ``fn`` issued back to back from Python,
+    between two CUDA events. Where the host issues slower than the card
+    runs, this reads the host's issue rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 100) -> float:
+    """Mean device time per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, between two CUDA events, so that the host's
+    launch cost does not enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timings(kernel, plain, library, nbytes, n_ops, dtype, iters=100):
+    """The JSON line's times (device time, from graph replay) and, for the
+    log, the same calls issued eagerly."""
+    t = dict(ms=graph_ms(kernel, iters), plain_ms=graph_ms(plain, iters),
+             library_ms=graph_ms(library, iters), **bound(nbytes, n_ops,
+                                                          dtype))
+    eager = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                 library_ms=cuda_ms(library))
+    return t, eager
+
+
+def max_err(a, b, mask=None) -> float:
+    d = (a.float() - b.float()).abs()
+    if mask is not None:
+        d = d[mask]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_close(name, got, want, tol, mask=None) -> float:
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    err = max_err(got, want)
+    log(f"  {name}: max|kernel - plain| = {err:.3e} (tol {tol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return err
+
+
+# ---------------------------------------------------------------------- #
+# inputs
+# ---------------------------------------------------------------------- #
+
+def paged_inputs(gen, *, ctx, q_len, T, dtype, n_layers=1, P=128, page=16,
+                 n_tab=127, nq=16, nkv=8, hd=128):
+    """K5 inputs as the serving path makes them: slot r holds ctx[r]
+    tokens after this step, its q_len[r] valid rows are the last of them
+    (positions beyond the row count continue, clipped, as the scheduler
+    writes them). Pools are random everywhere, so unreferenced pages and
+    the null page 0 hold stale data; unallocated table entries are 0."""
+    dev = gen.device
+    R = len(ctx)
+    pools = [torch.randn((n_layers, P, page, nkv, hd), generator=gen,
+                         device=dev).to(dtype) for _ in range(2)]
+    table = torch.zeros((R, n_tab), dtype=torch.int32)
+    free = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        SEED)) + 1).tolist()
+    cap = n_tab * page
+    q_pos = torch.zeros((R, T), dtype=torch.int32)
+    for r, (c, n) in enumerate(zip(ctx, q_len)):
+        pages = [free.pop() for _ in range(-(-c // page))]
+        table[r, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        if n:
+            q_pos[r] = torch.clamp(c - n + torch.arange(T), max=cap - 1)
+    q = torch.randn((R, T, nq, hd), generator=gen, device=dev).to(dtype)
+    q_len_t = torch.tensor(q_len, dtype=torch.int32)
+    return (q, pools[0], pools[1], table.to(dev), q_pos.to(dev),
+            q_len_t.to(dev))
+
+
+def valid_rows(q_len, T):
+    return (torch.arange(T, device=q_len.device)[None, :]
+            < q_len[:, None].long())
+
+
+# ---------------------------------------------------------------------- #
+# phases
+# ---------------------------------------------------------------------- #
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.time()
+    paths = build.build()
+    log(f"[build] {len(paths)} libraries in {time.time() - t0:.1f}s")
+    for name, path in paths.items():
+        log_file = path.with_suffix(".log")
+        text = log_file.read_text() if log_file.is_file() else ""
+        info = [ln.strip() for ln in text.splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"  {name}: {path.name}")
+        for ln in info:
+            log(f"    {ln}")
+
+
+def phase_kernels(gen):
+    """Each kernel against its plain version; returns max f32 errors."""
+    from repro_torch.kernels.flash_attention import (
+        paged_attention_kernel, paged_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    errs = {"rmsnorm": 0.0, "paged_attention": 0.0}
+    log("[kernels] K3 rmsnorm vs plain")
+    R, T, nq = 8, 32, 16
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in ((R * T, 2048), (R * T * nq, 128), (R, 2048),
+                        (R * nq, 128), (R * 8, 128)):
+            x = torch.randn((rows, d), generator=gen, device="cuda"
+                            ).to(dtype)
+            g = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+                 ).to(dtype)
+            e = check_close(f"{str(dtype)[6:]} ({rows}, {d})",
+                            rmsnorm_kernel(x, g), rmsnorm_plain(x, g),
+                            RMS_TOL[dtype])
+            if dtype == torch.float32:
+                errs["rmsnorm"] = max(errs["rmsnorm"], e)
+    log("[kernels] K5 paged attention vs plain (nq 16, nkv 8, hd 128, "
+        "page 16, table width 127)")
+    cases = {1: dict(ctx=[0, 1, 17, 40, 100, 160, 33, 250],
+                     q_len=[0, 1, 1, 1, 1, 1, 1, 1]),
+             32: dict(ctx=[0, 32, 45, 160, 200, 17, 300, 64],
+                      q_len=[0, 32, 13, 32, 32, 17, 32, 5])}
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, c in cases.items():
+            q, kp, vp, table, q_pos, q_len = paged_inputs(
+                gen, T=T, dtype=dtype, **c)
+            kp, vp = kp[0], vp[0]
+            got = paged_attention_kernel(q, kp, vp, table, q_pos, q_len)
+            want = paged_attention_plain(q, kp, vp, table, q_pos, q_len)
+            rows = valid_rows(q_len, T)
+            e = check_close(f"{str(dtype)[6:]} T={T}", got, want,
+                            PAGED_TOL[dtype], rows)
+            if got[~rows].any():
+                raise AssertionError("rows past q_len must be exactly 0")
+            if dtype == torch.float32:
+                errs["paged_attention"] = max(errs["paged_attention"], e)
+            if T == 32:
+                for c0, c1 in ((0, 5), (5, 17), (17, 32)):
+                    ql = torch.clamp(q_len - c0, 0, c1 - c0).to(torch.int32)
+                    part = paged_attention_kernel(
+                        q[:, c0:c1], kp, vp, table,
+                        q_pos[:, c0:c1].contiguous(), ql)
+                    m = valid_rows(ql, c1 - c0)
+                    if not torch.equal(part[m], got[:, c0:c1][m]):
+                        raise AssertionError(
+                            f"chunk [{c0}, {c1}) differs from one-shot")
+                log(f"  {str(dtype)[6:]} chunked (0-5, 5-17, 17-32) == "
+                    f"one-shot: bitwise")
+    return errs
+
+
+def phase_parity(model, cfg):
+    """Full width, kernels vs plain versions through paged_step."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.decoder import paged_step
+    R, T, page, n_pages = 8, 32, 16, 128
+    build = ST.make_paged_step(cfg, MeshAxes())
+    _, ct = build(n_pages, page)
+    pools = {m: ST.zeros_caches(ct, "cuda") for m in ("kernel", "plain")}
+    gen = torch.Generator().manual_seed(SEED + 1)
+    tokens = torch.randint(1, cfg.vocab_size, (R, T), generator=gen,
+                           dtype=torch.int32)
+    q_len = torch.tensor([32, 32, 20, 32, 7, 32, 0, 32], dtype=torch.int32)
+    positions = torch.arange(T, dtype=torch.int32).expand(R, T).contiguous()
+    table = torch.zeros((R, n_pages - 1), dtype=torch.int32)
+    for r in range(R):
+        table[r, :4] = 1 + 4 * r + torch.arange(4)
+    table = table.cuda()
+    log(f"[parity] full-width {cfg.name}, float32: 1 prefill chunk (T={T}) "
+        f"+ 4 decode steps, kernels vs plain")
+    agree = total = 0
+    for step in range(5):
+        args = [t.cuda() for t in (tokens, positions, q_len)]
+        out = {}
+        for mode in ("kernel", "plain"):
+            logits, _ = paged_step(model, args[0], pools[mode], args[1],
+                                   args[2], table, plain=(mode == "plain"))
+            out[mode] = logits
+        live = q_len.cuda() > 0
+        d = max_err(out["kernel"][live], out["plain"][live])
+        scale = float(out["plain"][live].abs().max())
+        ids = {m: out[m][:, 0].argmax(-1) for m in out}
+        same = int((ids["kernel"] == ids["plain"])[live].sum())
+        agree, total = agree + same, total + int(live.sum())
+        log(f"  step {step} (T={tokens.shape[1]}): max|dlogit| = {d:.3e}, "
+            f"max|logit| = {scale:.3e}, greedy agree {same}/"
+            f"{int(live.sum())}")
+        if not (d <= 1e-3 * scale and math.isfinite(d)):
+            raise AssertionError("kernel logits disagree with plain")
+        last = positions.gather(1, torch.clamp(q_len.long() - 1, 0)[:, None])
+        tokens = ids["plain"].cpu().to(torch.int32)[:, None]
+        positions = (last + 1).to(torch.int32)
+        q_len = (q_len > 0).to(torch.int32)
+    log(f"  greedy-token agreement {agree}/{total}")
+
+
+def phase_serve(model, cfg, smi):
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import paged_attention_kernel
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel
+    from repro_torch.launch import serve
+    from repro_torch.launch.serving import PagedEngine, ServeConfig
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
+    log(f"[serve] {' '.join(SERVE_FLAGS)}")
+    engine = PagedEngine(cfg, MeshAxes(), model, ServeConfig(
+        slots=args.slots, page_size=args.page_size,
+        pages_per_shard=args.pages, chunk=args.chunk))
+    t0 = time.time()
+    engine.warmup()
+    torch.cuda.synchronize()
+    log(f"  warmup {time.time() - t0:.2f}s")
+    reqs = serve.make_requests(args, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stats = engine.run(reqs)
+    launches = {"rmsnorm": rmsnorm_kernel.launches,
+                "paged_attention": paged_attention_kernel.launches}
+    if not all(r.state == "done" and len(r.generated) == r.max_new
+               for r in reqs):
+        raise AssertionError("a request did not complete")
+    if not torch.isfinite(engine.last_logits).all():
+        raise AssertionError("non-finite logits")
+    L = cfg.n_layers
+    per_step = {"paged_attention": L, "rmsnorm": 4 * L + 1}
+    for k, n in per_step.items():
+        log(f"  {k}: {launches[k]} launches = {launches[k] / stats.n_steps:g}"
+            f" per step over {stats.n_steps} steps (expected {n})")
+        if launches[k] != n * stats.n_steps:
+            raise AssertionError(f"{k}: unexpected launch count")
+    log(f"  served {stats.n_requests} requests / {stats.total_new_tokens} "
+        f"tokens in {stats.wall_s:.3f}s ({stats.n_steps} steps, "
+        f"{stats.n_preemptions} preemptions) on {smi}")
+    log(f"  tokens/s {stats.tokens_per_s:.1f}  ttft p50/p99 "
+        f"{stats.ttft_p50_ms:.1f}/{stats.ttft_p99_ms:.1f} ms  latency "
+        f"p50/p99 {stats.latency_p50_ms:.1f}/{stats.latency_p99_ms:.1f} ms  "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    return engine, args, launches
+
+
+def phase_timings(gen, n_layers):
+    """Decode-step shapes: 8 slots at 144 tokens of context."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        paged_attention_kernel, paged_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    f32 = torch.float32
+    out = {}
+    log("[timings] float32, decode-step shapes, CUDA events: device "
+        "time from a replayed CUDA graph / eager calls back to back")
+    rms = {}
+    for rows, d in ((8, 2048), (8 * 16, 128)):
+        x = torch.randn((rows, d), generator=gen, device="cuda")
+        g = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        nbytes = 2 * x.numel() * 4 + d * 4
+        ops_ = 4 * x.numel()
+        t, eager = timings(lambda: rmsnorm_kernel(x, g),
+                           lambda: rmsnorm_plain(x, g),
+                           lambda: F.rms_norm(x, (d,), g, 1e-6),
+                           nbytes, ops_, f32)
+        rms[(rows, d)] = t
+        log(f"  rmsnorm ({rows}, {d}): " + fmt(t, eager))
+    out["rmsnorm"] = rms[(8, 2048)]
+
+    ctx = [144] * 8
+    q, kp, vp, table, q_pos, q_len = paged_inputs(
+        gen, ctx=ctx, q_len=[1] * 8, T=1, dtype=f32, n_layers=n_layers)
+    layer = [0]
+
+    def rotate(fn):
+        # one pool per layer, as the model has: 28 layers' pools exceed
+        # the 50 MB L2, so each call finds its pages cold as in serving
+        def call():
+            i = layer[0] = (layer[0] + 1) % n_layers
+            return fn(i)
+        return call
+    kernel = rotate(lambda i: paged_attention_kernel(q, kp[i], vp[i], table,
+                                                     q_pos, q_len))
+    plain = rotate(lambda i: paged_attention_plain(q, kp[i], vp[i], table,
+                                                   q_pos, q_len))
+    # library yardstick: SDPA over pages gathered beforehand (the gather
+    # is not timed), KV heads repeated to the 16 query heads, the same
+    # boolean mask
+    R, page, nkv, hd = 8, 16, 8, 128
+    n_used = -(-max(ctx) // page)
+    idx = table[:, :n_used].long()
+    S = n_used * page
+    kg = [kp[i][idx].reshape(R, S, nkv, hd).transpose(1, 2)
+          .repeat_interleave(2, dim=1) for i in range(n_layers)]
+    vg = [vp[i][idx].reshape(R, S, nkv, hd).transpose(1, 2)
+          .repeat_interleave(2, dim=1) for i in range(n_layers)]
+    qs = q.transpose(1, 2)                                  # (R, 16, 1, hd)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= q_pos[:, :1].long())[:, None, None, :]
+    library = rotate(lambda i: F.scaled_dot_product_attention(
+        qs, kg[i], vg[i], attn_mask=mask))
+    n_keys = sum(c for c in ctx)                 # keys at or before q_pos
+    pages_read = sum(-(-c // page) for c in ctx)
+    nbytes = (2 * q.numel() * 4 + 2 * pages_read * page * nkv * hd * 4
+              + pages_read * 4 + 2 * R * 4)
+    ops_ = 4 * hd * 16 * n_keys
+    t, eager = timings(kernel, plain, library, nbytes, ops_, f32, iters=28)
+    log("  paged_attention (8 slots x 144 tokens, T=1): " + fmt(t, eager))
+    out["paged_attention"] = t
+    return out
+
+
+def bound(nbytes, n_ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def fmt(t, eager):
+    us = {k: f"{t[k] * 1e3:.2f}/{eager[k] * 1e3:.2f}" for k in eager}
+    return (f"kernel {us['ms']} us, plain {us['plain_ms']} us, library "
+            f"{us['library_ms']} us (device/eager), bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+
+
+def phase_profile(engine, args, cfg):
+    """Where a serving run's device time goes, by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    args.requests, args.gen = 8, 8
+    reqs = serve.make_requests(args, cfg.vocab_size)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            steps = engine.run(reqs).n_steps
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        events = prof.key_averages()
+    except RuntimeError as e:   # the profile is a reading, not a check
+        log(f"[profile] not measured: {e}")
+        return
+
+    # device kernels only: an operator's row repeats its kernels' time
+    kernels = [e for e in events
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    total = sum(dev_us(e) for e in kernels)
+    log(f"[profile] 8 requests x 8 tokens (prompt 128), {steps} steps: wall "
+        f"{wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
+        f"({'not measured' if not total else f'{total / 1e4 / wall:.1f}%'})")
+    groups = {}
+    for e in kernels:
+        name = e.key
+        g = ("K5 paged_attention" if "paged_attention_kernel" in name
+             else "K3 rmsnorm" if "rmsnorm_kernel" in name
+             else "GEMM (cuBLAS)" if any(w in name.lower() for w in (
+                 "gemm", "gemv", "splitk")) else "other PyTorch kernels")
+        groups[g] = groups.get(g, 0.0) + dev_us(e)
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {g}: {us / 1e3:.2f} ms ({100 * us / total:.1f}% of device "
+            f"time)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    smi = nvidia_smi()
+    log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+
+    ST.resolve_device("cuda")          # float32 products stay float32
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = phase_kernels(gen)
+
+    cfg = get_config(ARCH)
+    t0 = time.time()
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name} full width, float32, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters, init {time.time() - t0:.1f}s")
+    phase_parity(model, cfg)
+    engine, args, launches = phase_serve(model, cfg, smi)
+    times = phase_timings(gen, cfg.n_layers)
+    phase_profile(engine, args, cfg)
+
+    replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
+                "paged_attention": "src/repro/kernels/flash_attention.py:240"}
+    sources = {"rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+               "paged_attention":
+                   "src/repro_torch/kernels/csrc/paged_attention.cu"}
+    kernels = [dict(name=k, route="cuda", source=sources[k],
+                    replaces=replaces[k], launches=launches[k],
+                    max_abs_err=errs[k], **times[k])
+               for k in ("rmsnorm", "paged_attention")]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

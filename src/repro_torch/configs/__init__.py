@@ -1,0 +1,41 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch``.
+
+The names are those of ``repro.configs``. An architecture the JAX package
+knows but the port cannot serve yet raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.base import ArchConfig
+
+_MODULES = {
+    "qwen3-1.7b": "qwen3_1_7b",
+}
+
+# known to the JAX package, not yet ported: the ROADMAP.md §1 item each
+# one waits for
+_NOT_PORTED = {
+    "stablelm-1.6b": "dense config variants",
+    "gpt-paper-20b": "dense config variants",
+    "h2o-danube-3-4b": "dense config variants",
+    "nemotron-4-15b": "dense config variants",
+    "deepseek-v2-lite-16b": "MoE and the expert axis",
+    "deepseek-v3-671b": "MoE and the expert axis",
+    "jamba-v0.1-52b": "other mixers and architectures",
+    "xlstm-350m": "other mixers and architectures",
+    "internvl2-26b": "other mixers and architectures",
+    "whisper-small": "other mixers and architectures",
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name!r} is not ported to PyTorch yet: it waits for the "
+            f"ROADMAP.md §1 item '{_NOT_PORTED[name]}'. Ported: "
+            f"{sorted(_MODULES)}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG

@@ -1,0 +1,118 @@
+"""GQA attention over the paged KV cache (port of the ``"paged"`` branch
+of ``repro.layers.attention``).
+
+Heads shard over y (a paper "normal" layer for q/k/v) and the output
+projection is a "transposed" layer (§4.1). Only continuous-batching
+serving is ported: rows are per-slot prefill chunks or single decode
+tokens at per-slot global positions, against a physical KV page pool
+(P, page, nkv, hd) per layer that each slot reaches through its page
+table. The attention itself is kernel K5 and qk-norm is kernel K3. The
+JAX ``paged_attn_core`` is K5's plain version and lives beside the kernel,
+in ``kernels/flash_attention.py``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import mesh as M
+from repro_torch.core import parallel as PP
+from repro_torch.kernels import ops
+from repro_torch.layers.rotary import apply_rope
+
+
+def _plain_rms(x, gamma, eps: float = 1e-6, *, plain: bool = False):
+    """Per-head RMSNorm of qk-norm (head_dim is never sharded): K3 over
+    rows of width head_dim."""
+    return ops.rmsnorm(x, gamma, eps=eps, plain=plain)
+
+
+def kv_layout(cfg, axes: M.MeshAxes):
+    """(nq_local, nkv_local). The JAX package duplicates KV heads across
+    y ranks when G_y > n_kv_heads; that layout is not ported."""
+    if cfg.n_kv_heads % axes.gy:
+        raise NotImplementedError(
+            f"{cfg.name}: the duplicated-KV layout (G_y={axes.gy} > "
+            f"n_kv_heads={cfg.n_kv_heads}) is not ported; it waits for the "
+            f"ROADMAP.md §1 item 'multi-rank mesh'")
+    return cfg.n_heads // axes.gy, cfg.n_kv_heads // axes.gy
+
+
+class Attention(nn.Module):
+    """Separate q/k/v projections (``attn_init``'s non-duplicated branch),
+    with optional qk-norm."""
+
+    def __init__(self, cfg, axes: M.MeshAxes, *, gen: torch.Generator,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg, self.axes = cfg, axes
+        hd = cfg.head_dim_
+        self.nq_l, self.nkv_l = kv_layout(cfg, axes)
+        nq, nkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+
+        def lin(k, n):
+            return nn.Parameter(PP.tp_linear_init(gen, k, n, axes,
+                                                  dtype=dtype),
+                                requires_grad=False)
+        self.wq, self.wk, self.wv = lin(d, nq * hd), lin(d, nkv * hd), \
+            lin(d, nkv * hd)
+        self.wo = lin(nq * hd, d)
+        if cfg.qk_norm:
+            def ones():
+                return nn.Parameter(torch.ones(hd, dtype=dtype,
+                                               device=gen.device),
+                                    requires_grad=False)
+            self.q_norm, self.k_norm = ones(), ones()
+
+    def forward(self, h, *, positions, cache, paged, plain: bool = False):
+        """h (R, T, d/x) at global ``positions`` (R, T); ``cache`` holds this
+        layer's pools {"k", "v"} (P, page, nkv, hd); ``paged`` holds
+        {"table": (R, n_pages) int32, "q_len": (R,) int32}. Writes the
+        rows' K/V into the pools in place (the JAX step returns new pools;
+        updating in place saves a copy of every pool per step) and returns
+        the attention block's output (R, T, d/x)."""
+        cfg, axes = self.cfg, self.axes
+        hd = cfg.head_dim_
+        R, T = h.shape[:2]
+        q = PP.tp_matmul(h, self.wq, axes, "x", "y").reshape(
+            R, T, self.nq_l, hd)
+        k = PP.tp_matmul(h, self.wk, axes, "x", "y").reshape(
+            R, T, self.nkv_l, hd)
+        v = PP.tp_matmul(h, self.wv, axes, "x", "y").reshape(
+            R, T, self.nkv_l, hd)
+        if cfg.qk_norm:                      # before RoPE, as in JAX
+            q = _plain_rms(q, self.q_norm, plain=plain)
+            k = _plain_rms(k, self.k_norm, plain=plain)
+        if cfg.rotary_pct > 0:
+            q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+
+        kp, vp = cache["k"], cache["v"]
+        page = kp.shape[1]
+        table, q_len = paged["table"], paged["q_len"]
+        pos = positions.long()
+        valid = (torch.arange(T, device=h.device)[None, :]
+                 < q_len.long()[:, None])
+        slot_pages = torch.clamp(pos // page, 0, table.shape[1] - 1)
+        pid = torch.gather(table.long(), 1, slot_pages)
+        # invalid rows (chunk padding, idle slots) all land on the reserved
+        # null page 0 at offset 0: which of them wins does not matter, as
+        # page 0 is never handed out and masked scores read nothing
+        pid = torch.where(valid, pid, torch.zeros_like(pid))
+        off = torch.where(valid, pos % page, torch.zeros_like(pos))
+        kp.index_put_((pid, off), k.to(kp.dtype))
+        vp.index_put_((pid, off), v.to(vp.dtype))
+        out = ops.flash_attention_paged(q, kp, vp, table, positions, q_len,
+                                        window=cfg.sliding_window,
+                                        plain=plain)
+        return PP.tp_matmul(out.reshape(R, T, self.nq_l * hd), self.wo,
+                            axes, "y", "x")
+
+
+def paged_attn_cache_spec(cfg, axes: M.MeshAxes, n_pages: int,
+                          page_size: int, *, dtype=torch.float32):
+    """(shape, dtype) of this layer's K and V page pools: (n_pages,
+    page_size, kv heads, head_dim). Page 0 is the reserved null page."""
+    _, nkv_l = kv_layout(cfg, axes)
+    shape = (n_pages, page_size, nkv_l, cfg.head_dim_)
+    return {"k": (shape, dtype), "v": (shape, dtype)}

@@ -19,6 +19,11 @@ import pytest  # noqa: E402
 N_DEVICES = jax.device_count()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one)")
+
+
 def fitting_shapes(shapes):
     """Filter 4D mesh shapes to those the host's device count can hold."""
     return [s for s in shapes if math.prod(s) <= N_DEVICES]

@@ -1,0 +1,114 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and is marked ``gpu``; without one it
+skips. The file imports torch and the port only, so it also runs where JAX
+is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (paged_attention_kernel,
+                                                 paged_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from repro_torch.launch import steps as ST
+
+pytestmark = pytest.mark.gpu
+TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 5, 2048), (17, 128), (1, 96)])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(shape[-1:], generator=gen, device=cuda).to(dtype)
+    n = rmsnorm_kernel.launches
+    got = ops.rmsnorm(x, g)
+    assert rmsnorm_kernel.launches == n + 1
+    torch.testing.assert_close(got, rmsnorm_plain(x, g), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(
+        rmsnorm_kernel(x, g, full_dim=2 * shape[-1]),
+        rmsnorm_plain(x, g, full_dim=2 * shape[-1]),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _paged(cuda, dtype, T, hd, seed=0):
+    rng = np.random.RandomState(seed)
+    R, nq, nkv, page, P, n_tab = 4, 8, 2, 16, 24, 6
+    q = torch.from_numpy(rng.randn(R, T, nq, hd)).to(cuda, dtype)
+    kp = torch.from_numpy(rng.randn(P, page, nkv, hd)).to(cuda, dtype)
+    vp = torch.from_numpy(rng.randn(P, page, nkv, hd)).to(cuda, dtype)
+    table = np.zeros((R, n_tab), np.int32)
+    table[:, :4] = rng.permutation(np.arange(1, P))[:16].reshape(R, 4)
+    q_len = np.array([T, max(T // 2, 1), 0, 1], np.int32)
+    start = np.array([40, 3, 0, 63])
+    q_pos = np.minimum(start[:, None] + np.arange(T), 63).astype(np.int32)
+    return (q, kp, vp) + tuple(torch.from_numpy(a).to(cuda)
+                               for a in (table, q_pos, q_len))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,hd", [(1, 128), (9, 128), (20, 64)])
+def test_paged_attention_kernel_matches_plain(cuda, T, hd, dtype):
+    args = _paged(cuda, dtype, T, hd)
+    got = ops.flash_attention_paged(*args)
+    want = paged_attention_plain(*args)
+    rows = (torch.arange(T, device=cuda)[None] < args[5][:, None])
+    torch.testing.assert_close(got[rows], want[rows], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert not got[~rows].any()
+
+
+def test_paged_attention_kernel_chunks_are_bitwise(cuda):
+    q, kp, vp, table, q_pos, q_len = _paged(cuda, torch.float32, 20, 128)
+    full = paged_attention_kernel(q, kp, vp, table, q_pos, q_len)
+    for c0, c1 in ((0, 7), (7, 20)):
+        ql = torch.clamp(q_len - c0, 0, c1 - c0).to(torch.int32)
+        part = paged_attention_kernel(q[:, c0:c1], kp, vp, table,
+                                      q_pos[:, c0:c1].contiguous(), ql)
+        rows = torch.arange(c1 - c0, device=cuda)[None] < ql[:, None]
+        assert torch.equal(part[rows], full[:, c0:c1][rows])
+
+
+def test_paged_attention_kernel_refuses_unsupported_shapes(cuda):
+    q, kp, vp, table, q_pos, q_len = _paged(cuda, torch.float32, 2, 128)
+    big = torch.zeros((4, 64, 2, 128), device=cuda)      # page 64 > 32
+    with pytest.raises(ValueError, match="page <= 32"):
+        paged_attention_kernel(q, big, big, table, q_pos, q_len)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention_kernel(q, kp, vp, table.long(), q_pos, q_len)
+
+
+def test_paged_step_kernels_match_plain(cuda):
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = ST.init_model(cfg, seed=0, device=cuda)
+    build = ST.make_paged_step(cfg, model.axes)
+    step, ct = build(9, 4)
+    R, T = 2, 8
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(1, cfg.vocab_size, (R, T), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    positions = torch.arange(T, dtype=torch.int32).expand(R, T
+                                                          ).contiguous()
+    args = (positions.to(cuda), torch.tensor([8, 5], dtype=torch.int32,
+                                             device=cuda),
+            torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32,
+                         device=cuda))
+    out = {}
+    for plain in (False, True):
+        out[plain], _ = step(model, tokens, ST.zeros_caches(ct, cuda),
+                             *args, plain=plain)
+    torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)

@@ -1,0 +1,136 @@
+"""The port's boundaries: what it imports, where its entry points run,
+what it refuses, and its copies of the JAX package's numpy-only modules."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.mesh import MeshAxes
+from repro_torch.launch import serve
+from repro_torch.launch import steps as ST
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["init_model", "zeros_caches", "serve"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """With no card and no device="cpu", an entry point raises instead of
+    running somewhere else."""
+    _no_card(monkeypatch)
+    cfg = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "init_model":
+            ST.init_model(cfg)
+        elif entry == "zeros_caches":
+            ST.zeros_caches({"k": ((2, 4), torch.float32)})
+        else:
+            serve.main(["--arch", "qwen3-1.7b", "--requests", "1"])
+    assert ST.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off_for_float32_serving():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ST.resolve_device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_serve_cli_on_cpu(capsys):
+    serve.main(["--arch", "qwen3-1.7b", "--device", "cpu", "--requests",
+                "3", "--prompt-len", "6", "--gen", "3", "--slots", "2",
+                "--page-size", "4", "--pages", "12", "--chunk", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 9 tokens" in out
+    assert "SERVE OK" in out
+
+
+@pytest.mark.parametrize("flags", [["--mode", "fixed"], ["--overlap"],
+                                   ["--telemetry"], ["--mesh", "1,2,1,1"]])
+def test_serve_rejects_what_is_not_ported(flags):
+    with pytest.raises(NotImplementedError, match="not ported|port runs"):
+        serve.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("sizes", [(2, 1, 1, 1), (1, 1, 2, 1),
+                                   (1, 1, 1, 2)])
+def test_mesh_factors_above_one_raise(sizes):
+    with pytest.raises(NotImplementedError, match="multi-rank mesh"):
+        MeshAxes(sizes)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "jamba-v0.1-52b",
+                                  "deepseek-v3-671b"])
+def test_unported_archs_name_their_roadmap_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+def test_full_width_config():
+    cfg = get_config("qwen3-1.7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim_, cfg.d_ff) == (28, 2048, 16, 8, 128, 6144)
+    assert cfg.padded_vocab == 152064
+    assert cfg.segments() == (((("attn", "mlp"),), 28),)
+    small = cfg.reduced()
+    assert (small.n_layers, small.d_model, small.n_heads,
+            small.n_kv_heads, small.head_dim_) == (2, 256, 4, 4, 64)
+
+
+@pytest.mark.parametrize("name", ["pages.py", "scheduler.py"])
+def test_serving_copies_match_the_jax_package(name):
+    """pages.py and scheduler.py are copies; only the import path moves."""
+    ours = (PORT / "launch" / "serving" / name).read_text()
+    theirs = (ROOT / "src" / "repro" / "launch" / "serving" / name
+              ).read_text()
+    assert ours == theirs.replace("from repro.launch",
+                                  "from repro_torch.launch")
+
+
+def test_engine_serves_at_every_chunk_boundary():
+    """Prompts shorter than, equal to and longer than a chunk, on a pool
+    that forces preemption: every request completes, no page leaks."""
+    from repro_torch.launch.serving import PagedEngine, Request, ServeConfig
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = ST.init_model(cfg, seed=1, device="cpu")
+    engine = PagedEngine(cfg, MeshAxes(), model,
+                         ServeConfig(slots=4, page_size=4,
+                                     pages_per_shard=8, chunk=4))
+    engine.warmup()
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size, (L,)
+                                              ).astype(np.int32), max_new=3)
+            for i, L in enumerate((3, 4, 5, 9))]
+    stats = engine.run(reqs)
+    assert stats.total_new_tokens == 12 and stats.n_preemptions > 0
+    assert all(r.state == "done" and len(r.generated) == 3 for r in reqs)
+    assert torch.isfinite(engine.last_logits).all()
+    for a in engine.sched.allocators:
+        a.check()
+        assert a.n_used == 0
