@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -11,24 +12,36 @@ a hard failure:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: one nvcc per kernel source, all at once;
   3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, in float32 and bfloat16; chunked == one-shot
-     bitwise for the paged-attention kernel;
+     serving and training paths' shapes, in float32 and bfloat16:
+     K3 RMSNorm, K5 paged attention (chunked == one-shot bitwise), K1
+     block matmul in the three layouts of training, K2 flash attention
+     forward and backward (the forward run twice gives the same bits, as
+     rematerialization needs);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
      prefill chunk and 4 decode steps through ``paged_step`` with the
      kernels and with the plain versions; logits must agree;
   5. the continuous-batching engine serves 16 requests at full width;
      every request completes, logits are finite, and each kernel's launch
-     count is the expected count per step times the steps run;
-  6. per-kernel times (CUDA events) at the decode step's shapes, beside
-     the plain version, one PyTorch library call and the least time the
-     card could take; a profile of a short serving run;
-  7. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+     count is the expected count per step times the steps run; a profile
+     of a short serving run;
+  6. per-kernel times (CUDA events) at the paths' shapes, beside the plain
+     version, one PyTorch library call and the least time the card could
+     take;
+  7. full-width training parity: the loss and every gradient of one
+     microbatch (2 x 512 tokens) through the kernels and through the plain
+     versions, before any optimizer state exists;
+  8. training: the serving model is freed, then ``launch/train.py`` runs
+     3 full-width steps (batch 4 x 512, overdecompose 2, float32); every
+     loss is finite and each kernel's launch count is the expected count
+     per microbatch times the microbatches run; a profile of one step;
+  9. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -52,10 +65,37 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # bf16 inputs round once more on the way in
 RMS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K1 against torch.matmul, K2 against the plain attention and its
+# autograd, each as max|kernel - plain| <= tol * max|plain|: K1 sums K in
+# another order than cuBLAS, K2 sums keys (and, backward, queries) in
+# another order than the plain version; bf16 outputs round once more
+MATMUL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# full-width training parity (float32), relative: the loss, the global
+# gradient norm, and each leaf's max|dg| against its max|g|; K1's K order
+# differs from cuBLAS's in every product of the 28 layers
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "leaf": 1e-3}
 SERVE_FLAGS = ["--arch", ARCH, "--preset", "full", "--slots", "8",
                "--page-size", "16", "--pages", "128", "--chunk", "32",
                "--requests", "16", "--prompt-len", "128", "--gen", "32",
                "--rate", "0", "--seed", str(SEED)]
+TRAIN_FLAGS = ["--arch", ARCH, "--preset", "full", "--steps", "3",
+               "--batch", "4", "--seq", "512", "--overdecompose", "2",
+               "--dtype", "float32", "--log-every", "1"]
+# the training shapes of K1: (name, M, K, N, layout); NT reads b and TN
+# reads a through a transposed view, as the backward does
+MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
+                 ("dX dY.W^T", 1024, 6144, 2048, "NT"),
+                 ("dW X^T.dY", 2048, 1024, 6144, "TN"),
+                 ("tied head h.E^T", 1024, 2048, 152064, "NT"),
+                 ("decode x.W", 8, 2048, 6144, "NN"),
+                 ("decode tied head", 8, 2048, 152064, "NT")]
+# K2 at the training shape: (B, T, S, nq, nkv, hd, causal, window, kv_len)
+ATTN_MAIN = (2, 512, 512, 16, 8, 128, True, 0, 0)
+ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
+              "window 128": (2, 512, 512, 16, 8, 128, True, 128, 0),
+              "ragged kv_len 300 of 320, non-causal, T 200":
+                  (2, 200, 320, 16, 8, 128, False, 0, 300)}
 
 
 def log(msg: str) -> None:
@@ -112,14 +152,17 @@ def graph_ms(fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timings(kernel, plain, library, nbytes, n_ops, dtype, iters=100):
+def timings(kernel, plain, library, nbytes, n_ops, dtype, iters=100,
+            eager_iters=200):
     """The JSON line's times (device time, from graph replay) and, for the
     log, the same calls issued eagerly."""
     t = dict(ms=graph_ms(kernel, iters), plain_ms=graph_ms(plain, iters),
              library_ms=graph_ms(library, iters), **bound(nbytes, n_ops,
                                                           dtype))
-    eager = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                 library_ms=cuda_ms(library))
+    warm = min(20, eager_iters)
+    eager = dict(ms=cuda_ms(kernel, eager_iters, warm),
+                 plain_ms=cuda_ms(plain, eager_iters, warm),
+                 library_ms=cuda_ms(library, eager_iters, warm))
     return t, eager
 
 
@@ -142,9 +185,56 @@ def check_close(name, got, want, tol, mask=None) -> float:
     return err
 
 
+def check_rel(name, got, want, tol) -> float:
+    """max|got - want| <= tol * max|want|; returns the max abs error."""
+    err, scale = max_err(got, want), float(want.float().abs().max())
+    ok = err <= tol * scale and math.isfinite(err)
+    log(f"  {name}: max|kernel - plain| = {err:.3e}, max|plain| = "
+        f"{scale:.3e} (tol {tol:g} of it) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return err
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 # ---------------------------------------------------------------------- #
 # inputs
 # ---------------------------------------------------------------------- #
+
+def matmul_inputs(gen, M, K, N, layout, dtype):
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    a = rand(K, M).t() if layout == "TN" else rand(M, K)
+    b = rand(N, K).t() if layout == "NT" else rand(K, N)
+    return a, b
+
+
+def attn_inputs(gen, B, T, S, nq, nkv, hd, dtype):
+    """q, k, v in the model's (B, T, H, hd) layout and an output
+    gradient."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return (rand(B, T, nq, hd), rand(B, S, nkv, hd), rand(B, S, nkv, hd),
+            rand(B, T, nq, hd))
+
+
+def attn_work(B, T, S, nq, nkv, hd, causal, window, kv_len, elt):
+    """(visible (query, key) pairs, bytes of q, k, v and out) for the
+    bounds; the backward moves as many again (dout, dq, dk, dv)."""
+    i = torch.arange(T)[:, None]
+    j = torch.arange(S)[None, :]
+    vis = (j < (kv_len or S)).expand(T, S).clone()
+    if causal:
+        vis &= i >= j
+    if window:
+        vis &= (i - j) < window
+    pairs = int(vis.sum()) * B * nq
+    return pairs, 2 * (B * T * nq + B * S * nkv) * hd * elt
+
+
 
 def paged_inputs(gen, *, ctx, q_len, T, dtype, n_layers=1, P=128, page=16,
                  n_tab=127, nq=16, nkv=8, hd=128):
@@ -202,7 +292,8 @@ def phase_kernels(gen):
     from repro_torch.kernels.flash_attention import (
         paged_attention_kernel, paged_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
-    errs = {"rmsnorm": 0.0, "paged_attention": 0.0}
+    errs = dict.fromkeys(("rmsnorm", "paged_attention", "block_matmul",
+                          "flash_attention", "flash_attention_bwd"), 0.0)
     log("[kernels] K3 rmsnorm vs plain")
     R, T, nq = 8, 32, 16
     for dtype in (torch.float32, torch.bfloat16):
@@ -249,7 +340,51 @@ def phase_kernels(gen):
                             f"chunk [{c0}, {c1}) differs from one-shot")
                 log(f"  {str(dtype)[6:]} chunked (0-5, 5-17, 17-32) == "
                     f"one-shot: bitwise")
+    phase_kernels_train(gen, errs)
     return errs
+
+
+def phase_kernels_train(gen, errs):
+    """K1 at the training and decode shapes, K2 forward and backward."""
+    from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                                  block_matmul_plain)
+    from repro_torch.kernels.flash_attention import (
+        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
+    f32 = torch.float32
+    log("[kernels] K1 block_matmul vs plain (torch.matmul on fp32 operands)")
+    for dtype in (f32, torch.bfloat16):
+        for name, M, K, N, layout in MATMUL_SHAPES:
+            a, b = matmul_inputs(gen, M, K, N, layout, dtype)
+            e = check_rel(f"{dtype_name(dtype)} {name} ({M}, {K}) x ({K}, "
+                          f"{N}) {layout}", block_matmul_kernel(a, b),
+                          block_matmul_plain(a, b), MATMUL_TOL[dtype])
+            if dtype == f32:
+                errs["block_matmul"] = max(errs["block_matmul"], e)
+            del a, b
+    log("[kernels] K2 flash attention forward and backward vs plain "
+        "(autograd of the plain forward)")
+    for dtype in (f32, torch.bfloat16):
+        for name, case in ATTN_CASES.items():
+            B, T, S, nq, nkv, hd, causal, window, kv_len = case
+            q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, dtype)
+            kw = dict(causal=causal, window=window, kv_len=kv_len)
+            out, lse = flash_attention_kernel(q, k, v, **kw)
+            again, _ = flash_attention_kernel(q, k, v, **kw)
+            if not torch.equal(out, again):
+                raise AssertionError("K2 forward is not deterministic")
+            grads = flash_attention_bwd_kernel(q, k, v, out, lse, dout, **kw)
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            want = attn_core(*qkv, **kw)
+            wgrads = torch.autograd.grad(want, qkv, dout)
+            tag = f"{dtype_name(dtype)} {name}"
+            e = check_rel(f"{tag} out", out, want.detach(), FLASH_TOL[dtype])
+            eb = max(check_rel(f"{tag} d{n}", g, w, FLASH_TOL[dtype])
+                     for n, g, w in zip("qkv", grads, wgrads))
+            log(f"  {tag}: forward run twice: bitwise equal")
+            if dtype == f32:
+                errs["flash_attention"] = max(errs["flash_attention"], e)
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], eb)
 
 
 def phase_parity(model, cfg):
@@ -301,8 +436,6 @@ def phase_parity(model, cfg):
 def phase_serve(model, cfg, smi):
     from repro_torch.core.mesh import MeshAxes
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import paged_attention_kernel
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel
     from repro_torch.launch import serve
     from repro_torch.launch.serving import PagedEngine, ServeConfig
     args = serve.build_parser().parse_args(SERVE_FLAGS)
@@ -318,20 +451,19 @@ def phase_serve(model, cfg, smi):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     stats = engine.run(reqs)
-    launches = {"rmsnorm": rmsnorm_kernel.launches,
-                "paged_attention": paged_attention_kernel.launches}
+    launches = ops.launches()
     if not all(r.state == "done" and len(r.generated) == r.max_new
                for r in reqs):
         raise AssertionError("a request did not complete")
     if not torch.isfinite(engine.last_logits).all():
         raise AssertionError("non-finite logits")
     L = cfg.n_layers
-    per_step = {"paged_attention": L, "rmsnorm": 4 * L + 1}
-    for k, n in per_step.items():
-        log(f"  {k}: {launches[k]} launches = {launches[k] / stats.n_steps:g}"
-            f" per step over {stats.n_steps} steps (expected {n})")
-        if launches[k] != n * stats.n_steps:
-            raise AssertionError(f"{k}: unexpected launch count")
+    # per step: per layer norm1, norm2, q/k-norm; 7 projections; the tied
+    # head; attention over the pages. No K2: the engine is paged only
+    per_step = {"paged_attention": L, "rmsnorm": 4 * L + 1,
+                "block_matmul": 7 * L + 1, "flash_attention": 0,
+                "flash_attention_bwd": 0}
+    check_launches(launches, per_step, stats.n_steps, "step")
     log(f"  served {stats.n_requests} requests / {stats.total_new_tokens} "
         f"tokens in {stats.wall_s:.3f}s ({stats.n_steps} steps, "
         f"{stats.n_preemptions} preemptions) on {smi}")
@@ -341,6 +473,16 @@ def phase_serve(model, cfg, smi):
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
     return engine, args, launches
+
+
+def check_launches(launches, per_unit, units, unit):
+    """Each kernel's launches must be its expected count per ``unit``
+    times ``units``; a kernel the path runs must have launched."""
+    for k, n in per_unit.items():
+        log(f"  {k}: {launches[k]} launches = {launches[k] / units:g} per "
+            f"{unit} over {units} {unit}s (expected {n})")
+        if launches[k] != n * units:
+            raise AssertionError(f"{k}: unexpected launch count")
 
 
 def phase_timings(gen, n_layers):
@@ -407,7 +549,75 @@ def phase_timings(gen, n_layers):
     t, eager = timings(kernel, plain, library, nbytes, ops_, f32, iters=28)
     log("  paged_attention (8 slots x 144 tokens, T=1): " + fmt(t, eager))
     out["paged_attention"] = t
+    del kp, vp, kg, vg
+    phase_timings_train(gen, out)
     return out
+
+
+def phase_timings_train(gen, out):
+    """K1 at the training and decode shapes; K2 forward and backward at the
+    training shape. K2's backward runs eagerly for all three versions (the
+    plain and library backwards are autograd's, which a graph captured
+    apart from its forward cannot replay)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                                  block_matmul_plain)
+    from repro_torch.kernels.flash_attention import (
+        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
+    f32 = torch.float32
+    log("[timings] float32, training shapes: device time from a replayed "
+        "CUDA graph / eager calls back to back")
+    for name, M, K, N, layout in MATMUL_SHAPES:
+        a, b = matmul_inputs(gen, M, K, N, layout, f32)
+        heavy = N > 100_000 and M > 64
+        t, eager = timings(lambda: block_matmul_kernel(a, b),
+                           lambda: block_matmul_plain(a, b),
+                           lambda: torch.matmul(a, b),
+                           4 * (M * K + K * N + M * N), 2 * M * N * K, f32,
+                           iters=5 if heavy else 50,
+                           eager_iters=5 if heavy else 100)
+        log(f"  block_matmul {name} ({M}, {K}) x ({K}, {N}) {layout}: "
+            + fmt(t, eager) + f"; {2 * M * N * K / t['ms'] / 1e9:.1f} "
+            f"TFLOP/s")
+        out.setdefault("block_matmul", t)
+        del a, b
+    B, T, S, nq, nkv, hd, causal, window, kv_len = ATTN_MAIN
+    q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, f32)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    pairs, fwd_bytes = attn_work(*ATTN_MAIN, 4)
+    lse_bytes = B * nq * T * 4
+    g = nq // nkv
+    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
+    qs = q.transpose(1, 2)
+    t, eager = timings(
+        lambda: flash_attention_kernel(q, k, v, **kw),
+        lambda: attn_core(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+        fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
+        eager_iters=50)
+    log("  flash_attention forward (B 2, T 512, 16/8 heads, hd 128, "
+        "causal): " + fmt(t, eager))
+    out["flash_attention"] = t
+    o, lse = flash_attention_kernel(q, k, v, **kw)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain_out = attn_core(*qkv, **kw)
+    lib_in = [x.clone().requires_grad_() for x in (qs, ks, vs)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+    dout_s = dout.transpose(1, 2)
+    bwd = dict(
+        ms=cuda_ms(lambda: flash_attention_bwd_kernel(q, k, v, o, lse, dout,
+                                                      **kw), 50, 5),
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(
+            plain_out, qkv, dout, retain_graph=True), 50, 5),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, dout_s, retain_graph=True), 50, 5),
+        **bound(2 * fwd_bytes + lse_bytes, 10 * hd * pairs, f32))
+    us = {key: f"{bwd[key] * 1e3:.2f}" for key in ("ms", "plain_ms",
+                                                  "library_ms")}
+    log(f"  flash_attention backward: kernel {us['ms']} us, plain "
+        f"{us['plain_ms']} us, library {us['library_ms']} us (eager), bound "
+        f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']})")
+    out["flash_attention_bwd"] = bwd
 
 
 def bound(nbytes, n_ops, dtype):
@@ -424,6 +634,40 @@ def fmt(t, eager):
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
 
 
+KERNEL_GROUPS = (("gemm_kernel", "K1 block_matmul"),
+                 ("split_sum_kernel", "K1 block_matmul"),
+                 ("flash_fwd_kernel", "K2 flash_attention forward"),
+                 ("flash_bwd", "K2 flash_attention backward"),
+                 ("rmsnorm_kernel", "K3 rmsnorm"),
+                 ("paged_attention_kernel", "K5 paged_attention"))
+
+
+def dev_us(e):
+    """A profiler row's own device time (µs)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def log_split(kernels, total, top):
+    """Device time by kernel group, then the ``top`` kernels."""
+    def group(name):
+        for key, g in KERNEL_GROUPS:
+            if key in name:
+                return g
+        if any(w in name.lower() for w in ("gemm", "gemv", "splitk")):
+            return "GEMM (cuBLAS)"
+        return "other PyTorch kernels"
+    groups = {}
+    for e in kernels:
+        g = group(e.key)
+        groups[g] = groups.get(g, 0.0) + dev_us(e)
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {g}: {us / 1e3:.2f} ms ({100 * us / total:.1f}% of device "
+            f"time)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+
+
 def phase_profile(engine, args, cfg):
     """Where a serving run's device time goes, by kernel."""
     from torch.autograd import DeviceType
@@ -431,42 +675,132 @@ def phase_profile(engine, args, cfg):
     from repro_torch.launch import serve
     args.requests, args.gen = 8, 8
     reqs = serve.make_requests(args, cfg.vocab_size)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            steps = engine.run(reqs).n_steps
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        events = prof.key_averages()
-    except RuntimeError as e:   # the profile is a reading, not a check
-        log(f"[profile] not measured: {e}")
-        return
-
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        steps = engine.run(reqs).n_steps
+        torch.cuda.synchronize()
+        wall = time.time() - t0
     # device kernels only: an operator's row repeats its kernels' time
-    kernels = [e for e in events
+    kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
     total = sum(dev_us(e) for e in kernels)
     log(f"[profile] 8 requests x 8 tokens (prompt 128), {steps} steps: wall "
         f"{wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
         f"({'not measured' if not total else f'{total / 1e4 / wall:.1f}%'})")
-    groups = {}
-    for e in kernels:
-        name = e.key
-        g = ("K5 paged_attention" if "paged_attention_kernel" in name
-             else "K3 rmsnorm" if "rmsnorm_kernel" in name
-             else "GEMM (cuBLAS)" if any(w in name.lower() for w in (
-                 "gemm", "gemv", "splitk")) else "other PyTorch kernels")
-        groups[g] = groups.get(g, 0.0) + dev_us(e)
-    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {g}: {us / 1e3:.2f} ms ({100 * us / total:.1f}% of device "
-            f"time)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+    log_split(kernels, total, 8)
+
+
+def phase_train_parity(cfg):
+    """Full width, float32: one microbatch's loss and gradients through the
+    kernels and through the plain versions, before any optimizer state."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.decoder import lm_loss
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 512),
+                                    generator=gen).cuda() for _ in range(2))
+    log(f"[train parity] full-width {cfg.name}, float32, one microbatch "
+        f"(2 x 512), remat full: kernels vs plain")
+    res = {}
+    for mode in ("kernel", "plain"):
+        t0 = time.time()
+        loss, _ = lm_loss(model, tokens, labels, plain=(mode == "plain"))
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        norm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads.values())))
+        res[mode] = (float(loss.detach()), norm, grads)
+        log(f"  {mode}: loss {res[mode][0]:.6f}, grad norm {norm:.6f}, "
+            f"{time.time() - t0:.2f}s")
+    (lk, nk, gk), (lp, np_, gp) = res["kernel"], res["plain"]
+    worst = max(((float((gk[n] - gp[n]).abs().max())
+                  / max(float(gp[n].abs().max()), 1e-30)), n) for n in gp)
+    log(f"  |dloss|/loss {abs(lk - lp) / abs(lp):.3e} (tol "
+        f"{TRAIN_TOL['loss']:g}), |dnorm|/norm {abs(nk - np_) / np_:.3e} "
+        f"(tol {TRAIN_TOL['grad_norm']:g}), worst leaf max|dg|/max|g| "
+        f"{worst[0]:.3e} at {worst[1]} (tol {TRAIN_TOL['leaf']:g})")
+    if not (abs(lk - lp) <= TRAIN_TOL["loss"] * abs(lp)
+            and abs(nk - np_) <= TRAIN_TOL["grad_norm"] * np_
+            and worst[0] <= TRAIN_TOL["leaf"] and math.isfinite(lk)):
+        raise AssertionError("kernel gradients disagree with plain")
+
+
+def phase_train(cfg, smi):
+    """The port's training entry point at full width, kernels counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    log(f"[train] python -m repro_torch.launch.train {' '.join(TRAIN_FLAGS)}")
+    ops.reset_launches()
+    res = train.main(TRAIN_FLAGS)
+    launches = ops.launches()
+    if not all(math.isfinite(x) for x in res.losses + res.grad_norms):
+        raise AssertionError("non-finite loss or grad norm")
+    L = cfg.n_layers
+    # per microbatch: K1 = forward 7L + 1 (tied head), remat recompute 7L,
+    # backward 2 (dX, dW) x (7L + 1); K2 forward + recompute 2L, backward
+    # L; K3 = 4L + 1 forward (norm1, norm2, q/k-norm; final) + 4L recompute
+    per_mb = {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
+              "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
+              "paged_attention": 0}
+    args = train.build_parser().parse_args(TRAIN_FLAGS)
+    check_launches(launches, per_mb, args.steps * args.overdecompose,
+                   "microbatch")
+    steady = res.step_s[1:] or res.step_s
+    step_s = sum(steady) / len(steady)
+    tok_s = res.tokens_per_step / step_s
+    share = 6 * res.n_params * res.tokens_per_step / step_s / PEAK_OPS_PER_S[
+        torch.float32]
+    log(f"  losses {res.losses}, grad norms {res.grad_norms}")
+    log(f"  step times {[round(x, 4) for x in res.step_s]} s; steady step "
+        f"{step_s:.4f} s, {tok_s:.1f} tokens/s, 6*N*tokens/step time = "
+        f"{100 * share:.2f}% of the 67 TFLOP/s float32 peak, "
+        f"max_memory_allocated {res.max_memory_bytes / 2**30:.2f} GiB on "
+        f"{smi}")
+    return launches
+
+
+def phase_train_profile(cfg):
+    """Where one full-width training step's device time goes, by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.data.synthetic import DataConfig, SyntheticText
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    state = init_state(dict(model.named_parameters()))
+    step = ST.make_train_step(cfg, MeshAxes(), AdamWConfig(
+        warmup_steps=1, total_steps=3), ST.TrainOptions(
+        overdecompose=2, dtype=torch.float32))
+    data = SyntheticText(DataConfig(vocab_size=cfg.vocab_size, seq_len=512,
+                                    global_batch=4))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    float(step(model, state, batch)["loss"])          # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        float(step(model, state, batch)["loss"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    total = sum(dev_us(e) for e in kernels)
+    log(f"[train profile] one step (4 x 512 tokens, 2 microbatches), under "
+        f"the profiler: wall {wall * 1e3:.1f} ms, device busy "
+        f"{total / 1e3:.1f} ms ("
+        f"{'not measured' if not total else f'{total / 1e4 / wall:.1f}%'})")
+    if not total:
+        return
+
+    log_split(kernels, total, 12)
+
+
+def free_memory():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -492,19 +826,39 @@ def main() -> int:
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
         f"parameters, init {time.time() - t0:.1f}s")
     phase_parity(model, cfg)
-    engine, args, launches = phase_serve(model, cfg, smi)
-    times = phase_timings(gen, cfg.n_layers)
+    engine, args, serve_launches = phase_serve(model, cfg, smi)
     phase_profile(engine, args, cfg)
+    del engine, model
+    free_memory()
+    times = phase_timings(gen, cfg.n_layers)
+    free_memory()
+    phase_train_parity(cfg)
+    free_memory()
+    train_launches = phase_train(cfg, smi)
+    free_memory()
+    phase_train_profile(cfg)
 
+    # launches: each kernel's count on the path this repo ported it for
+    # (serving: K3, K5; training: K1, K2); the log has both paths' counts
+    launches = dict(serve_launches, **{
+        k: train_launches[k] for k in ("block_matmul", "flash_attention",
+                                       "flash_attention_bwd")})
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
-                "paged_attention": "src/repro/kernels/flash_attention.py:240"}
-    sources = {"rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-               "paged_attention":
-                   "src/repro_torch/kernels/csrc/paged_attention.cu"}
+                "paged_attention": "src/repro/kernels/flash_attention.py:240",
+                "block_matmul": "src/repro/kernels/block_matmul.py:34",
+                "flash_attention": "src/repro/kernels/flash_attention.py:297",
+                "flash_attention_bwd":
+                    "src/repro/kernels/flash_attention.py:297"}
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"rmsnorm": csrc + "rmsnorm.cu",
+               "paged_attention": csrc + "paged_attention.cu",
+               "block_matmul": csrc + "block_matmul.cu",
+               "flash_attention": csrc + "flash_attention.cu",
+               "flash_attention_bwd": csrc + "flash_attention.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=errs[k], **times[k])
-               for k in ("rmsnorm", "paged_attention")]
+               for k in replaces]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

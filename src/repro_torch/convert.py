@@ -1,13 +1,21 @@
-"""Carry a JAX parameter tree over to the port.
+"""Carry a JAX parameter tree over to the port, and name the port's
+parameters by their JAX paths.
 
 ``params_from_jax`` takes the tree of ``repro.launch.steps.init_model``
 as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
-:class:`~repro_torch.models.decoder.Decoder` holding the same values. The
-JAX tree stacks each segment's layers along a leading (n_periods, ...)
-axis under ``segments/seg0/pos0/...``; the port keeps one module per layer
-under the same leaf names (``layers.<i>.mixer.wq``, ``layers.<i>.norm1.g``,
-...). The two frameworks draw different random numbers from the same
-seed, so the tests carry weights across this way.
+:class:`~repro_torch.models.decoder.Decoder` holding the same values, with
+trainable parameters. The JAX tree stacks each segment's layers along a
+leading (n_periods, ...) axis under ``segments/seg0/pos0/...``; the port
+keeps one module per layer under the same leaf names
+(``layers.<i>.mixer.wq``, ``layers.<i>.norm1.g``, ...). The two frameworks
+draw different random numbers from the same seed, so the tests carry
+weights across this way.
+
+``jax_path`` maps a port parameter's name to the path of the JAX leaf it
+comes from (``layers.3.mixer.wq`` -> ``segments/seg0/pos0/mixer/wq``,
+layer 3 of the stack). The train step decides weight decay on these
+paths, as the JAX ``adamw._no_decay`` does, and the tests compare
+gradients leaf by leaf through them.
 """
 from __future__ import annotations
 
@@ -29,6 +37,20 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+def jax_path(name: str) -> str:
+    """The JAX tree path of the port parameter ``name``; layer i of a
+    stacked leaf maps to the stacked leaf's path."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = ["segments", "seg0", "pos0", *parts[2:]]
+    return "/".join(parts)
+
+
+def jax_paths(model: Decoder) -> Dict[str, str]:
+    """Port parameter name -> JAX path, for every parameter of ``model``."""
+    return {n: jax_path(n) for n, _ in model.named_parameters()}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,

@@ -51,7 +51,15 @@ def psum(v, axes: MeshAxes, axis: str):
     return v
 
 
+def pmax(v, axes: MeshAxes, axis: str):
+    return v
+
+
 def all_gather(v, axes: MeshAxes, axis: str, *, dim: int):
+    return v
+
+
+def psum_scatter(v, axes: MeshAxes, axis: str, *, dim: int):
     return v
 
 

@@ -1,12 +1,19 @@
-"""4D tensor-parallel primitives, forward only (port of
-``repro.core.parallel``).
+"""4D tensor-parallel primitives (port of ``repro.core.parallel``).
 
-The functions keep the JAX package's schedule: the z all-gather of a
+Every function on the differentiated path is a ``torch.autograd.Function``
+whose backward runs exactly the collectives of the JAX package's
+``custom_vjp`` (DESIGN.md §Collective schedule): the z all-gather of a
 weight before its local GEMM, the all-reduce over the contraction axis
-after it, the vocab-parallel embedding and the tied LM head. On the
-one-device mesh every collective is the identity (``core.mesh``). Local
-GEMMs are ``torch.matmul``, as the JAX package leaves its ``_mm`` to XLA
-outside any kernel; ``rms_norm`` runs kernel K3.
+after it (Algorithm 1 line 6), the all-reduce over the output axis of the
+input gradient (line 13) and the z reduce-scatter of the weight gradient.
+On the one-device mesh every collective is the identity (``core.mesh``);
+the calls stay where the JAX package makes them.
+
+Every local product, forward and backward, goes through ``ops.matmul``
+(kernel K1), with transposed operands read as views; ``rms_norm`` runs
+kernel K3 forward and its backward in PyTorch ops, as the JAX backward is
+jnp outside any kernel. ``plain=True`` runs the kernels' plain versions on
+any device.
 """
 from __future__ import annotations
 
@@ -18,41 +25,247 @@ import torch
 from repro_torch.core import mesh as M
 from repro_torch.kernels import ops
 
+NEG_INF = -1e30
+
+
+def _mm(a, b, *, plain: bool = False):
+    """(..., k) @ (k, n) with fp32 accumulation, in a's dtype (K1)."""
+    out = ops.matmul(a.reshape(-1, a.shape[-1]), b, plain=plain)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _mm_tn(a, b, *, plain: bool = False):
+    """a^T @ b over all leading dims: (..., k) and (..., n) -> (k, n) in
+    fp32-accumulated a's dtype (K1 reading a through a transposed view)."""
+    return ops.matmul(a.reshape(-1, a.shape[-1]).t(),
+                      b.reshape(-1, b.shape[-1]), plain=plain)
+
+
+# ---------------------------------------------------------------------- #
+# replicated-cotangent all-reduce (Megatron's "g" operator)
+# ---------------------------------------------------------------------- #
+
+class _ArBwdIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, axes, axis):
+        return M.psum(v, axes, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+def ar_bwd_identity(v, axes: M.MeshAxes, axis):
+    """Forward all-reduce over ``axis``; backward identity. Correct when
+    the consumer treats the output as replicated over ``axis``."""
+    return _ArBwdIdentity.apply(v, axes, axis)
+
+
+# ---------------------------------------------------------------------- #
+# the 4D tensor-parallel matmul (paper Algorithm 1 + z axis)
+# ---------------------------------------------------------------------- #
+
+class _TpMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, axes, in_shard, out_shard, plain):
+        wf = M.all_gather(w, axes, "z", dim=1)                # AG_z
+        y = _mm(x, wf, plain=plain)                           # line 6
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (axes, out_shard, plain)
+        return M.psum(y, axes, in_shard) if in_shard else y   # AR (line 6)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        axes, out_shard, plain = ctx.cfg
+        wf = M.all_gather(w, axes, "z", dim=1)                # re-gather
+        dx = _mm(dy, wf.t(), plain=plain).to(x.dtype)         # dY W^T
+        if out_shard:
+            dx = M.psum(dx, axes, out_shard)                  # AR (line 13)
+        dw = _mm_tn(x, dy, plain=plain)                       # X^T dY
+        dw = M.psum_scatter(dw, axes, "z", dim=1)             # RS_z
+        return dx, dw.to(w.dtype), None, None, None, None
+
 
 def tp_matmul(x, w, axes: M.MeshAxes, in_shard: Optional[str] = "x",
-              out_shard: Optional[str] = "y"):
-    """Y = X @ W, W stored (k, n) as in the JAX package. ('x', 'y') is a
-    paper "normal" layer, ('y', 'x') a "transposed" one (§4.1)."""
-    wf = M.all_gather(w, axes, "z", dim=1)                    # AG_z
-    y = torch.matmul(x, wf)                                   # local GEMM
-    if in_shard is None:
-        return y
-    return M.psum(y, axes, in_shard)                          # AR (line 6)
+              out_shard: Optional[str] = "y", *, plain: bool = False):
+    """Y = X @ W with the paper's 4D collective schedule, W stored (k, n)
+    as in the JAX package. ('x', 'y') is a paper "normal" layer, ('y',
+    'x') a "transposed" one (§4.1)."""
+    return _TpMatmul.apply(x, w, axes, in_shard, out_shard, plain)
+
+
+def tp_matmul_t(x, w, axes: M.MeshAxes, *, plain: bool = False):
+    """Paper 'transposed' layer: contract over y, output over x."""
+    return tp_matmul(x, w, axes, "y", "x", plain=plain)
+
+
+# ---------------------------------------------------------------------- #
+# vocab-parallel embedding (rows over y, cols over (x, z))
+# ---------------------------------------------------------------------- #
+
+def _local_ids(tokens, axes, v_local):
+    local = tokens.long() - M.axis_index(axes, "y") * v_local
+    return local, (local >= 0) & (local < v_local)
+
+
+class _EmbeddingLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, table, axes):
+        tf = M.all_gather(table, axes, "z", dim=1)
+        local, ok = _local_ids(tokens, axes, tf.shape[0])
+        emb = tf[local.clamp(0, tf.shape[0] - 1)]
+        emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
+        ctx.save_for_backward(tokens)
+        ctx.cfg = (axes, table.shape[0], table.dtype)
+        # assemble across vocab shards (backward: identity)
+        return M.psum(emb, axes, "y")
+
+    @staticmethod
+    def backward(ctx, demb):
+        (tokens,) = ctx.saved_tensors
+        axes, v_local, dtype = ctx.cfg
+        local, ok = _local_ids(tokens, axes, v_local)
+        idx = torch.where(ok, local, torch.full_like(local, v_local))
+        h = demb.shape[-1]
+        # out-of-range rows land on the extra row v_local and are dropped
+        dtab = torch.zeros((v_local + 1, h), dtype=torch.float32,
+                           device=demb.device)
+        dtab.index_add_(0, idx.reshape(-1), demb.reshape(-1, h).float())
+        dtab = M.psum_scatter(dtab[:-1], axes, "z", dim=1)
+        return None, dtab.to(dtype), None
 
 
 def embedding_lookup(tokens, table, axes: M.MeshAxes):
-    """tokens (B, S) int; table (V/y, d/(x z)) -> (B, S, d/x)."""
-    tf = M.all_gather(table, axes, "z", dim=1)
-    v_local = tf.shape[0]
-    local = tokens.long() - M.axis_index(axes, "y") * v_local
-    ok = (local >= 0) & (local < v_local)
-    emb = tf[local.clamp(0, v_local - 1)]
-    emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
-    return M.psum(emb, axes, "y")       # assemble across vocab shards
+    """tokens (B, S) int; table (V/y, d/(x z)) -> (B, S, d/x), features
+    sharded over x, replicated over y. The table's gradient is an fp32
+    ``index_add_``, reduce-scattered over z."""
+    return _EmbeddingLookup.apply(tokens, table, axes)
 
 
-def tied_lm_logits(h, table, axes: M.MeshAxes):
-    """h (..., d/x); table (V/y, d/(x z)) -> logits (..., V/y)."""
-    tf = M.all_gather(table, axes, "z", dim=1)
-    logits = torch.matmul(h, tf.t())
-    return M.psum(logits, axes, "x")
+# ---------------------------------------------------------------------- #
+# tied-embedding LM head: logits = h @ table^T with the paper schedule
+# ---------------------------------------------------------------------- #
+
+class _TiedLmLogits(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, table, axes, plain):
+        tf = M.all_gather(table, axes, "z", dim=1)            # (V/y, d/x)
+        logits = _mm(h, tf.t(), plain=plain)
+        ctx.save_for_backward(h, table)
+        ctx.cfg = (axes, plain)
+        return M.psum(logits, axes, "x")
+
+    @staticmethod
+    def backward(ctx, dlogits):
+        h, table = ctx.saved_tensors
+        axes, plain = ctx.cfg
+        tf = M.all_gather(table, axes, "z", dim=1)
+        dh = M.psum(_mm(dlogits, tf, plain=plain).to(h.dtype), axes, "y")
+        dt = M.psum_scatter(_mm_tn(dlogits, h, plain=plain), axes, "z",
+                            dim=1)
+        return dh, dt.to(table.dtype), None, None
+
+
+def tied_lm_logits(h, table, axes: M.MeshAxes, *, plain: bool = False):
+    """h (..., d/x); table (V/y, d/(x z)) -> logits (..., V/y),
+    replicated over x."""
+    return _TiedLmLogits.apply(h, table, axes, plain)
+
+
+# ---------------------------------------------------------------------- #
+# vocab-parallel softmax cross-entropy (fused, hand-written backward)
+# ---------------------------------------------------------------------- #
+
+def _masked_fp32(logits, axes, valid_vocab):
+    """logits as fp32, padded vocab columns (>= valid_vocab) at NEG_INF,
+    and the first global column of this y shard."""
+    lg = logits.float()
+    v_local = lg.shape[-1]
+    start = M.axis_index(axes, "y") * v_local
+    if valid_vocab:
+        cols = start + torch.arange(v_local, device=lg.device)
+        lg = torch.where(cols < valid_vocab, lg,
+                         torch.full_like(lg, NEG_INF))
+    return lg, start
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, axes, valid_vocab):
+        lg, start = _masked_fp32(logits, axes, valid_vocab)
+        v_local = lg.shape[-1]
+        m = M.pmax(torch.amax(lg, dim=-1), axes, "y")
+        se = M.psum(torch.sum(torch.exp(lg - m[..., None]), dim=-1), axes,
+                    "y")
+        lse = torch.log(se) + m
+        local = labels.long() - start
+        ok = (local >= 0) & (local < v_local)
+        tgt = torch.gather(lg, -1, local.clamp(0, v_local - 1)[..., None]
+                           )[..., 0]
+        tgt = M.psum(torch.where(ok, tgt, torch.zeros_like(tgt)), axes, "y")
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.cfg = (axes, valid_vocab)
+        return lse - tgt
+
+    @staticmethod
+    def backward(ctx, dloss):
+        logits, labels, lse = ctx.saved_tensors
+        axes, valid_vocab = ctx.cfg
+        lg, start = _masked_fp32(logits, axes, valid_vocab)
+        v_local = lg.shape[-1]
+        probs = torch.exp(lg - lse[..., None])
+        local = labels.long() - start
+        ok = (local >= 0) & (local < v_local)
+        # probs - onehot(label) (no one-hot row for labels off this shard)
+        probs.scatter_add_(-1, local.clamp(0, v_local - 1)[..., None],
+                           -ok.float()[..., None])
+        dlogits = probs.mul_(dloss.float()[..., None])
+        return dlogits.to(logits.dtype), None, None, None
+
+
+def vocab_parallel_xent(logits, labels, axes: M.MeshAxes,
+                        valid_vocab: int = 0):
+    """logits (..., V/y) sharded over y (replicated over x); labels (...)
+    global ids; ``valid_vocab``: the true vocab size (padded columns past
+    it are masked). Returns the per-token loss (...) in fp32."""
+    return _VocabParallelXent.apply(logits, labels, axes, valid_vocab)
+
+
+# ---------------------------------------------------------------------- #
+# feature-sharded RMSNorm (stats psum'd over x)
+# ---------------------------------------------------------------------- #
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, axes, axis, full_dim, eps, plain):
+        ctx.save_for_backward(x, gamma)
+        ctx.cfg = (axes, axis, full_dim, eps)
+        return ops.rmsnorm(x, gamma, full_dim=full_dim, eps=eps, plain=plain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        axes, axis, full_dim, eps = ctx.cfg
+        xf = x.float()
+        # r is recomputed here rather than saved by the kernel
+        ms = M.psum(torch.sum(xf * xf, dim=-1), axes, axis) / full_dim
+        r = torch.rsqrt(ms + eps)[..., None]
+        dyf = dy.float() * gamma.float()
+        xhat = xf * r
+        # mean over the FULL feature dim -> psum over the sharded axis
+        dot = M.psum(torch.sum(dyf * xhat, dim=-1), axes, axis) / full_dim
+        dx = (r * (dyf - xhat * dot[..., None])).to(x.dtype)
+        dg = torch.sum((dy.float() * xhat).reshape(-1, x.shape[-1]), dim=0)
+        return dx, dg.to(gamma.dtype), None, None, None, None, None
 
 
 def rms_norm(x, gamma, axes: M.MeshAxes, full_dim: int, eps: float = 1e-6,
-             *, plain: bool = False):
-    """RMSNorm over a feature dim sharded across x (K3: the sum of squares
-    of the whole row is the local one at g_x = 1)."""
-    return ops.rmsnorm(x, gamma, full_dim=full_dim, eps=eps, plain=plain)
+             *, axis: Optional[str] = "x", plain: bool = False):
+    """RMSNorm over a feature dim sharded across ``axis`` (K3 forward; the
+    sum of squares of the whole row is the local one at g_x = 1).
+    ``axis=None`` is a row that is never sharded (qk-norm)."""
+    return _RmsNorm.apply(x, gamma, axes, axis, full_dim, eps, plain)
 
 
 # ---------------------------------------------------------------------- #

@@ -1,0 +1,657 @@
+// K2, flash attention forward and backward for Hopper (sm_90a), with a
+// plain C interface for ctypes.
+//
+// Replaces: src/repro/kernels/flash_attention.py:flash_attention (Pallas
+// body `_kernel`), the causal / sliding-window GQA online-softmax forward,
+// whose function the JAX training path computes in jnp as
+// repro.layers.attention.attn_core. For batch b, query row t, query head hq
+// (KV head hq / g, g = nq / nkv):
+//     out = softmax_j(q . k_j * scale, masked) @ v_j
+// where key j counts when j < kv_len, j <= t (causal) and t - j < window
+// (window > 0). The JAX package has no backward kernel: it differentiates
+// the jnp attn_core. The backward here is new and follows FlashAttention-2:
+// P is recomputed from the forward's saved log-sum-exp, with no atomics.
+//
+// What bounds it: at the training shape (T = 512, head_dim 128) operations.
+// The forward does 4 * T * S / 2 * head_dim operations per (batch, head)
+// under the causal mask against 4 (T + 2 S) head_dim elements moved, tens
+// to hundreds of operations per byte; the backward 2.5 times the forward's
+// operations. In float32 the bound is the CUDA cores' 67 TFLOP/s.
+//
+// Design, simple first:
+//  * forward: one block of 256 threads per (query tile of 64 rows, query
+//    head, batch). It loops over key tiles of 64, for causal only up to the
+//    diagonal and, with a window, only from the first tile the window
+//    reaches; a skipped tile is one where every score is masked, which
+//    would leave each row's (m, l, acc) bitwise unchanged. Tiles pass
+//    through shared memory as fp32 (bf16 widens on load) with one word of
+//    padding per row; each thread owns 4 query rows (strided by 16) and,
+//    of those rows, 4 scores of a key tile and head_dim / 16 output
+//    columns. Row max and sum are 16-lane butterflies. The carry (m, l,
+//    acc) is fp32; masked scores give p = 0 exactly. It writes the output
+//    and each row's log-sum-exp (fp32) for the backward. Every call on the
+//    same inputs runs the same instructions in the same order, so the
+//    rematerialized forward gives the same bits;
+//  * backward, three kernels: delta = rowsum(dO * O) per row; dK and dV,
+//    one block per (key tile, KV head, batch) that loops over the g query
+//    heads of its group and over the query tiles that see the key tile, so
+//    the GQA sum stays inside the block; dQ, one block per (query tile,
+//    query head, batch) that loops over the key tiles as the forward does.
+// All inputs are read in the model's (batch, time, head, head_dim) layout
+// through strides, with unit stride in head_dim: no transposes.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;       // 16 x 16
+constexpr int BQ = 64;              // query rows per tile
+constexpr int BKV = 64;             // keys per tile
+constexpr int RI = BQ / 16;         // rows per thread
+constexpr int RJ = BKV / 16;        // score columns per thread
+constexpr int PLD = BKV + 16;       // row stride of the score tiles
+constexpr float kNegInf = -1e30f;   // NEG_INF of the JAX package
+static_assert(BQ == BKV, "the backward's tile loops assume square tiles");
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// reductions over the 16 lanes that share a row (tx = lane % 16)
+__device__ __forceinline__ float max16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ bool visible(int iq, int jk, int n_t, int kv_hi,
+                                        int causal, int window) {
+  return iq < n_t && jk < kv_hi && (!causal || iq >= jk) &&
+         (window <= 0 || iq - jk < window);
+}
+
+// rows [r0, r0 + rows) of a (n_rows, HD) slice with row stride `stride`
+// into dst (row stride ld) as fp32; rows past n_rows read as 0
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const T* __restrict__ src,
+                                          int64_t stride, int r0, int n_rows,
+                                          int rows) {
+  for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
+    const int r = e / HD, d = e % HD;
+    const int gr = r0 + r;
+    dst[r * ld + d] = gr < n_rows ? to_f(src[gr * stride + d]) : 0.f;
+  }
+}
+
+// key tiles [lo, hi) that hold a visible key for query rows [q0, q0 + BQ)
+__device__ __forceinline__ void key_tiles(int q0, int n_t, int kv_hi,
+                                          int causal, int window, int* lo,
+                                          int* hi) {
+  int end = kv_hi;
+  if (causal) end = min(end, min(q0 + BQ, n_t));
+  const int beg = window > 0 ? max(0, q0 - window + 1) : 0;
+  *lo = beg / BKV;
+  *hi = end > beg ? (end + BKV - 1) / BKV : *lo;
+}
+
+// query tiles [lo, hi) that see a key of tile [j0, j0 + BKV)
+__device__ __forceinline__ void query_tiles(int j0, int n_t, int kv_hi,
+                                            int causal, int window, int* lo,
+                                            int* hi) {
+  *lo = causal ? j0 / BQ : 0;
+  *hi = (n_t + BQ - 1) / BQ;
+  if (j0 >= kv_hi) *hi = *lo;
+  if (window > 0) {
+    const int j_last = min(j0 + BKV, kv_hi) - 1;
+    *hi = min(*hi, (j_last + window - 1) / BQ + 1);
+  }
+  if (*hi < *lo) *hi = *lo;
+}
+
+// ---------------------------------------------------------------------- //
+// forward
+// ---------------------------------------------------------------------- //
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
+                 int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
+                 int64_t k_st, int64_t k_sh, const T* __restrict__ v,
+                 int64_t v_sb, int64_t v_st, int64_t v_sh,
+                 T* __restrict__ o, float* __restrict__ lse, int n_t,
+                 int n_s, int nq, int nkv, int causal, int window, int kv_hi,
+                 float scale) {
+  constexpr int HC = HD / 16;
+  constexpr int LD = HD + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;             // [BQ][LD]
+  float* Ks = Qs + BQ * LD;     // [BKV][LD]
+  float* Vs = Ks + BKV * LD;    // [BKV][HD]
+  float* Ps = Vs + BKV * HD;    // [BQ][PLD]
+  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (nq / nkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_rows<T, HD>(Qs, LD, q + b * q_sb + hq * q_sh, q_st, q0, n_t, BQ);
+
+  float m[RI], l[RI], acc[RI][HC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
+  }
+
+  int lo, hi;
+  key_tiles(q0, n_t, kv_hi, causal, window, &lo, &hi);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int j0 = kt * BKV;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<T, HD>(Ks, LD, k + b * k_sb + hk * k_sh, k_st, j0, n_s, BKV);
+    load_rows<T, HD>(Vs, HD, v + b * v_sb + hk * v_sh, v_st, j0, n_s, BKV);
+    __syncthreads();
+
+    float s[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      float qa[RI], kb[RJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) qa[i] = Qs[(ty + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int iq = q0 + ty + 16 * i;
+      bool ok[RJ];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        ok[j] = visible(iq, j0 + tx + 16 * j, n_t, kv_hi, causal, window);
+        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = alpha * l[i] + sum16(rs);
+#pragma unroll
+      for (int c = 0; c < HC; ++c) acc[i][c] *= alpha;
+      m[i] = m_new;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BKV; ++kk) {
+      float pa[RI], vb[HC];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) pa[i] = Ps[(ty + 16 * i) * PLD + kk];
+#pragma unroll
+      for (int c = 0; c < HC; ++c) vb[c] = Vs[kk * HD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int c = 0; c < HC; ++c) acc[i][c] = fmaf(pa[i], vb[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= n_t) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    T* orow = o + (((int64_t)b * n_t + t) * nq + hq) * HD;
+#pragma unroll
+    for (int c = 0; c < HC; ++c) store(orow + tx + 16 * c, acc[i][c] / den);
+    if (tx == 0) {
+      lse[((int64_t)b * nq + hq) * n_t + t] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------- //
+// backward
+// ---------------------------------------------------------------------- //
+
+// delta[b, hq, t] = sum_d dO[b, t, hq, d] * O[b, t, hq, d]; one warp a row
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       int64_t do_sb, int64_t do_st, int64_t do_sh,
+                       float* __restrict__ delta, int batch, int n_t,
+                       int nq) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) +
+                      (threadIdx.x >> 5);
+  if (row >= (int64_t)batch * n_t * nq) return;
+  const int hq = (int)(row % nq);
+  const int64_t bt = row / nq;
+  const int t = (int)(bt % n_t), b = (int)(bt / n_t);
+  const T* orow = o + row * HD;
+  const T* drow = dout + b * do_sb + t * do_st + hq * do_sh;
+  float s = 0.f;
+  for (int d = lane; d < HD; d += 32) s += to_f(orow[d]) * to_f(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[((int64_t)b * nq + hq) * n_t + t] = s;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
+                      int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
+                      int64_t k_st, int64_t k_sh, const T* __restrict__ v,
+                      int64_t v_sb, int64_t v_st, int64_t v_sh,
+                      const T* __restrict__ dout, int64_t do_sb,
+                      int64_t do_st, int64_t do_sh,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int n_t, int n_s, int nq, int nkv,
+                      int causal, int window, int kv_hi, float scale) {
+  constexpr int HC = HD / 16;
+  constexpr int LD = HD + 1;
+  extern __shared__ float smem[];
+  float* Ks = smem;              // [BKV][LD]
+  float* Vs = Ks + BKV * LD;     // [BKV][LD]
+  float* Qs = Vs + BKV * LD;     // [BQ][LD]
+  float* dOs = Qs + BQ * LD;     // [BQ][LD]
+  float* Pt = dOs + BQ * LD;     // [BKV][PLD]: P transposed
+  float* dSt = Pt + BKV * PLD;   // [BKV][PLD]: dS transposed
+  float* lse_s = dSt + BKV * PLD;  // [BQ]
+  float* del_s = lse_s + BQ;       // [BQ]
+  const int j0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
+  const int g = nq / nkv;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_rows<T, HD>(Ks, LD, k + b * k_sb + hk * k_sh, k_st, j0, n_s, BKV);
+  load_rows<T, HD>(Vs, LD, v + b * v_sb + hk * v_sh, v_st, j0, n_s, BKV);
+
+  float dka[RI][HC], dva[RI][HC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < HC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  int lo, hi;
+  query_tiles(j0, n_t, kv_hi, causal, window, &lo, &hi);
+  for (int gi = 0; gi < g; ++gi) {
+    const int hq = hk * g + gi;
+    const float* lse_h = lse + ((int64_t)b * nq + hq) * n_t;
+    const float* del_h = delta + ((int64_t)b * nq + hq) * n_t;
+    for (int qt = lo; qt < hi; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();
+      load_rows<T, HD>(Qs, LD, q + b * q_sb + hq * q_sh, q_st, q0, n_t, BQ);
+      load_rows<T, HD>(dOs, LD, dout + b * do_sb + hq * do_sh, do_st, q0,
+                       n_t, BQ);
+      if (threadIdx.x < BQ) {
+        const int t = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = t < n_t ? lse_h[t] : 0.f;
+        del_s[threadIdx.x] = t < n_t ? del_h[t] : 0.f;
+      }
+      __syncthreads();
+
+      // rows: keys j0 + ty + 16 i; columns: queries q0 + tx + 16 jj
+      float st[RI][RJ], dpt[RI][RJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int jj = 0; jj < RJ; ++jj) st[i][jj] = dpt[i][jj] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < HD; ++d) {
+        float ka[RI], va[RI], qb[RJ], ob[RJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          ka[i] = Ks[(ty + 16 * i) * LD + d];
+          va[i] = Vs[(ty + 16 * i) * LD + d];
+        }
+#pragma unroll
+        for (int jj = 0; jj < RJ; ++jj) {
+          qb[jj] = Qs[(tx + 16 * jj) * LD + d];
+          ob[jj] = dOs[(tx + 16 * jj) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int jj = 0; jj < RJ; ++jj) {
+            st[i][jj] = fmaf(ka[i], qb[jj], st[i][jj]);
+            dpt[i][jj] = fmaf(va[i], ob[jj], dpt[i][jj]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int jk = j0 + ty + 16 * i;
+#pragma unroll
+        for (int jj = 0; jj < RJ; ++jj) {
+          const int c = tx + 16 * jj;
+          const bool ok = visible(q0 + c, jk, n_t, kv_hi, causal, window);
+          const float p = ok ? expf(st[i][jj] * scale - lse_s[c]) : 0.f;
+          Pt[(ty + 16 * i) * PLD + c] = p;
+          dSt[(ty + 16 * i) * PLD + c] = p * (dpt[i][jj] - del_s[c]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int qq = 0; qq < BQ; ++qq) {
+        float pa[RI], sa[RI], ob[HC], qb[HC];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          pa[i] = Pt[(ty + 16 * i) * PLD + qq];
+          sa[i] = dSt[(ty + 16 * i) * PLD + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < HC; ++c) {
+          ob[c] = dOs[qq * LD + tx + 16 * c];
+          qb[c] = Qs[qq * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int c = 0; c < HC; ++c) {
+            dva[i][c] = fmaf(pa[i], ob[c], dva[i][c]);
+            dka[i][c] = fmaf(sa[i], qb[c], dka[i][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int j = j0 + ty + 16 * i;
+    if (j >= n_s) continue;
+    const int64_t off = (((int64_t)b * n_s + j) * nkv + hk) * HD;
+#pragma unroll
+    for (int c = 0; c < HC; ++c) {
+      store(dk + off + tx + 16 * c, dka[i][c] * scale);
+      store(dv + off + tx + 16 * c, dva[i][c]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
+                    int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
+                    int64_t k_st, int64_t k_sh, const T* __restrict__ v,
+                    int64_t v_sb, int64_t v_st, int64_t v_sh,
+                    const T* __restrict__ dout, int64_t do_sb, int64_t do_st,
+                    int64_t do_sh, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int n_t, int n_s, int nq, int nkv, int causal, int window,
+                    int kv_hi, float scale) {
+  constexpr int HC = HD / 16;
+  constexpr int LD = HD + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;             // [BQ][LD]
+  float* dOs = Qs + BQ * LD;    // [BQ][LD]
+  float* Ks = dOs + BQ * LD;    // [BKV][LD]
+  float* Vs = Ks + BKV * LD;    // [BKV][LD]
+  float* dSs = Vs + BKV * LD;   // [BQ][PLD]
+  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (nq / nkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_rows<T, HD>(Qs, LD, q + b * q_sb + hq * q_sh, q_st, q0, n_t, BQ);
+  load_rows<T, HD>(dOs, LD, dout + b * do_sb + hq * do_sh, do_st, q0, n_t,
+                   BQ);
+  float lse_r[RI], del_r[RI], dqa[RI][HC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int t = q0 + ty + 16 * i;
+    const int64_t r = ((int64_t)b * nq + hq) * n_t + t;
+    lse_r[i] = t < n_t ? lse[r] : 0.f;
+    del_r[i] = t < n_t ? delta[r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < HC; ++c) dqa[i][c] = 0.f;
+  }
+
+  int lo, hi;
+  key_tiles(q0, n_t, kv_hi, causal, window, &lo, &hi);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int j0 = kt * BKV;
+    __syncthreads();
+    load_rows<T, HD>(Ks, LD, k + b * k_sb + hk * k_sh, k_st, j0, n_s, BKV);
+    load_rows<T, HD>(Vs, LD, v + b * v_sb + hk * v_sh, v_st, j0, n_s, BKV);
+    __syncthreads();
+
+    float s[RI][RJ], dp[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qa[RI], oa[RI], kb[RJ], vb[RJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        qa[i] = Qs[(ty + 16 * i) * LD + d];
+        oa[i] = dOs[(ty + 16 * i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        kb[j] = Ks[(tx + 16 * j) * LD + d];
+        vb[j] = Vs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int iq = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const bool ok = visible(iq, j0 + tx + 16 * j, n_t, kv_hi, causal,
+                                window);
+        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        dSs[(ty + 16 * i) * PLD + tx + 16 * j] = p * (dp[i][j] - del_r[i]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BKV; ++kk) {
+      float sa[RI], kb[HC];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) sa[i] = dSs[(ty + 16 * i) * PLD + kk];
+#pragma unroll
+      for (int c = 0; c < HC; ++c) kb[c] = Ks[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int c = 0; c < HC; ++c) dqa[i][c] = fmaf(sa[i], kb[c], dqa[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= n_t) continue;
+    T* row = dq + (((int64_t)b * n_t + t) * nq + hq) * HD;
+#pragma unroll
+    for (int c = 0; c < HC; ++c) store(row + tx + 16 * c, dqa[i][c] * scale);
+  }
+}
+
+// shared memory (bytes) of each kernel
+template <int HD>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (2 * BQ * (HD + 1) + BKV * HD + BQ * PLD);
+}
+template <int HD>
+constexpr size_t dkdv_smem() {
+  return sizeof(float) * (4 * BQ * (HD + 1) + 2 * BKV * PLD + 2 * BQ);
+}
+template <int HD>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * BQ * (HD + 1) + BQ * PLD);
+}
+
+// raise a kernel's dynamic shared memory limit; each caller keeps the
+// result in a function-local static, so this runs once per kernel (and
+// never inside a CUDA graph capture after the first call)
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+struct Args {
+  const void *q, *k, *v;
+  long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  int batch, n_t, n_s, nq, nkv, causal, window, kv_hi;
+  float scale;
+};
+
+template <typename T, int HD>
+int fwd(const Args& a, void* o, void* lse, cudaStream_t s) {
+  auto kern = flash_fwd_kernel<T, HD>;
+  static const cudaError_t attr = allow_smem(kern, fwd_smem<HD>());
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.n_t + BQ - 1) / BQ, a.nq, a.batch);
+  kern<<<grid, kThreads, fwd_smem<HD>(), s>>>(
+      static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
+      static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
+      static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
+      static_cast<T*>(o), static_cast<float*>(lse), a.n_t, a.n_s, a.nq,
+      a.nkv, a.causal, a.window, a.kv_hi, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int bwd(const Args& a, const void* o, const void* dout, long long do_sb,
+        long long do_st, long long do_sh, const void* lse, void* delta,
+        void* dq, void* dk, void* dv, cudaStream_t s) {
+  const int64_t rows = (int64_t)a.batch * a.n_t * a.nq;
+  flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + 7) / 8), kThreads, 0,
+                                  s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), do_sb, do_st,
+      do_sh, static_cast<float*>(delta), a.batch, a.n_t, a.nq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  auto kdkdv = flash_bwd_dkdv_kernel<T, HD>;
+  static const cudaError_t attr_kv = allow_smem(kdkdv, dkdv_smem<HD>());
+  if (attr_kv != cudaSuccess) return (int)attr_kv;
+  const dim3 gkv((a.n_s + BKV - 1) / BKV, a.nkv, a.batch);
+  kdkdv<<<gkv, kThreads, dkdv_smem<HD>(), s>>>(
+      static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
+      static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
+      static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
+      static_cast<const T*>(dout), do_sb, do_st, do_sh,
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), a.n_t, a.n_s, a.nq, a.nkv,
+      a.causal, a.window, a.kv_hi, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  auto kdq = flash_bwd_dq_kernel<T, HD>;
+  static const cudaError_t attr_q = allow_smem(kdq, dq_smem<HD>());
+  if (attr_q != cudaSuccess) return (int)attr_q;
+  const dim3 gq((a.n_t + BQ - 1) / BQ, a.nq, a.batch);
+  kdq<<<gq, kThreads, dq_smem<HD>(), s>>>(
+      static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
+      static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
+      static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
+      static_cast<const T*>(dout), do_sb, do_st, do_sh,
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), a.n_t, a.n_s, a.nq, a.nkv, a.causal, a.window,
+      a.kv_hi, a.scale);
+  return (int)cudaGetLastError();
+}
+
+int check(const Args& a, int head_dim, int dtype) {
+  if (a.nkv <= 0 || a.nq % a.nkv || (head_dim != 64 && head_dim != 128) ||
+      (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+}  // namespace
+
+#define K2_DISPATCH(FN, ...)                                              \
+  (dtype == 0 ? (head_dim == 128 ? FN<float, 128>(__VA_ARGS__)            \
+                                 : FN<float, 64>(__VA_ARGS__))            \
+              : (head_dim == 128 ? FN<__nv_bfloat16, 128>(__VA_ARGS__)    \
+                                 : FN<__nv_bfloat16, 64>(__VA_ARGS__)))
+
+// q (batch, n_t, nq, head_dim) and k, v (batch, n_s, nkv, head_dim) through
+// their (batch, time, head) strides, unit stride in head_dim. o (batch,
+// n_t, nq, head_dim) contiguous; lse (batch, nq, n_t) fp32. Keys at or
+// past kv_len are masked (kv_len <= 0: none). dtype 0 = float32, 1 =
+// bfloat16; head_dim 64 or 128. Returns cudaGetLastError().
+extern "C" int flash_attention_fwd_launch(
+    const void* q, long long q_sb, long long q_st, long long q_sh,
+    const void* k, long long k_sb, long long k_st, long long k_sh,
+    const void* v, long long v_sb, long long v_st, long long v_sh, void* o,
+    void* lse, int batch, int n_t, int n_s, int nq, int nkv, int head_dim,
+    int causal, int window, int kv_len, float scale, int dtype,
+    void* stream) {
+  const int kv_hi = kv_len > 0 && kv_len < n_s ? kv_len : n_s;
+  const Args a{q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+               v_sh, batch, n_t, n_s, nq, nkv, causal, window, kv_hi, scale};
+  if (int bad = check(a, head_dim, dtype)) return bad;
+  if (batch <= 0 || n_t <= 0 || n_s <= 0 || nq <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return K2_DISPATCH(fwd, a, o, lse, s);
+}
+
+// The forward's inputs, its output o and lse, and dout (the gradient of
+// o, through strides). delta is (batch, nq, n_t) fp32 scratch; dq, dk, dv
+// are contiguous in the layouts of q, k, v. Returns cudaGetLastError().
+extern "C" int flash_attention_bwd_launch(
+    const void* q, long long q_sb, long long q_st, long long q_sh,
+    const void* k, long long k_sb, long long k_st, long long k_sh,
+    const void* v, long long v_sb, long long v_st, long long v_sh,
+    const void* o, const void* dout, long long do_sb, long long do_st,
+    long long do_sh, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int batch, int n_t, int n_s, int nq, int nkv, int head_dim,
+    int causal, int window, int kv_len, float scale, int dtype,
+    void* stream) {
+  const int kv_hi = kv_len > 0 && kv_len < n_s ? kv_len : n_s;
+  const Args a{q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+               v_sh, batch, n_t, n_s, nq, nkv, causal, window, kv_hi, scale};
+  if (int bad = check(a, head_dim, dtype)) return bad;
+  if (batch <= 0 || n_t <= 0 || n_s <= 0 || nq <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return K2_DISPATCH(bwd, a, o, dout, do_sb, do_st, do_sh, lse, delta, dq,
+                     dk, dv, s);
+}

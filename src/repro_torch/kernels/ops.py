@@ -10,11 +10,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.kernels.flash_attention import (paged_attention_kernel,
-                                                  paged_attention_plain)
+from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                              block_matmul_plain)
+from repro_torch.kernels.flash_attention import (
+    FlashAttention, attn_core, flash_attention_bwd_kernel,
+    flash_attention_kernel, paged_attention_kernel, paged_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
 
-KERNELS = (rmsnorm_kernel, paged_attention_kernel)
+KERNELS = (rmsnorm_kernel, paged_attention_kernel, block_matmul_kernel,
+           flash_attention_kernel, flash_attention_bwd_kernel)
 
 
 def reset_launches() -> None:
@@ -22,12 +26,40 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+def launches() -> dict:
+    """Launch count of each kernel wrapper, by kernel name."""
+    return {k.__name__.removesuffix("_kernel"): k.launches for k in KERNELS}
+
+
+def _plain(x, plain: bool) -> bool:
+    return plain or x.device.type == "cpu"
+
+
+def matmul(a, b, *, plain: bool = False):
+    """(M, K) @ (K, N) with fp32 accumulation, in a's dtype (K1). Either
+    operand may be a transposed view: the kernel reads both through their
+    strides."""
+    fn = block_matmul_plain if _plain(a, plain) else block_matmul_kernel
+    return fn(a, b)
+
+
 def rmsnorm(x, gamma, *, full_dim: Optional[int] = None, eps: float = 1e-6,
             plain: bool = False):
     """RMSNorm over the last dim of x (K3); ``full_dim`` is the width the
     mean divides by (the whole feature dim of an x-sharded row)."""
-    fn = rmsnorm_plain if plain or x.device.type == "cpu" else rmsnorm_kernel
+    fn = rmsnorm_plain if _plain(x, plain) else rmsnorm_kernel
     return fn(x, gamma, full_dim=full_dim, eps=eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_len: int = 0, plain: bool = False):
+    """Differentiable attention in the model's layouts (K2 forward and
+    backward): q (B, T, nq, hd), k/v (B, S, nkv, hd) -> (B, T, nq, hd).
+    Keys at or past ``kv_len`` (> 0) are masked."""
+    if _plain(q, plain):
+        return attn_core(q, k, v, causal=causal, window=window,
+                         kv_len=kv_len)
+    return FlashAttention.apply(q, k, v, causal, window, kv_len)
 
 
 def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,
@@ -35,6 +67,5 @@ def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,
     """Paged variable-length attention in the model's layouts (K5): q
     (R, T, nq, hd), pools (P, page, nkv, hd), table (R, n_pages) int32,
     q_pos (R, T) int32, q_len (R,) int32 -> (R, T, nq, hd)."""
-    fn = (paged_attention_plain if plain or q.device.type == "cpu"
-          else paged_attention_kernel)
+    fn = paged_attention_plain if _plain(q, plain) else paged_attention_kernel
     return fn(q, k_pages, v_pages, table, q_pos, q_len, window=window)

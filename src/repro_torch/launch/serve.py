@@ -126,7 +126,7 @@ def main(argv=None):
     if args.mode == "fixed":
         raise NotImplementedError(
             "--mode fixed is not ported to PyTorch yet: it waits for the "
-            "ROADMAP.md §1 item '--mode fixed serving' (kernel K2)")
+            "ROADMAP.md §1 item '--mode fixed serving'")
     engine = run_continuous(args)
     if not torch.isfinite(engine.last_logits).all():
         raise RuntimeError("non-finite logits")

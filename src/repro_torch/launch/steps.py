@@ -1,19 +1,24 @@
-"""Model init and the paged serving step (port of the serving part of
+"""Model init, the train step and the paged serving step (port of
 ``repro.launch.steps``).
 
 PyTorch runs eagerly, so where the JAX package builds a jitted,
-shard_map'ped step, ``make_paged_step`` only binds the configuration and
-returns the step with the shapes of the caches it needs.
+shard_map'ped step, ``make_train_step`` and ``make_paged_step`` only bind
+the configuration and return the step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
+from repro_torch import convert
 from repro_torch.core import mesh as M
+from repro_torch.core.overdecompose import split_batch
+from repro_torch.core.partition import z_reduce_grads
 from repro_torch.models import decoder as D
 from repro_torch.models.base import ArchConfig
+from repro_torch.optim import adamw as OPT
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -40,6 +45,110 @@ def init_model(cfg: ArchConfig, axes: Optional[M.MeshAxes] = None,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return D.Decoder(cfg, axes or M.MeshAxes(), gen=gen, dtype=dtype)
+
+
+# ---------------------------------------------------------------------- #
+# train step
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class TrainOptions:
+    overdecompose: int = 2      # paper §4.2 (2 batch-shards); 1 = off
+    remat: bool = True
+    remat_policy: str = "full"  # only "full" is ported
+    xent_chunks: int = 1
+    dtype: torch.dtype = torch.bfloat16
+    # not ported; each raises in make_train_step: the ring-decomposed
+    # collective matmuls, and the data-parallel sync modes other than the
+    # blocking psum ("zero", "zero3", "stream")
+    overlap: bool = False
+    gradsync: str = "blocking"
+
+
+def _loss_fn(cfg: ArchConfig, axes: M.MeshAxes, opts: TrainOptions):
+    def f(model, batch, plain: bool = False):
+        return D.lm_loss(model, batch["tokens"], batch["labels"],
+                         image_embeds=batch.get("image_embeds"),
+                         remat=opts.remat, xent_chunks=opts.xent_chunks,
+                         remat_policy=opts.remat_policy, plain=plain)
+    return f
+
+
+def no_decay_names(model: D.Decoder):
+    """Names of the parameters that take no weight decay: the JAX rule
+    (``adamw._no_decay``) applied to each parameter's JAX path."""
+    return {n for n, path in convert.jax_paths(model).items()
+            if OPT._no_decay(path)}
+
+
+def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
+                    opt_cfg: OPT.AdamWConfig,
+                    opts: TrainOptions = TrainOptions()):
+    """The plain mode of the JAX ``make_train_step``: ``step(model,
+    opt_state, batch, plain=False) -> metrics``. It splits the batch into
+    ``opts.overdecompose`` microbatches, accumulates their gradients in
+    fp32 and divides by their count, reduces over data (and z where the
+    backward has not), and applies AdamW. The model's parameters and
+    ``opt_state`` (``adamw.init_state`` of ``model.named_parameters()``)
+    are updated in place. In float32 the parameters' ``.grad`` is the
+    accumulator; in bfloat16 a separate fp32 one is, as the JAX step casts
+    each microbatch's gradients to fp32 before summing."""
+    if opts.overlap:
+        raise NotImplementedError(
+            "the overlapped schedule (TrainOptions.overlap) is not ported "
+            "to PyTorch yet: it waits for the ROADMAP.md §1 item "
+            "'overlapped schedule'")
+    if opts.gradsync != "blocking":
+        raise NotImplementedError(
+            f"gradient sync {opts.gradsync!r} (ZeRO, ZeRO-3, streamed "
+            f"buckets) is not ported to PyTorch yet: it waits for the "
+            f"ROADMAP.md §1 item 'rest of the training stack'")
+    loss_fn = _loss_fn(cfg, axes, opts)
+
+    def step(model, opt_state, batch, plain: bool = False):
+        params = dict(model.named_parameters())
+        dtypes = {p.dtype for p in params.values()}
+        if dtypes != {opts.dtype}:
+            raise TypeError(f"TrainOptions.dtype is {opts.dtype}, the model's "
+                            f"parameters are {sorted(map(str, dtypes))}")
+        n = opts.overdecompose
+        mbs = split_batch(batch, n, axes=axes)
+        acc = None
+        if opts.dtype != torch.float32:
+            acc = {k: torch.zeros_like(p, dtype=torch.float32)
+                   for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        loss = metrics = None
+        for i in range(n):
+            li, mi = loss_fn(model, {k: v[i] for k, v in mbs.items()},
+                             plain=plain)
+            li.backward()
+            if acc is not None:
+                for k, p in params.items():
+                    acc[k] += p.grad.float()
+                    p.grad = None
+            li, mi = li.detach(), {k: v.detach() for k, v in mi.items()}
+            loss = li if loss is None else loss + li
+            metrics = mi if metrics is None else {
+                k: metrics[k] + mi[k] for k in metrics}
+        grads = {k: (p.grad if acc is None else acc[k])
+                 for k, p in params.items()}
+        if n > 1:
+            loss = loss / n
+            metrics = {k: v / n for k, v in metrics.items()}
+            grads = {k: g.div_(n) for k, g in grads.items()}
+        # data-parallel all-reduce (paper §3.1) + z reduction for params
+        # whose grads are not already z-reduced by their backward
+        grads = {k: M.psum(g, axes, "data") for k, g in grads.items()}
+        grads = z_reduce_grads(grads, axes)
+        om = OPT.apply_updates(params, grads, opt_state, opt_cfg,
+                               no_decay=no_decay_names(model))
+        for p in params.values():
+            p.grad = None
+        return dict(metrics, loss=loss, **om)
+
+    return step
 
 
 def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,

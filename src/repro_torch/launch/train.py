@@ -1,0 +1,184 @@
+"""Training entry point of the port: the 4D-hybrid train step on one
+device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --preset full --steps 3 --batch 4 --seq 512 --overdecompose 2
+
+runs on the CUDA card; ``--device cpu --preset smoke`` runs on the CPU.
+Each step splits the batch into ``--overdecompose`` microbatches, runs
+their forward and backward (blocks rematerialized), accumulates the
+gradients in fp32 and applies AdamW, as the JAX package's
+``make_train_step`` does in its plain mode. The data is the JAX package's
+synthetic Markov text (``data/synthetic.py``).
+
+Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
+§1 item it waits for): ZeRO and checkpoints (``--zero*``,
+``--dp-bucket-mb``, ``--ckpt*``, ``--resume``), the runtime tooling
+(``--chaos``, ``--probe-every``, ``--telemetry``, ``--log-file``,
+``--profile-steps``, ``--calib``) and any mesh other than 1,1,1,1.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import mesh as M
+from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
+from repro_torch.launch import steps as ST
+from repro_torch.optim.adamw import AdamWConfig, init_state
+
+# flag -> the ROADMAP.md §1 item it waits for
+REFUSED = {
+    "zero": "rest of the training stack",
+    "zero3": "rest of the training stack",
+    "zero3_prefetch": "rest of the training stack",
+    "dp_bucket_mb": "rest of the training stack",
+    "ckpt": "rest of the training stack",
+    "ckpt_every": "rest of the training stack",
+    "resume": "rest of the training stack",
+    "chaos": "runtime tooling",
+    "probe_every": "runtime tooling",
+    "telemetry": "runtime tooling",
+    "log_file": "runtime tooling",
+    "profile_steps": "runtime tooling",
+    "calib": "runtime tooling",
+}
+
+
+def preset_config(cfg, preset: str):
+    """Model-size presets, as in ``repro.launch.train``."""
+    if preset == "full":
+        return cfg
+    if preset == "smoke":
+        return cfg.reduced()
+    if preset == "100m":
+        # ~100M-param member of the same family (a dense decoder: at least
+        # 4 layers)
+        return dataclasses.replace(
+            cfg.reduced(), name=cfg.name + "-100m", d_model=512,
+            n_heads=8, n_kv_heads=min(8, cfg.n_kv_heads), head_dim=64,
+            d_ff=2048, vocab_size=32000,
+            n_layers=max(cfg.reduced().n_layers, 4))
+    raise ValueError(preset)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.train",
+        description="4D-hybrid training steps on the CUDA card (or "
+                    "--device cpu).")
+    ap.add_argument("--arch", required=True,
+                    help="architecture name (repro_torch.configs)")
+    ap.add_argument("--preset", default="smoke",
+                    choices=["smoke", "100m", "full"],
+                    help="model-size preset")
+    ap.add_argument("--steps", type=int, default=100,
+                    help="optimizer steps")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch (sequences)")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="sequence length (tokens)")
+    ap.add_argument("--lr", type=float, default=3e-4,
+                    help="peak AdamW learning rate")
+    ap.add_argument("--mesh", default="1,1,1,1",
+                    help="g_data,g_x,g_y,g_z (the port runs 1,1,1,1)")
+    ap.add_argument("--overdecompose", type=int, default=2,
+                    help="microbatch count of the overdecompose loop")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="parameter and activation dtype")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="steps between metric log lines")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: the card)")
+    # flags of repro.launch.train that the port refuses (REFUSED)
+    ap.add_argument("--zero", action="store_true", help="not ported")
+    ap.add_argument("--zero3", action="store_true", help="not ported")
+    ap.add_argument("--zero3-prefetch", action="store_true",
+                    help="not ported")
+    ap.add_argument("--dp-bucket-mb", type=float, default=None,
+                    help="not ported")
+    ap.add_argument("--ckpt", default="", help="not ported")
+    ap.add_argument("--ckpt-every", type=int, default=0, help="not ported")
+    ap.add_argument("--resume", action="store_true", help="not ported")
+    ap.add_argument("--chaos", default="", help="not ported")
+    ap.add_argument("--probe-every", type=int, default=0, help="not ported")
+    ap.add_argument("--telemetry", action="store_true", help="not ported")
+    ap.add_argument("--log-file", default="", help="not ported")
+    ap.add_argument("--profile-steps", default="", help="not ported")
+    ap.add_argument("--calib", default="", help="not ported")
+    return ap
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """What a run of :func:`main` measured, step by step."""
+    losses: List[float]
+    grad_norms: List[float]
+    step_s: List[float]          # wall time of each step, synchronized
+    tokens_per_step: int
+    n_params: int
+    max_memory_bytes: Optional[int]   # CUDA only
+
+
+def main(argv=None) -> TrainResult:
+    args = build_parser().parse_args(argv)
+    for flag, item in REFUSED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
+                f"it waits for the ROADMAP.md §1 item '{item}'")
+    axes = M.MeshAxes(tuple(int(x) for x in args.mesh.split(",")))
+    cfg = preset_config(get_config(args.arch), args.preset)
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    model = ST.init_model(cfg, axes, seed=0, device=args.device,
+                          dtype=dtype)
+    dev = model.embed.device
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
+          f"device={dev}")
+    state = init_state(params)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
+                      total_steps=args.steps)
+    step_fn = ST.make_train_step(cfg, axes, opt, ST.TrainOptions(
+        overdecompose=args.overdecompose, dtype=dtype))
+    data = SyntheticText(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=args.seq,
+                                    global_batch=args.batch))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    tokens = args.batch * args.seq
+    res = TrainResult([], [], [], tokens, n_params, None)
+    for step in range(args.steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 make_batch(cfg, step, data, dtype=np.float32).items()}
+        t0 = time.perf_counter()
+        metrics = step_fn(model, state, batch)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        if cuda:
+            torch.cuda.synchronize(dev)
+        res.step_s.append(time.perf_counter() - t0)
+        res.losses.append(loss)
+        res.grad_norms.append(gn)
+        if not np.isfinite(loss):
+            raise RuntimeError(f"step {step}: non-finite loss {loss}")
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
+                  f"{tokens / res.step_s[-1]:,.0f} tok/s "
+                  f"({res.step_s[-1] * 1e3:.1f} ms)", flush=True)
+    if cuda:
+        res.max_memory_bytes = torch.cuda.max_memory_allocated(dev)
+    print("final loss:", res.losses[-1])
+    return res
+
+
+if __name__ == "__main__":
+    main()

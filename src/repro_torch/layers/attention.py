@@ -1,14 +1,20 @@
-"""GQA attention over the paged KV cache (port of the ``"paged"`` branch
-of ``repro.layers.attention``).
+"""GQA attention (port of the ``"train"`` and ``"paged"`` branches of
+``repro.layers.attention``).
 
 Heads shard over y (a paper "normal" layer for q/k/v) and the output
-projection is a "transposed" layer (§4.1). Only continuous-batching
-serving is ported: rows are per-slot prefill chunks or single decode
-tokens at per-slot global positions, against a physical KV page pool
-(P, page, nkv, hd) per layer that each slot reaches through its page
-table. The attention itself is kernel K5 and qk-norm is kernel K3. The
-JAX ``paged_attn_core`` is K5's plain version and lives beside the kernel,
-in ``kernels/flash_attention.py``.
+projection is a "transposed" layer (§4.1). Two modes are ported:
+
+  * ``"train"``: causal (optionally sliding-window) attention over each
+    whole sequence, kernel K2 forward and backward;
+  * ``"paged"``: continuous-batching serving; rows are per-slot prefill
+    chunks or single decode tokens at per-slot global positions, against a
+    physical KV page pool (P, page, nkv, hd) per layer that each slot
+    reaches through its page table, kernel K5.
+
+qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
+``attn_core`` (and ``attn_core_chunked``, the same function, with its
+``_softmax_fp32``) is K2's plain version and ``paged_attn_core`` K5's; they
+live beside their kernels, in ``kernels/flash_attention.py``.
 """
 from __future__ import annotations
 
@@ -21,10 +27,12 @@ from repro_torch.kernels import ops
 from repro_torch.layers.rotary import apply_rope
 
 
-def _plain_rms(x, gamma, eps: float = 1e-6, *, plain: bool = False):
+def _plain_rms(x, gamma, axes: M.MeshAxes, eps: float = 1e-6, *,
+               plain: bool = False):
     """Per-head RMSNorm of qk-norm (head_dim is never sharded): K3 over
-    rows of width head_dim."""
-    return ops.rmsnorm(x, gamma, eps=eps, plain=plain)
+    rows of width head_dim, with the backward of ``parallel.rms_norm``."""
+    return PP.rms_norm(x, gamma, axes, x.shape[-1], eps, axis=None,
+                       plain=plain)
 
 
 def kv_layout(cfg, axes: M.MeshAxes):
@@ -52,46 +60,63 @@ class Attention(nn.Module):
 
         def lin(k, n):
             return nn.Parameter(PP.tp_linear_init(gen, k, n, axes,
-                                                  dtype=dtype),
-                                requires_grad=False)
+                                                  dtype=dtype))
         self.wq, self.wk, self.wv = lin(d, nq * hd), lin(d, nkv * hd), \
             lin(d, nkv * hd)
         self.wo = lin(nq * hd, d)
         if cfg.qk_norm:
             def ones():
                 return nn.Parameter(torch.ones(hd, dtype=dtype,
-                                               device=gen.device),
-                                    requires_grad=False)
+                                               device=gen.device))
             self.q_norm, self.k_norm = ones(), ones()
 
-    def forward(self, h, *, positions, cache, paged, plain: bool = False):
-        """h (R, T, d/x) at global ``positions`` (R, T); ``cache`` holds this
-        layer's pools {"k", "v"} (P, page, nkv, hd); ``paged`` holds
-        {"table": (R, n_pages) int32, "q_len": (R,) int32}. Writes the
-        rows' K/V into the pools in place (the JAX step returns new pools;
-        updating in place saves a copy of every pool per step) and returns
-        the attention block's output (R, T, d/x)."""
+    def forward(self, h, *, positions, mode: str = "paged", cache=None,
+                paged=None, plain: bool = False):
+        """h (R, T, d/x) at global ``positions`` (R, T) -> the attention
+        block's output (R, T, d/x).
+
+        ``mode="train"``: causal attention over the T rows of each
+        sequence (K2). ``mode="paged"``: ``cache`` holds this layer's pools
+        {"k", "v"} (P, page, nkv, hd) and ``paged`` holds {"table": (R,
+        n_pages) int32, "q_len": (R,) int32}; the rows' K/V are written
+        into the pools in place (the JAX step returns new pools; updating
+        in place saves a copy of every pool per step)."""
         cfg, axes = self.cfg, self.axes
         hd = cfg.head_dim_
         R, T = h.shape[:2]
-        q = PP.tp_matmul(h, self.wq, axes, "x", "y").reshape(
+        q = PP.tp_matmul(h, self.wq, axes, "x", "y", plain=plain).reshape(
             R, T, self.nq_l, hd)
-        k = PP.tp_matmul(h, self.wk, axes, "x", "y").reshape(
+        k = PP.tp_matmul(h, self.wk, axes, "x", "y", plain=plain).reshape(
             R, T, self.nkv_l, hd)
-        v = PP.tp_matmul(h, self.wv, axes, "x", "y").reshape(
+        v = PP.tp_matmul(h, self.wv, axes, "x", "y", plain=plain).reshape(
             R, T, self.nkv_l, hd)
         if cfg.qk_norm:                      # before RoPE, as in JAX
-            q = _plain_rms(q, self.q_norm, plain=plain)
-            k = _plain_rms(k, self.k_norm, plain=plain)
+            q = _plain_rms(q, self.q_norm, axes, plain=plain)
+            k = _plain_rms(k, self.k_norm, axes, plain=plain)
         if cfg.rotary_pct > 0:
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
             k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
 
+        if mode == "train":
+            out = ops.flash_attention(q, k, v, causal=True,
+                                      window=cfg.sliding_window, plain=plain)
+        elif mode == "paged":
+            out = self._paged(q, k, v, positions, cache, paged, plain)
+        else:
+            raise NotImplementedError(
+                f"attention mode {mode!r} is not ported to PyTorch yet: "
+                f"'prefill' and 'decode' wait for the ROADMAP.md §1 item "
+                f"'--mode fixed serving'")
+        return PP.tp_matmul(out.reshape(R, T, self.nq_l * hd), self.wo,
+                            axes, "y", "x", plain=plain)
+
+    def _paged(self, q, k, v, positions, cache, paged, plain):
+        T = q.shape[1]
         kp, vp = cache["k"], cache["v"]
         page = kp.shape[1]
         table, q_len = paged["table"], paged["q_len"]
         pos = positions.long()
-        valid = (torch.arange(T, device=h.device)[None, :]
+        valid = (torch.arange(T, device=q.device)[None, :]
                  < q_len.long()[:, None])
         slot_pages = torch.clamp(pos // page, 0, table.shape[1] - 1)
         pid = torch.gather(table.long(), 1, slot_pages)
@@ -102,11 +127,9 @@ class Attention(nn.Module):
         off = torch.where(valid, pos % page, torch.zeros_like(pos))
         kp.index_put_((pid, off), k.to(kp.dtype))
         vp.index_put_((pid, off), v.to(vp.dtype))
-        out = ops.flash_attention_paged(q, kp, vp, table, positions, q_len,
-                                        window=cfg.sliding_window,
-                                        plain=plain)
-        return PP.tp_matmul(out.reshape(R, T, self.nq_l * hd), self.wo,
-                            axes, "y", "x")
+        return ops.flash_attention_paged(q, kp, vp, table, positions, q_len,
+                                         window=self.cfg.sliding_window,
+                                         plain=plain)
 
 
 def paged_attn_cache_spec(cfg, axes: M.MeshAxes, n_pages: int,

@@ -20,16 +20,14 @@ class MLP(nn.Module):
         super().__init__()
         self.axes = axes
         self.wi = nn.Parameter(PP.tp_linear_init(gen, d_model, d_ff, axes,
-                                                 dtype=dtype),
-                               requires_grad=False)
+                                                 dtype=dtype))
         self.wo = nn.Parameter(PP.tp_linear_init(gen, d_ff, d_model, axes,
-                                                 dtype=dtype),
-                               requires_grad=False)
+                                                 dtype=dtype))
         self.wg = nn.Parameter(PP.tp_linear_init(gen, d_model, d_ff, axes,
-                                                 dtype=dtype),
-                               requires_grad=False)
+                                                 dtype=dtype))
 
-    def forward(self, h):
-        u = PP.tp_matmul(h, self.wi, self.axes, "x", "y")
-        g = PP.tp_matmul(h, self.wg, self.axes, "x", "y")
-        return PP.tp_matmul(F.silu(g) * u, self.wo, self.axes, "y", "x")
+    def forward(self, h, *, plain: bool = False):
+        u = PP.tp_matmul(h, self.wi, self.axes, "x", "y", plain=plain)
+        g = PP.tp_matmul(h, self.wg, self.axes, "x", "y", plain=plain)
+        return PP.tp_matmul(F.silu(g) * u, self.wo, self.axes, "y", "x",
+                            plain=plain)

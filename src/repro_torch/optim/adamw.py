@@ -1,0 +1,101 @@
+"""AdamW with fp32 master weights (port of ``repro.optim.adamw``).
+
+Parameters live in the model's dtype; the first and second moments and an
+fp32 master copy are kept per parameter, as in the JAX package (its
+``init_state`` copies even float32 parameters). Gradients arrive at
+:func:`apply_updates` already reduced over data (and z where required) by
+the train step. The update is the JAX package's, element by element; it
+runs in place on the state and the parameters (the JAX step returns new
+trees; updating in place saves a copy of the state and the parameters).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Collection, Dict
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+
+
+def lr_at(cfg: AdamWConfig, step: int) -> float:
+    """Linear warmup + cosine decay to min_lr_ratio * lr, in float32 as
+    the JAX package computes it."""
+    f32 = np.float32
+    step = f32(step)
+    warm = np.minimum(step / f32(max(cfg.warmup_steps, 1)), f32(1.0))
+    prog = np.clip((step - f32(cfg.warmup_steps))
+                   / f32(max(cfg.total_steps - cfg.warmup_steps, 1)),
+                   f32(0.0), f32(1.0))
+    cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * prog))
+    return float(f32(cfg.lr) * warm * (f32(cfg.min_lr_ratio)
+                                       + f32(1 - cfg.min_lr_ratio) * cos))
+
+
+def init_state(params: Dict[str, torch.Tensor]):
+    """m / v / fp32 master per parameter, keyed like ``params``."""
+    def one(p):
+        f32 = p.detach().to(torch.float32, copy=True)
+        return {"m": torch.zeros_like(f32), "v": torch.zeros_like(f32),
+                "master": f32}
+    return {"opt": {n: one(p) for n, p in params.items()}, "step": 0}
+
+
+def _no_decay(path: str) -> bool:
+    """The JAX package's rule, on a JAX tree path ("a/b/c"). Every layer
+    leaf of a stacked decoder lives under ``segments/seg0/pos0/...``, so
+    the tag "pos" exempts all of them: in the reference only the
+    embedding (and nothing else of a dense decoder) decays."""
+    for tag in ("norm", "gn", "bias", "b_if", "b_gates", "b_dt", "bqkv",
+                "bo", "bi", "bq", "skip", "conv_b", "A_log", "D", "pos"):
+        if tag in path:
+            return True
+    return False
+
+
+def global_grad_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """L2 norm of the global gradient, in fp32. On the one-device mesh
+    every leaf is whole, so no leaf's sum of squares needs a psum."""
+    total = sum(torch.sum(torch.square(g.float())) for g in grads.values())
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(params: Dict[str, torch.Tensor],
+                  grads: Dict[str, torch.Tensor], state,
+                  cfg: AdamWConfig, *, no_decay: Collection[str] = ()):
+    """One AdamW step. ``params`` and ``grads`` are keyed alike; names in
+    ``no_decay`` take no weight decay. Updates ``params`` and ``state`` in
+    place; returns the metrics {"grad_norm", "lr"}."""
+    step = state["step"]
+    lr = lr_at(cfg, step)
+    gnorm = global_grad_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
+             if cfg.grad_clip else 1.0)
+    t = np.float32(step + 1)
+    bc1 = float(1 - np.float32(cfg.b1) ** t)
+    bc2 = float(1 - np.float32(cfg.b2) ** t)
+    for name, p in params.items():
+        st = state["opt"][name]
+        gf = grads[name].float() * scale
+        m = st["m"].mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        v = st["v"].mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if cfg.weight_decay and name not in no_decay:
+            upd += cfg.weight_decay * st["master"]
+        st["master"].sub_(lr * upd)
+        p.copy_(st["master"])
+    state["step"] = step + 1
+    return {"grad_norm": gnorm, "lr": lr}

@@ -12,7 +12,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (paged_attention_kernel,
+from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                              block_matmul_plain)
+from repro_torch.kernels.flash_attention import (attn_core,
+                                                 flash_attention_kernel,
+                                                 paged_attention_kernel,
                                                  paged_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
 from repro_torch.launch import steps as ST
@@ -112,3 +116,105 @@ def test_paged_step_kernels_match_plain(cuda):
         out[plain], _ = step(model, tokens, ST.zeros_caches(ct, cuda),
                              *args, plain=plain)
     torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_kernels_match_plain(cuda):
+    """lm_loss and every gradient through the kernels against the plain
+    versions, on the reduced config; then one train step through the
+    kernels."""
+    from repro_torch.models.decoder import lm_loss
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = ST.init_model(cfg, seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    toks, labels = (torch.randint(0, cfg.vocab_size, (4, 64), generator=gen
+                                  ).to(cuda) for _ in range(2))
+    out = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        loss, _ = lm_loss(model, toks, labels, plain=plain)
+        loss.backward()
+        out[plain] = [loss.detach()] + [p.grad for p in model.parameters()]
+    for a, b in zip(out[False], out[True]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    step = ST.make_train_step(cfg, model.axes, AdamWConfig(),
+                              ST.TrainOptions(dtype=torch.float32))
+    m = step(model, init_state(dict(model.named_parameters())),
+             {"tokens": toks, "labels": labels})
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+# ---------------------------------------------------------------------- #
+# K1 block matmul, K2 flash attention forward and backward
+# ---------------------------------------------------------------------- #
+
+def _operands(cuda, layout, M, K, N, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    a = rand(K, M).t() if layout == "TN" else rand(M, K)
+    b = rand(N, K).t() if layout == "NT" else rand(K, N)
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NN", "NT", "TN"])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (37, 300, 77),
+                                   (300, 520, 260)])
+def test_block_matmul_kernel_matches_plain(cuda, M, K, N, layout, dtype):
+    """Held to max|d| <= tol * max|plain|: the kernel sums K in another
+    order than cuBLAS; bf16 outputs round once more."""
+    a, b = _operands(cuda, layout, M, K, N, dtype)
+    n = block_matmul_kernel.launches
+    got = ops.matmul(a, b)
+    assert block_matmul_kernel.launches == n + 1
+    want = block_matmul_plain(a, b)
+    assert got.dtype == dtype and got.shape == (M, N)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype] * float(
+        want.float().abs().max())
+
+
+def test_block_matmul_kernel_is_deterministic(cuda):
+    """The K split sums in a fixed order: two calls give the same bits."""
+    a, b = _operands(cuda, "NN", 8, 4096, 1024, torch.float32)
+    assert torch.equal(block_matmul_kernel(a, b), block_matmul_kernel(a, b))
+
+
+ATTN = {  # (B, T, S, nq, nkv, hd, causal, window, kv_len)
+    "causal_gqa": (2, 200, 200, 8, 4, 128, True, 0, 0),
+    "window": (1, 150, 150, 4, 2, 64, True, 33, 0),
+    "ragged_kv_len": (2, 70, 90, 4, 4, 128, False, 0, 61),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ATTN))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """Forward and backward (dq, dk, dv) against the plain version and its
+    autograd; the forward run twice gives the same bits."""
+    B, T, S, nq, nkv, hd, causal, window, kv_len = ATTN[case]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            dtype).requires_grad_()
+    q, k, v = rand(B, T, nq, hd), rand(B, S, nkv, hd), rand(B, S, nkv, hd)
+    dout = torch.randn((B, T, nq, hd), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    before = ops.launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    after = ops.launches()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = attn_core(q, k, v, **kw)
+    wgrads = torch.autograd.grad(want, (q, k, v), dout)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    for g, w in zip(grads, wgrads):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    again, _ = flash_attention_kernel(q.detach(), k.detach(), v.detach(),
+                                      **kw)
+    assert torch.equal(again, got.detach())

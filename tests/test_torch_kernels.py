@@ -1,5 +1,6 @@
-"""Plain versions of the ported kernels (K3 RMSNorm, K5 paged attention)
-held against the JAX package's Pallas kernels, run in interpret mode as
+"""Plain versions of the ported kernels (K1 block matmul, K2 flash
+attention forward and backward, K3 RMSNorm, K5 paged attention) held
+against the JAX package's Pallas kernels, run in interpret mode as
 tests/test_kernels.py runs them, and against its jnp references.
 
 Inputs are made with numpy from a seed and cross between the frameworks
@@ -9,18 +10,29 @@ as numpy arrays. The CUDA kernels themselves run only on the card
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.layers import attention as jattn
 from repro.layers.attention import paged_attn_core as jax_paged_attn_core
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import (paged_attention_kernel,
+from repro_torch.kernels.block_matmul import block_matmul_kernel, plan
+from repro_torch.kernels.flash_attention import (attn_core,
+                                                 flash_attention_bwd_kernel,
+                                                 flash_attention_kernel,
+                                                 paged_attention_kernel,
                                                  paged_attn_core)
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel
 
 F32_TOL = dict(rtol=2e-4, atol=2e-4)     # tests/test_kernels.py, float32
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)    # tests/test_kernels.py, bfloat16
+# float32, sums in another order than the JAX side's; the backward's
+# cotangents sum over T (dk, dv) or S (dq) products
+ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+ATTN_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 PAGED_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_serving.py
 
 
@@ -124,11 +136,14 @@ def test_cpu_tensors_take_the_plain_versions():
         0, 3, 4, 4, 2, 8, 4, 3, 16, [4, 2, 0]))
     ops.flash_attention_paged(q, kp, vp, table, q_pos, q_len)
     ops.rmsnorm(q, torch.ones(8))
-    assert rmsnorm_kernel.launches == 0
-    assert paged_attention_kernel.launches == 0
+    ops.matmul(q.reshape(-1, 8), torch.ones(8, 3))
+    qa = q.detach().clone().requires_grad_()
+    ops.flash_attention(qa, qa[:, :, :2], qa[:, :, 2:]).sum().backward()
+    assert set(ops.launches().values()) == {0}
 
 
-@pytest.mark.parametrize("call", ["rmsnorm", "paged"])
+@pytest.mark.parametrize("call", ["rmsnorm", "paged", "matmul", "flash",
+                                  "flash_bwd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """The kernel wrappers take CUDA tensors only; they raise on anything
     else before building or launching anything."""
@@ -136,9 +151,141 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         if call == "rmsnorm":
             rmsnorm_kernel(x, torch.ones(64))
-        else:
+        elif call == "paged":
             pools = torch.zeros(3, 16, 2, 64)
             paged_attention_kernel(
                 x, pools, pools, torch.zeros(2, 2, dtype=torch.int32),
                 torch.zeros(2, 1, dtype=torch.int32),
                 torch.ones(2, dtype=torch.int32))
+        elif call == "matmul":
+            block_matmul_kernel(x[0, 0], x[0, 0].t())
+        elif call == "flash":
+            flash_attention_kernel(x, x, x)
+        else:
+            flash_attention_bwd_kernel(x, x, x, x, torch.zeros(2, 4, 1), x)
+
+
+# ---------------------------------------------------------------------- #
+# K1: block matmul
+# ---------------------------------------------------------------------- #
+
+def _operands(layout, M, K, N, dtype, seed=0):
+    """(a, b) for a @ b in both frameworks; NT reads b and TN reads a
+    through a transposed view, as the backward does."""
+    rng = np.random.RandomState(seed)
+    a = rng.randn(*((K, M) if layout == "TN" else (M, K))).astype(np.float32)
+    b = rng.randn(*((N, K) if layout == "NT" else (K, N))).astype(np.float32)
+    ta = torch.from_numpy(a).to(getattr(torch, dtype))
+    tb = torch.from_numpy(b).to(getattr(torch, dtype))
+    ja = jnp.asarray(a, getattr(jnp, dtype))
+    jb = jnp.asarray(b, getattr(jnp, dtype))
+    if layout == "TN":
+        ta, ja = ta.t(), ja.T
+    if layout == "NT":
+        tb, jb = tb.t(), jb.T
+    return ta, tb, ja, jb
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["NN", "NT", "TN"])
+@pytest.mark.parametrize("M,K,N", [(37, 300, 77), (130, 64, 129),
+                                   (8, 1024, 96)])
+def test_block_matmul_plain_matches_pallas_and_ref(M, K, N, layout, dtype):
+    ta, tb, ja, jb = _operands(layout, M, K, N, dtype)
+    got = ops.matmul(ta, tb)
+    assert got.dtype == ta.dtype and got.shape == (M, N)
+    got = got.float().numpy()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    want_k = np.asarray(jops.matmul(ja, jb, bm=64, bn=64, bk=128),
+                        np.float32)
+    want_r = np.asarray(jref.block_matmul_ref(ja, jb), np.float32)
+    np.testing.assert_allclose(got, want_k, **tol)
+    np.testing.assert_allclose(got, want_r, **tol)
+    assert np.array_equal(ref.block_matmul_ref(ta, tb).float().numpy(), got)
+
+
+@pytest.mark.parametrize("M,N,K,small,splits", [
+    (1024, 6144, 2048, False, 1),     # training: 384 tiles fill the card
+    (1024, 2048, 2048, False, 3),     # 128 tiles: K split three ways
+    (8, 6144, 2048, True, 11),        # decode: 96 small tiles
+    (8, 152064, 2048, True, 1),       # decode, tied head
+    (8, 2048, 64, True, 1)])          # too shallow to split
+def test_block_matmul_plan(M, N, K, small, splits):
+    """The wrapper's choice of tile and K split on a 132-SM card; every
+    split is a whole number of tile steps and covers K exactly once."""
+    got_small, got_splits, k_split = plan(M, N, K, 132)
+    assert (got_small, got_splits) == (small, splits)
+    bk = 32 if small else 8
+    assert k_split % bk == 0 and (splits - 1) * k_split < K <= (
+        splits * k_split)
+
+
+# ---------------------------------------------------------------------- #
+# K2: flash attention
+# ---------------------------------------------------------------------- #
+
+ATTN_CASES = {
+    # (B, T, S, nq, nkv, d, causal, window)
+    "causal_gqa2": (2, 40, 40, 4, 2, 16, True, 0),
+    "noncausal_ragged": (1, 23, 37, 4, 4, 16, False, 0),
+    "window_gqa2": (2, 45, 45, 4, 2, 8, True, 7),
+    "causal_ragged": (1, 130, 130, 2, 1, 16, True, 0),
+}
+
+
+def _attn_inputs(B, T, S, nq, nkv, d, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, T, nq, d).astype(np.float32),
+            rng.randn(B, S, nkv, d).astype(np.float32),
+            rng.randn(B, S, nkv, d).astype(np.float32),
+            rng.randn(B, T, nq, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_flash_attention_plain_matches_pallas(case):
+    """K2's plain version in the model's (B, T, H, D) layout against the
+    Pallas kernel, which takes (B, H, T, D) and pads T and S to its
+    blocks (padded keys masked through kv_len)."""
+    B, T, S, nq, nkv, d, causal, window = ATTN_CASES[case]
+    q, k, v, _ = _attn_inputs(B, T, S, nq, nkv, d)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, window=window).numpy()
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)),
+        causal=causal, window=window, bq=32, bk=32)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got, want, **ATTN_TOL)
+
+
+def test_flash_attention_kv_len_masks_trailing_keys():
+    """kv_len masks the keys at and past it, as the Pallas kernel masks
+    its padding: the result equals attention over the first kv_len keys."""
+    q, k, v, _ = _attn_inputs(1, 20, 30, 4, 2, 8, seed=3)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=False, kv_len=17)
+    want = attn_core(tq, tk[:, :17], tv[:, :17], causal=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_flash_attention_plain_backward_matches_jax_vjp(case):
+    """dq, dk, dv of the plain version (autograd's) against jax.vjp of the
+    JAX package's attn_core on the same cotangent; the forward also
+    matches attn_core and attn_core_chunked (the same function in
+    online-softmax form)."""
+    B, T, S, nq, nkv, d, causal, window = ATTN_CASES[case]
+    q, k, v, ct = _attn_inputs(B, T, S, nq, nkv, d, seed=1)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    out.backward(torch.from_numpy(ct))
+    jout, pull = jax.vjp(lambda a, b, c: jattn.attn_core(
+        a, b, c, causal=causal, window=window), *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **ATTN_TOL)
+    chunked = jattn.attn_core_chunked(*map(jnp.asarray, (q, k, v)),
+                                      causal=causal, window=window, bq=16,
+                                      bk=16)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(chunked),
+                               **ATTN_TOL)
+    for t, g in zip((tq, tk, tv), pull(jnp.asarray(ct))):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
+                                   **ATTN_GRAD_TOL)

@@ -11,6 +11,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.mesh import MeshAxes
 from repro_torch.launch import serve
 from repro_torch.launch import steps as ST
+from repro_torch.launch import train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -37,7 +38,8 @@ def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["init_model", "zeros_caches", "serve"])
+@pytest.mark.parametrize("entry", ["init_model", "zeros_caches", "serve",
+                                   "train"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no card and no device="cpu", an entry point raises instead of
     running somewhere else."""
@@ -48,8 +50,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
             ST.init_model(cfg)
         elif entry == "zeros_caches":
             ST.zeros_caches({"k": ((2, 4), torch.float32)})
-        else:
+        elif entry == "serve":
             serve.main(["--arch", "qwen3-1.7b", "--requests", "1"])
+        else:
+            train.main(["--arch", "qwen3-1.7b", "--steps", "1"])
     assert ST.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -74,6 +78,50 @@ def test_serve_cli_on_cpu(capsys):
 def test_serve_rejects_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="not ported|port runs"):
         serve.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
+
+
+def test_train_cli_on_cpu(capsys):
+    res = train.main(["--arch", "qwen3-1.7b", "--preset", "smoke",
+                      "--device", "cpu", "--steps", "3", "--batch", "4",
+                      "--seq", "16", "--log-every", "1"])
+    assert len(res.losses) == 3 and np.isfinite(res.losses).all()
+    assert np.isfinite(res.grad_norms).all() and res.tokens_per_step == 64
+    assert res.max_memory_bytes is None
+    out = capsys.readouterr().out
+    assert "step     2 loss" in out and "final loss" in out
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--zero"], "rest of the training stack"),
+    (["--zero3"], "rest of the training stack"),
+    (["--ckpt", "run.npz"], "rest of the training stack"),
+    (["--ckpt-every", "5"], "rest of the training stack"),
+    (["--resume"], "rest of the training stack"),
+    (["--chaos", "seed=0"], "runtime tooling"),
+    (["--probe-every", "2"], "runtime tooling"),
+    (["--telemetry"], "runtime tooling"),
+    (["--profile-steps", "0:1"], "runtime tooling"),
+    (["--calib", "auto"], "runtime tooling"),
+    (["--mesh", "2,1,1,1"], "multi-rank mesh")])
+def test_train_refuses_what_is_not_ported(flags, item):
+    with pytest.raises(NotImplementedError, match=f"'{item}'"):
+        train.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("opts,item", [
+    (dict(overlap=True), "overlapped schedule"),
+    (dict(gradsync="zero"), "rest of the training stack"),
+    (dict(remat_policy="dots"), "training on the multi-rank mesh")])
+def test_train_step_refuses_what_is_not_ported(opts, item):
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(NotImplementedError, match=f"'{item}'"):
+        step = ST.make_train_step(cfg, MeshAxes(), AdamWConfig(),
+                                  ST.TrainOptions(dtype=torch.float32,
+                                                  **opts))
+        model = ST.init_model(cfg, device="cpu")
+        toks = torch.zeros((2, 4), dtype=torch.int32)
+        step(model, None, {"tokens": toks, "labels": toks})
 
 
 @pytest.mark.parametrize("sizes", [(2, 1, 1, 1), (1, 1, 2, 1),
@@ -111,6 +159,31 @@ def test_serving_copies_match_the_jax_package(name):
               ).read_text()
     assert ours == theirs.replace("from repro.launch",
                                   "from repro_torch.launch")
+
+
+def test_data_copy_matches_the_jax_package():
+    """data/synthetic.py is a copy (it imports only numpy)."""
+    ours = (PORT / "data" / "synthetic.py").read_text()
+    theirs = (ROOT / "src" / "repro" / "data" / "synthetic.py").read_text()
+    assert ours == theirs
+
+
+def test_serving_records_no_graph():
+    """The parameters are trainable; the serving step runs under inference
+    mode, so its logits carry no graph and the pools no history."""
+    from repro_torch.models.decoder import paged_step
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = ST.init_model(cfg, seed=0, device="cpu")
+    assert all(p.requires_grad for p in model.parameters())
+    _, ct = ST.make_paged_step(cfg, MeshAxes())(4, 4)
+    pools = ST.zeros_caches(ct, "cpu")
+    i32 = torch.int32
+    logits, pools = paged_step(
+        model, torch.ones((1, 2), dtype=i32), pools,
+        torch.arange(2, dtype=i32)[None], torch.tensor([2], dtype=i32),
+        torch.tensor([[1, 2, 3]], dtype=i32))
+    assert logits.grad_fn is None and not logits.requires_grad
+    assert pools["k"].grad_fn is None and pools["k"][:, 1].any()
 
 
 def test_engine_serves_at_every_chunk_boundary():
