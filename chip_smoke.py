@@ -13,10 +13,13 @@ a hard failure:
   2. build: one nvcc per kernel source, all at once;
   3. each kernel against its plain PyTorch version on the card, at the
      serving and training paths' shapes, in float32 and bfloat16:
-     K3 RMSNorm, K5 paged attention (chunked == one-shot bitwise), K1
-     block matmul in the three layouts of training, K2 flash attention
-     forward and backward (the forward run twice gives the same bits, as
-     rematerialization needs);
+     K3 RMSNorm, K5 paged attention (chunked == one-shot bitwise; also
+     over Jamba's dense decode cache seen as 32-row pages), K1 block
+     matmul in the three layouts of training and at the Mamba layer's
+     widths, K2 flash attention forward and backward (also at Jamba's
+     prefill shape; the forward run twice gives the same bits, as
+     rematerialization needs), K6 selective scan at the prefill and
+     decode shapes (y and final state; two runs give the same bits);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
      prefill chunk and 4 decode steps through ``paged_step`` with the
      kernels and with the plain versions; logits must agree;
@@ -25,8 +28,8 @@ a hard failure:
      count is the expected count per step times the steps run; a profile
      of a short serving run;
   6. per-kernel times (CUDA events) at the paths' shapes, beside the plain
-     version, one PyTorch library call and the least time the card could
-     take;
+     version, one PyTorch library call where one exists and the least time
+     the card could take;
   7. full-width training parity: the loss and every gradient of one
      microbatch (2 x 512 tokens) through the kernels and through the plain
      versions, before any optimizer state exists;
@@ -34,7 +37,15 @@ a hard failure:
      3 full-width steps (batch 4 x 512, overdecompose 2, float32); every
      loss is finite and each kernel's launch count is the expected count
      per microbatch times the microbatches run; a profile of one step;
-  9. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+  9. fixed-batch serving of Jamba's hybrid decoder
+     (``jamba-v0.1-52b-dense-ffn``, full width and depth, float32, random
+     weights from a seed; the qwen3 models are freed first): one prefill
+     of 4 x 512 and 4 decode steps through the kernels and through the
+     plain versions (logits agree, greedy ids equal); then ``serve.py
+     --mode fixed`` (batch 4, prompt 512, 32 new tokens), each kernel's
+     launch count the expected count per prefill and per decode step
+     times those run, and a profile of a prefill and 8 decode steps;
+ 10. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -55,6 +66,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "qwen3-1.7b"
+HYBRID = "jamba-v0.1-52b-dense-ffn"
 SEED = 0
 # published H100 SXM peaks (NVIDIA data sheet, dense): memory and the
 # non-tensor-core float32 rate the kernels' fp32 arithmetic runs at
@@ -82,6 +94,16 @@ SERVE_FLAGS = ["--arch", ARCH, "--preset", "full", "--slots", "8",
 TRAIN_FLAGS = ["--arch", ARCH, "--preset", "full", "--steps", "3",
                "--batch", "4", "--seq", "512", "--overdecompose", "2",
                "--dtype", "float32", "--log-every", "1"]
+FIXED_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset", "full",
+               "--batch", "4", "--prompt-len", "512", "--gen", "32",
+               "--seed", str(SEED)]
+# K6 against its sequential plain version: y and the state of f32 within
+# the 2e-4 of tests/test_kernels.py (exp and the FMA contractions round
+# otherwise than PyTorch's kernels); bf16 y rounds once more on the way out
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# K6 at the fixed-serving path's shapes: (name, Bt, T, d, N, with s0)
+SCAN_SHAPES = [("prefill", 4, 512, 8192, 16, False),
+               ("decode", 4, 1, 8192, 16, True)]
 # the training shapes of K1: (name, M, K, N, layout); NT reads b and TN
 # reads a through a transposed view, as the backward does
 MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
@@ -89,13 +111,27 @@ MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
                  ("dW X^T.dY", 2048, 1024, 6144, "TN"),
                  ("tied head h.E^T", 1024, 2048, 152064, "NT"),
                  ("decode x.W", 8, 2048, 6144, "NN"),
-                 ("decode tied head", 8, 2048, 152064, "NT")]
+                 ("decode tied head", 8, 2048, 152064, "NT"),
+                 # Jamba's Mamba layer (prefill 4 x 512 rows, decode 4):
+                 # w_x's N of 288 (dt_rank + 2N) and w_dt's K of 256, whose
+                 # input is a column slice of w_x's output ("SN": a read
+                 # through a row stride of K + 32)
+                 ("mamba w_x", 2048, 8192, 288, "NN"),
+                 ("mamba w_dt", 2048, 256, 8192, "SN"),
+                 ("decode mamba w_x", 4, 8192, 288, "NN"),
+                 ("decode mamba w_dt", 4, 256, 8192, "SN")]
 # K2 at the training shape: (B, T, S, nq, nkv, hd, causal, window, kv_len)
 ATTN_MAIN = (2, 512, 512, 16, 8, 128, True, 0, 0)
 ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
               "window 128": (2, 512, 512, 16, 8, 128, True, 128, 0),
               "ragged kv_len 300 of 320, non-causal, T 200":
-                  (2, 200, 320, 16, 8, 128, False, 0, 300)}
+                  (2, 200, 320, 16, 8, 128, False, 0, 300),
+              "Jamba prefill (B 4, T 512, 32/8 heads, hd 128, causal)":
+                  (4, 512, 512, 32, 8, 128, True, 0, 0)}
+# K5 over the dense decode cache of Jamba's attention layers: (batch, nq,
+# nkv, hd) and each row's keys after the step (prompt 512 + up to 32 new)
+DENSE_DECODE = (4, 32, 8, 128)
+DENSE_CTX = [513, 527, 538, 544]
 
 
 def log(msg: str) -> None:
@@ -207,9 +243,35 @@ def dtype_name(dtype) -> str:
 def matmul_inputs(gen, M, K, N, layout, dtype):
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    a = rand(K, M).t() if layout == "TN" else rand(M, K)
+    a = (rand(K, M).t() if layout == "TN" else rand(M, K + 32)[:, :K]
+         if layout == "SN" else rand(M, K))
     b = rand(N, K).t() if layout == "NT" else rand(K, N)
     return a, b
+
+
+def scan_inputs(gen, Bt, T, d, N, dtype, with_s0):
+    """K6 inputs as the Mamba layer makes them: B and C column views of
+    one (Bt, T, 256 + 2N) projection output, dt = softplus(...) in fp32,
+    A = -exp(A_log) with A_log = log(1..N)."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = rand(Bt, T, d).to(dtype)
+    dt = torch.nn.functional.softplus(rand(Bt, T, d) - 4.6)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda"
+                      ).expand(d, N).contiguous()
+    xdbc = rand(Bt, T, 256 + 2 * N).to(dtype)
+    s0 = rand(Bt, d, N) if with_s0 else None
+    return x, dt, A, xdbc[..., 256:256 + N], xdbc[..., 256 + N:], s0
+
+
+def scan_work(Bt, T, d, N, dtype, with_s0):
+    """(bytes, operations) of one K6 call for its bound: x, dt, y, B, C,
+    A, s0 and the final state each moved once; per (b, t, c) dt * x, per
+    (b, t, c, n) dt * A, exp, two products, a sum and the dot with C."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (Bt * T * d * (2 * elt + 4) + 2 * Bt * T * N * elt + d * N * 4
+              + Bt * d * N * 4 * (2 if with_s0 else 1))
+    return nbytes, Bt * T * d * (7 * N + 1)
 
 
 def attn_inputs(gen, B, T, S, nq, nkv, hd, dtype):
@@ -293,7 +355,8 @@ def phase_kernels(gen):
         paged_attention_kernel, paged_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
     errs = dict.fromkeys(("rmsnorm", "paged_attention", "block_matmul",
-                          "flash_attention", "flash_attention_bwd"), 0.0)
+                          "flash_attention", "flash_attention_bwd",
+                          "selective_scan"), 0.0)
     log("[kernels] K3 rmsnorm vs plain")
     R, T, nq = 8, 32, 16
     for dtype in (torch.float32, torch.bfloat16):
@@ -340,8 +403,61 @@ def phase_kernels(gen):
                             f"chunk [{c0}, {c1}) differs from one-shot")
                 log(f"  {str(dtype)[6:]} chunked (0-5, 5-17, 17-32) == "
                     f"one-shot: bitwise")
+    phase_kernels_dense_decode(gen, errs)
     phase_kernels_train(gen, errs)
+    phase_kernels_scan(gen, errs)
     return errs
+
+
+def phase_kernels_dense_decode(gen, errs):
+    """K5 as fixed-batch decode runs it: the dense cache seen as pages of
+    DENSE_PAGE rows through the table the attention layer builds."""
+    from repro_torch.kernels.flash_attention import (
+        paged_attention_kernel, paged_attention_plain)
+    from repro_torch.layers.attention import DENSE_PAGE, dense_page_view
+    B, nq, nkv, hd = DENSE_DECODE
+    S = -(-max(DENSE_CTX) // DENSE_PAGE) * DENSE_PAGE
+    log(f"[kernels] K5 over the dense decode cache (B {B}, nq {nq}, nkv "
+        f"{nkv}, hd {hd}, {S} rows as pages of {DENSE_PAGE}, keys "
+        f"{DENSE_CTX}, T 1)")
+    q_pos = torch.tensor(DENSE_CTX, dtype=torch.int32,
+                         device="cuda")[:, None] - 1
+    q_len = torch.ones((B,), dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        q, kc, vc = rand(B, 1, nq, hd), rand(B, S, nkv, hd), rand(B, S, nkv,
+                                                                   hd)
+        (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
+        e = check_close(f"{dtype_name(dtype)} dense decode",
+                        paged_attention_kernel(q, kp, vp, table, q_pos, q_len),
+                        paged_attention_plain(q, kp, vp, table, q_pos, q_len),
+                        PAGED_TOL[dtype])
+        if dtype == torch.float32:
+            errs["paged_attention"] = max(errs["paged_attention"], e)
+
+
+def phase_kernels_scan(gen, errs):
+    """K6 at the fixed-serving path's prefill and decode shapes."""
+    from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                    selective_scan_plain)
+    log("[kernels] K6 selective_scan vs plain (the sequential oracle), B "
+        "and C read as column slices (row stride 288)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, Bt, T, d, N, with_s0 in SCAN_SHAPES:
+            args = scan_inputs(gen, Bt, T, d, N, dtype, with_s0)
+            y, s = selective_scan_kernel(*args)
+            y2, s2 = selective_scan_kernel(*args)
+            if not (torch.equal(y, y2) and torch.equal(s, s2)):
+                raise AssertionError("K6 is not deterministic")
+            wy, ws = selective_scan_plain(*args)
+            tag = f"{dtype_name(dtype)} {name} ({Bt}, {T}, {d}, N {N})"
+            e = max(check_close(f"{tag} y", y, wy, SCAN_TOL[dtype]),
+                    check_close(f"{tag} final state", s, ws,
+                                SCAN_TOL[torch.float32]))
+            log(f"  {tag}: run twice: bitwise equal")
+            if dtype == torch.float32:
+                errs["selective_scan"] = max(errs["selective_scan"], e)
 
 
 def phase_kernels_train(gen, errs):
@@ -462,7 +578,7 @@ def phase_serve(model, cfg, smi):
     # head; attention over the pages. No K2: the engine is paged only
     per_step = {"paged_attention": L, "rmsnorm": 4 * L + 1,
                 "block_matmul": 7 * L + 1, "flash_attention": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "selective_scan": 0}
     check_launches(launches, per_step, stats.n_steps, "step")
     log(f"  served {stats.n_requests} requests / {stats.total_new_tokens} "
         f"tokens in {stats.wall_s:.3f}s ({stats.n_steps} steps, "
@@ -551,6 +667,9 @@ def phase_timings(gen, n_layers):
     out["paged_attention"] = t
     del kp, vp, kg, vg
     phase_timings_train(gen, out)
+    log("[timings] float32, K6 at the fixed-serving shapes: device time "
+        "from a replayed CUDA graph / eager calls back to back")
+    phase_timings_scan(gen, out)
     return out
 
 
@@ -620,6 +739,29 @@ def phase_timings_train(gen, out):
     out["flash_attention_bwd"] = bwd
 
 
+def phase_timings_scan(gen, out):
+    """K6 at the prefill and decode shapes. No PyTorch call computes a
+    selective scan: the library column is null. The plain version's 512
+    steps make a long graph, so it is replayed fewer times."""
+    from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                    selective_scan_plain)
+    f32 = torch.float32
+    for name, Bt, T, d, N, with_s0 in SCAN_SHAPES:
+        args = scan_inputs(gen, Bt, T, d, N, f32, with_s0)
+        t = dict(ms=graph_ms(lambda: selective_scan_kernel(*args),
+                             20 if T > 1 else 100),
+                 plain_ms=graph_ms(lambda: selective_scan_plain(*args),
+                                   2 if T > 1 else 50),
+                 library_ms=None, **bound(*scan_work(Bt, T, d, N, f32,
+                                                     with_s0), f32))
+        eager = cuda_ms(lambda: selective_scan_kernel(*args), 50, 5)
+        log(f"  selective_scan {name} (Bt {Bt}, T {T}, d {d}, N {N}): kernel "
+            f"{t['ms'] * 1e3:.2f}/{eager * 1e3:.2f} us (device/eager), plain "
+            f"{t['plain_ms'] * 1e3:.2f} us (device), no library call, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+        out.setdefault("selective_scan", t)
+
+
 def bound(nbytes, n_ops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -639,7 +781,8 @@ KERNEL_GROUPS = (("gemm_kernel", "K1 block_matmul"),
                  ("flash_fwd_kernel", "K2 flash_attention forward"),
                  ("flash_bwd", "K2 flash_attention backward"),
                  ("rmsnorm_kernel", "K3 rmsnorm"),
-                 ("paged_attention_kernel", "K5 paged_attention"))
+                 ("paged_attention_kernel", "K5 paged_attention"),
+                 ("selective_scan_kernel", "K6 selective_scan"))
 
 
 def dev_us(e):
@@ -743,7 +886,7 @@ def phase_train(cfg, smi):
     # L; K3 = 4L + 1 forward (norm1, norm2, q/k-norm; final) + 4L recompute
     per_mb = {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
               "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
-              "paged_attention": 0}
+              "paged_attention": 0, "selective_scan": 0}
     args = train.build_parser().parse_args(TRAIN_FLAGS)
     check_launches(launches, per_mb, args.steps * args.overdecompose,
                    "microbatch")
@@ -798,6 +941,146 @@ def phase_train_profile(cfg):
     log_split(kernels, total, 12)
 
 
+def fixed_launches(cfg, prefills, decodes):
+    """Each kernel's launches in ``prefills`` prefills and ``decodes``
+    decode steps of fixed-batch serving, counted from the code: per layer
+    norm1 and norm2 (K3), an attention layer's q/k/v/o projections (K1),
+    its q/k-norm (K3, if the config has it) and K2 at prefill or K5 at
+    decode; a Mamba layer's w_in, w_gate, w_x, w_dt and w_out (K1) and one
+    scan (K6); the MLP's three projections (K1); then the final norm (K3)
+    and the head (K1), on the last row only at prefill."""
+    n_attn = cfg.mixers().count("attn")
+    n_mamba = cfg.mixers().count("mamba")
+    fwd = prefills + decodes
+    return {"block_matmul": fwd * (4 * n_attn + 5 * n_mamba
+                                   + 3 * cfg.n_layers + 1),
+            "rmsnorm": fwd * (2 * cfg.n_layers + 1
+                              + (2 * n_attn if cfg.qk_norm else 0)),
+            "selective_scan": fwd * n_mamba,
+            "flash_attention": prefills * n_attn,
+            "paged_attention": decodes * n_attn,
+            "flash_attention_bwd": 0}
+
+
+def phase_fixed_parity(model, cfg):
+    """Full width, kernels vs plain versions through the fixed-batch
+    prefill and decode steps."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.launch import steps as ST
+    B, T, steps = 4, 512, 4
+    pre, ct = ST.make_prefill_step(cfg, MeshAxes())(B, T, T + steps + 1)
+    dec, _ = ST.make_decode_step(cfg, MeshAxes())(B, T + steps + 1)
+    caches = {m: ST.zeros_caches(ct, "cuda") for m in ("kernel", "plain")}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           dtype=torch.int32).cuda()
+    log(f"[fixed parity] full-width {cfg.name}, float32: prefill {B} x {T} "
+        f"+ {steps} decode steps, kernels vs plain")
+    for step in range(steps + 1):
+        out = {}
+        for mode in ("kernel", "plain"):
+            t0 = time.time()
+            if step == 0:
+                out[mode], _ = pre(model, caches[mode], tokens,
+                                   plain=(mode == "plain"))
+            else:
+                out[mode], _ = dec(model, caches[mode], tokens, T + step - 1,
+                                   plain=(mode == "plain"))
+            torch.cuda.synchronize()
+            out[mode + "_s"] = time.time() - t0
+        d = max_err(out["kernel"], out["plain"])
+        scale = float(out["plain"].abs().max())
+        ids = {m: out[m][:, -1].argmax(-1) for m in ("kernel", "plain")}
+        same = int((ids["kernel"] == ids["plain"]).sum())
+        log(f"  {'prefill' if step == 0 else f'decode {step}'}: "
+            f"max|dlogit| = {d:.3e}, max|logit| = {scale:.3e}, greedy "
+            f"agree {same}/{B}; kernels {out['kernel_s']:.3f}s, plain "
+            f"{out['plain_s']:.3f}s")
+        if not (d <= 1e-3 * scale and math.isfinite(d)):
+            raise AssertionError("kernel logits disagree with plain")
+        if same != B:
+            raise AssertionError("kernel greedy ids differ from plain")
+        tokens = ids["plain"].to(torch.int32)[:, None]
+    worst = max((max_err(a, b) / max(float(b.abs().max()), 1e-30), i, k)
+                for i, (la, lb) in enumerate(zip(caches["kernel"],
+                                                 caches["plain"]))
+                for k, (a, b) in ((k, (la[k], lb[k])) for k in la))
+    log(f"  caches after the last step: worst max|d|/max|plain| "
+        f"{worst[0]:.3e} (layer {worst[1]}, {worst[2]})")
+    if not worst[0] <= 1e-3:
+        raise AssertionError("kernel caches disagree with plain")
+
+
+def phase_fixed_serve(model, cfg, smi):
+    """``serve.py --mode fixed`` at full width, kernels counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(FIXED_FLAGS)
+    log(f"[fixed serve] python -m repro_torch.launch.serve "
+        f"{' '.join(FIXED_FLAGS)}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = serve.run_fixed(args, model)
+    launches = ops.launches()
+    if not (torch.isfinite(res.logits).all()
+            and res.ids.shape == (args.batch, args.gen)
+            and 0 <= res.ids.min() and res.ids.max() < cfg.padded_vocab):
+        raise AssertionError("non-finite logits or malformed ids")
+    # warm-up: 1 prefill + 1 decode step; timed: 1 prefill + gen - 1 steps
+    want = fixed_launches(cfg, prefills=2, decodes=args.gen)
+    for k, n in want.items():
+        log(f"  {k}: {launches[k]} launches (expected {n})")
+        if launches[k] != n:
+            raise AssertionError(f"{k}: unexpected launch count")
+    log(f"  prefill {args.batch} x {args.prompt_len}: {res.prefill_s:.4f} s "
+        f"({args.batch * args.prompt_len / res.prefill_s:.1f} tokens/s); "
+        f"decode {args.gen - 1} steps x batch {args.batch}: "
+        f"{res.decode_s:.4f} s, {res.decode_tokens_per_s:.1f} tokens/s, "
+        f"{1e3 * res.decode_s / (args.gen - 1):.2f} ms/step; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB on {smi}")
+    return launches
+
+
+def phase_fixed_profile(model, cfg):
+    """Where a prefill's and 8 decode steps' device time goes, by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.launch import steps as ST
+    B, T, steps = 4, 512, 8
+    pre, ct = ST.make_prefill_step(cfg, MeshAxes())(B, T, T + steps)
+    dec, _ = ST.make_decode_step(cfg, MeshAxes())(B, T + steps)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.
+                           Generator().manual_seed(SEED), dtype=torch.int32
+                           ).cuda()
+    caches = ST.zeros_caches(ct, "cuda")
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        logits, _ = pre(model, caches, tokens)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        walls["prefill"] = time.time() - t0
+        t0 = time.time()
+        for i in range(steps):
+            logits, _ = dec(model, caches, tok, T + i)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        walls["decode"] = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in kernels)
+    wall = sum(walls.values())
+    log(f"[fixed profile] prefill {B} x {T} + {steps} decode steps, under "
+        f"the profiler: wall {walls['prefill'] * 1e3:.1f} + "
+        f"{walls['decode'] * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
+        f"({'not measured' if not total else f'{total / 1e4 / wall:.1f}%'})")
+    if total:
+        log_split(kernels, total, 12)
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -837,24 +1120,42 @@ def main() -> int:
     train_launches = phase_train(cfg, smi)
     free_memory()
     phase_train_profile(cfg)
+    free_memory()
+
+    hcfg = get_config(HYBRID)
+    t0 = time.time()
+    hybrid = ST.init_model(hcfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {hcfg.name} full width and depth, float32, "
+        f"{sum(p.numel() for p in hybrid.parameters()) / 1e9:.3f} B "
+        f"parameters, init {time.time() - t0:.1f}s")
+    phase_fixed_parity(hybrid, hcfg)
+    fixed_launches_run = phase_fixed_serve(hybrid, hcfg, smi)
+    phase_fixed_profile(hybrid, hcfg)
+    del hybrid
+    free_memory()
 
     # launches: each kernel's count on the path this repo ported it for
-    # (serving: K3, K5; training: K1, K2); the log has both paths' counts
+    # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6);
+    # the log has every path's counts
     launches = dict(serve_launches, **{
         k: train_launches[k] for k in ("block_matmul", "flash_attention",
-                                       "flash_attention_bwd")})
+                                       "flash_attention_bwd")},
+        selective_scan=fixed_launches_run["selective_scan"])
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
                 "paged_attention": "src/repro/kernels/flash_attention.py:240",
                 "block_matmul": "src/repro/kernels/block_matmul.py:34",
                 "flash_attention": "src/repro/kernels/flash_attention.py:297",
                 "flash_attention_bwd":
-                    "src/repro/kernels/flash_attention.py:297"}
+                    "src/repro/kernels/flash_attention.py:297",
+                "selective_scan": "src/repro/kernels/selective_scan.py:45"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rmsnorm": csrc + "rmsnorm.cu",
                "paged_attention": csrc + "paged_attention.cu",
                "block_matmul": csrc + "block_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu",
-               "flash_attention_bwd": csrc + "flash_attention.cu"}
+               "flash_attention_bwd": csrc + "flash_attention.cu",
+               "selective_scan": csrc + "selective_scan.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

@@ -5,8 +5,11 @@ counterpart of the same path there. The port imports ``torch`` and never
 ``jax`` or anything of ``repro``; where it needs a numpy-only module of the
 JAX package it keeps its own copy.
 
-Slice ported so far: continuous-batching serving of dense all-attention
-decoders (``launch/serve.py`` ``--mode continuous``) on a (1, 1, 1, 1)
-mesh, with hand-written Hopper kernels for paged attention and RMSNorm
-(``kernels/``). ROADMAP.md lists what is still to port.
+Slices ported so far, on a (1, 1, 1, 1) mesh: continuous-batching
+serving of dense all-attention decoders (``launch/serve.py --mode
+continuous``), training on one card (``launch/train.py``), and fixed-batch
+serving (``launch/serve.py --mode fixed``) of those decoders and of Jamba's
+hybrid Mamba/attention decoder with dense FFNs. Every kernel on these paths
+is written by hand for Hopper (``kernels/``). ROADMAP.md lists what is
+still to port.
 """

@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch``.
 
-The names are those of ``repro.configs``. An architecture the JAX package
-knows but the port cannot serve yet raises ``NotImplementedError``.
+The names are those of ``repro.configs``, plus
+``jamba-v0.1-52b-dense-ffn`` (Jamba with its experts replaced by the dense
+MLP). An architecture the JAX package knows but the port cannot serve yet
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -9,8 +11,11 @@ import importlib
 
 from repro_torch.models.base import ArchConfig
 
+# name -> (module, attribute)
 _MODULES = {
-    "qwen3-1.7b": "qwen3_1_7b",
+    "qwen3-1.7b": ("qwen3_1_7b", "CONFIG"),
+    "jamba-v0.1-52b": ("jamba_v0_1_52b", "CONFIG"),
+    "jamba-v0.1-52b-dense-ffn": ("jamba_v0_1_52b", "DENSE_FFN"),
 }
 
 # known to the JAX package, not yet ported: the ROADMAP.md §1 item each
@@ -22,7 +27,6 @@ _NOT_PORTED = {
     "nemotron-4-15b": "dense config variants",
     "deepseek-v2-lite-16b": "MoE and the expert axis",
     "deepseek-v3-671b": "MoE and the expert axis",
-    "jamba-v0.1-52b": "other mixers and architectures",
     "xlstm-350m": "other mixers and architectures",
     "internvl2-26b": "other mixers and architectures",
     "whisper-small": "other mixers and architectures",
@@ -37,5 +41,6 @@ def get_config(name: str) -> ArchConfig:
             f"{sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
-    return mod.CONFIG
+    module, attr = _MODULES[name]
+    mod = importlib.import_module(f"repro_torch.configs.{module}")
+    return getattr(mod, attr)

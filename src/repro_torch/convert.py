@@ -4,27 +4,32 @@ parameters by their JAX paths.
 ``params_from_jax`` takes the tree of ``repro.launch.steps.init_model``
 as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 :class:`~repro_torch.models.decoder.Decoder` holding the same values, with
-trainable parameters. The JAX tree stacks each segment's layers along a
-leading (n_periods, ...) axis under ``segments/seg0/pos0/...``; the port
-keeps one module per layer under the same leaf names
-(``layers.<i>.mixer.wq``, ``layers.<i>.norm1.g``, ...). The two frameworks
-draw different random numbers from the same seed, so the tests carry
-weights across this way.
+trainable parameters. The JAX tree stacks the layers of each segment
+position along a leading (n_periods, ...) axis under
+``segments/seg{s}/pos{i}/...``; the port keeps one module per layer under
+the same leaf names (``layers.<l>.mixer.wq``, ``layers.<l>.norm1.g``, ...),
+layer l being entry p of position i of segment s (``cfg.layer_slots()``).
+The two frameworks draw different random numbers from the same seed, so
+the tests carry weights across this way.
 
 ``jax_path`` maps a port parameter's name to the path of the JAX leaf it
-comes from (``layers.3.mixer.wq`` -> ``segments/seg0/pos0/mixer/wq``,
-layer 3 of the stack). The train step decides weight decay on these
-paths, as the JAX ``adamw._no_decay`` does, and the tests compare
-gradients leaf by leaf through them.
+comes from (``layers.3.mixer.wq`` -> ``segments/seg0/pos0/mixer/wq`` for a
+period-1 decoder, ``segments/seg0/pos3/mixer/wq`` for Jamba). The train
+step decides weight decay on these paths, as the JAX ``adamw._no_decay``
+does, and the tests compare gradients leaf by leaf through them.
+``caches_from_jax`` maps the JAX fixed-batch caches onto the port's
+per-layer ones.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from repro_torch.core import mesh as M
+from repro_torch.layers.attention import DENSE_PAGE
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.decoder import Decoder
 
@@ -39,36 +44,75 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def jax_path(name: str) -> str:
-    """The JAX tree path of the port parameter ``name``; layer i of a
-    stacked leaf maps to the stacked leaf's path."""
+def _slot(name: str, cfg: ArchConfig):
+    """(segment, position, period) of layer ``name.split('.')[1]``."""
+    return cfg.layer_slots()[int(name.split(".")[1])]
+
+
+def jax_path(name: str, cfg: ArchConfig) -> str:
+    """The JAX tree path of the port parameter ``name``; a layer's leaf
+    maps to the stacked leaf's path (``cfg`` places the layer in its
+    segment)."""
     parts = name.split(".")
     if parts[0] == "layers":
-        parts = ["segments", "seg0", "pos0", *parts[2:]]
+        s, i, _ = _slot(name, cfg)
+        parts = ["segments", f"seg{s}", f"pos{i}", *parts[2:]]
     return "/".join(parts)
 
 
 def jax_paths(model: Decoder) -> Dict[str, str]:
     """Port parameter name -> JAX path, for every parameter of ``model``."""
-    return {n: jax_path(n) for n, _ in model.named_parameters()}
+    return {n: jax_path(n, model.cfg) for n, _ in model.named_parameters()}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device) -> Decoder:
     """A Decoder on ``device`` (a torch device or its name) with the
-    weights of the JAX tree ``tree`` (numpy leaves)."""
-    segs = cfg.segments()
-    if len(segs) != 1 or len(segs[0][0]) != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: only single-segment, period-1 decoders convert")
+    weights of the JAX tree ``tree`` (numpy leaves). Every leaf of the
+    tree is used, each stacked entry by exactly one layer."""
     dev = torch.device(device)
-    state = {"embed": tree["embed"], "final_norm.g": tree["final_norm"]["g"]}
-    stacked = _flatten(tree["segments"]["seg0"]["pos0"])
-    for i in range(cfg.n_layers):
-        for name, leaf in stacked.items():
-            state[f"layers.{i}.{name}"] = np.asarray(leaf)[i]
-    state = {k: torch.tensor(np.asarray(v)) for k, v in state.items()}
+    flat = _flatten(tree)
+    state = {}
+    used = set()
+    dtype = torch.from_numpy(np.zeros(0, np.asarray(tree["embed"]).dtype)
+                             ).dtype
     model = Decoder(cfg, M.MeshAxes(), gen=torch.Generator(device=dev),
-                    dtype=state["embed"].dtype)
+                    dtype=dtype)
+    for name, _ in model.named_parameters():
+        path = jax_path(name, cfg).replace("/", ".")
+        leaf = np.asarray(flat[path])
+        if name.startswith("layers."):
+            p = _slot(name, cfg)[2]
+            leaf = leaf[p]
+            used.add((path, p))
+        else:
+            used.add((path, None))
+        state[name] = torch.tensor(leaf)
+    want = {(k, p) for k, v in flat.items() if k.startswith("segments.")
+            for p in range(np.shape(v)[0])}
+    want |= {(k, None) for k in flat if not k.startswith("segments.")}
+    if used != want:
+        raise ValueError(f"{cfg.name}: JAX leaves unused "
+                         f"{sorted(map(str, want - used))[:8]}, missing "
+                         f"{sorted(map(str, used - want))[:8]}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def caches_from_jax(caches: Dict[str, Any], cfg: ArchConfig,
+                    device="cpu") -> List[Dict[str, torch.Tensor]]:
+    """The port's per-layer fixed-batch caches from the JAX ones (numpy
+    leaves stacked (n_periods, ...) under ``seg{s}/pos{i}``). The JAX dense
+    K/V caches hold exactly ``seq`` rows; the port's are padded to a
+    multiple of ``attention.DENSE_PAGE`` with zeros."""
+    out = []
+    for s, i, p in cfg.layer_slots():
+        layer = {}
+        for k, v in caches[f"seg{s}"][f"pos{i}"].items():
+            t = torch.tensor(np.asarray(v)[p], device=device)
+            if k in ("k", "v"):
+                pad = -t.shape[1] % DENSE_PAGE
+                t = F.pad(t, (0, 0, 0, 0, 0, pad))
+            layer[k] = t
+        out.append(layer)
+    return out

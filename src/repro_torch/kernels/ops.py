@@ -16,9 +16,12 @@ from repro_torch.kernels.flash_attention import (
     FlashAttention, attn_core, flash_attention_bwd_kernel,
     flash_attention_kernel, paged_attention_kernel, paged_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                selective_scan_plain)
 
 KERNELS = (rmsnorm_kernel, paged_attention_kernel, block_matmul_kernel,
-           flash_attention_kernel, flash_attention_bwd_kernel)
+           flash_attention_kernel, flash_attention_bwd_kernel,
+           selective_scan_kernel)
 
 
 def reset_launches() -> None:
@@ -69,3 +72,11 @@ def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,
     q_pos (R, T) int32, q_len (R,) int32 -> (R, T, nq, hd)."""
     fn = paged_attention_plain if _plain(q, plain) else paged_attention_kernel
     return fn(q, k_pages, v_pages, table, q_pos, q_len, window=window)
+
+
+def selective_scan(x, dt, A, B, C, s0=None, *, plain: bool = False):
+    """The Mamba selective scan (K6): x, dt (Bt, T, d), A (d, N), B, C
+    (Bt, T, N), initial state s0 (Bt, d, N) fp32 or None (zeros) -> (y
+    (Bt, T, d) in x's dtype, final state (Bt, d, N) fp32)."""
+    fn = selective_scan_plain if _plain(x, plain) else selective_scan_kernel
+    return fn(x, dt, A, B, C, s0)

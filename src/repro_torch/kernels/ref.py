@@ -8,3 +8,5 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
     paged_attention_plain as flash_attention_paged_ref)
 from repro_torch.kernels.rmsnorm import (  # noqa: F401
     rmsnorm_plain as rmsnorm_ref)
+from repro_torch.kernels.selective_scan import (  # noqa: F401
+    selective_scan_plain as selective_scan_ref)

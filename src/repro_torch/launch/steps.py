@@ -1,9 +1,10 @@
-"""Model init, the train step and the paged serving step (port of
+"""Model init, the train step and the serving steps (port of
 ``repro.launch.steps``).
 
 PyTorch runs eagerly, so where the JAX package builds a jitted,
-shard_map'ped step, ``make_train_step`` and ``make_paged_step`` only bind
-the configuration and return the step.
+shard_map'ped step, ``make_train_step``, ``make_paged_step``,
+``make_prefill_step`` and ``make_decode_step`` only bind the configuration
+and return the step.
 """
 from __future__ import annotations
 
@@ -165,8 +166,51 @@ def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,
     return build
 
 
+def make_prefill_step(cfg: ArchConfig, axes: M.MeshAxes, *,
+                      dtype=torch.float32):
+    """``build(batch, seq, cache_seq)`` returns ``(step, cache_specs)``:
+    step(model, caches, tokens) -> (last-row logits (batch, 1, V), caches),
+    the prefill of ``batch`` prompts of ``seq`` tokens into fixed-batch
+    caches of ``cache_seq`` positions, and the (shape, dtype) of those
+    caches (:func:`decoder.decoder_cache_specs`)."""
+    def build(batch: int, seq: int, cache_seq: int):
+        if seq > cache_seq:
+            raise ValueError(f"prompt of {seq} tokens exceeds the cache's "
+                             f"{cache_seq} positions")
+
+        def step(model, caches, tokens, plain: bool = False):
+            return D.prefill(model, tokens, caches, plain=plain)
+        return step, D.decoder_cache_specs(cfg, axes, batch, cache_seq,
+                                           dtype=dtype)
+    return build
+
+
+def make_decode_step(cfg: ArchConfig, axes: M.MeshAxes, *,
+                     dtype=torch.float32):
+    """``build(batch, seq)`` returns ``(step, cache_specs)``: step(model,
+    caches, tokens, pos) -> (logits (batch, 1, V), caches), one greedy
+    decode step of the ``batch`` sequences at position ``pos``, and the
+    (shape, dtype) of the caches of ``seq`` positions it reads and
+    writes."""
+    def build(batch: int, seq: int):
+        def step(model, caches, tokens, pos, plain: bool = False):
+            return D.decode_step(model, tokens, caches, pos, plain=plain)
+        return step, D.decoder_cache_specs(cfg, axes, batch, seq,
+                                           dtype=dtype)
+    return build
+
+
 def zeros_caches(cache_specs, device="cuda"):
-    """Zero-filled caches from a {name: (shape, dtype)} spec."""
+    """Zero-filled caches from a spec: a (shape, dtype) leaf, or a dict or
+    list of specs (the paged pools are {name: (shape, dtype)}, the
+    fixed-batch caches a list of such dicts, one per layer)."""
     dev = resolve_device(device)
-    return {name: torch.zeros(shape, dtype=dt, device=dev)
-            for name, (shape, dt) in cache_specs.items()}
+
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [make(v) for v in spec]
+        shape, dt = spec
+        return torch.zeros(shape, dtype=dt, device=dev)
+    return make(cache_specs)

@@ -2,14 +2,20 @@
 ``repro.layers.attention``).
 
 Heads shard over y (a paper "normal" layer for q/k/v) and the output
-projection is a "transposed" layer (§4.1). Two modes are ported:
+projection is a "transposed" layer (§4.1). Four modes are ported:
 
   * ``"train"``: causal (optionally sliding-window) attention over each
     whole sequence, kernel K2 forward and backward;
   * ``"paged"``: continuous-batching serving; rows are per-slot prefill
     chunks or single decode tokens at per-slot global positions, against a
     physical KV page pool (P, page, nkv, hd) per layer that each slot
-    reaches through its page table, kernel K5.
+    reaches through its page table, kernel K5;
+  * ``"prefill"`` and ``"decode"``: fixed-batch serving over a dense cache
+    (B, S, nkv, hd). Prefill is K2's forward over the prompt and writes its
+    K/V at rows 0..T-1; decode writes row ``pos`` and attends to keys
+    0..pos through K5, the contiguous cache seen as pages of
+    ``DENSE_PAGE`` rows (S is rounded up to a multiple of it; rows past
+    ``pos`` are masked, so the extra rows change nothing).
 
 qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
 ``attn_core`` (and ``attn_core_chunked``, the same function, with its
@@ -25,6 +31,9 @@ from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
 from repro_torch.kernels import ops
 from repro_torch.layers.rotary import apply_rope
+
+# rows of the dense decode cache per K5 page: one lane per key
+DENSE_PAGE = 32
 
 
 def _plain_rms(x, gamma, axes: M.MeshAxes, eps: float = 1e-6, *,
@@ -80,7 +89,10 @@ class Attention(nn.Module):
         {"k", "v"} (P, page, nkv, hd) and ``paged`` holds {"table": (R,
         n_pages) int32, "q_len": (R,) int32}; the rows' K/V are written
         into the pools in place (the JAX step returns new pools; updating
-        in place saves a copy of every pool per step)."""
+        in place saves a copy of every pool per step). ``mode="prefill"``
+        and ``"decode"``: ``cache`` holds this layer's dense {"k", "v"}
+        (B, S, nkv, hd), written in place; decode takes one row per
+        sequence, all at the same position."""
         cfg, axes = self.cfg, self.axes
         hd = cfg.head_dim_
         R, T = h.shape[:2]
@@ -102,11 +114,15 @@ class Attention(nn.Module):
                                       window=cfg.sliding_window, plain=plain)
         elif mode == "paged":
             out = self._paged(q, k, v, positions, cache, paged, plain)
+        elif mode == "prefill":
+            out = ops.flash_attention(q, k, v, causal=True,
+                                      window=cfg.sliding_window, plain=plain)
+            cache["k"][:, :T] = k.to(cache["k"].dtype)
+            cache["v"][:, :T] = v.to(cache["v"].dtype)
+        elif mode == "decode":
+            out = self._decode(q, k, v, positions, cache, plain)
         else:
-            raise NotImplementedError(
-                f"attention mode {mode!r} is not ported to PyTorch yet: "
-                f"'prefill' and 'decode' wait for the ROADMAP.md §1 item "
-                f"'--mode fixed serving'")
+            raise ValueError(f"attention mode {mode!r}")
         return PP.tp_matmul(out.reshape(R, T, self.nq_l * hd), self.wo,
                             axes, "y", "x", plain=plain)
 
@@ -130,6 +146,42 @@ class Attention(nn.Module):
         return ops.flash_attention_paged(q, kp, vp, table, positions, q_len,
                                          window=self.cfg.sliding_window,
                                          plain=plain)
+
+    def _decode(self, q, k, v, positions, cache, plain):
+        kc, vc = cache["k"], cache["v"]
+        pos = positions[:1, 0].long()     # uniform across the batch, as JAX
+        kc.index_copy_(1, pos, k.to(kc.dtype))
+        vc.index_copy_(1, pos, v.to(vc.dtype))
+        kp, table = dense_page_view(kc)
+        vp, _ = dense_page_view(vc)
+        q_len = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
+        return ops.flash_attention_paged(
+            q, kp, vp, table, positions.to(torch.int32).contiguous(), q_len,
+            window=self.cfg.sliding_window, plain=plain)
+
+
+def dense_page_view(cache):
+    """A dense cache (B, S, nkv, hd), S a multiple of ``DENSE_PAGE``, seen
+    as K5's page pool (B·S/DENSE_PAGE, DENSE_PAGE, nkv, hd) with no copy,
+    and the (B, S/DENSE_PAGE) int32 table that gives row b its own pages in
+    order."""
+    B, S, nkv, hd = cache.shape
+    n = S // DENSE_PAGE
+    idx = torch.arange(n, dtype=torch.int32, device=cache.device)
+    table = idx[None, :] + n * torch.arange(B, dtype=torch.int32,
+                                            device=cache.device)[:, None]
+    return cache.view(B * n, DENSE_PAGE, nkv, hd), table
+
+
+def attn_cache_spec(cfg, axes: M.MeshAxes, batch: int, seq: int, *,
+                    dtype=torch.float32):
+    """(shape, dtype) of this layer's dense K and V caches: (batch, S, kv
+    heads, head_dim), S = ``seq`` rounded up to a multiple of
+    ``DENSE_PAGE``."""
+    _, nkv_l = kv_layout(cfg, axes)
+    S = -(-seq // DENSE_PAGE) * DENSE_PAGE
+    shape = (batch, S, nkv_l, cfg.head_dim_)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
 def paged_attn_cache_spec(cfg, axes: M.MeshAxes, n_pages: int,

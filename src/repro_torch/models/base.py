@@ -1,20 +1,46 @@
 """Architecture configuration (the port's copy of ``repro.models.base``).
 
-Only the fields and methods the ported serving slice reads are kept: the
-dense, all-attention, RMSNorm, gated-SiLU, tied-embedding decoder. The
+Only the fields and methods the ported slices read are kept: dense
+all-attention decoders and Jamba's hybrid Mamba/attention decoder, with
+RMSNorm, gated SiLU and a tied or untied LM head. The
 communication-model fields and methods of the JAX ``ArchConfig`` are not
-carried over; ``__post_init__`` rejects what the slice cannot run.
+carried over; ``__post_init__`` rejects what the slices cannot run. A
+configuration with MoE FFNs can be made (so that the registry holds the
+published Jamba), but the model refuses to be built from it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+    z_loss_coef: float = 1e-3
+    score_fn: str = "softmax"        # "softmax" | "sigmoid" (dsv3)
+    routed_scale: float = 1.0
+    first_dense: int = 0             # leading dense layers
+    period: int = 1                  # MoE every `period` layers (jamba: 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 -> ceil(d_model / 16)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                   # only "dense" is ported
+    arch_type: str                   # "dense" or "hybrid" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,22 +56,25 @@ class ArchConfig:
     rope_theta: float = 10000.0
     rotary_pct: float = 1.0
     tie_embeddings: bool = False
+    max_seq: int = 131072
+    moe: Optional[MoECfg] = None
+    mamba: Optional[MambaCfg] = None
+    mixer_pattern: Tuple[str, ...] = ()   # per-layer mixer kinds (or period)
+    ffn_pattern: Tuple[str, ...] = ()     # explicit per-layer ffn kinds
     source: str = ""                 # citation
 
     def __post_init__(self):
         unsupported = []
-        if self.arch_type != "dense":
+        if self.arch_type not in ("dense", "hybrid"):
             unsupported.append(f"arch_type {self.arch_type!r}")
         if self.norm != "rmsnorm":
             unsupported.append(f"norm {self.norm!r}")
         if self.act != "silu" or not self.gated_mlp:
             unsupported.append("an MLP other than gated SiLU")
-        if not self.tie_embeddings:
-            unsupported.append("an untied LM head")
         if unsupported:
             raise NotImplementedError(
-                f"{self.name}: the PyTorch port serves dense decoders with "
-                f"RMSNorm, gated SiLU and tied embeddings only (got "
+                f"{self.name}: the PyTorch port serves dense and hybrid "
+                f"decoders with RMSNorm and gated SiLU only (got "
                 f"{', '.join(unsupported)}); they wait for the ROADMAP.md §1 "
                 f"item 'dense config variants'")
         if self.n_heads % self.n_kv_heads:
@@ -63,27 +92,129 @@ class ArchConfig:
         in the serving argmax)."""
         return -(-self.vocab_size // 512) * 512
 
+    @property
+    def dt_rank(self) -> int:
+        """The Mamba mixer's dt rank (``mamba.dt_rank`` or ceil(d / 16))."""
+        return self.mamba.dt_rank or -(-self.d_model // 16)
+
     def mixers(self) -> Tuple[str, ...]:
+        """Per-layer mixer kind, length n_layers."""
+        if self.mixer_pattern:
+            p = self.mixer_pattern
+            if self.n_layers % len(p):
+                raise ValueError("mixer_pattern must divide n_layers")
+            return tuple(p) * (self.n_layers // len(p))
         return ("attn",) * self.n_layers
 
+    def ffns(self) -> Tuple[str, ...]:
+        """Per-layer FFN kind ('mlp' | 'moe'), length n_layers."""
+        if self.ffn_pattern:
+            p = self.ffn_pattern
+            if self.n_layers % len(p):
+                raise ValueError("ffn_pattern must divide n_layers")
+            return tuple(p) * (self.n_layers // len(p))
+        out = []
+        for i in range(self.n_layers):
+            if (self.moe is not None and i >= self.moe.first_dense
+                    and (i - self.moe.first_dense) % self.moe.period == 0):
+                out.append("moe")
+            else:
+                out.append("mlp")
+        return tuple(out)
+
     def layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
-        return tuple((m, "mlp") for m in self.mixers())
+        return tuple(zip(self.mixers(), self.ffns()))
+
+    def scan_period(self) -> int:
+        """Smallest repeating period of layer kinds (for stacked scan)."""
+        kinds = self.layer_kinds()
+        for p in range(1, self.n_layers + 1):
+            if self.n_layers % p:
+                continue
+            if kinds == kinds[:p] * (self.n_layers // p):
+                return p
+        return self.n_layers
 
     def segments(self) -> Tuple[Tuple[Tuple[Tuple[str, str], ...], int], ...]:
-        """The JAX package's (period_kinds, n_periods) runs. A dense
-        decoder is one segment of period 1, which is how its parameter
-        tree is stacked (``segments/seg0/pos0/...``)."""
-        return ((self.layer_kinds()[:1], self.n_layers),)
+        """The JAX package's greedy segmentation of layer_kinds() into
+        (period_kinds, n_periods) runs; its parameter tree is stacked this
+        way (``segments/seg{s}/pos{i}/...``, (n_periods, ...) leaves)."""
+        kinds = self.layer_kinds()
+        n = len(kinds)
+        segs = []
+        i = 0
+        while i < n:
+            best = (1, 1)
+            for p in range(1, min(8, n - i) + 1):
+                pat = kinds[i:i + p]
+                r = 1
+                while kinds[i + r * p: i + (r + 1) * p] == pat:
+                    r += 1
+                if (p * r > best[0] * best[1]
+                        or (p * r == best[0] * best[1] and p < best[0])):
+                    best = (p, r)
+            p, r = best
+            segs.append((kinds[i:i + p], r))
+            i += p * r
+        return tuple(segs)
+
+    def layer_slots(self) -> Tuple[Tuple[int, int, int], ...]:
+        """(segment s, position i, period p) of each layer: layer l is
+        entry p of the stacked leaves under ``segments/seg{s}/pos{i}``."""
+        out = []
+        for s, (kinds, n_periods) in enumerate(self.segments()):
+            for p in range(n_periods):
+                out.extend((s, i, p) for i in range(len(kinds)))
+        return tuple(out)
+
+    def param_count(self) -> int:
+        """Parameter count of the unpadded model, as the JAX
+        ``param_count`` computes it (attention, Mamba, MLP and MoE
+        layers)."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.head_dim_
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for mixer, ffn in self.layer_kinds():
+            if mixer == "attn":
+                total += d * (self.n_heads + 2 * self.n_kv_heads) * hd
+                total += self.n_heads * hd * d
+            elif mixer == "mamba":
+                di = self.mamba.expand * d
+                dtr = self.dt_rank
+                total += d * 2 * di + di * (dtr + 2 * self.mamba.d_state)
+                total += dtr * di + di * d
+            if ffn == "mlp":
+                total += 3 * d * self.d_ff
+            elif ffn == "moe":
+                mc = self.moe
+                per = 3 * d * mc.d_expert
+                total += (mc.n_experts * per + mc.n_shared * per
+                          + d * mc.n_experts)
+        return total
 
     def reduced(self) -> "ArchConfig":
-        """The JAX package's 2-layer, d_model <= 256 smoke variant."""
+        """The JAX package's smoke variant: d_model <= 256, at most 4
+        heads, one period of layer kinds (2 layers for a dense decoder, 8
+        for Jamba), <= 4 experts."""
+        n_layers = max(2, self.scan_period())
+        if n_layers > 8:
+            n_layers = 2
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4)
         kw = dict(
-            name=self.name + "-smoke", n_layers=2, d_model=d,
+            name=self.name + "-smoke", n_layers=n_layers, d_model=d,
             n_heads=heads, n_kv_heads=min(self.n_kv_heads, heads),
             head_dim=d // heads, d_ff=min(self.d_ff, 512),
-            vocab_size=min(self.vocab_size, 512))
+            vocab_size=min(self.vocab_size, 512), max_seq=512)
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                d_expert=128, n_shared=min(self.moe.n_shared, 1),
+                first_dense=min(self.moe.first_dense, 1)
+                if n_layers > 1 else 0)
+        if self.mixer_pattern:
+            kw["mixer_pattern"] = tuple(
+                m for m, _ in self.layer_kinds())[:n_layers]
         if self.sliding_window:
             kw["sliding_window"] = 64
         return dataclasses.replace(self, **kw)

@@ -1,11 +1,13 @@
-"""Decoder-only LM, training and paged serving paths (port of
-``repro.models.decoder``).
+"""Decoder-only LM: the training path, paged serving and fixed-batch
+serving (port of ``repro.models.decoder``).
 
-The JAX package scans over layers stacked (n_periods, ...); here the
-layers are an ``nn.ModuleList`` and the scan is a Python loop. Parameter
-names follow the JAX tree with the stacking undone: ``embed``,
-``layers.<i>.norm1.g``, ``layers.<i>.mixer.wq``, ..., ``final_norm.g``
-(``convert`` maps one onto the other).
+The JAX package scans over layers stacked (n_periods, ...) per segment
+position; here the layers are an ``nn.ModuleList`` and the scan is a Python
+loop. Each layer's (mixer, ffn) kind comes from ``cfg.layer_kinds()``:
+softmax attention or Mamba, and the gated MLP. Parameter names follow the
+JAX tree with the stacking undone: ``embed``, ``layers.<i>.norm1.g``,
+``layers.<i>.mixer.wq``, ..., ``final_norm.g``, ``lm_head`` when the head
+is untied (``convert`` maps one onto the other).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
 from repro_torch.layers import attention as A
+from repro_torch.layers.mamba import Mamba, mamba_state_spec
 from repro_torch.layers.mlp import MLP
 from repro_torch.models.base import ArchConfig
 
@@ -35,27 +38,50 @@ class RMSNorm(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block (``_block_apply``, attn + mlp)."""
+    """Pre-norm mixer + MLP block (``_block_apply``): the mixer is softmax
+    attention or Mamba, as ``kinds`` = (mixer, ffn) says."""
 
-    def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, *,
+    def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, kinds, *,
                  gen: torch.Generator, dtype=torch.float32):
         super().__init__()
+        mixer, ffn = kinds
+        if ffn != "mlp":
+            raise NotImplementedError(
+                f"{cfg.name}: a {ffn!r} FFN is not ported to PyTorch yet: it "
+                f"waits for the ROADMAP.md §1 item 'MoE and the expert "
+                f"axis' (jamba-v0.1-52b-dense-ffn replaces Jamba's experts "
+                f"with the dense MLP)")
         dev = gen.device
+        self.kind = mixer
         self.norm1 = RMSNorm(cfg, axes, device=dev, dtype=dtype)
-        self.mixer = A.Attention(cfg, axes, gen=gen, dtype=dtype)
+        if mixer == "attn":
+            self.mixer = A.Attention(cfg, axes, gen=gen, dtype=dtype)
+        elif mixer == "mamba":
+            self.mixer = Mamba(cfg, axes, gen=gen, dtype=dtype)
+        else:
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {mixer!r} is not ported to PyTorch yet: "
+                f"it waits for the ROADMAP.md §1 item 'other mixers and "
+                f"architectures'")
         self.norm2 = RMSNorm(cfg, axes, device=dev, dtype=dtype)
         self.ffn = MLP(cfg.d_model, cfg.d_ff, axes, gen=gen, dtype=dtype)
 
     def forward(self, h, *, positions, mode: str, cache=None, paged=None,
                 plain: bool = False):
-        h = h + self.mixer(self.norm1(h, plain=plain), positions=positions,
-                           mode=mode, cache=cache, paged=paged, plain=plain)
+        hn = self.norm1(h, plain=plain)
+        if self.kind == "mamba":
+            o = self.mixer(hn, mode=mode, state=cache, plain=plain)
+        else:
+            o = self.mixer(hn, positions=positions, mode=mode, cache=cache,
+                           paged=paged, plain=plain)
+        h = h + o
         return h + self.ffn(self.norm2(h, plain=plain), plain=plain)
 
 
 class Decoder(nn.Module):
-    """``decoder_init``'s dense text path: embedding, blocks, final norm;
-    the LM head is the tied embedding."""
+    """``decoder_init``'s text path: embedding, blocks, final norm, and the
+    LM head: the tied embedding, or an untied ``lm_head`` (d, V) drawn
+    from N(0, 0.02^2)."""
 
     def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, *,
                  gen: torch.Generator, dtype=torch.float32):
@@ -64,9 +90,13 @@ class Decoder(nn.Module):
         self.embed = nn.Parameter(PP.embedding_init(
             gen, cfg.padded_vocab, cfg.d_model, axes, dtype=dtype))
         self.layers = nn.ModuleList(
-            Block(cfg, axes, gen=gen, dtype=dtype)
-            for _ in range(cfg.n_layers))
+            Block(cfg, axes, kinds, gen=gen, dtype=dtype)
+            for kinds in cfg.layer_kinds())
         self.final_norm = RMSNorm(cfg, axes, device=gen.device, dtype=dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(PP.tp_linear_init(
+                gen, cfg.d_model, cfg.padded_vocab, axes, scale=0.02,
+                dtype=dtype))
 
     def hidden(self, tokens, *, mode: str = "train", positions=None,
                pools=None, paged=None, remat: bool = True,
@@ -78,7 +108,9 @@ class Decoder(nn.Module):
         each block is rematerialized in the backward
         (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of policy
         "full"). ``mode="paged"``: writes each layer's K/V into ``pools``
-        (see :func:`decoder_paged_cache_specs`)."""
+        (see :func:`decoder_paged_cache_specs`). ``mode="prefill"`` and
+        ``"decode"``: ``pools`` is the list of per-layer caches of
+        :func:`decoder_cache_specs`, updated in place."""
         if mode == "train" and remat and remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy {remat_policy!r} is not ported to PyTorch "
@@ -94,6 +126,8 @@ class Decoder(nn.Module):
                       plain=plain)
             if mode == "paged":
                 kw["cache"] = {"k": pools["k"][i], "v": pools["v"][i]}
+            elif mode in ("prefill", "decode"):
+                kw["cache"] = pools[i]
             if mode == "train" and remat:
                 h = checkpoint(blk, h, use_reentrant=False, **kw)
             else:
@@ -102,8 +136,11 @@ class Decoder(nn.Module):
 
 
 def lm_logits(model: Decoder, h, *, plain: bool = False):
-    """(..., d/x) -> (..., V/y) logits through the tied embedding."""
-    return PP.tied_lm_logits(h, model.embed, model.axes, plain=plain)
+    """(..., d/x) -> (..., V/y) logits through the tied embedding or the
+    untied head."""
+    if model.cfg.tie_embeddings:
+        return PP.tied_lm_logits(h, model.embed, model.axes, plain=plain)
+    return PP.tp_matmul(h, model.lm_head, model.axes, "x", "y", plain=plain)
 
 
 def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
@@ -194,3 +231,52 @@ def paged_step(model: Decoder, tokens, pools, positions, q_len, table, *,
     idx = torch.clamp(q_len.long() - 1, 0, tokens.shape[1] - 1)
     hl = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[-1]))
     return lm_logits(model, hl, plain=plain), pools
+
+
+# ---------------------------------------------------------------------- #
+# fixed-batch serving: dense caches, prefill, decode step
+# ---------------------------------------------------------------------- #
+
+def decoder_cache_specs(cfg: ArchConfig, axes: M.MeshAxes, batch: int,
+                        seq: int, *, dtype=torch.float32):
+    """(shape, dtype) of the fixed-batch decode cache, one dict per layer
+    (the JAX tree stacks them (n_periods, ...) per segment position;
+    ``convert.caches_from_jax`` maps one onto the other): an attention
+    layer's dense K and V (batch, S, kv heads, head_dim), S = ``seq``
+    rounded up to a multiple of ``attention.DENSE_PAGE``; a Mamba layer's
+    conv and scan states."""
+    out = []
+    for mixer in cfg.mixers():
+        if mixer == "attn":
+            out.append(A.attn_cache_spec(cfg, axes, batch, seq, dtype=dtype))
+        elif mixer == "mamba":
+            out.append(mamba_state_spec(cfg, axes, batch, dtype=dtype))
+        else:
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {mixer!r} is not ported to PyTorch yet: "
+                f"it waits for the ROADMAP.md §1 item 'other mixers and "
+                f"architectures'")
+    return out
+
+
+@torch.inference_mode()
+def prefill(model: Decoder, tokens, caches, *, plain: bool = False):
+    """Fill the caches from prompts tokens (B, T) at positions 0..T-1;
+    returns (the last row's logits (B, 1, V/y), caches), the caches
+    updated in place."""
+    h = model.hidden(tokens, mode="prefill", pools=caches, plain=plain)
+    return lm_logits(model, h[:, -1:], plain=plain), caches
+
+
+@torch.inference_mode()
+def decode_step(model: Decoder, tokens, caches, pos, *,
+                plain: bool = False):
+    """One serving step: tokens (B, 1) at absolute position ``pos`` (the
+    same for every sequence, an int or a 0-d tensor). Returns (logits (B,
+    1, V/y), caches), the caches updated in place."""
+    B = tokens.shape[0]
+    positions = torch.as_tensor(pos, dtype=torch.int32,
+                                device=tokens.device).expand(B, 1)
+    h = model.hidden(tokens, mode="decode", positions=positions,
+                     pools=caches, plain=plain)
+    return lm_logits(model, h, plain=plain), caches

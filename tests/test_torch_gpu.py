@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_attention import (attn_core,
                                                  paged_attention_kernel,
                                                  paged_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                selective_scan_plain)
 from repro_torch.launch import steps as ST
 
 pytestmark = pytest.mark.gpu
@@ -85,6 +87,26 @@ def test_paged_attention_kernel_chunks_are_bitwise(cuda):
                                       q_pos[:, c0:c1].contiguous(), ql)
         rows = torch.arange(c1 - c0, device=cuda)[None] < ql[:, None]
         assert torch.equal(part[rows], full[:, c0:c1][rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_over_the_dense_cache(cuda, dtype):
+    """K5 as fixed-batch decode runs it: a dense cache seen as pages of
+    DENSE_PAGE rows, one query row per sequence at its own position."""
+    from repro_torch.layers.attention import DENSE_PAGE, dense_page_view
+    rng = np.random.RandomState(2)
+    B, nq, nkv, hd, S = 3, 8, 2, 128, 3 * DENSE_PAGE
+    q, kc, vc = (torch.from_numpy(rng.randn(*shape)).to(cuda, dtype)
+                 for shape in ((B, 1, nq, hd), (B, S, nkv, hd),
+                               (B, S, nkv, hd)))
+    (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
+    q_pos = torch.tensor([[0], [DENSE_PAGE], [S - 1]], dtype=torch.int32,
+                         device=cuda)
+    q_len = torch.ones((B,), dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        paged_attention_kernel(q, kp, vp, table, q_pos, q_len),
+        paged_attention_plain(q, kp, vp, table, q_pos, q_len),
+        rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def test_paged_attention_kernel_refuses_unsupported_shapes(cuda):
@@ -218,3 +240,77 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     again, _ = flash_attention_kernel(q.detach(), k.detach(), v.detach(),
                                       **kw)
     assert torch.equal(again, got.detach())
+
+
+# ---------------------------------------------------------------------- #
+# K6 selective scan, and fixed-batch serving of the hybrid decoder
+# ---------------------------------------------------------------------- #
+
+def _scan(cuda, Bt, T, d, N, dtype, seed=0, with_s0=True):
+    """K6 inputs as the Mamba layer makes them: B and C column views of
+    one (Bt, T, 5 + 2N) projection output, dt fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    x = rand(Bt, T, d).to(dtype)
+    dt = torch.nn.functional.softplus(rand(Bt, T, d)) * 0.1
+    A = -torch.exp(0.5 * rand(d, N))
+    xdbc = rand(Bt, T, 5 + 2 * N).to(dtype)
+    s0 = 0.5 * rand(Bt, d, N) if with_s0 else None
+    return x, dt, A, xdbc[..., 5:5 + N], xdbc[..., 5 + N:], s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,T,d,N,with_s0", [
+    (2, 128, 256, 16, False), (1, 77, 100, 16, True), (4, 1, 384, 16, True),
+    (3, 40, 130, 16, True)])
+def test_selective_scan_kernel_matches_plain(cuda, Bt, T, d, N, with_s0,
+                                             dtype):
+    """y and the final state against the sequential plain version; the
+    kernel run twice gives the same bits."""
+    args = _scan(cuda, Bt, T, d, N, dtype, with_s0=with_s0)
+    n = selective_scan_kernel.launches
+    y, s = ops.selective_scan(*args[:5], args[5])
+    assert selective_scan_kernel.launches == n + 1
+    wy, ws = selective_scan_plain(*args[:5], args[5])
+    assert y.dtype == dtype and s.dtype == torch.float32
+    torch.testing.assert_close(y, wy, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
+    y2, s2 = selective_scan_kernel(*args[:5], args[5])
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_selective_scan_kernel_refuses_unsupported_inputs(cuda):
+    x, dt, A, B, C, s0 = _scan(cuda, 1, 4, 64, 16, torch.float32)
+    with pytest.raises(TypeError, match="float32 dt"):
+        selective_scan_kernel(x, dt.to(torch.bfloat16), A, B, C, s0)
+    with pytest.raises(ValueError, match="d_state in"):
+        selective_scan_kernel(x, dt, A[:, :4], B[..., :4], C[..., :4])
+
+
+def test_fixed_serving_kernels_match_plain(cuda):
+    """Jamba (dense FFN, reduced): prefill and 3 decode steps through the
+    kernels (K1, K2, K3, K5, K6) against the plain versions."""
+    cfg = get_config("jamba-v0.1-52b-dense-ffn").reduced()
+    model = ST.init_model(cfg, seed=0, device=cuda)
+    B, T, GEN = 2, 40, 4
+    pre, ct = ST.make_prefill_step(cfg, model.axes)(B, T, T + GEN)
+    dec, _ = ST.make_decode_step(cfg, model.axes)(B, T + GEN)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int32).to(cuda)
+    caches = {p: ST.zeros_caches(ct, cuda) for p in (False, True)}
+    before = ops.launches()
+    out = {p: pre(model, caches[p], tokens, plain=p)[0] for p in caches}
+    for i in range(GEN - 1):
+        torch.testing.assert_close(out[False], out[True], rtol=1e-4,
+                                   atol=1e-4)
+        tok = out[True][:, -1].argmax(-1)[:, None].to(torch.int32)
+        out = {p: dec(model, caches[p], tok, T + i, plain=p)[0]
+               for p in caches}
+    torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)
+    after = ops.launches()
+    assert after["selective_scan"] - before["selective_scan"] == 7 * GEN
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["paged_attention"] - before["paged_attention"] == GEN - 1

@@ -309,7 +309,8 @@ def test_decay_set_matches_jax(models):
                  if not JOPT._no_decay(path)}
     model = convert.params_from_jax(tree, tcfg, "cpu")
     exempt = ST.no_decay_names(model)
-    port_decay = {convert.jax_path(n) for n, _ in model.named_parameters()
+    port_decay = {convert.jax_path(n, model.cfg)
+                  for n, _ in model.named_parameters()
                   if n not in exempt}
     assert port_decay == jax_decay == {"embed"}
 
