@@ -45,7 +45,17 @@ a hard failure:
      --mode fixed`` (batch 4, prompt 512, 32 new tokens), each kernel's
      launch count the expected count per prefill and per decode step
      times those run, and a profile of a prefill and 8 decode steps;
- 10. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 10. context-parallel training (Jamba freed first): K4, partial flash
+     attention, forward and backward against its plain version and the
+     plain chain's autograd at the seq path's shape (a chain over 2
+     striped blocks, causal and windowed, f32 and bf16; a row the second
+     block fully masks keeps its carry bit for bit; two runs give the same
+     bits), K4's times; then ``launch/train.py --mesh 1,1,1,1,2`` as two
+     gloo ranks sharing the card under ``torch.distributed.run`` (qwen3-1.7b
+     at full width and depth, the flags, seed and data of phase 8): losses
+     within 1e-3 of phase 8's, both ranks' parameters bitwise equal, each
+     kernel's launches per rank exactly the code's per microbatch;
+ 11. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -55,6 +65,8 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -128,6 +140,18 @@ ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
                   (2, 200, 320, 16, 8, 128, False, 0, 300),
               "Jamba prefill (B 4, T 512, 32/8 heads, hd 128, causal)":
                   (4, 512, 512, 32, 8, 128, True, 0, 0)}
+# context parallelism: the seq axis, and K4 at its path's shape, per rank
+# and microbatch (B 2, C = 512 / p queries, p gathered blocks of C keys,
+# 16/8 heads, hd 128), causal and with a window
+SEQ_P = 2
+PARTIAL_MAIN = (2, 512 // SEQ_P, 16, 8, 128, SEQ_P)
+PARTIAL_WINDOWS = (0, 128)
+SEQ_FLAGS = TRAIN_FLAGS + ["--mesh", f"1,1,1,1,{SEQ_P}", "--backend", "gloo"]
+SEQ_TIMEOUT_S = 600
+# the seq run's losses against phase 8's, absolute: the reference holds
+# seq-parallel against unsharded training to the same 1e-3
+# (tests/test_ring_attention.py::test_train_loss_parity_seq_vs_unsharded)
+SEQ_LOSS_TOL = 1e-3
 # K5 over the dense decode cache of Jamba's attention layers: (batch, nq,
 # nkv, hd) and each row's keys after the step (prompt 512 + up to 32 new)
 DENSE_DECODE = (4, 32, 8, 128)
@@ -356,7 +380,8 @@ def phase_kernels(gen):
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
     errs = dict.fromkeys(("rmsnorm", "paged_attention", "block_matmul",
                           "flash_attention", "flash_attention_bwd",
-                          "selective_scan"), 0.0)
+                          "selective_scan", "partial_attention",
+                          "partial_attention_bwd"), 0.0)
     log("[kernels] K3 rmsnorm vs plain")
     R, T, nq = 8, 32, 16
     for dtype in (torch.float32, torch.bfloat16):
@@ -578,7 +603,8 @@ def phase_serve(model, cfg, smi):
     # head; attention over the pages. No K2: the engine is paged only
     per_step = {"paged_attention": L, "rmsnorm": 4 * L + 1,
                 "block_matmul": 7 * L + 1, "flash_attention": 0,
-                "flash_attention_bwd": 0, "selective_scan": 0}
+                "flash_attention_bwd": 0, "selective_scan": 0,
+                "partial_attention": 0, "partial_attention_bwd": 0}
     check_launches(launches, per_step, stats.n_steps, "step")
     log(f"  served {stats.n_requests} requests / {stats.total_new_tokens} "
         f"tokens in {stats.wall_s:.3f}s ({stats.n_steps} steps, "
@@ -886,7 +912,8 @@ def phase_train(cfg, smi):
     # L; K3 = 4L + 1 forward (norm1, norm2, q/k-norm; final) + 4L recompute
     per_mb = {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
               "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
-              "paged_attention": 0, "selective_scan": 0}
+              "paged_attention": 0, "selective_scan": 0,
+              "partial_attention": 0, "partial_attention_bwd": 0}
     args = train.build_parser().parse_args(TRAIN_FLAGS)
     check_launches(launches, per_mb, args.steps * args.overdecompose,
                    "microbatch")
@@ -901,7 +928,7 @@ def phase_train(cfg, smi):
         f"{100 * share:.2f}% of the 67 TFLOP/s float32 peak, "
         f"max_memory_allocated {res.max_memory_bytes / 2**30:.2f} GiB on "
         f"{smi}")
-    return launches
+    return launches, res.losses
 
 
 def phase_train_profile(cfg):
@@ -959,7 +986,8 @@ def fixed_launches(cfg, prefills, decodes):
             "selective_scan": fwd * n_mamba,
             "flash_attention": prefills * n_attn,
             "paged_attention": decodes * n_attn,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "partial_attention": 0,
+            "partial_attention_bwd": 0}
 
 
 def phase_fixed_parity(model, cfg):
@@ -1081,6 +1109,243 @@ def phase_fixed_profile(model, cfg):
         log_split(kernels, total, 12)
 
 
+# ---------------------------------------------------------------------- #
+# context parallelism: K4 and two seq-ranks on the card
+# ---------------------------------------------------------------------- #
+
+def partial_inputs(gen, dtype):
+    B, C, nq, nkv, hd, p = PARTIAL_MAIN
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return (rand(B, C, nq, hd), rand(B, p * C, nkv, hd),
+            rand(B, p * C, nkv, hd), rand(B, C, nq, hd))
+
+
+def partial_mask(r, window):
+    """(C, p C) visibility of rank r's queries over the gathered keys."""
+    B, C, nq, nkv, hd, p = PARTIAL_MAIN
+    i = torch.arange(C, device="cuda")[:, None] * p + r
+    g = torch.arange(p * C, device="cuda")[None, :]
+    j = (g % C) * p + g // C
+    vis = i >= j
+    if window:
+        vis &= (i - j) < window
+    return vis
+
+
+def phase_kernels_partial(gen, errs):
+    """K4 forward and backward against the plain chain and its autograd,
+    at the seq path's shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (attn_partial_finalize,
+                                                     attn_partial_init)
+    from repro_torch.layers.attention import partial_chain, partial_chain_bwd
+    f32 = torch.float32
+    B, C, nq, nkv, hd, p = PARTIAL_MAIN
+    log(f"[kernels] K4 partial attention forward and backward vs plain "
+        f"(B {B}, {C} queries at r + {p} j, {p} gathered blocks of {C} keys, "
+        f"{nq}/{nkv} heads, hd {hd}; backward vs the plain chain's "
+        f"autograd on fp32 copies)")
+    for dtype in (f32, torch.bfloat16):
+        q, kg, vg, dout = partial_inputs(gen, dtype)
+        for window in PARTIAL_WINDOWS:
+            for r in range(p):
+                carry = partial_chain(q, kg, vg, r, p, window=window)
+                out = attn_partial_finalize(carry, dtype)
+                grads = partial_chain_bwd(q, kg, vg, dout, out, carry, r, p,
+                                          window=window)
+                leaves = [t.float().requires_grad_() for t in (q, kg, vg)]
+                wcarry = partial_chain(*leaves, r, p, window=window,
+                                       plain=True)
+                want = attn_partial_finalize(wcarry, f32)
+                wgrads = torch.autograd.grad(want, leaves, dout.float())
+                tag = f"{dtype_name(dtype)} r={r} window={window}"
+                e = max(check_rel(f"{tag} {n}", g, w.detach(), 1e-4)
+                        for n, g, w in zip(("m", "l", "acc"), carry,
+                                           wcarry))
+                e = max(e, check_rel(f"{tag} out", out, want.detach(),
+                                     FLASH_TOL[dtype]))
+                eb = max(check_rel(f"{tag} d{n}", g, w, FLASH_TOL[dtype])
+                         for n, g, w in zip(("q", "k", "v"), grads, wgrads))
+                again = partial_chain(q, kg, vg, r, p, window=window)
+                if not all(torch.equal(a, b) for a, b in zip(again, carry)):
+                    raise AssertionError("K4 forward is not deterministic")
+                if not all(torch.equal(a, b) for a, b in zip(
+                        partial_chain_bwd(q, kg, vg, dout, out, carry, r, p,
+                                          window=window), grads)):
+                    raise AssertionError("K4 backward is not deterministic")
+                log(f"  {tag}: forward and backward run twice: bitwise "
+                    f"equal")
+                if r == 0:
+                    # query 0 (position 0) sees no key of block 1 (keys at
+                    # 1, 3, ...): its carry after block 0 passes through
+                    first = ops.flash_attention_partial(
+                        q, kg[:, :C], vg[:, :C],
+                        *attn_partial_init(B, C, nq, hd, device="cuda"),
+                        q_stride=p, k_stride=p, window=window)
+                    if not all(torch.equal(a[:, :, 0], b[:, :, 0])
+                               for a, b in zip(first, carry)):
+                        raise AssertionError("a fully masked row's carry "
+                                             "changed")
+                    log(f"  {tag}: the row block 1 fully masks keeps its "
+                        f"carry bitwise")
+                if dtype == f32:
+                    errs["partial_attention"] = max(
+                        errs["partial_attention"], e)
+                    errs["partial_attention_bwd"] = max(
+                        errs["partial_attention_bwd"], eb)
+        del q, kg, vg, dout
+
+
+def phase_timings_partial(gen, out):
+    """K4 forward and backward at the seq path's shape, float32, rank 0's
+    chain over the p gathered blocks (p launches). The library call is
+    SDPA over the gathered keys with the same boolean mask: it computes
+    the finalised output, not the carry. The backward runs eagerly for
+    all three versions (the plain and library backwards are autograd's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attn_partial_finalize,
+                                                     attn_partial_init)
+    from repro_torch.layers.attention import partial_chain, partial_chain_bwd
+    f32 = torch.float32
+    B, C, nq, nkv, hd, p = PARTIAL_MAIN
+    q, kg, vg, dout = partial_inputs(gen, f32)
+    init = attn_partial_init(B, C, nq, hd, device="cuda")
+    vis = partial_mask(0, 0)
+    pairs = int(vis.sum()) * B * nq
+    carry_bytes = 2 * (2 * B * nq * C + B * nq * C * hd) * 4
+    qkv_bytes = (B * C * nq + 2 * B * p * C * nkv) * hd * 4
+    g = nq // nkv
+    qs = q.transpose(1, 2)
+    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (kg, vg))
+    t, eager = timings(
+        lambda: partial_chain(q, kg, vg, 0, p, carry=init),
+        lambda: partial_chain(q, kg, vg, 0, p, carry=init, plain=True),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis),
+        qkv_bytes + carry_bytes, 4 * hd * pairs, f32, iters=20,
+        eager_iters=50)
+    log(f"[timings] K4 forward, chain of {p} blocks (B {B}, {C} queries, "
+        f"{p} x {C} keys, {nq}/{nkv} heads, hd {hd}, causal, stride {p}): "
+        + fmt(t, eager))
+    out["partial_attention"] = t
+    carry = partial_chain(q, kg, vg, 0, p, carry=init)
+    o = attn_partial_finalize(carry, f32)
+    leaves = [x.clone().requires_grad_() for x in (q, kg, vg)]
+    plain_out = attn_partial_finalize(
+        partial_chain(*leaves, 0, p, plain=True), f32)
+    lib_in = [x.clone().requires_grad_() for x in (qs, ks, vs)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=vis)
+    dout_s = dout.transpose(1, 2)
+    bwd_bytes = (qkv_bytes + 2 * B * C * nq * hd * 4          # q.. + dout
+                 + 2 * B * nq * C * 4                         # lse, delta
+                 + 2 * B * C * nq * hd * 4                    # dq in, out
+                 + 2 * B * p * C * nkv * hd * 4)              # dk, dv
+    bwd = dict(
+        ms=cuda_ms(lambda: partial_chain_bwd(q, kg, vg, dout, o, carry, 0,
+                                             p), 50, 5),
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, dout, retain_graph=True), 50, 5),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, dout_s, retain_graph=True), 50, 5),
+        **bound(bwd_bytes, 10 * hd * pairs, f32))
+    us = {key: f"{bwd[key] * 1e3:.2f}" for key in ("ms", "plain_ms",
+                                                  "library_ms")}
+    log(f"[timings] K4 backward, chain of {p} blocks: kernel {us['ms']} us, "
+        f"plain {us['plain_ms']} us, library {us['library_ms']} us (eager), "
+        f"bound {bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']})")
+    out["partial_attention_bwd"] = bwd
+
+
+def seq_launches(cfg):
+    """Each kernel's launches per microbatch on one seq-rank, counted from
+    the code: K4 p per layer forward and again in remat's recompute, its
+    backward p per layer; K1 and K3 as on one card (phase 8); no K2."""
+    L, p = cfg.n_layers, SEQ_P
+    return {"partial_attention": 2 * p * L, "partial_attention_bwd": p * L,
+            "block_matmul": 28 * L + 3, "rmsnorm": 8 * L + 1,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "paged_attention": 0, "selective_scan": 0}
+
+
+def phase_seq_train(cfg, smi, losses_one_card):
+    """``launch/train.py`` on a seq axis of 2: two gloo ranks on this card,
+    started by torch.distributed.run, each holding the whole model and
+    half of every sequence."""
+    from repro_torch.launch import train
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(SEQ_P), "-m", "repro_torch.launch.train",
+           *SEQ_FLAGS]
+    log(f"[seq train] python -m torch.distributed.run --standalone "
+        f"--nproc-per-node {SEQ_P} -m repro_torch.launch.train "
+        f"{' '.join(SEQ_FLAGS)}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if x]))
+    t0 = time.time()
+    # a session of its own, so that a timeout stops the launcher and both
+    # ranks together
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SEQ_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"seq-parallel training ran past "
+                             f"{SEQ_TIMEOUT_S} s")
+    lines = out.strip().splitlines()
+    for ln in lines:
+        if not ln.startswith('{"train"'):
+            log(f"  | {ln}")
+    if proc.returncode:
+        log(err[-6000:])
+        raise AssertionError(f"seq-parallel training exited with "
+                             f"{proc.returncode}")
+    rep = json.loads([ln for ln in lines
+                      if ln.startswith('{"train"')][-1])["train"]
+    log(f"  {time.time() - t0:.1f}s with start-up; losses {rep['losses']}, "
+        f"one card (phase 8) {losses_one_card}")
+    gap = max(abs(a - b) for a, b in zip(rep["losses"], losses_one_card))
+    if not (len(rep["losses"]) == len(losses_one_card)
+            and all(math.isfinite(x) for x in rep["losses"])
+            and gap <= SEQ_LOSS_TOL):
+        raise AssertionError(f"seq-parallel losses differ from one card's "
+                             f"by {gap:.3e} (tol {SEQ_LOSS_TOL:g})")
+    log(f"  max |loss - one card| {gap:.3e} (tol {SEQ_LOSS_TOL:g}) ok")
+    hashes = {r["param_sha256"] for r in rep["ranks"]}
+    if len(hashes) != 1 or None in hashes:
+        raise AssertionError(f"the ranks' parameters differ: {hashes}")
+    log(f"  parameters of both ranks bitwise equal (sha256 "
+        f"{hashes.pop()[:16]}...)")
+    args = train.build_parser().parse_args(SEQ_FLAGS)
+    for r in rep["ranks"]:
+        log(f"  rank {r['rank']} on {r['device']}:")
+        check_launches(r["launches"], seq_launches(cfg),
+                       args.steps * args.overdecompose, "microbatch")
+    steady = rep["step_s"][1:] or rep["step_s"]
+    step_s = sum(steady) / len(steady)
+    for r in rep["ranks"]:
+        for kind in sorted(r["comm_by_kind"][-1]):
+            per_step = [c.get(kind, {"seconds": 0.0, "bytes": 0})
+                        for c in r["comm_by_kind"]]
+            log(f"  rank {r['rank']} {kind}: "
+                f"{[round(c['seconds'], 4) for c in per_step]} s, "
+                f"{[round(c['bytes'] / 1e9, 4) for c in per_step]} GB per "
+                f"step")
+        mem = r["max_memory_bytes"]
+        log(f"  rank {r['rank']}: seq-axis comm "
+            f"{[round(x, 4) for x in r['comm_s']]} s and "
+            f"{[round(b / 1e9, 4) for b in r['comm_bytes']]} GB staged per "
+            f"step, max_memory_allocated "
+            f"{'-' if mem is None else f'{mem / 2**30:.2f} GiB'}")
+    log(f"  rank 0 step times {[round(x, 4) for x in rep['step_s']]} s; "
+        f"steady step {step_s:.4f} s, {rep['tokens_per_step'] / step_s:.1f} "
+        f"tokens/s over both ranks on {smi}")
+    return rep["ranks"][0]["launches"]
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -1117,7 +1382,7 @@ def main() -> int:
     free_memory()
     phase_train_parity(cfg)
     free_memory()
-    train_launches = phase_train(cfg, smi)
+    train_launches, train_losses = phase_train(cfg, smi)
     free_memory()
     phase_train_profile(cfg)
     free_memory()
@@ -1135,27 +1400,40 @@ def main() -> int:
     del hybrid
     free_memory()
 
+    phase_kernels_partial(gen, errs)
+    phase_timings_partial(gen, times)
+    free_memory()
+    seq_launches_run = phase_seq_train(cfg, smi, train_losses)
+
     # launches: each kernel's count on the path this repo ported it for
-    # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6);
-    # the log has every path's counts
+    # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
+    # seq-parallel training, rank 0: K4); the log has every path's counts
     launches = dict(serve_launches, **{
         k: train_launches[k] for k in ("block_matmul", "flash_attention",
                                        "flash_attention_bwd")},
-        selective_scan=fixed_launches_run["selective_scan"])
+        selective_scan=fixed_launches_run["selective_scan"],
+        **{k: seq_launches_run[k] for k in ("partial_attention",
+                                            "partial_attention_bwd")})
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
                 "paged_attention": "src/repro/kernels/flash_attention.py:240",
                 "block_matmul": "src/repro/kernels/block_matmul.py:34",
                 "flash_attention": "src/repro/kernels/flash_attention.py:297",
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:297",
-                "selective_scan": "src/repro/kernels/selective_scan.py:45"}
+                "selective_scan": "src/repro/kernels/selective_scan.py:45",
+                "partial_attention":
+                    "src/repro/kernels/flash_attention.py:127",
+                "partial_attention_bwd":
+                    "src/repro/kernels/flash_attention.py:127"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rmsnorm": csrc + "rmsnorm.cu",
                "paged_attention": csrc + "paged_attention.cu",
                "block_matmul": csrc + "block_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu",
                "flash_attention_bwd": csrc + "flash_attention.cu",
-               "selective_scan": csrc + "selective_scan.cu"}
+               "selective_scan": csrc + "selective_scan.cu",
+               "partial_attention": csrc + "partial_attention.cu",
+               "partial_attention_bwd": csrc + "partial_attention.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

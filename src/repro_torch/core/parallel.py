@@ -56,8 +56,9 @@ class _ArBwdIdentity(torch.autograd.Function):
 
 
 def ar_bwd_identity(v, axes: M.MeshAxes, axis):
-    """Forward all-reduce over ``axis``; backward identity. Correct when
-    the consumer treats the output as replicated over ``axis``."""
+    """Forward all-reduce over ``axis`` (a name or a tuple of names, e.g.
+    the token axes data, z and seq); backward identity. Correct when the
+    consumer treats the output as replicated over ``axis``."""
     return _ArBwdIdentity.apply(v, axes, axis)
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, with one
 ``nvcc`` call and without PyTorch's headers, into its own shared library
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout (the hash
-covers the source and the flags, so an edited source builds anew). The
+covers the source, the headers of ``csrc/`` and the flags, so an edited
+source or header builds anew). The
 libraries are loaded with ``ctypes``. Nothing is built or loaded at import:
 the first launch of a kernel builds its library, and :func:`build` builds
 several at once, one ``nvcc`` process per source, all started together.
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("rmsnorm", "paged_attention", "block_matmul", "flash_attention",
-           "selective_scan")
+           "selective_scan", "partial_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"

@@ -44,57 +44,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int BQ = 64;              // query rows per tile
-constexpr int BKV = 64;             // keys per tile
-constexpr int RI = BQ / 16;         // rows per thread
-constexpr int RJ = BKV / 16;        // score columns per thread
-constexpr int PLD = BKV + 16;       // row stride of the score tiles
-constexpr float kNegInf = -1e30f;   // NEG_INF of the JAX package
-static_assert(BQ == BKV, "the backward's tile loops assume square tiles");
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// reductions over the 16 lanes that share a row (tx = lane % 16)
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ bool visible(int iq, int jk, int n_t, int kv_hi,
                                         int causal, int window) {
   return iq < n_t && jk < kv_hi && (!causal || iq >= jk) &&
          (window <= 0 || iq - jk < window);
-}
-
-// rows [r0, r0 + rows) of a (n_rows, HD) slice with row stride `stride`
-// into dst (row stride ld) as fp32; rows past n_rows read as 0
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const T* __restrict__ src,
-                                          int64_t stride, int r0, int n_rows,
-                                          int rows) {
-  for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int gr = r0 + r;
-    dst[r * ld + d] = gr < n_rows ? to_f(src[gr * stride + d]) : 0.f;
-  }
 }
 
 // key tiles [lo, hi) that hold a visible key for query rows [q0, q0 + BQ)
@@ -508,30 +465,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
 #pragma unroll
     for (int c = 0; c < HC; ++c) store(row + tx + 16 * c, dqa[i][c] * scale);
   }
-}
-
-// shared memory (bytes) of each kernel
-template <int HD>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * BQ * (HD + 1) + BKV * HD + BQ * PLD);
-}
-template <int HD>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * BQ * (HD + 1) + 2 * BKV * PLD + 2 * BQ);
-}
-template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * BQ * (HD + 1) + BQ * PLD);
-}
-
-// raise a kernel's dynamic shared memory limit; each caller keeps the
-// result in a function-local static, so this runs once per kernel (and
-// never inside a CUDA graph capture after the first call)
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 struct Args {

@@ -1,6 +1,7 @@
-"""K2, flash attention (forward and backward), and K5, paged attention: the
-CUDA kernels ``csrc/flash_attention.cu`` and ``csrc/paged_attention.cu``
-and their plain versions.
+"""K2, flash attention (forward and backward), K4, partial flash attention
+over one KV block (forward and backward), and K5, paged attention: the
+CUDA kernels ``csrc/flash_attention.cu``, ``csrc/partial_attention.cu``
+and ``csrc/paged_attention.cu`` and their plain versions.
 
 K2 replaces ``repro/kernels/flash_attention.py:flash_attention`` (Pallas),
 the function the JAX training path computes as ``layers.attention.
@@ -8,6 +9,15 @@ attn_core``; its backward kernel is new (the JAX package differentiates the
 jnp ``attn_core``). Both versions take the model's layouts as they are
 stored: q (B, T, nq, hd), k and v (B, S, nkv, hd). The plain version is
 :func:`attn_core` and its backward is autograd's.
+
+K4 replaces ``repro/kernels/flash_attention.py:flash_attention_partial``
+(Pallas), whose jnp oracle is ``layers.attention.attn_core_partial``:
+the fp32 carry (m, l, acc) of an online softmax in and out, unnormalised,
+over one KV block at affine global positions. Context-parallel training
+chains it over the blocks of an all-gathered KV (``layers.attention.
+seq_attn``). Its backward kernel is new. The plain versions are
+:func:`attn_core_partial` (the port of the oracle) and
+:func:`partial_attention_bwd_plain`.
 
 K5 replaces ``repro/kernels/flash_attention.py:flash_attention_paged``
 (Pallas). Both versions take q (R, T, nq, hd) and page pools (P, page, nkv,
@@ -289,3 +299,253 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, lse, dout,
                                                 **ctx.mask)
         return dq, dk, dv, None, None, None
+
+
+# ---------------------------------------------------------------------- #
+# K4: partial flash attention over one KV block (forward and backward)
+# ---------------------------------------------------------------------- #
+
+def attn_partial_init(B, Tq, nq, dv, *, device=None):
+    """Fresh fp32 online-softmax carry (m, l, acc): m (B, nq, Tq) at
+    NEG_INF, l (B, nq, Tq) and acc (B, nq, Tq, dv) at 0, the 'nothing
+    attended yet' state (``repro.layers.attention.attn_partial_init``;
+    its (B, nkv, g, ...) layout is this one with nq = nkv * g split)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.full((B, nq, Tq), NEG_INF, **f32),
+            torch.zeros((B, nq, Tq), **f32),
+            torch.zeros((B, nq, Tq, dv), **f32))
+
+
+def attn_core_partial(q, k, v, carry, *, q_pos, k_pos, causal: bool = True,
+                      window: int = 0, scale: Optional[float] = None,
+                      bq: int = 512, bk: int = 1024):
+    """Port of ``repro.layers.attention.attn_core_partial``: one partial
+    online-softmax pass of q (B, Tq, nq, d) over a single KV block k/v
+    (B, Tk, nkv, dv), carrying (m, l, acc) of :func:`attn_partial_init`.
+    ``q_pos``/``k_pos`` (Tq,)/(Tk,) are the global positions of each local
+    index (the striped layout's may be non-monotone). Chunked over (bq,
+    bk) tiles, so no (Tq, Tk) score materialises. A query row whose keys
+    are all masked keeps its carry bit for bit: p is zeroed under the
+    mask, so a NEG_INF running max leaks no exp(0) mass into l. Written
+    without in-place updates, so autograd differentiates it."""
+    B, Tq, nq, d = q.shape
+    Tk, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    m, l, acc = carry
+    qf = q.float().reshape(B, Tq, nkv, g, d)
+    kf, vf = k.float(), v.float()
+    q_pos, k_pos = q_pos.to(torch.int64), k_pos.to(torch.int64)
+    outs = []
+    for i0 in range(0, Tq, bq):
+        i1 = min(i0 + bq, Tq)
+        mc = m[:, :, i0:i1].reshape(B, nkv, g, i1 - i0)
+        lc = l[:, :, i0:i1].reshape(B, nkv, g, i1 - i0)
+        ac = acc[:, :, i0:i1].reshape(B, nkv, g, i1 - i0, -1)
+        for j0 in range(0, Tk, bk):
+            j1 = min(j0 + bk, Tk)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, i0:i1],
+                             kf[:, j0:j1]) * scale
+            iq = q_pos[i0:i1, None]
+            jk = k_pos[None, j0:j1]
+            mask = (iq >= jk) | (not causal)
+            if window > 0:
+                mask = mask & ((iq - jk) < window)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(mc, torch.amax(s, dim=-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                            torch.zeros_like(s))
+            alpha = torch.exp(mc - m_new)
+            lc = alpha * lc + torch.sum(p, dim=-1)
+            ac = alpha[..., None] * ac + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, j0:j1])
+            mc = m_new
+        outs.append((mc, lc, ac))
+    m, l, acc = (torch.cat([o[i] for o in outs], dim=3) for i in range(3))
+    return (m.reshape(B, nq, Tq), l.reshape(B, nq, Tq),
+            acc.reshape(B, nq, Tq, -1))
+
+
+def attn_partial_finalize(carry, dtype):
+    """Normalise a chained (m, l, acc) carry into the (B, Tq, nq, dv)
+    attention output."""
+    _, l, acc = carry
+    out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B, nq, T, dv)
+    return out.transpose(1, 2).contiguous().to(dtype)
+
+
+def _positions(n, pos0, stride, device):
+    return pos0 + stride * torch.arange(n, dtype=torch.int64, device=device)
+
+
+def partial_attention_plain(q, k, v, m, l, acc, *, q_pos0: int = 0,
+                            q_stride: int = 1, k_pos0: int = 0,
+                            k_stride: int = 1, causal: bool = True,
+                            window: int = 0, q_len: int = 0,
+                            kv_len: int = 0):
+    """The plain version of K4: :func:`attn_core_partial` with the affine
+    global positions ``pos0 + i * stride``. Keys at or past ``kv_len``
+    (> 0) are masked and rows at or past ``q_len`` (> 0) keep their carry,
+    as the Pallas kernel masks block padding. Returns (m, l, acc)."""
+    T, S = q.shape[1], k.shape[1]
+    tq, sk = min(q_len or T, T), min(kv_len or S, S)
+    carry = (m[:, :, :tq], l[:, :, :tq], acc[:, :, :tq])
+    if sk:
+        carry = attn_core_partial(
+            q[:, :tq], k[:, :sk], v[:, :sk], carry,
+            q_pos=_positions(tq, q_pos0, q_stride, q.device),
+            k_pos=_positions(sk, k_pos0, k_stride, q.device),
+            causal=causal, window=window)
+    if tq == T:
+        return carry
+    return tuple(torch.cat([c, full[:, :, tq:]], dim=2)
+                 for c, full in zip(carry, (m, l, acc)))
+
+
+def partial_attention_bwd_plain(q, k, v, dout, lse, delta, dq, *,
+                                q_pos0: int = 0, q_stride: int = 1,
+                                k_pos0: int = 0, k_stride: int = 1,
+                                causal: bool = True, window: int = 0,
+                                q_len: int = 0, kv_len: int = 0):
+    """The plain version of K4's backward: one KV block's share of the
+    gradient of a chain of partial passes, given the chain's final ``lse``
+    (B, nq, T) = m + log l and ``delta`` (B, nq, T) = rowsum(dO * O) in
+    fp32 (FlashAttention-2): P = exp(S - lse) under the block's masks,
+    dV = P^T dO, dS = P (dO V^T - delta), dQ += dS K scale, dK = dS^T Q
+    scale. Adds into ``dq`` (B, T, nq, hd) fp32 in place; returns (dk,
+    dv) of the block, (B, S, nkv, hd) fp32."""
+    B, T, nq, d = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(B, T, nkv, g, d)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, T, nkv, g, d)
+    iq = _positions(T, q_pos0, q_stride, q.device)[:, None]
+    jk = _positions(S, k_pos0, k_stride, q.device)[None, :]
+    mask = ((torch.arange(T, device=q.device)[:, None] < (q_len or T))
+            & (torch.arange(S, device=q.device)[None, :] < (kv_len or S)))
+    if causal:
+        mask &= iq >= jk
+    if window > 0:
+        mask &= (iq - jk) < window
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    lse_g = lse.reshape(B, nkv, g, T)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), torch.zeros_like(s))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta.reshape(B, nkv, g, T)[..., None])
+    dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, T, nq,
+                                                            d) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return dk, dv
+
+
+def _pa_launcher(name: str):
+    fn = getattr(build.library("partial_attention"), name)
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        strided = [p, ll, ll, ll]
+        # batch, n_t, n_s, nq, nkv, head_dim, then the 8 of _pos_args
+        tail = [i] * 14 + [ctypes.c_float, i, p]
+        if name == "partial_attention_fwd_launch":
+            fn.argtypes = [*strided * 3, *[p] * 6, *tail]
+        else:
+            fn.argtypes = [*strided * 4, *[p] * 5, *tail]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_partial(what, q, k, v, carry, pos):
+    """Raise on what K4 does not take: the K2 checks on q, k, v; fp32
+    contiguous (B, nq, T) rows and (B, nq, T, hd) or (B, T, nq, hd)
+    blocks in ``carry``; strides of at least 1."""
+    _check_qkv(what, q, k, v)
+    B, T, nq, hd = q.shape
+    for name, t, shape in carry:
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous fp32 "
+                             f"{shape} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if pos["q_stride"] < 1 or pos["k_stride"] < 1:
+        raise ValueError(f"{what} takes positions pos0 + i * stride with "
+                         f"stride >= 1, got {pos}")
+
+
+def _pos_args(q_pos0, q_stride, k_pos0, k_stride, q_len, kv_len, causal,
+              window):
+    return [q_pos0, q_stride, k_pos0, k_stride, q_len, kv_len, int(causal),
+            window]
+
+
+def partial_attention_kernel(q, k, v, m, l, acc, *, q_pos0: int = 0,
+                             q_stride: int = 1, k_pos0: int = 0,
+                             k_stride: int = 1, causal: bool = True,
+                             window: int = 0, q_len: int = 0,
+                             kv_len: int = 0):
+    """Launch K4's forward on CUDA tensors: q (B, T, nq, hd) and k, v (B,
+    S, nkv, hd) in the model's layouts through strides, the carry m, l
+    (B, nq, T) and acc (B, nq, T, hd) fp32; returns the new (m, l, acc).
+    Raises on what it does not take. ``partial_attention_kernel.launches``
+    counts the launches."""
+    B, T, nq, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    pos = dict(q_pos0=q_pos0, q_stride=q_stride, k_pos0=k_pos0,
+               k_stride=k_stride, q_len=q_len, kv_len=kv_len, causal=causal,
+               window=window)
+    _check_partial("partial_attention_kernel", q, k, v,
+                   [("m", m, (B, nq, T)), ("l", l, (B, nq, T)),
+                    ("acc", acc, (B, nq, T, hd))], pos)
+    out = (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc))
+    err = _pa_launcher("partial_attention_fwd_launch")(
+        *_strided(q), *_strided(k), *_strided(v), m.data_ptr(),
+        l.data_ptr(), acc.data_ptr(), *(t.data_ptr() for t in out),
+        B, T, S, nq, nkv, hd, *_pos_args(**pos), 1.0 / math.sqrt(hd),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "partial_attention_kernel")
+    partial_attention_kernel.launches += 1
+    return out
+
+
+partial_attention_kernel.launches = 0
+
+
+def partial_attention_bwd_kernel(q, k, v, dout, lse, delta, dq, *,
+                                 q_pos0: int = 0, q_stride: int = 1,
+                                 k_pos0: int = 0, k_stride: int = 1,
+                                 causal: bool = True, window: int = 0,
+                                 q_len: int = 0, kv_len: int = 0):
+    """Launch K4's backward on CUDA tensors (the arguments of
+    :func:`partial_attention_bwd_plain`; ``dout`` through strides, shaped
+    like q): adds the block's share into ``dq`` (B, T, nq, hd) fp32 and
+    returns its (dk, dv), (B, S, nkv, hd) fp32 contiguous. Raises on what
+    it does not take. ``partial_attention_bwd_kernel.launches`` counts
+    the calls."""
+    B, T, nq, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    pos = dict(q_pos0=q_pos0, q_stride=q_stride, k_pos0=k_pos0,
+               k_stride=k_stride, q_len=q_len, kv_len=kv_len, causal=causal,
+               window=window)
+    _check_qkv("partial_attention_bwd_kernel", q, k, v, (dout,))
+    _check_partial("partial_attention_bwd_kernel", q, k, v,
+                   [("lse", lse, (B, nq, T)), ("delta", delta, (B, nq, T)),
+                    ("dq", dq, (B, T, nq, hd))], pos)
+    if dout.shape != q.shape:
+        raise ValueError("partial_attention_bwd_kernel: dout must be "
+                         f"shaped like q {tuple(q.shape)}, got "
+                         f"{tuple(dout.shape)}")
+    dk = torch.empty((B, S, nkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    err = _pa_launcher("partial_attention_bwd_launch")(
+        *_strided(q), *_strided(k), *_strided(v), *_strided(dout),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, T, S, nq, nkv, hd, *_pos_args(**pos),
+        1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "partial_attention_bwd_kernel")
+    partial_attention_bwd_kernel.launches += 1
+    return dk, dv
+
+
+partial_attention_bwd_kernel.launches = 0

@@ -14,14 +14,17 @@ from repro_torch.kernels.block_matmul import (block_matmul_kernel,
                                               block_matmul_plain)
 from repro_torch.kernels.flash_attention import (
     FlashAttention, attn_core, flash_attention_bwd_kernel,
-    flash_attention_kernel, paged_attention_kernel, paged_attention_plain)
+    flash_attention_kernel, paged_attention_kernel, paged_attention_plain,
+    partial_attention_bwd_kernel, partial_attention_bwd_plain,
+    partial_attention_kernel, partial_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
 from repro_torch.kernels.selective_scan import (selective_scan_kernel,
                                                 selective_scan_plain)
 
 KERNELS = (rmsnorm_kernel, paged_attention_kernel, block_matmul_kernel,
            flash_attention_kernel, flash_attention_bwd_kernel,
-           selective_scan_kernel)
+           selective_scan_kernel, partial_attention_kernel,
+           partial_attention_bwd_kernel)
 
 
 def reset_launches() -> None:
@@ -63,6 +66,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return attn_core(q, k, v, causal=causal, window=window,
                          kv_len=kv_len)
     return FlashAttention.apply(q, k, v, causal, window, kv_len)
+
+
+def flash_attention_partial(q, k, v, m, l, acc, *, plain: bool = False,
+                            **pos):
+    """One KV block of online softmax in the model's layouts (K4): q (B,
+    T, nq, hd), k/v (B, S, nkv, hd), the fp32 carry m, l (B, nq, T) and
+    acc (B, nq, T, hd) -> the new (m, l, acc), unnormalised. ``pos``:
+    q_pos0, q_stride, k_pos0, k_stride (global positions pos0 + i *
+    stride), causal, window, q_len, kv_len."""
+    fn = (partial_attention_plain if _plain(q, plain)
+          else partial_attention_kernel)
+    return fn(q, k, v, m, l, acc, **pos)
+
+
+def flash_attention_partial_bwd(q, k, v, dout, lse, delta, dq, *,
+                                plain: bool = False, **pos):
+    """K4's backward for one KV block of a chain, given the chain's lse and
+    delta (B, nq, T) fp32: adds into ``dq`` (B, T, nq, hd) fp32, returns
+    the block's (dk, dv) (B, S, nkv, hd) fp32."""
+    fn = (partial_attention_bwd_plain if _plain(q, plain)
+          else partial_attention_bwd_kernel)
+    return fn(q, k, v, dout, lse, delta, dq, **pos)
 
 
 def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,

@@ -75,6 +75,16 @@ def _loss_fn(cfg: ArchConfig, axes: M.MeshAxes, opts: TrainOptions):
     return f
 
 
+def stripe_batch(batch, axes: M.MeshAxes):
+    """Stripe a global train batch for context parallelism: tokens and
+    labels are permuted along seq so that seq-rank r's contiguous shard
+    holds global positions r, r + g_seq, ... (``mesh.stripe_seq``). The
+    identity when seq is 1; the LM loss is a per-token mean, so the
+    permutation leaves it unchanged."""
+    return {k: M.stripe_seq(v, axes.gseq, dim=1)
+            if k in ("tokens", "labels") else v for k, v in batch.items()}
+
+
 def no_decay_names(model: D.Decoder):
     """Names of the parameters that take no weight decay: the JAX rule
     (``adamw._no_decay``) applied to each parameter's JAX path."""
@@ -86,10 +96,13 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
                     opt_cfg: OPT.AdamWConfig,
                     opts: TrainOptions = TrainOptions()):
     """The plain mode of the JAX ``make_train_step``: ``step(model,
-    opt_state, batch, plain=False) -> metrics``. It splits the batch into
-    ``opts.overdecompose`` microbatches, accumulates their gradients in
-    fp32 and divides by their count, reduces over data (and z where the
-    backward has not), and applies AdamW. The model's parameters and
+    opt_state, batch, plain=False) -> metrics``. ``batch`` is the global
+    batch, striped by :func:`stripe_batch` on a seq axis; each seq-rank
+    takes its contiguous shard of the sequence, as the JAX step's
+    ``shard_map`` does. It splits the batch into ``opts.overdecompose``
+    microbatches, accumulates their gradients in fp32 and divides by their
+    count, reduces over data and seq (and z where the backward has not),
+    and applies AdamW. The model's parameters and
     ``opt_state`` (``adamw.init_state`` of ``model.named_parameters()``)
     are updated in place. In float32 the parameters' ``.grad`` is the
     accumulator; in bfloat16 a separate fp32 one is, as the JAX step casts
@@ -113,7 +126,8 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             raise TypeError(f"TrainOptions.dtype is {opts.dtype}, the model's "
                             f"parameters are {sorted(map(str, dtypes))}")
         n = opts.overdecompose
-        mbs = split_batch(batch, n, axes=axes)
+        mbs = split_batch({k: M.seq_shard(v, axes) for k, v in batch.items()},
+                          n, axes=axes)
         acc = None
         if opts.dtype != torch.float32:
             acc = {k: torch.zeros_like(p, dtype=torch.float32)
@@ -139,9 +153,15 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             loss = loss / n
             metrics = {k: v / n for k, v in metrics.items()}
             grads = {k: g.div_(n) for k, g in grads.items()}
-        # data-parallel all-reduce (paper §3.1) + z reduction for params
-        # whose grads are not already z-reduced by their backward
-        grads = {k: M.psum(g, axes, "data") for k, g in grads.items()}
+        # data-parallel all-reduce (paper §3.1), and over seq: parameters
+        # are replicated over seq and each seq-rank's gradients hold only
+        # its own tokens' contributions. In place, one leaf at a time, in
+        # the same order on every rank; every rank gets the same bits.
+        if axes.size(("data", "seq")) > 1:
+            for g in grads.values():
+                g.copy_(M.psum(g, axes, ("data", "seq")))
+        # z reduction for params whose grads are not already z-reduced by
+        # their backward
         grads = z_reduce_grads(grads, axes)
         om = OPT.apply_updates(params, grads, opt_state, opt_cfg,
                                no_decay=no_decay_names(model))

@@ -1,5 +1,5 @@
 """Training entry point of the port: the 4D-hybrid train step on one
-device.
+device, or context-parallel on a seq axis.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --preset full --steps 3 --batch 4 --seq 512 --overdecompose 2
@@ -11,26 +11,47 @@ gradients in fp32 and applies AdamW, as the JAX package's
 ``make_train_step`` does in its plain mode. The data is the JAX package's
 synthetic Markov text (``data/synthetic.py``).
 
+A fifth ``--mesh`` factor splits each sequence over a seq axis (context
+parallelism, attention through kernel K4), one process per rank:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --preset full --mesh 1,1,1,1,2 --steps 3 --batch 4 --seq 512 \\
+      --backend gloo
+
+Every rank builds the same global batch, stripes it and trains on its
+shard; ranks beyond the card count share cards, and their collectives go
+through host memory (gloo). Only rank 0 prints; its last line is one JSON
+object with the losses, step times and each rank's seq-axis
+communication, peak memory, kernel launches and parameter hash.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
 §1 item it waits for): ZeRO and checkpoints (``--zero*``,
 ``--dp-bucket-mb``, ``--ckpt*``, ``--resume``), the runtime tooling
 (``--chaos``, ``--probe-every``, ``--telemetry``, ``--log-file``,
-``--profile-steps``, ``--calib``) and any mesh other than 1,1,1,1.
+``--profile-steps``, ``--calib``), data, x, y or z above 1 and ``--backend
+nccl``.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import hashlib
+import json
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import mesh as M
 from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
+from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
 from repro_torch.optim.adamw import AdamWConfig, init_state
 
 # flag -> the ROADMAP.md §1 item it waits for
@@ -87,7 +108,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4,
                     help="peak AdamW learning rate")
     ap.add_argument("--mesh", default="1,1,1,1",
-                    help="g_data,g_x,g_y,g_z (the port runs 1,1,1,1)")
+                    help="g_data,g_x,g_y,g_z[,g_seq] (the port runs a "
+                         "factor above 1 on g_seq only, one process per "
+                         "rank under torch.distributed.run)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a mesh with more "
+                         "than one rank (gloo; nccl is not ported)")
     ap.add_argument("--overdecompose", type=int, default=2,
                     help="microbatch count of the overdecompose loop")
     ap.add_argument("--dtype", default="float32",
@@ -118,13 +144,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 @dataclasses.dataclass
 class TrainResult:
-    """What a run of :func:`main` measured, step by step."""
+    """What a run of :func:`main` measured, step by step, on this rank."""
     losses: List[float]
     grad_norms: List[float]
     step_s: List[float]          # wall time of each step, synchronized
     tokens_per_step: int
     n_params: int
     max_memory_bytes: Optional[int]   # CUDA only
+    # seq-axis collectives of each step: host-clock seconds and bytes, in
+    # all and by kind of collective ({kind: {"seconds", "bytes"}})
+    comm_s: List[float] = dataclasses.field(default_factory=list)
+    comm_bytes: List[int] = dataclasses.field(default_factory=list)
+    comm_by_kind: List[dict] = dataclasses.field(default_factory=list)
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # every rank's report (the "ranks" list of the JSON line)
+    ranks: List[dict] = dataclasses.field(default_factory=list)
+
+
+def param_sha256(model) -> str:
+    """SHA-256 of every parameter's bytes, in order: equal on two ranks
+    only if their parameters are bitwise equal."""
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
 
 
 def main(argv=None) -> TrainResult:
@@ -134,16 +177,33 @@ def main(argv=None) -> TrainResult:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
                 f"it waits for the ROADMAP.md §1 item '{item}'")
-    axes = M.MeshAxes(tuple(int(x) for x in args.mesh.split(",")))
+    axes = mesh_axes(args.mesh)
     cfg = preset_config(get_config(args.arch), args.preset)
+    run = init_mesh(axes, backend=args.backend, device=args.device)
+    try:
+        return _train(args, axes, cfg, run)
+    finally:
+        close_mesh()
+
+
+def _train(args, axes, cfg, run) -> TrainResult:
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
-    model = ST.init_model(cfg, axes, seed=0, device=args.device,
+    rank0, multi = run["rank"] == 0, run["world"] > 1
+
+    def say(*a, **kw):
+        if rank0:
+            print(*a, **kw, flush=True)
+    model = ST.init_model(cfg, axes, seed=0, device=run["device"],
                           dtype=dtype)
     dev = model.embed.device
     params = dict(model.named_parameters())
     n_params = sum(p.numel() for p in params.values())
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
-          f"device={dev}")
+    say(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
+        f"device={dev}")
+    if multi:
+        say(f"backend={args.backend} "
+            f"ranks_per_card={run['ranks_per_card'] or '-'} "
+            f"ranks={run['world']}")
     state = init_state(params)
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                       total_steps=args.steps)
@@ -157,26 +217,52 @@ def main(argv=None) -> TrainResult:
         torch.cuda.reset_peak_memory_stats(dev)
     tokens = args.batch * args.seq
     res = TrainResult([], [], [], tokens, n_params, None)
+    ops.reset_launches()
+    M.reset_comm()
     for step in range(args.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in
-                 make_batch(cfg, step, data, dtype=np.float32).items()}
+        batch = ST.stripe_batch(
+            {k: torch.from_numpy(v).to(dev) for k, v in
+             make_batch(cfg, step, data, dtype=np.float32).items()}, axes)
+        comm0 = copy.deepcopy(M.COMM)
         t0 = time.perf_counter()
         metrics = step_fn(model, state, batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         if cuda:
             torch.cuda.synchronize(dev)
         res.step_s.append(time.perf_counter() - t0)
+        by_kind = {k: {n: c[n] - comm0.get(k, {}).get(n, 0) for n in c}
+                   for k, c in M.COMM.items()}
+        res.comm_by_kind.append(by_kind)
+        res.comm_s.append(sum(c["seconds"] for c in by_kind.values()))
+        res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
         res.grad_norms.append(gn)
         if not np.isfinite(loss):
             raise RuntimeError(f"step {step}: non-finite loss {loss}")
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
-                  f"{tokens / res.step_s[-1]:,.0f} tok/s "
-                  f"({res.step_s[-1] * 1e3:.1f} ms)", flush=True)
+            say(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
+                f"{tokens / res.step_s[-1]:,.0f} tok/s "
+                f"({res.step_s[-1] * 1e3:.1f} ms"
+                + (f", seq comm {res.comm_s[-1] * 1e3:.1f} ms"
+                   if multi else "") + ")")
+    res.launches = ops.launches()
     if cuda:
         res.max_memory_bytes = torch.cuda.max_memory_allocated(dev)
-    print("final loss:", res.losses[-1])
+    mine = dict(rank=run["rank"], device=str(dev), comm_s=res.comm_s,
+                comm_bytes=res.comm_bytes, comm_by_kind=res.comm_by_kind,
+                max_memory_bytes=res.max_memory_bytes,
+                launches=res.launches,
+                param_sha256=param_sha256(model) if multi else None)
+    res.ranks = [mine]
+    if multi:
+        res.ranks = [None] * run["world"]
+        dist.all_gather_object(res.ranks, mine)
+    say("final loss:", res.losses[-1])
+    say(json.dumps({"train": dict(
+        arch=cfg.name, mesh=args.mesh, backend=args.backend if multi
+        else None, losses=res.losses, grad_norms=res.grad_norms,
+        step_s=res.step_s, tokens_per_step=tokens, n_params=n_params,
+        ranks=res.ranks)}))
     return res
 
 

@@ -5,7 +5,9 @@ Heads shard over y (a paper "normal" layer for q/k/v) and the output
 projection is a "transposed" layer (§4.1). Four modes are ported:
 
   * ``"train"``: causal (optionally sliding-window) attention over each
-    whole sequence, kernel K2 forward and backward;
+    whole sequence, kernel K2 forward and backward; on a seq axis above 1,
+    :func:`seq_attn` over the rank's stripe, kernel K4 forward and
+    backward;
   * ``"paged"``: continuous-batching serving; rows are per-slot prefill
     chunks or single decode tokens at per-slot global positions, against a
     physical KV page pool (P, page, nkv, hd) per layer that each slot
@@ -19,8 +21,9 @@ projection is a "transposed" layer (§4.1). Four modes are ported:
 
 qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
 ``attn_core`` (and ``attn_core_chunked``, the same function, with its
-``_softmax_fp32``) is K2's plain version and ``paged_attn_core`` K5's; they
-live beside their kernels, in ``kernels/flash_attention.py``.
+``_softmax_fp32``) is K2's plain version, ``attn_core_partial`` K4's and
+``paged_attn_core`` K5's; they live beside their kernels, in
+``kernels/flash_attention.py``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from torch import nn
 
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.layers.rotary import apply_rope
 
@@ -109,7 +113,11 @@ class Attention(nn.Module):
             q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
             k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
 
-        if mode == "train":
+        if mode == "train" and axes.gseq > 1:
+            # context parallelism: positions already carry the stripe
+            out = seq_attn(q, k, v, axes, window=cfg.sliding_window,
+                           plain=plain)
+        elif mode == "train":
             out = ops.flash_attention(q, k, v, causal=True,
                                       window=cfg.sliding_window, plain=plain)
         elif mode == "paged":
@@ -158,6 +166,94 @@ class Attention(nn.Module):
         return ops.flash_attention_paged(
             q, kp, vp, table, positions.to(torch.int32).contiguous(), q_len,
             window=self.cfg.sliding_window, plain=plain)
+
+
+def partial_chain(q, kg, vg, rank: int, p: int, *, window: int = 0,
+                  carry=None, plain: bool = False):
+    """Seq-rank ``rank``'s chain of K4 over the p blocks of the gathered
+    keys kg/vg (B, p C, nkv, hd): block rho holds global keys rho + i p,
+    the rank's queries q (B, C, nq, hd) sit at rank + j p. Starts from
+    ``carry`` (default: fresh) and returns the final fp32 carry."""
+    B, C, nq, hd = q.shape
+    if carry is None:
+        carry = FA.attn_partial_init(B, C, nq, hd, device=q.device)
+    for rho in range(p):
+        blk = slice(rho * C, (rho + 1) * C)
+        carry = ops.flash_attention_partial(
+            q, kg[:, blk], vg[:, blk], *carry, q_pos0=rank, q_stride=p,
+            k_pos0=rho, k_stride=p, window=window, plain=plain)
+    return carry
+
+
+def partial_chain_bwd(q, kg, vg, dout, out, carry, rank: int, p: int, *,
+                      window: int = 0, plain: bool = False):
+    """K4's backward over :func:`partial_chain`, given the chain's output
+    ``out`` (finalised), its final carry and the output's gradient: lse =
+    m + log l and delta = rowsum(dO O) close the chain; each block adds
+    into one fp32 dQ in block order. Returns (dq, dkg, dvg), fp32."""
+    B, C, nq, hd = q.shape
+    m, l, _ = carry
+    lse = torch.where(l > 0, m + torch.log(l),
+                      torch.full_like(m, FA.NEG_INF))
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.zeros((B, C, nq, hd), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for rho in range(p):
+        blk = slice(rho * C, (rho + 1) * C)
+        dk, dv = ops.flash_attention_partial_bwd(
+            q, kg[:, blk], vg[:, blk], dout, lse, delta, dq, q_pos0=rank,
+            q_stride=p, k_pos0=rho, k_stride=p, window=window, plain=plain)
+        dks.append(dk)
+        dvs.append(dv)
+    return dq, torch.cat(dks, 1), torch.cat(dvs, 1)
+
+
+class _SeqAttention(torch.autograd.Function):
+    """The blocking schedule of ``seq_attn`` over kernel K4, forward and
+    backward. Forward: all-gather K and V over seq, run
+    :func:`partial_chain` and finalise. Backward: :func:`partial_chain_bwd`
+    gives dQ and the gathered blocks' dK and dV, which a psum_scatter over
+    seq (the all-gather's transpose) returns to their owners."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, axes, window, plain):
+        kg = M.all_gather(k, axes, "seq", dim=1)
+        vg = M.all_gather(v, axes, "seq", dim=1)
+        rank = M.axis_index(axes, "seq")
+        carry = partial_chain(q, kg, vg, rank, axes.gseq, window=window,
+                              plain=plain)
+        out = FA.attn_partial_finalize(carry, q.dtype)
+        ctx.save_for_backward(q, kg, vg, out, *carry[:2])
+        ctx.cfg = (axes, rank, window, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kg, vg, out, m, l = ctx.saved_tensors
+        axes, rank, window, plain = ctx.cfg
+        dq, dkg, dvg = partial_chain_bwd(q, kg, vg, dout, out, (m, l, None),
+                                         rank, axes.gseq, window=window,
+                                         plain=plain)
+        dk = M.psum_scatter(dkg, axes, "seq", dim=1)
+        dv = M.psum_scatter(dvg, axes, "seq", dim=1)
+        return (dq.to(q.dtype), dk.to(kg.dtype), dv.to(vg.dtype), None,
+                None, None)
+
+
+def seq_attn(q, k, v, axes: M.MeshAxes, *, window: int = 0,
+             plain: bool = False):
+    """Context-parallel causal attention over the seq axis (port of
+    ``repro.layers.attention.seq_attn``'s blocking schedule): q (B, C, nq,
+    hd), k/v (B, C, nkv, hd) hold this rank's stripe (global positions r,
+    r + p, ...; ``mesh.stripe_seq``). The result equals attention over the
+    whole sequence up to fp32 reassociation: the JAX package runs one
+    partial pass over the gathered (non-monotone) position vector, the
+    port one K4 call per gathered block. The ring schedule
+    (``overlap.ring_attention``) is refused with the train step's
+    ``overlap``."""
+    return _SeqAttention.apply(q, k, v, axes, window, plain)
 
 
 def dense_page_view(cache):

@@ -125,6 +125,25 @@ class ArchConfig:
     def layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
         return tuple(zip(self.mixers(), self.ffns()))
 
+    def axes_ok(self, axes) -> Optional[str]:
+        """Why this config cannot run on ``axes`` (None if it can): the
+        JAX ``axes_ok``'s checks of a seq axis. Context parallelism needs
+        softmax attention everywhere (a recurrent mixer mixes across the
+        whole sequence and would see only the local shard) and a
+        ``max_seq`` that the seq axis divides."""
+        if axes.gseq > 1:
+            if set(self.mixers()) != {"attn"}:
+                return (f"seq axis (g_seq={axes.gseq}) needs all-attention "
+                        f"mixers, got {sorted(set(self.mixers()))}")
+            if self.max_seq % axes.gseq:
+                return f"max_seq {self.max_seq} % g_seq {axes.gseq}"
+        return None
+
+    def validate_axes(self, axes) -> None:
+        err = self.axes_ok(axes)
+        if err is not None:
+            raise ValueError(f"{self.name}: {err}")
+
     def scan_period(self) -> int:
         """Smallest repeating period of layer kinds (for stacked scan)."""
         kinds = self.layer_kinds()

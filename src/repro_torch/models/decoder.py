@@ -86,6 +86,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, *,
                  gen: torch.Generator, dtype=torch.float32):
         super().__init__()
+        cfg.validate_axes(axes)
         self.cfg, self.axes = cfg, axes
         self.embed = nn.Parameter(PP.embedding_init(
             gen, cfg.padded_vocab, cfg.d_model, axes, dtype=dtype))
@@ -104,8 +105,11 @@ class Decoder(nn.Module):
         """``decoder_hidden``: (B, T) tokens -> (B, T, d/x) final-normed
         hidden states.
 
-        ``mode="train"``: positions default to 0..T-1; with ``remat``
-        each block is rematerialized in the backward
+        ``mode="train"``: positions default to 0..T-1, or on a seq axis
+        of size p to this rank's stripe j * p + r (the batch was striped
+        with ``steps.stripe_batch``), so RoPE and the causal mask key off
+        global positions; with ``remat`` each block is rematerialized in
+        the backward
         (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of policy
         "full"). ``mode="paged"``: writes each layer's K/V into ``pools``
         (see :func:`decoder_paged_cache_specs`). ``mode="prefill"`` and
@@ -116,10 +120,21 @@ class Decoder(nn.Module):
                 f"remat_policy {remat_policy!r} is not ported to PyTorch "
                 f"yet (only 'full'): it waits for the ROADMAP.md §1 item "
                 f"'training on the multi-rank mesh'")
+        axes = self.axes
+        if axes.gseq > 1 and mode != "train":
+            raise NotImplementedError(
+                f"seq (context) parallelism is a training-path feature: the "
+                f"{mode!r} path keeps its KV cache whole per batch shard, so "
+                f"a seq axis of g_seq={axes.gseq} has nothing to shard "
+                f"(ROADMAP residual 'seq-parallel serving'). Serve on a mesh "
+                f"with g_seq == 1, e.g. pass a 4-tuple --mesh d,x,y,z.")
         B, T = tokens.shape
         if positions is None:
             positions = torch.arange(T, dtype=torch.int32,
-                                     device=tokens.device).expand(B, T)
+                                     device=tokens.device)
+            if mode == "train" and axes.gseq > 1:
+                positions = positions * axes.gseq + M.axis_index(axes, "seq")
+            positions = positions.expand(B, T)
         h = PP.embedding_lookup(tokens, self.embed, self.axes)
         for i, blk in enumerate(self.layers):
             kw = dict(positions=positions, mode=mode, paged=paged,
@@ -179,11 +194,13 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
     else:
         total = chunk_loss(h, labels)
 
-    token_axes = ("data", "z")
-    total = PP.ar_bwd_identity(total, axes, token_axes)
-    loss = total / (B * T * axes.batch_shards)
+    # the token grid is sharded over the batch axes and seq: the mean
+    # reduces over both (with seq unmapped, the batch reductions alone)
+    total = PP.ar_bwd_identity(total, axes, axes.token_axes())
+    loss = total / (B * T * axes.token_shards)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    aux_mean = PP.ar_bwd_identity(aux, axes, token_axes) / axes.batch_shards
+    aux_mean = (PP.ar_bwd_identity(aux, axes, axes.token_axes())
+                / axes.token_shards)
     return loss + aux_mean, {"xent": loss, "aux": aux_mean}
 
 

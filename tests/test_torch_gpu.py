@@ -14,6 +14,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_matmul import (block_matmul_kernel,
                                               block_matmul_plain)
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import (attn_core,
                                                  flash_attention_kernel,
                                                  paged_attention_kernel,
@@ -22,6 +23,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
 from repro_torch.kernels.selective_scan import (selective_scan_kernel,
                                                 selective_scan_plain)
 from repro_torch.launch import steps as ST
+from repro_torch.layers.attention import partial_chain, partial_chain_bwd
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -240,6 +242,100 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     again, _ = flash_attention_kernel(q.detach(), k.detach(), v.detach(),
                                       **kw)
     assert torch.equal(again, got.detach())
+
+
+# ---------------------------------------------------------------------- #
+# K4 partial flash attention, forward and backward
+# ---------------------------------------------------------------------- #
+
+PARTIAL = {  # (B, C, nq, nkv, hd, p, r, window): rank r's chain of p blocks
+    "seq_path": (2, 256, 16, 8, 128, 2, 1, 0),
+    "window_hd64": (1, 150, 4, 2, 64, 2, 0, 70),
+    "p3_ragged": (2, 70, 8, 4, 128, 3, 2, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PARTIAL))
+def test_partial_attention_kernel_matches_plain(cuda, case, dtype):
+    """K4's chain over striped blocks: the carry and the finalised output
+    against the plain chain; the backward against the plain chain's
+    autograd; forward and backward each run twice give the same bits."""
+    B, C, nq, nkv, hd, p, r, window = PARTIAL[case]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, kg, vg = rand(B, C, nq, hd), rand(B, p * C, nkv, hd), \
+        rand(B, p * C, nkv, hd)
+    dout = rand(B, C, nq, hd)
+    before = ops.launches()
+    carry = partial_chain(q, kg, vg, r, p, window=window)
+    out = FA.attn_partial_finalize(carry, dtype)
+    grads = partial_chain_bwd(q, kg, vg, dout, out, carry, r, p,
+                              window=window)
+    after = ops.launches()
+    assert after["partial_attention"] == before["partial_attention"] + p
+    assert (after["partial_attention_bwd"]
+            == before["partial_attention_bwd"] + p)
+    # the plain chain on fp32 copies of the same inputs: the kernel
+    # computes in fp32 too, and bf16 rounds only its output (and delta)
+    leaves = [t.float().requires_grad_() for t in (q, kg, vg)]
+    wcarry = partial_chain(*leaves, r, p, window=window, plain=True)
+    want = FA.attn_partial_finalize(wcarry, torch.float32)
+    wgrads = torch.autograd.grad(want, leaves, dout.float())
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.detach(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(carry, wcarry):
+        torch.testing.assert_close(g, w.detach(), rtol=2e-4, atol=2e-4)
+    for g, w in zip(grads, wgrads):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    again = partial_chain(q, kg, vg, r, p, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(again, carry))
+    assert all(torch.equal(a, b) for a, b in zip(
+        partial_chain_bwd(q, kg, vg, dout, out, carry, r, p, window=window),
+        grads))
+
+
+def test_partial_attention_kernel_keeps_a_masked_rows_carry(cuda):
+    """Queries at 0, 2, 4, ... against keys at 1, 3, 5, ...: row 0 sees no
+    key of the block and keeps its carry bit for bit; rows past q_len
+    too."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, C, nq, nkv, hd = 2, 96, 4, 2, 128
+    q = torch.randn((B, C, nq, hd), generator=gen, device=cuda)
+    k0, v0, k, v = (torch.randn((B, C, nkv, hd), generator=gen, device=cuda)
+                    for _ in range(4))
+    start = FA.partial_attention_kernel(
+        q, k0, v0, *FA.attn_partial_init(B, C, nq, hd, device=cuda),
+        q_stride=2, k_stride=2)
+    got = FA.partial_attention_kernel(q, k, v, *start, q_stride=2, k_pos0=1,
+                                      k_stride=2, q_len=80)
+    for g, s in zip(got, start):
+        assert torch.equal(g[:, :, 0], s[:, :, 0])
+        assert torch.equal(g[:, :, 80:], s[:, :, 80:])
+    want = FA.partial_attention_plain(q, k, v, *start, q_stride=2, k_pos0=1,
+                                      k_stride=2, q_len=80)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def test_partial_attention_kernel_refuses_unsupported_inputs(cuda):
+    q = torch.zeros((1, 8, 4, 128), device=cuda)
+    kv = torch.zeros((1, 8, 2, 128), device=cuda)
+    carry = FA.attn_partial_init(1, 8, 4, 128, device=cuda)
+    with pytest.raises(ValueError, match="stride >= 1"):
+        FA.partial_attention_kernel(q, kv, kv, *carry, k_stride=0)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        FA.partial_attention_kernel(q, kv, kv, carry[0].double(),
+                                    *carry[1:])
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.partial_attention_kernel(q[..., :96], kv[..., :96], kv[..., :96],
+                                    *FA.attn_partial_init(1, 8, 4, 96,
+                                                          device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.partial_attention_kernel(q.cpu(), kv, kv, *carry)
 
 
 # ---------------------------------------------------------------------- #

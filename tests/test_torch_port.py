@@ -105,7 +105,10 @@ def test_train_cli_on_cpu(capsys):
     (["--telemetry"], "runtime tooling"),
     (["--profile-steps", "0:1"], "runtime tooling"),
     (["--calib", "auto"], "runtime tooling"),
-    (["--mesh", "2,1,1,1"], "multi-rank mesh")])
+    (["--mesh", "2,1,1,1"], "multi-rank mesh"),
+    (["--mesh", "1,2,1,1,2"], "multi-rank mesh"),
+    (["--mesh", "1,1,1,2,2"], "multi-rank mesh"),
+    (["--backend", "nccl"], "multi-rank mesh")])
 def test_train_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
         train.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
@@ -128,10 +131,22 @@ def test_train_step_refuses_what_is_not_ported(opts, item):
 
 
 @pytest.mark.parametrize("sizes", [(2, 1, 1, 1), (1, 1, 2, 1),
-                                   (1, 1, 1, 2)])
+                                   (1, 1, 1, 2), (2, 1, 1, 1, 2),
+                                   (1, 2, 1, 1, 2)])
 def test_mesh_factors_above_one_raise(sizes):
     with pytest.raises(NotImplementedError, match="multi-rank mesh"):
         MeshAxes(sizes)
+
+
+def test_mesh_admits_a_seq_axis():
+    """A fifth factor is the seq axis; a 4-tuple means g_seq = 1."""
+    axes = MeshAxes((1, 1, 1, 1, 2))
+    assert (axes.gseq, axes.batch_shards, axes.token_shards) == (2, 1, 2)
+    assert axes.token_axes() == ("data", "z", "seq")
+    assert MeshAxes((1, 1, 1, 1)) == MeshAxes((1, 1, 1, 1, 1))
+    for bad in ((1, 1, 1), (1, 1, 1, 1, 1, 1), (1, 1, 1, 1, 0)):
+        with pytest.raises(ValueError, match="4 or 5 positive factors"):
+            MeshAxes(bad)
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "xlstm-350m",
