@@ -15,8 +15,9 @@ a hard failure:
      serving and training paths' shapes, in float32 and bfloat16:
      K3 RMSNorm, K5 paged attention (chunked == one-shot bitwise; also
      over Jamba's dense decode cache seen as 32-row pages), K1 block
-     matmul in the three layouts of training and at the Mamba layer's
-     widths, K2 flash attention forward and backward (also at Jamba's
+     matmul in the three layouts of training, at the Mamba layer's widths
+     and in the middle band of M (each run twice: the same bits), K2
+     flash attention forward and backward (also at Jamba's
      prefill shape; the forward run twice gives the same bits, as
      rematerialization needs), K6 selective scan at the prefill and
      decode shapes (y and final state; two runs give the same bits);
@@ -29,10 +30,12 @@ a hard failure:
      of a short serving run;
   6. per-kernel times (CUDA events) at the paths' shapes, beside the plain
      version, one PyTorch library call where one exists and the least time
-     the card could take;
+     the card could take; K1 also in bfloat16 at the forward and decode
+     shapes, beside bfloat16 ``torch.matmul``;
   7. full-width training parity: the loss and every gradient of one
      microbatch (2 x 512 tokens) through the kernels and through the plain
-     versions, before any optimizer state exists;
+     versions, before any optimizer state exists; the kernels' run twice
+     gives the same bits (loss and every gradient);
   8. training: the serving model is freed, then ``launch/train.py`` runs
      3 full-width steps (batch 4 x 512, overdecompose 2, float32); every
      loss is finite and each kernel's launch count is the expected count
@@ -124,6 +127,8 @@ MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
                  ("tied head h.E^T", 1024, 2048, 152064, "NT"),
                  ("decode x.W", 8, 2048, 6144, "NN"),
                  ("decode tied head", 8, 2048, 152064, "NT"),
+                 # the middle band of M (17 to 64 rows: the 64-row tile)
+                 ("middle band x.W", 64, 2048, 6144, "NN"),
                  # Jamba's Mamba layer (prefill 4 x 512 rows, decode 4):
                  # w_x's N of 288 (dt_rank + 2N) and w_dt's K of 256, whose
                  # input is a column slice of w_x's output ("SN": a read
@@ -132,6 +137,10 @@ MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
                  ("mamba w_dt", 2048, 256, 8192, "SN"),
                  ("decode mamba w_x", 4, 8192, 288, "NN"),
                  ("decode mamba w_dt", 4, 256, 8192, "SN")]
+# K1 shapes also timed in bfloat16, beside bfloat16 torch.matmul (which
+# runs on the tensor cores; K1's bf16 path widens to fp32 on the CUDA
+# cores)
+MATMUL_BF16_TIMED = ("fwd X.W", "decode x.W")
 # K2 at the training shape: (B, T, S, nq, nkv, hd, causal, window, kv_len)
 ATTN_MAIN = (2, 512, 512, 16, 8, 128, True, 0, 0)
 ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
@@ -492,13 +501,18 @@ def phase_kernels_train(gen, errs):
     from repro_torch.kernels.flash_attention import (
         attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
     f32 = torch.float32
-    log("[kernels] K1 block_matmul vs plain (torch.matmul on fp32 operands)")
+    log("[kernels] K1 block_matmul vs plain (torch.matmul on fp32 operands); "
+        "each run twice")
     for dtype in (f32, torch.bfloat16):
         for name, M, K, N, layout in MATMUL_SHAPES:
             a, b = matmul_inputs(gen, M, K, N, layout, dtype)
+            got = block_matmul_kernel(a, b)
             e = check_rel(f"{dtype_name(dtype)} {name} ({M}, {K}) x ({K}, "
-                          f"{N}) {layout}", block_matmul_kernel(a, b),
-                          block_matmul_plain(a, b), MATMUL_TOL[dtype])
+                          f"{N}) {layout}", got, block_matmul_plain(a, b),
+                          MATMUL_TOL[dtype])
+            if not torch.equal(got, block_matmul_kernel(a, b)):
+                raise AssertionError(f"K1 {name}: two runs differ")
+            del got
             if dtype == f32:
                 errs["block_matmul"] = max(errs["block_matmul"], e)
             del a, b
@@ -712,19 +726,25 @@ def phase_timings_train(gen, out):
     f32 = torch.float32
     log("[timings] float32, training shapes: device time from a replayed "
         "CUDA graph / eager calls back to back")
-    for name, M, K, N, layout in MATMUL_SHAPES:
-        a, b = matmul_inputs(gen, M, K, N, layout, f32)
+    shapes = [(f32, *c) for c in MATMUL_SHAPES] + [
+        (torch.bfloat16, *c) for c in MATMUL_SHAPES
+        if c[0] in MATMUL_BF16_TIMED]
+    for dtype, name, M, K, N, layout in shapes:
+        a, b = matmul_inputs(gen, M, K, N, layout, dtype)
         heavy = N > 100_000 and M > 64
+        elt = a.element_size()
         t, eager = timings(lambda: block_matmul_kernel(a, b),
                            lambda: block_matmul_plain(a, b),
                            lambda: torch.matmul(a, b),
-                           4 * (M * K + K * N + M * N), 2 * M * N * K, f32,
-                           iters=5 if heavy else 50,
+                           elt * (M * K + K * N + M * N), 2 * M * N * K,
+                           dtype, iters=5 if heavy else 50,
                            eager_iters=5 if heavy else 100)
-        log(f"  block_matmul {name} ({M}, {K}) x ({K}, {N}) {layout}: "
-            + fmt(t, eager) + f"; {2 * M * N * K / t['ms'] / 1e9:.1f} "
-            f"TFLOP/s")
-        out.setdefault("block_matmul", t)
+        log(f"  block_matmul {dtype_name(dtype)} {name} ({M}, {K}) x ({K}, "
+            f"{N}) {layout}: " + fmt(t, eager) + f"; "
+            f"{2 * M * N * K / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+        if dtype == f32:
+            out.setdefault("block_matmul", t)
         del a, b
     B, T, S, nq, nkv, hd, causal, window, kv_len = ATTN_MAIN
     q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, f32)
@@ -802,7 +822,9 @@ def fmt(t, eager):
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
 
 
-KERNEL_GROUPS = (("gemm_kernel", "K1 block_matmul"),
+KERNEL_GROUPS = (("sgemm_tile_kernel", "K1 block_matmul"),
+                 ("gemv_n_kernel", "K1 block_matmul"),
+                 ("gemv_k_kernel", "K1 block_matmul"),
                  ("split_sum_kernel", "K1 block_matmul"),
                  ("flash_fwd_kernel", "K2 flash_attention forward"),
                  ("flash_bwd", "K2 flash_attention backward"),
@@ -870,9 +892,9 @@ def phase_train_parity(cfg):
     tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 512),
                                     generator=gen).cuda() for _ in range(2))
     log(f"[train parity] full-width {cfg.name}, float32, one microbatch "
-        f"(2 x 512), remat full: kernels vs plain")
+        f"(2 x 512), remat full: kernels vs plain, the kernels twice")
     res = {}
-    for mode in ("kernel", "plain"):
+    for mode in ("kernel", "again", "plain"):
         t0 = time.time()
         loss, _ = lm_loss(model, tokens, labels, plain=(mode == "plain"))
         loss.backward()
@@ -884,6 +906,13 @@ def phase_train_parity(cfg):
         log(f"  {mode}: loss {res[mode][0]:.6f}, grad norm {norm:.6f}, "
             f"{time.time() - t0:.2f}s")
     (lk, nk, gk), (lp, np_, gp) = res["kernel"], res["plain"]
+    same = lk == res["again"][0] and all(
+        torch.equal(gk[n], res["again"][2][n]) for n in gk)
+    log(f"  kernels run twice: loss and all {len(gk)} gradients "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("a training microbatch does not repeat")
+    del res["again"]
     worst = max(((float((gk[n] - gp[n]).abs().max())
                   / max(float(gp[n].abs().max()), 1e-30)), n) for n in gp)
     log(f"  |dloss|/loss {abs(lk - lp) / abs(lp):.3e} (tol "

@@ -110,6 +110,36 @@ def _local_ids(tokens, axes, v_local):
     return local, (local >= 0) & (local < v_local)
 
 
+def segment_sum(idx, rows, n_rows: int):
+    """(n_rows, h) whose row i is the sum of the ``rows[t]`` with
+    ``idx[t] == i``, added in t order from zero, the same bits on every
+    run. Tokens are ranked by their occurrence of their id (a stable
+    sort); pass k adds every id's k-th row, and within a pass no id
+    repeats, so no two adds meet. One pass per occurrence of the most
+    frequent id; ``index_add_`` instead sums repeated ids with atomics on
+    CUDA, in an order that changes from run to run."""
+    n = idx.numel()
+    out = torch.zeros((n_rows, rows.shape[-1]), dtype=rows.dtype,
+                      device=rows.device)
+    if n == 0:
+        return out
+    order = torch.sort(idx, stable=True).indices       # by id, then t
+    sidx = idx[order]
+    pos = torch.arange(n, device=idx.device)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = sidx[1:] != sidx[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    occ = pos - start                                  # k of each token
+    by_k = torch.sort(occ, stable=True).indices
+    tok, ids = order[by_k], sidx[by_k]
+    off = 0
+    for c in torch.bincount(occ).tolist():
+        i, t = ids[off:off + c], tok[off:off + c]
+        out.index_put_((i,), out[i] + rows[t])
+        off += c
+    return out
+
+
 class _EmbeddingLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tokens, table, axes):
@@ -130,9 +160,8 @@ class _EmbeddingLookup(torch.autograd.Function):
         idx = torch.where(ok, local, torch.full_like(local, v_local))
         h = demb.shape[-1]
         # out-of-range rows land on the extra row v_local and are dropped
-        dtab = torch.zeros((v_local + 1, h), dtype=torch.float32,
-                           device=demb.device)
-        dtab.index_add_(0, idx.reshape(-1), demb.reshape(-1, h).float())
+        dtab = segment_sum(idx.reshape(-1), demb.reshape(-1, h).float(),
+                           v_local + 1)
         dtab = M.psum_scatter(dtab[:-1], axes, "z", dim=1)
         return None, dtab.to(dtype), None
 
@@ -140,7 +169,7 @@ class _EmbeddingLookup(torch.autograd.Function):
 def embedding_lookup(tokens, table, axes: M.MeshAxes):
     """tokens (B, S) int; table (V/y, d/(x z)) -> (B, S, d/x), features
     sharded over x, replicated over y. The table's gradient is an fp32
-    ``index_add_``, reduce-scattered over z."""
+    sum in token order (:func:`segment_sum`), reduce-scattered over z."""
     return _EmbeddingLookup.apply(tokens, table, axes)
 
 

@@ -12,20 +12,39 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (rows, cols, depth) of the kernel's output tiles; mirrors csrc's Tile
-LARGE = (128, 128, 8)
-SMALL = (16, 64, 32)
-SMALL_M = 64          # M at or below this takes the small tile
-MIN_SPLIT_TILES = 4   # each K split runs at least this many tile steps
-# blocks per SM the K split aims for: the small tile holds little state,
-# so many of its blocks fit an SM and keep more weight loads in flight
-BLOCKS_PER_SM = {True: 8, False: 2}
+# the kernel's paths (csrc's Path): two block tiles, and two decode paths
+# that stream the weight once, by which index of b is contiguous
+LARGE, MID, DECODE_N, DECODE_K = "large", "mid", "decode_n", "decode_k"
+PATHS = (LARGE, MID, DECODE_N, DECODE_K)
+TILES = {LARGE: (128, 128), MID: (64, 128)}   # (rows, cols); mirrors Tile
+TILE_K = 16           # the tiles' depth
+BLOCKS_PER_SM = {LARGE: 2, MID: 4}            # resident blocks of a tile
+DECODE_M = 16         # M at or below this takes a decode path
+MID_M = 64            # M at or below this (and above DECODE_M) takes MID
+MIN_SPLIT_TILES = 4   # each K split of a tile path runs this many steps
+MAX_SPLITS = 16
+# decode: the blocks per SM the K split aims for, and each split's least
+# depth in rows
+DECODE_BLOCKS_PER_SM = 4
+MIN_SPLIT_ROWS = 64
+# an H100 SXM's published rates (the plan's cost model): float32 outside
+# the tensor cores, and memory
+PEAK_F32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
+SPLIT_SUM_S = 2e-6    # a launch of the split sum, beside its bytes
+
+
+class Plan(NamedTuple):
+    path: str         # one of PATHS
+    splits: int       # K is split this many ways...
+    k_split: int      # ...of this many k each (the last may be shorter)
 
 
 def block_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,18 +54,71 @@ def block_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def plan(M: int, N: int, K: int, n_sm: int):
-    """(small, splits, k_split): the tile the kernel uses, and how many
-    ways K is split so that about BLOCKS_PER_SM blocks per SM are in
-    flight, with every split at least MIN_SPLIT_TILES tile steps deep."""
-    small = M <= SMALL_M
-    bm, bn, bk = SMALL if small else LARGE
+def k_granule(path: str, elt: int) -> int:
+    """The k a split must be a multiple of (csrc's k_granule): the tiles'
+    depth; 8 warps of 4 rows (DECODE_N); 2 steps of 32 lanes of a 16-byte
+    group along k (DECODE_K)."""
+    if path == DECODE_N:
+        return 32
+    if path == DECODE_K:
+        return 2 * 32 * (16 // elt)
+    return TILE_K
+
+
+def _split(K: int, granule: int, splits: int):
+    k_split = -(-max(K, 1) // (splits * granule)) * granule
+    return max(-(-K // k_split), 1), k_split
+
+
+@functools.lru_cache(maxsize=4096)   # called once per product, per step
+def plan(M: int, N: int, K: int, n_sm: int, *, elt: int = 4,
+         b_k1: bool = False) -> Plan:
+    """The kernel's path for an (M, K) @ (K, N) product of ``elt``-byte
+    elements on a card of ``n_sm`` SMs, and its K split. ``b_k1``: b's k
+    index is contiguous (b a transposed view), which picks DECODE_K.
+
+    Tiles: the split that minimises the estimated time, the waves of
+    blocks (BLOCKS_PER_SM resident on each SM) times each split's tile
+    steps at the card's float32 rate, plus the split sum's bytes; every
+    split at least MIN_SPLIT_TILES steps deep. Decode: enough K splits for
+    DECODE_BLOCKS_PER_SM blocks per SM, each split at least MIN_SPLIT_ROWS
+    deep."""
+    if M <= DECODE_M:
+        path = DECODE_K if b_k1 else DECODE_N
+        # columns a block owns: a 16-byte group for each of 32 lanes
+        # (DECODE_N), 4 for each of 8 warps (DECODE_K)
+        cols = 32 * (16 // elt) if path == DECODE_N else 8 * 4
+        granule = k_granule(path, elt)
+        want = -(-DECODE_BLOCKS_PER_SM * n_sm // -(-N // cols))
+        most = max(1, -(-K // max(MIN_SPLIT_ROWS, granule)))
+        return Plan(path, *_split(K, granule, max(1, min(want, most))))
+    path = MID if M <= MID_M else LARGE
+    bm, bn = TILES[path]
     tiles = -(-M // bm) * -(-N // bn)
-    k_tiles = -(-K // bk)
-    want = -(-BLOCKS_PER_SM[small] * n_sm // tiles)
-    splits = max(1, min(want, k_tiles // MIN_SPLIT_TILES))
-    k_split = max(-(-k_tiles // splits), 1) * bk
-    return small, max(-(-K // k_split), 1), k_split
+    k_tiles = max(-(-K // TILE_K), 1)
+    slots = BLOCKS_PER_SM[path] * n_sm
+    step_s = 2 * bm * bn * TILE_K * BLOCKS_PER_SM[path] / (PEAK_F32 / n_sm)
+
+    def cost(s):
+        waves = -(-tiles * s // slots)
+        t = waves * -(-k_tiles // s) * step_s
+        if s > 1:
+            t += (s + 1) * M * N * 4 / HBM_BYTES_PER_S + SPLIT_SUM_S
+        return t
+    most = max(1, min(MAX_SPLITS, k_tiles // MIN_SPLIT_TILES))
+    best = min(range(1, most + 1), key=lambda s: (cost(s), s))
+    return Plan(path, *_split(K, TILE_K, best))
+
+
+def vector_ok(t: torch.Tensor) -> bool:
+    """Whether the kernel may read the 2-D operand ``t`` 16 bytes at a time
+    along its contiguous index: that index has stride 1, and the base
+    address and the other stride are multiples of 16 bytes (4 float32 or
+    8 bf16 elements)."""
+    s0, s1 = t.stride()
+    other = s0 if s1 == 1 else s1 if s0 == 1 else None
+    return (other is not None and t.data_ptr() % 16 == 0
+            and other * t.element_size() % 16 == 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,9 +130,26 @@ def _launcher():
     fn = build.library("block_matmul").block_matmul_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_args(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                n_sm: int):
+    """(the launcher's arguments before the stream, the workspace): the
+    plan for these operands and their 16-byte reads."""
+    (M, K), N = a.shape, b.shape[1]
+    p = plan(M, N, K, n_sm, elt=a.element_size(),
+             b_k1=b.stride(0) == 1 and b.stride(1) != 1)
+    work = (torch.empty((p.splits, M, N), dtype=torch.float32,
+                        device=a.device) if p.splits > 1 else None)
+    vec = int(vector_ok(a)) | 2 * int(vector_ok(b))
+    return (a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+            b.stride(0), b.stride(1), out.data_ptr(),
+            work.data_ptr() if work is not None else None, M, N, K,
+            p.splits, p.k_split, PATHS.index(p.path), vec,
+            _DTYPES[a.dtype]), work
 
 
 def block_matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,16 +165,10 @@ def block_matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"block_matmul_kernel needs (M, K) @ (K, N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    (M, K), N = a.shape, b.shape[1]
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    small, splits, k_split = plan(M, N, K, _sm_count(a.device.index or 0))
-    work = (torch.empty((splits, M, N), dtype=torch.float32,
-                        device=a.device) if splits > 1 else None)
-    err = _launcher()(
-        a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(), b.stride(0),
-        b.stride(1), out.data_ptr(), work.data_ptr() if work is not None
-        else None, M, N, K, splits, k_split, int(small), _DTYPES[a.dtype],
-        torch.cuda.current_stream(a.device).cuda_stream)
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype,
+                      device=a.device)
+    args, work = launch_args(a, b, out, _sm_count(a.device.index or 0))
+    err = _launcher()(*args, torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, "block_matmul_kernel")
     block_matmul_kernel.launches += 1
     return out

@@ -105,8 +105,10 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
     and applies AdamW. The model's parameters and
     ``opt_state`` (``adamw.init_state`` of ``model.named_parameters()``)
     are updated in place. In float32 the parameters' ``.grad`` is the
-    accumulator; in bfloat16 a separate fp32 one is, as the JAX step casts
-    each microbatch's gradients to fp32 before summing."""
+    accumulator; in bfloat16 with more than one microbatch a separate fp32
+    one is, as the JAX step casts each microbatch's gradients to fp32
+    before summing. With one microbatch the gradients keep their dtype and
+    are reduced in it, as the JAX step's are."""
     if opts.overlap:
         raise NotImplementedError(
             "the overlapped schedule (TrainOptions.overlap) is not ported "
@@ -129,7 +131,7 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
         mbs = split_batch({k: M.seq_shard(v, axes) for k, v in batch.items()},
                           n, axes=axes)
         acc = None
-        if opts.dtype != torch.float32:
+        if n > 1 and opts.dtype != torch.float32:
             acc = {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items()}
         for p in params.values():

@@ -1,0 +1,99 @@
+// A CPU stand-in for the part of the CUDA runtime that the port's kernel
+// sources use, so that a test can compile a source with g++ and run its
+// logic on the CPU (tests/test_torch_k1_emulated.py). Each CUDA thread is
+// a std::thread; the blocks of a grid run one after another, so a
+// __shared__ array is a function-local static; __syncthreads is a
+// std::barrier over the block; a warp shuffle passes through a per-warp
+// buffer between two barriers of its 32 threads. A launch `k<<<g, b, s,
+// st>>>(args)` is rewritten by the test to `emu::launch(g, b, s, st, k,
+// args)`. Nothing here models timing or memory spaces.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() {}
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct float4 { float x, y, z, w; };
+struct uint4 { uint32_t x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+
+namespace emu {
+inline std::barrier<>* block_barrier = nullptr;
+inline std::vector<std::unique_ptr<std::barrier<>>> warp_barrier;
+inline float warp_buffer[32][32];
+
+template <typename F, typename... A>
+void launch(dim3 g, dim3 b, int, cudaStream_t, F kernel, A... args) {
+  const unsigned n = b.x * b.y * b.z;
+  if (n % 32 || n > 1024) abort();
+  blockDim = b;
+  gridDim = g;
+  for (unsigned z = 0; z < g.z; ++z)
+    for (unsigned y = 0; y < g.y; ++y)
+      for (unsigned x = 0; x < g.x; ++x) {
+        std::barrier<> bar(n);
+        block_barrier = &bar;
+        warp_barrier.clear();
+        for (unsigned w = 0; w < n / 32; ++w)
+          warp_barrier.emplace_back(new std::barrier<>(32));
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < n; ++t)
+          threads.emplace_back([=] {
+            threadIdx = dim3(t);
+            blockIdx = dim3(x, y, z);
+            kernel(args...);
+          });
+        for (auto& t : threads) t.join();
+      }
+}
+}  // namespace emu
+
+inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu::warp_buffer[w][l] = v;
+  emu::warp_barrier[w]->arrive_and_wait();
+  const float r = emu::warp_buffer[w][l ^ lane_mask];
+  emu::warp_barrier[w]->arrive_and_wait();
+  return r;
+}

@@ -172,24 +172,39 @@ def test_train_step_kernels_match_plain(cuda):
 # K1 block matmul, K2 flash attention forward and backward
 # ---------------------------------------------------------------------- #
 
-def _operands(cuda, layout, M, K, N, dtype, seed=0):
+def _operands(cuda, layout, M, K, N, dtype, seed=0, shift=0):
+    """a (M, K) and b (K, N) in ``layout``: NT reads b and TN reads a
+    through a transposed view, SN reads a as a column slice (row stride K
+    + 32). ``shift`` > 0 starts both that many elements into their
+    storage, so that neither base is 16-byte aligned."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
-    a = rand(K, M).t() if layout == "TN" else rand(M, K)
+        x = torch.randn((shape[0], shape[1] + shift), generator=gen,
+                        device=cuda).to(dtype)
+        return x[:, shift:]
+    a = (rand(K, M).t() if layout == "TN" else
+         rand(M, K + 32)[:, :K] if layout == "SN" else rand(M, K))
     b = rand(N, K).t() if layout == "NT" else rand(K, N)
     return a, b
 
 
+MATMUL_M = [1, 4, 8, 16, 17, 64, 65, 1024]      # decode, middle, tiles
+# (K, N, shift): aligned; not 16-byte aligned; ragged K and N
+MATMUL_KN = [(512, 384, 0), (512, 384, 1), (300, 77, 0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("layout", ["NN", "NT", "TN"])
-@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (37, 300, 77),
-                                   (300, 520, 260)])
-def test_block_matmul_kernel_matches_plain(cuda, M, K, N, layout, dtype):
-    """Held to max|d| <= tol * max|plain|: the kernel sums K in another
-    order than cuBLAS; bf16 outputs round once more."""
-    a, b = _operands(cuda, layout, M, K, N, dtype)
+@pytest.mark.parametrize("layout", ["NN", "NT", "TN", "SN"])
+@pytest.mark.parametrize("K,N,shift", MATMUL_KN)
+@pytest.mark.parametrize("M", MATMUL_M)
+def test_block_matmul_kernel_matches_plain(cuda, M, K, N, shift, layout,
+                                           dtype):
+    """Every path of K1 (decode M <= 16, the 64-row tile, the 128-row
+    tile), held to max|d| <= tol * max|plain|: the kernel sums K in
+    another order than cuBLAS; bf16 outputs round once more. A second
+    call gives the same bits."""
+    a, b = _operands(cuda, layout, M, K, N, dtype, shift=shift)
     n = block_matmul_kernel.launches
     got = ops.matmul(a, b)
     assert block_matmul_kernel.launches == n + 1
@@ -198,12 +213,37 @@ def test_block_matmul_kernel_matches_plain(cuda, M, K, N, layout, dtype):
     err = float((got.float() - want.float()).abs().max())
     assert err <= {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype] * float(
         want.float().abs().max())
+    assert torch.equal(block_matmul_kernel(a, b), got)
 
 
-def test_block_matmul_kernel_is_deterministic(cuda):
-    """The K split sums in a fixed order: two calls give the same bits."""
-    a, b = _operands(cuda, "NN", 8, 4096, 1024, torch.float32)
+@pytest.mark.parametrize("M,layout", [(8, "NN"), (8, "NT"), (1024, "NN")])
+def test_block_matmul_kernel_is_deterministic(cuda, M, layout):
+    """The K split sums in a fixed order: two calls give the same bits, at
+    shapes whose plan splits K (decode) or not."""
+    a, b = _operands(cuda, layout, M, 4096, 1024, torch.float32)
     assert torch.equal(block_matmul_kernel(a, b), block_matmul_kernel(a, b))
+
+
+def test_embedding_backward_repeats_bitwise(cuda):
+    """The embedding gradient sums each row's tokens in token order, with
+    no atomics: 4096 tokens over 7 ids give the same bits on every call
+    (``index_add_`` would add them in an order that changes)."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.core.parallel import embedding_lookup
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    toks = torch.randint(0, 7, (4, 1024), generator=gen, device=cuda)
+    ct = torch.randn((4, 1024, 2048), generator=gen, device=cuda)
+    grads = []
+    for _ in range(3):
+        table = torch.zeros((64, 2048), device=cuda, requires_grad=True)
+        embedding_lookup(toks, table, MeshAxes()).backward(ct)
+        grads.append(table.grad)
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0],
+                                                           grads[2])
+    want = torch.zeros((64, 2048), dtype=torch.float64, device=cuda)
+    want.index_add_(0, toks.reshape(-1), ct.reshape(-1, 2048).double())
+    torch.testing.assert_close(grads[0].double(), want, rtol=1e-5,
+                               atol=1e-4)
 
 
 ATTN = {  # (B, T, S, nq, nkv, hd, causal, window, kv_len)

@@ -1,0 +1,113 @@
+"""K1's CUDA source run on the CPU.
+
+``csrc/block_matmul.cu`` is compiled with g++ against the CPU stand-ins of
+``tests/cuda_emu/`` (one thread per CUDA thread, blocks in turn) and
+launched through the wrapper's own ``launch_args``, on CPU tensors: every
+path (decode with b n- or k-contiguous, the 64-row and the 128-row tile),
+16-byte and element-wise loads, ragged edges and K splits, in float32 and
+bfloat16. Each case is held to the plain version with the card's
+tolerances (``chip_smoke.py``'s MATMUL_TOL) and must repeat bitwise. This
+checks the kernel's indexing and arithmetic, not its speed or its
+behaviour under the real compiler; the card runs the same source in
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import ctypes
+import pathlib
+import re
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from repro_torch.kernels import block_matmul as BM
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "block_matmul.cu"
+N_SM = 3          # a small card: the plans split K even at these sizes
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture(scope="module")
+def launcher(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("k1_emulated")
+    src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(",
+                 r"emu::launch(\2, \1, ", SOURCE.read_text(), flags=re.S)
+    (tmp / "k1.cpp").write_text(src)
+    lib = tmp / "k1.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    f"-I{ROOT / 'tests' / 'cuda_emu'}", "-o", str(lib),
+                    str(tmp / "k1.cpp"), "-lpthread"], check=True,
+                   capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).block_matmul_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+
+    def run(a, b):
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype)
+        args, work = BM.launch_args(a, b, out, N_SM)
+        assert fn(*args, None) == 0
+        return out, BM.PATHS[args[13]], args[11], args[14]
+    return run
+
+
+def _operands(M, K, N, layout, dtype, shift):
+    gen = torch.Generator().manual_seed(M * 7 + K + N)
+
+    def rand(rows, cols):
+        x = torch.randn((rows, cols + shift), generator=gen).to(dtype)
+        return x[:, shift:]
+    a = (rand(K, M).t() if layout == "TN" else
+         rand(M, K + 32)[:, :K] if layout == "SN" else rand(M, K))
+    b = rand(N, K).t() if layout == "NT" else rand(K, N)
+    return a, b
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+CASES = [  # M, K, N, layout, dtype, shift (> 0: bases not 16-byte aligned)
+    (4, 600, 300, "NN", F32, 0),
+    (8, 512, 520, "SN", BF16, 0),
+    (1, 256, 64, "TN", F32, 1),
+    (8, 512, 64, "NT", F32, 0),
+    (16, 1100, 40, "NT", BF16, 1),
+    (17, 300, 77, "NN", F32, 0),
+    (64, 256, 256, "NT", BF16, 0),
+    (40, 128, 128, "TN", F32, 1),
+    (130, 300, 260, "NN", F32, 0),
+    (96, 256, 264, "NT", F32, 0),
+    (130, 128, 136, "TN", BF16, 0),
+    (65, 70, 129, "SN", BF16, 1)]
+
+
+@pytest.mark.parametrize("M,K,N,layout,dtype,shift", CASES)
+def test_k1_source_matches_plain_on_the_cpu(launcher, M, K, N, layout,
+                                            dtype, shift):
+    a, b = _operands(M, K, N, layout, dtype, shift)
+    got, path, splits, vec = launcher(a, b)
+    want = BM.block_matmul_plain(a, b)
+    assert path == BM.plan(M, N, K, N_SM, elt=a.element_size(),
+                           b_k1=layout == "NT").path
+    assert (vec == 3) == (shift == 0 and all(
+        BM.vector_ok(t) for t in (a, b)))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype] * float(want.float().abs().max()), (path, err)
+    again, *_ = launcher(a, b)
+    assert torch.equal(got, again)
+
+
+def test_the_cases_cover_every_path_and_both_loads():
+    """Every path of the kernel, a split K, and 16-byte as well as
+    element-wise loads, among CASES."""
+    seen = set()
+    for M, K, N, layout, dtype, shift in CASES:
+        a, b = _operands(M, K, N, layout, dtype, shift)
+        p = BM.plan(M, N, K, N_SM, elt=a.element_size(),
+                    b_k1=layout == "NT")
+        vec = BM.vector_ok(a) and BM.vector_ok(b)
+        seen |= {p.path, ("split", p.splits > 1), ("vec", vec)}
+    assert seen >= set(BM.PATHS) | {("split", True), ("split", False),
+                                    ("vec", True), ("vec", False)}

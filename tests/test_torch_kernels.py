@@ -19,7 +19,8 @@ from repro.kernels import ref as jref
 from repro.layers import attention as jattn
 from repro.layers.attention import paged_attn_core as jax_paged_attn_core
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.block_matmul import block_matmul_kernel, plan
+from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                              k_granule, plan, vector_ok)
 from repro_torch.kernels.flash_attention import (attn_core,
                                                  flash_attention_bwd_kernel,
                                                  flash_attention_kernel,
@@ -204,20 +205,56 @@ def test_block_matmul_plain_matches_pallas_and_ref(M, K, N, layout, dtype):
     assert np.array_equal(ref.block_matmul_ref(ta, tb).float().numpy(), got)
 
 
-@pytest.mark.parametrize("M,N,K,small,splits", [
-    (1024, 6144, 2048, False, 1),     # training: 384 tiles fill the card
-    (1024, 2048, 2048, False, 3),     # 128 tiles: K split three ways
-    (8, 6144, 2048, True, 11),        # decode: 96 small tiles
-    (8, 152064, 2048, True, 1),       # decode, tied head
-    (8, 2048, 64, True, 1)])          # too shallow to split
-def test_block_matmul_plan(M, N, K, small, splits):
-    """The wrapper's choice of tile and K split on a 132-SM card; every
-    split is a whole number of tile steps and covers K exactly once."""
-    got_small, got_splits, k_split = plan(M, N, K, 132)
-    assert (got_small, got_splits) == (small, splits)
-    bk = 32 if small else 8
-    assert k_split % bk == 0 and (splits - 1) * k_split < K <= (
-        splits * k_split)
+@pytest.mark.parametrize("M,N,K,b_k1,path,splits", [
+    (1024, 6144, 2048, False, "large", 2),    # fwd: 384 tiles, 1.45 waves
+    (1024, 2048, 6144, True, "large", 2),     # dX: 128 tiles, K split
+    (2048, 6144, 1024, False, "large", 1),    # dW: 768 tiles, 2.9 waves
+    (1024, 152064, 2048, True, "large", 1),   # tied head: 36 full waves
+    (2048, 288, 8192, False, "large", 11),    # Mamba w_x: 48 tiles
+    (65, 96, 64, False, "large", 1),          # just above the middle band
+    (64, 6144, 2048, False, "mid", 11),       # the middle band's top
+    (17, 77, 300, False, "mid", 4),           # its bottom, ragged
+    (16, 6144, 2048, False, "decode_n", 11),  # decode, b n-contiguous
+    (8, 152064, 2048, True, "decode_k", 1),   # decode tied head
+    (4, 288, 8192, False, "decode_n", 128),   # decode Mamba w_x
+    (1, 8192, 256, False, "decode_n", 4),     # decode Mamba w_dt, M 1
+    (8, 2048, 64, False, "decode_n", 1)])     # too shallow to split
+def test_block_matmul_plan(M, N, K, b_k1, path, splits):
+    """The wrapper's choice of path and K split on a 132-SM card: the
+    tiles above 16 rows (64-row tiles up to 64), the decode paths at or
+    below, by which index of b is contiguous; every split a whole number
+    of the path's k granule, covering K exactly once."""
+    p = plan(M, N, K, 132, b_k1=b_k1)
+    assert (p.path, p.splits) == (path, splits)
+    assert p.k_split % k_granule(p.path, 4) == 0
+    assert (splits - 1) * p.k_split < K <= splits * p.k_split
+
+
+@pytest.mark.parametrize("elt,granule", [(4, 256), (2, 512)])
+def test_block_matmul_plan_decode_k_granule_follows_the_dtype(elt, granule):
+    """A DECODE_K lane reads 16 bytes along k, 4 float32 or 8 bf16, and a
+    split is two steps of 32 lanes: its granule doubles in bf16."""
+    p = plan(8, 2048, 8192, 132, elt=elt, b_k1=True)
+    assert p.path == "decode_k" and k_granule(p.path, elt) == granule
+    assert p.k_split % granule == 0 and p.splits > 1
+
+
+@pytest.mark.parametrize("dtype,shape,view,ok", [
+    (torch.float32, (8, 512), lambda t: t, True),
+    (torch.float32, (8, 513), lambda t: t[:, 1:], False),    # base + 4 B
+    (torch.float32, (8, 300), lambda t: t, True),            # 1200 B rows
+    (torch.bfloat16, (8, 300), lambda t: t, False),          # 600 B rows
+    (torch.bfloat16, (8, 304), lambda t: t, True),           # 608 B rows
+    (torch.bfloat16, (8, 320), lambda t: t[:, 8:], True),    # base + 16 B
+    (torch.bfloat16, (8, 320), lambda t: t[:, 4:], False),   # base + 8 B
+    (torch.float32, (96, 64), lambda t: t.t(), True),        # k-contiguous
+    (torch.float32, (8, 512), lambda t: t[:, ::2], False)])  # no stride 1
+def test_block_matmul_vector_loads_need_16_byte_alignment(dtype, shape,
+                                                          view, ok):
+    """An operand is read 16 bytes at a time only if its contiguous index
+    has stride 1 and its base and other stride are multiples of 16 bytes,
+    which is 4 float32 but 8 bf16 elements."""
+    assert vector_ok(view(torch.zeros(shape, dtype=dtype))) is ok
 
 
 # ---------------------------------------------------------------------- #

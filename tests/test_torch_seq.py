@@ -403,9 +403,42 @@ def _rank_worker(outdir: pathlib.Path):
                                                       batch).items()}
                        for _ in range(3)]
         out["param_sha256"] = train.param_sha256(model)
+        out["bf16_n1"] = _bf16_one_microbatch(cfg, axes, state,
+                                              inp["loss_batch"])
     finally:
         close_mesh()
     torch.save(out, outdir / f"rank{rank}.pt")
+
+
+def _bf16_one_microbatch(cfg, axes, state, batch):
+    """A bfloat16 train step at overdecompose 1: this rank's own bf16
+    gradients of the step's loss, and the gradients the step hands to
+    AdamW (captured around ``adamw.apply_updates``)."""
+    model = ST.init_model(cfg, axes, device="cpu")
+    model.load_state_dict(state)
+    model.to(torch.bfloat16)
+    tokens, labels = (_local(t, axes) for t in batch)
+    loss, _ = D.lm_loss(model, tokens, labels, remat=True)
+    loss.backward()
+    own = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    handed = {}
+    apply_updates = OPT.apply_updates
+
+    def capture(params, grads, *args, **kw):
+        handed.update({k: g.clone() for k, g in grads.items()})
+        return apply_updates(params, grads, *args, **kw)
+    step = ST.make_train_step(cfg, axes, OPT.AdamWConfig(**OPT_CFG),
+                              ST.TrainOptions(overdecompose=1,
+                                              dtype=torch.bfloat16))
+    OPT.apply_updates = capture
+    try:
+        step(model, OPT.init_state(dict(model.named_parameters())),
+             ST.stripe_batch({k: torch.from_numpy(v) for k, v in
+                              zip(("tokens", "labels"), batch)}, axes))
+    finally:
+        OPT.apply_updates = apply_updates
+    return dict(own=own, handed=handed)
 
 
 @pytest.fixture(scope="module")
@@ -551,6 +584,21 @@ def test_seq_loss_is_the_mean_over_the_whole_sequence(ranks, jax_model):
     for res in ranks:
         assert abs(res["loss"][0] - float(loss.detach())) <= \
             LOSS_RTOL * float(loss.detach())
+
+
+def test_bf16_step_at_overdecompose_1_reduces_in_bf16(ranks):
+    """At overdecompose 1 the JAX step keeps bfloat16 gradients and psums
+    them over seq in bfloat16 (no fp32 accumulator, which it makes only
+    for n > 1). On two ranks AdamW gets, on each, the bf16 sum of the two
+    ranks' bf16 gradients, rounded once: not their exact fp32 sum."""
+    own = [r["bf16_n1"]["own"] for r in ranks]
+    assert own[0].keys() == ranks[0]["bf16_n1"]["handed"].keys()
+    for n in own[0]:
+        want = (own[0][n].float() + own[1][n].float()).to(torch.bfloat16)
+        for r in ranks:
+            got = r["bf16_n1"]["handed"][n]
+            assert got.dtype == torch.bfloat16, (n, got.dtype)
+            assert torch.equal(got, want), n
 
 
 def _jax_trajectory(jcfg, tree, batch, mesh, axes, steps=3):

@@ -149,8 +149,8 @@ def test_function_matches_jax_custom_vjp(name, jax_mesh):
 
 
 def test_embedding_gradient_sums_repeated_tokens():
-    """The table's gradient is an fp32 index_add_: a token seen twice gets
-    both rows' cotangents, an unseen row gets exactly 0."""
+    """The table's gradient sums each token's cotangent in fp32: a token
+    seen twice gets both rows' cotangents, an unseen row gets exactly 0."""
     table = torch.zeros(6, 3, requires_grad=True)
     toks = torch.tensor([[1, 4, 1]])
     ct = torch.arange(9, dtype=torch.float32).reshape(1, 3, 3)
@@ -159,6 +159,43 @@ def test_embedding_gradient_sums_repeated_tokens():
     want[1] = ct[0, 0] + ct[0, 2]
     want[4] = ct[0, 1]
     assert torch.equal(table.grad, want)
+
+
+@pytest.mark.parametrize("V,n_tok", [(5, 300), (48, 1000)])
+def test_embedding_gradient_sums_in_token_order(V, n_tok, jax_mesh):
+    """Tokens repeat many times at a small vocab. The table's gradient
+    equals, bitwise, a loop that adds each token's cotangent to its row in
+    token order from zero (no order that changes from run to run), and
+    matches the JAX custom_vjp's ``.at[].add``."""
+    rng = np.random.RandomState(V)
+    toks = rng.randint(0, V, (2, n_tok // 2)).astype(np.int32)
+    table = rng.randn(V, 24).astype(np.float32)
+    ct = rng.randn(2, n_tok // 2, 24).astype(np.float32)
+    t = torch.from_numpy(table).requires_grad_()
+    PP.embedding_lookup(torch.from_numpy(toks), t, MeshAxes()).backward(
+        torch.from_numpy(ct))
+    want = torch.zeros(V, 24)
+    for tok, row in zip(toks.reshape(-1), torch.from_numpy(ct).reshape(
+            -1, 24)):
+        want[tok] += row
+    assert torch.equal(t.grad, want)
+    _, (jgrad,) = _jax_vjp(jax_mesh, lambda ax, tab: JPP.embedding_lookup(
+        jnp.asarray(toks), tab, ax), [table], ct)
+    np.testing.assert_allclose(t.grad.numpy(), jgrad, **FN_TOL)
+
+
+def test_segment_sum_drops_nothing_and_handles_no_tokens():
+    """Every id's rows in token order, whatever the ids' order; an empty
+    index gives zeros."""
+    idx = torch.tensor([3, 0, 3, 3, 1, 0])
+    rows = torch.arange(18, dtype=torch.float32).reshape(6, 3) / 7
+    got = PP.segment_sum(idx, rows, 5)
+    want = torch.zeros(5, 3)
+    for i, r in zip(idx, rows):
+        want[i] += r
+    assert torch.equal(got, want)
+    assert torch.equal(PP.segment_sum(idx[:0], rows[:0], 2),
+                       torch.zeros(2, 3))
 
 
 # ---------------------------------------------------------------------- #
