@@ -26,12 +26,16 @@ a hard failure:
      kernels and with the plain versions; logits must agree;
   5. the continuous-batching engine serves 16 requests at full width;
      every request completes, logits are finite, and each kernel's launch
-     count is the expected count per step times the steps run; a profile
-     of a short serving run;
+     count (K5's combine reported apart) is the expected count per step
+     times the steps run; a profile of a short serving run; then the same
+     requests on a pool 64 times larger: the same tokens, no more memory
+     above the resident, and its profile;
   6. per-kernel times (CUDA events) at the paths' shapes, beside the plain
      version, one PyTorch library call where one exists and the least time
      the card could take; K1 also in bfloat16 at the forward and decode
-     shapes, beside bfloat16 ``torch.matmul``;
+     shapes, beside bfloat16 ``torch.matmul``; K5 at serving's decode and
+     chunked-prefill shapes and at Jamba's dense decode (each also held
+     to its plain version), K2's forward also at Jamba's prefill shape;
   7. full-width training parity: the loss and every gradient of one
      microbatch (2 x 512 tokens) through the kernels and through the plain
      versions, before any optimizer state exists; the kernels' run twice
@@ -106,6 +110,8 @@ SERVE_FLAGS = ["--arch", ARCH, "--preset", "full", "--slots", "8",
                "--page-size", "16", "--pages", "128", "--chunk", "32",
                "--requests", "16", "--prompt-len", "128", "--gen", "32",
                "--rate", "0", "--seed", str(SEED)]
+# phase 5's pool times 64: 30 GB of K/V pages at full width
+POOL_PAGES = 8192
 TRAIN_FLAGS = ["--arch", ARCH, "--preset", "full", "--steps", "3",
                "--batch", "4", "--seq", "512", "--overdecompose", "2",
                "--dtype", "float32", "--log-every", "1"]
@@ -143,12 +149,13 @@ MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
 MATMUL_BF16_TIMED = ("fwd X.W", "decode x.W")
 # K2 at the training shape: (B, T, S, nq, nkv, hd, causal, window, kv_len)
 ATTN_MAIN = (2, 512, 512, 16, 8, 128, True, 0, 0)
+ATTN_JAMBA = (4, 512, 512, 32, 8, 128, True, 0, 0)
 ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
               "window 128": (2, 512, 512, 16, 8, 128, True, 128, 0),
               "ragged kv_len 300 of 320, non-causal, T 200":
                   (2, 200, 320, 16, 8, 128, False, 0, 300),
               "Jamba prefill (B 4, T 512, 32/8 heads, hd 128, causal)":
-                  (4, 512, 512, 32, 8, 128, True, 0, 0)}
+                  ATTN_JAMBA}
 # context parallelism: the seq axis, and K4 at its path's shape, per rank
 # and microbatch (B 2, C = 512 / p queries, p gathered blocks of C keys,
 # 16/8 heads, hd 128), causal and with a window
@@ -589,24 +596,10 @@ def phase_parity(model, cfg):
 
 
 def phase_serve(model, cfg, smi):
-    from repro_torch.core.mesh import MeshAxes
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.launch.serving import PagedEngine, ServeConfig
     args = serve.build_parser().parse_args(SERVE_FLAGS)
     log(f"[serve] {' '.join(SERVE_FLAGS)}")
-    engine = PagedEngine(cfg, MeshAxes(), model, ServeConfig(
-        slots=args.slots, page_size=args.page_size,
-        pages_per_shard=args.pages, chunk=args.chunk))
-    t0 = time.time()
-    engine.warmup()
-    torch.cuda.synchronize()
-    log(f"  warmup {time.time() - t0:.2f}s")
-    reqs = serve.make_requests(args, cfg.vocab_size)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    stats = engine.run(reqs)
-    launches = ops.launches()
+    engine, stats, reqs, launches, transient = serve_run(model, cfg, args)
     if not all(r.state == "done" and len(r.generated) == r.max_new
                for r in reqs):
         raise AssertionError("a request did not complete")
@@ -614,8 +607,10 @@ def phase_serve(model, cfg, smi):
         raise AssertionError("non-finite logits")
     L = cfg.n_layers
     # per step: per layer norm1, norm2, q/k-norm; 7 projections; the tied
-    # head; attention over the pages. No K2: the engine is paged only
-    per_step = {"paged_attention": L, "rmsnorm": 4 * L + 1,
+    # head; attention over the pages (K5's split walk, then its combine).
+    # No K2: the engine is paged only
+    per_step = {"paged_attention": L, "paged_attention_combine": L,
+                "rmsnorm": 4 * L + 1,
                 "block_matmul": 7 * L + 1, "flash_attention": 0,
                 "flash_attention_bwd": 0, "selective_scan": 0,
                 "partial_attention": 0, "partial_attention_bwd": 0}
@@ -627,8 +622,62 @@ def phase_serve(model, cfg, smi):
         f"{stats.ttft_p50_ms:.1f}/{stats.ttft_p99_ms:.1f} ms  latency "
         f"p50/p99 {stats.latency_p50_ms:.1f}/{stats.latency_p99_ms:.1f} ms  "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
-    return engine, args, launches
+        f" GiB, {transient / 2**20:.1f} MiB above the resident")
+    return engine, args, launches, ([r.generated for r in reqs], transient)
+
+
+def serve_run(model, cfg, args):
+    """An engine of ``args``' knobs, warmed up, then ``args``' requests
+    served with the launch counts set to 0 just before: (engine, stats,
+    requests, launches, bytes the run allocated above what was resident
+    when it started)."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.serving import PagedEngine, ServeConfig
+    engine = PagedEngine(cfg, MeshAxes(), model, ServeConfig(
+        slots=args.slots, page_size=args.page_size,
+        pages_per_shard=args.pages, chunk=args.chunk))
+    t0 = time.time()
+    engine.warmup()
+    torch.cuda.synchronize()
+    log(f"  warmup {time.time() - t0:.2f}s")
+    reqs = serve.make_requests(args, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    stats = engine.run(reqs)
+    launches = ops.launches()
+    return (engine, stats, reqs, launches,
+            torch.cuda.max_memory_allocated() - resident)
+
+
+def phase_serve_pool(model, cfg, smi, base):
+    """Phase 5's requests on a pool of POOL_PAGES pages. The engine sends
+    K5 only the table columns its rows reach, so the tokens are phase 5's
+    bit for bit and the memory the run allocates above the resident
+    (activations, K5's workspace) does not grow with the pool."""
+    from repro_torch.launch import serve
+    flags = list(SERVE_FLAGS)
+    flags[flags.index("--pages") + 1] = str(POOL_PAGES)
+    args = serve.build_parser().parse_args(flags)
+    log(f"[serve pool] {' '.join(flags)}")
+    engine, stats, reqs, _, transient = serve_run(model, cfg, args)
+    tokens, base_transient = base
+    log(f"  served {stats.n_requests} requests / {stats.total_new_tokens} "
+        f"tokens in {stats.wall_s:.3f}s ({stats.n_steps} steps, "
+        f"{stats.n_preemptions} preemptions) on {smi}; tokens/s "
+        f"{stats.tokens_per_s:.1f}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{transient / 2**20:.1f} MiB above the resident (phase 5: "
+        f"{base_transient / 2**20:.1f} MiB)")
+    if [r.generated for r in reqs] != tokens:
+        raise AssertionError("a larger pool served other tokens")
+    if transient > base_transient + 64 * 2**20:
+        raise AssertionError("the serving run's memory grows with the pool")
+    log("  tokens equal to phase 5's; memory above the resident within "
+        "64 MiB of phase 5's")
+    phase_profile(engine, args, cfg, "pool profile")
 
 
 def check_launches(launches, per_unit, units, unit):
@@ -641,12 +690,71 @@ def check_launches(launches, per_unit, units, unit):
             raise AssertionError(f"{k}: unexpected launch count")
 
 
-def phase_timings(gen, n_layers):
-    """Decode-step shapes: 8 slots at 144 tokens of context."""
+def time_paged(name, q, kps, vps, table, q_pos, q_len):
+    """K5's times on float32 inputs, one pool per layer in ``kps``/``vps``
+    taken in turn (as many layers' pools as exceed the 50 MB L2, so each
+    call finds its pages cold, as in serving). The library yardstick is
+    SDPA over pages gathered beforehand (the gather is not timed), KV
+    heads repeated to the query heads, with the same boolean mask. The
+    bound counts q and out once, the pages the valid rows' keys need, their
+    table entries, q_pos and q_len; operations 4 hd per (valid row, query
+    head, visible key). Every version gets the table's columns that hold
+    the rows' pages, as the serving engine sends them."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         paged_attention_kernel, paged_attention_plain)
+    R, T, nq, hd = q.shape
+    page, nkv = kps[0].shape[1], kps[0].shape[2]
+    rows = valid_rows(q_len, T)
+    pos = q_pos.long()
+    n_keys = int((pos[rows] + 1).sum())
+    last = torch.where(rows, pos, torch.full_like(pos, -1)).amax(1)
+    pages = [int(p) // page + 1 for p in last.tolist() if p >= 0]
+    n_used = max(pages)
+    S = n_used * page
+    table = table[:, :n_used].contiguous()
+    layer = [0]
+
+    def rotate(fn):
+        def call():
+            i = layer[0] = (layer[0] + 1) % len(kps)
+            return fn(i)
+        return call
+    idx = table.long()
+    kg = [kp[idx].reshape(R, S, nkv, hd).transpose(1, 2)
+          .repeat_interleave(nq // nkv, dim=1) for kp in kps]
+    vg = [vp[idx].reshape(R, S, nkv, hd).transpose(1, 2)
+          .repeat_interleave(nq // nkv, dim=1) for vp in vps]
+    mask = (torch.arange(S, device="cuda")[None, None, :]
+            <= pos[:, :, None])[:, None]                 # (R, 1, T, S)
+    qs = q.transpose(1, 2)
+    nbytes = (2 * int(rows.sum()) * nq * hd * 4
+              + 2 * sum(pages) * page * nkv * hd * 4
+              + sum(pages) * 4 + q_pos.numel() * 4 + R * 4)
+    check_close(f"K5 {name} (the timed inputs)",
+                paged_attention_kernel(q, kps[0], vps[0], table, q_pos,
+                                       q_len),
+                paged_attention_plain(q, kps[0], vps[0], table, q_pos, q_len),
+                PAGED_TOL[torch.float32], rows)
+    t, eager = timings(
+        rotate(lambda i: paged_attention_kernel(q, kps[i], vps[i], table,
+                                                q_pos, q_len)),
+        rotate(lambda i: paged_attention_plain(q, kps[i], vps[i], table,
+                                               q_pos, q_len)),
+        rotate(lambda i: F.scaled_dot_product_attention(
+            qs, kg[i], vg[i], attn_mask=mask)),
+        nbytes, 4 * hd * nq * n_keys, torch.float32, iters=28)
+    log(f"  paged_attention ({name}): " + fmt(t, eager)
+        + f"; {t['ms'] / t['library_ms']:.2f}x SDPA")
+    return t
+
+
+def phase_timings(gen, n_layers):
+    """Serving shapes (8 slots at 144 tokens of context; K5 also over
+    Jamba's dense decode cache), then the training and K6 timings."""
+    import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    from repro_torch.layers.attention import DENSE_PAGE, dense_page_view
     f32 = torch.float32
     out = {}
     log("[timings] float32, decode-step shapes, CUDA events: device "
@@ -665,47 +773,33 @@ def phase_timings(gen, n_layers):
         log(f"  rmsnorm ({rows}, {d}): " + fmt(t, eager))
     out["rmsnorm"] = rms[(8, 2048)]
 
-    ctx = [144] * 8
-    q, kp, vp, table, q_pos, q_len = paged_inputs(
-        gen, ctx=ctx, q_len=[1] * 8, T=1, dtype=f32, n_layers=n_layers)
-    layer = [0]
-
-    def rotate(fn):
-        # one pool per layer, as the model has: 28 layers' pools exceed
-        # the 50 MB L2, so each call finds its pages cold as in serving
-        def call():
-            i = layer[0] = (layer[0] + 1) % n_layers
-            return fn(i)
-        return call
-    kernel = rotate(lambda i: paged_attention_kernel(q, kp[i], vp[i], table,
-                                                     q_pos, q_len))
-    plain = rotate(lambda i: paged_attention_plain(q, kp[i], vp[i], table,
-                                                   q_pos, q_len))
-    # library yardstick: SDPA over pages gathered beforehand (the gather
-    # is not timed), KV heads repeated to the 16 query heads, the same
-    # boolean mask
-    R, page, nkv, hd = 8, 16, 8, 128
-    n_used = -(-max(ctx) // page)
-    idx = table[:, :n_used].long()
-    S = n_used * page
-    kg = [kp[i][idx].reshape(R, S, nkv, hd).transpose(1, 2)
-          .repeat_interleave(2, dim=1) for i in range(n_layers)]
-    vg = [vp[i][idx].reshape(R, S, nkv, hd).transpose(1, 2)
-          .repeat_interleave(2, dim=1) for i in range(n_layers)]
-    qs = q.transpose(1, 2)                                  # (R, 16, 1, hd)
-    mask = (torch.arange(S, device="cuda")[None, :]
-            <= q_pos[:, :1].long())[:, None, None, :]
-    library = rotate(lambda i: F.scaled_dot_product_attention(
-        qs, kg[i], vg[i], attn_mask=mask))
-    n_keys = sum(c for c in ctx)                 # keys at or before q_pos
-    pages_read = sum(-(-c // page) for c in ctx)
-    nbytes = (2 * q.numel() * 4 + 2 * pages_read * page * nkv * hd * 4
-              + pages_read * 4 + 2 * R * 4)
-    ops_ = 4 * hd * 16 * n_keys
-    t, eager = timings(kernel, plain, library, nbytes, ops_, f32, iters=28)
-    log("  paged_attention (8 slots x 144 tokens, T=1): " + fmt(t, eager))
-    out["paged_attention"] = t
-    del kp, vp, kg, vg
+    # K5 at three shapes: decode and chunked prefill of continuous serving
+    # (8 slots, 144 tokens of context, page 16), and the decode step of
+    # Jamba's fixed serving over its dense cache
+    for name, T, q_len in (("decode, 8 slots x 144 tokens, T=1", 1, 1),
+                           ("chunked prefill, 8 slots, chunk 32, context "
+                            "144", 32, 32)):
+        q, kp, vp, table, q_pos, ql = paged_inputs(
+            gen, ctx=[144] * 8, q_len=[q_len] * 8, T=T, dtype=f32,
+            n_layers=n_layers)
+        t = time_paged(name, q, list(kp), list(vp), table, q_pos, ql)
+        out.setdefault("paged_attention", t)
+        del q, kp, vp
+    B, nq, nkv, hd = DENSE_DECODE
+    ctx = max(DENSE_CTX)
+    pools, table = [], None
+    for _ in range(4):      # Jamba's 4 attention layers, 71 MB over the L2
+        kc, vc = (torch.randn((B, ctx, nkv, hd), generator=gen,
+                              device="cuda") for _ in range(2))
+        (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
+        pools.append((kp, vp))
+    q = torch.randn((B, 1, nq, hd), generator=gen, device="cuda")
+    q_pos = torch.full((B, 1), ctx - 1, dtype=torch.int32, device="cuda")
+    time_paged(f"Jamba dense decode, B {B}, context {ctx}, {nq}/{nkv} heads, "
+               f"page {DENSE_PAGE}", q, [p[0] for p in pools],
+               [p[1] for p in pools], table, q_pos,
+               torch.ones((B,), dtype=torch.int32, device="cuda"))
+    del pools, kp, vp, kc, vc
     phase_timings_train(gen, out)
     log("[timings] float32, K6 at the fixed-serving shapes: device time "
         "from a replayed CUDA graph / eager calls back to back")
@@ -746,22 +840,26 @@ def phase_timings_train(gen, out):
         if dtype == f32:
             out.setdefault("block_matmul", t)
         del a, b
-    B, T, S, nq, nkv, hd, causal, window, kv_len = ATTN_MAIN
-    q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, f32)
-    kw = dict(causal=causal, window=window, kv_len=kv_len)
-    pairs, fwd_bytes = attn_work(*ATTN_MAIN, 4)
-    lse_bytes = B * nq * T * 4
-    g = nq // nkv
-    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
-    qs = q.transpose(1, 2)
-    t, eager = timings(
-        lambda: flash_attention_kernel(q, k, v, **kw),
-        lambda: attn_core(q, k, v, **kw),
-        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
-        fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
-        eager_iters=50)
-    log("  flash_attention forward (B 2, T 512, 16/8 heads, hd 128, "
-        "causal): " + fmt(t, eager))
+    for case in (ATTN_JAMBA, ATTN_MAIN):
+        B, T, S, nq, nkv, hd, causal, window, kv_len = case
+        q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, f32)
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        pairs, fwd_bytes = attn_work(*case, 4)
+        lse_bytes = B * nq * T * 4
+        g = nq // nkv
+        ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1)
+                  for t in (k, v))
+        qs = q.transpose(1, 2)
+        t, eager = timings(
+            lambda: flash_attention_kernel(q, k, v, **kw),
+            lambda: attn_core(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
+            eager_iters=50)
+        log(f"  flash_attention forward (B {B}, T {T}, {nq}/{nkv} heads, hd "
+            f"{hd}, causal): " + fmt(t, eager)
+            + f"; {t['ms'] / t['library_ms']:.2f}x SDPA")
     out["flash_attention"] = t
     o, lse = flash_attention_kernel(q, k, v, **kw)
     qkv = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -829,7 +927,8 @@ KERNEL_GROUPS = (("sgemm_tile_kernel", "K1 block_matmul"),
                  ("flash_fwd_kernel", "K2 flash_attention forward"),
                  ("flash_bwd", "K2 flash_attention backward"),
                  ("rmsnorm_kernel", "K3 rmsnorm"),
-                 ("paged_attention_kernel", "K5 paged_attention"),
+                 ("paged_split_kernel", "K5 paged_attention"),
+                 ("paged_combine_kernel", "K5 paged_attention"),
                  ("selective_scan_kernel", "K6 selective_scan"))
 
 
@@ -859,7 +958,7 @@ def log_split(kernels, total, top):
         log(f"  {dev_us(e) / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
-def phase_profile(engine, args, cfg):
+def phase_profile(engine, args, cfg, label="profile"):
     """Where a serving run's device time goes, by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -876,7 +975,7 @@ def phase_profile(engine, args, cfg):
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
     total = sum(dev_us(e) for e in kernels)
-    log(f"[profile] 8 requests x 8 tokens (prompt 128), {steps} steps: wall "
+    log(f"[{label}] 8 requests x 8 tokens (prompt 128), {steps} steps: wall "
         f"{wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
         f"({'not measured' if not total else f'{total / 1e4 / wall:.1f}%'})")
     log_split(kernels, total, 8)
@@ -941,8 +1040,9 @@ def phase_train(cfg, smi):
     # L; K3 = 4L + 1 forward (norm1, norm2, q/k-norm; final) + 4L recompute
     per_mb = {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
               "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
-              "paged_attention": 0, "selective_scan": 0,
-              "partial_attention": 0, "partial_attention_bwd": 0}
+              "paged_attention": 0, "paged_attention_combine": 0,
+              "selective_scan": 0, "partial_attention": 0,
+              "partial_attention_bwd": 0}
     args = train.build_parser().parse_args(TRAIN_FLAGS)
     check_launches(launches, per_mb, args.steps * args.overdecompose,
                    "microbatch")
@@ -1001,8 +1101,8 @@ def fixed_launches(cfg, prefills, decodes):
     """Each kernel's launches in ``prefills`` prefills and ``decodes``
     decode steps of fixed-batch serving, counted from the code: per layer
     norm1 and norm2 (K3), an attention layer's q/k/v/o projections (K1),
-    its q/k-norm (K3, if the config has it) and K2 at prefill or K5 at
-    decode; a Mamba layer's w_in, w_gate, w_x, w_dt and w_out (K1) and one
+    its q/k-norm (K3, if the config has it) and K2 at prefill or K5 (and
+    its combine) at decode; a Mamba layer's w_in, w_gate, w_x, w_dt and w_out (K1) and one
     scan (K6); the MLP's three projections (K1); then the final norm (K3)
     and the head (K1), on the last row only at prefill."""
     n_attn = cfg.mixers().count("attn")
@@ -1015,6 +1115,7 @@ def fixed_launches(cfg, prefills, decodes):
             "selective_scan": fwd * n_mamba,
             "flash_attention": prefills * n_attn,
             "paged_attention": decodes * n_attn,
+            "paged_attention_combine": decodes * n_attn,
             "flash_attention_bwd": 0, "partial_attention": 0,
             "partial_attention_bwd": 0}
 
@@ -1294,7 +1395,8 @@ def seq_launches(cfg):
     return {"partial_attention": 2 * p * L, "partial_attention_bwd": p * L,
             "block_matmul": 28 * L + 3, "rmsnorm": 8 * L + 1,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "paged_attention": 0, "selective_scan": 0}
+            "paged_attention": 0, "paged_attention_combine": 0,
+            "selective_scan": 0}
 
 
 def phase_seq_train(cfg, smi, losses_one_card):
@@ -1403,9 +1505,12 @@ def main() -> int:
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
         f"parameters, init {time.time() - t0:.1f}s")
     phase_parity(model, cfg)
-    engine, args, serve_launches = phase_serve(model, cfg, smi)
+    engine, args, serve_launches, served = phase_serve(model, cfg, smi)
     phase_profile(engine, args, cfg)
-    del engine, model
+    del engine
+    free_memory()
+    phase_serve_pool(model, cfg, smi, served)
+    del model
     free_memory()
     times = phase_timings(gen, cfg.n_layers)
     free_memory()

@@ -2,8 +2,10 @@
 // (flash_attention.cu) and K4 (partial_attention.cu): 256 threads as
 // 16 x 16, square 64-row query and key tiles passed through shared memory
 // as fp32, 4 rows and 4 score columns a thread, 16-lane row reductions,
-// and the shared memory of each kernel. Everything sits in an anonymous
-// namespace: each source that includes it gets its own copy.
+// and the shared memory of each kernel (fwd_smem: K4's forward). K2's
+// forward uses the tile sizes and reductions with its own thread layout
+// and shared memory. Everything sits in an anonymous namespace: each
+// source that includes it gets its own copy.
 #pragma once
 
 #include <cuda_runtime.h>

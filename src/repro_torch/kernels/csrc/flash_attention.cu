@@ -18,19 +18,27 @@
 // to hundreds of operations per byte; the backward 2.5 times the forward's
 // operations. In float32 the bound is the CUDA cores' 67 TFLOP/s.
 //
-// Design, simple first:
-//  * forward: one block of 256 threads per (query tile of 64 rows, query
-//    head, batch). It loops over key tiles of 64, for causal only up to the
-//    diagonal and, with a window, only from the first tile the window
-//    reaches; a skipped tile is one where every score is masked, which
-//    would leave each row's (m, l, acc) bitwise unchanged. Tiles pass
-//    through shared memory as fp32 (bf16 widens on load) with one word of
-//    padding per row; each thread owns 4 query rows (strided by 16) and,
-//    of those rows, 4 scores of a key tile and head_dim / 16 output
-//    columns. Row max and sum are 16-lane butterflies. The carry (m, l,
+// Design:
+//  * forward: one block of 128 threads per (query head, batch, query tile
+//    of 64 rows), the query tiles last to first, so that under a causal
+//    mask the blocks with the most key tiles start first and the light
+//    ones fill the tail. The block loops over key tiles of 64, for causal
+//    only up to the diagonal and, with a window, only from the first tile
+//    the window reaches; a skipped tile is one where every score is
+//    masked, which would leave each row's (m, l, acc) bitwise unchanged.
+//    Q, K and V tiles sit in shared memory as fp32 (bf16 widens on the
+//    way in), rows of head_dim floats, K's 16-byte chunks swizzled by row.
+//    Each thread owns 8 query rows: for them it scores 4 keys of a tile,
+//    reading Q and K as float4 along head_dim (12 loads for 128 FMAs),
+//    and accumulates 8 rows x head_dim / 16 output columns, reading P and
+//    V as float4 (16 loads for 256 FMAs). Loads overlap the arithmetic:
+//    a tile's V streams in while Q K^T runs and the next tile's K while
+//    the softmax and P V run (cp.async for float32, a register stage for
+//    bf16; element by element, at once, where a source row is not 16-byte
+//    aligned). Row max and sum are 16-lane butterflies. The carry (m, l,
 //    acc) is fp32; masked scores give p = 0 exactly. It writes the output
-//    and each row's log-sum-exp (fp32) for the backward. Every call on the
-//    same inputs runs the same instructions in the same order, so the
+//    and each row's log-sum-exp (fp32) for the backward. Every call on
+//    the same inputs runs the same instructions in the same order, so the
 //    rematerialized forward gives the same bits;
 //  * backward, three kernels: delta = rowsum(dO * O) per row; dK and dV,
 //    one block per (key tile, KV head, batch) that loops over the g query
@@ -83,71 +91,221 @@ __device__ __forceinline__ void query_tiles(int j0, int n_t, int kv_hi,
 // forward
 // ---------------------------------------------------------------------- //
 
+constexpr int kFwdThreads = 128;  // 8 x 16: ty = tid / 16, tx = tid % 16
+constexpr int FR = BQ / 8;        // query rows of a thread: ty + 8 i
+constexpr int FJ = BKV / 16;      // keys a thread scores: tx + 16 j
+
+// the forward's shared memory (bytes): the Q, K and V tiles [64][HD] fp32
+// and P [BQ][BKV]
+template <int HD>
+constexpr size_t fwd_tile_smem() {
+  return sizeof(float) * (BQ * HD + 2 * BKV * HD + BQ * BKV);
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async); zeros where !valid. A CPU build of this source copies at once.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+#else
+  for (int c = 0; c < 4; ++c) dst[c] = valid ? src[c] : 0.f;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
+
+// where 16-byte chunk c (4 floats) of tile row r lives: K's chunks are
+// swizzled, so that 8 lanes reading one chunk of 8 rows hit 8 bank groups
+template <bool SWZ>
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  return SWZ ? c ^ (r & 7) : c;
+}
+
+// A tile is rows [r0, r0 + 64) of a (n_rows, HD) slice with row stride
+// `stride` (rows past n_rows are 0), stored fp32 as [64][HD]. Loading it
+// has two halves, so that a tile's global reads overlap other work:
+// tile_issue starts it (float32: cp.async of 16-byte chunks; bfloat16:
+// 16-byte loads into `reg`), tile_commit ends it (bfloat16: widen `reg`
+// into the tile). Where the source is not 16-byte aligned (vec false),
+// tile_commit loads element by element and tile_issue does nothing: K2
+// takes any strided view with unit stride in head_dim, as its backward
+// and K4 do, so a view that starts off 16 bytes is served, not refused
+// (K5 needs no such path: its pools are contiguous, so every row is
+// aligned where the base is).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+struct Tile {
+  static constexpr int E = 16 / sizeof(T);  // elements in 16 bytes
+  static constexpr int CPR = HD / E;        // 16-byte chunks a row
+  static constexpr int PER = BQ * CPR / kFwdThreads;
+  static constexpr int REGS = sizeof(T) == 2 ? PER : 1;
+};
+
+template <typename T, int HD, bool SWZ>
+__device__ __forceinline__ void tile_issue(float* dst, const T* src,
+                                           int64_t stride, int r0,
+                                           int n_rows, bool vec,
+                                           uint4 (&reg)[Tile<T, HD>::REGS]) {
+  using L = Tile<T, HD>;
+  if (!vec) return;
+#pragma unroll
+  for (int u = 0; u < L::PER; ++u) {
+    const int e = threadIdx.x + u * kFwdThreads;
+    const int r = e / L::CPR, c = e % L::CPR;
+    const bool ok = r0 + r < n_rows;
+    const T* p = src + (ok ? (int64_t)(r0 + r) * stride : 0) + c * L::E;
+    if constexpr (sizeof(T) == 4) {
+      cp_async16(dst + r * HD + chunk_at<SWZ>(r, c) * 4,
+                 reinterpret_cast<const float*>(p), ok);
+    } else {
+      reg[u] = ok ? *reinterpret_cast<const uint4*>(p)
+                  : uint4{0u, 0u, 0u, 0u};
+    }
+  }
+}
+
+template <typename T, int HD, bool SWZ>
+__device__ __forceinline__ void tile_commit(
+    float* dst, const T* src, int64_t stride, int r0, int n_rows, bool vec,
+    const uint4 (&reg)[Tile<T, HD>::REGS]) {
+  using L = Tile<T, HD>;
+  if (!vec) {
+    for (int e = threadIdx.x; e < BQ * HD; e += kFwdThreads) {
+      const int r = e / HD, d = e % HD;
+      dst[r * HD + chunk_at<SWZ>(r, d / 4) * 4 + d % 4] =
+          r0 + r < n_rows ? to_f(src[(int64_t)(r0 + r) * stride + d]) : 0.f;
+    }
+    return;
+  }
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int u = 0; u < L::PER; ++u) {
+      const int e = threadIdx.x + u * kFwdThreads;
+      const int r = e / L::CPR, c = e % L::CPR;
+      const uint32_t w[4] = {reg[u].x, reg[u].y, reg[u].z, reg[u].w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // two 4-float chunks of 8 elements
+        *reinterpret_cast<float4*>(dst + r * HD +
+                                   chunk_at<SWZ>(r, 2 * c + h) * 4) =
+            make_float4(__uint_as_float(w[2 * h] << 16),
+                        __uint_as_float(w[2 * h] & 0xffff0000u),
+                        __uint_as_float(w[2 * h + 1] << 16),
+                        __uint_as_float(w[2 * h + 1] & 0xffff0000u));
+      }
+    }
+  }
+}
+
+// One block of 128 threads per (query head, batch, 64-row query tile); the
+// query tiles run last to first, so that under a causal mask the blocks
+// with the most key tiles start first. Thread (ty, tx) owns query rows
+// ty + 8 i (i < 8): their scores against keys tx + 16 j (j < 4) of a key
+// tile, then their output columns 4 (tx + 16 c) .. + 3.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFwdThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                  int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
                  int64_t k_st, int64_t k_sh, const T* __restrict__ v,
                  int64_t v_sb, int64_t v_st, int64_t v_sh,
                  T* __restrict__ o, float* __restrict__ lse, int n_t,
                  int n_s, int nq, int nkv, int causal, int window, int kv_hi,
-                 float scale) {
-  constexpr int HC = HD / 16;
-  constexpr int LD = HD + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][LD]
-  float* Ks = Qs + BQ * LD;     // [BKV][LD]
-  float* Vs = Ks + BKV * LD;    // [BKV][HD]
-  float* Ps = Vs + BKV * HD;    // [BQ][PLD]
-  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+                 float scale, int vec) {
+  constexpr int D4 = HD / 4;   // 16-byte chunks of a row
+  constexpr int NC = HD / 64;  // output chunks of a thread
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // [BQ][HD]
+  float* Ks = Qs + BQ * HD;     // [BKV][HD], chunks swizzled
+  float* Vs = Ks + BKV * HD;    // [BKV][HD]
+  float* Ps = Vs + BKV * HD;    // [BQ][BKV]
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int hk = hq / (nq / nkv);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_rows<T, HD>(Qs, LD, q + b * q_sb + hq * q_sh, q_st, q0, n_t, BQ);
-
-  float m[RI], l[RI], acc[RI][HC];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < HC; ++c) acc[i][c] = 0.f;
-  }
+  const T* qb = q + b * q_sb + hq * q_sh;
+  const T* kb = k + b * k_sb + hk * k_sh;
+  const T* vb = v + b * v_sb + hk * v_sh;
+  uint4 reg[Tile<T, HD>::REGS];
 
   int lo, hi;
   key_tiles(q0, n_t, kv_hi, causal, window, &lo, &hi);
+  tile_issue<T, HD, false>(Qs, qb, q_st, q0, n_t, vec, reg);
+  tile_commit<T, HD, false>(Qs, qb, q_st, q0, n_t, vec, reg);
+  if (lo < hi) {
+    tile_issue<T, HD, true>(Ks, kb, k_st, lo * BKV, n_s, vec, reg);
+    tile_commit<T, HD, true>(Ks, kb, k_st, lo * BKV, n_s, vec, reg);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float m[FR], l[FR];
+  float4 acc[FR][NC];
+#pragma unroll
+  for (int i = 0; i < FR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
   for (int kt = lo; kt < hi; ++kt) {
     const int j0 = kt * BKV;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, HD>(Ks, LD, k + b * k_sb + hk * k_sh, k_st, j0, n_s, BKV);
-    load_rows<T, HD>(Vs, HD, v + b * v_sb + hk * v_sh, v_st, j0, n_s, BKV);
-    __syncthreads();
-
-    float s[RI][RJ];
+    // V of this tile streams in while S = Q K^T is computed
+    tile_issue<T, HD, false>(Vs, vb, v_st, j0, n_s, vec, reg);
+    cp_async_commit();
+    float s[FR][FJ];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < FR; ++i)
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[RI], kb[RJ];
+      for (int j = 0; j < FJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 kv[FJ];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) qa[i] = Qs[(ty + 16 * i) * LD + d];
+      for (int j = 0; j < FJ; ++j) {
+        const int r = tx + 16 * j;
+        kv[j] = *reinterpret_cast<const float4*>(
+            Ks + r * HD + chunk_at<true>(r, d4) * 4);
+      }
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
+      for (int i = 0; i < FR; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            Qs + (ty + 8 * i) * HD + d4 * 4);
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+        for (int j = 0; j < FJ; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
     }
+    tile_commit<T, HD, false>(Vs, vb, v_st, j0, n_s, vec, reg);
+    __syncthreads();  // every thread is done with Ks
+    // the next K tile streams in while the softmax and P V run
+    if (kt + 1 < hi)
+      tile_issue<T, HD, true>(Ks, kb, k_st, j0 + BKV, n_s, vec, reg);
+    cp_async_commit();
 
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int iq = q0 + ty + 16 * i;
-      bool ok[RJ];
+    for (int i = 0; i < FR; ++i) {
+      const int iq = q0 + ty + 8 * i;
+      bool ok[FJ];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) {
+      for (int j = 0; j < FJ; ++j) {
         ok[j] = visible(iq, j0 + tx + 16 * j, n_t, kv_hi, causal, window);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -156,40 +314,72 @@ flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < RJ; ++j) {
+      for (int j = 0; j < FJ; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
+        Ps[(ty + 8 * i) * BKV + tx + 16 * j] = p;
         rs += p;
       }
       l[i] = alpha * l[i] + sum16(rs);
 #pragma unroll
-      for (int c = 0; c < HC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NC; ++c) {
+        acc[i][c].x *= alpha;
+        acc[i][c].y *= alpha;
+        acc[i][c].z *= alpha;
+        acc[i][c].w *= alpha;
+      }
       m[i] = m_new;
     }
+    cp_async_wait<1>();  // V has landed; the next K may be in flight
     __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BKV; ++kk) {
-      float pa[RI], vb[HC];
+#pragma unroll 2
+    for (int k4 = 0; k4 < BKV / 4; ++k4) {
+      float4 pv[FR];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) pa[i] = Ps[(ty + 16 * i) * PLD + kk];
+      for (int i = 0; i < FR; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 8 * i) * BKV +
+                                                 k4 * 4);
 #pragma unroll
-      for (int c = 0; c < HC; ++c) vb[c] = Vs[kk * HD + tx + 16 * c];
+      for (int u = 0; u < 4; ++u) {
+        float4 vv[NC];
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
+        for (int c = 0; c < NC; ++c)
+          vv[c] = *reinterpret_cast<const float4*>(
+              Vs + (k4 * 4 + u) * HD + (tx + 16 * c) * 4);
 #pragma unroll
-        for (int c = 0; c < HC; ++c) acc[i][c] = fmaf(pa[i], vb[c], acc[i][c]);
+        for (int i = 0; i < FR; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            acc[i][c].x = fmaf(p, vv[c].x, acc[i][c].x);
+            acc[i][c].y = fmaf(p, vv[c].y, acc[i][c].y);
+            acc[i][c].z = fmaf(p, vv[c].z, acc[i][c].z);
+            acc[i][c].w = fmaf(p, vv[c].w, acc[i][c].w);
+          }
+        }
+      }
     }
+    if (kt + 1 < hi)
+      tile_commit<T, HD, true>(Ks, kb, k_st, j0 + BKV, n_s, vec, reg);
+    cp_async_wait<0>();
+    __syncthreads();  // the next K is in; Vs and Ps are free
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int i = 0; i < FR; ++i) {
+    const int t = q0 + ty + 8 * i;
     if (t >= n_t) continue;
     const float den = fmaxf(l[i], 1e-30f);
     T* orow = o + (((int64_t)b * n_t + t) * nq + hq) * HD;
 #pragma unroll
-    for (int c = 0; c < HC; ++c) store(orow + tx + 16 * c, acc[i][c] / den);
+    for (int c = 0; c < NC; ++c) {
+      T* p = orow + (tx + 16 * c) * 4;
+      store(p, acc[i][c].x / den);
+      store(p + 1, acc[i][c].y / den);
+      store(p + 2, acc[i][c].z / den);
+      store(p + 3, acc[i][c].w / den);
+    }
     if (tx == 0) {
       lse[((int64_t)b * nq + hq) * n_t + t] =
           l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
@@ -477,15 +667,23 @@ struct Args {
 template <typename T, int HD>
 int fwd(const Args& a, void* o, void* lse, cudaStream_t s) {
   auto kern = flash_fwd_kernel<T, HD>;
-  static const cudaError_t attr = allow_smem(kern, fwd_smem<HD>());
+  static const cudaError_t attr = allow_smem(kern, fwd_tile_smem<HD>());
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.n_t + BQ - 1) / BQ, a.nq, a.batch);
-  kern<<<grid, kThreads, fwd_smem<HD>(), s>>>(
+  // 16-byte loads where every row of q, k and v starts 16-byte aligned
+  constexpr long long E = 16 / sizeof(T);
+  const bool vec =
+      (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v)) % 16 == 0 &&
+      a.q_sb % E == 0 && a.q_st % E == 0 && a.q_sh % E == 0 &&
+      a.k_sb % E == 0 && a.k_st % E == 0 && a.k_sh % E == 0 &&
+      a.v_sb % E == 0 && a.v_st % E == 0 && a.v_sh % E == 0;
+  const dim3 grid(a.nq, a.batch, (a.n_t + BQ - 1) / BQ);
+  kern<<<grid, kFwdThreads, fwd_tile_smem<HD>(), s>>>(
       static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
       static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
       static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
       static_cast<T*>(o), static_cast<float*>(lse), a.n_t, a.n_s, a.nq,
-      a.nkv, a.causal, a.window, a.kv_hi, a.scale);
+      a.nkv, a.causal, a.window, a.kv_hi, a.scale, (int)vec);
   return (int)cudaGetLastError();
 }
 

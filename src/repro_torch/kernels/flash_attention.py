@@ -87,19 +87,31 @@ def paged_attention_plain(q, k_pages, v_pages, table, q_pos, q_len, *,
 
 
 def _launcher():
-    fn = build.library("paged_attention").paged_attention_launch
+    """(paged_attention_launch, paged_attention_workspace) of the built
+    library, typed."""
+    lib = build.library("paged_attention")
+    fn, work = lib.paged_attention_launch, lib.paged_attention_workspace
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, ll, p, p, p, p, p, p,
+        fn.argtypes = [p, ll, ll, ll, p, p, p, p, p, p, p,
                        i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        work.argtypes = [i] * 7
+        work.restype = ll
+    return fn, work
 
 
 def paged_attention_kernel(q, k_pages, v_pages, table, q_pos, q_len, *,
                            window: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; raises on what it does not
-    take. ``paged_attention_kernel.launches`` counts the launches."""
+    """Launch the CUDA kernels on CUDA tensors: the split page walk, then
+    the combine of each row's splits; raises on what they do not take.
+    ``paged_attention_kernel.launches`` counts the calls, each one launch
+    of both kernels.
+
+    The split grid and the fp32 workspace grow with the table's width,
+    not with the keys the rows reach: pass only the columns that hold
+    the rows' pages (the serving engine does). Columns whose keys lie past
+    every row's q_pos change no bit of the output."""
     R, T, nq, hd = q.shape
     P, page, nkv, hd_k = k_pages.shape
     tensors = (q, k_pages, v_pages, table, q_pos, q_len)
@@ -130,12 +142,19 @@ def paged_attention_kernel(q, k_pages, v_pages, table, q_pos, q_len, *,
         raise ValueError("paged_attention_kernel needs unit stride in q's "
                          "head_dim and contiguous pools, table, q_pos, "
                          "q_len")
+    if (k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        raise ValueError("paged_attention_kernel needs 16-byte aligned "
+                         "pools")
+    launch, workspace = _launcher()
     out = torch.empty((R, T, nq, hd), dtype=q.dtype, device=q.device)
+    n_pages = table.shape[1]
+    work = torch.empty((workspace(R, T, nq, nkv, hd, n_pages, page),),
+                       dtype=torch.float32, device=q.device)
     sr, st, sh, _ = q.stride()
-    err = _launcher()(
+    err = launch(
         q.data_ptr(), sr, st, sh, k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), q_pos.data_ptr(), q_len.data_ptr(), out.data_ptr(),
-        R, T, nq, nkv, hd, table.shape[1], page, P, window,
+        work.data_ptr(), R, T, nq, nkv, hd, n_pages, page, P, window,
         1.0 / math.sqrt(hd), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention_kernel")

@@ -33,8 +33,13 @@ def reset_launches() -> None:
 
 
 def launches() -> dict:
-    """Launch count of each kernel wrapper, by kernel name."""
-    return {k.__name__.removesuffix("_kernel"): k.launches for k in KERNELS}
+    """Launch count of each kernel wrapper, by kernel name. K5's wrapper
+    launches two kernels in one call, the split page walk and then the
+    combine of each row's splits: ``paged_attention_combine`` reports the
+    second, which runs exactly once with each first."""
+    counts = {k.__name__.removesuffix("_kernel"): k.launches
+              for k in KERNELS}
+    return dict(counts, paged_attention_combine=counts["paged_attention"])
 
 
 def _plain(x, plain: bool) -> bool:

@@ -93,8 +93,12 @@ class PagedEngine:
     def _run_plan(self, plan):
         R, T = plan.tokens.shape
         n = R * T
+        # only the table columns this step's rows reach: the plan's table
+        # is as wide as the pool, and K5's grid and workspace grow with
+        # the width of the table it is given
+        cols = max(len(req.pages) for _, req, _ in plan.steps)
         host = np.concatenate([plan.tokens.ravel(), plan.positions.ravel(),
-                               plan.q_len, plan.table.ravel()]
+                               plan.q_len, plan.table[:, :cols].ravel()]
                               ).astype(np.int32)
         buf = torch.from_numpy(host).to(self.device)
         tokens = buf[:n].view(R, T)

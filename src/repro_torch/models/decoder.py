@@ -235,10 +235,11 @@ def paged_step(model: Decoder, tokens, pools, positions, q_len, table, *,
 
     tokens (R, T): slot r's rows 0..q_len[r]-1 carry its prefill chunk (or
     single decode token) at global ``positions`` (R, T); rows past
-    q_len[r] are padding (idle slots have q_len 0). ``table`` (R,
-    max_pages) int32 holds the slots' physical page ids. Returns the
-    per-slot next-token logits from the last *valid* row, (R, 1, V/y),
-    and ``pools``, updated in place.
+    q_len[r] are padding (idle slots have q_len 0). ``table`` (R, n)
+    int32 holds the slots' physical page ids, n at least the pages that
+    hold their valid rows' keys. Returns the per-slot next-token logits
+    from the last *valid* row, (R, 1, V/y), and ``pools``, updated in
+    place.
 
     The kernels run on CUDA tensors and the plain versions on CPU ones;
     ``plain=True`` runs the plain versions on any device."""

@@ -1,12 +1,17 @@
 // A CPU stand-in for the part of the CUDA runtime that the port's kernel
 // sources use, so that a test can compile a source with g++ and run its
-// logic on the CPU (tests/test_torch_k1_emulated.py). Each CUDA thread is
-// a std::thread; the blocks of a grid run one after another, so a
-// __shared__ array is a function-local static; __syncthreads is a
+// logic on the CPU (tests/test_torch_k1_emulated.py,
+// tests/test_torch_attention_emulated.py). Each CUDA thread is a
+// std::thread, made once per launch; the blocks of a grid run one after
+// another, so a __shared__ array is a function-local static; __syncthreads is a
 // std::barrier over the block; a warp shuffle passes through a per-warp
 // buffer between two barriers of its 32 threads. A launch `k<<<g, b, s,
 // st>>>(args)` is rewritten by the test to `emu::launch(g, b, s, st, k,
-// args)`. Nothing here models timing or memory spaces.
+// args)`, and `extern __shared__ T name[];` to a pointer into the
+// launch's dynamic shared memory, emu::dyn_smem (s bytes, 16-byte
+// aligned, fresh for each launch). Nothing here models timing or memory
+// spaces; a source's asynchronous copies (cp.async) take their portable
+// branch, outside `#ifdef __CUDA_ARCH__`, and copy at once.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -42,7 +47,12 @@ inline float4 make_float4(float a, float b, float c, float d) {
 }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline float __uint_as_float(uint32_t u) {
   float f;
   memcpy(&f, &u, 4);
@@ -61,30 +71,38 @@ namespace emu {
 inline std::barrier<>* block_barrier = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barrier;
 inline float warp_buffer[32][32];
+inline char* dyn_smem = nullptr;
 
 template <typename F, typename... A>
-void launch(dim3 g, dim3 b, int, cudaStream_t, F kernel, A... args) {
+void launch(dim3 g, dim3 b, size_t smem, cudaStream_t, F kernel,
+            A... args) {
   const unsigned n = b.x * b.y * b.z;
   if (n % 32 || n > 1024) abort();
+  std::vector<float4> dyn((smem + 15) / 16 + 1);
+  dyn_smem = reinterpret_cast<char*>(dyn.data());
   blockDim = b;
   gridDim = g;
-  for (unsigned z = 0; z < g.z; ++z)
-    for (unsigned y = 0; y < g.y; ++y)
-      for (unsigned x = 0; x < g.x; ++x) {
-        std::barrier<> bar(n);
-        block_barrier = &bar;
-        warp_barrier.clear();
-        for (unsigned w = 0; w < n / 32; ++w)
-          warp_barrier.emplace_back(new std::barrier<>(32));
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < n; ++t)
-          threads.emplace_back([=] {
-            threadIdx = dim3(t);
+  // the block's threads are made once and walk the grid's blocks in turn,
+  // meeting at `done` between blocks (so the statics that stand for
+  // __shared__ are never used by two blocks at once)
+  std::barrier<> bar(n), done(n);
+  block_barrier = &bar;
+  warp_barrier.clear();
+  for (unsigned w = 0; w < n / 32; ++w)
+    warp_barrier.emplace_back(new std::barrier<>(32));
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < n; ++t)
+    threads.emplace_back([=, &done] {
+      threadIdx = dim3(t);
+      for (unsigned z = 0; z < g.z; ++z)
+        for (unsigned y = 0; y < g.y; ++y)
+          for (unsigned x = 0; x < g.x; ++x) {
             blockIdx = dim3(x, y, z);
             kernel(args...);
-          });
-        for (auto& t : threads) t.join();
-      }
+            done.arrive_and_wait();
+          }
+    });
+  for (auto& t : threads) t.join();
 }
 }  // namespace emu
 

@@ -111,6 +111,111 @@ def test_paged_attention_kernel_over_the_dense_cache(cuda, dtype):
         rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def _paged_long(cuda, dtype, *, T, g, hd, page, ctx, q_len, seed=0):
+    """Slots of up to 300 keys (five 64-key splits at page 16); slot r's
+    q_len[r] rows end at ctx[r]; slot 0's first table entry is past the
+    pool and slot 1's second below 0 (the kernel clamps them)."""
+    rng = np.random.RandomState(seed)
+    R, nkv = len(ctx), 2
+    used = [-(-c // page) for c in ctx]
+    n_tab, P = max(used) + 1, sum(used) + 3
+    kp, vp = (torch.from_numpy(rng.randn(P, page, nkv, hd)).to(cuda, dtype)
+              for _ in range(2))
+    table = np.zeros((R, n_tab), np.int32)
+    ids = iter(rng.permutation(np.arange(1, P)))
+    for r, n in enumerate(used):
+        table[r, :n] = [next(ids) for _ in range(n)]
+    table[0, 0], table[1, 1] = P + 7, -2
+    q_pos = np.zeros((R, T), np.int32)
+    for r, (c, n) in enumerate(zip(ctx, q_len)):
+        if n:
+            q_pos[r] = np.minimum(c - n + np.arange(T), n_tab * page - 1)
+    q = torch.from_numpy(rng.randn(R, T, g * nkv, hd)).to(cuda, dtype)
+    return (q, kp, vp) + tuple(torch.from_numpy(a).to(cuda)
+                               for a in (table, q_pos, q_len))
+
+
+# (T, g, hd, page, window, ctx, q_len): rows ending on a split's last key
+# (ctx 64) and first key (ctx 65), windows across split boundaries, a slot
+# with q_len 0, contexts of four and five splits
+PAGED_LONG = {
+    "decode g2 hd128": (1, 2, 128, 16, 0, [64, 65, 300, 257, 9],
+                        [1, 1, 1, 1, 0]),
+    "decode g4 hd64 window 40": (1, 4, 64, 16, 40, [70, 200, 300, 65],
+                                 [1, 1, 1, 1]),
+    "decode g4 hd128 page 32": (1, 4, 128, 32, 0, [300, 33, 256, 129],
+                                [1, 1, 1, 1]),
+    "chunk T16 g2 hd128 window 100": (16, 2, 128, 16, 100,
+                                      [80, 300, 0, 270], [16, 16, 0, 9]),
+    "chunk T32 g4 hd64": (32, 4, 64, 16, 0, [96, 290, 40], [32, 32, 17]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_LONG))
+def test_paged_attention_kernel_splits_match_plain(cuda, case, dtype):
+    """The split page walk over contexts of four and five splits, against
+    the plain version on the clamped table; two calls give the same bits,
+    and each call launches the split kernel and the combine once."""
+    T, g, hd, page, window, ctx, q_len = PAGED_LONG[case]
+    q, kp, vp, table, q_pos, ql = _paged_long(
+        cuda, dtype, T=T, g=g, hd=hd, page=page, ctx=ctx,
+        q_len=np.array(q_len, np.int32))
+    before = ops.launches()
+    got = ops.flash_attention_paged(q, kp, vp, table, q_pos, ql,
+                                    window=window)
+    after = ops.launches()
+    assert after["paged_attention"] == before["paged_attention"] + 1
+    assert (after["paged_attention_combine"]
+            == before["paged_attention_combine"] + 1)
+    want = paged_attention_plain(q, kp, vp, table.clamp(0, kp.shape[0] - 1),
+                                 q_pos, ql, window=window)
+    rows = torch.arange(T, device=cuda)[None] < ql[:, None]
+    torch.testing.assert_close(got[rows], want[rows], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert not got[~rows].any()
+    assert torch.equal(got, paged_attention_kernel(q, kp, vp, table, q_pos,
+                                                   ql, window=window))
+
+
+def test_paged_attention_kernel_chunks_on_a_split_boundary_are_bitwise(
+        cuda):
+    """Slot 0's rows sit at positions 60..91: the second chunk starts at
+    position 64, where a split begins."""
+    q, kp, vp, table, q_pos, q_len = _paged_long(
+        cuda, torch.float32, T=32, g=2, hd=128, page=16, ctx=[92, 300, 150],
+        q_len=np.array([32, 32, 20], np.int32))
+    assert int(q_pos[0, 4]) == 64
+    for window in (0, 50):
+        full = paged_attention_kernel(q, kp, vp, table, q_pos, q_len,
+                                      window=window)
+        for c0, c1 in ((0, 4), (4, 20), (20, 32)):
+            ql = torch.clamp(q_len - c0, 0, c1 - c0).to(torch.int32)
+            part = paged_attention_kernel(q[:, c0:c1], kp, vp, table,
+                                          q_pos[:, c0:c1].contiguous(), ql,
+                                          window=window)
+            rows = torch.arange(c1 - c0, device=cuda)[None] < ql[:, None]
+            assert torch.equal(part[rows], full[:, c0:c1][rows])
+
+
+@pytest.mark.parametrize("case", ["decode g2 hd128",
+                                  "chunk T16 g2 hd128 window 100"])
+def test_paged_attention_kernel_table_width_changes_no_bit(cuda, case):
+    """A table 200 columns wider than the rows' pages (other page ids in
+    the extra columns) gives the same bits as the columns in use, which
+    is what the serving engine sends."""
+    T, g, hd, page, window, ctx, q_len = PAGED_LONG[case]
+    q, kp, vp, table, q_pos, ql = _paged_long(
+        cuda, torch.float32, T=T, g=g, hd=hd, page=page, ctx=ctx,
+        q_len=np.array(q_len, np.int32))
+    extra = torch.randint(0, kp.shape[0], (table.shape[0], 200),
+                          dtype=torch.int32, device=cuda)
+    wide = torch.cat([table, extra], 1).contiguous()
+    assert torch.equal(
+        paged_attention_kernel(q, kp, vp, wide, q_pos, ql, window=window),
+        paged_attention_kernel(q, kp, vp, table, q_pos, ql, window=window))
+
+
 def test_paged_attention_kernel_refuses_unsupported_shapes(cuda):
     q, kp, vp, table, q_pos, q_len = _paged(cuda, torch.float32, 2, 128)
     big = torch.zeros((4, 64, 2, 128), device=cuda)      # page 64 > 32
@@ -282,6 +387,60 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     again, _ = flash_attention_kernel(q.detach(), k.detach(), v.detach(),
                                       **kw)
     assert torch.equal(again, got.detach())
+
+
+def _lse_plain(q, k, causal, window, kv_len):
+    """Each row's log-sum-exp of its visible scaled scores, fp32, NEG_INF
+    where a row sees no key (B, nq, T)."""
+    B, T, nq, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, T, nkv, nq // nkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / hd ** 0.5
+    i = torch.arange(T, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    vis = (j < (kv_len or S)).expand(T, S).clone()
+    if causal:
+        vis &= i >= j
+    if window:
+        vis &= (i - j) < window
+    lse = torch.logsumexp(s.masked_fill(~vis, float("-inf")), dim=-1)
+    return torch.where(vis.any(-1), lse, torch.full_like(lse, -1e30)
+                       ).reshape(B, nq, T)
+
+
+FWD_EDGES = {  # (B, T, S, nq, nkv, hd, causal, window, kv_len, shift)
+    "T 130 causal kv_len 100, g4": (2, 130, 130, 8, 2, 128, True, 0, 100, 0),
+    "T 97 of S 150, kv_len 120, hd 64": (1, 97, 150, 4, 2, 64, False, 0,
+                                         120, 0),
+    "unaligned rows, T 70 causal window 30": (1, 70, 70, 4, 2, 128, True,
+                                              30, 0, 1),
+    "T 1 over 77 keys": (3, 1, 77, 4, 2, 128, False, 0, 0, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FWD_EDGES))
+def test_flash_attention_forward_edges_match_plain(cuda, case, dtype):
+    """K2's forward on T not a multiple of the 64-row tile, kv_len < S,
+    rows read through strides (16-byte aligned, or not) and bf16: out
+    against the plain version, lse against the plain log-sum-exp, and two
+    calls give the same bits."""
+    B, T, S, nq, nkv, hd, causal, window, kv_len, shift = FWD_EDGES[case]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rand(n, h):
+        wide = torch.randn((B, n, h, hd + 8), generator=gen, device=cuda)
+        return wide.to(dtype)[..., shift:shift + hd]
+    q, k, v = rand(T, nq), rand(S, nkv), rand(S, nkv)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    out, lse = flash_attention_kernel(q, k, v, **kw)
+    want = attn_core(q, k, v, **kw)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= TOL[dtype] * float(want.float().abs().max())
+    torch.testing.assert_close(lse, _lse_plain(q, k, **kw), rtol=1e-5,
+                               atol=1e-4)
+    again, lse2 = flash_attention_kernel(q, k, v, **kw)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
 # ---------------------------------------------------------------------- #

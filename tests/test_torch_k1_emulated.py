@@ -12,37 +12,22 @@ behaviour under the real compiler; the card runs the same source in
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 import ctypes
-import pathlib
-import re
-import shutil
-import subprocess
 
 import pytest
 import torch
 
+from cuda_emu import compile_source
 from repro_torch.kernels import block_matmul as BM
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "block_matmul.cu"
 N_SM = 3          # a small card: the plans split K even at these sizes
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture(scope="module")
 def launcher(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++")
-    tmp = tmp_path_factory.mktemp("k1_emulated")
-    src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(",
-                 r"emu::launch(\2, \1, ", SOURCE.read_text(), flags=re.S)
-    (tmp / "k1.cpp").write_text(src)
-    lib = tmp / "k1.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    f"-I{ROOT / 'tests' / 'cuda_emu'}", "-o", str(lib),
-                    str(tmp / "k1.cpp"), "-lpthread"], check=True,
-                   capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).block_matmul_launch
+    lib = compile_source("block_matmul",
+                         tmp_path_factory.mktemp("k1_emulated"))
+    fn = lib.block_matmul_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int

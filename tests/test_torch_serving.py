@@ -188,6 +188,42 @@ def test_engine_tokens_match_jax(models, jax_mesh):
         assert a.n_used == 0, "pages leaked after drain"
 
 
+def test_engine_sends_only_the_table_columns_in_use(models):
+    """The step gets the table columns that hold its rows' pages, not a
+    table as wide as the pool (K5's grid and workspace grow with the
+    width): pools of 40 and 640 pages serve the same tokens through
+    tables of the same widths."""
+    from repro_torch.launch.serving import PagedEngine, Request, ServeConfig
+
+    _, _, tcfg, model = models
+    page = 4
+    rng = np.random.RandomState(11)
+    specs = [(rng.randint(1, tcfg.vocab_size, size=(int(rng.randint(3, 13)),)
+                          ).astype(np.int32), int(rng.randint(2, 8)))
+             for _ in range(6)]
+    runs = {}
+    for pages in (40, 640):
+        eng = PagedEngine(tcfg, MeshAxes(), model, ServeConfig(
+            slots=4, page_size=page, pages_per_shard=pages, chunk=8))
+        widths, step = [], eng.step_fn
+
+        def spy(model, tokens, pools, positions, q_len, table, step=step,
+                widths=widths):
+            valid = torch.arange(tokens.shape[1])[None] < q_len[:, None]
+            assert int(positions[valid].max()) < table.shape[1] * page
+            widths.append(table.shape[1])
+            return step(model, tokens, pools, positions, q_len, table)
+        eng.step_fn = spy
+        reqs = [Request(rid=i, prompt=p, max_new=n, arrival=0.002 * i)
+                for i, (p, n) in enumerate(specs)]
+        stats = eng.run(reqs, time_fn=_virtual_clock())
+        assert stats.n_preemptions == 0
+        runs[pages] = ([r.generated for r in reqs], widths)
+    assert runs[40] == runs[640]
+    longest = max(len(p) + n for p, n in specs)
+    assert max(runs[640][1]) == -(-(longest - 1) // page)
+
+
 def test_paged_gate_rejects_non_attention_mixers():
     cfg = get_config(ARCH).reduced()
 
