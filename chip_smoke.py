@@ -31,8 +31,11 @@ a hard failure:
      requests on a pool 64 times larger: the same tokens, no more memory
      above the resident, and its profile;
   6. per-kernel times (CUDA events) at the paths' shapes, beside the plain
-     version, one PyTorch library call where one exists and the least time
-     the card could take; K1 also in bfloat16 at the forward and decode
+     version, one PyTorch library call where one exists (for attention
+     SDPA pinned to its memory-efficient backend) and the least time the
+     card could take, with the attention kernels' TFLOP/s; the backwards
+     as the median of several eager rounds, their spread printed; K1 also
+     in bfloat16 at the forward and decode
      shapes, beside bfloat16 ``torch.matmul``; K5 at serving's decode and
      chunked-prefill shapes and at Jamba's dense decode (each also held
      to its plain version), K2's forward also at Jamba's prefill shape;
@@ -201,6 +204,31 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def eager_rounds(fn, rounds: int = 7, iters: int = 20) -> dict:
+    """``rounds`` runs of :func:`cuda_ms` (``iters`` calls each): their
+    median, min and max (ms). Eager times of one call vary from run to run
+    (autograd's backwards above all), so a single run cannot tell 1.5x
+    from 2x."""
+    t = sorted(cuda_ms(fn, iters, 3) for _ in range(rounds))
+    return dict(median=t[len(t) // 2], lo=t[0], hi=t[-1])
+
+
+def spread(r) -> str:
+    return (f"{r['median'] * 1e3:.2f} us (median of rounds, "
+            f"{r['lo'] * 1e3:.2f}-{r['hi'] * 1e3:.2f})")
+
+
+def sdpa_backend():
+    """SDPA pinned to one backend for the library column, so that calls
+    compare like with like: PyTorch's memory-efficient attention, the one
+    backend that takes float32 on the card."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
+
+
+SDPA_NAME = "SDPA (EFFICIENT_ATTENTION)"
 
 
 def graph_ms(fn, iters: int = 100) -> float:
@@ -811,7 +839,8 @@ def phase_timings_train(gen, out):
     """K1 at the training and decode shapes; K2 forward and backward at the
     training shape. K2's backward runs eagerly for all three versions (the
     plain and library backwards are autograd's, which a graph captured
-    apart from its forward cannot replay)."""
+    apart from its forward cannot replay), as the median of 7 rounds (the
+    plain version's of 5)."""
     import torch.nn.functional as F
     from repro_torch.kernels.block_matmul import (block_matmul_kernel,
                                                   block_matmul_plain)
@@ -850,36 +879,43 @@ def phase_timings_train(gen, out):
         ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1)
                   for t in (k, v))
         qs = q.transpose(1, 2)
-        t, eager = timings(
-            lambda: flash_attention_kernel(q, k, v, **kw),
-            lambda: attn_core(q, k, v, **kw),
-            lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                   is_causal=True),
-            fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
-            eager_iters=50)
+        with sdpa_backend():
+            t, eager = timings(
+                lambda: flash_attention_kernel(q, k, v, **kw),
+                lambda: attn_core(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       is_causal=True),
+                fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
+                eager_iters=50)
         log(f"  flash_attention forward (B {B}, T {T}, {nq}/{nkv} heads, hd "
             f"{hd}, causal): " + fmt(t, eager)
-            + f"; {t['ms'] / t['library_ms']:.2f}x SDPA")
+            + f"; {t['ms'] / t['library_ms']:.2f}x {SDPA_NAME}; "
+            f"{4 * hd * pairs / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
     out["flash_attention"] = t
     o, lse = flash_attention_kernel(q, k, v, **kw)
     qkv = [x.clone().requires_grad_() for x in (q, k, v)]
     plain_out = attn_core(*qkv, **kw)
     lib_in = [x.clone().requires_grad_() for x in (qs, ks, vs)]
-    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+    with sdpa_backend():
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
     dout_s = dout.transpose(1, 2)
-    bwd = dict(
-        ms=cuda_ms(lambda: flash_attention_bwd_kernel(q, k, v, o, lse, dout,
-                                                      **kw), 50, 5),
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(
-            plain_out, qkv, dout, retain_graph=True), 50, 5),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, lib_in, dout_s, retain_graph=True), 50, 5),
-        **bound(2 * fwd_bytes + lse_bytes, 10 * hd * pairs, f32))
-    us = {key: f"{bwd[key] * 1e3:.2f}" for key in ("ms", "plain_ms",
-                                                  "library_ms")}
-    log(f"  flash_attention backward: kernel {us['ms']} us, plain "
-        f"{us['plain_ms']} us, library {us['library_ms']} us (eager), bound "
-        f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']})")
+    r = dict(
+        ms=eager_rounds(lambda: flash_attention_bwd_kernel(
+            q, k, v, o, lse, dout, **kw)),
+        plain_ms=eager_rounds(lambda: torch.autograd.grad(
+            plain_out, qkv, dout, retain_graph=True), 5, 10),
+        library_ms=eager_rounds(lambda: torch.autograd.grad(
+            lib_out, lib_in, dout_s, retain_graph=True)))
+    bwd = dict({key: r[key]["median"] for key in r},
+               **bound(2 * fwd_bytes + lse_bytes, 10 * hd * pairs, f32))
+    log(f"  flash_attention backward (eager): kernel {spread(r['ms'])}, "
+        f"plain {spread(r['plain_ms'])}, {SDPA_NAME} backward "
+        f"{spread(r['library_ms'])}; kernel "
+        f"{bwd['ms'] / bwd['library_ms']:.2f}x the library; "
+        f"{10 * hd * pairs / bwd['ms'] / 1e9:.1f} TFLOP/s, bound "
+        f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']}), "
+        f"{bwd['bound_ms'] / bwd['ms']:.3f} of it")
     out["flash_attention_bwd"] = bwd
 
 
@@ -1349,15 +1385,18 @@ def phase_timings_partial(gen, out):
     g = nq // nkv
     qs = q.transpose(1, 2)
     ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (kg, vg))
-    t, eager = timings(
-        lambda: partial_chain(q, kg, vg, 0, p, carry=init),
-        lambda: partial_chain(q, kg, vg, 0, p, carry=init, plain=True),
-        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis),
-        qkv_bytes + carry_bytes, 4 * hd * pairs, f32, iters=20,
-        eager_iters=50)
+    with sdpa_backend():
+        t, eager = timings(
+            lambda: partial_chain(q, kg, vg, 0, p, carry=init),
+            lambda: partial_chain(q, kg, vg, 0, p, carry=init, plain=True),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=vis),
+            qkv_bytes + carry_bytes, 4 * hd * pairs, f32, iters=20,
+            eager_iters=50)
     log(f"[timings] K4 forward, chain of {p} blocks (B {B}, {C} queries, "
         f"{p} x {C} keys, {nq}/{nkv} heads, hd {hd}, causal, stride {p}): "
-        + fmt(t, eager))
+        + fmt(t, eager) + f"; {t['ms'] / t['library_ms']:.2f}x {SDPA_NAME}; "
+        f"{4 * hd * pairs / t['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound")
     out["partial_attention"] = t
     carry = partial_chain(q, kg, vg, 0, p, carry=init)
     o = attn_partial_finalize(carry, f32)
@@ -1365,25 +1404,26 @@ def phase_timings_partial(gen, out):
     plain_out = attn_partial_finalize(
         partial_chain(*leaves, 0, p, plain=True), f32)
     lib_in = [x.clone().requires_grad_() for x in (qs, ks, vs)]
-    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=vis)
+    with sdpa_backend():
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=vis)
     dout_s = dout.transpose(1, 2)
     bwd_bytes = (qkv_bytes + 2 * B * C * nq * hd * 4          # q.. + dout
                  + 2 * B * nq * C * 4                         # lse, delta
                  + 2 * B * C * nq * hd * 4                    # dq in, out
                  + 2 * B * p * C * nkv * hd * 4)              # dk, dv
-    bwd = dict(
-        ms=cuda_ms(lambda: partial_chain_bwd(q, kg, vg, dout, o, carry, 0,
-                                             p), 50, 5),
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(
-            plain_out, leaves, dout, retain_graph=True), 50, 5),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, lib_in, dout_s, retain_graph=True), 50, 5),
-        **bound(bwd_bytes, 10 * hd * pairs, f32))
-    us = {key: f"{bwd[key] * 1e3:.2f}" for key in ("ms", "plain_ms",
-                                                  "library_ms")}
-    log(f"[timings] K4 backward, chain of {p} blocks: kernel {us['ms']} us, "
-        f"plain {us['plain_ms']} us, library {us['library_ms']} us (eager), "
-        f"bound {bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']})")
+    r = dict(
+        ms=eager_rounds(lambda: partial_chain_bwd(q, kg, vg, dout, o, carry,
+                                                  0, p)),
+        plain_ms=eager_rounds(lambda: torch.autograd.grad(
+            plain_out, leaves, dout, retain_graph=True), 5, 10),
+        library_ms=eager_rounds(lambda: torch.autograd.grad(
+            lib_out, lib_in, dout_s, retain_graph=True)))
+    bwd = dict({key: r[key]["median"] for key in r},
+               **bound(bwd_bytes, 10 * hd * pairs, f32))
+    log(f"[timings] K4 backward, chain of {p} blocks (eager): kernel "
+        f"{spread(r['ms'])}, plain {spread(r['plain_ms'])}, {SDPA_NAME} "
+        f"backward {spread(r['library_ms'])}; bound "
+        f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']})")
     out["partial_attention_bwd"] = bwd
 
 

@@ -25,25 +25,24 @@
 // fp32 carry moved, tens of operations per byte. In float32 the bound is
 // the CUDA cores' 67 TFLOP/s.
 //
-// Design, simple first, in the shape of K2 (csrc/flash_attention.cu):
-//  * forward: one block of 256 threads per (query tile of 64 rows, query
-//    head, batch). One block per KV head with its GQA group would give 64
-//    blocks at the training shape for 132 SMs; per query head gives 128,
-//    and the group's K/V tiles are read again from L2. The block loads its
-//    rows' carry, walks the key tiles of the one KV block and stores the
-//    new carry. A key tile is skipped only when every (row, key) pair of it
-//    is masked, which is decided from the tile's corner positions (strides
-//    are at least 1, so positions grow with the index); a skipped tile
-//    would have left the carry bitwise unchanged. Tiles pass through
-//    shared memory as fp32 (bf16 widens on load); each thread owns 4 query
-//    rows (strided by 16), 4 scores of a key tile and head_dim / 16 output
-//    columns; row max and sum are 16-lane butterflies;
-//  * backward, two kernels (delta comes from the caller): dK and dV, one
-//    block per (key tile, KV head, batch) that loops over the g query heads
-//    of its group and the query tiles, so the GQA sum stays in the block;
-//    dQ, one block per (query tile, query head, batch) that loops over the
-//    key tiles and adds its sum into the fp32 dQ of the chain. No atomics:
-//    two runs on the same inputs give the same bits, as remat needs.
+// Design:
+//  * forward: K2's register-tiled walk (`attend` in attention_tiles.cuh:
+//    128 threads, float4 reads, K swizzled, K and V double-staged) on
+//    query tiles of 32 rows, one block per (query head, batch, query
+//    tile), the last tiles first. At the seq path's shape 64-row tiles
+//    would give 128 blocks a launch for the 264 slots of 132 SMs at two
+//    blocks each (88 KB of shared memory a block); 32-row tiles give 256,
+//    each thread 4 rows x 4 keys. A block walks the key tiles from the
+//    first to the last that tile_live finds, decided from the tiles'
+//    corner positions (strides are at least 1, so positions grow with
+//    the index); a masked tile leaves each row's carry bitwise unchanged;
+//  * backward, still the first port's 256-thread tiles, two kernels (delta
+//    comes from the caller): dK and dV, one block per (key tile, KV head,
+//    batch) that loops over the g query heads of its group and the query
+//    tiles, so the GQA sum stays in the block; dQ, one block per (query
+//    tile, query head, batch) that loops over the key tiles and adds its
+//    sum into the fp32 dQ of the chain. No atomics: two runs on the same
+//    inputs give the same bits, as remat needs.
 // All of q, k, v and dO are read in the model's (batch, time, head,
 // head_dim) layout through strides, with unit stride in head_dim, so a KV
 // block is a slice of the gathered keys with no copy.
@@ -69,10 +68,11 @@ __device__ __forceinline__ bool visible(const Pos& P, int i, int j) {
   return (!P.causal || iq >= jk) && (P.window <= 0 || iq - jk < P.window);
 }
 
-// false only if every pair of query rows [a, a + BQ) and keys [c, c + BKV)
-// is masked; block-uniform, so a loop may skip on it between barriers
+// false only if every pair of query rows [a, a + ROWS) and keys [c, c +
+// BKV) is masked; block-uniform, so a loop may skip on it between barriers
+template <int ROWS = BQ>
 __device__ __forceinline__ bool tile_live(const Pos& P, int a, int c) {
-  const int b = min(a + BQ, P.q_hi), d = min(c + BKV, P.kv_hi);
+  const int b = min(a + ROWS, P.q_hi), d = min(c + BKV, P.kv_hi);
   if (a >= b || c >= d) return false;
   const int q_min = P.q0 + a * P.qs, q_max = P.q0 + (b - 1) * P.qs;
   const int k_min = P.k0 + c * P.ks, k_max = P.k0 + (d - 1) * P.ks;
@@ -85,8 +85,17 @@ __device__ __forceinline__ bool tile_live(const Pos& P, int a, int c) {
 // forward
 // ---------------------------------------------------------------------- //
 
+constexpr int KQ = 32;       // query rows of a forward block
+constexpr int KR = KQ / 8;   // query rows of a thread: ty + 8 i
+
+// One block of 128 threads per (query head, batch, 32-row query tile), the
+// query tiles last to first (positions grow with the index, so under a
+// causal mask the last tiles see the most keys and start first). The block
+// loads its rows' carry, walks the key tiles from the first live one to the
+// last (attend in attention_tiles.cuh; a masked tile between them leaves
+// the carry bitwise as it is) and stores the new carry, unnormalised.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, 2)
 partial_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                    int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
                    int64_t k_st, int64_t k_sh, const T* __restrict__ v,
@@ -96,108 +105,54 @@ partial_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                    const float* __restrict__ acc_in,
                    float* __restrict__ m_out, float* __restrict__ l_out,
                    float* __restrict__ acc_out, int n_t, int n_s, int nq,
-                   int nkv, Pos P, float scale) {
-  constexpr int HC = HD / 16;
-  constexpr int LD = HD + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][LD]
-  float* Ks = Qs + BQ * LD;     // [BKV][LD]
-  float* Vs = Ks + BKV * LD;    // [BKV][HD]
-  float* Ps = Vs + BKV * HD;    // [BQ][PLD]
-  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+                   int nkv, Pos P, float scale, int vec) {
+  constexpr int NC = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // [KQ][HD]
+  float* Ks = Qs + KQ * HD;     // [BKV][HD], chunks swizzled
+  float* Vs = Ks + BKV * HD;    // [BKV][HD]
+  float* Ps = Vs + BKV * HD;    // [KQ][BKV]
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * KQ;
   const int hk = hq / (nq / nkv);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int64_t row0 = ((int64_t)b * nq + hq) * n_t;   // carry row of t = 0
+  const T* qb = q + b * q_sb + hq * q_sh;
+  uint4 reg[Tile<T, HD, BKV>::REGS];
 
-  load_rows<T, HD>(Qs, LD, q + b * q_sb + hq * q_sh, q_st, q0, n_t, BQ);
-
-  float m[RI], l[RI], acc[RI][HC];
+  float m[KR], l[KR];
+  float4 acc[KR][NC];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int i = 0; i < KR; ++i) {
+    const int t = q0 + ty + 8 * i;
     const bool in = t < n_t;
     m[i] = in ? m_in[row0 + t] : kNegInf;
     l[i] = in ? l_in[row0 + t] : 0.f;
 #pragma unroll
-    for (int c = 0; c < HC; ++c)
-      acc[i][c] = in ? acc_in[(row0 + t) * HD + tx + 16 * c] : 0.f;
+    for (int c = 0; c < NC; ++c)
+      acc[i][c] = in ? *reinterpret_cast<const float4*>(
+                           acc_in + (row0 + t) * HD + (tx + 16 * c) * 4)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-
   const int n_tiles = (n_s + BKV - 1) / BKV;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int j0 = kt * BKV;
-    if (!tile_live(P, q0, j0)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, HD>(Ks, LD, k + b * k_sb + hk * k_sh, k_st, j0, n_s, BKV);
-    load_rows<T, HD>(Vs, HD, v + b * v_sb + hk * v_sh, v_st, j0, n_s, BKV);
-    __syncthreads();
-
-    float s[RI][RJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[RI], kb[RJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) qa[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RJ; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
+  int lo = 0, hi = n_tiles;
+  while (lo < hi && !tile_live<KQ>(P, q0, lo * BKV)) ++lo;
+  while (hi > lo && !tile_live<KQ>(P, q0, (hi - 1) * BKV)) --hi;
+  tile_issue<T, HD, KQ, false>(Qs, qb, q_st, q0, n_t, vec, reg);
+  tile_commit<T, HD, KQ, false>(Qs, qb, q_st, q0, n_t, vec, reg);
+  attend<T, HD, KR>(Qs, Ks, Vs, Ps, k + b * k_sb + hk * k_sh, k_st,
+                    v + b * v_sb + hk * v_sh, v_st, n_s, lo, hi, vec, reg,
+                    scale, [&](int r, int j) { return visible(P, q0 + r, j); },
+                    m, l, acc);
 
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int li = q0 + ty + 16 * i;
-      bool ok[RJ];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        ok[j] = visible(P, li, j0 + tx + 16 * j);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = alpha * l[i] + sum16(rs);
-#pragma unroll
-      for (int c = 0; c < HC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BKV; ++kk) {
-      float pa[RI], vb[HC];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) pa[i] = Ps[(ty + 16 * i) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < HC; ++c) vb[c] = Vs[kk * HD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int c = 0; c < HC; ++c) acc[i][c] = fmaf(pa[i], vb[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int i = 0; i < KR; ++i) {
+    const int t = q0 + ty + 8 * i;
     if (t >= n_t) continue;
 #pragma unroll
-    for (int c = 0; c < HC; ++c)
-      acc_out[(row0 + t) * HD + tx + 16 * c] = acc[i][c];
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(acc_out + (row0 + t) * HD +
+                                 (tx + 16 * c) * 4) = acc[i][c];
     if (tx == 0) {
       m_out[row0 + t] = m[i];
       l_out[row0 + t] = l[i];
@@ -466,17 +421,20 @@ int fwd(const Args& a, const void* m_in, const void* l_in,
         const void* acc_in, void* m_out, void* l_out, void* acc_out,
         cudaStream_t s) {
   auto kern = partial_fwd_kernel<T, HD>;
-  static const cudaError_t attr = allow_smem(kern, fwd_smem<HD>());
+  static const cudaError_t attr = allow_smem(kern, attend_smem<HD, KQ>());
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.n_t + BQ - 1) / BQ, a.nq, a.batch);
-  kern<<<grid, kThreads, fwd_smem<HD>(), s>>>(
+  const bool vec = rows_aligned<T>(a.q, a.q_sb, a.q_st, a.q_sh) &&
+                   rows_aligned<T>(a.k, a.k_sb, a.k_st, a.k_sh) &&
+                   rows_aligned<T>(a.v, a.v_sb, a.v_st, a.v_sh);
+  const dim3 grid(a.nq, a.batch, (a.n_t + KQ - 1) / KQ);
+  kern<<<grid, kTileThreads, attend_smem<HD, KQ>(), s>>>(
       static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
       static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
       static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
       static_cast<const float*>(m_in), static_cast<const float*>(l_in),
       static_cast<const float*>(acc_in), static_cast<float*>(m_out),
       static_cast<float*>(l_out), static_cast<float*>(acc_out), a.n_t,
-      a.n_s, a.nq, a.nkv, a.pos, a.scale);
+      a.n_s, a.nq, a.nkv, a.pos, a.scale, (int)vec);
   return (int)cudaGetLastError();
 }
 
@@ -546,10 +504,11 @@ Args make_args(const void* q, long long q_sb, long long q_st, long long q_sh,
 // q (batch, n_t, nq, head_dim) and k, v (batch, n_s, nkv, head_dim) through
 // their (batch, time, head) strides, unit stride in head_dim. The carry in
 // and out: m, l (batch, nq, n_t) and acc (batch, nq, n_t, head_dim), fp32
-// contiguous (out may alias in). Query row i sits at q_pos0 + i * q_stride,
-// key j at k_pos0 + j * k_stride (strides >= 1); rows at or past q_len and
-// keys at or past kv_len are masked (<= 0: none). dtype 0 = float32, 1 =
-// bfloat16; head_dim 64 or 128. Returns cudaGetLastError().
+// contiguous, acc 16-byte aligned (out may alias in). Query row i sits at
+// q_pos0 + i * q_stride, key j at k_pos0 + j * k_stride (strides >= 1);
+// rows at or past q_len and keys at or past kv_len are masked (<= 0:
+// none). dtype 0 = float32, 1 = bfloat16; head_dim 64 or 128. Returns
+// cudaGetLastError().
 extern "C" int partial_attention_fwd_launch(
     const void* q, long long q_sb, long long q_st, long long q_sh,
     const void* k, long long k_sb, long long k_st, long long k_sh,

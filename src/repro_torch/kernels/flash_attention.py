@@ -212,9 +212,13 @@ def _fa_launcher(name: str):
         if name == "flash_attention_fwd_launch":
             fn.argtypes = [*strided * 3, p, p, i, i, i, i, i, i, i, i, i,
                            ctypes.c_float, i, p]
-        else:
+        elif name == "flash_attention_bwd_launch":
             fn.argtypes = [*strided * 3, p, *strided, p, p, p, p, p,
                            i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        else:  # flash_attention_bwd_workspace
+            fn.argtypes = [i] * 6
+            fn.restype = ll
+            return fn
         fn.restype = ctypes.c_int
     return fn
 
@@ -267,10 +271,16 @@ flash_attention_kernel.launches = 0
 def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *,
                                causal: bool = True, window: int = 0,
                                kv_len: int = 0):
-    """Launch the CUDA backward (delta, dK/dV, dQ) on the forward's inputs,
-    its output and lse, and the output's gradient ``dout``; returns (dq,
-    dk, dv), contiguous, in the inputs' dtype. Raises on what it does not
-    take. ``flash_attention_bwd_kernel.launches`` counts the calls."""
+    """Launch the CUDA backward on the forward's inputs, its output and
+    lse, and the output's gradient ``dout``; returns (dq, dk, dv),
+    contiguous, in the inputs' dtype. Raises on what it does not take.
+    ``flash_attention_bwd_kernel.launches`` counts the calls, each one
+    launch of its kernels (delta, dK/dV, the GQA sum where nq > nkv, dQ).
+
+    The kernels share an fp32 workspace allocated here: delta, dS of every
+    (64-query, 32-key) tile pair, which the dK/dV pass writes for the dQ
+    pass (B * nq * T * S floats, padded to whole tiles: 33.5 MB at B 2,
+    T = S = 512, 16 heads), and under GQA each query head's dK and dV."""
     _check_qkv("flash_attention_bwd_kernel", q, k, v, (out, dout))
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
@@ -280,13 +290,15 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *,
         raise ValueError("flash_attention_bwd_kernel needs out and dout "
                          "shaped like q (out contiguous) and the forward's "
                          "contiguous fp32 lse (B, nq, T)")
-    delta = torch.empty_like(lse)
+    n_work = _fa_launcher("flash_attention_bwd_workspace")(B, T, S, nq,
+                                                           nkv, hd)
+    work = torch.empty((n_work,), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, T, nq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, nkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = _fa_launcher("flash_attention_bwd_launch")(
         *_strided(q), *_strided(k), *_strided(v), out.data_ptr(),
-        *_strided(dout), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_strided(dout), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, S, nq, nkv, hd, int(causal),
         window, kv_len, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -516,6 +528,9 @@ def partial_attention_kernel(q, k, v, m, l, acc, *, q_pos0: int = 0,
     _check_partial("partial_attention_kernel", q, k, v,
                    [("m", m, (B, nq, T)), ("l", l, (B, nq, T)),
                     ("acc", acc, (B, nq, T, hd))], pos)
+    if acc.data_ptr() % 16:
+        raise ValueError("partial_attention_kernel needs a 16-byte aligned "
+                         "acc")
     out = (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc))
     err = _pa_launcher("partial_attention_fwd_launch")(
         *_strided(q), *_strided(k), *_strided(v), m.data_ptr(),

@@ -1,14 +1,16 @@
-"""K5's and K2's CUDA sources run on the CPU.
+"""K5's, K2's and K4's forward CUDA sources run on the CPU.
 
 ``csrc/paged_attention.cu`` (K5: the split page walk and the combine of
-each row's splits) and ``csrc/flash_attention.cu`` (K2) are compiled with
+each row's splits), ``csrc/flash_attention.cu`` (K2, forward and backward)
+and the forward of ``csrc/partial_attention.cu`` (K4) are compiled with
 g++ against the CPU stand-ins of ``tests/cuda_emu/`` (one thread per CUDA
 thread, blocks in turn) and launched through their C interfaces on CPU
 tensors. Each case is held to the plain version with the card's
-tolerances (``chip_smoke.py``'s PAGED_TOL and FLASH_TOL) and must repeat
-bitwise; K5's chunked prefill must equal one-shot prefill bitwise. The
-workspace K5 is given starts as NaN, so a read of an entry that no block
-wrote shows. This checks the kernels' indexing and arithmetic, not their
+tolerances (``chip_smoke.py``'s PAGED_TOL and FLASH_TOL, and K4's carry to
+1e-4 of its largest entry) and must repeat bitwise; K5's chunked prefill
+must equal one-shot prefill bitwise. The workspaces K5 and K2's backward
+are given, and every output, start as NaN, so a read of an entry that no
+block wrote shows. This checks the kernels' indexing and arithmetic, not their
 speed or their behaviour under the real compiler; the card runs the same
 sources in ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
@@ -20,7 +22,8 @@ import pytest
 import torch
 
 from cuda_emu import compile_source
-from repro_torch.kernels.flash_attention import paged_attention_plain
+from repro_torch.kernels.flash_attention import (
+    attn_partial_init, paged_attention_plain, partial_attention_plain)
 
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPE = {F32: 0, BF16: 1}
@@ -181,6 +184,9 @@ def flash(tmp_path_factory):
     bwd.argtypes = [*strided * 3, p, *strided, p, p, p, p, p, *[i] * 9,
                     ctypes.c_float, i, p]
     fwd.restype = bwd.restype = ctypes.c_int
+    work = lib.flash_attention_bwd_workspace
+    work.argtypes = [i] * 6
+    work.restype = ll
 
     def tail(q, k, causal, window, kv_len):
         B, T, nq, hd = q.shape
@@ -200,12 +206,15 @@ def flash(tmp_path_factory):
         return out, lse
 
     def backward(q, k, v, out, lse, dout, causal, window, kv_len):
-        delta = torch.empty_like(lse)
-        dq = torch.empty_like(out)
-        dk, dv = (torch.empty(k.shape, dtype=k.dtype) for _ in range(2))
+        B, T, nq, hd = q.shape
+        ws = torch.full((work(B, T, k.shape[1], nq, k.shape[2], hd),),
+                        math.nan)
+        dq = torch.full_like(out, math.nan)
+        dk, dv = (torch.full(k.shape, math.nan).to(k.dtype)
+                  for _ in range(2))
         assert bwd(*strided_args(q), *strided_args(k), *strided_args(v),
                    out.data_ptr(), *strided_args(dout), lse.data_ptr(),
-                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), *tail(q, k, causal, window, kv_len)) == 0
         return dq, dk, dv
     return forward, backward
@@ -282,15 +291,136 @@ def test_k2_forward_source_matches_plain_on_the_cpu(flash, case):
     assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
-def test_k2_backward_source_matches_autograd_on_the_cpu(flash):
-    """The backward, unchanged, on the new forward's out and lse."""
+# the backward's own cases beside FLASH_CASES: a window without the causal
+# mask, S > T under it, and the first port's one case (B, T, S, nq, nkv,
+# hd, causal, window, kv_len, dtype, shift)
+BWD_CASES = dict(FLASH_CASES, **{
+    "non-causal window 20 g4 hd128 f32": (1, 70, 70, 4, 1, 128, False, 20,
+                                          0, F32, 0),
+    "causal S 100 > T 40 g2 hd64 bf16": (2, 40, 100, 4, 2, 64, True, 0, 0,
+                                         BF16, 0),
+    "causal g2 hd64 f32 T 70": (1, 70, 70, 4, 2, 64, True, 0, 0, F32, 0),
+})
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k2_backward_source_matches_autograd_on_the_cpu(flash, case):
+    """dq, dk and dv against autograd of the plain attn_core: windows,
+    kv_len < S, T not a multiple of the 64-row tile, non-causal, GQA g 1,
+    2 and 4, head_dim 64 and 128, float32 and bfloat16, rows on and off 16
+    bytes. The workspace and the outputs start as NaN, so a read of an
+    entry no block wrote shows; a second call gives the same bits."""
     from repro_torch.kernels.flash_attention import attn_core
+    B, T, S, nq, nkv, hd, causal, window, kv_len, dtype, shift = \
+        BWD_CASES[case]
     forward, backward = flash
-    q, k, v = flash_inputs(3, 1, 70, 70, 4, 2, 64, F32, 0)
-    dout = torch.from_numpy(np.random.RandomState(4).randn(*q.shape)).float()
-    out, lse = forward(q, k, v, True, 0, 0)
-    grads = backward(q, k, v, out, lse, dout, True, 0, 0)
+    q, k, v = flash_inputs(len(case) + 7, B, T, S, nq, nkv, hd, dtype, shift)
+    dout = torch.from_numpy(np.random.RandomState(len(case)).randn(
+        B, T, nq, hd + 8)).to(dtype)[..., shift:shift + hd]
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    out, lse = forward(q, k, v, causal, window, kv_len)
+    grads = backward(q, k, v, out, lse, dout, causal, window, kv_len)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(attn_core(*leaves, causal=True), leaves, dout)
+    want = torch.autograd.grad(attn_core(*leaves, **kw), leaves, dout)
     for g, w in zip(grads, want):
-        _rel_close(g, w, FLASH_TOL[F32])
+        assert g.dtype == dtype and not g.float().isnan().any()
+        _rel_close(g, w, FLASH_TOL[dtype])
+    again = backward(q, k, v, out, lse, dout, causal, window, kv_len)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+# ---------------------------------------------------------------------- #
+# K4's forward
+# ---------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def partial(tmp_path_factory):
+    lib = compile_source("partial_attention",
+                         tmp_path_factory.mktemp("k4_emulated"))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fwd = lib.partial_attention_fwd_launch
+    fwd.argtypes = [*[p, ll, ll, ll] * 3, *[p] * 6, *[i] * 14,
+                    ctypes.c_float, i, p]
+    fwd.restype = ctypes.c_int
+
+    def run(q, k, v, m, l, acc, *, q_pos0=0, q_stride=1, k_pos0=0,
+            k_stride=1, causal=True, window=0, q_len=0, kv_len=0):
+        B, T, nq, hd = q.shape
+        out = [torch.full_like(t, math.nan) for t in (m, l, acc)]
+        assert fwd(q.data_ptr(), *q.stride()[:3], k.data_ptr(),
+                   *k.stride()[:3], v.data_ptr(), *v.stride()[:3],
+                   m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+                   *(t.data_ptr() for t in out), B, T, k.shape[1], nq,
+                   k.shape[2], hd, q_pos0, q_stride, k_pos0, k_stride, q_len,
+                   kv_len, int(causal), window, 1.0 / math.sqrt(hd),
+                   DTYPE[q.dtype], None) == 0
+        return out
+    return run
+
+
+def partial_inputs(seed, B, T, S, nq, nkv, hd, dtype, shift):
+    """q (B, T, nq, hd), two KV blocks k0/v0 and k/v (B, S, nkv, hd) as
+    views of wider rows (``shift`` 1: off 16 bytes), and the carry of the
+    plain pass over the first block (keys at 2 j, queries at 2 i + 1):
+    rows that saw no key of it keep m = NEG_INF."""
+    q, k0, v0 = flash_inputs(seed, B, T, S, nq, nkv, hd, dtype, shift)
+    _, k, v = flash_inputs(seed + 1, B, T, S, nq, nkv, hd, dtype, shift)
+    carry = partial_attention_plain(q, k0, v0,
+                                    *attn_partial_init(B, T, nq, hd),
+                                    q_pos0=1, q_stride=2, k_stride=2,
+                                    window=9)
+    return q, k, v, [c.contiguous() for c in carry]
+
+
+# (B, T, S, nq, nkv, hd, dtype, shift, positions and masks): the seq path's
+# striped blocks (queries at 2 i + r, keys at 2 j + rho) with r and rho 0
+# and 1, causal or not, windows, q_len and kv_len cutting tiles, g 1 and 2,
+# head_dim 64 and 128, bf16, rows off 16 bytes
+PARTIAL_CASES = {
+    "stride 2 r 1 rho 0 g2 hd128 f32": (
+        1, 70, 90, 4, 2, 128, F32, 0,
+        dict(q_pos0=1, q_stride=2, k_pos0=0, k_stride=2)),
+    "stride 2 r 0 rho 1 g2 hd64 bf16": (
+        2, 64, 64, 4, 2, 64, BF16, 0,
+        dict(q_pos0=0, q_stride=2, k_pos0=1, k_stride=2)),
+    "stride 2 window 40 q_len 50 kv_len 70 g1 hd128 f32": (
+        1, 66, 80, 2, 2, 128, F32, 0,
+        dict(q_pos0=1, q_stride=2, k_pos0=1, k_stride=2, window=40,
+             q_len=50, kv_len=70)),
+    "later block, keys 128 on, window 100 g2 hd64 f32": (
+        1, 40, 70, 4, 2, 64, F32, 0,
+        dict(q_pos0=128, k_pos0=64, window=100)),
+    "non-causal unaligned kv_len 33 g2 hd128 bf16": (
+        1, 35, 65, 4, 2, 128, BF16, 1,
+        dict(q_pos0=3, q_stride=2, k_pos0=0, k_stride=2, causal=False,
+             kv_len=33)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARTIAL_CASES))
+def test_k4_forward_source_matches_plain_on_the_cpu(partial, case):
+    B, T, S, nq, nkv, hd, dtype, shift, pos = PARTIAL_CASES[case]
+    q, k, v, carry = partial_inputs(len(case), B, T, S, nq, nkv, hd, dtype,
+                                    shift)
+    got = partial(q, k, v, *carry, **pos)
+    want = partial_attention_plain(q, k, v, *carry, **pos)
+    for g, w in zip(got, want):
+        _rel_close(g, w, 1e-4)
+    rows = T if not pos.get("q_len") else pos["q_len"]
+    for g, c in zip(got, carry):           # rows past q_len: carried as is
+        assert torch.equal(g[:, :, rows:], c[:, :, rows:])
+    again = partial(q, k, v, *carry, **pos)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_k4_forward_source_keeps_a_masked_rows_carry(partial):
+    """Queries at 0, 2, 4, ... against keys at 1, 3, 5, ...: query 0 sees
+    no key of the block and keeps its carry bit for bit, the rows past
+    q_len too, and the others move."""
+    q, k, v, carry = partial_inputs(11, 2, 70, 70, 4, 2, 128, F32, 0)
+    got = partial(q, k, v, *carry, q_stride=2, k_pos0=1, k_stride=2,
+                  q_len=60)
+    for g, c in zip(got, carry):
+        assert torch.equal(g[:, :, 0], c[:, :, 0])
+        assert torch.equal(g[:, :, 60:], c[:, :, 60:])
+        assert not torch.equal(g[:, :, 1:60], c[:, :, 1:60])

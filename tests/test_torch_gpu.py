@@ -443,6 +443,44 @@ def test_flash_attention_forward_edges_match_plain(cuda, case, dtype):
     assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
+# chip_smoke.py's ATTN_CASES: the training shape, a window, a ragged
+# non-causal kv_len and Jamba's prefill (B, T, S, nq, nkv, hd, causal,
+# window, kv_len), and its FLASH_TOL, as max|kernel - plain| <= tol *
+# max|plain|
+ATTN_SMOKE = {
+    "train": (2, 512, 512, 16, 8, 128, True, 0, 0),
+    "window_128": (2, 512, 512, 16, 8, 128, True, 128, 0),
+    "ragged_kv_len_non_causal": (2, 200, 320, 16, 8, 128, False, 0, 300),
+    "jamba_prefill": (4, 512, 512, 32, 8, 128, True, 0, 0),
+}
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ATTN_SMOKE))
+def test_flash_attention_backward_at_the_path_shapes(cuda, case, dtype):
+    """K2's backward (dq, dk, dv) at the training and prefill shapes
+    against autograd of the plain forward, and two calls on the same
+    inputs give the same bits."""
+    B, T, S, nq, nkv, hd, causal, window, kv_len = ATTN_SMOKE[case]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, k, v, dout = (rand(B, T, nq, hd), rand(B, S, nkv, hd),
+                     rand(B, S, nkv, hd), rand(B, T, nq, hd))
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    out, lse = flash_attention_kernel(q, k, v, **kw)
+    grads = FA.flash_attention_bwd_kernel(q, k, v, out, lse, dout, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attn_core(*leaves, **kw), leaves, dout)
+    for g, w in zip(grads, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= FLASH_TOL[dtype] * float(w.float().abs().max()), err
+    again = FA.flash_attention_bwd_kernel(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
 # ---------------------------------------------------------------------- #
 # K4 partial flash attention, forward and backward
 # ---------------------------------------------------------------------- #
@@ -518,6 +556,32 @@ def test_partial_attention_kernel_keeps_a_masked_rows_carry(cuda):
                                       k_stride=2, q_len=80)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_partial_attention_kernel_over_more_than_one_wave(cuda, window):
+    """K4's forward with more query tiles than the card holds at once (B
+    2, 2048 queries at 2 i + 1, 16 heads: 2048 blocks of 32 rows for 264
+    two-block slots), keys at 2 j over two blocks: the carry against the
+    plain version, and two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, C, nq, nkv, hd = 2, 2048, 16, 8, 128
+    q = torch.randn((B, C, nq, hd), generator=gen, device=cuda)
+    k0, v0, k, v = (torch.randn((B, C, nkv, hd), generator=gen, device=cuda)
+                    for _ in range(4))
+    pos = dict(q_pos0=1, q_stride=2, k_stride=2, window=window)
+    start = FA.partial_attention_kernel(
+        q, k0, v0, *FA.attn_partial_init(B, C, nq, hd, device=cuda),
+        **dict(pos, k_pos0=0))
+    got = FA.partial_attention_kernel(q, k, v, *start, **dict(pos, k_pos0=1))
+    want = FA.partial_attention_plain(q, k, v, *start,
+                                      **dict(pos, k_pos0=1))
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    again = FA.partial_attention_kernel(q, k, v, *start,
+                                        **dict(pos, k_pos0=1))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 def test_partial_attention_kernel_refuses_unsupported_inputs(cuda):
