@@ -13,8 +13,10 @@ a hard failure:
   2. build: one nvcc per kernel source, all at once;
   3. each kernel against its plain PyTorch version on the card, at the
      serving and training paths' shapes, in float32 and bfloat16:
-     K3 RMSNorm, K5 paged attention (chunked == one-shot bitwise; also
-     over Jamba's dense decode cache seen as 32-row pages), K1 block
+     K3 RMSNorm (also at training's and Jamba's shapes; a row normed
+     alone gives the bits it gets among 1,024), K5 paged attention
+     (chunked == one-shot bitwise; also over Jamba's dense decode cache
+     seen as 32-row pages), K1 block
      matmul in the three layouts of training, at the Mamba layer's widths
      and in the middle band of M (each run twice: the same bits), K2
      flash attention forward and backward (also at Jamba's
@@ -36,7 +38,9 @@ a hard failure:
      card could take, with the attention kernels' TFLOP/s; the backwards
      as the median of several eager rounds, their spread printed; K1 also
      in bfloat16 at the forward and decode
-     shapes, beside bfloat16 ``torch.matmul``; K5 at serving's decode and
+     shapes, beside bfloat16 ``torch.matmul``; K3 at the serving,
+     training and Jamba shapes beside ``F.rms_norm``; K5 at serving's
+     decode and
      chunked-prefill shapes and at Jamba's dense decode (each also held
      to its plain version), K2's forward also at Jamba's prefill shape;
   7. full-width training parity: the loss and every gradient of one
@@ -60,7 +64,8 @@ a hard failure:
      plain chain's autograd at the seq path's shape (a chain over 2
      striped blocks, causal and windowed, f32 and bf16; a row the second
      block fully masks keeps its carry bit for bit; two runs give the same
-     bits), K4's times; then ``launch/train.py --mesh 1,1,1,1,2`` as two
+     bits), K4's times (the backward chain also replayed from a CUDA
+     graph); then ``launch/train.py --mesh 1,1,1,1,2`` as two
      gloo ranks sharing the card under ``torch.distributed.run`` (qwen3-1.7b
      at full width and depth, the flags, seed and data of phase 8): losses
      within 1e-3 of phase 8's, both ranks' parameters bitwise equal, each
@@ -121,6 +126,12 @@ TRAIN_FLAGS = ["--arch", ARCH, "--preset", "full", "--steps", "3",
 FIXED_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset", "full",
                "--batch", "4", "--prompt-len", "512", "--gen", "32",
                "--seed", str(SEED)]
+# K3's timed shapes (rows, d): the serving step's norm1/norm2 (8 slots) and
+# qk-norm rows (8 x 16 heads); training's norm1/norm2 per microbatch (2 x
+# 512 tokens) and its q-norm rows (x 16 heads); Jamba's prefill (4 x 512)
+# and decode (4) norms
+RMS_SHAPES = [(8, 2048), (128, 128), (1024, 2048), (16384, 128),
+              (2048, 4096), (4, 4096)]
 # K6 against its sequential plain version: y and the state of f32 within
 # the 2e-4 of tests/test_kernels.py (exp and the FMA contractions round
 # otherwise than PyTorch's kernels); bf16 y rounds once more on the way out
@@ -426,11 +437,12 @@ def phase_kernels(gen):
                           "flash_attention", "flash_attention_bwd",
                           "selective_scan", "partial_attention",
                           "partial_attention_bwd"), 0.0)
-    log("[kernels] K3 rmsnorm vs plain")
+    log("[kernels] K3 rmsnorm vs plain; a row alone gives its bits among "
+        "1,024")
     R, T, nq = 8, 32, 16
     for dtype in (torch.float32, torch.bfloat16):
         for rows, d in ((R * T, 2048), (R * T * nq, 128), (R, 2048),
-                        (R * nq, 128), (R * 8, 128)):
+                        (R * nq, 128), (R * 8, 128), *RMS_SHAPES):
             x = torch.randn((rows, d), generator=gen, device="cuda"
                             ).to(dtype)
             g = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
@@ -440,6 +452,21 @@ def phase_kernels(gen):
                             RMS_TOL[dtype])
             if dtype == torch.float32:
                 errs["rmsnorm"] = max(errs["rmsnorm"], e)
+        for d in sorted({d for _, d in RMS_SHAPES} | {64}):
+            x = torch.randn((1024, d), generator=gen, device="cuda"
+                            ).to(dtype)
+            g = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+                 ).to(dtype)
+            full = rmsnorm_kernel(x, g)
+            for i in (0, 1, 517, 1023):
+                if not (torch.equal(rmsnorm_kernel(x[i:i + 1], g)[0],
+                                    full[i])
+                        and torch.equal(rmsnorm_kernel(x[i].clone(), g),
+                                        full[i])):
+                    raise AssertionError(f"K3 row {i} of (1024, {d}) "
+                                         f"differs when normed alone")
+            log(f"  {str(dtype)[6:]} d {d}: rows 0, 1, 517, 1023 alone == "
+                f"among 1,024: bitwise")
     log("[kernels] K5 paged attention vs plain (nq 16, nkv 8, hd 128, "
         "page 16, table width 127)")
     cases = {1: dict(ctx=[0, 1, 17, 40, 100, 160, 33, 250],
@@ -780,26 +807,12 @@ def time_paged(name, q, kps, vps, table, q_pos, q_len):
 def phase_timings(gen, n_layers):
     """Serving shapes (8 slots at 144 tokens of context; K5 also over
     Jamba's dense decode cache), then the training and K6 timings."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
     from repro_torch.layers.attention import DENSE_PAGE, dense_page_view
     f32 = torch.float32
     out = {}
     log("[timings] float32, decode-step shapes, CUDA events: device "
         "time from a replayed CUDA graph / eager calls back to back")
-    rms = {}
-    for rows, d in ((8, 2048), (8 * 16, 128)):
-        x = torch.randn((rows, d), generator=gen, device="cuda")
-        g = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
-        nbytes = 2 * x.numel() * 4 + d * 4
-        ops_ = 4 * x.numel()
-        t, eager = timings(lambda: rmsnorm_kernel(x, g),
-                           lambda: rmsnorm_plain(x, g),
-                           lambda: F.rms_norm(x, (d,), g, 1e-6),
-                           nbytes, ops_, f32)
-        rms[(rows, d)] = t
-        log(f"  rmsnorm ({rows}, {d}): " + fmt(t, eager))
-    out["rmsnorm"] = rms[(8, 2048)]
+    out["rmsnorm"] = phase_timings_rmsnorm(gen)[(8, 2048)]
 
     # K5 at three shapes: decode and chunked prefill of continuous serving
     # (8 slots, 144 tokens of context, page 16), and the decode step of
@@ -833,6 +846,27 @@ def phase_timings(gen, n_layers):
         "from a replayed CUDA graph / eager calls back to back")
     phase_timings_scan(gen, out)
     return out
+
+
+def phase_timings_rmsnorm(gen):
+    """K3 at RMS_SHAPES, float32, beside F.rms_norm; returns each shape's
+    times. The bound counts x and out once and gamma once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+    rms = {}
+    for rows, d in RMS_SHAPES:
+        x = torch.randn((rows, d), generator=gen, device="cuda")
+        g = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        t, eager = timings(lambda: rmsnorm_kernel(x, g),
+                           lambda: rmsnorm_plain(x, g),
+                           lambda: F.rms_norm(x, (d,), g, 1e-6),
+                           2 * x.numel() * 4 + d * 4, 4 * x.numel(),
+                           torch.float32)
+        rms[(rows, d)] = t
+        log(f"  rmsnorm ({rows}, {d}): " + fmt(t, eager)
+            + f"; {t['ms'] / t['library_ms']:.2f}x F.rms_norm, "
+            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+    return rms
 
 
 def phase_timings_train(gen, out):
@@ -962,7 +996,7 @@ KERNEL_GROUPS = (("sgemm_tile_kernel", "K1 block_matmul"),
                  ("split_sum_kernel", "K1 block_matmul"),
                  ("flash_fwd_kernel", "K2 flash_attention forward"),
                  ("flash_bwd", "K2 flash_attention backward"),
-                 ("rmsnorm_kernel", "K3 rmsnorm"),
+                 ("rmsnorm", "K3 rmsnorm"),
                  ("paged_split_kernel", "K5 paged_attention"),
                  ("paged_combine_kernel", "K5 paged_attention"),
                  ("selective_scan_kernel", "K6 selective_scan"))
@@ -1369,7 +1403,9 @@ def phase_timings_partial(gen, out):
     chain over the p gathered blocks (p launches). The library call is
     SDPA over the gathered keys with the same boolean mask: it computes
     the finalised output, not the carry. The backward runs eagerly for
-    all three versions (the plain and library backwards are autograd's)."""
+    all three versions (the plain and library backwards are autograd's),
+    and the kernel's chain is also replayed from a CUDA graph, which
+    leaves out the host's issue."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attn_partial_finalize,
                                                      attn_partial_init)
@@ -1420,9 +1456,14 @@ def phase_timings_partial(gen, out):
             lib_out, lib_in, dout_s, retain_graph=True)))
     bwd = dict({key: r[key]["median"] for key in r},
                **bound(bwd_bytes, 10 * hd * pairs, f32))
+    replayed = graph_ms(lambda: partial_chain_bwd(q, kg, vg, dout, o, carry,
+                                                  0, p), 20)
     log(f"[timings] K4 backward, chain of {p} blocks (eager): kernel "
         f"{spread(r['ms'])}, plain {spread(r['plain_ms'])}, {SDPA_NAME} "
-        f"backward {spread(r['library_ms'])}; bound "
+        f"backward {spread(r['library_ms'])}; kernel "
+        f"{bwd['ms'] / bwd['library_ms']:.2f}x the library; the chain "
+        f"replayed from a CUDA graph {replayed * 1e3:.2f} us; "
+        f"{10 * hd * pairs / bwd['ms'] / 1e9:.1f} TFLOP/s, bound "
         f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']})")
     out["partial_attention_bwd"] = bwd
 

@@ -1,14 +1,18 @@
 // Tiles and device helpers shared by the attention kernels K2
-// (flash_attention.cu) and K4 (partial_attention.cu). Two designs live
-// here. The register-tiled one (K2's forward and backward, K4's forward):
-// 128 threads as 8 x 16, each owning a few rows x a few columns of a tile
-// product in registers, fp32 tiles in shared memory read as float4, K's
-// 16-byte chunks XOR-swizzled by row where 16 rows are read at once, and
-// tile loads split in an issue half and a commit half so that they overlap
-// other work (cp.async for float32, a register stage for bfloat16); the
-// forwards' walk over key tiles (`attend`). The first-port one (K4's
-// backward): 256 threads as 16 x 16, square 64-row query and key tiles
-// through padded shared memory, 4 rows and 4 score columns a thread.
+// (flash_attention.cu) and K4 (partial_attention.cu), forward and backward.
+// The kernels are templates over the mask: K2's `IndexMask` (positions are
+// the indices) and K4's `Pos` (query row i at global position q0 + i qs,
+// key j at k0 + j ks), each with the causal and window masks. 128 threads
+// as 8 x 16, each owning a few rows x a few columns of a tile product in
+// registers; fp32 tiles in shared memory read as float4, 16-byte chunks
+// XOR-swizzled by row where 16 rows are read at once; tile loads split in
+// an issue half and a commit half so that they overlap other work
+// (cp.async for float32, a register stage for bfloat16). The forwards
+// share their walk over key tiles (`attend`), the backwards their four
+// kernels (`launch_bwd`: delta, the dK/dV pass, the GQA sum, the dQ pass),
+// which differ only in where they write: K2 stores dQ, dK and dV in the
+// inputs' dtype, K4 adds dQ into a chain's fp32 sum and stores dK and dV
+// in fp32.
 // Everything sits in an anonymous namespace: each source that includes it
 // gets its own copy.
 #pragma once
@@ -19,9 +23,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // first-port tiles; row-wise passes
+constexpr int kThreads = 256;       // the row-wise passes: delta, GQA sum
 constexpr int BQ = 64;              // query rows per tile
-constexpr int BKV = 64;             // keys per tile
+constexpr int BKV = 64;             // keys per tile of the forwards
 constexpr float kNegInf = -1e30f;   // NEG_INF of the JAX package
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -46,8 +50,74 @@ __device__ __forceinline__ float sum16(float v) {
   return v;
 }
 
+// A mask gives visible(i, j), whether query row i sees key j, and
+// key_tiles<ROWS, BKT>(a, &lo, &hi), the key tiles [lo, hi) of BKT keys
+// that may hold a visible key for rows [a, a + ROWS): the forwards walk
+// them; in the backward they decide which (query tile, key tile) pairs the
+// dK/dV pass writes a dS tile for and the dQ pass reads back, one function
+// for both passes. Each row's visible keys form an interval under both
+// masks, so the tiles form one interval too.
+
+// K2's: positions are the indices; rows at or past n_t do not exist, keys
+// at or past kv_hi are masked. key_tiles holds exactly the tiles with a
+// visible pair.
+struct IndexMask {
+  int n_t, kv_hi, causal, window;
+
+  __device__ __forceinline__ bool visible(int iq, int jk) const {
+    return iq < n_t && jk < kv_hi && (!causal || iq >= jk) &&
+           (window <= 0 || iq - jk < window);
+  }
+
+  template <int ROWS, int BKT>
+  __device__ __forceinline__ void key_tiles(int a, int* lo, int* hi) const {
+    int end = kv_hi;
+    if (causal) end = min(end, min(a + ROWS, n_t));
+    const int beg = window > 0 ? max(0, a - window + 1) : 0;
+    *lo = beg / BKT;
+    *hi = end > beg ? (end + BKT - 1) / BKT : *lo;
+  }
+};
+
+// K4's: query row i at q0 + i * qs, key j at k0 + j * ks (strides >= 1, so
+// positions grow with the index); rows at or past q_hi and keys at or past
+// kv_hi take no part.
+struct Pos {
+  int q0, qs, k0, ks;
+  int q_hi, kv_hi;
+  int causal, window;
+
+  __device__ __forceinline__ bool visible(int i, int j) const {
+    if (i >= q_hi || j >= kv_hi) return false;
+    const int iq = q0 + i * qs, jk = k0 + j * ks;
+    return (!causal || iq >= jk) && (window <= 0 || iq - jk < window);
+  }
+
+  // a tile is out when its corner positions rule out every pair (its
+  // first key after the last row under the causal mask, its last key a
+  // window or more before the first row); both tests are monotone in the
+  // tile
+  template <int ROWS, int BKT>
+  __device__ __forceinline__ void key_tiles(int a, int* lo, int* hi) const {
+    const int b = min(a + ROWS, q_hi);
+    *lo = *hi = 0;
+    if (a >= b) return;
+    const int q_min = q0 + a * qs, q_max = q0 + (b - 1) * qs;
+    int end = kv_hi;  // keys [beg, end) pass both corner tests
+    if (causal) end = q_max < k0 ? 0 : min(end, (q_max - k0) / ks + 1);
+    int beg = 0;
+    if (window > 0) {
+      const int x = q_min - window - k0;
+      beg = x < 0 ? 0 : x / ks + 1;
+    }
+    if (beg >= end) return;
+    *lo = beg / BKT;
+    *hi = (end + BKT - 1) / BKT;
+  }
+};
+
 // ---------------------------------------------------------------------- //
-// the register-tiled kernels
+// tiles
 // ---------------------------------------------------------------------- //
 
 constexpr int kTileThreads = 128;  // 8 x 16: ty = tid / 16, tx = tid % 16
@@ -180,16 +250,16 @@ __device__ __host__ inline bool rows_aligned(const void* p, long long sb,
 // keys tx + 16 j (j < 4) of a tile, reading Q and K as float4 along
 // head_dim, then their output columns 4 (tx + 16 c) .. + 3, reading P and
 // V as float4. V of a tile streams in while Q K^T runs and the next K
-// while the softmax and P V run. vis(r, j) says whether tile row r sees key
-// j; a masked score gives p = 0 exactly, so a row that sees no key of a
+// while the softmax and P V run. Tile row r is query row q0 + r of P; a
+// masked score gives p = 0 exactly, so a row that sees no key of a
 // tile keeps its carry bit for bit (alpha = exp(0) = 1), and a tile whose
 // every score is masked may be walked or skipped with the same bits.
-template <typename T, int HD, int FR, typename Vis>
+template <typename T, int HD, int FR, typename Mask>
 __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
                                        float* Ps, const T* kb, int64_t k_st,
                                        const T* vb, int64_t v_st, int n_s,
                                        int lo, int hi, bool vec, uint4* reg,
-                                       float scale, const Vis& vis,
+                                       float scale, const Mask& P, int q0,
                                        float (&m)[FR], float (&l)[FR],
                                        float4 (&acc)[FR][HD / 64]) {
   constexpr int D4 = HD / 4;   // 16-byte chunks of a row
@@ -249,7 +319,7 @@ __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < FJ; ++j) {
-        ok[j] = vis(ty + 8 * i, j0 + tx + 16 * j);
+        ok[j] = P.visible(q0 + ty + 8 * i, j0 + tx + 16 * j);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -317,38 +387,6 @@ constexpr size_t attend_smem() {
   return sizeof(float) * (ROWS * HD + 2 * BKV * HD + ROWS * BKV);
 }
 
-// ---------------------------------------------------------------------- //
-// the first-port kernels (K4's backward)
-// ---------------------------------------------------------------------- //
-
-constexpr int RI = BQ / 16;         // rows per thread
-constexpr int RJ = BKV / 16;        // score columns per thread
-constexpr int PLD = BKV + 16;       // row stride of the score tiles
-static_assert(BQ == BKV, "the backward's tile loops assume square tiles");
-
-// rows [r0, r0 + rows) of a (n_rows, HD) slice with row stride `stride`
-// into dst (row stride ld) as fp32; rows past n_rows read as 0
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const T* __restrict__ src,
-                                          int64_t stride, int r0, int n_rows,
-                                          int rows) {
-  for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int gr = r0 + r;
-    dst[r * ld + d] = gr < n_rows ? to_f(src[gr * stride + d]) : 0.f;
-  }
-}
-
-// shared memory (bytes) of K4's backward kernels
-template <int HD>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * BQ * (HD + 1) + 2 * BKV * PLD + 2 * BQ);
-}
-template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * BQ * (HD + 1) + BQ * PLD);
-}
 
 // raise a kernel's dynamic shared memory limit; each caller keeps the
 // result in a function-local static, so this runs once per kernel (and
@@ -358,6 +396,526 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// what a launch reads: q (batch, n_t, nq, HD) and k, v (batch, n_s, nkv,
+// HD) through their (batch, time, head) strides, unit stride in head_dim;
+// the mask; the softmax scale
+template <typename Mask>
+struct Args {
+  const void *q, *k, *v;
+  long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  int batch, n_t, n_s, nq, nkv;
+  Mask pos;
+  float scale;
+};
+
+// ---------------------------------------------------------------------- //
+// the backward (FlashAttention-2's equations, given each row's lse and
+// delta = rowsum(dO * O): P = exp(S - lse), dV = P^T dO, dS = P (dO V^T -
+// delta), dQ = dS K scale, dK = dS^T Q scale)
+// ---------------------------------------------------------------------- //
+
+constexpr int BK = 32;        // keys of a dK/dV block and of a dS tile
+constexpr int BI = BK / 8;    // keys of a thread: ty + 8 i
+constexpr int BJ = BQ / 16;   // queries of a thread: tx + 16 j
+constexpr int TLD = BQ + 16;  // row stride of the P^T / dS^T tile
+
+// shared memory (bytes) of the dK/dV kernel: K and V [BK][HD], Q and dO
+// [BQ][HD], one [BK][TLD] tile for P^T and then dS^T, lse and delta [BQ];
+// 106.5 KB at head_dim 128, so that two blocks share an SM
+template <int HD>
+constexpr size_t dkdv_tile_smem() {
+  return sizeof(float) * (2 * BK * HD + 2 * BQ * HD + BK * TLD + 2 * BQ);
+}
+// of the dQ kernel: K [BK][HD] and dS^T [BK][BQ], two of each
+template <int HD>
+constexpr size_t dq_tile_smem() {
+  return sizeof(float) * 2 * (BK * HD + BK * BQ);
+}
+
+// The backward's fp32 workspace (offsets and total, in floats): delta
+// (batch, nq, n_t) where the call computes it (K2; K4's comes from its
+// chain); dS^T of every (query tile, key tile) pair, [BK][BQ] each, in
+// (batch, nq, query tile, key tile) order, of which the dK/dV pass writes
+// the pairs key_tiles<BQ, BK> holds and the dQ pass reads them; with GQA
+// (g > 1) each query head's dK and dV, (batch, n_s, nq, HD) each, summed
+// over the group in order by flash_bwd_sum_kernel.
+struct BwdWork {
+  int64_t delta, ds, dkv, total;
+};
+inline BwdWork bwd_work(int batch, int n_t, int n_s, int nq, int nkv,
+                        int hd, bool with_delta) {
+  const int64_t n_qt = (n_t + BQ - 1) / BQ, n_kt = (n_s + BK - 1) / BK;
+  BwdWork w;
+  w.delta = 0;
+  w.ds = with_delta ? ((int64_t)batch * nq * n_t + 3) / 4 * 4 : 0;
+  w.dkv = w.ds + (int64_t)batch * nq * n_qt * n_kt * BK * BQ;
+  w.total = w.dkv + (nq > nkv ? 2 * (int64_t)batch * n_s * nq * hd : 0);
+  return w;
+}
+
+// delta[b, hq, t] = sum_d dO[b, t, hq, d] * O[b, t, hq, d]; one warp a row.
+// Where m is given (a K4 chain's first call), also lse = m + log l, the
+// chain's log-sum-exp (kNegInf where l is 0: a row that saw no key).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       int64_t do_sb, int64_t do_st, int64_t do_sh,
+                       float* __restrict__ delta,
+                       const float* __restrict__ m,
+                       const float* __restrict__ l, float* __restrict__ lse,
+                       int batch, int n_t, int nq) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) +
+                      (threadIdx.x >> 5);
+  if (row >= (int64_t)batch * n_t * nq) return;
+  const int hq = (int)(row % nq);
+  const int64_t bt = row / nq;
+  const int t = (int)(bt % n_t), b = (int)(bt / n_t);
+  const T* orow = o + row * HD;
+  const T* drow = dout + b * do_sb + t * do_st + hq * do_sh;
+  float s = 0.f;
+  for (int d = lane; d < HD; d += 32) s += to_f(orow[d]) * to_f(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int64_t r = ((int64_t)b * nq + hq) * n_t + t;
+    delta[r] = s;
+    if (m != nullptr) lse[r] = l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
+  }
+}
+
+// acc[i][c] += sum_q A[ty + 8 i][q] * B[q][4 (tx + 16 c) .. + 3] over the
+// BQ queries of a tile: A is [BK][TLD] (P^T or dS^T), B a swizzled [BQ][HD]
+// tile (dO or Q). A is read as float4 along q: 4 queries a load.
+template <int HD>
+__device__ __forceinline__ void accumulate_tile(float4 (&acc)[BI][HD / 64],
+                                                const float* A,
+                                                const float* B, int ty,
+                                                int tx) {
+  constexpr int NC = HD / 64;
+#pragma unroll 4
+  for (int q4 = 0; q4 < BQ / 4; ++q4) {
+    float4 a[BI];
+#pragma unroll
+    for (int i = 0; i < BI; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 8 * i) * TLD +
+                                              q4 * 4);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int qq = q4 * 4 + u;
+      float4 bv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        bv[c] = *reinterpret_cast<const float4*>(
+            B + qq * HD + chunk_at<true>(qq, tx + 16 * c) * 4);
+#pragma unroll
+      for (int i = 0; i < BI; ++i) {
+        const float w = u == 0 ? a[i].x : u == 1 ? a[i].y
+                      : u == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          acc[i][c].x = fmaf(w, bv[c].x, acc[i][c].x);
+          acc[i][c].y = fmaf(w, bv[c].y, acc[i][c].y);
+          acc[i][c].z = fmaf(w, bv[c].z, acc[i][c].z);
+          acc[i][c].w = fmaf(w, bv[c].w, acc[i][c].w);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  store(p, v.x);
+  store(p + 1, v.y);
+  store(p + 2, v.z);
+  store(p + 3, v.w);
+}
+
+// dK and dV of one query head: one block of 128 threads per (query head,
+// batch, key tile of BK = 32), the key tiles first to last (under a causal
+// mask the first see the most query tiles, so the heaviest blocks start
+// first). It walks the query tiles whose key_tiles hold its tile: loads
+// the Q and dO tiles (swizzled), computes S^T = K Q^T and dP^T = V dO^T
+// (thread (ty, tx): keys ty + 8 i, queries tx + 16 j), P = exp(S scale -
+// lse) and dS = P (dP - delta), zero where masked (so a row whose lse is
+// NEG_INF, one that sees no key, gives 0, not NaN), then dV += P^T dO and
+// dK += dS^T Q (keys ty + 8 i, columns 4 (tx + 16 c) .. + 3), and writes
+// the dS^T tile to the workspace for the dQ pass. With g == 1 it writes dK
+// and dV (TO, batch stride o_sb); with GQA its query head's share goes to
+// the workspace.
+template <typename T, typename TO, int HD, typename Mask>
+__global__ void __launch_bounds__(kTileThreads, 2)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
+                      int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
+                      int64_t k_st, int64_t k_sh, const T* __restrict__ v,
+                      int64_t v_sb, int64_t v_st, int64_t v_sh,
+                      const T* __restrict__ dout, int64_t do_sb,
+                      int64_t do_st, int64_t do_sh,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ ds, float* __restrict__ dkw,
+                      float* __restrict__ dvw, TO* __restrict__ dk,
+                      TO* __restrict__ dv, int64_t o_sb, int n_t, int n_s,
+                      int nq, int nkv, Mask P, float scale, int vec) {
+  constexpr int D4 = HD / 4;
+  constexpr int NC = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;              // [BK][HD]
+  float* Vs = Ks + BK * HD;      // [BK][HD]
+  float* Qs = Vs + BK * HD;      // [BQ][HD], chunks swizzled
+  float* dOs = Qs + BQ * HD;     // [BQ][HD], chunks swizzled
+  float* Ts = dOs + BQ * HD;     // [BK][TLD]: P^T, then dS^T
+  float* lse_s = Ts + BK * TLD;  // [BQ]
+  float* del_s = lse_s + BQ;     // [BQ]
+  const int hq = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int j0 = kt * BK, g = nq / nkv, hk = hq / g;
+  const int n_qt = (n_t + BQ - 1) / BQ, n_kt = gridDim.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* qb = q + b * q_sb + hq * q_sh;
+  const T* ob = dout + b * do_sb + hq * do_sh;
+  const float* lse_h = lse + ((int64_t)b * nq + hq) * n_t;
+  const float* del_h = delta + ((int64_t)b * nq + hq) * n_t;
+  float* ds_h = ds + ((int64_t)b * nq + hq) * n_qt * n_kt * (BK * BQ);
+  uint4 reg[Tile<T, HD, BQ>::REGS];
+
+  tile_issue<T, HD, BK, false>(Ks, k + b * k_sb + hk * k_sh, k_st, j0, n_s,
+                               vec, reg);
+  tile_commit<T, HD, BK, false>(Ks, k + b * k_sb + hk * k_sh, k_st, j0, n_s,
+                                vec, reg);
+  tile_issue<T, HD, BK, false>(Vs, v + b * v_sb + hk * v_sh, v_st, j0, n_s,
+                               vec, reg);
+  tile_commit<T, HD, BK, false>(Vs, v + b * v_sb + hk * v_sh, v_st, j0, n_s,
+                                vec, reg);
+
+  float4 dka[BI][NC], dva[BI][NC];
+#pragma unroll
+  for (int i = 0; i < BI; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      dka[i][c] = dva[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    int lo, hi;
+    P.template key_tiles<BQ, BK>(q0, &lo, &hi);
+    if (kt < lo || kt >= hi) continue;  // block-uniform
+    __syncthreads();  // the last tile's readers of Qs, dOs and Ts are done
+    tile_issue<T, HD, BQ, true>(Qs, qb, q_st, q0, n_t, vec, reg);
+    tile_commit<T, HD, BQ, true>(Qs, qb, q_st, q0, n_t, vec, reg);
+    tile_issue<T, HD, BQ, true>(dOs, ob, do_st, q0, n_t, vec, reg);
+    tile_commit<T, HD, BQ, true>(dOs, ob, do_st, q0, n_t, vec, reg);
+    if (threadIdx.x < BQ) {
+      const int t = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = t < n_t ? lse_h[t] : 0.f;
+      del_s[threadIdx.x] = t < n_t ? del_h[t] : 0.f;
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float s[BI][BJ], dp[BI][BJ];
+#pragma unroll
+    for (int i = 0; i < BI; ++i)
+#pragma unroll
+      for (int j = 0; j < BJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d4 = 0; d4 < D4; ++d4) {
+      float4 kv[BI], vv[BI];
+#pragma unroll
+      for (int i = 0; i < BI; ++i) {
+        kv[i] = *reinterpret_cast<const float4*>(Ks + (ty + 8 * i) * HD +
+                                                 d4 * 4);
+        vv[i] = *reinterpret_cast<const float4*>(Vs + (ty + 8 * i) * HD +
+                                                 d4 * 4);
+      }
+#pragma unroll
+      for (int j = 0; j < BJ; ++j) {
+        const int r = tx + 16 * j;
+        const int off = r * HD + chunk_at<true>(r, d4) * 4;
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + off);
+        const float4 ov = *reinterpret_cast<const float4*>(dOs + off);
+#pragma unroll
+        for (int i = 0; i < BI; ++i) {
+          s[i][j] = fmaf(kv[i].x, qv.x, s[i][j]);
+          s[i][j] = fmaf(kv[i].y, qv.y, s[i][j]);
+          s[i][j] = fmaf(kv[i].z, qv.z, s[i][j]);
+          s[i][j] = fmaf(kv[i].w, qv.w, s[i][j]);
+          dp[i][j] = fmaf(vv[i].x, ov.x, dp[i][j]);
+          dp[i][j] = fmaf(vv[i].y, ov.y, dp[i][j]);
+          dp[i][j] = fmaf(vv[i].z, ov.z, dp[i][j]);
+          dp[i][j] = fmaf(vv[i].w, ov.w, dp[i][j]);
+        }
+      }
+    }
+    // P = exp(S scale - lse) into Ts; dS = P (dP - delta) stays in dp
+#pragma unroll
+    for (int j = 0; j < BJ; ++j) {
+      const int c = tx + 16 * j;
+      const float ls = lse_s[c], dl = del_s[c];
+#pragma unroll
+      for (int i = 0; i < BI; ++i) {
+        const bool ok = P.visible(q0 + c, j0 + ty + 8 * i);
+        const float p = ok ? expf(s[i][j] * scale - ls) : 0.f;
+        Ts[(ty + 8 * i) * TLD + c] = p;
+        dp[i][j] = p * (dp[i][j] - dl);
+      }
+    }
+    __syncthreads();
+    accumulate_tile<HD>(dva, Ts, dOs, ty, tx);  // dV += P^T dO
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BJ; ++j)
+#pragma unroll
+      for (int i = 0; i < BI; ++i)
+        Ts[(ty + 8 * i) * TLD + tx + 16 * j] = dp[i][j];
+    __syncthreads();
+    accumulate_tile<HD>(dka, Ts, Qs, ty, tx);   // dK += dS^T Q
+    float* dst = ds_h + ((int64_t)qt * n_kt + kt) * (BK * BQ);
+    for (int e = threadIdx.x; e < BK * BQ / 4; e += kTileThreads) {
+      const int r = e / (BQ / 4), c4 = e % (BQ / 4);
+      *reinterpret_cast<float4*>(dst + r * BQ + c4 * 4) =
+          *reinterpret_cast<const float4*>(Ts + r * TLD + c4 * 4);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < BI; ++i) {
+    const int j = j0 + ty + 8 * i;
+    if (j >= n_s) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = (tx + 16 * c) * 4;
+      const float4 kk = make_float4(dka[i][c].x * scale, dka[i][c].y * scale,
+                                    dka[i][c].z * scale, dka[i][c].w * scale);
+      if (g == 1) {
+        const int64_t off = b * o_sb + ((int64_t)j * nkv + hk) * HD + d;
+        store4(dk + off, kk);
+        store4(dv + off, dva[i][c]);
+      } else {
+        const int64_t off = (((int64_t)b * n_s + j) * nq + hq) * HD + d;
+        *reinterpret_cast<float4*>(dkw + off) = kk;
+        *reinterpret_cast<float4*>(dvw + off) = dva[i][c];
+      }
+    }
+  }
+}
+
+// dK and dV under GQA: each (batch, key, KV head) row sums its g query
+// heads' shares in head order; n4 chunks of 4 in all, per_b of them a
+// batch row, written at batch stride o_sb
+template <typename TO, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_sum_kernel(const float* __restrict__ dkw,
+                     const float* __restrict__ dvw, TO* __restrict__ dk,
+                     TO* __restrict__ dv, int64_t n4, int64_t per_b,
+                     int64_t o_sb, int g) {
+  constexpr int D4 = HD / 4;
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n4) return;
+  const int64_t src = (e / D4) * g * D4 + e % D4;  // row (b, j, hk g + 0)
+  const float4* pk = reinterpret_cast<const float4*>(dkw) + src;
+  const float4* pv = reinterpret_cast<const float4*>(dvw) + src;
+  float4 sk = pk[0], sv = pv[0];
+  for (int gi = 1; gi < g; ++gi) {
+    const float4 a = pk[gi * D4], c = pv[gi * D4];
+    sk = make_float4(sk.x + a.x, sk.y + a.y, sk.z + a.z, sk.w + a.w);
+    sv = make_float4(sv.x + c.x, sv.y + c.y, sv.z + c.z, sv.w + c.w);
+  }
+  const int64_t dst = (e / per_b) * o_sb + (e % per_b) * 4;
+  store4(dk + dst, sk);
+  store4(dv + dst, sv);
+}
+
+// dQ = scale * dS K, from the dS^T tiles the dK/dV pass wrote: one block of
+// 128 threads per (query head, batch, query tile), the query tiles last to
+// first (heaviest first under a causal mask), walking its key_tiles in
+// order, so each row's sum runs in one fixed order. K and dS^T tiles are
+// double-staged (cp.async; bf16 K through registers). Thread (ty, tx) owns
+// rows 4 ty + r and 32 + 4 ty + r (r < 4), read from dS^T as two float4 a
+// key, and columns 4 (tx + 16 c) .. + 3. ADD (K4): dq is a chain's fp32
+// sum, and the block adds its rows' share; else (K2) it stores dQ in TO.
+template <typename T, typename TO, int HD, bool ADD, typename Mask>
+__global__ void __launch_bounds__(kTileThreads)
+flash_bwd_dq_kernel(const T* __restrict__ k, int64_t k_sb, int64_t k_st,
+                    int64_t k_sh, const float* __restrict__ ds,
+                    TO* __restrict__ dq, int n_t, int n_s, int nq, int nkv,
+                    Mask P, float scale, int vec) {
+  constexpr int NC = HD / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;              // [2][BK][HD]
+  float* Ds = Ks + 2 * BK * HD;  // [2][BK][BQ]: dS^T
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z, q0 = qt * BQ;
+  const int n_kt = (n_s + BK - 1) / BK;
+  const int hk = hq / (nq / nkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* kb = k + b * k_sb + hk * k_sh;
+  const float* ds_q =
+      ds + (((int64_t)b * nq + hq) * gridDim.z + qt) * n_kt * (BK * BQ);
+  uint4 reg[Tile<T, HD, BK>::REGS];
+
+  float4 acc[2][4][NC];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        acc[h][r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int lo, hi;
+  P.template key_tiles<BQ, BK>(q0, &lo, &hi);
+  if (lo < hi) {
+    tile_issue<T, HD, BK, false>(Ks, kb, k_st, lo * BK, n_s, vec, reg);
+    tile_commit<T, HD, BK, false>(Ks, kb, k_st, lo * BK, n_s, vec, reg);
+    for (int e = threadIdx.x; e < BK * BQ / 4; e += kTileThreads)
+      cp_async16(Ds + 4 * e, ds_q + (int64_t)lo * (BK * BQ) + 4 * e, true);
+  }
+  cp_async_commit();
+  for (int kt = lo; kt < hi; ++kt) {
+    const int cur = (kt - lo) & 1;
+    const float* Kc = Ks + cur * (BK * HD);
+    const float* Dc = Ds + cur * (BK * BQ);
+    float* Kn = Ks + (cur ^ 1) * (BK * HD);
+    float* Dn = Ds + (cur ^ 1) * (BK * BQ);
+    const bool more = kt + 1 < hi;
+    if (more) {  // the next tiles stream in while this one is used
+      tile_issue<T, HD, BK, false>(Kn, kb, k_st, (kt + 1) * BK, n_s, vec,
+                                   reg);
+      for (int e = threadIdx.x; e < BK * BQ / 4; e += kTileThreads)
+        cp_async16(Dn + 4 * e, ds_q + (int64_t)(kt + 1) * (BK * BQ) + 4 * e,
+                   true);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 d[2] = {
+          *reinterpret_cast<const float4*>(Dc + kk * BQ + 4 * ty),
+          *reinterpret_cast<const float4*>(Dc + kk * BQ + 32 + 4 * ty)};
+      float4 kv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(Kc + kk * HD +
+                                                 (tx + 16 * c) * 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float w = r == 0 ? d[h].x : r == 1 ? d[h].y
+                        : r == 2 ? d[h].z : d[h].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            acc[h][r][c].x = fmaf(w, kv[c].x, acc[h][r][c].x);
+            acc[h][r][c].y = fmaf(w, kv[c].y, acc[h][r][c].y);
+            acc[h][r][c].z = fmaf(w, kv[c].z, acc[h][r][c].z);
+            acc[h][r][c].w = fmaf(w, kv[c].w, acc[h][r][c].w);
+          }
+        }
+    }
+    if (more)
+      tile_commit<T, HD, BK, false>(Kn, kb, k_st, (kt + 1) * BK, n_s, vec,
+                                    reg);
+    __syncthreads();  // this tile's readers are done before it is reused
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int t = q0 + 32 * h + 4 * ty + r;
+      if (t >= n_t) continue;
+      TO* row = dq + (((int64_t)b * n_t + t) * nq + hq) * HD;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 a =
+            make_float4(acc[h][r][c].x * scale, acc[h][r][c].y * scale,
+                        acc[h][r][c].z * scale, acc[h][r][c].w * scale);
+        TO* p = row + (tx + 16 * c) * 4;
+        if constexpr (ADD) {
+          static_assert(sizeof(TO) == 4, "dQ sums in fp32");
+          const float4 was = *reinterpret_cast<const float4*>(p);
+          *reinterpret_cast<float4*>(p) = make_float4(
+              was.x + a.x, was.y + a.y, was.z + a.z, was.w + a.w);
+        } else {
+          store4(p, a);
+        }
+      }
+    }
+}
+
+// The backward's kernels on one stream, in order: delta (where o is given;
+// else the caller's delta is read; with m and l also lse), dK/dV, the GQA
+// sum (g > 1), dQ. work is bwd_work's workspace (16-byte aligned); lse and
+// delta (batch, nq, n_t) fp32, delta in the workspace where it is null
+// (K2's);
+// dq (batch, n_t, nq, HD) contiguous; dk, dv (batch, n_s, nkv, HD) at
+// batch stride dkv_sb, contiguous within a batch row. Returns the first
+// launch error.
+template <typename T, typename TO, int HD, bool ADD_DQ, typename Mask>
+int launch_bwd(const Args<Mask>& a, const void* o, const float* m,
+               const float* l, const void* dout, long long do_sb,
+               long long do_st, long long do_sh, float* lse, float* delta,
+               float* work, void* dq, void* dk, void* dv, long long dkv_sb,
+               cudaStream_t s) {
+  const BwdWork w = bwd_work(a.batch, a.n_t, a.n_s, a.nq, a.nkv, HD,
+                             delta == nullptr);
+  if (delta == nullptr) delta = work + w.delta;
+  const int g = a.nq / a.nkv;
+  float* dkw = g > 1 ? work + w.dkv : nullptr;
+  float* dvw = g > 1 ? dkw + (int64_t)a.batch * a.n_s * a.nq * HD : nullptr;
+  cudaError_t err;
+  if (o != nullptr) {
+    const int64_t rows = (int64_t)a.batch * a.n_t * a.nq;
+    flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + 7) / 8), kThreads, 0,
+                                    s>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), do_sb, do_st,
+        do_sh, delta, m, l, lse, a.batch, a.n_t, a.nq);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+
+  const bool vec = rows_aligned<T>(a.q, a.q_sb, a.q_st, a.q_sh) &&
+                   rows_aligned<T>(a.k, a.k_sb, a.k_st, a.k_sh) &&
+                   rows_aligned<T>(a.v, a.v_sb, a.v_st, a.v_sh) &&
+                   rows_aligned<T>(dout, do_sb, do_st, do_sh);
+  const int n_qt = (a.n_t + BQ - 1) / BQ, n_kt = (a.n_s + BK - 1) / BK;
+  auto kdkdv = flash_bwd_dkdv_kernel<T, TO, HD, Mask>;
+  static const cudaError_t attr_kv = allow_smem(kdkdv, dkdv_tile_smem<HD>());
+  if (attr_kv != cudaSuccess) return (int)attr_kv;
+  kdkdv<<<dim3(a.nq, a.batch, n_kt), kTileThreads, dkdv_tile_smem<HD>(),
+          s>>>(
+      static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
+      static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
+      static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
+      static_cast<const T*>(dout), do_sb, do_st, do_sh,
+      lse, delta, work + w.ds, dkw, dvw,
+      static_cast<TO*>(dk), static_cast<TO*>(dv), dkv_sb, a.n_t, a.n_s, a.nq,
+      a.nkv, a.pos, a.scale, (int)vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  if (g > 1) {
+    const int64_t per_b = (int64_t)a.n_s * a.nkv * HD / 4;
+    const int64_t n4 = a.batch * per_b;
+    flash_bwd_sum_kernel<TO, HD><<<(unsigned)((n4 + kThreads - 1) / kThreads),
+                                   kThreads, 0, s>>>(
+        dkw, dvw, static_cast<TO*>(dk), static_cast<TO*>(dv), n4, per_b,
+        dkv_sb, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+
+  auto kdq = flash_bwd_dq_kernel<T, TO, HD, ADD_DQ, Mask>;
+  static const cudaError_t attr_q = allow_smem(kdq, dq_tile_smem<HD>());
+  if (attr_q != cudaSuccess) return (int)attr_q;
+  kdq<<<dim3(a.nq, a.batch, n_qt), kTileThreads, dq_tile_smem<HD>(), s>>>(
+      static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh, work + w.ds,
+      static_cast<TO*>(dq), a.n_t, a.n_s, a.nq, a.nkv, a.pos, a.scale,
+      (int)vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

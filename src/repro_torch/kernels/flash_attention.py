@@ -434,6 +434,7 @@ def partial_attention_plain(q, k, v, m, l, acc, *, q_pos0: int = 0,
 
 
 def partial_attention_bwd_plain(q, k, v, dout, lse, delta, dq, *,
+                                close=None, dk=None, dv=None,
                                 q_pos0: int = 0, q_stride: int = 1,
                                 k_pos0: int = 0, k_stride: int = 1,
                                 causal: bool = True, window: int = 0,
@@ -443,12 +444,20 @@ def partial_attention_bwd_plain(q, k, v, dout, lse, delta, dq, *,
     (B, nq, T) = m + log l and ``delta`` (B, nq, T) = rowsum(dO * O) in
     fp32 (FlashAttention-2): P = exp(S - lse) under the block's masks,
     dV = P^T dO, dS = P (dO V^T - delta), dQ += dS K scale, dK = dS^T Q
-    scale. Adds into ``dq`` (B, T, nq, hd) fp32 in place; returns (dk,
-    dv) of the block, (B, S, nkv, hd) fp32."""
+    scale. The chain's first call gives ``close`` = (out, m, l), the
+    finalised output (B, T, nq, hd) and the final m, l (B, nq, T), and
+    ``lse`` and ``delta`` are written from them first. Adds into ``dq``
+    (B, T, nq, hd) fp32 in place; returns (dk, dv) of the block, (B, S,
+    nkv, hd) fp32, written into ``dk``/``dv`` where given."""
     B, T, nq, d = q.shape
     S, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
     scale = 1.0 / math.sqrt(d)
+    if close is not None:
+        out, m, l = close
+        lse.copy_(torch.where(l > 0, m + torch.log(l),
+                              torch.full_like(m, NEG_INF)))
+        delta.copy_((dout.float() * out.float()).sum(-1).transpose(1, 2))
     qf = q.float().reshape(B, T, nkv, g, d)
     kf, vf = k.float(), v.float()
     dof = dout.float().reshape(B, T, nkv, g, d)
@@ -463,13 +472,17 @@ def partial_attention_bwd_plain(q, k, v, dout, lse, delta, dq, *,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     lse_g = lse.reshape(B, nkv, g, T)[..., None]
     p = torch.where(mask, torch.exp(s - lse_g), torch.zeros_like(s))
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dv_b = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
     ds = p * (dp - delta.reshape(B, nkv, g, T)[..., None])
     dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, T, nq,
                                                             d) * scale
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
-    return dk, dv
+    dk_b = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    if dk is not None:
+        dk_b = dk.copy_(dk_b)
+    if dv is not None:
+        dv_b = dv.copy_(dv_b)
+    return dk_b, dv_b
 
 
 def _pa_launcher(name: str):
@@ -481,18 +494,21 @@ def _pa_launcher(name: str):
         tail = [i] * 14 + [ctypes.c_float, i, p]
         if name == "partial_attention_fwd_launch":
             fn.argtypes = [*strided * 3, *[p] * 6, *tail]
-        else:
-            fn.argtypes = [*strided * 4, *[p] * 5, *tail]
+        elif name == "partial_attention_bwd_launch":
+            fn.argtypes = [*strided * 4, *[p] * 9, ll, *tail]
+        else:  # partial_attention_bwd_workspace
+            fn.argtypes = [i] * 6
+            fn.restype = ll
+            return fn
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_partial(what, q, k, v, carry, pos):
-    """Raise on what K4 does not take: the K2 checks on q, k, v; fp32
-    contiguous (B, nq, T) rows and (B, nq, T, hd) or (B, T, nq, hd)
-    blocks in ``carry``; strides of at least 1."""
-    _check_qkv(what, q, k, v)
-    B, T, nq, hd = q.shape
+def _check_partial(what, q, k, v, carry, pos, extra=()):
+    """Raise on what K4 does not take: the K2 checks on q, k, v (and
+    ``extra``); fp32 contiguous (B, nq, T) rows and (B, nq, T, hd) or (B,
+    T, nq, hd) blocks in ``carry``; strides of at least 1."""
+    _check_qkv(what, q, k, v, extra)
     for name, t, shape in carry:
         if (t.device != q.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -546,36 +562,68 @@ partial_attention_kernel.launches = 0
 
 
 def partial_attention_bwd_kernel(q, k, v, dout, lse, delta, dq, *,
+                                 close=None, dk=None, dv=None,
                                  q_pos0: int = 0, q_stride: int = 1,
                                  k_pos0: int = 0, k_stride: int = 1,
                                  causal: bool = True, window: int = 0,
                                  q_len: int = 0, kv_len: int = 0):
     """Launch K4's backward on CUDA tensors (the arguments of
     :func:`partial_attention_bwd_plain`; ``dout`` through strides, shaped
-    like q): adds the block's share into ``dq`` (B, T, nq, hd) fp32 and
-    returns its (dk, dv), (B, S, nkv, hd) fp32 contiguous. Raises on what
-    it does not take. ``partial_attention_bwd_kernel.launches`` counts
-    the calls."""
+    like q; in ``close`` the output contiguous in q's dtype and m, l
+    contiguous fp32; ``dk``/``dv`` (B, S, nkv, hd) fp32 views with any
+    batch stride, contiguous within a batch row, such as one block's slice
+    of the gathered keys' gradient): adds the block's share into ``dq``
+    (B, T, nq, hd) fp32 and returns its (dk, dv). Raises on what it does
+    not take. ``partial_attention_bwd_kernel.launches`` counts the calls,
+    each one launch of K2's backward kernels (delta and lse where
+    ``close`` is given, dK/dV, the GQA sum where nq > nkv, dQ).
+
+    The kernels share an fp32 workspace allocated here: dS of every
+    (64-query, 32-key) tile pair (B * nq * T * S floats, padded to whole
+    tiles: 8.4 MB at B 2, T = S = 256, 16 heads) and under GQA each query
+    head's dK and dV (8.4 MB more at 16/8 heads, hd 128)."""
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     pos = dict(q_pos0=q_pos0, q_stride=q_stride, k_pos0=k_pos0,
                k_stride=k_stride, q_len=q_len, kv_len=kv_len, causal=causal,
                window=window)
-    _check_qkv("partial_attention_bwd_kernel", q, k, v, (dout,))
-    _check_partial("partial_attention_bwd_kernel", q, k, v,
-                   [("lse", lse, (B, nq, T)), ("delta", delta, (B, nq, T)),
-                    ("dq", dq, (B, T, nq, hd))], pos)
-    if dout.shape != q.shape:
-        raise ValueError("partial_attention_bwd_kernel: dout must be "
-                         f"shaped like q {tuple(q.shape)}, got "
-                         f"{tuple(dout.shape)}")
-    dk = torch.empty((B, S, nkv, hd), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    rows = [("lse", lse, (B, nq, T)), ("delta", delta, (B, nq, T)),
+            ("dq", dq, (B, T, nq, hd))]
+    if close is not None:
+        rows += [("m", close[1], (B, nq, T)), ("l", close[2], (B, nq, T))]
+    _check_partial("partial_attention_bwd_kernel", q, k, v, rows, pos,
+                   (dout,) + tuple(close[:1] if close else ()))
+    if dout.shape != q.shape or (close and not (
+            close[0].shape == q.shape and close[0].is_contiguous())):
+        raise ValueError("partial_attention_bwd_kernel: dout and the "
+                         "chain's output must be shaped like q "
+                         f"{tuple(q.shape)}, the output contiguous")
+    if dk is None:
+        dk = torch.empty((B, S, nkv, hd), dtype=torch.float32,
+                         device=q.device)
+    if dv is None:
+        dv = torch.empty_like(dk)
+    for name, t in (("dk", dk), ("dv", dv)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (B, S, nkv, hd)
+                or t.stride()[1:] != (nkv * hd, hd, 1)
+                or t.stride(0) != dk.stride(0)):
+            raise ValueError(f"partial_attention_bwd_kernel: {name} must be "
+                             f"fp32 ({B}, {S}, {nkv}, {hd}) on {q.device}, "
+                             f"contiguous within a batch row, at dk's "
+                             f"batch stride")
+    if dq.data_ptr() % 16:
+        raise ValueError("partial_attention_bwd_kernel needs a 16-byte "
+                         "aligned dq")
+    n_work = _pa_launcher("partial_attention_bwd_workspace")(B, T, S, nq,
+                                                             nkv, hd)
+    work = torch.empty((n_work,), dtype=torch.float32, device=q.device)
+    chain = [t.data_ptr() for t in close] if close else [None] * 3
     err = _pa_launcher("partial_attention_bwd_launch")(
-        *_strided(q), *_strided(k), *_strided(v), *_strided(dout),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, S, nq, nkv, hd, *_pos_args(**pos),
-        1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+        *_strided(q), *_strided(k), *_strided(v), *_strided(dout), *chain,
+        lse.data_ptr(), delta.data_ptr(), work.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dk.stride(0), B, T, S, nq, nkv, hd,
+        *_pos_args(**pos), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "partial_attention_bwd_kernel")
     partial_attention_bwd_kernel.launches += 1

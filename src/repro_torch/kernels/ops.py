@@ -86,13 +86,18 @@ def flash_attention_partial(q, k, v, m, l, acc, *, plain: bool = False,
 
 
 def flash_attention_partial_bwd(q, k, v, dout, lse, delta, dq, *,
+                                close=None, dk=None, dv=None,
                                 plain: bool = False, **pos):
     """K4's backward for one KV block of a chain, given the chain's lse and
     delta (B, nq, T) fp32: adds into ``dq`` (B, T, nq, hd) fp32, returns
-    the block's (dk, dv) (B, S, nkv, hd) fp32."""
+    the block's (dk, dv) (B, S, nkv, hd) fp32, written into ``dk``/``dv``
+    where given. The chain's first call gives ``close`` = (out, m, l), its
+    finalised output and final m, l, and writes ``lse`` = m + log l and
+    ``delta`` = rowsum(dout * out) first."""
     fn = (partial_attention_bwd_plain if _plain(q, plain)
           else partial_attention_bwd_kernel)
-    return fn(q, k, v, dout, lse, delta, dq, **pos)
+    return fn(q, k, v, dout, lse, delta, dq, close=close, dk=dk, dv=dv,
+              **pos)
 
 
 def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,

@@ -188,26 +188,26 @@ def partial_chain(q, kg, vg, rank: int, p: int, *, window: int = 0,
 def partial_chain_bwd(q, kg, vg, dout, out, carry, rank: int, p: int, *,
                       window: int = 0, plain: bool = False):
     """K4's backward over :func:`partial_chain`, given the chain's output
-    ``out`` (finalised), its final carry and the output's gradient: lse =
-    m + log l and delta = rowsum(dO O) close the chain; each block adds
-    into one fp32 dQ in block order. Returns (dq, dkg, dvg), fp32."""
+    ``out`` (finalised), its final carry and the output's gradient: the
+    first block's call closes the chain (lse = m + log l, delta = rowsum(dO
+    O)); each block adds into one fp32 dQ in block order and writes its
+    slice of the gathered keys' dK and dV. Returns (dq, dkg, dvg), fp32."""
     B, C, nq, hd = q.shape
     m, l, _ = carry
-    lse = torch.where(l > 0, m + torch.log(l),
-                      torch.full_like(m, FA.NEG_INF))
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = torch.zeros((B, C, nq, hd), dtype=torch.float32, device=q.device)
-    dks, dvs = [], []
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse, delta = torch.empty((2, B, nq, C), **f32)
+    dq = torch.zeros((B, C, nq, hd), **f32)
+    dkg, dvg = torch.empty((2, B, p * C, kg.shape[2], hd), **f32)
     for rho in range(p):
         blk = slice(rho * C, (rho + 1) * C)
-        dk, dv = ops.flash_attention_partial_bwd(
-            q, kg[:, blk], vg[:, blk], dout, lse, delta, dq, q_pos0=rank,
-            q_stride=p, k_pos0=rho, k_stride=p, window=window, plain=plain)
-        dks.append(dk)
-        dvs.append(dv)
-    return dq, torch.cat(dks, 1), torch.cat(dvs, 1)
+        ops.flash_attention_partial_bwd(
+            q, kg[:, blk], vg[:, blk], dout, lse, delta, dq,
+            close=(out, m, l) if rho == 0 else None, dk=dkg[:, blk],
+            dv=dvg[:, blk], q_pos0=rank, q_stride=p, k_pos0=rho, k_stride=p,
+            window=window, plain=plain)
+    return dq, dkg, dvg
 
 
 class _SeqAttention(torch.autograd.Function):

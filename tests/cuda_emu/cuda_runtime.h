@@ -1,7 +1,8 @@
 // A CPU stand-in for the part of the CUDA runtime that the port's kernel
 // sources use, so that a test can compile a source with g++ and run its
 // logic on the CPU (tests/test_torch_k1_emulated.py,
-// tests/test_torch_attention_emulated.py). Each CUDA thread is a
+// tests/test_torch_attention_emulated.py,
+// tests/test_torch_rmsnorm_emulated.py). Each CUDA thread is a
 // std::thread, made once per launch; the blocks of a grid run one after
 // another, so a __shared__ array is a function-local static; __syncthreads is a
 // std::barrier over the block; a warp shuffle passes through a per-warp
@@ -41,6 +42,7 @@ struct dim3 {
   dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct float4 { float x, y, z, w; };
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
@@ -53,6 +55,8 @@ template <typename K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+// the device's rsqrtf is an approximation (2 ulp); this one rounds once
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline float __uint_as_float(uint32_t u) {
   float f;
   memcpy(&f, &u, 4);

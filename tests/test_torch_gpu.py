@@ -37,8 +37,12 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 5, 2048), (17, 128), (1, 96)])
+@pytest.mark.parametrize("shape", [(3, 5, 2048), (17, 128), (1, 96),
+                                   (2048, 4096)])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    """Each layout of K3 (a block per row, a warp per row, the strided
+    loop) against the plain version; a row normed alone gives the bits it
+    gets among the others."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
     g = torch.randn(shape[-1:], generator=gen, device=cuda).to(dtype)
@@ -51,6 +55,9 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
         rmsnorm_kernel(x, g, full_dim=2 * shape[-1]),
         rmsnorm_plain(x, g, full_dim=2 * shape[-1]),
         rtol=TOL[dtype], atol=TOL[dtype])
+    rows, flat = x.reshape(-1, shape[-1]), got.reshape(-1, shape[-1])
+    for i in {0, rows.shape[0] // 2, rows.shape[0] - 1}:
+        assert torch.equal(rmsnorm_kernel(rows[i:i + 1], g)[0], flat[i])
 
 
 def _paged(cuda, dtype, T, hd, seed=0):
