@@ -43,6 +43,9 @@ a hard failure:
      decode and
      chunked-prefill shapes and at Jamba's dense decode (each also held
      to its plain version), K2's forward also at Jamba's prefill shape;
+     K6 at Jamba's prefill and decode shapes and, in bfloat16, the
+     prefill, with the SFU floor (its exps at 16 a clock per SM) beside
+     the bound;
   7. full-width training parity: the loss and every gradient of one
      microbatch (2 x 512 tokens) through the kernels and through the plain
      versions, before any optimizer state exists; the kernels' run twice
@@ -139,6 +142,11 @@ SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # K6 at the fixed-serving path's shapes: (name, Bt, T, d, N, with s0)
 SCAN_SHAPES = [("prefill", 4, 512, 8192, 16, False),
                ("decode", 4, 1, 8192, 16, True)]
+# K6 timed at both shapes in float32 and at the prefill in bfloat16
+SCAN_TIMED = ([(torch.float32, s) for s in SCAN_SHAPES]
+              + [(torch.bfloat16, SCAN_SHAPES[0])])
+# exp2 results a clock across the H100's 132 SMs (16 an SM)
+SFU_PER_CLOCK = 132 * 16
 # the training shapes of K1: (name, M, K, N, layout); NT reads b and TN
 # reads a through a transposed view, as the backward does
 MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
@@ -842,8 +850,8 @@ def phase_timings(gen, n_layers):
                torch.ones((B,), dtype=torch.int32, device="cuda"))
     del pools, kp, vp, kc, vc
     phase_timings_train(gen, out)
-    log("[timings] float32, K6 at the fixed-serving shapes: device time "
-        "from a replayed CUDA graph / eager calls back to back")
+    log("[timings] K6 at the fixed-serving shapes: device time from a "
+        "replayed CUDA graph / eager calls back to back")
     phase_timings_scan(gen, out)
     return out
 
@@ -953,27 +961,49 @@ def phase_timings_train(gen, out):
     out["flash_attention_bwd"] = bwd
 
 
+def sm_clocks_mhz():
+    """The SM clock nvidia-smi reads now and its maximum (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()[0]
+    return tuple(float(v) for v in out.split(","))
+
+
 def phase_timings_scan(gen, out):
-    """K6 at the prefill and decode shapes. No PyTorch call computes a
-    selective scan: the library column is null. The plain version's 512
-    steps make a long graph, so it is replayed fewer times."""
+    """K6 at the prefill and decode shapes in float32 and at the prefill
+    in bfloat16. No PyTorch call computes a selective scan: the library
+    column is null. The plain version's 512 steps make a long graph, so it
+    is replayed fewer times. The bound counts bytes in x's dtype and the
+    operations at the float32 rate (the arithmetic is float32 in either
+    dtype). Beside it the log gives the SFU floor, Bt T d N exps at 16 a
+    clock on each of the 132 SMs (SFU_PER_CLOCK): not a bound, since the
+    FMA pipe could compute some exps."""
     from repro_torch.kernels.selective_scan import (selective_scan_kernel,
                                                     selective_scan_plain)
     f32 = torch.float32
-    for name, Bt, T, d, N, with_s0 in SCAN_SHAPES:
-        args = scan_inputs(gen, Bt, T, d, N, f32, with_s0)
+    for dtype, (name, Bt, T, d, N, with_s0) in SCAN_TIMED:
+        args = scan_inputs(gen, Bt, T, d, N, dtype, with_s0)
         t = dict(ms=graph_ms(lambda: selective_scan_kernel(*args),
                              20 if T > 1 else 100),
                  plain_ms=graph_ms(lambda: selective_scan_plain(*args),
                                    2 if T > 1 else 50),
-                 library_ms=None, **bound(*scan_work(Bt, T, d, N, f32,
+                 library_ms=None, **bound(*scan_work(Bt, T, d, N, dtype,
                                                      with_s0), f32))
+        now, top = sm_clocks_mhz()
         eager = cuda_ms(lambda: selective_scan_kernel(*args), 50, 5)
-        log(f"  selective_scan {name} (Bt {Bt}, T {T}, d {d}, N {N}): kernel "
-            f"{t['ms'] * 1e3:.2f}/{eager * 1e3:.2f} us (device/eager), plain "
-            f"{t['plain_ms'] * 1e3:.2f} us (device), no library call, bound "
-            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
-        out.setdefault("selective_scan", t)
+        sfu_us = [Bt * T * d * N / (SFU_PER_CLOCK * mhz) for mhz in (top,
+                                                                     now)]
+        log(f"  selective_scan {dtype_name(dtype)} {name} (Bt {Bt}, T {T}, "
+            f"d {d}, N {N}): kernel {t['ms'] * 1e3:.2f}/{eager * 1e3:.2f} us "
+            f"(device/eager), plain {t['plain_ms'] * 1e3:.2f} us (device), "
+            f"no library call, bound {t['bound_ms'] * 1e3:.3f} us "
+            f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of it; SFU "
+            f"floor {sfu_us[0]:.3f} us at the maximum SM clock {top:.0f} "
+            f"MHz ({sfu_us[1]:.3f} us at {now:.0f} MHz, read after the "
+            f"timing)")
+        if dtype == f32:
+            out.setdefault("selective_scan", t)
 
 
 def bound(nbytes, n_ops, dtype):

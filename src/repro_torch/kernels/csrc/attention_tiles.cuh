@@ -21,6 +21,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;       // the row-wise passes: delta, GQA sum
@@ -121,31 +123,6 @@ struct Pos {
 // ---------------------------------------------------------------------- //
 
 constexpr int kTileThreads = 128;  // 8 x 16: ty = tid / 16, tx = tid % 16
-
-// 16 bytes from global to shared memory without passing through registers
-// (cp.async); zeros where !valid. A CPU build of this source copies at once.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-#else
-  for (int c = 0; c < 4; ++c) dst[c] = valid ? src[c] : 0.f;
-#endif
-}
-__device__ __forceinline__ void cp_async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-#endif
-}
 
 // where 16-byte chunk c (4 floats) of tile row r lives: a swizzled tile's
 // chunks are XOR-ed with the row, so that 8 lanes reading one chunk of 8

@@ -2,7 +2,8 @@
 // sources use, so that a test can compile a source with g++ and run its
 // logic on the CPU (tests/test_torch_k1_emulated.py,
 // tests/test_torch_attention_emulated.py,
-// tests/test_torch_rmsnorm_emulated.py). Each CUDA thread is a
+// tests/test_torch_rmsnorm_emulated.py,
+// tests/test_torch_scan_emulated.py). Each CUDA thread is a
 // std::thread, made once per launch; the blocks of a grid run one after
 // another, so a __shared__ array is a function-local static; __syncthreads is a
 // std::barrier over the block; a warp shuffle passes through a per-warp

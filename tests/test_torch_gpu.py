@@ -612,9 +612,11 @@ def test_partial_attention_kernel_refuses_unsupported_inputs(cuda):
 # K6 selective scan, and fixed-batch serving of the hybrid decoder
 # ---------------------------------------------------------------------- #
 
-def _scan(cuda, Bt, T, d, N, dtype, seed=0, with_s0=True):
+def _scan(cuda, Bt, T, d, N, dtype, seed=0, with_s0=True, lead=5):
     """K6 inputs as the Mamba layer makes them: B and C column views of
-    one (Bt, T, 5 + 2N) projection output, dt fp32."""
+    one (Bt, T, lead + 2N) projection output, dt fp32. ``lead`` 5 puts B
+    and C off 16 bytes (the kernel's scalar path); the Mamba layer's
+    dt_rank of 256 keeps every row 16-byte aligned (its 16-byte path)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape):
@@ -622,9 +624,9 @@ def _scan(cuda, Bt, T, d, N, dtype, seed=0, with_s0=True):
     x = rand(Bt, T, d).to(dtype)
     dt = torch.nn.functional.softplus(rand(Bt, T, d)) * 0.1
     A = -torch.exp(0.5 * rand(d, N))
-    xdbc = rand(Bt, T, 5 + 2 * N).to(dtype)
+    xdbc = rand(Bt, T, lead + 2 * N).to(dtype)
     s0 = 0.5 * rand(Bt, d, N) if with_s0 else None
-    return x, dt, A, xdbc[..., 5:5 + N], xdbc[..., 5 + N:], s0
+    return x, dt, A, xdbc[..., lead:lead + N], xdbc[..., lead + N:], s0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -644,6 +646,34 @@ def test_selective_scan_kernel_matches_plain(cuda, Bt, T, d, N, with_s0,
     torch.testing.assert_close(y, wy, rtol=TOL[dtype], atol=TOL[dtype])
     torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
     y2, s2 = selective_scan_kernel(*args[:5], args[5])
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,T,d,with_s0", [
+    (2, 1100, 200, False), (1, 1100, 200, True), (3, 1, 320, True),
+    (4, 512, 8192, False)])
+def test_selective_scan_kernel_load_paths_and_chunks(cuda, Bt, T, d,
+                                                     with_s0, dtype):
+    """B and C at the Mamba layer's aligned column offsets (the 16-byte
+    path) and off 16 bytes (the scalar path), over many double-buffered
+    32-step chunks with a ragged last one (T 1100), d not a multiple of
+    the block's 64 channels (200), decode and the prefill shape: each
+    within its tolerance of the plain version, both paths the same bits,
+    each run twice the same bits."""
+    args = _scan(cuda, Bt, T, d, 16, dtype, seed=T + d, with_s0=with_s0,
+                 lead=256)
+    x, dt, A, B, C, s0 = args
+    y, s = selective_scan_kernel(*args)
+    wy, ws = selective_scan_plain(*args)
+    torch.testing.assert_close(y, wy, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(s, ws, rtol=2e-4, atol=2e-4)
+    xdbc = torch.zeros((Bt, T, 5 + 32), dtype=dtype, device=cuda)
+    xdbc[..., 5:21], xdbc[..., 21:] = B, C
+    y1, s1 = selective_scan_kernel(x, dt, A, xdbc[..., 5:21],
+                                   xdbc[..., 21:], s0)
+    assert torch.equal(y, y1) and torch.equal(s, s1)
+    y2, s2 = selective_scan_kernel(*args)
     assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
