@@ -14,15 +14,19 @@ a hard failure:
   3. each kernel against its plain PyTorch version on the card, at the
      serving and training paths' shapes, in float32 and bfloat16:
      K3 RMSNorm (also at training's and Jamba's shapes; a row normed
-     alone gives the bits it gets among 1,024), K5 paged attention
+     alone gives the bits it gets among 1,024; its stats and apply passes
+     at the mesh path's local width, stats then apply on a whole row
+     bitwise the single pass), K5 paged attention
      (chunked == one-shot bitwise; also over Jamba's dense decode cache
      seen as 32-row pages), K1 block
      matmul in the three layouts of training, at the Mamba layer's widths
      and in the middle band of M (each run twice: the same bits), K2
      flash attention forward and backward (also at Jamba's
      prefill shape; the forward run twice gives the same bits, as
-     rematerialization needs), K6 selective scan at the prefill and
-     decode shapes (y and final state; two runs give the same bits);
+     rematerialization needs); K1, K2's forward and K5 also at the local
+     shapes of the (1,2,2,1) mesh (phase 11); K6 selective scan at the
+     prefill and decode shapes (y and final state; two runs give the same
+     bits);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
      prefill chunk and 4 decode steps through ``paged_step`` with the
      kernels and with the plain versions; logits must agree;
@@ -39,7 +43,8 @@ a hard failure:
      as the median of several eager rounds, their spread printed; K1 also
      in bfloat16 at the forward and decode
      shapes, beside bfloat16 ``torch.matmul``; K3 at the serving,
-     training and Jamba shapes beside ``F.rms_norm``; K5 at serving's
+     training and Jamba shapes beside ``F.rms_norm``, its stats and apply
+     passes at the mesh path's local width; K5 at serving's
      decode and
      chunked-prefill shapes and at Jamba's dense decode (each also held
      to its plain version), K2's forward also at Jamba's prefill shape;
@@ -73,7 +78,20 @@ a hard failure:
      at full width and depth, the flags, seed and data of phase 8): losses
      within 1e-3 of phase 8's, both ranks' parameters bitwise equal, each
      kernel's launches per rank exactly the code's per microbatch;
- 11. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 11. serving on the 4D mesh (1,2,2,1): four gloo ranks sharing the card
+     under ``torch.distributed.run``, each holding its shard of every
+     weight. First phase 5's sequences fed whole (teacher-forced) through
+     the mesh: logits within MESH_TF_TOL of one card's (taken in phase 5);
+     then ``serve.py --mesh 1,2,2,1`` with phase 5's flags: every rank's
+     parameter shards hash to the one-card model's blocks, every rank ran
+     the same plans, each kernel's launches (K3's stats and apply passes
+     among them) and the collective calls per step are the code's, and
+     the greedy ids equal phase 5's wherever phase 5's top-2 margin
+     exceeds MESH_MARGIN times the teacher-forced error; then ``--mode
+     fixed`` (batch 4, prompt 128, 8 new tokens) with the same checks, its
+     greedy ids held the same way to the fixed run of the same flags on
+     one card (taken in phase 5, with the margins of its positions);
+ 12. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -81,6 +99,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import os
@@ -135,6 +154,10 @@ FIXED_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset", "full",
 # and decode (4) norms
 RMS_SHAPES = [(8, 2048), (128, 128), (1024, 2048), (16384, 128),
               (2048, 4096), (4, 4096)]
+# K3's stats and apply passes at the mesh path's local width d / g_x =
+# 1024 (qwen3-1.7b on (1,2,2,1)): the decode step's norms (8 slots) and a
+# prefill chunk's (8 x 32 rows)
+RMS_SPLIT_SHAPES = [(8, 1024), (256, 1024)]
 # K6 against its sequential plain version: y and the state of f32 within
 # the 2e-4 of tests/test_kernels.py (exp and the FMA contractions round
 # otherwise than PyTorch's kernels); bf16 y rounds once more on the way out
@@ -165,6 +188,15 @@ MATMUL_SHAPES = [("fwd X.W", 1024, 2048, 6144, "NN"),
                  ("mamba w_dt", 2048, 256, 8192, "SN"),
                  ("decode mamba w_x", 4, 8192, 288, "NN"),
                  ("decode mamba w_dt", 4, 256, 8192, "SN")]
+# K1 at the local shapes of qwen3-1.7b on the (1,2,2,1) mesh, float32
+# (d / g_x = 1024 in, per-rank widths out): the decode step (8 slots), a
+# prefill chunk (8 x 32 rows) and the fixed-batch prefill (4 x 128)
+MESH_MATMUL_SHAPES = [
+    (f"mesh {tag} {w}", M, K, N, "NN")
+    for tag, M in (("decode", 8), ("chunk", 256), ("fixed prefill", 512))
+    for w, K, N in (("x.Wq|Wo", 1024, 1024), ("x.Wk|Wv", 1024, 512),
+                    ("x.Wi|Wg", 1024, 3072), ("h.Wdown", 3072, 1024))] + [
+    ("mesh decode tied head h.E^T", 8, 1024, 76032, "NT")]
 # K1 shapes also timed in bfloat16, beside bfloat16 torch.matmul (which
 # runs on the tensor cores; K1's bf16 path widens to fp32 on the CUDA
 # cores)
@@ -177,7 +209,10 @@ ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
               "ragged kv_len 300 of 320, non-causal, T 200":
                   (2, 200, 320, 16, 8, 128, False, 0, 300),
               "Jamba prefill (B 4, T 512, 32/8 heads, hd 128, causal)":
-                  ATTN_JAMBA}
+                  ATTN_JAMBA,
+              # the local heads of qwen3-1.7b on (1,2,2,1), fixed-batch
+              "mesh fixed prefill (B 4, T 128, 8/4 heads, hd 128, causal)":
+                  (4, 128, 128, 8, 4, 128, True, 0, 0)}
 # context parallelism: the seq axis, and K4 at its path's shape, per rank
 # and microbatch (B 2, C = 512 / p queries, p gathered blocks of C keys,
 # 16/8 heads, hd 128), causal and with a window
@@ -190,10 +225,29 @@ SEQ_TIMEOUT_S = 600
 # seq-parallel against unsharded training to the same 1e-3
 # (tests/test_ring_attention.py::test_train_loss_parity_seq_vs_unsharded)
 SEQ_LOSS_TOL = 1e-3
-# K5 over the dense decode cache of Jamba's attention layers: (batch, nq,
-# nkv, hd) and each row's keys after the step (prompt 512 + up to 32 new)
-DENSE_DECODE = (4, 32, 8, 128)
-DENSE_CTX = [513, 527, 538, 544]
+# serving on the 4D mesh: four gloo ranks share the card, x and y of 2
+MESH = "1,2,2,1"
+MESH_RANKS = 4
+MESH_SERVE_FLAGS = SERVE_FLAGS + ["--mesh", MESH, "--backend", "gloo"]
+MESH_FIXED_FLAGS = ["--arch", ARCH, "--mode", "fixed", "--preset", "full",
+                    "--batch", "4", "--prompt-len", "128", "--gen", "8",
+                    "--seed", str(SEED), "--mesh", MESH, "--backend", "gloo"]
+MESH_TIMEOUT_S = 400
+# teacher-forced logits of the mesh against one card's, max|dlogit| over
+# max|logit|, float32 with TF32 off: phase 4's bound, for the same cause
+# (each product and each norm's sum of squares is summed in another order:
+# two x ranks' halves added through gloo)
+MESH_TF_TOL = 1e-3
+# the mesh's greedy ids must equal phase 5's wherever phase 5's top-2
+# margin exceeds this many times the teacher-forced max|dlogit|
+MESH_MARGIN = 10
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+# K5 over the dense decode cache: (batch, nq, nkv, hd) and each row's keys
+# after the step; Jamba's attention layers (prompt 512 + up to 32 new) and
+# qwen3-1.7b's local heads on (1,2,2,1) in the fixed mesh run (prompt 128
+# + up to 8 new)
+DENSE_DECODE = {"Jamba": ((4, 32, 8, 128), [513, 527, 538, 544]),
+                "mesh fixed": ((4, 8, 4, 128), [129, 131, 134, 136])}
 
 
 def log(msg: str) -> None:
@@ -280,12 +334,12 @@ def timings(kernel, plain, library, nbytes, n_ops, dtype, iters=100,
     """The JSON line's times (device time, from graph replay) and, for the
     log, the same calls issued eagerly."""
     t = dict(ms=graph_ms(kernel, iters), plain_ms=graph_ms(plain, iters),
-             library_ms=graph_ms(library, iters), **bound(nbytes, n_ops,
-                                                          dtype))
+             library_ms=library and graph_ms(library, iters),
+             **bound(nbytes, n_ops, dtype))
     warm = min(20, eager_iters)
     eager = dict(ms=cuda_ms(kernel, eager_iters, warm),
                  plain_ms=cuda_ms(plain, eager_iters, warm),
-                 library_ms=cuda_ms(library, eager_iters, warm))
+                 library_ms=library and cuda_ms(library, eager_iters, warm))
     return t, eager
 
 
@@ -441,7 +495,8 @@ def phase_kernels(gen):
     from repro_torch.kernels.flash_attention import (
         paged_attention_kernel, paged_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
-    errs = dict.fromkeys(("rmsnorm", "paged_attention", "block_matmul",
+    errs = dict.fromkeys(("rmsnorm", "rmsnorm_stats", "rmsnorm_apply",
+                          "paged_attention", "block_matmul",
                           "flash_attention", "flash_attention_bwd",
                           "selective_scan", "partial_attention",
                           "partial_attention_bwd"), 0.0)
@@ -475,42 +530,80 @@ def phase_kernels(gen):
                                          f"differs when normed alone")
             log(f"  {str(dtype)[6:]} d {d}: rows 0, 1, 517, 1023 alone == "
                 f"among 1,024: bitwise")
-    log("[kernels] K5 paged attention vs plain (nq 16, nkv 8, hd 128, "
-        "page 16, table width 127)")
+    phase_kernels_rms_split(gen, errs)
+    log("[kernels] K5 paged attention vs plain (nq 16, nkv 8 on one card "
+        "and the local 8/4 of (1,2,2,1); hd 128, page 16, table width 127)")
     cases = {1: dict(ctx=[0, 1, 17, 40, 100, 160, 33, 250],
                      q_len=[0, 1, 1, 1, 1, 1, 1, 1]),
              32: dict(ctx=[0, 32, 45, 160, 200, 17, 300, 64],
                       q_len=[0, 32, 13, 32, 32, 17, 32, 5])}
-    for dtype in (torch.float32, torch.bfloat16):
-        for T, c in cases.items():
-            q, kp, vp, table, q_pos, q_len = paged_inputs(
-                gen, T=T, dtype=dtype, **c)
-            kp, vp = kp[0], vp[0]
-            got = paged_attention_kernel(q, kp, vp, table, q_pos, q_len)
-            want = paged_attention_plain(q, kp, vp, table, q_pos, q_len)
-            rows = valid_rows(q_len, T)
-            e = check_close(f"{str(dtype)[6:]} T={T}", got, want,
-                            PAGED_TOL[dtype], rows)
-            if got[~rows].any():
-                raise AssertionError("rows past q_len must be exactly 0")
-            if dtype == torch.float32:
-                errs["paged_attention"] = max(errs["paged_attention"], e)
-            if T == 32:
-                for c0, c1 in ((0, 5), (5, 17), (17, 32)):
-                    ql = torch.clamp(q_len - c0, 0, c1 - c0).to(torch.int32)
-                    part = paged_attention_kernel(
-                        q[:, c0:c1], kp, vp, table,
-                        q_pos[:, c0:c1].contiguous(), ql)
-                    m = valid_rows(ql, c1 - c0)
-                    if not torch.equal(part[m], got[:, c0:c1][m]):
-                        raise AssertionError(
-                            f"chunk [{c0}, {c1}) differs from one-shot")
-                log(f"  {str(dtype)[6:]} chunked (0-5, 5-17, 17-32) == "
-                    f"one-shot: bitwise")
+    for dtype, (nq, nkv), (T, c) in itertools.product(
+            (torch.float32, torch.bfloat16), ((16, 8), (8, 4)),
+            cases.items()):
+        q, kp, vp, table, q_pos, q_len = paged_inputs(
+            gen, T=T, dtype=dtype, nq=nq, nkv=nkv, **c)
+        kp, vp = kp[0], vp[0]
+        got = paged_attention_kernel(q, kp, vp, table, q_pos, q_len)
+        want = paged_attention_plain(q, kp, vp, table, q_pos, q_len)
+        rows = valid_rows(q_len, T)
+        e = check_close(f"{str(dtype)[6:]} {nq}/{nkv} heads T={T}", got,
+                        want, PAGED_TOL[dtype], rows)
+        if got[~rows].any():
+            raise AssertionError("rows past q_len must be exactly 0")
+        if dtype == torch.float32:
+            errs["paged_attention"] = max(errs["paged_attention"], e)
+        if T == 32:
+            for c0, c1 in ((0, 5), (5, 17), (17, 32)):
+                ql = torch.clamp(q_len - c0, 0, c1 - c0).to(torch.int32)
+                part = paged_attention_kernel(
+                    q[:, c0:c1], kp, vp, table,
+                    q_pos[:, c0:c1].contiguous(), ql)
+                m = valid_rows(ql, c1 - c0)
+                if not torch.equal(part[m], got[:, c0:c1][m]):
+                    raise AssertionError(
+                        f"chunk [{c0}, {c1}) differs from one-shot")
+            log(f"  {str(dtype)[6:]} {nq}/{nkv} heads chunked (0-5, 5-17, "
+                f"17-32) == one-shot: bitwise")
     phase_kernels_dense_decode(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_scan(gen, errs)
     return errs
+
+
+def phase_kernels_rms_split(gen, errs):
+    """K3's stats and apply passes (the two halves of an x-sharded row's
+    norm, around the psum of its sum of squares) against their plain
+    versions; stats then apply on a whole row gives the single pass's
+    bits."""
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_kernel,
+        rmsnorm_stats_kernel, rmsnorm_stats_plain)
+    log("[kernels] K3 stats and apply passes vs plain; stats then apply on "
+        "a whole row == the single pass")
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, d in RMS_SPLIT_SHAPES:
+            x = torch.randn((rows, d), generator=gen, device="cuda"
+                            ).to(dtype)
+            g = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+                 ).to(dtype)
+            tag = f"{dtype_name(dtype)} ({rows}, {d})"
+            ss = rmsnorm_stats_kernel(x)
+            es = check_rel(f"{tag} stats", ss, rmsnorm_stats_plain(x),
+                           RMS_TOL[torch.float32])
+            # the other x rank's half-row sums, as the psum adds them
+            total = ss + torch.rand((rows,), generator=gen,
+                                    device="cuda") * d
+            ea = check_close(f"{tag} apply", rmsnorm_apply_kernel(
+                x, g, total, full_dim=2 * d), rmsnorm_apply_plain(
+                x, g, total, full_dim=2 * d), RMS_TOL[dtype])
+            if not torch.equal(rmsnorm_apply_kernel(x, g, ss, full_dim=d),
+                               rmsnorm_kernel(x, g)):
+                raise AssertionError(f"{tag}: stats then apply differs "
+                                     f"from the single pass")
+            log(f"  {tag}: stats then apply == the single pass: bitwise")
+            if dtype == torch.float32:
+                errs["rmsnorm_stats"] = max(errs["rmsnorm_stats"], es)
+                errs["rmsnorm_apply"] = max(errs["rmsnorm_apply"], ea)
 
 
 def phase_kernels_dense_decode(gen, errs):
@@ -519,26 +612,28 @@ def phase_kernels_dense_decode(gen, errs):
     from repro_torch.kernels.flash_attention import (
         paged_attention_kernel, paged_attention_plain)
     from repro_torch.layers.attention import DENSE_PAGE, dense_page_view
-    B, nq, nkv, hd = DENSE_DECODE
-    S = -(-max(DENSE_CTX) // DENSE_PAGE) * DENSE_PAGE
-    log(f"[kernels] K5 over the dense decode cache (B {B}, nq {nq}, nkv "
-        f"{nkv}, hd {hd}, {S} rows as pages of {DENSE_PAGE}, keys "
-        f"{DENSE_CTX}, T 1)")
-    q_pos = torch.tensor(DENSE_CTX, dtype=torch.int32,
-                         device="cuda")[:, None] - 1
-    q_len = torch.ones((B,), dtype=torch.int32, device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        def rand(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        q, kc, vc = rand(B, 1, nq, hd), rand(B, S, nkv, hd), rand(B, S, nkv,
-                                                                   hd)
-        (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
-        e = check_close(f"{dtype_name(dtype)} dense decode",
-                        paged_attention_kernel(q, kp, vp, table, q_pos, q_len),
-                        paged_attention_plain(q, kp, vp, table, q_pos, q_len),
-                        PAGED_TOL[dtype])
-        if dtype == torch.float32:
-            errs["paged_attention"] = max(errs["paged_attention"], e)
+    for name, ((B, nq, nkv, hd), ctx) in DENSE_DECODE.items():
+        S = -(-max(ctx) // DENSE_PAGE) * DENSE_PAGE
+        log(f"[kernels] K5 over {name}'s dense decode cache (B {B}, nq {nq},"
+            f" nkv {nkv}, hd {hd}, {S} rows as pages of {DENSE_PAGE}, keys "
+            f"{ctx}, T 1)")
+        q_pos = torch.tensor(ctx, dtype=torch.int32,
+                             device="cuda")[:, None] - 1
+        q_len = torch.ones((B,), dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            def rand(*shape):
+                return torch.randn(shape, generator=gen, device="cuda"
+                                   ).to(dtype)
+            q, kc, vc = (rand(B, 1, nq, hd), rand(B, S, nkv, hd),
+                         rand(B, S, nkv, hd))
+            (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
+            e = check_close(
+                f"{dtype_name(dtype)} dense decode",
+                paged_attention_kernel(q, kp, vp, table, q_pos, q_len),
+                paged_attention_plain(q, kp, vp, table, q_pos, q_len),
+                PAGED_TOL[dtype])
+            if dtype == torch.float32:
+                errs["paged_attention"] = max(errs["paged_attention"], e)
 
 
 def phase_kernels_scan(gen, errs):
@@ -586,6 +681,14 @@ def phase_kernels_train(gen, errs):
             if dtype == f32:
                 errs["block_matmul"] = max(errs["block_matmul"], e)
             del a, b
+    log("[kernels] K1 at the local shapes of the (1,2,2,1) mesh, float32")
+    for name, M, K, N, layout in MESH_MATMUL_SHAPES:
+        a, b = matmul_inputs(gen, M, K, N, layout, f32)
+        e = check_rel(f"{name} ({M}, {K}) x ({K}, {N}) {layout}",
+                      block_matmul_kernel(a, b), block_matmul_plain(a, b),
+                      MATMUL_TOL[f32])
+        errs["block_matmul"] = max(errs["block_matmul"], e)
+        del a, b
     log("[kernels] K2 flash attention forward and backward vs plain "
         "(autograd of the plain forward)")
     for dtype in (f32, torch.bfloat16):
@@ -821,6 +924,8 @@ def phase_timings(gen, n_layers):
     log("[timings] float32, decode-step shapes, CUDA events: device "
         "time from a replayed CUDA graph / eager calls back to back")
     out["rmsnorm"] = phase_timings_rmsnorm(gen)[(8, 2048)]
+    split = phase_timings_rms_split(gen)
+    out["rmsnorm_stats"], out["rmsnorm_apply"] = split[RMS_SPLIT_SHAPES[0]]
 
     # K5 at three shapes: decode and chunked prefill of continuous serving
     # (8 slots, 144 tokens of context, page 16), and the decode step of
@@ -834,8 +939,8 @@ def phase_timings(gen, n_layers):
         t = time_paged(name, q, list(kp), list(vp), table, q_pos, ql)
         out.setdefault("paged_attention", t)
         del q, kp, vp
-    B, nq, nkv, hd = DENSE_DECODE
-    ctx = max(DENSE_CTX)
+    (B, nq, nkv, hd), ctx = DENSE_DECODE["Jamba"]
+    ctx = max(ctx)
     pools, table = [], None
     for _ in range(4):      # Jamba's 4 attention layers, 71 MB over the L2
         kc, vc = (torch.randn((B, ctx, nkv, hd), generator=gen,
@@ -875,6 +980,43 @@ def phase_timings_rmsnorm(gen):
             + f"; {t['ms'] / t['library_ms']:.2f}x F.rms_norm, "
             f"{t['bound_ms'] / t['ms']:.3f} of the bound")
     return rms
+
+
+def phase_timings_rms_split(gen):
+    """K3's stats and apply passes at RMS_SPLIT_SHAPES, float32; returns
+    each shape's (stats, apply) times. The stats pass's library call is
+    ``torch.linalg.vecdot(x, x)`` (the same sums in one call); the apply
+    pass has none, and ``F.rms_norm`` over the local row (another
+    function: its own row's mean) is logged beside both as a yardstick.
+    The bounds count x once and the sums once, and gamma and the output
+    once for the apply pass."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_stats_kernel,
+        rmsnorm_stats_plain)
+    out = {}
+    for rows, d in RMS_SPLIT_SHAPES:
+        x = torch.randn((rows, d), generator=gen, device="cuda")
+        g = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+        ss = rmsnorm_stats_kernel(x) * 2
+        n = x.numel()
+        ts, es = timings(lambda: rmsnorm_stats_kernel(x),
+                         lambda: rmsnorm_stats_plain(x),
+                         lambda: torch.linalg.vecdot(x, x),
+                         n * 4 + rows * 4, 2 * n, torch.float32)
+        ta, ea = timings(lambda: rmsnorm_apply_kernel(x, g, ss,
+                                                      full_dim=2 * d),
+                         lambda: rmsnorm_apply_plain(x, g, ss,
+                                                     full_dim=2 * d),
+                         None, 2 * n * 4 + rows * 4 + d * 4, 2 * n,
+                         torch.float32)
+        yard = graph_ms(lambda: F.rms_norm(x, (d,), g, 1e-6))
+        for name, t, e in (("stats", ts, es), ("apply", ta, ea)):
+            log(f"  rmsnorm {name} ({rows}, {d}): " + fmt(t, e)
+                + f"; F.rms_norm over the local row {yard * 1e3:.2f} us, "
+                f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+        out[(rows, d)] = (ts, ta)
+    return out
 
 
 def phase_timings_train(gen, out):
@@ -1014,7 +1156,8 @@ def bound(nbytes, n_ops, dtype):
 
 
 def fmt(t, eager):
-    us = {k: f"{t[k] * 1e3:.2f}/{eager[k] * 1e3:.2f}" for k in eager}
+    us = {k: (f"{t[k] * 1e3:.2f}/{eager[k] * 1e3:.2f}" if t[k] is not None
+              else "none") for k in eager}
     return (f"kernel {us['ms']} us, plain {us['plain_ms']} us, library "
             f"{us['library_ms']} us (device/eager), bound "
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
@@ -1588,6 +1731,310 @@ def phase_seq_train(cfg, smi, losses_one_card):
     return rep["ranks"][0]["launches"]
 
 
+# ---------------------------------------------------------------------- #
+# serving on the 4D mesh: four gloo ranks sharing the card
+# ---------------------------------------------------------------------- #
+
+def mesh_launches(cfg, prefills, decodes):
+    """Each kernel's launches on one rank of the (1,2,2,1) mesh in
+    ``prefills`` prefills and ``decodes`` decode steps (a paged serving
+    step is a decode step: one forward, K5 in each layer), counted from
+    the code: the forward of one card (``fixed_launches``), but each
+    residual norm (two a layer and the final one) runs K3's stats and
+    apply passes around the psum over x instead of its single pass;
+    qk-norm's rows are whole, one pass each."""
+    want = fixed_launches(cfg, prefills, decodes)
+    fwd = prefills + decodes
+    want["rmsnorm"] = fwd * 2 * cfg.n_layers
+    want["rmsnorm_stats"] = want["rmsnorm_apply"] = fwd * (
+        2 * cfg.n_layers + 1)
+    return want
+
+
+def mesh_collectives(cfg):
+    """Collective calls of one forward on a rank of (1,2,2,1), counted from
+    the code: per layer the psums over x of q, k and v, of the two norms'
+    sums of squares and of the MLP's gate and up, and over y of the
+    attention's and the MLP's down projections (9); then the embedding's
+    psum over y, the final norm's over x, the head's over x and the
+    logits' gather over y."""
+    return 9 * cfg.n_layers + 4
+
+
+def mesh_launch(args, label):
+    """``args`` under torch.distributed.run on MESH_RANKS ranks sharing this
+    card, in a session of its own (a time limit stops the launcher and
+    every rank together): rank 0's output lines."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MESH_RANKS), *args]
+    log(f"[{label}] python -m torch.distributed.run --standalone "
+        f"--nproc-per-node {MESH_RANKS} {' '.join(args)}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if x]))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{label} ran past {MESH_TIMEOUT_S} s")
+    lines = out.strip().splitlines()
+    for ln in lines:
+        if not ln.startswith('{"serve"') and not ln.startswith("req "):
+            log(f"  | {ln}")
+    if proc.returncode:
+        log(err[-6000:])
+        raise AssertionError(f"{label} exited with {proc.returncode}")
+    log(f"  {time.time() - t0:.1f}s with start-up")
+    return lines
+
+
+def teacher_forced(model, seqs, n_out, *, slots=8, chunk=32, page=16):
+    """The logits of the last ``n_out`` positions of each sequence of
+    ``seqs`` (N, L) int32, every sequence fed whole through the paged path
+    (``Decoder.hidden`` in mode "paged", then the head), ``slots`` at a
+    time in chunks of ``chunk`` rows. On a mesh each rank runs its batch
+    shard and the logits are gathered. Returns (N, n_out, V) float32 on
+    the CPU."""
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.decoder import lm_logits
+    cfg, axes, dev = model.cfg, model.axes, model.embed.device
+    N, L = seqs.shape
+    per = -(-L // page)
+    _, ct = ST.make_paged_step(cfg, axes)(
+        axes.batch_shards * (1 + slots * per), page)
+    table = (1 + torch.arange(slots)[:, None] * per
+             + torch.arange(per)[None]).to(torch.int32)
+    out = []
+    with torch.inference_mode():
+        for b in range(0, N, slots):
+            pools = ST.zeros_caches(ct, dev)
+            rows = []
+            for c0 in range(0, L, chunk):
+                cl = min(chunk, L - c0)
+                tokens = torch.zeros((slots, chunk), dtype=torch.int32)
+                tokens[:, :cl] = seqs[b:b + slots, c0:c0 + cl]
+                pos = (c0 + torch.arange(chunk, dtype=torch.int32)
+                       ).expand(slots, chunk).contiguous()
+                q_len = torch.full((slots,), cl, dtype=torch.int32)
+                t, p, q, tab = (M.batch_shard(v, axes).to(dev) for v in
+                                (tokens, pos, q_len, table))
+                h = model.hidden(t, mode="paged", positions=p, pools=pools,
+                                 paged={"table": tab, "q_len": q})
+                lo = max(L - n_out - c0, 0)
+                if lo < cl:
+                    rows.append(ST.gather_logits(
+                        lm_logits(model, h[:, lo:cl]), axes).float().cpu())
+            out.append(torch.cat(rows, 1))
+    return torch.cat(out, 0)
+
+
+def mesh_expectations(model, cfg, generated):
+    """What the mesh phase holds its ranks to, from the one-card model of
+    phase 5: each rank's parameter-shard hash (the blocks of every
+    parameter by its PartitionSpec, hashed in parameter order, as
+    ``steps.param_sha256`` hashes a rank's own), phase 5's sequences and
+    ids, and their teacher-forced logits at the generated positions."""
+    import hashlib
+    import numpy as np
+    from repro_torch.core import mesh as M
+    from repro_torch.core.partition import param_spec
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import mesh_axes
+    t0 = time.time()
+    axes = mesh_axes(MESH)
+    hashes = []
+    for r in range(MESH_RANKS):
+        h = hashlib.sha256()
+        for n, p in model.named_parameters():
+            h.update(M.shard(p.detach(), axes, param_spec(n), r).contiguous(
+            ).cpu().view(torch.uint8).numpy())
+        hashes.append(h.hexdigest())
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
+    reqs = serve.make_requests(args, cfg.vocab_size)
+    seqs = torch.from_numpy(np.stack([
+        np.concatenate([r.prompt, np.asarray(g[:-1], np.int32)])
+        for r, g in zip(reqs, generated)]))
+    logits = teacher_forced(model, seqs, args.gen)
+    # the fixed-batch run of MESH_FIXED_FLAGS on one card, and the top-2
+    # margins of its positions (its sequences teacher-forced)
+    fargs = serve.build_parser().parse_args(
+        MESH_FIXED_FLAGS[:MESH_FIXED_FLAGS.index("--mesh")])
+    fixed = serve.run_fixed(fargs, model)
+    fseqs = torch.from_numpy(np.concatenate(
+        [fixed.prompts, fixed.ids[:, :-1]], axis=1).astype(np.int32))
+    flogits = teacher_forced(model, fseqs, fargs.gen, slots=fargs.batch)
+    log(f"[mesh expectations] {MESH_RANKS} ranks' shard hashes of the "
+        f"one-card model, the teacher-forced logits {tuple(logits.shape)}"
+        f" of phase 5's sequences, and the one-card fixed run's ids "
+        f"{fixed.ids.shape} with its margins, in {time.time() - t0:.1f}s")
+    return dict(hashes=hashes, seqs=seqs, ids=generated, logits=logits,
+                n_out=args.gen, fixed_ids=fixed.ids.tolist(),
+                fixed_margin=top2_margin(flogits))
+
+
+def top2_margin(logits):
+    """The gap between the top two logits of each position."""
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def check_ids(got_ids, base_ids, margin, thr, label):
+    """The mesh's greedy ids against one card's: equal at every position
+    whose one-card top-2 margin exceeds ``thr``; a sequence may part from
+    one card's at a near tie, and is compared no further."""
+    diverged = compared = 0
+    if len(got_ids) != len(base_ids):
+        raise AssertionError(f"{label}: {len(got_ids)} sequences, one card "
+                             f"served {len(base_ids)}")
+    for i, (got, base) in enumerate(zip(got_ids, base_ids)):
+        if len(got) != len(base):
+            raise AssertionError(f"{label} sequence {i}: {len(got)} ids, "
+                                 f"one card served {len(base)}")
+        for j, (a, b) in enumerate(zip(got, base)):
+            compared += 1
+            if a == b:
+                continue
+            if margin[i, j] > thr:
+                raise AssertionError(
+                    f"{label} sequence {i} position {j}: the mesh chose {a},"
+                    f" one card {b}, at a top-2 margin of "
+                    f"{float(margin[i, j]):.3e} > {thr:.3e}")
+            diverged += 1     # a near tie: the rest of it may differ
+            break
+    log(f"  {label}: greedy ids == one card's at {compared - diverged} of "
+        f"{compared} positions compared; {int((margin <= thr).sum())} of "
+        f"{margin.numel()} positions have a top-2 margin <= {thr:.3e}; "
+        f"{diverged} sequences part at such a position")
+
+
+def mesh_worker(outdir: Path) -> int:
+    """One rank of the teacher-forced run on the mesh (started by
+    ``phase_mesh_serve`` under torch.distributed.run): the model drawn
+    from seed 0 on (1,2,2,1), phase 5's sequences fed through it; rank 0
+    saves the gathered logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
+    axes = mesh_axes(MESH)
+    run = init_mesh(axes, device="cuda")
+    try:
+        model = ST.init_model(get_config(ARCH), axes, seed=SEED,
+                              device=run["device"])
+        job = torch.load(outdir / "seqs.pt")
+        logits = teacher_forced(model, job["seqs"], job["n_out"])
+        if run["rank"] == 0:
+            torch.save(logits, outdir / "mesh_logits.pt")
+    finally:
+        close_mesh()
+    return 0
+
+
+def mesh_report(lines, expect, want, units, unit, cfg, smi):
+    """Checks of a mesh serving run's ``{"serve": ...}`` line: each rank's
+    shard hash against the one-card model's blocks, the same plans on
+    every rank, each kernel's launches (``want`` per ``unit``) and the
+    collective calls (``mesh_collectives`` per forward; a unit is a
+    forward, or the run of ``--gen`` forwards) and, apart, the engine's
+    broadcasts of rank 0's clock; then the timings. Returns the report."""
+    rep = json.loads([ln for ln in lines
+                      if ln.startswith('{"serve"')][-1])["serve"]
+    ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
+    got = [r["param_sha256"] for r in ranks]
+    if got != expect["hashes"]:
+        raise AssertionError(f"the ranks' parameter shards are not the "
+                             f"one-card model's blocks: {got} against "
+                             f"{expect['hashes']}")
+    log(f"  every rank's parameter shards == the one-card model's blocks "
+        f"(sha256 {', '.join(h[:12] for h in got)})")
+    plans = {r["plan_sha256"] for r in ranks}
+    if len(plans) != 1:
+        raise AssertionError(f"the ranks ran different plans: {plans}")
+    log(f"  the same plans on every rank (sha256 {plans.pop()[:16]}...)")
+    n, forwards = units(ranks[0])
+    calls = mesh_collectives(cfg) * forwards // n
+    for r in ranks:
+        log(f"  rank {r['rank']} on {r['device']}:")
+        check_launches(r["launches"], want, n, unit)
+        fwd = [v for k, v in r["comm"].items() if k != "broadcast"]
+        c = sum(v["calls"] for v in fwd)
+        clock = r["comm"].get("broadcast", {"calls": 0, "seconds": 0.0})
+        log(f"    collectives: {c} calls = {c / n:g} per {unit} (expected "
+            f"{calls}), {sum(v['seconds'] for v in fwd) / n:.4f} s and "
+            f"{sum(v['bytes'] for v in fwd) / n / 1e6:.3f} MB staged per "
+            f"{unit}; the engine's clock broadcast {clock['calls']} calls, "
+            f"{clock['seconds']:.4f} s; by axis "
+            + ", ".join(f"{a} {v['calls']} calls {v['seconds']:.3f} s "
+                        f"{v['bytes'] / 1e6:.2f} MB"
+                        for a, v in sorted(r["comm_axes"].items()))
+            + "; max_memory_allocated " + (
+                "-" if r["max_memory_bytes"] is None
+                else f"{r['max_memory_bytes'] / 2**30:.2f} GiB"))
+        if c != calls * n:
+            raise AssertionError(f"rank {r['rank']}: {c} collective calls, "
+                                 f"expected {calls} per {unit}")
+        # the engine reads rank 0's clock once an iteration of its loop,
+        # and a step is one iteration; the fixed run reads no clock
+        if not (clock["calls"] >= n if unit == "step"
+                else clock["calls"] == 0):
+            raise AssertionError(f"rank {r['rank']}: {clock['calls']} clock "
+                                 f"broadcasts in {n} {unit}s")
+    log(f"  tokens/s {rep['tokens_per_s']:.1f}, ttft p50/p99 "
+        f"{rep['ttft_p50_ms']:.1f}/{rep['ttft_p99_ms']:.1f} ms, latency "
+        f"p50/p99 {rep['latency_p50_ms']:.1f}/{rep['latency_p99_ms']:.1f} ms"
+        f", {n} {unit}s, on {smi}")
+    return rep
+
+
+def phase_mesh_serve(cfg, smi, expect):
+    """``serve.py`` on the (1,2,2,1) mesh, four gloo ranks on this card:
+    the teacher-forced logits of phase 5's sequences against one card's,
+    then the continuous run of phase 5's flags (its greedy ids held to
+    phase 5's above the margin) and a fixed-batch run."""
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(seqs=expect["seqs"], n_out=expect["n_out"]),
+               MESH_DIR / "seqs.pt")
+    mesh_launch([str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                 str(MESH_DIR)], "mesh teacher-forced")
+    mesh = torch.load(MESH_DIR / "mesh_logits.pt")
+    one = expect["logits"]
+    err, scale = max_err(mesh, one), float(one.abs().max())
+    log(f"  teacher-forced logits {tuple(mesh.shape)}: max|mesh - one "
+        f"card| = {err:.3e}, max|logit| = {scale:.3e}, {err / scale:.3e} of"
+        f" it (tol {MESH_TF_TOL:g}); TF32 off")
+    if not (math.isfinite(err) and err <= MESH_TF_TOL * scale):
+        raise AssertionError("the mesh's logits differ from one card's")
+    margin = top2_margin(one)
+    thr = MESH_MARGIN * err
+    del mesh, one
+
+    lines = mesh_launch(["-m", "repro_torch.launch.serve",
+                         *MESH_SERVE_FLAGS], "mesh serve")
+    rep = mesh_report(lines, expect, mesh_launches(cfg, 0, 1),
+                      lambda r: (r["n_steps"], r["n_steps"]), "step", cfg,
+                      smi)
+    check_ids(rep["ids"], expect["ids"], margin, thr,
+              f"continuous, against phase 5 (margin {MESH_MARGIN} x "
+              f"{err:.3e})")
+
+    lines = mesh_launch(["-m", "repro_torch.launch.serve",
+                         *MESH_FIXED_FLAGS], "mesh fixed serve")
+    gen = int(MESH_FIXED_FLAGS[MESH_FIXED_FLAGS.index("--gen") + 1])
+    fixed = mesh_report(lines, expect, mesh_launches(cfg, 1, gen - 1),
+                        lambda r: (1, gen), "run", cfg, smi)
+    check_ids(fixed["ids"], expect["fixed_ids"], expect["fixed_margin"], thr,
+              "fixed, against the one-card fixed run")
+    log(f"  fixed: prefill {fixed['prefill_s']:.4f} s, decode "
+        f"{fixed['decode_s']:.4f} s for {gen - 1} steps "
+        f"({1e3 * fixed['decode_s'] / (gen - 1):.2f} ms/step)")
+    return sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"]
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -1621,6 +2068,7 @@ def main() -> int:
     del engine
     free_memory()
     phase_serve_pool(model, cfg, smi, served)
+    mesh_expect = mesh_expectations(model, cfg, served[0])
     del model
     free_memory()
     times = phase_timings(gen, cfg.n_layers)
@@ -1649,6 +2097,8 @@ def main() -> int:
     phase_timings_partial(gen, times)
     free_memory()
     seq_launches_run = phase_seq_train(cfg, smi, train_losses)
+    free_memory()
+    mesh_launches_run = phase_mesh_serve(cfg, smi, mesh_expect)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
@@ -1658,8 +2108,12 @@ def main() -> int:
                                        "flash_attention_bwd")},
         selective_scan=fixed_launches_run["selective_scan"],
         **{k: seq_launches_run[k] for k in ("partial_attention",
-                                            "partial_attention_bwd")})
+                                            "partial_attention_bwd")},
+        **{k: mesh_launches_run[k] for k in ("rmsnorm_stats",
+                                             "rmsnorm_apply")})
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
+                "rmsnorm_stats": "src/repro/kernels/rmsnorm.py:19",
+                "rmsnorm_apply": "src/repro/kernels/rmsnorm.py:19",
                 "paged_attention": "src/repro/kernels/flash_attention.py:240",
                 "block_matmul": "src/repro/kernels/block_matmul.py:34",
                 "flash_attention": "src/repro/kernels/flash_attention.py:297",
@@ -1672,6 +2126,8 @@ def main() -> int:
                     "src/repro/kernels/flash_attention.py:127"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rmsnorm": csrc + "rmsnorm.cu",
+               "rmsnorm_stats": csrc + "rmsnorm.cu",
+               "rmsnorm_apply": csrc + "rmsnorm.cu",
                "paged_attention": csrc + "paged_attention.cu",
                "block_matmul": csrc + "block_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu",
@@ -1692,4 +2148,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(Path(sys.argv[2])))
     sys.exit(main())

@@ -18,7 +18,10 @@ period-1 decoder, ``segments/seg0/pos3/mixer/wq`` for Jamba). The train
 step decides weight decay on these paths, as the JAX ``adamw._no_decay``
 does, and the tests compare gradients leaf by leaf through them.
 ``caches_from_jax`` maps the JAX fixed-batch caches onto the port's
-per-layer ones.
+per-layer ones. On a mesh, both keep one rank's block of each global JAX
+leaf: a parameter's by its PartitionSpec (``partition.param_spec``), a
+cache's by the JAX cache spec (batch over (data, z), KV heads and Mamba
+channels over y), first-name-major over each tuple of axes.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.core import mesh as M
-from repro_torch.layers.attention import DENSE_PAGE
+from repro_torch.core.partition import param_spec
+from repro_torch.layers.attention import CACHE_SPEC, DENSE_PAGE
+from repro_torch.layers.mamba import STATE_SPECS
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.decoder import Decoder
 
@@ -65,19 +70,20 @@ def jax_paths(model: Decoder) -> Dict[str, str]:
     return {n: jax_path(n, model.cfg) for n, _ in model.named_parameters()}
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
-                    device) -> Decoder:
-    """A Decoder on ``device`` (a torch device or its name) with the
-    weights of the JAX tree ``tree`` (numpy leaves). Every leaf of the
-    tree is used, each stacked entry by exactly one layer."""
+def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device,
+                    axes: M.MeshAxes = M.MeshAxes(), rank: int = 0
+                    ) -> Decoder:
+    """A Decoder on ``device`` (a torch device or its name) for the mesh
+    ``axes`` with rank ``rank``'s blocks of the weights of the JAX tree
+    ``tree`` (numpy leaves, global). Every leaf of the tree is used, each
+    stacked entry by exactly one layer."""
     dev = torch.device(device)
     flat = _flatten(tree)
     state = {}
     used = set()
     dtype = torch.from_numpy(np.zeros(0, np.asarray(tree["embed"]).dtype)
                              ).dtype
-    model = Decoder(cfg, M.MeshAxes(), gen=torch.Generator(device=dev),
-                    dtype=dtype)
+    model = Decoder(cfg, axes, gen=torch.Generator(device=dev), dtype=dtype)
     for name, _ in model.named_parameters():
         path = jax_path(name, cfg).replace("/", ".")
         leaf = np.asarray(flat[path])
@@ -87,7 +93,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
             used.add((path, p))
         else:
             used.add((path, None))
-        state[name] = torch.tensor(leaf)
+        state[name] = M.shard(torch.tensor(leaf), axes, param_spec(name),
+                              rank).contiguous()
     want = {(k, p) for k, v in flat.items() if k.startswith("segments.")
             for p in range(np.shape(v)[0])}
     want |= {(k, None) for k in flat if not k.startswith("segments.")}
@@ -99,17 +106,23 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     return model
 
 
-def caches_from_jax(caches: Dict[str, Any], cfg: ArchConfig,
-                    device="cpu") -> List[Dict[str, torch.Tensor]]:
-    """The port's per-layer fixed-batch caches from the JAX ones (numpy
-    leaves stacked (n_periods, ...) under ``seg{s}/pos{i}``). The JAX dense
-    K/V caches hold exactly ``seq`` rows; the port's are padded to a
-    multiple of ``attention.DENSE_PAGE`` with zeros."""
+# each fixed-batch cache leaf's spec, as the layers lay the caches out
+CACHE_SPECS = {"k": CACHE_SPEC, "v": CACHE_SPEC, **STATE_SPECS}
+
+
+def caches_from_jax(caches: Dict[str, Any], cfg: ArchConfig, device="cpu",
+                    axes: M.MeshAxes = M.MeshAxes(), rank: int = 0
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """Rank ``rank``'s per-layer fixed-batch caches from the JAX ones
+    (global numpy leaves stacked (n_periods, ...) under ``seg{s}/pos{i}``).
+    The JAX dense K/V caches hold exactly ``seq`` rows; the port's are
+    padded to a multiple of ``attention.DENSE_PAGE`` with zeros."""
     out = []
     for s, i, p in cfg.layer_slots():
         layer = {}
         for k, v in caches[f"seg{s}"][f"pos{i}"].items():
-            t = torch.tensor(np.asarray(v)[p], device=device)
+            t = M.shard(torch.tensor(np.asarray(v)[p]), axes, CACHE_SPECS[k],
+                        rank).contiguous().to(device)
             if k in ("k", "v"):
                 pad = -t.shape[1] % DENSE_PAGE
                 t = F.pad(t, (0, 0, 0, 0, 0, pad))

@@ -11,9 +11,15 @@ the calls stay where the JAX package makes them.
 
 Every local product, forward and backward, goes through ``ops.matmul``
 (kernel K1), with transposed operands read as views; ``rms_norm`` runs
-kernel K3 forward and its backward in PyTorch ops, as the JAX backward is
-jnp outside any kernel. ``plain=True`` runs the kernels' plain versions on
-any device.
+kernel K3 forward (its single pass over a whole row, or on a row sharded
+over x its stats and apply passes around the psum of the sum of squares)
+and its backward in PyTorch ops, as the JAX backward is jnp outside any
+kernel. ``plain=True`` runs the kernels' plain versions on any device.
+
+The inits draw each global tensor from the generator in the one-card
+order and keep this rank's block by the parameter's PartitionSpec
+(``partition.LEAF_SPECS``), so a rank's parameters are slices of the
+one-card model drawn from the same seed.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import mesh as M
+from repro_torch.core import partition as PT
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -271,7 +278,14 @@ class _RmsNorm(torch.autograd.Function):
     def forward(ctx, x, gamma, axes, axis, full_dim, eps, plain):
         ctx.save_for_backward(x, gamma)
         ctx.cfg = (axes, axis, full_dim, eps)
-        return ops.rmsnorm(x, gamma, full_dim=full_dim, eps=eps, plain=plain)
+        if axes.size(axis) == 1:
+            return ops.rmsnorm(x, gamma, full_dim=full_dim, eps=eps,
+                               plain=plain)
+        # the row is sharded over ``axis``: its sum of squares is the psum
+        # of the local ones, as in the JAX forward
+        ss = M.psum(ops.rmsnorm_stats(x, plain=plain), axes, axis)
+        return ops.rmsnorm_apply(x, gamma, ss, full_dim=full_dim, eps=eps,
+                                 plain=plain)
 
     @staticmethod
     def backward(ctx, dy):
@@ -292,9 +306,10 @@ class _RmsNorm(torch.autograd.Function):
 
 def rms_norm(x, gamma, axes: M.MeshAxes, full_dim: int, eps: float = 1e-6,
              *, axis: Optional[str] = "x", plain: bool = False):
-    """RMSNorm over a feature dim sharded across ``axis`` (K3 forward; the
-    sum of squares of the whole row is the local one at g_x = 1).
-    ``axis=None`` is a row that is never sharded (qk-norm)."""
+    """RMSNorm over a feature dim sharded across ``axis`` (K3 forward: its
+    single pass where ``axis`` has one rank, else the stats pass, a psum of
+    the sums of squares over ``axis`` and the apply pass). ``axis=None``
+    is a row that is never sharded (qk-norm)."""
     return _RmsNorm.apply(x, gamma, axes, axis, full_dim, eps, plain)
 
 
@@ -303,22 +318,33 @@ def rms_norm(x, gamma, axes: M.MeshAxes, full_dim: int, eps: float = 1e-6,
 # ---------------------------------------------------------------------- #
 
 def tp_linear_init(gen: torch.Generator, k: int, n: int, axes: M.MeshAxes,
-                   *, scale: Optional[float] = None,
+                   in_shard: Optional[str] = "x",
+                   out_shard: Optional[str] = "y", *,
+                   scale: Optional[float] = None,
                    dtype=torch.float32) -> torch.Tensor:
-    """A (k, n) weight drawn from N(0, 1) * scale (default 1/sqrt(k))."""
+    """A (k, n) weight drawn from N(0, 1) * scale (default 1/sqrt(k));
+    this rank keeps its block by ``partition.wspec(in_shard,
+    out_shard)``: k over the contraction shard, n over (output shard, z)."""
     s = scale if scale is not None else 1.0 / math.sqrt(k)
     v = torch.randn((k, n), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (v * s).to(dtype)
+    return PT.keep_shard(v.mul_(s).to(dtype), axes,
+                         PT.wspec(in_shard, out_shard))
 
 
 def embedding_init(gen: torch.Generator, vocab: int, hidden: int,
                    axes: M.MeshAxes, *, dtype=torch.float32) -> torch.Tensor:
+    """The (vocab, hidden) table from N(0, 0.02^2); this rank keeps rows
+    over y and columns over (x, z)."""
     v = torch.randn((vocab, hidden), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (v * 0.02).to(dtype)
+    return PT.keep_shard(v.mul_(0.02).to(dtype), axes,
+                         PT.LEAF_SPECS["embed"])
 
 
 def norm_param_init(hidden: int, axes: M.MeshAxes, *, device,
                     dtype=torch.float32, value: float = 1.0) -> torch.Tensor:
-    return torch.full((hidden,), value, dtype=dtype, device=device)
+    """A per-feature gain, this rank's slice over x (the residual
+    layout)."""
+    return torch.full((hidden // axes.gx,), value, dtype=dtype,
+                      device=device)

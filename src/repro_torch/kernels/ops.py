@@ -17,11 +17,14 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_kernel, paged_attention_kernel, paged_attention_plain,
     partial_attention_bwd_kernel, partial_attention_bwd_plain,
     partial_attention_kernel, partial_attention_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (
+    rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_kernel, rmsnorm_plain,
+    rmsnorm_stats_kernel, rmsnorm_stats_plain)
 from repro_torch.kernels.selective_scan import (selective_scan_kernel,
                                                 selective_scan_plain)
 
-KERNELS = (rmsnorm_kernel, paged_attention_kernel, block_matmul_kernel,
+KERNELS = (rmsnorm_kernel, rmsnorm_stats_kernel, rmsnorm_apply_kernel,
+           paged_attention_kernel, block_matmul_kernel,
            flash_attention_kernel, flash_attention_bwd_kernel,
            selective_scan_kernel, partial_attention_kernel,
            partial_attention_bwd_kernel)
@@ -60,6 +63,21 @@ def rmsnorm(x, gamma, *, full_dim: Optional[int] = None, eps: float = 1e-6,
     mean divides by (the whole feature dim of an x-sharded row)."""
     fn = rmsnorm_plain if _plain(x, plain) else rmsnorm_kernel
     return fn(x, gamma, full_dim=full_dim, eps=eps)
+
+
+def rmsnorm_stats(x, *, plain: bool = False):
+    """Each row's fp32 sum of squares (K3's stats pass): the local half of
+    a norm whose row is sharded over x."""
+    fn = rmsnorm_stats_plain if _plain(x, plain) else rmsnorm_stats_kernel
+    return fn(x)
+
+
+def rmsnorm_apply(x, gamma, ss, *, full_dim: int, eps: float = 1e-6,
+                  plain: bool = False):
+    """x * rsqrt(ss / full_dim + eps) * gamma (K3's apply pass), ``ss``
+    the rows' fp32 sums of squares over the whole (sharded) row."""
+    fn = rmsnorm_apply_plain if _plain(x, plain) else rmsnorm_apply_kernel
+    return fn(x, gamma, ss, full_dim=full_dim, eps=eps)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

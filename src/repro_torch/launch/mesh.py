@@ -1,15 +1,18 @@
-"""The mesh of a run: its axes from ``--mesh`` and its process group
+"""The mesh of a run: its axes from ``--mesh`` and its process groups
 (counterpart of ``repro.launch.mesh``'s ``make_smoke_mesh``/``bind_4d``).
 
-A mesh of one rank needs no process group. A mesh with a seq axis above 1
-runs one process per rank, started by ``torch.distributed.run``, which
-sets ``RANK``, ``WORLD_SIZE`` and the rendezvous address; the world size
-must equal the mesh's product. The backend is gloo, on the CPU and on the
-card (CUDA tensors are staged through host memory by ``core.mesh``); NCCL
-with one rank per card is the ROADMAP.md §1 item "multi-rank mesh". Rank r
-runs on card ``r % torch.cuda.device_count()``, so two ranks on one card
-share it. The group has a finite timeout, so a collective that one rank
-never issues fails instead of hanging.
+A mesh of one rank needs no process group. A mesh of more ranks runs one
+process per rank, started by ``torch.distributed.run``, which sets
+``RANK``, ``WORLD_SIZE`` and the rendezvous address; the world size must
+equal the mesh's product. Rank r sits at the row-major coordinates of r
+over (data, x, y, z, seq) and every rank creates the group of each axis
+and axis tuple (``core.mesh.init_groups``). The backend is gloo, on the
+CPU and on the card (CUDA tensors are staged through host memory by
+``core.mesh``); NCCL with one rank per card is the ROADMAP.md §1 item
+"multi-rank mesh". Rank r runs on card ``r % torch.cuda.device_count()``,
+so ranks beyond the card count share cards. The groups have a finite
+timeout, so a collective that one rank never issues fails instead of
+hanging.
 """
 from __future__ import annotations
 
@@ -20,22 +23,22 @@ import os
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.mesh import MeshAxes
+from repro_torch.core import mesh as M
 
 BACKENDS = ("gloo",)
 TIMEOUT_S = 60
 
 
-def mesh_axes(spec: str) -> MeshAxes:
+def mesh_axes(spec: str) -> M.MeshAxes:
     """``"g_data,g_x,g_y,g_z[,g_seq]"`` -> MeshAxes."""
-    return MeshAxes(tuple(int(x) for x in spec.split(",")))
+    return M.MeshAxes(tuple(int(x) for x in spec.split(",")))
 
 
-def init_mesh(axes: MeshAxes, *, backend: str = "gloo",
+def init_mesh(axes: M.MeshAxes, *, backend: str = "gloo",
               device="cuda") -> dict:
-    """Join the process group of ``axes`` (none for one rank) and pick
-    this rank's device. Returns {"device", "rank", "world",
-    "ranks_per_card" (None off the card)}."""
+    """Join the process group of ``axes`` (none for one rank), create the
+    groups of its axes and pick this rank's device. Returns {"device",
+    "rank", "world", "ranks_per_card" (None off the card)}."""
     if backend == "nccl":
         raise NotImplementedError(
             "--backend nccl (one rank per card) is not ported to PyTorch "
@@ -71,10 +74,12 @@ def init_mesh(axes: MeshAxes, *, backend: str = "gloo",
         dist.init_process_group(
             backend, rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        M.init_groups(axes)
     return {"device": dev, "rank": rank, "world": world,
             "ranks_per_card": per_card}
 
 
 def close_mesh() -> None:
+    M.clear_groups()
     if dist.is_initialized():
         dist.destroy_process_group()

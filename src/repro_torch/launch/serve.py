@@ -16,22 +16,41 @@ Jamba's hybrid Mamba/attention decoder among them:
       --arch jamba-v0.1-52b-dense-ffn --preset full --batch 4 \\
       --prompt-len 512 --gen 32
 
-Both run on the CUDA card; ``--device cpu`` runs on the CPU. Not ported yet
-(each raises ``NotImplementedError``; ROADMAP.md lists them): ``--overlap``,
-``--telemetry`` and any mesh other than 1,1,1,1.
+Both run on the CUDA card; ``--device cpu`` runs on the CPU. On a mesh of
+more than one rank (``--mesh g_data,g_x,g_y,g_z``), one process per rank
+under ``torch.distributed.run``, each rank holding its shard of every
+weight, its collectives over gloo:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --preset full --mesh 1,2,2,1 --backend gloo
+
+Only rank 0 prints; on a mesh its last line before ``SERVE OK`` is one
+JSON object ``{"serve": {...}}``: the served ids, tokens/s, TTFT and
+latency, one hash of the sequence of plans, and each rank's collective
+seconds and bytes, peak memory, kernel launches and parameter hash, all of
+the timed run. Not ported yet (each raises ``NotImplementedError``;
+ROADMAP.md lists them): ``--overlap``, ``--telemetry`` and ``--backend
+nccl``.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import hashlib
+import json
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import mesh as M
+from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,7 +68,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "fixed: one prefill of a uniform batch, then "
                          "lockstep greedy decode")
     ap.add_argument("--mesh", default="1,1,1,1",
-                    help="g_data,g_x,g_y,g_z (the port runs 1,1,1,1)")
+                    help="g_data,g_x,g_y,g_z: more than one rank runs one "
+                         "process per rank under torch.distributed.run")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a mesh with more "
+                         "than one rank (gloo; nccl is not ported)")
     ap.add_argument("--prompt-len", type=int, default=32,
                     help="prompt length in tokens (uniform)")
     ap.add_argument("--gen", type=int, default=16,
@@ -99,28 +122,47 @@ def make_requests(args, vocab_size: int):
 
 
 def _refuse_unported(args) -> M.MeshAxes:
-    """The mesh of ``--mesh``; raises on the flags and meshes not ported."""
+    """The mesh of ``--mesh``; raises on the flags not ported."""
     for flag, item in (("overlap", "overlapped schedule"),
                        ("telemetry", "runtime tooling")):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported to PyTorch yet: it waits for the "
                 f"ROADMAP.md §1 item '{item}'")
-    return M.MeshAxes(tuple(int(x) for x in args.mesh.split(",")))
+    return mesh_axes(args.mesh)
 
 
-def _setup(args):
-    """(cfg, axes, model): float32 weights from seed 0 on ``--device``."""
+def _setup(args, device=None):
+    """(cfg, axes, model): float32 weights from seed 0 on ``device``
+    (default ``--device``), this rank's shards of them."""
     axes = _refuse_unported(args)
     cfg = get_config(args.arch)
     if args.preset == "smoke":
         cfg = cfg.reduced()
-    return cfg, axes, ST.init_model(cfg, axes, seed=0, device=args.device)
+    return cfg, axes, ST.init_model(cfg, axes, seed=0,
+                                    device=device or args.device)
+
+
+def _say(*a) -> None:
+    """Print on rank 0 only."""
+    if M.process_rank() == 0:
+        print(*a, flush=True)
 
 
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def _delta(after: dict, before: dict) -> dict:
+    """Counters ``after`` less ``before``, nested dicts of numbers."""
+    return {k: _delta(v, before.get(k, {})) if isinstance(v, dict)
+            else v - before.get(k, 0) for k, v in after.items()}
+
+
+def _counters():
+    """This process's kernel launches and collective counters."""
+    return ops.launches(), copy.deepcopy(M.COMM), copy.deepcopy(M.COMM_AXES)
 
 
 @dataclasses.dataclass
@@ -129,6 +171,13 @@ class FixedResult:
     logits: torch.Tensor     # the last decode step's logits (batch, 1, V)
     prefill_s: float         # the timed prefill, host clock
     decode_s: float          # the gen - 1 timed decode steps, host clock
+    # the timed prefill and decode steps' kernel launches and collectives
+    # (by kind, by axis), and the hash of the token batches they were fed
+    launches: dict = dataclasses.field(default_factory=dict)
+    comm: dict = dataclasses.field(default_factory=dict)
+    comm_axes: dict = dataclasses.field(default_factory=dict)
+    plan_sha256: str = ""
+    prompts: np.ndarray = None   # (batch, prompt_len) the prompts served
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -141,7 +190,9 @@ def run_fixed(args, model=None) -> FixedResult:
     throwaway caches, then a timed prefill of ``--batch`` prompts of
     ``--prompt-len`` tokens and ``--gen`` - 1 greedy decode steps. A caller
     may pass the model instead of building it; the flags are checked
-    either way."""
+    either way. On a mesh each rank runs its batch shard, and the greedy
+    ids come from the logits gathered over y and the batch axes, the same
+    on every rank."""
     _refuse_unported(args)
     if model is None:
         _, _, model = _setup(args)
@@ -157,73 +208,137 @@ def run_fixed(args, model=None) -> FixedResult:
     ).to(dev)
 
     def greedy(logits):
-        return logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        logits = ST.gather_logits(logits, axes)
+        return logits, logits[:, -1].argmax(-1)[:, None].to(torch.int32)
 
     t0 = time.time()
     warm = ST.zeros_caches(ct, dev)
     wl, warm = pre_fn(model, warm, tokens)
-    wl, warm = dec_fn(model, warm, greedy(wl), args.prompt_len)
+    wl, warm = dec_fn(model, warm, greedy(wl)[1], args.prompt_len)
     _sync(dev)
-    print(f"warmup in {time.time() - t0:.2f}s")
+    _say(f"warmup in {time.time() - t0:.2f}s")
     del warm, wl
 
+    before = _counters()
+    plan = hashlib.sha256(tokens.cpu().numpy().tobytes())
     caches = ST.zeros_caches(ct, dev)
     t0 = time.time()
     logits, caches = pre_fn(model, caches, tokens)
-    tok = greedy(logits)
+    logits, tok = greedy(logits)
     _sync(dev)
     prefill_s = time.time() - t0
-    print(f"prefill {args.batch}x{args.prompt_len} in {prefill_s:.3f}s")
+    _say(f"prefill {args.batch}x{args.prompt_len} in {prefill_s:.3f}s")
     out = [tok.cpu().numpy()]
     t0 = time.time()
     for i in range(args.gen - 1):
+        plan.update(out[-1].tobytes())
         logits, caches = dec_fn(model, caches, tok, args.prompt_len + i)
-        tok = greedy(logits)
+        logits, tok = greedy(logits)
         out.append(tok.cpu().numpy())
     _sync(dev)
+    decode_s = time.time() - t0
+    launches, comm, comm_axes = (_delta(a, b) for a, b in
+                                 zip(_counters(), before))
     res = FixedResult(np.concatenate(out, axis=1), logits, prefill_s,
-                      time.time() - t0)
-    print("generated ids:\n", res.ids)
-    print(f"decode: {args.gen - 1} steps x batch {args.batch} = "
-          f"{res.decode_tokens_per_s:,.1f} tok/s")
+                      decode_s, launches, comm, comm_axes, plan.hexdigest(),
+                      tokens.cpu().numpy())
+    _say("generated ids:\n", res.ids)
+    _say(f"decode: {args.gen - 1} steps x batch {args.batch} = "
+         f"{res.decode_tokens_per_s:,.1f} tok/s")
     return res
 
 
-def run_continuous(args):
-    """Serve ``args.requests`` requests; returns the engine."""
+def run_continuous(args, model=None):
+    """Serve ``args.requests`` requests (with ``model``, or one built from
+    the flags); returns (engine, stats, requests). The launch counts and
+    collective counters are set to 0 just before the timed run."""
     from repro_torch.launch.serving import PagedEngine, ServeConfig
 
-    cfg, axes, model = _setup(args)
+    if model is None:
+        _, _, model = _setup(args)
+    cfg, axes = model.cfg, model.axes
     scfg = ServeConfig(slots=args.slots, page_size=args.page_size,
                        pages_per_shard=args.pages, chunk=args.chunk)
     engine = PagedEngine(cfg, axes, model, scfg)
     t0 = time.time()
     engine.warmup()
-    print(f"warmup in {time.time() - t0:.2f}s")
+    _say(f"warmup in {time.time() - t0:.2f}s")
     reqs = make_requests(args, cfg.vocab_size)
+    ops.reset_launches()
+    M.reset_comm()
     stats = engine.run(reqs)
     for r in reqs[: min(4, len(reqs))]:
-        print(f"req {r.rid}: {np.asarray(r.generated, np.int32)}")
-    print(f"served {stats.n_requests} requests / "
-          f"{stats.total_new_tokens} tokens in {stats.wall_s:.2f}s "
-          f"({stats.n_steps} steps, {stats.n_preemptions} preemptions)")
-    print(f"tokens/s {stats.tokens_per_s:,.1f}  "
-          f"latency p50/p99 {stats.latency_p50_ms:.1f}/"
-          f"{stats.latency_p99_ms:.1f} ms  "
-          f"ttft p50/p99 {stats.ttft_p50_ms:.1f}/"
-          f"{stats.ttft_p99_ms:.1f} ms")
-    return engine
+        _say(f"req {r.rid}: {np.asarray(r.generated, np.int32)}")
+    _say(f"served {stats.n_requests} requests / "
+         f"{stats.total_new_tokens} tokens in {stats.wall_s:.2f}s "
+         f"({stats.n_steps} steps, {stats.n_preemptions} preemptions)")
+    _say(f"tokens/s {stats.tokens_per_s:,.1f}  "
+         f"latency p50/p99 {stats.latency_p50_ms:.1f}/"
+         f"{stats.latency_p99_ms:.1f} ms  "
+         f"ttft p50/p99 {stats.ttft_p50_ms:.1f}/"
+         f"{stats.ttft_p99_ms:.1f} ms")
+    return engine, stats, reqs
+
+
+def _report(args, run, model, serve: dict, mine: dict) -> None:
+    """Rank 0 prints ``{"serve": serve + every rank's report}``; ``mine``
+    gains this rank's peak memory and parameter hash first."""
+    dev = next(model.parameters()).device
+    mine = dict(mine, rank=run["rank"], device=str(dev),
+                max_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+                param_sha256=ST.param_sha256(model))
+    ranks = [None] * run["world"]
+    dist.all_gather_object(ranks, mine)
+    _say(json.dumps({"serve": dict(
+        serve, arch=model.cfg.name, mode=args.mode, mesh=args.mesh,
+        backend=args.backend, ranks=ranks)}))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    axes = _refuse_unported(args)
+    run = init_mesh(axes, backend=args.backend, device=args.device)
+    try:
+        _serve(args, run)
+    finally:
+        close_mesh()
+
+
+def _serve(args, run) -> None:
+    _, _, model = _setup(args, run["device"])
     if args.mode == "fixed":
-        logits = run_fixed(args).logits
+        res = run_fixed(args, model)
+        logits = res.logits
+        lat = (res.prefill_s + res.decode_s) * 1e3
+        serve = dict(ids=res.ids.tolist(),
+                     tokens_per_s=res.decode_tokens_per_s,
+                     ttft_p50_ms=res.prefill_s * 1e3,
+                     ttft_p99_ms=res.prefill_s * 1e3, latency_p50_ms=lat,
+                     latency_p99_ms=lat, prefill_s=res.prefill_s,
+                     decode_s=res.decode_s)
+        mine = dict(n_steps=args.gen, launches=res.launches, comm=res.comm,
+                    comm_axes=res.comm_axes, plan_sha256=res.plan_sha256)
     else:
-        logits = run_continuous(args).last_logits
+        engine, stats, reqs = run_continuous(args, model)
+        logits = engine.last_logits
+        serve = dict(ids=[r.generated for r in reqs],
+                     tokens_per_s=stats.tokens_per_s,
+                     ttft_p50_ms=stats.ttft_p50_ms,
+                     ttft_p99_ms=stats.ttft_p99_ms,
+                     latency_p50_ms=stats.latency_p50_ms,
+                     latency_p99_ms=stats.latency_p99_ms,
+                     wall_s=stats.wall_s,
+                     n_preemptions=stats.n_preemptions)
+        mine = dict(n_steps=stats.n_steps, launches=ops.launches(),
+                    comm=copy.deepcopy(M.COMM),
+                    comm_axes=copy.deepcopy(M.COMM_AXES),
+                    plan_sha256=engine.plan_hash.hexdigest())
     if not torch.isfinite(logits).all():
         raise RuntimeError("non-finite logits")
-    print("SERVE OK")
+    if run["world"] > 1:
+        _report(args, run, model, serve, mine)
+    _say("SERVE OK")
 
 
 if __name__ == "__main__":

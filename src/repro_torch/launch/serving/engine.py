@@ -9,12 +9,23 @@ between steps. Each step sends its plan to the device in one copy and
 brings the sampled ids back in one: that copy back is the step's only
 wait for the device.
 
+On a mesh every rank runs the same scheduler on the same global plan.
+Slots shard over the batch axes (data x z) in contiguous blocks, as the
+scheduler's per-shard page pools do: each rank sends the device the
+global plan (the table holds shard-local page ids), runs its batch
+shard's rows of it (``steps.make_paged_step``), and gathers the logits
+over y (vocab) and the batch axes (rows) before the argmax, so every rank
+samples the same ids from the same bits. The scheduler admits by the
+clock, so every rank takes rank 0's reading of it (``mesh.from_rank0``)
+each iteration.
+
 Sampling is greedy argmax over the full (padded-vocab) logits, as in the
 JAX engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import List
 
@@ -75,7 +86,7 @@ class PagedEngine:
             raise ValueError(
                 f"slots={scfg.slots} must be a multiple of the batch "
                 f"shards g_data*g_z={shards} (slots shard over data x z)")
-        self.model, self.scfg = model, scfg
+        self.model, self.scfg, self.axes = model, scfg, axes
         self.device = model.embed.device
         build = ST.make_paged_step(cfg, axes, dtype=dtype)
         self.step_fn, ct = build(shards * scfg.pages_per_shard,
@@ -87,6 +98,7 @@ class PagedEngine:
             allocators=[PageAllocator(scfg.pages_per_shard)
                         for _ in range(shards)])
         self.last_logits = None    # (R, 1, V) of the latest step
+        self.plan_hash = hashlib.sha256()   # of the plans :meth:`run` ran
 
     # ------------------------------------------------------------------ #
 
@@ -107,6 +119,7 @@ class PagedEngine:
         table = buf[2 * n + R:].view(R, -1)
         logits, self.pools = self.step_fn(self.model, tokens, self.pools,
                                           positions, q_len, table)
+        logits = ST.gather_logits(logits, self.axes)
         self.last_logits = logits
         return torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32
                                                          ).cpu().numpy()
@@ -136,8 +149,10 @@ class PagedEngine:
         t0 = time_fn()
         n_steps = 0
         total_new = 0
+        self.plan_hash = hashlib.sha256()
         while not s.all_done():
-            now = time_fn() - t0
+            # every rank admits by rank 0's clock, so the plans agree
+            now = M.from_rank0(time_fn() - t0)
             s.admit(now)
             plan = s.plan(self.scfg.chunk)
             if plan is None:
@@ -145,6 +160,8 @@ class PagedEngine:
                 next_t = s.queue[0].arrival
                 time.sleep(min(max(next_t - now, 0.0), 0.01))
                 continue
+            for a in (plan.tokens, plan.positions, plan.q_len, plan.table):
+                self.plan_hash.update(np.ascontiguousarray(a).tobytes())
             sampled = self._run_plan(plan)
             n_steps += 1
             total_new += s.commit(plan, sampled, now=time_fn() - t0)

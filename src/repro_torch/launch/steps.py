@@ -4,11 +4,14 @@
 PyTorch runs eagerly, so where the JAX package builds a jitted,
 shard_map'ped step, ``make_train_step``, ``make_paged_step``,
 ``make_prefill_step`` and ``make_decode_step`` only bind the configuration
-and return the step.
+and return the step. A serving step takes the global batch, as the JAX
+step does, and runs this rank's rows of it: the rows of batch shard
+``axis_index((data, z))``, first-name-major (``mesh.batch_shard``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import torch
@@ -42,7 +45,9 @@ def init_model(cfg: ArchConfig, axes: Optional[M.MeshAxes] = None,
                dtype=torch.float32) -> D.Decoder:
     """Random weights from ``seed``, drawn on ``device`` from the JAX
     package's distributions (N(0, 1/k) projections, N(0, 0.02^2)
-    embedding, unit norms). The values differ from ``jax.random``'s."""
+    embedding, unit norms). The values differ from ``jax.random``'s. On a
+    mesh each rank keeps its block of every parameter by its
+    PartitionSpec: the slices of the one-card model of the same seed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return D.Decoder(cfg, axes or M.MeshAxes(), gen=gen, dtype=dtype)
@@ -92,6 +97,16 @@ def no_decay_names(model: D.Decoder):
             if OPT._no_decay(path)}
 
 
+def refuse_tensor_mesh(axes: M.MeshAxes) -> None:
+    """Training runs a factor above 1 on the seq axis only: the backward's
+    collectives over data, x, y and z wait for their ROADMAP item."""
+    if axes.size(("data", "x", "y", "z")) > 1:
+        raise NotImplementedError(
+            f"mesh {axes.sizes}: training with data, x, y or z above 1 is "
+            f"not ported to PyTorch yet: it waits for the ROADMAP.md §1 item "
+            f"'training on the multi-rank mesh'")
+
+
 def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
                     opt_cfg: OPT.AdamWConfig,
                     opts: TrainOptions = TrainOptions()):
@@ -119,6 +134,7 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             f"gradient sync {opts.gradsync!r} (ZeRO, ZeRO-3, streamed "
             f"buckets) is not ported to PyTorch yet: it waits for the "
             f"ROADMAP.md §1 item 'rest of the training stack'")
+    refuse_tensor_mesh(axes)
     loss_fn = _loss_fn(cfg, axes, opts)
 
     def step(model, opt_state, batch, plain: bool = False):
@@ -174,16 +190,44 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
     return step
 
 
+def param_sha256(model) -> str:
+    """SHA-256 of every parameter's bytes, in order: equal on two ranks
+    only if their parameters are bitwise equal."""
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def gather_logits(logits, axes: M.MeshAxes):
+    """This rank's logits (R_local, ..., V/y) as the global (R, ..., V):
+    gathered over y (vocab) and over the batch axes (rows), as the JAX
+    step's ``out_specs`` assemble them. Every rank gets the same bits."""
+    logits = M.all_gather(logits, axes, "y", dim=-1)
+    return M.all_gather(logits, axes, axes.batch_axes(), dim=0)
+
+
 def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,
                     dtype=torch.float32):
     """``build(n_pages, page_size)`` returns ``(step, cache_specs)``:
     step(model, tokens, pools, positions, q_len, table) -> (logits, pools),
     the continuous-batching step over the paged KV cache, and the (shape,
-    dtype) of the pools it reads and writes. The engine runs the same step
-    at two row widths: T = chunk while prefill work is pending, T = 1 for
-    pure decode."""
+    dtype) of this rank's pools (``n_pages`` is the global pool, each batch
+    shard owning ``n_pages / (g_data g_z)`` of them). The step takes the
+    global rows (R, ...), the table holding each shard's local page ids,
+    and runs this rank's batch shard of them: logits (R / (g_data g_z), 1,
+    V/y). The engine runs the same step at two row widths: T = chunk while
+    prefill work is pending, T = 1 for pure decode."""
+    def step(model, tokens, pools, positions, q_len, table, *,
+             plain: bool = False):
+        tokens, positions, q_len, table = (
+            M.batch_shard(t, axes) for t in (tokens, positions, q_len,
+                                               table))
+        return D.paged_step(model, tokens, pools, positions, q_len, table,
+                            plain=plain)
+
     def build(n_pages: int, page_size: int):
-        return D.paged_step, D.decoder_paged_cache_specs(
+        return step, D.decoder_paged_cache_specs(
             cfg, axes, n_pages, page_size, dtype=dtype)
     return build
 
@@ -191,17 +235,19 @@ def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,
 def make_prefill_step(cfg: ArchConfig, axes: M.MeshAxes, *,
                       dtype=torch.float32):
     """``build(batch, seq, cache_seq)`` returns ``(step, cache_specs)``:
-    step(model, caches, tokens) -> (last-row logits (batch, 1, V), caches),
-    the prefill of ``batch`` prompts of ``seq`` tokens into fixed-batch
-    caches of ``cache_seq`` positions, and the (shape, dtype) of those
-    caches (:func:`decoder.decoder_cache_specs`)."""
+    step(model, caches, tokens) -> (last-row logits, caches), the prefill
+    of the global ``batch`` prompts (batch, seq) of ``seq`` tokens into
+    fixed-batch caches of ``cache_seq`` positions, and the (shape, dtype)
+    of this rank's caches (:func:`decoder.decoder_cache_specs`). The step
+    runs this rank's batch shard: logits (batch / (g_data g_z), 1, V/y)."""
     def build(batch: int, seq: int, cache_seq: int):
         if seq > cache_seq:
             raise ValueError(f"prompt of {seq} tokens exceeds the cache's "
                              f"{cache_seq} positions")
 
         def step(model, caches, tokens, plain: bool = False):
-            return D.prefill(model, tokens, caches, plain=plain)
+            return D.prefill(model, M.batch_shard(tokens, axes), caches,
+                             plain=plain)
         return step, D.decoder_cache_specs(cfg, axes, batch, cache_seq,
                                            dtype=dtype)
     return build
@@ -210,13 +256,14 @@ def make_prefill_step(cfg: ArchConfig, axes: M.MeshAxes, *,
 def make_decode_step(cfg: ArchConfig, axes: M.MeshAxes, *,
                      dtype=torch.float32):
     """``build(batch, seq)`` returns ``(step, cache_specs)``: step(model,
-    caches, tokens, pos) -> (logits (batch, 1, V), caches), one greedy
-    decode step of the ``batch`` sequences at position ``pos``, and the
-    (shape, dtype) of the caches of ``seq`` positions it reads and
-    writes."""
+    caches, tokens, pos) -> (logits, caches), one greedy decode step of the
+    global ``batch`` sequences' tokens (batch, 1) at position ``pos``, run
+    on this rank's batch shard (logits (batch / (g_data g_z), 1, V/y)), and
+    the (shape, dtype) of this rank's caches of ``seq`` positions."""
     def build(batch: int, seq: int):
         def step(model, caches, tokens, pos, plain: bool = False):
-            return D.decode_step(model, tokens, caches, pos, plain=plain)
+            return D.decode_step(model, M.batch_shard(tokens, axes), caches,
+                                 pos, plain=plain)
         return step, D.decoder_cache_specs(cfg, axes, batch, seq,
                                            dtype=dtype)
     return build

@@ -29,15 +29,14 @@ Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
 §1 item it waits for): ZeRO and checkpoints (``--zero*``,
 ``--dp-bucket-mb``, ``--ckpt*``, ``--resume``), the runtime tooling
 (``--chaos``, ``--probe-every``, ``--telemetry``, ``--log-file``,
-``--profile-steps``, ``--calib``), data, x, y or z above 1 and ``--backend
-nccl``.
+``--profile-steps``, ``--calib``), data, x, y or z above 1 ('training on
+the multi-rank mesh') and ``--backend nccl``.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import dataclasses
-import hashlib
 import json
 import time
 from typing import Dict, List, Optional
@@ -52,6 +51,7 @@ from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
+from repro_torch.launch.steps import param_sha256
 from repro_torch.optim.adamw import AdamWConfig, init_state
 
 # flag -> the ROADMAP.md §1 item it waits for
@@ -108,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4,
                     help="peak AdamW learning rate")
     ap.add_argument("--mesh", default="1,1,1,1",
-                    help="g_data,g_x,g_y,g_z[,g_seq] (the port runs a "
+                    help="g_data,g_x,g_y,g_z[,g_seq] (training runs a "
                          "factor above 1 on g_seq only, one process per "
                          "rank under torch.distributed.run)")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
@@ -161,15 +161,6 @@ class TrainResult:
     ranks: List[dict] = dataclasses.field(default_factory=list)
 
 
-def param_sha256(model) -> str:
-    """SHA-256 of every parameter's bytes, in order: equal on two ranks
-    only if their parameters are bitwise equal."""
-    h = hashlib.sha256()
-    for p in model.parameters():
-        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
-    return h.hexdigest()
-
-
 def main(argv=None) -> TrainResult:
     args = build_parser().parse_args(argv)
     for flag, item in REFUSED.items():
@@ -178,6 +169,7 @@ def main(argv=None) -> TrainResult:
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
                 f"it waits for the ROADMAP.md §1 item '{item}'")
     axes = mesh_axes(args.mesh)
+    ST.refuse_tensor_mesh(axes)
     cfg = preset_config(get_config(args.arch), args.preset)
     run = init_mesh(axes, backend=args.backend, device=args.device)
     try:

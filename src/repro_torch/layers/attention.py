@@ -2,7 +2,12 @@
 ``repro.layers.attention``).
 
 Heads shard over y (a paper "normal" layer for q/k/v) and the output
-projection is a "transposed" layer (§4.1). Four modes are ported:
+projection is a "transposed" layer (§4.1). Where G_y exceeds the KV heads
+(G_y a multiple of n_kv_heads), the KV heads are duplicated across y
+ranks, as in the JAX package: one (d, 2 nkv hd) projection ``wkv_dup``,
+sharded over x and replicated over y, from which each y rank keeps the one
+head its query heads read; its caches hold one KV head. Four modes are
+ported:
 
   * ``"train"``: causal (optionally sliding-window) attention over each
     whole sequence, kernel K2 forward and backward; on a seq axis above 1,
@@ -49,34 +54,40 @@ def _plain_rms(x, gamma, axes: M.MeshAxes, eps: float = 1e-6, *,
 
 
 def kv_layout(cfg, axes: M.MeshAxes):
-    """(nq_local, nkv_local). The JAX package duplicates KV heads across
-    y ranks when G_y > n_kv_heads; that layout is not ported."""
-    if cfg.n_kv_heads % axes.gy:
-        raise NotImplementedError(
-            f"{cfg.name}: the duplicated-KV layout (G_y={axes.gy} > "
-            f"n_kv_heads={cfg.n_kv_heads}) is not ported; it waits for the "
-            f"ROADMAP.md §1 item 'multi-rank mesh'")
-    return cfg.n_heads // axes.gy, cfg.n_kv_heads // axes.gy
+    """(nq_local, nkv_local, duplicated?). When G_y > n_kv_heads, KV heads
+    are duplicated across y ranks (Megatron's GQA-under-wide-TP layout):
+    each y rank holds one."""
+    nq_l = cfg.n_heads // axes.gy
+    if cfg.n_kv_heads % axes.gy == 0:
+        return nq_l, cfg.n_kv_heads // axes.gy, False
+    if axes.gy % cfg.n_kv_heads or cfg.n_heads % axes.gy:
+        raise ValueError(f"{cfg.name}: cannot lay out {cfg.n_kv_heads} kv "
+                         f"heads on G_y={axes.gy}")
+    return nq_l, 1, True
 
 
 class Attention(nn.Module):
-    """Separate q/k/v projections (``attn_init``'s non-duplicated branch),
-    with optional qk-norm."""
+    """``attn_init``'s self-attention: separate q/k/v projections, or in
+    the duplicated-KV layout q and one kv projection, with optional
+    qk-norm. The draws follow the JAX init's order of leaves."""
 
     def __init__(self, cfg, axes: M.MeshAxes, *, gen: torch.Generator,
                  dtype=torch.float32):
         super().__init__()
         self.cfg, self.axes = cfg, axes
         hd = cfg.head_dim_
-        self.nq_l, self.nkv_l = kv_layout(cfg, axes)
+        self.nq_l, self.nkv_l, self.dup = kv_layout(cfg, axes)
         nq, nkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
 
-        def lin(k, n):
-            return nn.Parameter(PP.tp_linear_init(gen, k, n, axes,
-                                                  dtype=dtype))
-        self.wq, self.wk, self.wv = lin(d, nq * hd), lin(d, nkv * hd), \
-            lin(d, nkv * hd)
-        self.wo = lin(nq * hd, d)
+        def lin(k, n, in_shard="x", out_shard="y"):
+            return nn.Parameter(PP.tp_linear_init(
+                gen, k, n, axes, in_shard, out_shard, dtype=dtype))
+        self.wq = lin(d, nq * hd)
+        if self.dup:
+            self.wkv_dup = lin(d, 2 * nkv * hd, "x", None)
+        else:
+            self.wk, self.wv = lin(d, nkv * hd), lin(d, nkv * hd)
+        self.wo = lin(nq * hd, d, "y", "x")
         if cfg.qk_norm:
             def ones():
                 return nn.Parameter(torch.ones(hd, dtype=dtype,
@@ -102,10 +113,19 @@ class Attention(nn.Module):
         R, T = h.shape[:2]
         q = PP.tp_matmul(h, self.wq, axes, "x", "y", plain=plain).reshape(
             R, T, self.nq_l, hd)
-        k = PP.tp_matmul(h, self.wk, axes, "x", "y", plain=plain).reshape(
-            R, T, self.nkv_l, hd)
-        v = PP.tp_matmul(h, self.wv, axes, "x", "y", plain=plain).reshape(
-            R, T, self.nkv_l, hd)
+        if self.dup:
+            kv = PP.tp_matmul(h, self.wkv_dup, axes, "x", None,
+                              plain=plain).reshape(R, T, 2, cfg.n_kv_heads,
+                                                   hd)
+            # this rank's duplicated head: kv head j serves q heads [j g, ..)
+            j = (M.axis_index(axes, "y") * cfg.n_kv_heads) // axes.gy
+            k = kv[:, :, 0, j:j + 1].contiguous()
+            v = kv[:, :, 1, j:j + 1].contiguous()
+        else:
+            k = PP.tp_matmul(h, self.wk, axes, "x", "y", plain=plain
+                             ).reshape(R, T, self.nkv_l, hd)
+            v = PP.tp_matmul(h, self.wv, axes, "x", "y", plain=plain
+                             ).reshape(R, T, self.nkv_l, hd)
         if cfg.qk_norm:                      # before RoPE, as in JAX
             q = _plain_rms(q, self.q_norm, axes, plain=plain)
             k = _plain_rms(k, self.k_norm, axes, plain=plain)
@@ -269,21 +289,32 @@ def dense_page_view(cache):
     return cache.view(B * n, DENSE_PAGE, nkv, hd), table
 
 
+# the layout of the dense and paged K/V caches (the JAX
+# ``attn_cache_spec``): sequences or pages over the batch axes, KV heads
+# over y
+CACHE_SPEC = (M.MeshAxes.batch_axes(), None, "y", None)
+
+
 def attn_cache_spec(cfg, axes: M.MeshAxes, batch: int, seq: int, *,
                     dtype=torch.float32):
-    """(shape, dtype) of this layer's dense K and V caches: (batch, S, kv
-    heads, head_dim), S = ``seq`` rounded up to a multiple of
-    ``DENSE_PAGE``."""
-    _, nkv_l = kv_layout(cfg, axes)
+    """(shape, dtype) of this rank's dense K and V caches for a global
+    ``batch``: (batch / (g_data g_z), S, local kv heads, head_dim), S =
+    ``seq`` rounded up to a multiple of ``DENSE_PAGE``; KV heads shard
+    over y (one duplicated head a y rank where G_y > n_kv_heads)."""
+    _, nkv_l, _ = kv_layout(cfg, axes)
     S = -(-seq // DENSE_PAGE) * DENSE_PAGE
-    shape = (batch, S, nkv_l, cfg.head_dim_)
+    shape = M.local_shape((batch, S, nkv_l * axes.gy, cfg.head_dim_), axes,
+                          CACHE_SPEC)
     return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
 def paged_attn_cache_spec(cfg, axes: M.MeshAxes, n_pages: int,
                           page_size: int, *, dtype=torch.float32):
-    """(shape, dtype) of this layer's K and V page pools: (n_pages,
-    page_size, kv heads, head_dim). Page 0 is the reserved null page."""
-    _, nkv_l = kv_layout(cfg, axes)
-    shape = (n_pages, page_size, nkv_l, cfg.head_dim_)
+    """(shape, dtype) of this rank's K and V page pools of a global pool
+    of ``n_pages``: (n_pages / (g_data g_z), page_size, local kv heads,
+    head_dim). Each batch shard's page 0 is its reserved null page, and
+    its page tables hold its local page ids."""
+    _, nkv_l, _ = kv_layout(cfg, axes)
+    shape = M.local_shape((n_pages, page_size, nkv_l * axes.gy,
+                           cfg.head_dim_), axes, CACHE_SPEC)
     return {"k": (shape, dtype), "v": (shape, dtype)}

@@ -36,18 +36,23 @@ class Mamba(nn.Module):
     def __init__(self, cfg, axes: M.MeshAxes, *, gen: torch.Generator,
                  dtype=torch.float32):
         super().__init__()
+        if axes.tensor > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: a Mamba layer on a mesh with x, y or z above 1 "
+                f"(mesh {axes.sizes}) is not ported to PyTorch yet: it "
+                f"waits for the ROADMAP.md §1 item 'multi-rank mesh'")
         self.cfg, self.axes = cfg, axes
         mc = cfg.mamba
         d, di, N, dtr = cfg.d_model, mc.expand * cfg.d_model, mc.d_state, \
             cfg.dt_rank
         dev = gen.device
 
-        def lin(k, n):
-            return nn.Parameter(PP.tp_linear_init(gen, k, n, axes,
-                                                  dtype=dtype))
+        def lin(k, n, in_shard="x", out_shard="y"):
+            return nn.Parameter(PP.tp_linear_init(
+                gen, k, n, axes, in_shard, out_shard, dtype=dtype))
         self.w_in, self.w_gate = lin(d, di), lin(d, di)
-        self.w_x, self.w_dt, self.w_out = lin(di, dtr + 2 * N), \
-            lin(dtr, di), lin(di, d)
+        self.w_x, self.w_dt, self.w_out = lin(di, dtr + 2 * N, "y", None), \
+            lin(dtr, di, None, "y"), lin(di, d, "y", "x")
         self.conv_w = nn.Parameter((torch.randn(
             (di, mc.d_conv), generator=gen, device=dev) * 0.1).to(dtype))
         self.conv_b = nn.Parameter(torch.zeros(di, dtype=dtype, device=dev))
@@ -114,13 +119,22 @@ class Mamba(nn.Module):
         return PP.tp_matmul(y, self.w_out, axes, "y", "x", plain=plain)
 
 
+# the layout of the decode state (the JAX ``mamba_state_spec``): sequences
+# over the batch axes, inner channels over y
+STATE_SPECS = {"conv": (M.MeshAxes.batch_axes(), None, "y"),
+               "ssm": (M.MeshAxes.batch_axes(), "y", None)}
+
+
 def mamba_state_spec(cfg, axes: M.MeshAxes, batch: int, *,
                      dtype=torch.float32):
-    """(shape, dtype) of this layer's decode state: the conv's last K-1
-    inputs (B, K-1, d_inner) in the model's dtype and the scan state (B,
-    d_inner, N) in fp32."""
+    """(shape, dtype) of this rank's decode state for a global ``batch``:
+    the conv's last K-1 inputs (B, K-1, d_inner) in the model's dtype and
+    the scan state (B, d_inner, N) in fp32, B = batch / (g_data g_z)."""
     mc = cfg.mamba
-    di = mc.expand * cfg.d_model // axes.gy
-    return {"conv": ((batch, mc.d_conv - 1, di), dtype),
-            "ssm": ((batch, di, mc.d_state), torch.float32)}
+    di = mc.expand * cfg.d_model
+    shapes = {"conv": (batch, mc.d_conv - 1, di),
+              "ssm": (batch, di, mc.d_state)}
+    dtypes = {"conv": dtype, "ssm": torch.float32}
+    return {k: (M.local_shape(v, axes, STATE_SPECS[k]), dtypes[k])
+            for k, v in shapes.items()}
 

@@ -2,7 +2,9 @@
 
 The up and gate projections are paper "normal" layers and the down
 projection a "transposed" one (§4.1). ``wi``, ``wg`` and ``wo`` stay
-separate weights, as in the JAX package.
+separate weights, as in the JAX package; each rank holds its block by
+``partition.wspec``: ``wi`` and ``wg`` (d/x, d_ff/(y z)), ``wo`` (d_ff/y,
+d/(x z)).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ class MLP(nn.Module):
         self.wi = nn.Parameter(PP.tp_linear_init(gen, d_model, d_ff, axes,
                                                  dtype=dtype))
         self.wo = nn.Parameter(PP.tp_linear_init(gen, d_ff, d_model, axes,
-                                                 dtype=dtype))
+                                                 "y", "x", dtype=dtype))
         self.wg = nn.Parameter(PP.tp_linear_init(gen, d_model, d_ff, axes,
                                                  dtype=dtype))
 

@@ -127,10 +127,21 @@ class ArchConfig:
 
     def axes_ok(self, axes) -> Optional[str]:
         """Why this config cannot run on ``axes`` (None if it can): the
-        JAX ``axes_ok``'s checks of a seq axis. Context parallelism needs
-        softmax attention everywhere (a recurrent mixer mixes across the
-        whole sequence and would see only the local shard) and a
-        ``max_seq`` that the seq axis divides."""
+        JAX ``axes_ok``'s checks, in its words. x must divide d_model, y
+        the query heads, and y and the KV heads must divide one another
+        (the duplicated-KV layout takes G_y a multiple of them); MoE
+        experts shard over y. Context parallelism needs softmax attention
+        everywhere (a recurrent mixer mixes across the whole sequence and
+        would see only the local shard) and a ``max_seq`` that the seq
+        axis divides."""
+        if self.d_model % axes.gx:
+            return f"d_model {self.d_model} % gx {axes.gx}"
+        if self.n_heads % axes.gy:
+            return f"heads {self.n_heads} % gy {axes.gy}"
+        if self.n_kv_heads % axes.gy and axes.gy % self.n_kv_heads:
+            return f"kv heads {self.n_kv_heads} vs gy {axes.gy}"
+        if self.moe and self.moe.n_experts % axes.gy:
+            return f"experts {self.moe.n_experts} % gy {axes.gy}"
         if axes.gseq > 1:
             if set(self.mixers()) != {"attn"}:
                 return (f"seq axis (g_seq={axes.gseq}) needs all-attention "

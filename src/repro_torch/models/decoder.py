@@ -7,7 +7,10 @@ loop. Each layer's (mixer, ffn) kind comes from ``cfg.layer_kinds()``:
 softmax attention or Mamba, and the gated MLP. Parameter names follow the
 JAX tree with the stacking undone: ``embed``, ``layers.<i>.norm1.g``,
 ``layers.<i>.mixer.wq``, ..., ``final_norm.g``, ``lm_head`` when the head
-is untied (``convert`` maps one onto the other).
+is untied (``convert`` maps one onto the other). On a mesh every module
+is built at this rank's local shapes (``partition.LEAF_SPECS``), and the
+serving functions run this rank's batch shard: their logits are (R_local,
+1, V/y).
 """
 from __future__ import annotations
 
@@ -207,9 +210,10 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
 def decoder_paged_cache_specs(cfg: ArchConfig, axes: M.MeshAxes,
                               n_pages: int, page_size: int, *,
                               dtype=torch.float32):
-    """(shape, dtype) of the paged serving cache: one K and one V page
-    pool per attention layer, stacked over layers, (n_layers, n_pages,
-    page_size, kv heads, head_dim).
+    """(shape, dtype) of this rank's paged serving cache for a global pool
+    of ``n_pages``: one K and one V page pool per attention layer, stacked
+    over layers, (n_layers, n_pages / (g_data g_z), page_size, local kv
+    heads, head_dim).
 
     Paged serving gates to text decoders whose mixers are all softmax
     attention, as in the JAX package."""
@@ -257,10 +261,11 @@ def paged_step(model: Decoder, tokens, pools, positions, q_len, table, *,
 
 def decoder_cache_specs(cfg: ArchConfig, axes: M.MeshAxes, batch: int,
                         seq: int, *, dtype=torch.float32):
-    """(shape, dtype) of the fixed-batch decode cache, one dict per layer
-    (the JAX tree stacks them (n_periods, ...) per segment position;
-    ``convert.caches_from_jax`` maps one onto the other): an attention
-    layer's dense K and V (batch, S, kv heads, head_dim), S = ``seq``
+    """(shape, dtype) of this rank's fixed-batch decode cache for a global
+    ``batch``, one dict per layer (the JAX tree stacks them (n_periods,
+    ...) per segment position; ``convert.caches_from_jax`` maps one onto
+    the other): an attention layer's dense K and V (batch / (g_data g_z),
+    S, local kv heads, head_dim), S = ``seq``
     rounded up to a multiple of ``attention.DENSE_PAGE``; a Mamba layer's
     conv and scan states."""
     out = []

@@ -19,7 +19,9 @@ from repro_torch.kernels.flash_attention import (attn_core,
                                                  flash_attention_kernel,
                                                  paged_attention_kernel,
                                                  paged_attention_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm_kernel, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (
+    rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_kernel, rmsnorm_plain,
+    rmsnorm_stats_kernel, rmsnorm_stats_plain)
 from repro_torch.kernels.selective_scan import (selective_scan_kernel,
                                                 selective_scan_plain)
 from repro_torch.launch import steps as ST
@@ -58,6 +60,40 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     rows, flat = x.reshape(-1, shape[-1]), got.reshape(-1, shape[-1])
     for i in {0, rows.shape[0] // 2, rows.shape[0] - 1}:
         assert torch.equal(rmsnorm_kernel(rows[i:i + 1], g)[0], flat[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [((8, 1024), 0), ((256, 1024), 0),
+                                          ((19, 128), 0), ((10, 120), 0),
+                                          ((3, 1024), 1), ((9, 128), 3)])
+def test_rmsnorm_stats_and_apply_match_plain(cuda, shape, offset, dtype):
+    """K3's stats and apply passes (an x-sharded row's two halves around
+    the psum) against their plain versions at the mesh path's local widths
+    and on rows off 16 bytes; stats then apply on a whole row equals the
+    single pass within K3's tolerance (and in its bits)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rows, d = shape
+    buf = torch.randn((rows * d + offset,), generator=gen, device=cuda)
+    x = buf[offset:].view(rows, d).to(dtype)
+    if offset:
+        x = torch.empty((rows * d + offset,), dtype=dtype,
+                        device=cuda)[offset:].view(rows, d).copy_(x)
+    g = (1 + 0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
+    n = (rmsnorm_stats_kernel.launches, rmsnorm_apply_kernel.launches)
+    ss = ops.rmsnorm_stats(x)
+    torch.testing.assert_close(ss, rmsnorm_stats_plain(x), rtol=1e-5,
+                               atol=1e-5)
+    total = ss + torch.rand((rows,), generator=gen, device=cuda) * d
+    got = ops.rmsnorm_apply(x, g, total, full_dim=2 * d)
+    assert (rmsnorm_stats_kernel.launches,
+            rmsnorm_apply_kernel.launches) == (n[0] + 1, n[1] + 1)
+    torch.testing.assert_close(
+        got, rmsnorm_apply_plain(x, g, total, full_dim=2 * d),
+        rtol=TOL[dtype], atol=TOL[dtype])
+    split = rmsnorm_apply_kernel(x, g, ss, full_dim=d)
+    torch.testing.assert_close(split, rmsnorm_kernel(x, g), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert torch.equal(split, rmsnorm_kernel(x, g))
 
 
 def _paged(cuda, dtype, T, hd, seed=0):

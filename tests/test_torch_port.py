@@ -1,6 +1,8 @@
 """The port's boundaries: what it imports, where its entry points run,
 what it refuses, and its copies of the JAX package's numpy-only modules."""
 import ast
+import itertools
+import math
 import pathlib
 
 import numpy as np
@@ -77,9 +79,17 @@ def test_serve_cli_on_cpu(capsys):
                                    ["--overlap"], ["--telemetry"],
                                    ["--mesh", "1,2,1,1"]])
 def test_serve_rejects_what_is_not_ported(flags):
-    match = ("not ported.*'MoE and the expert axis'"
-             if "--arch" in flags else "not ported|port runs")
-    with pytest.raises(NotImplementedError, match=match):
+    """The unported flags raise naming their ROADMAP item; a mesh of more
+    than one rank is served, but only under torch.distributed.run, and
+    outside it raises naming WORLD_SIZE."""
+    if "--mesh" in flags:
+        exc, match = ValueError, "WORLD_SIZE"
+    elif "--arch" in flags:
+        exc, match = NotImplementedError, \
+            "not ported.*'MoE and the expert axis'"
+    else:
+        exc, match = NotImplementedError, "not ported"
+    with pytest.raises(exc, match=match):
         serve.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
 
 
@@ -105,9 +115,9 @@ def test_train_cli_on_cpu(capsys):
     (["--telemetry"], "runtime tooling"),
     (["--profile-steps", "0:1"], "runtime tooling"),
     (["--calib", "auto"], "runtime tooling"),
-    (["--mesh", "2,1,1,1"], "multi-rank mesh"),
-    (["--mesh", "1,2,1,1,2"], "multi-rank mesh"),
-    (["--mesh", "1,1,1,2,2"], "multi-rank mesh"),
+    (["--mesh", "2,1,1,1"], "training on the multi-rank mesh"),
+    (["--mesh", "1,2,1,1,2"], "training on the multi-rank mesh"),
+    (["--mesh", "1,1,1,2,2"], "training on the multi-rank mesh"),
     (["--backend", "nccl"], "multi-rank mesh")])
 def test_train_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
@@ -134,8 +144,21 @@ def test_train_step_refuses_what_is_not_ported(opts, item):
                                    (1, 1, 1, 2), (2, 1, 1, 1, 2),
                                    (1, 2, 1, 1, 2)])
 def test_mesh_factors_above_one_raise(sizes):
-    with pytest.raises(NotImplementedError, match="multi-rank mesh"):
-        MeshAxes(sizes)
+    """Factors above 1 on data, x, y and z are admitted (they raised
+    before the mesh was ported): the sizes, the batch and token shards,
+    the axis tuples, and the ranks' row-major coordinates."""
+    axes = MeshAxes(sizes)
+    full = tuple(sizes) + (1,) * (5 - len(sizes))
+    assert axes.sizes == full and axes.world == math.prod(full)
+    assert (axes.dp, axes.gx, axes.gy, axes.gz, axes.gseq) == full
+    assert axes.tensor == full[1] * full[2] * full[3]
+    assert axes.batch_shards == full[0] * full[3]
+    assert axes.token_shards == full[0] * full[3] * full[4]
+    assert axes.batch_axes() == ("data", "z")
+    assert axes.token_axes() == ("data", "z", "seq")
+    assert axes.all_names() == ("data", "x", "y", "z", "seq")
+    coords = [axes.coords(r) for r in range(axes.world)]
+    assert coords == list(itertools.product(*(range(n) for n in full)))
 
 
 def test_mesh_admits_a_seq_axis():

@@ -7,8 +7,13 @@ launched through its C interface on CPU tensors. Each of its three layouts
 strided loop at d 120 and on rows off 16 bytes) is held to the plain
 version with ``chip_smoke.py``'s RMS_TOL, and to the JAX package's Pallas
 kernel (interpret mode) where ``full_dim`` is the row's width; a row gives
-the same bits alone as among 1,024 rows. The output starts as NaN, so an
-element no thread wrote shows. This checks the kernel's indexing and
+the same bits alone as among 1,024 rows. The stats pass (each row's fp32
+sum of squares) and the apply pass (the scaling by a sum given from
+outside), which run an x-sharded row around a psum, are held to their
+plain versions at the mesh path's local widths (128, 1024) and at 120, in
+both dtypes and on rows off 16 bytes; stats then apply on a whole row
+gives the single pass's bits. The output starts as NaN, so an element no
+thread wrote shows. This checks the kernel's indexing and
 arithmetic, not its speed or its behaviour under the real compiler; the
 card runs the same source in ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py``.
@@ -24,7 +29,8 @@ import jax.numpy as jnp
 
 from cuda_emu import compile_source
 from repro.kernels import ops as jops
-from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm_apply_plain, rmsnorm_plain,
+                                         rmsnorm_stats_plain)
 
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPE = {F32: 0, BF16: 1}
@@ -40,6 +46,14 @@ def rms(tmp_path_factory):
                    ctypes.c_float, ctypes.c_int, p]
     fn.restype = ctypes.c_int
 
+    stats = lib.rmsnorm_stats_launch
+    stats.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
+    stats.restype = ctypes.c_int
+    apply = lib.rmsnorm_apply_launch
+    apply.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_float, ctypes.c_int, p]
+    apply.restype = ctypes.c_int
+
     def run(x, g, full_dim=None):
         d = x.shape[-1]
         out = torch.full_like(x, math.nan)
@@ -47,6 +61,22 @@ def rms(tmp_path_factory):
                   x.numel() // d, d, float(full_dim or d), 1e-6,
                   DTYPE[x.dtype], None) == 0
         return out
+
+    def run_stats(x):
+        d = x.shape[-1]
+        ss = torch.full(x.shape[:-1], math.nan)
+        assert stats(x.data_ptr(), ss.data_ptr(), x.numel() // d, d,
+                     DTYPE[x.dtype], None) == 0
+        return ss
+
+    def run_apply(x, g, ss, full_dim):
+        d = x.shape[-1]
+        out = torch.full_like(x, math.nan)
+        assert apply(x.data_ptr(), g.data_ptr(), ss.data_ptr(),
+                     out.data_ptr(), x.numel() // d, d, float(full_dim),
+                     1e-6, DTYPE[x.dtype], None) == 0
+        return out
+    run.stats, run.apply = run_stats, run_apply
     return run
 
 
@@ -104,3 +134,41 @@ def test_k3_source_row_bits_do_not_depend_on_the_row_count(rms, d, dtype):
     for i in (0, 1, 517, 1023):
         assert torch.equal(rms(x[i:i + 1], g)[0], full[i])
         assert torch.equal(rms(x[i].clone(), g), full[i])
+
+
+# (rows, d, dtype, offset) of the stats and apply passes: the local widths
+# of the x-sharded mesh path (1024 at full width, 128 at the smoke size),
+# the loop layout's 120, both dtypes, rows off 16 bytes
+SPLIT_CASES = {
+    "block d 1024 f32": (5, 1024, F32, 0),
+    "block d 1024 bf16": (3, 1024, BF16, 0),
+    "warp d 128 f32": (19, 128, F32, 0),
+    "warp d 128 bf16": (9, 128, BF16, 0),
+    "loop d 120 f32": (10, 120, F32, 0),
+    "loop d 120 bf16": (7, 120, BF16, 0),
+    "loop d 1024 f32 off 16 bytes": (3, 1024, F32, 1),
+    "loop d 128 bf16 off 16 bytes": (9, 128, BF16, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_k3_stats_and_apply_passes_match_plain_on_the_cpu(rms, case):
+    """The stats pass against the plain sum; the apply pass, given a sum
+    over the whole row (here the local sum plus another shard's, as the
+    psum over x hands it), against the plain scale; and stats then apply
+    with the row's own sum gives the single pass's bits."""
+    rows, d, dtype, offset = SPLIT_CASES[case]
+    x, g = inputs(len(case), rows, d, dtype, offset)
+    ss = rms.stats(x)
+    torch.testing.assert_close(ss, rmsnorm_stats_plain(x), rtol=1e-5,
+                               atol=1e-5)
+    other = torch.from_numpy(np.random.RandomState(rows).rand(rows) * d
+                             ).float()
+    total = ss + other
+    got = rms.apply(x, g, total, 2 * d)
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(
+        got, rmsnorm_apply_plain(x, g, total, full_dim=2 * d), rtol=tol,
+        atol=tol)
+    assert torch.equal(rms.apply(x, g, ss, d), rms(x, g))
+    assert torch.equal(rms.stats(x), ss)
