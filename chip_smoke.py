@@ -24,9 +24,12 @@ a hard failure:
      flash attention forward and backward (also at Jamba's
      prefill shape; the forward run twice gives the same bits, as
      rematerialization needs); K1, K2's forward and K5 also at the local
-     shapes of the (1,2,2,1) mesh (phase 11); K6 selective scan at the
-     prefill and decode shapes (y and final state; two runs give the same
-     bits);
+     shapes of the (1,2,2,1) mesh (phase 11); K1 (its products, their dX
+     and dW, the tied head's three), K2 forward and backward and K3's
+     stats and apply passes at the local shapes of training on (1,2,2,2)
+     (phase 12), K1's float32 output for bf16 operands at the dW shapes;
+     K6 selective scan at the prefill and decode shapes (y and final
+     state; two runs give the same bits);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
      prefill chunk and 4 decode steps through ``paged_step`` with the
      kernels and with the plain versions; logits must agree;
@@ -91,7 +94,20 @@ a hard failure:
      fixed`` (batch 4, prompt 128, 8 new tokens) with the same checks, its
      greedy ids held the same way to the fixed run of the same flags on
      one card (taken in phase 5, with the margins of its positions);
- 12. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 12. training on the 4D mesh, gloo ranks sharing the card under
+     ``torch.distributed.run``, each holding its block of every weight:
+     (a) ``launch/train.py --mesh 1,2,2,2`` (x, y and z of 2, eight
+     ranks) with phase 8's flags at full width and depth: step 1's loss
+     and grad norm within MESH_TRAIN_TOL of phase 8's, the later losses
+     within 1e-3, each kernel's launches per rank and microbatch and the
+     collective calls per step and axis exactly the code's, each rank's
+     peak memory within its eighth of the card; (b) on (2,2,2,1), the
+     data axis beside x and y, the same flags at full width and 4 layers
+     (the full depth needs more memory than the card holds without ZeRO)
+     in a worker (``chip_smoke.py --mesh-train-worker DIR``): the two data
+     replicas of every block end bitwise equal, and the losses and grad
+     norms match a one-card run of the same 4-layer model;
+ 13. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -157,7 +173,7 @@ RMS_SHAPES = [(8, 2048), (128, 128), (1024, 2048), (16384, 128),
 # K3's stats and apply passes at the mesh path's local width d / g_x =
 # 1024 (qwen3-1.7b on (1,2,2,1)): the decode step's norms (8 slots) and a
 # prefill chunk's (8 x 32 rows)
-RMS_SPLIT_SHAPES = [(8, 1024), (256, 1024)]
+RMS_SPLIT_SHAPES = [(8, 1024), (256, 1024), (512, 1024)]
 # K6 against its sequential plain version: y and the state of f32 within
 # the 2e-4 of tests/test_kernels.py (exp and the FMA contractions round
 # otherwise than PyTorch's kernels); bf16 y rounds once more on the way out
@@ -197,6 +213,23 @@ MESH_MATMUL_SHAPES = [
     for w, K, N in (("x.Wq|Wo", 1024, 1024), ("x.Wk|Wv", 1024, 512),
                     ("x.Wi|Wg", 1024, 3072), ("h.Wdown", 3072, 1024))] + [
     ("mesh decode tied head h.E^T", 8, 1024, 76032, "NT")]
+# K1 at the local shapes of training qwen3-1.7b on (1,2,2,2) (phase 12),
+# after the z all-gather: a microbatch of 512 rows, d / g_x = 1024 in and
+# per-rank widths out, each product with its dX (NT) and dW (TN); the tied
+# head h.E^T over the 152064 / g_y = 76032 local rows, its dh and dtable
+MESH_TRAIN_MATMUL_SHAPES = [
+    (f"mesh train {w} {kind}", *shape)
+    for w, K, N in (("x.Wq|Wo", 1024, 1024), ("x.Wk|Wv", 1024, 512),
+                    ("x.Wi|Wg", 1024, 3072), ("h.Wdown", 3072, 1024))
+    for kind, shape in (("fwd", (512, K, N, "NN")),
+                        ("dX", (512, N, K, "NT")),
+                        ("dW", (K, 512, N, "TN")))] + [
+    ("mesh train tied head h.E^T", 512, 1024, 76032, "NT"),
+    ("mesh train tied head dh", 512, 76032, 1024, "NN"),
+    ("mesh train tied head dtable", 76032, 512, 1024, "TN")]
+# of those, timed in float32, and the dW also with bf16 operands, its
+# output in bf16 and in float32 (beside bfloat16 torch.matmul)
+MESH_TRAIN_TIMED = ("mesh train x.Wi|Wg fwd", "mesh train x.Wi|Wg dW")
 # K1 shapes also timed in bfloat16, beside bfloat16 torch.matmul (which
 # runs on the tensor cores; K1's bf16 path widens to fp32 on the CUDA
 # cores)
@@ -212,7 +245,11 @@ ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
                   ATTN_JAMBA,
               # the local heads of qwen3-1.7b on (1,2,2,1), fixed-batch
               "mesh fixed prefill (B 4, T 128, 8/4 heads, hd 128, causal)":
-                  (4, 128, 128, 8, 4, 128, True, 0, 0)}
+                  (4, 128, 128, 8, 4, 128, True, 0, 0),
+              # a microbatch of training on (1,2,2,2): one sequence, the
+              # local heads
+              "mesh train (B 1, T 512, 8/4 heads, hd 128, causal)":
+                  (1, 512, 512, 8, 4, 128, True, 0, 0)}
 # context parallelism: the seq axis, and K4 at its path's shape, per rank
 # and microbatch (B 2, C = 512 / p queries, p gathered blocks of C keys,
 # 16/8 heads, hd 128), causal and with a window
@@ -246,6 +283,20 @@ MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
 # after the step; Jamba's attention layers (prompt 512 + up to 32 new) and
 # qwen3-1.7b's local heads on (1,2,2,1) in the fixed mesh run (prompt 128
 # + up to 8 new)
+# training on the 4D mesh: 12a at (1,2,2,2) with phase 8's flags, full
+# width and depth; 12b at (2,2,2,1), full width, depth cut to 4 layers
+MESH_TRAIN = "1,2,2,2"
+MESH_TRAIN_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_TRAIN, "--backend", "gloo"]
+MESH_DATA = "2,2,2,1"
+MESH_DATA_LAYERS = 4
+MESH_DATA_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_DATA, "--backend", "gloo"]
+MESH_TRAIN_RANKS = 8
+MESH_TRAIN_TIMEOUT_S = 700
+# step 1's loss and grad norm against one card's, relative (the mesh sums
+# every product over x and y, and the norms' squares, in another order),
+# and the later steps' losses, absolute, as phase 10 holds them
+MESH_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "later_loss": 1e-3}
+MESH_TRAIN_DIR = ROOT / "build" / "chip_smoke_mesh_train"
 DENSE_DECODE = {"Jamba": ((4, 32, 8, 128), [513, 527, 538, 544]),
                 "mesh fixed": ((4, 8, 4, 128), [129, 131, 134, 136])}
 
@@ -689,6 +740,29 @@ def phase_kernels_train(gen, errs):
                       MATMUL_TOL[f32])
         errs["block_matmul"] = max(errs["block_matmul"], e)
         del a, b
+    log("[kernels] K1 at the local shapes of training on (1,2,2,2), float32;"
+        " the dW products also with bf16 operands and a float32 output (the "
+        "weight gradient before its z reduce-scatter), each run twice")
+    for name, M, K, N, layout in MESH_TRAIN_MATMUL_SHAPES:
+        cases = [(f32, None)] + ([(torch.bfloat16, f32)] if layout == "TN"
+                                 else [])
+        for dtype, out in cases:
+            a, b = matmul_inputs(gen, M, K, N, layout, dtype)
+            got = block_matmul_kernel(a, b, out_dtype=out)
+            tag = f"{dtype_name(dtype)}{' -> float32' if out else ''}"
+            e = check_rel(f"{tag} {name} ({M}, {K}) x ({K}, {N}) {layout}",
+                          got, block_matmul_plain(a, b, out_dtype=out),
+                          MATMUL_TOL[f32])
+            if got.dtype != f32 or not torch.equal(
+                    got, block_matmul_kernel(a, b, out_dtype=out)):
+                raise AssertionError(f"K1 {tag} {name}: not float32 or two "
+                                     f"runs differ")
+            if out is not None and not torch.equal(
+                    got.to(dtype), block_matmul_kernel(a, b)):
+                raise AssertionError(f"K1 {name}: the float32 output rounded "
+                                     f"differs from the {dtype} output")
+            errs["block_matmul"] = max(errs["block_matmul"], e)
+            del a, b, got
     log("[kernels] K2 flash attention forward and backward vs plain "
         "(autograd of the plain forward)")
     for dtype in (f32, torch.bfloat16):
@@ -1033,23 +1107,29 @@ def phase_timings_train(gen, out):
     f32 = torch.float32
     log("[timings] float32, training shapes: device time from a replayed "
         "CUDA graph / eager calls back to back")
-    shapes = [(f32, *c) for c in MATMUL_SHAPES] + [
-        (torch.bfloat16, *c) for c in MATMUL_SHAPES
-        if c[0] in MATMUL_BF16_TIMED]
-    for dtype, name, M, K, N, layout in shapes:
+    bf16 = torch.bfloat16
+    mesh = [c for c in MESH_TRAIN_MATMUL_SHAPES if c[0] in MESH_TRAIN_TIMED]
+    shapes = [(f32, None, *c) for c in MATMUL_SHAPES + mesh] + [
+        (bf16, None, *c) for c in MATMUL_SHAPES
+        if c[0] in MATMUL_BF16_TIMED] + [
+        (bf16, out, *c) for c in mesh if c[4] == "TN" for out in (None, f32)]
+    for dtype, out_dtype, name, M, K, N, layout in shapes:
         a, b = matmul_inputs(gen, M, K, N, layout, dtype)
         heavy = N > 100_000 and M > 64
-        elt = a.element_size()
-        t, eager = timings(lambda: block_matmul_kernel(a, b),
-                           lambda: block_matmul_plain(a, b),
+        elt, out_elt = a.element_size(), (4 if out_dtype else
+                                          a.element_size())
+        t, eager = timings(lambda: block_matmul_kernel(a, b,
+                                                       out_dtype=out_dtype),
+                           lambda: block_matmul_plain(a, b,
+                                                      out_dtype=out_dtype),
                            lambda: torch.matmul(a, b),
-                           elt * (M * K + K * N + M * N), 2 * M * N * K,
-                           dtype, iters=5 if heavy else 50,
+                           elt * (M * K + K * N) + out_elt * M * N,
+                           2 * M * N * K, dtype, iters=5 if heavy else 50,
                            eager_iters=5 if heavy else 100)
-        log(f"  block_matmul {dtype_name(dtype)} {name} ({M}, {K}) x ({K}, "
-            f"{N}) {layout}: " + fmt(t, eager) + f"; "
-            f"{2 * M * N * K / t['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+        tag = dtype_name(dtype) + (" -> float32" if out_dtype else "")
+        log(f"  block_matmul {tag} {name} ({M}, {K}) x ({K}, {N}) {layout}: "
+            + fmt(t, eager) + f"; {2 * M * N * K / t['ms'] / 1e9:.1f} "
+            f"TFLOP/s, {t['bound_ms'] / t['ms']:.3f} of the bound")
         if dtype == f32:
             out.setdefault("block_matmul", t)
         del a, b
@@ -1300,7 +1380,7 @@ def phase_train(cfg, smi):
         f"{100 * share:.2f}% of the 67 TFLOP/s float32 peak, "
         f"max_memory_allocated {res.max_memory_bytes / 2**30:.2f} GiB on "
         f"{smi}")
-    return launches, res.losses
+    return launches, res
 
 
 def phase_train_profile(cfg):
@@ -1653,44 +1733,54 @@ def seq_launches(cfg):
             "selective_scan": 0}
 
 
+def launch_ranks(args, label, ranks, timeout):
+    """``args`` under torch.distributed.run on ``ranks`` ranks sharing this
+    card, in a session of its own (a time limit stops the launcher and
+    every rank together): rank 0's output lines, its JSON reports and
+    served ids left out of the log."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(ranks), *args]
+    log(f"[{label}] python -m torch.distributed.run --standalone "
+        f"--nproc-per-node {ranks} {' '.join(args)}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if x]))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{label} ran past {timeout} s")
+    lines = out.strip().splitlines()
+    for ln in lines:
+        if not ln.startswith(('{"serve"', '{"train"', "req ")):
+            log(f"  | {ln}")
+    if proc.returncode:
+        log(err[-6000:])
+        raise AssertionError(f"{label} exited with {proc.returncode}")
+    log(f"  {time.time() - t0:.1f}s with start-up")
+    return lines
+
+
+def train_report(lines):
+    """Rank 0's ``{"train"}`` report among a training run's lines."""
+    return json.loads([ln for ln in lines
+                       if ln.startswith('{"train"')][-1])["train"]
+
+
 def phase_seq_train(cfg, smi, losses_one_card):
     """``launch/train.py`` on a seq axis of 2: two gloo ranks on this card,
     started by torch.distributed.run, each holding the whole model and
     half of every sequence."""
     from repro_torch.launch import train
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(SEQ_P), "-m", "repro_torch.launch.train",
-           *SEQ_FLAGS]
-    log(f"[seq train] python -m torch.distributed.run --standalone "
-        f"--nproc-per-node {SEQ_P} -m repro_torch.launch.train "
-        f"{' '.join(SEQ_FLAGS)}")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [x for x in os.environ.get(
-            "PYTHONPATH", "").split(os.pathsep) if x]))
-    t0 = time.time()
-    # a session of its own, so that a timeout stops the launcher and both
-    # ranks together
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=SEQ_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"seq-parallel training ran past "
-                             f"{SEQ_TIMEOUT_S} s")
-    lines = out.strip().splitlines()
-    for ln in lines:
-        if not ln.startswith('{"train"'):
-            log(f"  | {ln}")
-    if proc.returncode:
-        log(err[-6000:])
-        raise AssertionError(f"seq-parallel training exited with "
-                             f"{proc.returncode}")
-    rep = json.loads([ln for ln in lines
-                      if ln.startswith('{"train"')][-1])["train"]
-    log(f"  {time.time() - t0:.1f}s with start-up; losses {rep['losses']}, "
+    rep = train_report(launch_ranks(
+        ["-m", "repro_torch.launch.train", *SEQ_FLAGS], "seq train", SEQ_P,
+        SEQ_TIMEOUT_S))
+    log(f"  losses {rep['losses']}, "
         f"one card (phase 8) {losses_one_card}")
     gap = max(abs(a - b) for a, b in zip(rep["losses"], losses_one_card))
     if not (len(rep["losses"]) == len(losses_one_card)
@@ -1759,38 +1849,6 @@ def mesh_collectives(cfg):
     psum over y, the final norm's over x, the head's over x and the
     logits' gather over y."""
     return 9 * cfg.n_layers + 4
-
-
-def mesh_launch(args, label):
-    """``args`` under torch.distributed.run on MESH_RANKS ranks sharing this
-    card, in a session of its own (a time limit stops the launcher and
-    every rank together): rank 0's output lines."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(MESH_RANKS), *args]
-    log(f"[{label}] python -m torch.distributed.run --standalone "
-        f"--nproc-per-node {MESH_RANKS} {' '.join(args)}")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [x for x in os.environ.get(
-            "PYTHONPATH", "").split(os.pathsep) if x]))
-    t0 = time.time()
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"{label} ran past {MESH_TIMEOUT_S} s")
-    lines = out.strip().splitlines()
-    for ln in lines:
-        if not ln.startswith('{"serve"') and not ln.startswith("req "):
-            log(f"  | {ln}")
-    if proc.returncode:
-        log(err[-6000:])
-        raise AssertionError(f"{label} exited with {proc.returncode}")
-    log(f"  {time.time() - t0:.1f}s with start-up")
-    return lines
 
 
 def teacher_forced(model, seqs, n_out, *, slots=8, chunk=32, page=16):
@@ -1999,8 +2057,9 @@ def phase_mesh_serve(cfg, smi, expect):
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     torch.save(dict(seqs=expect["seqs"], n_out=expect["n_out"]),
                MESH_DIR / "seqs.pt")
-    mesh_launch([str(ROOT / "chip_smoke.py"), "--mesh-worker",
-                 str(MESH_DIR)], "mesh teacher-forced")
+    launch_ranks([str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                  str(MESH_DIR)], "mesh teacher-forced", MESH_RANKS,
+                 MESH_TIMEOUT_S)
     mesh = torch.load(MESH_DIR / "mesh_logits.pt")
     one = expect["logits"]
     err, scale = max_err(mesh, one), float(one.abs().max())
@@ -2013,8 +2072,9 @@ def phase_mesh_serve(cfg, smi, expect):
     thr = MESH_MARGIN * err
     del mesh, one
 
-    lines = mesh_launch(["-m", "repro_torch.launch.serve",
-                         *MESH_SERVE_FLAGS], "mesh serve")
+    lines = launch_ranks(["-m", "repro_torch.launch.serve",
+                          *MESH_SERVE_FLAGS], "mesh serve", MESH_RANKS,
+                         MESH_TIMEOUT_S)
     rep = mesh_report(lines, expect, mesh_launches(cfg, 0, 1),
                       lambda r: (r["n_steps"], r["n_steps"]), "step", cfg,
                       smi)
@@ -2022,8 +2082,9 @@ def phase_mesh_serve(cfg, smi, expect):
               f"continuous, against phase 5 (margin {MESH_MARGIN} x "
               f"{err:.3e})")
 
-    lines = mesh_launch(["-m", "repro_torch.launch.serve",
-                         *MESH_FIXED_FLAGS], "mesh fixed serve")
+    lines = launch_ranks(["-m", "repro_torch.launch.serve",
+                          *MESH_FIXED_FLAGS], "mesh fixed serve", MESH_RANKS,
+                         MESH_TIMEOUT_S)
     gen = int(MESH_FIXED_FLAGS[MESH_FIXED_FLAGS.index("--gen") + 1])
     fixed = mesh_report(lines, expect, mesh_launches(cfg, 1, gen - 1),
                         lambda r: (1, gen), "run", cfg, smi)
@@ -2033,6 +2094,188 @@ def phase_mesh_serve(cfg, smi, expect):
         f"{fixed['decode_s']:.4f} s for {gen - 1} steps "
         f"({1e3 * fixed['decode_s'] / (gen - 1):.2f} ms/step)")
     return sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"]
+
+
+# ---------------------------------------------------------------------- #
+# training on the 4D mesh: eight gloo ranks sharing the card
+# ---------------------------------------------------------------------- #
+
+def mesh_train_launches(cfg):
+    """Each kernel's launches per microbatch on one rank of a mesh with x
+    above 1, counted from the code: K1 and K2 as on one card (phase 8);
+    each residual norm (two a layer, forward and remat's recompute, and
+    the final one) runs K3's stats and apply passes around the psum over
+    x, qk-norm's whole rows one pass each (q and k, forward and
+    recompute)."""
+    L = cfg.n_layers
+    return {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
+            "flash_attention_bwd": L, "rmsnorm": 4 * L,
+            "rmsnorm_stats": 4 * L + 1, "rmsnorm_apply": 4 * L + 1,
+            "paged_attention": 0, "paged_attention_combine": 0,
+            "selective_scan": 0, "partial_attention": 0,
+            "partial_attention_bwd": 0}
+
+
+def mesh_train_collectives(cfg, axes, microbatches):
+    """Collective calls of one train step on a rank, by axis (the keys of
+    ``core.mesh.COMM_AXES``), counted from the code for a dense decoder
+    with qk-norm whose KV heads split over y. A microbatch: per layer, the
+    forward (again in remat's recompute) gathers its 7 weights over z,
+    psums q, k, v, the MLP's gate and up (its "normal" layers) and the two
+    norms' sums of squares over x and the two "transposed" outputs over
+    y; the backward re-gathers the 7 weights over z and reduce-scatters
+    their gradients there, psums dX over the output axis (y for the 5
+    normal layers, x for the 2 transposed) and each norm's two sums over
+    x. Outside the layers: the embedding's gather over z and psum over y,
+    the final norm's psum over x, the tied head's gather over z and psum
+    over x, the loss's pmax and two psums over y and its two means over
+    the token axes; backward, the head's re-gather and reduce-scatter
+    over z and its dh over y, the final norm's two psums over x, the
+    embedding's reduce-scatter over z. Then the step: each of the 11 L + 2
+    gradients psum'd over (data, seq), q_norm and k_norm over y, the
+    gains (4 L + 1, the qk-norm ones among them) over z, and the gradient
+    norm's psum of each set of axes a spec shards over (x, y, z and x
+    alone; the replicated gains need none). A size-1 axis costs no
+    call."""
+    L = cfg.n_layers
+    live = {a: axes.size(a) > 1 for a in ("data", "x", "y", "z", "seq")}
+    per_mb = {"z": 28 * L + 5, "x": 20 * L + 4, "y": 9 * L + 5,
+              "data+z+seq": 2}
+    per_mb["data+z+seq"] *= live["data"] or live["z"] or live["seq"]
+    want = {k: v * microbatches for k, v in per_mb.items()
+            if all(live[a] for a in k.split("+")) or k == "data+z+seq"}
+    sync = {"data+seq": (11 * L + 2) * (live["data"] or live["seq"]),
+            "y": 2 * L * live["y"], "z": (4 * L + 1) * live["z"],
+            "x+y+z": int(live["x"] or live["y"] or live["z"]),
+            "x": int(live["x"])}
+    for k, v in sync.items():
+        want[k] = want.get(k, 0) + v
+    return {k: v for k, v in want.items() if v}
+
+
+def check_mesh_losses(rep, one, label):
+    """Step 1's loss and grad norm within MESH_TRAIN_TOL (relative) of the
+    one-card run's, the later losses within its absolute bound."""
+    t = MESH_TRAIN_TOL
+    d_loss = abs(rep["losses"][0] - one.losses[0]) / abs(one.losses[0])
+    d_gn = abs(rep["grad_norms"][0] - one.grad_norms[0]) / one.grad_norms[0]
+    later = max((abs(a - b) for a, b in zip(rep["losses"][1:],
+                                            one.losses[1:])), default=0.0)
+    log(f"  {label}: losses {rep['losses']}, grad norms {rep['grad_norms']};"
+        f" one card {one.losses}, {one.grad_norms}")
+    log(f"  step 1 |dloss|/loss {d_loss:.3e} (tol {t['loss']:g}), "
+        f"|dnorm|/norm {d_gn:.3e} (tol {t['grad_norm']:g}); later steps "
+        f"max|dloss| {later:.3e} (tol {t['later_loss']:g})")
+    if not (len(rep["losses"]) == len(one.losses)
+            and all(math.isfinite(x) for x in rep["losses"]
+                    + rep["grad_norms"])
+            and d_loss <= t["loss"] and d_gn <= t["grad_norm"]
+            and later <= t["later_loss"]):
+        raise AssertionError(f"{label}: the mesh's training differs from "
+                             f"one card's")
+
+
+def phase_mesh_train(cfg, smi, one):
+    """12a: ``launch/train.py`` on (1,2,2,2), eight gloo ranks on this
+    card, with phase 8's flags at full width and depth, held to phase 8's
+    run ``one``."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    rep = train_report(launch_ranks(
+        ["-m", "repro_torch.launch.train", *MESH_TRAIN_FLAGS], "mesh train",
+        MESH_TRAIN_RANKS, MESH_TRAIN_TIMEOUT_S))
+    check_mesh_losses(rep, one, "(1,2,2,2) against phase 8")
+    args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
+    want = mesh_train_collectives(cfg, mesh_axes(MESH_TRAIN),
+                                  args.overdecompose)
+    share = torch.cuda.get_device_properties(0).total_memory \
+        / MESH_TRAIN_RANKS
+    ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
+    for r in ranks:
+        log(f"  rank {r['rank']} on {r['device']}:")
+        check_launches(r["launches"], mesh_train_launches(cfg),
+                       args.steps * args.overdecompose, "microbatch")
+        for i, by_axis in enumerate(r["comm_by_axis"]):
+            got = {a: c["calls"] for a, c in by_axis.items()}
+            if got != want:
+                raise AssertionError(f"rank {r['rank']} step {i}: collective"
+                                     f" calls {got}, expected {want}")
+        last = r["comm_by_axis"][-1]
+        log(f"    collectives per step == the code's {sum(want.values())} "
+            f"({want}); last step by axis: "
+            + ", ".join(f"{a} {c['seconds']:.3f} s {c['bytes'] / 1e9:.3f} GB"
+                        for a, c in sorted(last.items()))
+            + f"; in all {[round(x, 3) for x in r['comm_s']]} s, "
+            f"{[round(b / 1e9, 3) for b in r['comm_bytes']]} GB per step")
+        mem = r["max_memory_bytes"]
+        log(f"    max_memory_allocated {mem / 2**30:.2f} GiB (its share of "
+            f"the card {share / 2**30:.2f} GiB)")
+        if mem > share:
+            raise AssertionError(f"rank {r['rank']} took {mem} bytes, more "
+                                 f"than its share {share:.0f}")
+    steady = rep["step_s"][1:] or rep["step_s"]
+    step_s = sum(steady) / len(steady)
+    log(f"  rank 0 step times {[round(x, 3) for x in rep['step_s']]} s; "
+        f"steady step {step_s:.3f} s, {rep['tokens_per_step'] / step_s:.1f} "
+        f"tokens/s over the 8 ranks, {rep['n_params'] / 1e9:.3f} B "
+        f"parameters, on {smi}")
+    return ranks[0]["launches"]
+
+
+def cut_config(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=MESH_DATA_LAYERS)
+
+
+def mesh_train_worker(outdir: Path) -> int:
+    """One rank of 12b (started by ``phase_mesh_data`` under
+    torch.distributed.run): ``launch/train.py``'s run of MESH_DATA_FLAGS
+    with the depth cut to MESH_DATA_LAYERS; rank 0 saves the report."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    res = train.main(MESH_DATA_FLAGS, cfg=cut_config(get_config(ARCH)))
+    if int(os.environ["RANK"]) == 0:
+        (outdir / "report.json").write_text(json.dumps(dict(
+            losses=res.losses, grad_norms=res.grad_norms, ranks=res.ranks)))
+    return 0
+
+
+def phase_mesh_data(cfg, smi):
+    """12b: the data axis beside x and y, (2,2,2,1) at full width and
+    MESH_DATA_LAYERS layers, eight gloo ranks on this card: the data
+    replicas of every block end bitwise equal, and the run matches one
+    card's run of the same cut model in this process."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    cut = cut_config(cfg)
+    MESH_TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    launch_ranks([str(ROOT / "chip_smoke.py"), "--mesh-train-worker",
+                  str(MESH_TRAIN_DIR)], f"mesh train data ({MESH_DATA}, "
+                 f"{MESH_DATA_LAYERS} layers)", MESH_TRAIN_RANKS,
+                 MESH_TRAIN_TIMEOUT_S)
+    rep = json.loads((MESH_TRAIN_DIR / "report.json").read_text())
+    log(f"[mesh train data] one card, the same {MESH_DATA_LAYERS}-layer "
+        f"model and flags")
+    one = train.main(TRAIN_FLAGS, cfg=cut)
+    check_mesh_losses(rep, one, f"({MESH_DATA}) against one card")
+    axes = mesh_axes(MESH_DATA)
+    blocks = {}
+    for r in rep["ranks"]:
+        blocks.setdefault(axes.coords(r["rank"])[1:], set()).add(
+            r["param_sha256"])
+    if not (all(len(h) == 1 for h in blocks.values())
+            and len(blocks) == MESH_TRAIN_RANKS // axes.dp):
+        raise AssertionError(f"the data replicas differ: {blocks}")
+    log(f"  the {axes.dp} data replicas of each of the {len(blocks)} blocks "
+        f"bitwise equal after {len(rep['losses'])} steps")
+    for r in sorted(rep["ranks"], key=lambda r: r["rank"]):
+        by_axis = r["comm_by_axis"][-1]
+        log(f"  rank {r['rank']}: last step by axis "
+            + ", ".join(f"{a} {c['calls']} calls {c['seconds']:.3f} s "
+                        f"{c['bytes'] / 1e9:.3f} GB"
+                        for a, c in sorted(by_axis.items()))
+            + f"; max_memory_allocated "
+            f"{r['max_memory_bytes'] / 2**30:.2f} GiB on {smi}")
 
 
 def free_memory():
@@ -2075,7 +2318,7 @@ def main() -> int:
     free_memory()
     phase_train_parity(cfg)
     free_memory()
-    train_launches, train_losses = phase_train(cfg, smi)
+    train_launches, train_res = phase_train(cfg, smi)
     free_memory()
     phase_train_profile(cfg)
     free_memory()
@@ -2096,9 +2339,12 @@ def main() -> int:
     phase_kernels_partial(gen, errs)
     phase_timings_partial(gen, times)
     free_memory()
-    seq_launches_run = phase_seq_train(cfg, smi, train_losses)
+    seq_launches_run = phase_seq_train(cfg, smi, train_res.losses)
     free_memory()
     mesh_launches_run = phase_mesh_serve(cfg, smi, mesh_expect)
+    free_memory()
+    phase_mesh_train(cfg, smi, train_res)
+    phase_mesh_data(cfg, smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
@@ -2150,4 +2396,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--mesh-train-worker"]:
+        sys.exit(mesh_train_worker(Path(sys.argv[2])))
     sys.exit(main())

@@ -43,9 +43,12 @@ def _mm(a, b, *, plain: bool = False):
 
 def _mm_tn(a, b, *, plain: bool = False):
     """a^T @ b over all leading dims: (..., k) and (..., n) -> (k, n) in
-    fp32-accumulated a's dtype (K1 reading a through a transposed view)."""
+    float32 (K1 reading a through a transposed view). A weight gradient
+    stays fp32 through its z reduce-scatter and is cast once after it, as
+    in the reference, so bf16 partials are never summed."""
     return ops.matmul(a.reshape(-1, a.shape[-1]).t(),
-                      b.reshape(-1, b.shape[-1]), plain=plain)
+                      b.reshape(-1, b.shape[-1]), out_dtype=torch.float32,
+                      plain=plain)
 
 
 # ---------------------------------------------------------------------- #
@@ -339,7 +342,7 @@ def embedding_init(gen: torch.Generator, vocab: int, hidden: int,
     v = torch.randn((vocab, hidden), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return PT.keep_shard(v.mul_(0.02).to(dtype), axes,
-                         PT.LEAF_SPECS["embed"])
+                         PT.LEAF_SPECS["embed"].spec)
 
 
 def norm_param_init(hidden: int, axes: M.MeshAxes, *, device,

@@ -1,23 +1,27 @@
 """Parameter layouts: each parameter's PartitionSpec, and gradient
 reductions by layout (port of ``repro.core.partition``).
 
-The JAX package boxes each parameter with its PartitionSpec
-(``Boxed.spec``). The port keeps the same specs in one table,
+The JAX package boxes each parameter with its PartitionSpec and two flags
+(``Boxed``/``ParamSpec``): ``z_reduced``, the gradient leaves its
+``custom_vjp`` already reduce-scattered over z (the tensor-parallel
+weights and the embedding), and ``y_reduce``, the gradient needs a psum
+over y (the duplicated-KV projection: each y rank back-props only the head
+it keeps). The port keeps the same specs and flags in one table,
 :data:`LEAF_SPECS`, keyed by the parameter's leaf name (the last part of
-its name, ``layers.3.mixer.wq`` -> ``wq``): one entry per dim, each None
-(replicated), an axis name or a tuple of names (first-name-major). Every
-init draws the global tensor and keeps its rank's block by this table
-(``mesh.shard``), and ``convert`` slices the JAX leaves by it.
+its name, ``layers.3.mixer.wq`` -> ``wq``): the spec has one entry per dim,
+each None (replicated), an axis name or a tuple of names
+(first-name-major). Every init draws the global tensor and keeps its
+rank's block by this table (``mesh.shard``), and ``convert`` slices the
+JAX leaves by it.
 
-The JAX package also tags each parameter with whether its gradient leaves
-its ``custom_vjp`` already reduced over z: the tensor-parallel weights and
-the embedding (2-D, reduce-scattered over z by their backward) are; the
-norm gains (1-D, replicated, each z rank seeing its own batch shard) are
-not. The port reads the same split off the parameter's rank.
+One flag departs from the reference: ``y_heads``, the gradient holds only
+this y rank's heads and is summed over y. It is set on the qk-norm gains,
+which the reference marks with neither flag: there each y rank applies
+its own update to gains the y ranks share (ROADMAP.md §3).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,28 +47,60 @@ def wspec(in_shard: Optional[str], out_shard: Optional[str]) -> Spec:
 NORMAL = wspec("x", "y")          # paper "normal" layer: (x, (y, z))
 TRANSPOSED = wspec("y", "x")      # paper "transposed" layer: (y, (x, z))
 
-LEAF_SPECS: Dict[str, Spec] = {
-    "embed": ("y", ("x", "z")),     # vocab over y, features over (x, z)
-    "lm_head": NORMAL,              # the untied head, d -> V
-    "g": ("x",),                    # norm gains: the residual layout
+
+class ParamSpec(NamedTuple):
+    """A parameter's PartitionSpec and how its gradient is reduced."""
+    spec: Spec
+    z_reduced: bool = False   # the backward reduce-scattered it over z
+    y_reduce: bool = False    # psum over y (the reference's flag)
+    y_heads: bool = False     # psum over y (the port's departure)
+
+
+def _tp(spec: Spec, **flags) -> ParamSpec:
+    """A weight of ``tp_matmul`` or the embedding: its backward
+    reduce-scatters the gradient over z."""
+    return ParamSpec(spec, z_reduced=True, **flags)
+
+
+LEAF_SPECS: Dict[str, ParamSpec] = {
+    "embed": _tp(("y", ("x", "z"))),   # vocab over y, features over (x, z)
+    "lm_head": _tp(NORMAL),            # the untied head, d -> V
+    "g": ParamSpec(("x",)),            # norm gains: the residual layout
     # attention: separate q/k/v, or the duplicated-KV layout's one kv
     # projection (replicated over y, its grads psum'd over y)
-    "wq": NORMAL, "wk": NORMAL, "wv": NORMAL, "wo": TRANSPOSED,
-    "wkv_dup": wspec("x", None),
-    "q_norm": (None,), "k_norm": (None,),
+    "wq": _tp(NORMAL), "wk": _tp(NORMAL), "wv": _tp(NORMAL),
+    "wo": _tp(TRANSPOSED),
+    "wkv_dup": _tp(wspec("x", None), y_reduce=True),
+    # qk-norm gains act on this y rank's heads only; the reference
+    # (attention.attn_init) reduces them over data and z alone
+    "q_norm": ParamSpec((None,), y_heads=True),
+    "k_norm": ParamSpec((None,), y_heads=True),
     # the gated MLP (its "wo" is the transposed down projection too)
-    "wi": NORMAL, "wg": NORMAL,
+    "wi": _tp(NORMAL), "wg": _tp(NORMAL),
     # Mamba: projections, then per-inner-channel params over y
-    "w_in": NORMAL, "w_gate": NORMAL, "w_x": wspec("y", None),
-    "w_dt": wspec(None, "y"), "w_out": TRANSPOSED,
-    "conv_w": ("y", None), "conv_b": ("y",), "b_dt": ("y",),
-    "A_log": ("y", None), "D": ("y",),
+    "w_in": _tp(NORMAL), "w_gate": _tp(NORMAL), "w_x": _tp(wspec("y", None)),
+    "w_dt": _tp(wspec(None, "y")), "w_out": _tp(TRANSPOSED),
+    "conv_w": ParamSpec(("y", None)), "conv_b": ParamSpec(("y",)),
+    "b_dt": ParamSpec(("y",)), "A_log": ParamSpec(("y", None)),
+    "D": ParamSpec(("y",)),
 }
+
+
+def leaf_spec(name: str) -> ParamSpec:
+    """The :class:`ParamSpec` of the port parameter ``name``."""
+    return LEAF_SPECS[name.rsplit(".", 1)[-1]]
 
 
 def param_spec(name: str) -> Spec:
     """The PartitionSpec of the port parameter ``name``."""
-    return LEAF_SPECS[name.rsplit(".", 1)[-1]]
+    return leaf_spec(name).spec
+
+
+def spec_names(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` shards over, in mesh order."""
+    names = {n for entry in spec if entry is not None
+             for n in ((entry,) if isinstance(entry, str) else entry)}
+    return tuple(a for a in M.AXES if a in names)
 
 
 def keep_shard(v: torch.Tensor, axes: M.MeshAxes, spec: Spec,
@@ -79,7 +115,14 @@ def keep_shard(v: torch.Tensor, axes: M.MeshAxes, spec: Spec,
 
 def z_reduce_grads(grads: Dict[str, torch.Tensor],
                    axes: M.MeshAxes) -> Dict[str, torch.Tensor]:
-    """psum over z the gradient of every parameter whose backward did not
-    reduce it there already."""
-    return {n: g if g.dim() >= 2 else M.psum(g, axes, "z")
-            for n, g in grads.items()}
+    """psum over y the gradient of every parameter flagged ``y_reduce`` or
+    ``y_heads``, then over z that of every parameter whose backward did
+    not reduce it there already (``z_reduced``), as the reference's
+    ``z_reduce_grads`` does by its flags."""
+    out = {}
+    for n, g in grads.items():
+        s = leaf_spec(n)
+        if s.y_reduce or s.y_heads:
+            g = M.psum(g, axes, "y")
+        out[n] = g if s.z_reduced else M.psum(g, axes, "z")
+    return out

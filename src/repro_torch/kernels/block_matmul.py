@@ -4,8 +4,10 @@ plain version.
 Replaces ``repro/kernels/block_matmul.py:block_matmul`` (Pallas), the local
 GEMM of paper Algorithm 1. Both versions take (M, K) and (K, N) operands
 through their strides, so a transposed view (``w.t()``, ``x.t()``) costs no
-copy, and return a fresh (M, N) row-major tensor in the operands' dtype
-with fp32 accumulation. The header of the CUDA source says what bounds the
+copy, and return a fresh (M, N) row-major tensor with fp32 accumulation,
+in the operands' dtype or, for bfloat16 operands, in float32 when asked
+(``out_dtype``: a weight gradient that is summed over z before its one
+rounding). The header of the CUDA source says what bounds the
 kernel on the card and how its design answers that.
 """
 from __future__ import annotations
@@ -47,11 +49,12 @@ class Plan(NamedTuple):
     k_split: int      # ...of this many k each (the last may be shorter)
 
 
-def block_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b on fp32-upcast operands, cast back to a's dtype
-    (``ref.block_matmul_ref``). The only place in the port where
+def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
+                       out_dtype=None) -> torch.Tensor:
+    """a @ b on fp32-upcast operands, cast to ``out_dtype`` (default: a's
+    dtype; ``ref.block_matmul_ref``). The only place in the port where
     ``torch.matmul`` computes a ``tp_matmul`` product."""
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
 def k_granule(path: str, elt: int) -> int:
@@ -126,11 +129,18 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# block_matmul_launch's arguments: a, its strides, b, its strides, out,
+# work, M, N, K, splits, k_split, path, vec, dtype, out_dtype, stream
+ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+
+
 def _launcher():
     fn = build.library("block_matmul").block_matmul_launch
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -149,13 +159,15 @@ def launch_args(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
             b.stride(0), b.stride(1), out.data_ptr(),
             work.data_ptr() if work is not None else None, M, N, K,
             p.splits, p.k_split, PATHS.index(p.path), vec,
-            _DTYPES[a.dtype]), work
+            _DTYPES[a.dtype], _DTYPES[out.dtype]), work
 
 
-def block_matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def block_matmul_kernel(a: torch.Tensor, b: torch.Tensor, *,
+                        out_dtype=None) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; raises on what it does not
-    take. ``block_matmul_kernel.launches`` counts the calls (a call with a
-    split K launches the split sum as well)."""
+    take. ``out_dtype``: a's dtype (default) or float32.
+    ``block_matmul_kernel.launches`` counts the calls (a call with a split
+    K launches the split sum as well)."""
     if not (a.is_cuda and b.device == a.device):
         raise ValueError(f"block_matmul_kernel needs a and b on one CUDA "
                          f"device, got {a.device} and {b.device}")
@@ -165,7 +177,11 @@ def block_matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"block_matmul_kernel needs (M, K) @ (K, N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype,
+    out_dtype = out_dtype or a.dtype
+    if out_dtype not in (a.dtype, torch.float32):
+        raise TypeError(f"block_matmul_kernel writes its operands' dtype or "
+                        f"float32, not {out_dtype}")
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype,
                       device=a.device)
     args, work = launch_args(a, b, out, _sm_count(a.device.index or 0))
     err = _launcher()(*args, torch.cuda.current_stream(a.device).cuda_stream)

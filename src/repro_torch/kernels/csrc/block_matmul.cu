@@ -5,7 +5,9 @@
 // `_kernel`), the local GEMM of paper Algorithm 1 (lines 6/13):
 //     out (M, N) = a (M, K) @ b (K, N)
 // with fp32 accumulation across K and the output in the inputs' dtype, as
-// repro.core.parallel._mm computes it. Each operand comes with its own row
+// repro.core.parallel._mm computes it, or in float32 for bf16 inputs (a
+// weight gradient, reduce-scattered over z in fp32 before its one rounding,
+// as the reference's dW and tied-head dtable are). Each operand comes with its own row
 // and column strides, so the layouts of the model run without copies: X.W
 // (NN), dY.W^T and h.E^T (NT, b read through a transposed view), X^T.dY
 // (TN, a read through a transposed view) and a column slice of a wider
@@ -48,7 +50,7 @@
 //    (column, row) sum closes with a fixed xor-shuffle tree.
 // Where the output alone cannot fill the card, K is split over a grid
 // dimension: each split writes its fp32 partial sum to a workspace and
-// split_sum_kernel adds the splits in order and casts. No atomics
+// split_sum_kernel adds the splits in order and casts to the output type. No atomics
 // anywhere, so every call on the same shapes gives the same bits
 // (rematerialization recomputes and expects them).
 #include <cuda_runtime.h>
@@ -210,14 +212,15 @@ struct TileLoader {
 // one); B_N1: b's n stride is 1 (else its k index). vec bit 0: a may be
 // read 16 bytes at a time along that index, bit 1: b. Block z sums k in
 // [z * k_split, (z + 1) * k_split); work != null: write the fp32 partial
-// sums to work + z * M * N, else the result to out. Two blocks per SM
+// sums to work + z * M * N, else the result to out (type O: T, or float
+// for bf16 T). Two blocks per SM
 // cap a thread at 128 registers; NT (both operands transposed on their
 // way into shared memory) runs faster with the cap lifted.
-template <typename T, typename C, bool A_K1, bool B_N1>
+template <typename T, typename O, typename C, bool A_K1, bool B_N1>
 __global__ void __launch_bounds__(C::THREADS, A_K1 && !B_N1 ? 1 : 2)
 sgemm_tile_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
                   const T* __restrict__ b, int64_t sb_k, int64_t sb_n,
-                  T* __restrict__ out, float* __restrict__ work, int M, int N,
+                  O* __restrict__ out, float* __restrict__ work, int M, int N,
                   int K, int k_split, int vec) {
   constexpr int BK = C::BK;
   __shared__ __align__(16) float As[2][BK][C::BM + C::PAD];
@@ -333,11 +336,11 @@ __device__ __forceinline__ void stage_a(float (*As)[KC], const T* a,
 // b n-contiguous. Block (x, z): columns [x * 32V, (x + 1) * 32V), k in
 // [z * k_split, ...); warp w takes rows w*U.. of every 8U. out/work as in
 // sgemm_tile_kernel.
-template <typename T, int MT>
+template <typename T, typename O, int MT>
 __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_n_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
               const T* __restrict__ b, int64_t sb_k, int64_t sb_n,
-              T* __restrict__ out, float* __restrict__ work, int M, int N,
+              O* __restrict__ out, float* __restrict__ work, int M, int N,
               int K, int k_split, int vec) {
   constexpr int V = Vec<T>::V, U = 4, COLS = 32 * V;
   __shared__ __align__(16) float As[MT][KC];
@@ -406,11 +409,11 @@ gemv_n_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
 
 // b k-contiguous. Block (x, z): warp w owns columns x * 8G + w * G + g, g
 // < G, k in [z * k_split, ...); lane l reads k groups l*V + i * 32V.
-template <typename T, int MT>
+template <typename T, typename O, int MT>
 __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_k_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
               const T* __restrict__ b, int64_t sb_k, int64_t sb_n,
-              T* __restrict__ out, float* __restrict__ work, int M, int N,
+              O* __restrict__ out, float* __restrict__ work, int M, int N,
               int K, int k_split, int vec) {
   constexpr int V = Vec<T>::V, G = 4, U = 2, STEP = 32 * V;
   __shared__ __align__(16) float As[MT][KC];
@@ -486,10 +489,10 @@ gemv_k_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
   }
 }
 
-// out[i] = sum over s of work[s * n + i], s in order; cast to T.
-template <typename T>
+// out[i] = sum over s of work[s * n + i], s in order; cast to O.
+template <typename O>
 __global__ void __launch_bounds__(256)
-split_sum_kernel(const float* __restrict__ work, T* __restrict__ out,
+split_sum_kernel(const float* __restrict__ work, O* __restrict__ out,
                  int64_t n, int splits) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
@@ -524,64 +527,64 @@ struct Args {
   cudaStream_t s;
 };
 
-template <typename T, typename C, bool A_K1, bool B_N1>
+template <typename T, typename O, typename C, bool A_K1, bool B_N1>
 void launch_tile(const Args& g) {
   const dim3 grid((g.M + C::BM - 1) / C::BM, (g.N + C::BN - 1) / C::BN,
                   g.splits);
-  sgemm_tile_kernel<T, C, A_K1, B_N1><<<grid, C::THREADS, 0, g.s>>>(
+  sgemm_tile_kernel<T, O, C, A_K1, B_N1><<<grid, C::THREADS, 0, g.s>>>(
       static_cast<const T*>(g.a), g.sa_m, g.sa_k,
-      static_cast<const T*>(g.b), g.sb_k, g.sb_n, static_cast<T*>(g.out),
+      static_cast<const T*>(g.b), g.sb_k, g.sb_n, static_cast<O*>(g.out),
       g.splits > 1 ? g.work : nullptr, g.M, g.N, g.K, g.k_split, g.vec);
 }
 
-template <typename T, typename C>
+template <typename T, typename O, typename C>
 void launch_tiles(const Args& g) {
   const bool a_k1 = g.sa_k == 1, b_n1 = g.sb_n == 1;
   if (a_k1 && b_n1) {
-    launch_tile<T, C, true, true>(g);
+    launch_tile<T, O, C, true, true>(g);
   } else if (a_k1) {
-    launch_tile<T, C, true, false>(g);
+    launch_tile<T, O, C, true, false>(g);
   } else if (b_n1) {
-    launch_tile<T, C, false, true>(g);
+    launch_tile<T, O, C, false, true>(g);
   } else {
-    launch_tile<T, C, false, false>(g);
+    launch_tile<T, O, C, false, false>(g);
   }
 }
 
-template <typename T, int MT>
+template <typename T, typename O, int MT>
 void launch_gemv(const Args& g, int path) {
   const T* pa = static_cast<const T*>(g.a);
   const T* pb = static_cast<const T*>(g.b);
-  T* po = static_cast<T*>(g.out);
+  O* po = static_cast<O*>(g.out);
   float* pw = g.splits > 1 ? g.work : nullptr;
   if (path == kDecodeN) {
     const int cols = 32 * Vec<T>::V;
     const dim3 grid((g.N + cols - 1) / cols, 1, g.splits);
-    gemv_n_kernel<T, MT><<<grid, GEMV_THREADS, 0, g.s>>>(
+    gemv_n_kernel<T, O, MT><<<grid, GEMV_THREADS, 0, g.s>>>(
         pa, g.sa_m, g.sa_k, pb, g.sb_k, g.sb_n, po, pw, g.M, g.N, g.K,
         g.k_split, g.vec);
   } else {
     const int cols = GEMV_WARPS * 4;
     const dim3 grid((g.N + cols - 1) / cols, 1, g.splits);
-    gemv_k_kernel<T, MT><<<grid, GEMV_THREADS, 0, g.s>>>(
+    gemv_k_kernel<T, O, MT><<<grid, GEMV_THREADS, 0, g.s>>>(
         pa, g.sa_m, g.sa_k, pb, g.sb_k, g.sb_n, po, pw, g.M, g.N, g.K,
         g.k_split, g.vec);
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch(const Args& g, int path) {
   if (g.k_split % k_granule<T>(path)) return (int)cudaErrorInvalidValue;
   if (path == kLarge) {
-    launch_tiles<T, Large>(g);
+    launch_tiles<T, O, Large>(g);
   } else if (path == kMid) {
-    launch_tiles<T, Mid>(g);
+    launch_tiles<T, O, Mid>(g);
   } else if (g.M <= 4) {
-    launch_gemv<T, 4>(g, path);
+    launch_gemv<T, O, 4>(g, path);
   } else if (g.M <= 8) {
-    launch_gemv<T, 8>(g, path);
+    launch_gemv<T, O, 8>(g, path);
   } else if (g.M <= 16) {
-    launch_gemv<T, 16>(g, path);
+    launch_gemv<T, O, 16>(g, path);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -589,8 +592,8 @@ int launch(const Args& g, int path) {
     const int64_t n = (int64_t)g.M * g.N;
     const int64_t want = (n + 255) / 256;
     const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
-    split_sum_kernel<T><<<blocks, 256, 0, g.s>>>(
-        g.work, static_cast<T*>(g.out), n, g.splits);
+    split_sum_kernel<O><<<blocks, 256, 0, g.s>>>(
+        g.work, static_cast<O*>(g.out), n, g.splits);
   }
   return (int)cudaGetLastError();
 }
@@ -602,8 +605,8 @@ bool aligned16(const void* p, int64_t stride, int elt) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (a, b and out share it). out is (M, N)
-// row-major. path: 0 the 128 x 128 tile, 1 the 64 x 128 tile, 2 decode
+// dtype: 0 = float32, 1 = bfloat16 (a and b share it); out_dtype: the
+// same, or 0 (float32) for bfloat16 operands. out is (M, N) row-major. path: 0 the 128 x 128 tile, 1 the 64 x 128 tile, 2 decode
 // with b's n index contiguous, 3 decode with b's k index contiguous (M <=
 // 16 for 2 and 3). vec bit 0 (1): read a 16 bytes at a time along its
 // contiguous index, bit 1 (2): b; the base and the other stride must be
@@ -616,10 +619,12 @@ extern "C" int block_matmul_launch(const void* a, long long sa_m,
                                    long long sb_k, long long sb_n, void* out,
                                    void* work, int M, int N, int K,
                                    int splits, int k_split, int path,
-                                   int vec, int dtype, void* stream) {
+                                   int vec, int dtype, int out_dtype,
+                                   void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const int elt = dtype == 0 ? 4 : 2;
-  if (dtype < 0 || dtype > 1 || path < 0 || path > 3 || splits < 1 ||
+  if (dtype < 0 || dtype > 1 || (out_dtype != dtype && out_dtype != 0) ||
+      path < 0 || path > 3 || splits < 1 ||
       k_split <= 0 || (long long)(splits - 1) * k_split >= (K > 0 ? K : 1) ||
       (splits > 1 && work == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -635,5 +640,7 @@ extern "C" int block_matmul_launch(const void* a, long long sa_m,
   const Args g{a, sa_m, sa_k, b, sb_k, sb_n, out, static_cast<float*>(work),
                M, N, K, splits, k_split, vec,
                static_cast<cudaStream_t>(stream)};
-  return dtype == 0 ? launch<float>(g, path) : launch<__nv_bfloat16>(g, path);
+  if (dtype == 0) return launch<float, float>(g, path);
+  return out_dtype == 0 ? launch<__nv_bfloat16, float>(g, path)
+                        : launch<__nv_bfloat16, __nv_bfloat16>(g, path);
 }

@@ -49,12 +49,13 @@ def _plain(x, plain: bool) -> bool:
     return plain or x.device.type == "cpu"
 
 
-def matmul(a, b, *, plain: bool = False):
-    """(M, K) @ (K, N) with fp32 accumulation, in a's dtype (K1). Either
+def matmul(a, b, *, out_dtype=None, plain: bool = False):
+    """(M, K) @ (K, N) with fp32 accumulation, in ``out_dtype`` (default:
+    a's dtype; float32 for bfloat16 operands rounds nothing) (K1). Either
     operand may be a transposed view: the kernel reads both through their
     strides."""
     fn = block_matmul_plain if _plain(a, plain) else block_matmul_kernel
-    return fn(a, b)
+    return fn(a, b, out_dtype=out_dtype)
 
 
 def rmsnorm(x, gamma, *, full_dim: Optional[int] = None, eps: float = 1e-6,

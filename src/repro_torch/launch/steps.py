@@ -19,7 +19,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import mesh as M
 from repro_torch.core.overdecompose import split_batch
-from repro_torch.core.partition import z_reduce_grads
+from repro_torch.core.partition import param_spec, z_reduce_grads
 from repro_torch.models import decoder as D
 from repro_torch.models.base import ArchConfig
 from repro_torch.optim import adamw as OPT
@@ -97,33 +97,42 @@ def no_decay_names(model: D.Decoder):
             if OPT._no_decay(path)}
 
 
-def refuse_tensor_mesh(axes: M.MeshAxes) -> None:
-    """Training runs a factor above 1 on the seq axis only: the backward's
-    collectives over data, x, y and z wait for their ROADMAP item."""
-    if axes.size(("data", "x", "y", "z")) > 1:
-        raise NotImplementedError(
-            f"mesh {axes.sizes}: training with data, x, y or z above 1 is "
-            f"not ported to PyTorch yet: it waits for the ROADMAP.md §1 item "
-            f"'training on the multi-rank mesh'")
+def sync_grads(grads, axes: M.MeshAxes):
+    """The train step's reductions of this rank's gradients (name ->
+    tensor): the data-parallel all-reduce (paper §3.1) and over seq, in
+    place, one leaf at a time in the same order on every rank (parameters
+    are replicated over seq, and each seq-rank's gradients hold only its
+    own tokens' contributions); then over z for parameters whose backward
+    has not reduced them there, and over y for those whose y ranks hold
+    parts of them (``partition.z_reduce_grads``). Every rank holding the
+    same block gets the same bits."""
+    if axes.size(("data", "seq")) > 1:
+        for g in grads.values():
+            g.copy_(M.psum(g, axes, ("data", "seq")))
+    return z_reduce_grads(grads, axes)
 
 
 def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
                     opt_cfg: OPT.AdamWConfig,
                     opts: TrainOptions = TrainOptions()):
-    """The plain mode of the JAX ``make_train_step``: ``step(model,
-    opt_state, batch, plain=False) -> metrics``. ``batch`` is the global
-    batch, striped by :func:`stripe_batch` on a seq axis; each seq-rank
-    takes its contiguous shard of the sequence, as the JAX step's
-    ``shard_map`` does. It splits the batch into ``opts.overdecompose``
-    microbatches, accumulates their gradients in fp32 and divides by their
-    count, reduces over data and seq (and z where the backward has not),
-    and applies AdamW. The model's parameters and
+    """The plain mode of the JAX ``make_train_step``, the blocking
+    collective schedule: ``step(model, opt_state, batch, plain=False) ->
+    metrics``. ``batch`` is the global batch, striped by
+    :func:`stripe_batch` on a seq axis; each rank takes its rows (batch
+    shard ``axis_index((data, z))``) and then its contiguous shard of the
+    sequence, as the JAX step's ``shard_map`` in_specs do. It splits them
+    into ``opts.overdecompose`` microbatches, accumulates their gradients
+    in fp32 and divides by their count, psums over data and seq, reduces
+    over z and y by each parameter's layout (``partition.z_reduce_grads``)
+    and applies AdamW, whose gradient norm psums each block over its
+    spec's axes. The model's parameters (this rank's blocks) and
     ``opt_state`` (``adamw.init_state`` of ``model.named_parameters()``)
-    are updated in place. In float32 the parameters' ``.grad`` is the
-    accumulator; in bfloat16 with more than one microbatch a separate fp32
-    one is, as the JAX step casts each microbatch's gradients to fp32
-    before summing. With one microbatch the gradients keep their dtype and
-    are reduced in it, as the JAX step's are."""
+    are updated in place; every rank holding the same block ends with the
+    same bits. In float32 the parameters' ``.grad`` is the accumulator; in
+    bfloat16 with more than one microbatch a separate fp32 one is, as the
+    JAX step casts each microbatch's gradients to fp32 before summing.
+    With one microbatch the gradients keep their dtype and are reduced in
+    it, as the JAX step's are."""
     if opts.overlap:
         raise NotImplementedError(
             "the overlapped schedule (TrainOptions.overlap) is not ported "
@@ -134,7 +143,6 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             f"gradient sync {opts.gradsync!r} (ZeRO, ZeRO-3, streamed "
             f"buckets) is not ported to PyTorch yet: it waits for the "
             f"ROADMAP.md §1 item 'rest of the training stack'")
-    refuse_tensor_mesh(axes)
     loss_fn = _loss_fn(cfg, axes, opts)
 
     def step(model, opt_state, batch, plain: bool = False):
@@ -144,8 +152,8 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             raise TypeError(f"TrainOptions.dtype is {opts.dtype}, the model's "
                             f"parameters are {sorted(map(str, dtypes))}")
         n = opts.overdecompose
-        mbs = split_batch({k: M.seq_shard(v, axes) for k, v in batch.items()},
-                          n, axes=axes)
+        mbs = split_batch({k: M.seq_shard(M.batch_shard(v, axes), axes)
+                           for k, v in batch.items()}, n, axes=axes)
         acc = None
         if n > 1 and opts.dtype != torch.float32:
             acc = {k: torch.zeros_like(p, dtype=torch.float32)
@@ -171,18 +179,11 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             loss = loss / n
             metrics = {k: v / n for k, v in metrics.items()}
             grads = {k: g.div_(n) for k, g in grads.items()}
-        # data-parallel all-reduce (paper §3.1), and over seq: parameters
-        # are replicated over seq and each seq-rank's gradients hold only
-        # its own tokens' contributions. In place, one leaf at a time, in
-        # the same order on every rank; every rank gets the same bits.
-        if axes.size(("data", "seq")) > 1:
-            for g in grads.values():
-                g.copy_(M.psum(g, axes, ("data", "seq")))
-        # z reduction for params whose grads are not already z-reduced by
-        # their backward
-        grads = z_reduce_grads(grads, axes)
+        grads = sync_grads(grads, axes)
         om = OPT.apply_updates(params, grads, opt_state, opt_cfg,
-                               no_decay=no_decay_names(model))
+                               no_decay=no_decay_names(model),
+                               specs={k: param_spec(k) for k in params},
+                               axes=axes)
         for p in params.values():
             p.grad = None
         return dict(metrics, loss=loss, **om)

@@ -1,5 +1,5 @@
 """Training entry point of the port: the 4D-hybrid train step on one
-device, or context-parallel on a seq axis.
+device, or on a mesh of ranks (data, x, y, z and seq above 1).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --preset full --steps 3 --batch 4 --seq 512 --overdecompose 2
@@ -11,26 +11,29 @@ gradients in fp32 and applies AdamW, as the JAX package's
 ``make_train_step`` does in its plain mode. The data is the JAX package's
 synthetic Markov text (``data/synthetic.py``).
 
-A fifth ``--mesh`` factor splits each sequence over a seq axis (context
-parallelism, attention through kernel K4), one process per rank:
+``--mesh d,x,y,z[,seq]`` runs one process per rank of the mesh under
+``torch.distributed.run``, with the blocking collective schedule of the
+JAX step's plain mode: each rank draws its block of every weight from the
+seed (by its PartitionSpec), the batch splits over data and z, the
+features and heads over x, y and z, a fifth factor splits each sequence
+over a seq axis (context parallelism, attention through kernel K4):
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
-      --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-1.7b \\
-      --preset full --mesh 1,1,1,1,2 --steps 3 --batch 4 --seq 512 \\
+      --nproc-per-node 8 -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --preset full --mesh 1,2,2,2 --steps 3 --batch 4 --seq 512 \\
       --backend gloo
 
 Every rank builds the same global batch, stripes it and trains on its
 shard; ranks beyond the card count share cards, and their collectives go
 through host memory (gloo). Only rank 0 prints; its last line is one JSON
-object with the losses, step times and each rank's seq-axis
-communication, peak memory, kernel launches and parameter hash.
+object with the losses, step times and each rank's communication by kind
+and by axis, peak memory, kernel launches and parameter hash.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
 §1 item it waits for): ZeRO and checkpoints (``--zero*``,
 ``--dp-bucket-mb``, ``--ckpt*``, ``--resume``), the runtime tooling
 (``--chaos``, ``--probe-every``, ``--telemetry``, ``--log-file``,
-``--profile-steps``, ``--calib``), data, x, y or z above 1 ('training on
-the multi-rank mesh') and ``--backend nccl``.
+``--profile-steps``, ``--calib``) and ``--backend nccl``.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import mesh as M
+from repro_torch.core.partition import param_spec, spec_names
 from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
@@ -108,9 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4,
                     help="peak AdamW learning rate")
     ap.add_argument("--mesh", default="1,1,1,1",
-                    help="g_data,g_x,g_y,g_z[,g_seq] (training runs a "
-                         "factor above 1 on g_seq only, one process per "
-                         "rank under torch.distributed.run)")
+                    help="g_data,g_x,g_y,g_z[,g_seq] (a mesh of more than "
+                         "one rank runs one process per rank under "
+                         "torch.distributed.run)")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
                     help="torch.distributed backend of a mesh with more "
                          "than one rank (gloo; nccl is not ported)")
@@ -151,17 +155,22 @@ class TrainResult:
     tokens_per_step: int
     n_params: int
     max_memory_bytes: Optional[int]   # CUDA only
-    # seq-axis collectives of each step: host-clock seconds and bytes, in
-    # all and by kind of collective ({kind: {"seconds", "bytes"}})
+    # collectives of each step: host-clock seconds and bytes, in all, by
+    # kind of collective and by axis ({kind or axis: {"seconds", "bytes",
+    # "calls"}})
     comm_s: List[float] = dataclasses.field(default_factory=list)
     comm_bytes: List[int] = dataclasses.field(default_factory=list)
     comm_by_kind: List[dict] = dataclasses.field(default_factory=list)
+    comm_by_axis: List[dict] = dataclasses.field(default_factory=list)
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
     # every rank's report (the "ranks" list of the JSON line)
     ranks: List[dict] = dataclasses.field(default_factory=list)
 
 
-def main(argv=None) -> TrainResult:
+def main(argv=None, cfg=None) -> TrainResult:
+    """Train as the flags ``argv`` say; ``cfg``, when given, is the model's
+    configuration in place of ``--arch`` and ``--preset``'s (a cut of a
+    supported model's depth, say)."""
     args = build_parser().parse_args(argv)
     for flag, item in REFUSED.items():
         if getattr(args, flag):
@@ -169,8 +178,7 @@ def main(argv=None) -> TrainResult:
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
                 f"it waits for the ROADMAP.md §1 item '{item}'")
     axes = mesh_axes(args.mesh)
-    ST.refuse_tensor_mesh(axes)
-    cfg = preset_config(get_config(args.arch), args.preset)
+    cfg = cfg or preset_config(get_config(args.arch), args.preset)
     run = init_mesh(axes, backend=args.backend, device=args.device)
     try:
         return _train(args, axes, cfg, run)
@@ -189,7 +197,9 @@ def _train(args, axes, cfg, run) -> TrainResult:
                           dtype=dtype)
     dev = model.embed.device
     params = dict(model.named_parameters())
-    n_params = sum(p.numel() for p in params.values())
+    # the global count: each block times the ranks it is split over
+    n_params = sum(p.numel() * axes.size(spec_names(param_spec(n)))
+                   for n, p in params.items())
     say(f"arch={cfg.name} params={n_params / 1e6:.1f}M mesh={args.mesh} "
         f"device={dev}")
     if multi:
@@ -215,16 +225,19 @@ def _train(args, axes, cfg, run) -> TrainResult:
         batch = ST.stripe_batch(
             {k: torch.from_numpy(v).to(dev) for k, v in
              make_batch(cfg, step, data, dtype=np.float32).items()}, axes)
-        comm0 = copy.deepcopy(M.COMM)
+        comm0 = copy.deepcopy((M.COMM, M.COMM_AXES))
         t0 = time.perf_counter()
         metrics = step_fn(model, state, batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         if cuda:
             torch.cuda.synchronize(dev)
         res.step_s.append(time.perf_counter() - t0)
-        by_kind = {k: {n: c[n] - comm0.get(k, {}).get(n, 0) for n in c}
-                   for k, c in M.COMM.items()}
+        by_kind, by_axis = (
+            {k: {n: c[n] - before.get(k, {}).get(n, 0) for n in c}
+             for k, c in now.items()}
+            for now, before in zip((M.COMM, M.COMM_AXES), comm0))
         res.comm_by_kind.append(by_kind)
+        res.comm_by_axis.append(by_axis)
         res.comm_s.append(sum(c["seconds"] for c in by_kind.values()))
         res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
@@ -235,13 +248,14 @@ def _train(args, axes, cfg, run) -> TrainResult:
             say(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
                 f"{tokens / res.step_s[-1]:,.0f} tok/s "
                 f"({res.step_s[-1] * 1e3:.1f} ms"
-                + (f", seq comm {res.comm_s[-1] * 1e3:.1f} ms"
+                + (f", comm {res.comm_s[-1] * 1e3:.1f} ms"
                    if multi else "") + ")")
     res.launches = ops.launches()
     if cuda:
         res.max_memory_bytes = torch.cuda.max_memory_allocated(dev)
     mine = dict(rank=run["rank"], device=str(dev), comm_s=res.comm_s,
                 comm_bytes=res.comm_bytes, comm_by_kind=res.comm_by_kind,
+                comm_by_axis=res.comm_by_axis,
                 max_memory_bytes=res.max_memory_bytes,
                 launches=res.launches,
                 param_sha256=param_sha256(model) if multi else None)

@@ -114,7 +114,11 @@ class Attention(nn.Module):
         q = PP.tp_matmul(h, self.wq, axes, "x", "y", plain=plain).reshape(
             R, T, self.nq_l, hd)
         if self.dup:
-            kv = PP.tp_matmul(h, self.wkv_dup, axes, "x", None,
+            # the output is replicated over y, but each y rank reads its
+            # own head of it: the input gradient sums over y, as a
+            # y-sharded output's does (the reference passes no output axis
+            # here and leaves each y rank's dX partial)
+            kv = PP.tp_matmul(h, self.wkv_dup, axes, "x", "y",
                               plain=plain).reshape(R, T, 2, cfg.n_kv_heads,
                                                    hd)
             # this rank's duplicated head: kv head j serves q heads [j g, ..)

@@ -2,19 +2,23 @@
 
 Parameters live in the model's dtype; the first and second moments and an
 fp32 master copy are kept per parameter, as in the JAX package (its
-``init_state`` copies even float32 parameters). Gradients arrive at
-:func:`apply_updates` already reduced over data (and z where required) by
-the train step. The update is the JAX package's, element by element; it
+``init_state`` copies even float32 parameters). On a mesh each rank holds
+its block of every parameter and of its state. Gradients arrive at
+:func:`apply_updates` already reduced over data (and over z and y where
+their layout asks) by the train step. The update is the JAX package's, element by element; it
 runs in place on the state and the parameters (the JAX step returns new
 trees; updating in place saves a copy of the state and the parameters).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Collection, Dict
+from typing import Collection, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import mesh as M
+from repro_torch.core.partition import Spec, spec_names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,23 +69,38 @@ def _no_decay(path: str) -> bool:
     return False
 
 
-def global_grad_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """L2 norm of the global gradient, in fp32. On the one-device mesh
-    every leaf is whole, so no leaf's sum of squares needs a psum."""
-    total = sum(torch.sum(torch.square(g.float())) for g in grads.values())
+def global_grad_norm(grads: Dict[str, torch.Tensor],
+                     specs: Optional[Dict[str, Spec]] = None,
+                     axes: M.MeshAxes = M.MeshAxes()) -> torch.Tensor:
+    """L2 norm of the *global* gradient, in fp32: each leaf's local sum of
+    squares is psum'd over exactly the mesh axes its spec (``specs[name]``;
+    None: every leaf whole) shards it over, as in the reference. The
+    leaves that share a set of axes share one psum, in the order of
+    ``grads``: a handful of collectives a step, not one a leaf."""
+    groups: Dict[tuple, list] = {}
+    for n, g in grads.items():
+        names = spec_names(specs[n]) if specs is not None else ()
+        groups.setdefault(names, []).append(torch.sum(torch.square(g.float())))
+    total = 0.0
+    for names, sums in groups.items():
+        total = total + torch.sum(M.psum(torch.stack(sums), axes, names))
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state,
-                  cfg: AdamWConfig, *, no_decay: Collection[str] = ()):
-    """One AdamW step. ``params`` and ``grads`` are keyed alike; names in
-    ``no_decay`` take no weight decay. Updates ``params`` and ``state`` in
+                  cfg: AdamWConfig, *, no_decay: Collection[str] = (),
+                  specs: Optional[Dict[str, Spec]] = None,
+                  axes: M.MeshAxes = M.MeshAxes()):
+    """One AdamW step on this rank's blocks. ``params`` and ``grads`` are
+    keyed alike; names in ``no_decay`` take no weight decay; ``specs``
+    (name -> PartitionSpec) and ``axes`` say how the gradient norm sums the
+    blocks (:func:`global_grad_norm`). Updates ``params`` and ``state`` in
     place; returns the metrics {"grad_norm", "lr"}."""
     step = state["step"]
     lr = lr_at(cfg, step)
-    gnorm = global_grad_norm(grads)
+    gnorm = global_grad_norm(grads, specs, axes)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
              if cfg.grad_clip else 1.0)
     t = np.float32(step + 1)

@@ -364,6 +364,22 @@ def test_block_matmul_kernel_matches_plain(cuda, M, K, N, shift, layout,
     assert torch.equal(block_matmul_kernel(a, b), got)
 
 
+@pytest.mark.parametrize("layout", ["NN", "NT", "TN", "SN"])
+@pytest.mark.parametrize("M", MATMUL_M)
+def test_block_matmul_kernel_writes_float32_for_bf16_operands(cuda, M,
+                                                              layout):
+    """bf16 operands with a float32 output (a weight gradient before its z
+    reduce-scatter), on every path: held to the plain version at the
+    float32 tolerance; rounded to bf16 it is the bf16 output's bits."""
+    a, b = _operands(cuda, layout, M, 512, 384, torch.bfloat16)
+    got = ops.matmul(a, b, out_dtype=torch.float32)
+    want = block_matmul_plain(a, b, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (M, 384)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    assert torch.equal(got.to(torch.bfloat16), block_matmul_kernel(a, b))
+
+
 @pytest.mark.parametrize("M,layout", [(8, "NN"), (8, "NT"), (1024, "NN")])
 def test_block_matmul_kernel_is_deterministic(cuda, M, layout):
     """The K split sums in a fixed order: two calls give the same bits, at

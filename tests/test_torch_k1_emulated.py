@@ -5,8 +5,9 @@
 launched through the wrapper's own ``launch_args``, on CPU tensors: every
 path (decode with b n- or k-contiguous, the 64-row and the 128-row tile),
 16-byte and element-wise loads, ragged edges and K splits, in float32 and
-bfloat16. Each case is held to the plain version with the card's
-tolerances (``chip_smoke.py``'s MATMUL_TOL) and must repeat bitwise. This
+bfloat16, and bfloat16 operands with a float32 output. Each case is held
+to the plain version with the card's tolerances (``chip_smoke.py``'s
+MATMUL_TOL) and must repeat bitwise. This
 checks the kernel's indexing and arithmetic, not its speed or its
 behaviour under the real compiler; the card runs the same source in
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -28,12 +29,12 @@ def launcher(tmp_path_factory):
     lib = compile_source("block_matmul",
                          tmp_path_factory.mktemp("k1_emulated"))
     fn = lib.block_matmul_launch
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = BM.ARGTYPES
     fn.restype = ctypes.c_int
 
-    def run(a, b):
-        out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype)
+    def run(a, b, out_dtype=None):
+        out = torch.empty((a.shape[0], b.shape[1]),
+                          dtype=out_dtype or a.dtype)
         args, work = BM.launch_args(a, b, out, N_SM)
         assert fn(*args, None) == 0
         return out, BM.PATHS[args[13]], args[11], args[14]
@@ -82,6 +83,34 @@ def test_k1_source_matches_plain_on_the_cpu(launcher, M, K, N, layout,
     assert err <= TOL[dtype] * float(want.float().abs().max()), (path, err)
     again, *_ = launcher(a, b)
     assert torch.equal(got, again)
+
+
+BF16_CASES = [c for c in CASES if c[4] == BF16]
+
+
+@pytest.mark.parametrize("M,K,N,layout,dtype,shift", BF16_CASES)
+def test_k1_source_writes_float32_for_bf16_operands(launcher, M, K, N,
+                                                    layout, dtype, shift):
+    """bf16 operands, fp32 output (a weight gradient before its z
+    reduce-scatter): held to the plain version at the float32 tolerance,
+    and rounded to bf16 it is bitwise the bf16 output, so the fp32 output
+    only defers the one rounding."""
+    a, b = _operands(M, K, N, layout, dtype, shift)
+    got, path, splits, _ = launcher(a, b, torch.float32)
+    want = BM.block_matmul_plain(a, b, out_dtype=torch.float32)
+    assert got.dtype == want.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err <= TOL[F32] * float(want.abs().max()), (path, err)
+    again, *_ = launcher(a, b, torch.float32)
+    assert torch.equal(got, again)
+    narrow, *_ = launcher(a, b)
+    assert torch.equal(got.to(BF16), narrow), path
+
+
+def test_the_bf16_cases_cover_every_path():
+    paths = {BM.plan(M, N, K, N_SM, elt=2, b_k1=layout == "NT").path
+             for M, K, N, layout, _, _ in BF16_CASES}
+    assert paths == set(BM.PATHS)
 
 
 def test_the_cases_cover_every_path_and_both_loads():

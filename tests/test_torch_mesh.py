@@ -650,12 +650,21 @@ def test_mamba_on_the_tensor_axes_is_refused():
         ST.init_model(cfg, MeshAxes((1, 2, 1, 1)), device="cpu")
 
 
-def test_training_on_the_tensor_axes_is_refused():
+@pytest.mark.parametrize("opts,item", [
+    (dict(overlap=True), "overlapped schedule"),
+    (dict(gradsync="zero"), "rest of the training stack")])
+def test_training_on_the_tensor_axes_is_refused(opts, item):
+    """Training on the tensor axes runs the blocking schedule
+    (``tests/test_torch_mesh_train.py``); the overlapped schedule and the
+    sharded gradient sync stay refused there, naming their ROADMAP
+    items."""
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError,
-                       match="'training on the multi-rank mesh'"):
-        ST.make_train_step(cfg, MeshAxes((1, 2, 1, 1)), AdamWConfig())
+    axes = MeshAxes((1, 2, 1, 1))
+    assert callable(ST.make_train_step(cfg, axes, AdamWConfig(),
+                                       ST.TrainOptions()))
+    with pytest.raises(NotImplementedError, match=f"'{item}'"):
+        ST.make_train_step(cfg, axes, AdamWConfig(), ST.TrainOptions(**opts))
 
 
 if __name__ == "__main__":
