@@ -27,7 +27,9 @@ a hard failure:
      shapes of the (1,2,2,1) mesh (phase 11); K1 (its products, their dX
      and dW, the tied head's three), K2 forward and backward and K3's
      stats and apply passes at the local shapes of training on (1,2,2,2)
-     (phase 12), K1's float32 output for bf16 operands at the dW shapes;
+     (phase 12), K1's float32 output for bf16 operands at the dW shapes,
+     K1 at the ring-hop shapes of phase 13a (a column slice of dY or h
+     as an operand);
      K6 selective scan at the prefill and decode shapes (y and final
      state; two runs give the same bits);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
@@ -95,19 +97,32 @@ a hard failure:
      greedy ids held the same way to the fixed run of the same flags on
      one card (taken in phase 5, with the margins of its positions);
  12. training on the 4D mesh, gloo ranks sharing the card under
-     ``torch.distributed.run``, each holding its block of every weight:
-     (a) ``launch/train.py --mesh 1,2,2,2`` (x, y and z of 2, eight
-     ranks) with phase 8's flags at full width and depth: step 1's loss
-     and grad norm within MESH_TRAIN_TOL of phase 8's, the later losses
-     within 1e-3, each kernel's launches per rank and microbatch and the
-     collective calls per step and axis exactly the code's, each rank's
-     peak memory within its eighth of the card; (b) on (2,2,2,1), the
-     data axis beside x and y, the same flags at full width and 4 layers
-     (the full depth needs more memory than the card holds without ZeRO)
-     in a worker (``chip_smoke.py --mesh-train-worker DIR``): the two data
-     replicas of every block end bitwise equal, and the losses and grad
-     norms match a one-card run of the same 4-layer model;
- 13. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+     ``torch.distributed.run``, each holding its block of every weight,
+     at full width and MESH_LAYERS layers (one card's run of the same cut
+     model, in this process, is what they are held to); each runs
+     ``train.main`` in ``chip_smoke.py --mesh-train-worker DIR WHICH``:
+     (a) on (1,2,2,2) (x, y and z of 2, eight ranks) with phase 8's
+     flags: step 1's loss and grad norm within MESH_TRAIN_TOL of one
+     card's, the later losses within 1e-3, each kernel's launches per rank
+     and microbatch and the collective calls per step and axis exactly the
+     code's, each rank's peak memory within its eighth of the card; (b) on
+     (2,2,2,1), the data axis beside x and y: the two data replicas of
+     every block end bitwise equal, and the losses and grad norms match
+     one card's;
+ 13. the overlapped schedule (``core/overlap.py``): (a) 12a's run with
+     ``OverlapConfig.all_on()`` (every z collective and x/y all-reduce a
+     ring of hops whose K1 GEMMs run as the blocks arrive): step 1 within
+     OVERLAP_TRAIN_TOL of one card's, launches, ring hops and blocking
+     calls per step and axis the code's (``mesh_train_hops``), its step
+     time, exposed comm seconds and bytes by axis beside 12a's; (b) phase
+     10's run with the seq ring (``OverlapConfig(ring_attention=True)``):
+     losses held to phase 8's and phase 10's, both ranks bitwise equal,
+     K4's launches and the seq hops the code's, beside phase 10's; (c)
+     ``serve.py --mesh 1,2,2,1 --mode fixed --overlap`` with phase 11's
+     flags: the teacher-forced logits under the schedule within
+     OVERLAP_TF_TOL of max|logit| of one card's, the greedy ids equal to
+     phase 11's fixed run's, launches, calls and ring hops the code's;
+ 14. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -227,6 +242,16 @@ MESH_TRAIN_MATMUL_SHAPES = [
     ("mesh train tied head h.E^T", 512, 1024, 76032, "NT"),
     ("mesh train tied head dh", 512, 76032, 1024, "NN"),
     ("mesh train tied head dtable", 76032, 512, 1024, "TN")]
+# K1 at the ring-hop shapes of the overlapped schedule on (1,2,2,2) (phase
+# 13a): one z block of x.Wi|Wg (1024 x 1536) a hop, forward on the block;
+# dX on a column slice of dY (row stride 3072) against the block
+# transposed; dW of x^T against a column slice of dY; the tied head's
+# accumulate hop, a column slice of h (row stride 1024) against the
+# table's z block (76032 x 512) transposed
+RING_MATMUL_SHAPES = [("ring hop x.Wi|Wg fwd", 512, 1024, 1536, "NN"),
+                      ("ring hop x.Wi|Wg dX", 512, 1536, 1024, "ST"),
+                      ("ring hop x.Wi|Wg dW", 1024, 512, 1536, "TS"),
+                      ("ring hop tied head h.E^T", 512, 512, 76032, "ST")]
 # of those, timed in float32, and the dW also with bf16 operands, its
 # output in bf16 and in float32 (beside bfloat16 torch.matmul)
 MESH_TRAIN_TIMED = ("mesh train x.Wi|Wg fwd", "mesh train x.Wi|Wg dW")
@@ -283,12 +308,16 @@ MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
 # after the step; Jamba's attention layers (prompt 512 + up to 32 new) and
 # qwen3-1.7b's local heads on (1,2,2,1) in the fixed mesh run (prompt 128
 # + up to 8 new)
-# training on the 4D mesh: 12a at (1,2,2,2) with phase 8's flags, full
-# width and depth; 12b at (2,2,2,1), full width, depth cut to 4 layers
+# training on the 4D mesh, phase 8's flags at full width and MESH_LAYERS
+# layers: 12a at (1,2,2,2), 12b at (2,2,2,1), 13a as 12a with the
+# overlapped schedule, each held to one card's run of the same cut model.
+# The cut keeps the whole script within its time (at full depth 12a and
+# 13a took 166 and 145 s with start-up on an H100 80GB HBM3 at 700 W), and
+# 12b's full depth does not fit eight ranks on the card without ZeRO
 MESH_TRAIN = "1,2,2,2"
 MESH_TRAIN_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_TRAIN, "--backend", "gloo"]
 MESH_DATA = "2,2,2,1"
-MESH_DATA_LAYERS = 4
+MESH_LAYERS = 4
 MESH_DATA_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_DATA, "--backend", "gloo"]
 MESH_TRAIN_RANKS = 8
 MESH_TRAIN_TIMEOUT_S = 700
@@ -297,6 +326,15 @@ MESH_TRAIN_TIMEOUT_S = 700
 # and the later steps' losses, absolute, as phase 10 holds them
 MESH_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "later_loss": 1e-3}
 MESH_TRAIN_DIR = ROOT / "build" / "chip_smoke_mesh_train"
+# the overlapped schedule (phase 13): 13a trains with
+# OverlapConfig.all_on() on MESH_TRAIN, 13b with the seq ring alone on
+# phase 10's mesh at full depth (train.py has no flag for the schedule:
+# both run ``train.main`` in ``chip_smoke.py --mesh-train-worker DIR
+# WHICH``), 13c serves MESH_FIXED_FLAGS with --overlap; step 1 against one
+# card's (relative), later losses absolute; the overlapped serving's
+# teacher-forced logits against one card's, relative to max|logit|
+OVERLAP_TRAIN_TOL = {"loss": 1e-6, "grad_norm": 1e-5, "later_loss": 1e-4}
+OVERLAP_TF_TOL = 3e-6
 DENSE_DECODE = {"Jamba": ((4, 32, 8, 128), [513, 527, 538, 544]),
                 "mesh fixed": ((4, 8, 4, 128), [129, 131, 134, 136])}
 
@@ -433,11 +471,17 @@ def dtype_name(dtype) -> str:
 # ---------------------------------------------------------------------- #
 
 def matmul_inputs(gen, M, K, N, layout, dtype):
+    """a (M, K) and b (K, N): "T" reads an operand through a transposed
+    view; "SN" reads a as a column slice (row stride K + 32); "ST" reads a
+    as the second half of rows of 2 K and b transposed, "TS" a transposed
+    and b as the second half of rows of 2 N (a ring hop's slices)."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    a = (rand(K, M).t() if layout == "TN" else rand(M, K + 32)[:, :K]
-         if layout == "SN" else rand(M, K))
-    b = rand(N, K).t() if layout == "NT" else rand(K, N)
+    a = (rand(K, M).t() if layout in ("TN", "TS") else
+         rand(M, K + 32)[:, :K] if layout == "SN" else
+         rand(M, 2 * K)[:, K:] if layout == "ST" else rand(M, K))
+    b = (rand(N, K).t() if layout in ("NT", "ST") else
+         rand(K, 2 * N)[:, N:] if layout == "TS" else rand(K, N))
     return a, b
 
 
@@ -763,6 +807,19 @@ def phase_kernels_train(gen, errs):
                                      f"differs from the {dtype} output")
             errs["block_matmul"] = max(errs["block_matmul"], e)
             del a, b, got
+    log("[kernels] K1 at the ring-hop shapes of the overlapped schedule on "
+        "(1,2,2,2), float32, each run twice")
+    for name, M, K, N, layout in RING_MATMUL_SHAPES:
+        a, b = matmul_inputs(gen, M, K, N, layout, f32)
+        out = f32 if layout == "TS" else None
+        got = block_matmul_kernel(a, b, out_dtype=out)
+        e = check_rel(f"float32 {name} ({M}, {K}) x ({K}, {N}) {layout}",
+                      got, block_matmul_plain(a, b, out_dtype=out),
+                      MATMUL_TOL[f32])
+        if not torch.equal(got, block_matmul_kernel(a, b, out_dtype=out)):
+            raise AssertionError(f"K1 {name}: two runs differ")
+        errs["block_matmul"] = max(errs["block_matmul"], e)
+        del a, b, got
     log("[kernels] K2 flash attention forward and backward vs plain "
         "(autograd of the plain forward)")
     for dtype in (f32, torch.bfloat16):
@@ -1109,7 +1166,8 @@ def phase_timings_train(gen, out):
         "CUDA graph / eager calls back to back")
     bf16 = torch.bfloat16
     mesh = [c for c in MESH_TRAIN_MATMUL_SHAPES if c[0] in MESH_TRAIN_TIMED]
-    shapes = [(f32, None, *c) for c in MATMUL_SHAPES + mesh] + [
+    shapes = [(f32, None, *c) for c in MATMUL_SHAPES + mesh
+              + RING_MATMUL_SHAPES] + [
         (bf16, None, *c) for c in MATMUL_SHAPES
         if c[0] in MATMUL_BF16_TIMED] + [
         (bf16, out, *c) for c in mesh if c[4] == "TN" for out in (None, f32)]
@@ -1818,7 +1876,7 @@ def phase_seq_train(cfg, smi, losses_one_card):
     log(f"  rank 0 step times {[round(x, 4) for x in rep['step_s']]} s; "
         f"steady step {step_s:.4f} s, {rep['tokens_per_step'] / step_s:.1f} "
         f"tokens/s over both ranks on {smi}")
-    return rep["ranks"][0]["launches"]
+    return rep["ranks"][0]["launches"], rep
 
 
 # ---------------------------------------------------------------------- #
@@ -1988,12 +2046,31 @@ def mesh_worker(outdir: Path) -> int:
         logits = teacher_forced(model, job["seqs"], job["n_out"])
         if run["rank"] == 0:
             torch.save(logits, outdir / "mesh_logits.pt")
+        del logits
+        # 13c: the same under the overlapped schedule of serve.py --overlap
+        from repro_torch.core.overlap import OverlapConfig
+        from repro_torch.models.decoder import overlap_bound
+        with overlap_bound(model, OverlapConfig.all_on()):
+            logits = teacher_forced(model, job["seqs"], job["n_out"])
+        if run["rank"] == 0:
+            torch.save(logits, outdir / "overlap_logits.pt")
     finally:
         close_mesh()
     return 0
 
 
-def mesh_report(lines, expect, want, units, unit, cfg, smi):
+def mesh_serve_hops(cfg):
+    """Ring hops of one forward on a rank of (1,2,2,1) under ``--overlap``,
+    counted from the code: z is 1, so each activation all-reduce over two
+    ranks is the GEMM and one exchange: per layer the x all-reduces of q,
+    k, v and the MLP's gate and up, the y all-reduces of the two
+    transposed projections (7), and the tied head's over x. The norms'
+    psums, the embedding's psum and the logits' gather stay blocking; the
+    calls in all are ``mesh_collectives``'."""
+    return 7 * cfg.n_layers + 1
+
+
+def mesh_report(lines, expect, want, units, unit, cfg, smi, hops=0):
     """Checks of a mesh serving run's ``{"serve": ...}`` line: each rank's
     shard hash against the one-card model's blocks, the same plans on
     every rank, each kernel's launches (``want`` per ``unit``) and the
@@ -2036,6 +2113,14 @@ def mesh_report(lines, expect, want, units, unit, cfg, smi):
         if c != calls * n:
             raise AssertionError(f"rank {r['rank']}: {c} collective calls, "
                                  f"expected {calls} per {unit}")
+        got = r["comm"].get("ppermute", {"calls": 0})["calls"]
+        want_hops = hops * forwards
+        if got != want_hops:
+            raise AssertionError(f"rank {r['rank']}: {got} ring hops, "
+                                 f"expected {want_hops}")
+        if hops:
+            log(f"    of them ring hops: {got} = {hops} per forward, as the "
+                f"code counts")
         # the engine reads rank 0's clock once an iteration of its loop,
         # and a step is one iteration; the fixed run reads no clock
         if not (clock["calls"] >= n if unit == "step"
@@ -2093,7 +2178,51 @@ def phase_mesh_serve(cfg, smi, expect):
     log(f"  fixed: prefill {fixed['prefill_s']:.4f} s, decode "
         f"{fixed['decode_s']:.4f} s for {gen - 1} steps "
         f"({1e3 * fixed['decode_s'] / (gen - 1):.2f} ms/step)")
-    return sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"]
+    return (sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"],
+            dict(fixed=fixed, thr=thr, tf_err=err))
+
+
+def phase_overlap_serve(cfg, smi, expect, blocking):
+    """13c: ``serve.py --mesh 1,2,2,1 --overlap`` in fixed mode with phase
+    11's flags, four gloo ranks on this card. The teacher-forced logits
+    under the overlapped schedule (taken by phase 11's worker) within
+    OVERLAP_TF_TOL of max|logit| of one card's, every greedy id equal to
+    the blocking mesh run's (``blocking``, phase 11's) and held to one
+    card's as phase 11 holds them; launches, collective calls and ring
+    hops the code's count; the two schedules' times side by side."""
+    mesh = torch.load(MESH_DIR / "overlap_logits.pt")
+    block = torch.load(MESH_DIR / "mesh_logits.pt")
+    one = expect["logits"]
+    err, scale = max_err(mesh, one), float(one.abs().max())
+    log(f"[overlap serve] teacher-forced logits under the overlapped "
+        f"schedule: max|mesh - one card| = {err:.3e}, {err / scale:.3e} of "
+        f"max|logit| (tol {OVERLAP_TF_TOL:g}); bitwise the blocking mesh's: "
+        f"{torch.equal(mesh, block)}")
+    if not (math.isfinite(err) and err <= OVERLAP_TF_TOL * scale):
+        raise AssertionError("the overlapped mesh's logits differ from one "
+                             "card's")
+    del mesh, block
+    flags = MESH_FIXED_FLAGS + ["--overlap"]
+    lines = launch_ranks(["-m", "repro_torch.launch.serve", *flags],
+                         "overlap fixed serve", MESH_RANKS, MESH_TIMEOUT_S)
+    gen = int(flags[flags.index("--gen") + 1])
+    rep = mesh_report(lines, expect, mesh_launches(cfg, 1, gen - 1),
+                      lambda r: (1, gen), "run", cfg, smi,
+                      hops=mesh_serve_hops(cfg))
+    if rep["ids"] != blocking["fixed"]["ids"]:
+        raise AssertionError("the overlapped fixed run's ids differ from the "
+                             "blocking mesh run's")
+    check_ids(rep["ids"], expect["fixed_ids"], expect["fixed_margin"],
+              blocking["thr"], "overlapped fixed, against the one-card fixed "
+              "run")
+    log("  greedy ids == the blocking mesh run's at every position")
+    for key, r in (("blocking", blocking["fixed"]), ("overlapped", rep)):
+        comm = [sum(v["seconds"] for k, v in x["comm"].items()
+                    if k != "broadcast")
+                for x in sorted(r["ranks"], key=lambda x: x["rank"])]
+        log(f"  {key}: prefill {r['prefill_s']:.4f} s, decode "
+            f"{r['decode_s']:.4f} s for {gen - 1} steps; comm per rank "
+            f"{[round(c, 3) for c in comm]} s, on {smi}")
 
 
 # ---------------------------------------------------------------------- #
@@ -2136,16 +2265,19 @@ def mesh_train_collectives(cfg, axes, microbatches):
     gains (4 L + 1, the qk-norm ones among them) over z, and the gradient
     norm's psum of each set of axes a spec shards over (x, y, z and x
     alone; the replicated gains need none). A size-1 axis costs no
-    call."""
-    L = cfg.n_layers
+    call. Without qk-norm, 2 L leaves fewer: none over y, 2 L + 1 gains
+    over z."""
+    L, qk = cfg.n_layers, int(cfg.qk_norm)
     live = {a: axes.size(a) > 1 for a in ("data", "x", "y", "z", "seq")}
     per_mb = {"z": 28 * L + 5, "x": 20 * L + 4, "y": 9 * L + 5,
               "data+z+seq": 2}
     per_mb["data+z+seq"] *= live["data"] or live["z"] or live["seq"]
     want = {k: v * microbatches for k, v in per_mb.items()
             if all(live[a] for a in k.split("+")) or k == "data+z+seq"}
-    sync = {"data+seq": (11 * L + 2) * (live["data"] or live["seq"]),
-            "y": 2 * L * live["y"], "z": (4 * L + 1) * live["z"],
+    sync = {"data+seq": ((9 + 2 * qk) * L + 2)
+            * (live["data"] or live["seq"]),
+            "y": 2 * L * qk * live["y"], "z": ((2 + 2 * qk) * L + 1)
+            * live["z"],
             "x+y+z": int(live["x"] or live["y"] or live["z"]),
             "x": int(live["x"])}
     for k, v in sync.items():
@@ -2153,10 +2285,75 @@ def mesh_train_collectives(cfg, axes, microbatches):
     return {k: v for k, v in want.items() if v}
 
 
-def check_mesh_losses(rep, one, label):
-    """Step 1's loss and grad norm within MESH_TRAIN_TOL (relative) of the
-    one-card run's, the later losses within its absolute bound."""
-    t = MESH_TRAIN_TOL
+def ar_ring_hops(p, chunks=1, fed=False):
+    """Hops of one activation all-reduce over p ranks under
+    ``overlap.all_reduce`` (the reduced dim splits over p): none over one
+    rank, one exchange at p == 2, else a reduce-scatter ring of p - 1 hops
+    (per sub-ring where the GEMM feeds it, ``fed``) and an all-gather ring
+    of p - 1."""
+    if p == 1:
+        return 0
+    if p == 2:
+        return 1
+    return (p - 1) * (chunks if fed else 1) + (p - 1)
+
+
+def mesh_train_hops(cfg, axes, microbatches, *, z_chunks=1, ar_chunks=1):
+    """(ring hops, blocking calls) of one train step on a rank under
+    ``OverlapConfig.all_on(z_chunks, ar_chunks)``, each by axis, counted
+    from the code for the decoder of ``mesh_train_collectives`` (the
+    blocks' widths split over every ring). Each tp matmul (5 "normal" and
+    2 "transposed" a layer, forward twice with remat's recompute; the tied
+    head, forward once, counts as a normal one): with z above 1, a z ring
+    of (g_z - 1) z_chunks hops in the forward, two in the backward (dX's
+    accumulate ring, dW's reduce-scatter ring), and the activation
+    all-reduces as rings (forward over the contraction axis, dX over the
+    output axis); with z of 1 the GEMM feeds the all-reduce rings. The
+    embedding's table is gathered by one z ring of g_z - 1 hops; its
+    gradient's reduce-scatter stays blocking. On a seq axis of p, each
+    layer's K and V take p - 1 hops each in the forward and in the
+    recompute, and their gradients p - 1 each back. Every ring site takes
+    the place of one blocking call of ``mesh_train_collectives``; the
+    norms' and the softmax's psums, the loss's means and the step's
+    reductions stay blocking."""
+    L, gz = cfg.n_layers, axes.gz
+    hops = dict.fromkeys(("x", "y", "z", "seq"), 0)
+    sites = dict.fromkeys(("x", "y", "z"), 0)
+
+    def matmul(in_ax, out_ax, fwd):
+        z_ring = (gz - 1) * z_chunks
+        if gz > 1:
+            hops["z"] += (fwd + 2) * z_ring
+            hops[in_ax] += fwd * ar_ring_hops(axes.size(in_ax))
+            hops[out_ax] += ar_ring_hops(axes.size(out_ax))
+        else:
+            hops[in_ax] += fwd * ar_ring_hops(axes.size(in_ax), ar_chunks,
+                                              fed=True)
+            hops[out_ax] += ar_ring_hops(axes.size(out_ax), ar_chunks,
+                                         fed=True)
+        sites["z"] += fwd + 2
+        sites[in_ax] += fwd
+        sites[out_ax] += 1
+    for _ in range(L):
+        for _ in range(5):
+            matmul("x", "y", 2)
+        for _ in range(2):
+            matmul("y", "x", 2)
+    matmul("x", "y", 1)                  # the tied head
+    hops["z"] += gz - 1                  # the embedding's table
+    sites["z"] += 1
+    hops["seq"] += 6 * (axes.gseq - 1) * L
+    blocking = mesh_train_collectives(cfg, axes, microbatches)
+    for a, n in sites.items():
+        if a in blocking:
+            blocking[a] -= n * microbatches
+    return ({a: n * microbatches for a, n in hops.items() if n},
+            {a: n for a, n in blocking.items() if n})
+
+
+def check_mesh_losses(rep, one, label, t=MESH_TRAIN_TOL):
+    """Step 1's loss and grad norm within ``t`` (relative) of the one-card
+    run's, the later losses within its absolute bound."""
     d_loss = abs(rep["losses"][0] - one.losses[0]) / abs(one.losses[0])
     d_gn = abs(rep["grad_norms"][0] - one.grad_norms[0]) / one.grad_norms[0]
     later = max((abs(a - b) for a, b in zip(rep["losses"][1:],
@@ -2176,15 +2373,14 @@ def check_mesh_losses(rep, one, label):
 
 
 def phase_mesh_train(cfg, smi, one):
-    """12a: ``launch/train.py`` on (1,2,2,2), eight gloo ranks on this
-    card, with phase 8's flags at full width and depth, held to phase 8's
-    run ``one``."""
+    """12a: train.py's run on (1,2,2,2), eight gloo ranks on this card,
+    with phase 8's flags at full width and MESH_LAYERS layers (``cfg``),
+    held to one card's run ``one`` of the same model."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import mesh_axes
-    rep = train_report(launch_ranks(
-        ["-m", "repro_torch.launch.train", *MESH_TRAIN_FLAGS], "mesh train",
-        MESH_TRAIN_RANKS, MESH_TRAIN_TIMEOUT_S))
-    check_mesh_losses(rep, one, "(1,2,2,2) against phase 8")
+    rep = run_mesh_train("mesh", f"mesh train ({MESH_TRAIN}, {MESH_LAYERS} "
+                         f"layers)", MESH_TRAIN_RANKS)
+    check_mesh_losses(rep, one, "(1,2,2,2) against one card")
     args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
     want = mesh_train_collectives(cfg, mesh_axes(MESH_TRAIN),
                                   args.overdecompose)
@@ -2219,44 +2415,187 @@ def phase_mesh_train(cfg, smi, one):
         f"steady step {step_s:.3f} s, {rep['tokens_per_step'] / step_s:.1f} "
         f"tokens/s over the 8 ranks, {rep['n_params'] / 1e9:.3f} B "
         f"parameters, on {smi}")
-    return ranks[0]["launches"]
+    return ranks[0]["launches"], rep
+
+
+def overlap_train_launches(cfg, axes):
+    """``mesh_train_launches`` under ``OverlapConfig.all_on()``: every K1
+    product of a tp matmul and of the tied head runs once per z block (g_z
+    GEMMs a ring, one per hop and one on the rank's own block)."""
+    want = mesh_train_launches(cfg)
+    want["block_matmul"] *= axes.gz
+    return want
+
+
+def check_step_calls(rep, hops, blocking):
+    """Every rank's ring hops and blocking calls of every step, by axis,
+    against the code's count."""
+    for r in rep["ranks"]:
+        for i, (by_axis, by_hop) in enumerate(zip(r["comm_by_axis"],
+                                                  r["hops_by_axis"])):
+            got_hops = {a: c["calls"] for a, c in by_hop.items()}
+            rest = {a: c["calls"] - by_hop.get(a, {"calls": 0})["calls"]
+                    for a, c in by_axis.items()}
+            rest = {a: n for a, n in rest.items() if n}
+            if got_hops != hops or rest != blocking:
+                raise AssertionError(
+                    f"rank {r['rank']} step {i}: hops {got_hops}, blocking "
+                    f"{rest}; the code counts {hops} and {blocking}")
+    log(f"  every rank, every step: ring hops {hops} and blocking calls "
+        f"{blocking} by axis, as the code counts")
+
+
+def compare_schedules(label, runs, smi):
+    """The blocking and overlapped runs side by side: rank 0's steady step
+    time, each rank's exposed comm seconds (the host's time blocked in
+    collectives and hops) and staged bytes per steady step, and rank 0's
+    last step by axis."""
+    log(f"  {label}, on {smi}:")
+    for key, rep in runs:
+        steady = rep["step_s"][1:] or rep["step_s"]
+        ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
+        n = len(steady)
+        comm = [sum(r["comm_s"][1:] or r["comm_s"]) / n for r in ranks]
+        gb = [sum(r["comm_bytes"][1:] or r["comm_bytes"]) / n / 1e9
+              for r in ranks]
+        last = ranks[0]["comm_by_axis"][-1]
+        log(f"    {key}: step {sum(steady) / n:.3f} s (times "
+            f"{[round(x, 3) for x in rep['step_s']]}); exposed comm per rank "
+            f"{[round(x, 3) for x in comm]} s, mean "
+            f"{sum(comm) / len(comm):.3f} s; staged {[round(x, 3) for x in gb]} GB; rank 0 by axis "
+            + ", ".join(f"{a} {c['calls']} calls {c['seconds']:.3f} s "
+                        f"{c['bytes'] / 1e9:.3f} GB"
+                        for a, c in sorted(last.items())))
+
+
+def phase_overlap_train(cfg, smi, one, blocking):
+    """13a: 12a's run (MESH_LAYERS layers, ``cfg``) with
+    ``OverlapConfig.all_on()``, held to one card's run ``one`` of the same
+    model within OVERLAP_TRAIN_TOL; launches, hops and blocking calls the
+    code's; side by side with 12a (``blocking``)."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    rep = run_mesh_train("mesh-overlap", f"overlap train ({MESH_TRAIN}, "
+                         f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS)
+    check_mesh_losses(rep, one, "overlapped (1,2,2,2) against one card",
+                      OVERLAP_TRAIN_TOL)
+    args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
+    axes = mesh_axes(MESH_TRAIN)
+    share = torch.cuda.get_device_properties(0).total_memory \
+        / MESH_TRAIN_RANKS
+    for r in sorted(rep["ranks"], key=lambda r: r["rank"]):
+        log(f"  rank {r['rank']} on {r['device']}:")
+        check_launches(r["launches"], overlap_train_launches(cfg, axes),
+                       args.steps * args.overdecompose, "microbatch")
+        mem = r["max_memory_bytes"]
+        log(f"    max_memory_allocated {mem / 2**30:.2f} GiB (its share "
+            f"{share / 2**30:.2f} GiB)")
+        if mem > share:
+            raise AssertionError(f"rank {r['rank']} took {mem} bytes, more "
+                                 f"than its share {share:.0f}")
+    check_step_calls(rep, *mesh_train_hops(cfg, axes, args.overdecompose))
+    hashes = {r["param_sha256"] for r in rep["ranks"]}
+    if len(hashes) != MESH_TRAIN_RANKS:
+        raise AssertionError(f"(1,2,2,2) has no replicas, yet ranks share "
+                             f"parameter bits: {hashes}")
+    log(f"  {len(hashes)} distinct blocks, one a rank (no replicas on "
+        f"{MESH_TRAIN})")
+    compare_schedules(f"{MESH_TRAIN}, 12a against 13a",
+                      (("blocking (12a)", blocking), ("overlapped (13a)",
+                                                      rep)), smi)
+    return sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"]
+
+
+def phase_overlap_seq(cfg, smi, one, blocking):
+    """13b: phase 10's run with the seq ring (``OverlapConfig(
+    ring_attention=True)``), two gloo ranks on this card: losses within
+    SEQ_LOSS_TOL of phase 8's and of phase 10's (``blocking``), both
+    ranks' parameters bitwise equal, K4 forward and backward launches per
+    hop the code's, the seq hops and blocking calls the code's, and the
+    exposed seq seconds beside phase 10's."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    rep = run_mesh_train("seq-overlap", "overlap seq train (seq ring)",
+                         SEQ_P)
+    for ref, losses in (("phase 8", one.losses),
+                        ("phase 10", blocking["losses"])):
+        gap = max(abs(a - b) for a, b in zip(rep["losses"], losses))
+        log(f"  losses {rep['losses']} against {ref}'s {losses}: max "
+            f"|dloss| {gap:.3e} (tol {SEQ_LOSS_TOL:g})")
+        if not (len(rep["losses"]) == len(losses)
+                and all(math.isfinite(x) for x in rep["losses"])
+                and gap <= SEQ_LOSS_TOL):
+            raise AssertionError(f"the seq ring's losses differ from {ref}'s")
+    hashes = {r["param_sha256"] for r in rep["ranks"]}
+    if len(hashes) != 1:
+        raise AssertionError(f"the seq ranks' parameters differ: {hashes}")
+    log("  parameters of both ranks bitwise equal")
+    args = train.build_parser().parse_args(SEQ_FLAGS)
+    for r in sorted(rep["ranks"], key=lambda r: r["rank"]):
+        log(f"  rank {r['rank']} on {r['device']}:")
+        check_launches(r["launches"], seq_launches(cfg),
+                       args.steps * args.overdecompose, "microbatch")
+        seq = [h.get("seq", {"seconds": 0.0})["seconds"]
+               for h in r["hops_by_axis"]]
+        log(f"    seq hops' exposed seconds per step "
+            f"{[round(x, 4) for x in seq]}")
+    axes = mesh_axes(SEQ_FLAGS[SEQ_FLAGS.index("--mesh") + 1])
+    check_step_calls(rep, *mesh_train_hops(cfg, axes, args.overdecompose))
+    compare_schedules("seq (1,1,1,1,2), phase 10 against 13b",
+                      (("blocking (10)", blocking), ("seq ring (13b)", rep)),
+                      smi)
+    return sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"]
 
 
 def cut_config(cfg):
     import dataclasses
-    return dataclasses.replace(cfg, n_layers=MESH_DATA_LAYERS)
+    return dataclasses.replace(cfg, n_layers=MESH_LAYERS)
 
 
-def mesh_train_worker(outdir: Path) -> int:
-    """One rank of 12b (started by ``phase_mesh_data`` under
-    torch.distributed.run): ``launch/train.py``'s run of MESH_DATA_FLAGS
-    with the depth cut to MESH_DATA_LAYERS; rank 0 saves the report."""
+def mesh_train_worker(outdir: Path, which: str) -> int:
+    """One rank of a training run on a mesh (started by
+    ``run_mesh_train`` under torch.distributed.run): ``train.main`` with
+    the flags, depth and schedule of ``which`` ("mesh": 12a, "data": 12b,
+    "mesh-overlap": 13a, "seq-overlap": 13b); rank 0 saves the report."""
     from repro_torch.configs import get_config
+    from repro_torch.core.overlap import OverlapConfig
     from repro_torch.launch import train
-    res = train.main(MESH_DATA_FLAGS, cfg=cut_config(get_config(ARCH)))
+    flags, cut, ov = {
+        "mesh": (MESH_TRAIN_FLAGS, True, OverlapConfig()),
+        "data": (MESH_DATA_FLAGS, True, OverlapConfig()),
+        "mesh-overlap": (MESH_TRAIN_FLAGS, True, OverlapConfig.all_on()),
+        "seq-overlap": (SEQ_FLAGS, False,
+                        OverlapConfig(ring_attention=True))}[which]
+    res = train.main(flags, cfg=cut_config(get_config(ARCH)) if cut
+                     else None, overlap=ov)
     if int(os.environ["RANK"]) == 0:
-        (outdir / "report.json").write_text(json.dumps(dict(
-            losses=res.losses, grad_norms=res.grad_norms, ranks=res.ranks)))
+        (outdir / f"{which}.json").write_text(json.dumps(dict(
+            losses=res.losses, grad_norms=res.grad_norms, step_s=res.step_s,
+            tokens_per_step=res.tokens_per_step, n_params=res.n_params,
+            ranks=res.ranks)))
     return 0
 
 
-def phase_mesh_data(cfg, smi):
-    """12b: the data axis beside x and y, (2,2,2,1) at full width and
-    MESH_DATA_LAYERS layers, eight gloo ranks on this card: the data
-    replicas of every block end bitwise equal, and the run matches one
-    card's run of the same cut model in this process."""
-    from repro_torch.launch import train
-    from repro_torch.launch.mesh import mesh_axes
-    cut = cut_config(cfg)
+def run_mesh_train(which, label, ranks):
+    """``mesh_train_worker``'s run ``which`` on ``ranks`` ranks sharing
+    this card; its report. This process's cached memory is freed
+    first."""
+    free_memory()
     MESH_TRAIN_DIR.mkdir(parents=True, exist_ok=True)
     launch_ranks([str(ROOT / "chip_smoke.py"), "--mesh-train-worker",
-                  str(MESH_TRAIN_DIR)], f"mesh train data ({MESH_DATA}, "
-                 f"{MESH_DATA_LAYERS} layers)", MESH_TRAIN_RANKS,
+                  str(MESH_TRAIN_DIR), which], label, ranks,
                  MESH_TRAIN_TIMEOUT_S)
-    rep = json.loads((MESH_TRAIN_DIR / "report.json").read_text())
-    log(f"[mesh train data] one card, the same {MESH_DATA_LAYERS}-layer "
-        f"model and flags")
-    one = train.main(TRAIN_FLAGS, cfg=cut)
+    return json.loads((MESH_TRAIN_DIR / f"{which}.json").read_text())
+
+
+def phase_mesh_data(cfg, smi, one):
+    """12b: the data axis beside x and y, (2,2,2,1) at full width and
+    MESH_LAYERS layers (``cfg``), eight gloo ranks on this card: the data
+    replicas of every block end bitwise equal, and the run matches one
+    card's run ``one`` of the same model."""
+    from repro_torch.launch.mesh import mesh_axes
+    rep = run_mesh_train("data", f"mesh train data ({MESH_DATA}, "
+                         f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS)
     check_mesh_losses(rep, one, f"({MESH_DATA}) against one card")
     axes = mesh_axes(MESH_DATA)
     blocks = {}
@@ -2339,12 +2678,21 @@ def main() -> int:
     phase_kernels_partial(gen, errs)
     phase_timings_partial(gen, times)
     free_memory()
-    seq_launches_run = phase_seq_train(cfg, smi, train_res.losses)
+    seq_launches_run, seq_rep = phase_seq_train(cfg, smi, train_res.losses)
     free_memory()
-    mesh_launches_run = phase_mesh_serve(cfg, smi, mesh_expect)
+    mesh_launches_run, mesh_fixed = phase_mesh_serve(cfg, smi, mesh_expect)
     free_memory()
-    phase_mesh_train(cfg, smi, train_res)
-    phase_mesh_data(cfg, smi)
+    from repro_torch.launch import train
+    cut = cut_config(cfg)
+    log(f"[mesh train] one card, the {MESH_LAYERS}-layer model of phases 12 "
+        f"and 13a, phase 8's flags")
+    one_cut = train.main(TRAIN_FLAGS, cfg=cut)
+    _, mesh_train_rep = phase_mesh_train(cut, smi, one_cut)
+    phase_mesh_data(cut, smi, one_cut)
+    phase_overlap_train(cut, smi, one_cut, mesh_train_rep)
+    phase_overlap_seq(cfg, smi, train_res, seq_rep)
+    free_memory()
+    phase_overlap_serve(cfg, smi, mesh_expect, mesh_fixed)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
@@ -2397,5 +2745,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--mesh-train-worker"]:
-        sys.exit(mesh_train_worker(Path(sys.argv[2])))
+        sys.exit(mesh_train_worker(Path(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -22,6 +22,14 @@ in one helper (:func:`_run`), which counts, for each kind of collective
 and for each axis, the bytes it hands to gloo and takes back, the
 host-clock seconds it spends and the calls (:data:`COMM`,
 :data:`COMM_AXES`).
+
+The ring helpers of the overlapped schedule (:func:`ppermute_ring`,
+:func:`ring_all_gather`, :func:`ring_reduce_scatter`,
+:func:`ring_all_reduce`) move blocks one hop at a time with :class:`Hop`,
+which does not go through :func:`_run`: it stages a CUDA block on a side
+stream after an event, so the compute stream runs on while the block
+crosses gloo (kind "ppermute"; its seconds are the host's time blocked in
+the hop, the exposed part).
 """
 from __future__ import annotations
 
@@ -29,34 +37,48 @@ import dataclasses
 import itertools
 import math
 import time
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.overlap import OverlapConfig
 
 AXES = ("data", "x", "y", "z", "seq")
 Axis = Union[str, Tuple[str, ...], None]
 
 # this process's communication by kind of collective ("all_reduce",
-# "all_gather", "psum_scatter", "broadcast"), and by axis (its names
-# joined by "+"):
+# "all_gather", "psum_scatter", "broadcast", and "ppermute" for a ring
+# hop), and by axis (its names joined by "+"):
 # {"bytes": handed to and taken back from gloo, "seconds": host clock in
 # the collective, staging and any wait for the other ranks included,
 # "calls"}
 COMM: Dict[str, Dict[str, float]] = {}
 COMM_AXES: Dict[str, Dict[str, float]] = {}
+# the ring hops alone ("ppermute"), by axis: COMM_AXES less HOPS is the
+# blocking collectives by axis
+HOPS: Dict[str, Dict[str, float]] = {}
 
 # the process group of each set of axes above size 1 that this rank
 # belongs to, keyed by those axes in mesh order (``init_groups``)
 _GROUPS: Dict[Tuple[str, ...], object] = {}
+# the global ranks of each of those groups, ascending: ring position i is
+# the rank at index i (first-name-major over a tuple, as ``axis_index``)
+_RANKS: Dict[Tuple[str, ...], List[int]] = {}
+# the tag of each group's next hop: every rank of a group posts its hops
+# in one order, so a hop's send and receive meet by tag
+_HOP_TAGS: Dict[Tuple[str, ...], int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshAxes:
     """Logical axes with their sizes (g_data, g_x, g_y, g_z[, g_seq]); a
-    4-tuple means g_seq = 1."""
+    4-tuple means g_seq = 1. ``overlap`` holds the overlapped schedule's
+    switches (``core/overlap.py``), read by the tp primitives and
+    ``seq_attn``; the steps bind it with :meth:`with_overlap`."""
 
     sizes: Tuple[int, ...] = (1, 1, 1, 1)
+    overlap: OverlapConfig = OverlapConfig()
 
     def __post_init__(self):
         sizes = tuple(int(s) for s in self.sizes)
@@ -122,6 +144,9 @@ class MeshAxes:
         reduction set of per-token sums like the LM loss."""
         return ("data", "z", "seq")
 
+    def with_overlap(self, overlap: OverlapConfig) -> "MeshAxes":
+        return dataclasses.replace(self, overlap=overlap)
+
     def coords(self, rank: int) -> Tuple[int, ...]:
         """Rank ``rank``'s coordinates over (data, x, y, z, seq),
         row-major."""
@@ -160,7 +185,7 @@ def init_groups(axes: MeshAxes) -> None:
     every rank in the same order, member or not). Each group holds the
     ranks that share every coordinate outside its axes, in ascending order.
     Keeps this rank's groups; needs the default group."""
-    _GROUPS.clear()
+    clear_groups()
     live = [a for a in axes.all_names() if axes.size(a) > 1]
     me = dist.get_rank()
     ranks = range(axes.world)
@@ -175,10 +200,13 @@ def init_groups(axes: MeshAxes) -> None:
                 group = dist.new_group(group_ranks)
                 if me in group_ranks:
                     _GROUPS[names] = group
+                    _RANKS[names] = group_ranks
 
 
 def clear_groups() -> None:
     _GROUPS.clear()
+    _RANKS.clear()
+    _HOP_TAGS.clear()
 
 
 def _group(axes: MeshAxes, axis: Axis):
@@ -234,20 +262,28 @@ def _run(v: torch.Tensor, op: Callable[[torch.Tensor], torch.Tensor],
     out = op(host)
     if x.is_cuda:
         out = out.to(x.device)
-    nbytes = (host.numel() + out.numel()) * host.element_size()
-    dt = time.perf_counter() - t0
-    for table, key in ((COMM, kind), (COMM_AXES, "+".join(_names(axis)))):
+    _count(kind, axis, (host.numel() + out.numel()) * host.element_size(),
+           time.perf_counter() - t0)
+    return out
+
+
+def _count(kind: str, axis: Axis, nbytes: int, seconds: float) -> None:
+    key = "+".join(_names(axis))
+    tables = [(COMM, kind), (COMM_AXES, key)]
+    if kind == "ppermute":
+        tables.append((HOPS, key))
+    for table, key in tables:
         count = table.setdefault(key, {"bytes": 0, "seconds": 0.0,
                                        "calls": 0})
         count["bytes"] += nbytes
-        count["seconds"] += dt
+        count["seconds"] += seconds
         count["calls"] += 1
-    return out
 
 
 def reset_comm() -> None:
     COMM.clear()
     COMM_AXES.clear()
+    HOPS.clear()
 
 
 def _all_reduce(v, axes: MeshAxes, axis: Axis, op):
@@ -324,6 +360,191 @@ def axis_index(axes: MeshAxes, axis: Axis, rank: Optional[int] = None
         i = AXES.index(n)
         idx = idx * axes.sizes[i] + c[i]
     return idx
+
+
+# ---------------------------------------------------------------------- #
+# ring hops: the overlapped schedule's collectives
+# ---------------------------------------------------------------------- #
+
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream on which hops copy their blocks to and from ``device``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _SIDE_STREAMS[index]
+
+
+class Hop:
+    """One ring hop in flight over ``axis``: this rank's ``v`` goes to ring
+    position (i + shift) mod p, and a block of its shape and dtype comes
+    from position (i - shift) mod p (ring positions in the order of
+    :func:`axis_index`, the group's ascending ranks). :meth:`wait` returns
+    the block received, on v's device.
+
+    A CUDA ``v`` is copied into pinned host memory on a side stream that
+    waits for the work queued so far, so the caller can queue its next
+    kernel (the hop's GEMM) before :meth:`wait`; the send and receive are
+    posted (gloo's ``isend``/``irecv``, which run on gloo's threads) once
+    the copy is done, and the received block is copied back on the side
+    stream, which the compute stream then waits for. ``host``: a host copy
+    of ``v`` already made (the block a previous hop received), sent as it
+    is and posted at once. A CPU ``v`` is posted at once.
+
+    Counted in :data:`COMM` as "ppermute" and in :data:`COMM_AXES` by
+    axis: one call, the bytes sent and received, and the seconds the host
+    was blocked in the hop (waiting for the staging copy and for gloo),
+    the part of the hop that no compute hid."""
+
+    def __init__(self, v: torch.Tensor, axes: MeshAxes, axis: Axis,
+                 shift: int = 1, *, host: Optional[torch.Tensor] = None):
+        group = _group(axes, axis)
+        if group is None:
+            raise ValueError(f"a hop over {axis!r} of one rank")
+        names = _live(axes, axis)
+        ranks = _RANKS[names]
+        p, i = len(ranks), axis_index(axes, axis)
+        self.group, self.axis, self.device = group, axis, v.device
+        self.dst = ranks[ring_perm(p, shift)[i][1]]
+        self.src = ranks[ring_perm(p, -shift)[i][1]]
+        self.tag = _HOP_TAGS.get(names, 0)
+        _HOP_TAGS[names] = (self.tag + 1) % (1 << 30)
+        self.seconds, self.works, self.staged = 0.0, None, None
+        cuda = v.is_cuda
+        if host is not None:
+            self.send = host
+        elif cuda:
+            side = _side_stream(v.device)
+            side.wait_stream(torch.cuda.current_stream(v.device))
+            self.send = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            with torch.cuda.stream(side):
+                self.send.copy_(v.detach(), non_blocking=True)
+                self.staged = torch.cuda.Event()
+                self.staged.record(side)
+            v.record_stream(side)
+        else:
+            self.send = v.detach().contiguous()
+        self.recv = torch.empty(self.send.shape, dtype=self.send.dtype,
+                                pin_memory=cuda)
+        if self.staged is None:
+            self._post()
+
+    def _post(self) -> None:
+        t0 = time.perf_counter()
+        if self.staged is not None:
+            self.staged.synchronize()
+        self.works = [
+            dist.isend(self.send, self.dst, group=self.group, tag=self.tag),
+            dist.irecv(self.recv, self.src, group=self.group, tag=self.tag)]
+        self.seconds += time.perf_counter() - t0
+
+    def wait(self) -> torch.Tensor:
+        if self.works is None:
+            self._post()
+        t0 = time.perf_counter()
+        for w in self.works:
+            w.wait()
+        self.seconds += time.perf_counter() - t0
+        _count("ppermute", self.axis,
+               2 * self.send.numel() * self.send.element_size(), self.seconds)
+        if self.device.type != "cuda":
+            return self.recv
+        side = _side_stream(self.device)
+        with torch.cuda.stream(side):
+            out = self.recv.to(self.device, non_blocking=True)
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_stream(side)
+        out.record_stream(compute)
+        return out
+
+
+def ring_perm(p: int, shift: int = 1):
+    """The send-right ring permutation (rank i -> i + shift mod p): after
+    ``s`` hops rank ``i`` holds the block that rank ``(i - s) mod p``
+    started with."""
+    return [(i, (i + shift) % p) for i in range(p)]
+
+
+def flat_ring_axis(axes: MeshAxes, axis: Axis):
+    """(p, names) of the ring over ``axis``: a tuple of names forms one
+    ring over the first-name-major flattening, the layout of
+    :func:`all_gather` and :func:`psum_scatter`."""
+    return axes.size(axis), _names(axis)
+
+
+def flat_ring_index(axes: MeshAxes, axis: Axis) -> int:
+    """This rank's position on the flattened ring."""
+    return axis_index(axes, axis)
+
+
+def ppermute_ring(v, axes: MeshAxes, axis: Axis, shift: int = 1):
+    """One ring hop: ``v`` sent to position (i + shift) mod p, the block
+    of (i - shift) mod p returned. The identity on an axis of one rank."""
+    if axes.size(axis) == 1:
+        return v
+    return Hop(v, axes, axis, shift).wait()
+
+
+def ring_all_gather(v, axes: MeshAxes, axis: Axis, *, dim: int):
+    """:func:`all_gather` as p - 1 ring hops, the same blocks in the same
+    places (bitwise). Each hop is posted before the block it forwards is
+    placed, and a received block is forwarded from host memory."""
+    p = axes.size(axis)
+    if p == 1:
+        return v
+    dim %= v.dim()
+    idx, chunk = axis_index(axes, axis), v.shape[dim]
+    out = v.new_empty((*v.shape[:dim], p * chunk, *v.shape[dim + 1:]))
+    cur, host = v, None
+    for s in range(p):
+        hop = Hop(cur, axes, axis, host=host) if s < p - 1 else None
+        out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(cur)
+        if hop is not None:
+            cur, host = hop.wait(), hop.recv
+    return out
+
+
+def ring_reduce_scatter(v, axes: MeshAxes, axis: Axis, *, dim: int):
+    """:func:`psum_scatter` as p - 1 ring hops: the partial sum for block
+    j passes through every rank, which adds its slice (``recv + g``), and
+    ends at rank j. Raises where ``dim`` does not split over p."""
+    p = axes.size(axis)
+    if p == 1:
+        return v
+    dim %= v.dim()
+    if v.shape[dim] % p:
+        raise ValueError(f"ring_reduce_scatter: dim {dim} of size "
+                         f"{v.shape[dim]} not divisible by {p}")
+    idx, chunk = axis_index(axes, axis), v.shape[dim] // p
+
+    def block(s):      # the slice that leaves this rank at step s
+        return v.narrow(dim, ((idx - s) % p) * chunk, chunk)
+    part = block(1)
+    for s in range(1, p):
+        hop = Hop(part, axes, axis)
+        part = hop.wait() + block(s + 1 if s < p - 1 else 0)
+    return part
+
+
+def ring_all_reduce(v, axes: MeshAxes, axis: Axis, *, dim: int = -1):
+    """:func:`psum` as a reduce-scatter ring and an all-gather ring over
+    ``dim``, 2 (p - 1) hops. p == 2 is one exchange, ``v + recv``,
+    bitwise the psum (two addends commute). Falls back to the blocking
+    psum where ``dim`` does not split over p; the identity on an axis of
+    one rank."""
+    p = axes.size(axis)
+    if p == 1:
+        return v
+    if p == 2:
+        return v + ppermute_ring(v, axes, axis)
+    dim %= v.dim()
+    if v.shape[dim] % p:
+        return psum(v, axes, axis)
+    return ring_all_gather(ring_reduce_scatter(v, axes, axis, dim=dim), axes,
+                           axis, dim=dim)
 
 
 def shard(v: torch.Tensor, axes: MeshAxes, spec, rank: Optional[int] = None

@@ -16,6 +16,16 @@ over x its stats and apply passes around the psum of the sum of squares)
 and its backward in PyTorch ops, as the JAX backward is jnp outside any
 kernel. ``plain=True`` runs the kernels' plain versions on any device.
 
+The overlapped schedule rides on ``axes.overlap`` (``core/overlap.py``),
+as in the JAX package: ``matmul`` and ``tied_logits`` run the z
+collectives of ``tp_matmul`` and the tied head as rings whose hops feed
+per-block K1 GEMMs (``core/collective_matmul.py``), ``all_reduce`` runs
+their x/y activation all-reduces as reduce-scatter and all-gather rings,
+``embed_gather`` gathers the embedding table over z by a ring, and
+``cache_weight_gather`` keeps the forward's gathered weight for the
+backward. ``OverlapConfig()`` is the blocking schedule, bit for bit. The
+norms' and the softmax's scalar psums stay blocking.
+
 The inits draw each global tensor from the generator in the one-card
 order and keep this rank's block by the parameter's PartitionSpec
 (``partition.LEAF_SPECS``), so a rank's parameters are slices of the
@@ -28,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import collective_matmul as CMM
 from repro_torch.core import mesh as M
 from repro_torch.core import partition as PT
 from repro_torch.kernels import ops
@@ -76,25 +87,79 @@ def ar_bwd_identity(v, axes: M.MeshAxes, axis):
 # the 4D tensor-parallel matmul (paper Algorithm 1 + z axis)
 # ---------------------------------------------------------------------- #
 
+def _zring(axes: M.MeshAxes, enabled: bool):
+    """The z axis for a ring, or None for the blocking schedule (switched
+    off, or z of one rank)."""
+    return "z" if enabled and axes.gz > 1 else None
+
+
+def _arring(axes: M.MeshAxes, ax):
+    """``ax`` for an activation all-reduce ring under
+    ``overlap.all_reduce``, or None for the blocking psum (switched off,
+    no axis, or an axis of one rank)."""
+    if not axes.overlap.all_reduce or ax is None or axes.size(ax) <= 1:
+        return None
+    return ax
+
+
+def _ar(v, axes: M.MeshAxes, ax):
+    """All-reduce ``v`` over ``ax``: a ring over the last dim under
+    ``overlap.all_reduce`` (with ``ring_all_reduce``'s fallbacks), else
+    the blocking psum."""
+    if _arring(axes, ax) is not None:
+        return M.ring_all_reduce(v, axes, ax, dim=-1)
+    return M.psum(v, axes, ax)
+
+
 class _TpMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, axes, in_shard, out_shard, plain):
-        wf = M.all_gather(w, axes, "z", dim=1)                # AG_z
-        y = _mm(x, wf, plain=plain)                           # line 6
-        ctx.save_for_backward(x, w)
+        ov = axes.overlap
+        ring, ar = _zring(axes, ov.matmul), _arring(axes, in_shard)
+        if ring is None or ov.cache_weight_gather:
+            gather = M.ring_all_gather if ring else M.all_gather
+            wf = gather(w, axes, "z", dim=1)                  # AG_z
+            y = (CMM.ar_matmul(x, wf, axes, ar, chunks=ov.ar_chunks,
+                               plain=plain) if ar             # line 6
+                 else M.psum(_mm(x, wf, plain=plain), axes, in_shard))
+        else:
+            y = _ar(CMM.ag_matmul(x, w, axes, ring, chunks=ov.z_chunks,
+                                  plain=plain), axes, in_shard)
+        # the gathered weight is kept for the backward only when asked
+        # (one AG_z less a layer, the full block held across the residual)
+        ctx.save_for_backward(x, w, wf if ov.cache_weight_gather else None)
         ctx.cfg = (axes, out_shard, plain)
-        return M.psum(y, axes, in_shard) if in_shard else y   # AR (line 6)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, w = ctx.saved_tensors
+        x, w, wf = ctx.saved_tensors
         axes, out_shard, plain = ctx.cfg
-        wf = M.all_gather(w, axes, "z", dim=1)                # re-gather
-        dx = _mm(dy, wf.t(), plain=plain).to(x.dtype)         # dY W^T
-        if out_shard:
-            dx = M.psum(dx, axes, out_shard)                  # AR (line 13)
-        dw = _mm_tn(x, dy, plain=plain)                       # X^T dY
-        dw = M.psum_scatter(dw, axes, "z", dim=1)             # RS_z
+        ov = axes.overlap
+        ring, ar = _zring(axes, ov.matmul), _arring(axes, out_shard)
+        if wf is None and ring is not None:
+            # the z re-gather fuses into the GEMM as a ring over the
+            # contraction segments
+            dx = CMM.accum_matmul_dx(dy, w, axes, ring, chunks=ov.z_chunks,
+                                     plain=plain).to(x.dtype)
+            dx = _ar(dx, axes, out_shard)
+        else:
+            if wf is None:
+                wf = M.all_gather(w, axes, "z", dim=1)        # re-gather
+            if ar is not None:
+                dx = CMM.ar_matmul_t(dy, wf, axes, ar, chunks=ov.ar_chunks,
+                                     plain=plain)
+            else:
+                dx = _mm(dy, wf.t(), plain=plain).to(x.dtype)  # dY W^T
+                dx = M.psum(dx, axes, out_shard)              # AR (line 13)
+        if ring is not None:
+            dw = CMM.rs_matmul_dw(x.reshape(-1, x.shape[-1]),
+                                  dy.reshape(-1, dy.shape[-1]), axes, ring,
+                                  block_w=w.shape[1], chunks=ov.z_chunks,
+                                  plain=plain)
+        else:
+            dw = _mm_tn(x, dy, plain=plain)                   # X^T dY
+            dw = M.psum_scatter(dw, axes, "z", dim=1)         # RS_z
         return dx, dw.to(w.dtype), None, None, None, None
 
 
@@ -102,7 +167,9 @@ def tp_matmul(x, w, axes: M.MeshAxes, in_shard: Optional[str] = "x",
               out_shard: Optional[str] = "y", *, plain: bool = False):
     """Y = X @ W with the paper's 4D collective schedule, W stored (k, n)
     as in the JAX package. ('x', 'y') is a paper "normal" layer, ('y',
-    'x') a "transposed" one (§4.1)."""
+    'x') a "transposed" one (§4.1). ``axes.overlap`` picks the rings of
+    the overlapped schedule (``matmul``: the z collectives;
+    ``all_reduce``: the x/y activation all-reduces)."""
     return _TpMatmul.apply(x, w, axes, in_shard, out_shard, plain)
 
 
@@ -153,7 +220,10 @@ def segment_sum(idx, rows, n_rows: int):
 class _EmbeddingLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tokens, table, axes):
-        tf = M.all_gather(table, axes, "z", dim=1)
+        # a ring puts the same blocks in the same places (bitwise)
+        gather = (M.ring_all_gather if axes.overlap.embed_gather
+                  else M.all_gather)
+        tf = gather(table, axes, "z", dim=1)
         local, ok = _local_ids(tokens, axes, tf.shape[0])
         emb = tf[local.clamp(0, tf.shape[0] - 1)]
         emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
@@ -178,8 +248,10 @@ class _EmbeddingLookup(torch.autograd.Function):
 
 def embedding_lookup(tokens, table, axes: M.MeshAxes):
     """tokens (B, S) int; table (V/y, d/(x z)) -> (B, S, d/x), features
-    sharded over x, replicated over y. The table's gradient is an fp32
-    sum in token order (:func:`segment_sum`), reduce-scattered over z."""
+    sharded over x, replicated over y; the table gathered over z by a
+    ring under ``overlap.embed_gather``. The table's gradient is an fp32
+    sum in token order (:func:`segment_sum`), reduce-scattered over z by
+    the blocking collective, as in the reference's ``_emb_bwd``."""
     return _EmbeddingLookup.apply(tokens, table, axes)
 
 
@@ -190,20 +262,49 @@ def embedding_lookup(tokens, table, axes: M.MeshAxes):
 class _TiedLmLogits(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, table, axes, plain):
-        tf = M.all_gather(table, axes, "z", dim=1)            # (V/y, d/x)
-        logits = _mm(h, tf.t(), plain=plain)
+        ov = axes.overlap
+        ring, ar = _zring(axes, ov.tied_logits), _arring(axes, "x")
         ctx.save_for_backward(h, table)
         ctx.cfg = (axes, plain)
-        return M.psum(logits, axes, "x")
+        if ring is None:
+            tf = M.all_gather(table, axes, "z", dim=1)        # (V/y, d/x)
+            if ar is not None:
+                # the reduced (V) dim indexes the table's rows
+                return CMM.ar_matmul_t(h, tf, axes, ar, chunks=ov.ar_chunks,
+                                       plain=plain)
+            logits = _mm(h, tf.t(), plain=plain)
+        else:
+            # the gathered (d) dim is the contraction: accumulate over the
+            # z segments of h against the table's blocks
+            logits = CMM.accum_matmul_tied(h, table, axes, ring,
+                                           chunks=ov.z_chunks,
+                                           plain=plain).to(h.dtype)
+        return _ar(logits, axes, "x")
 
     @staticmethod
     def backward(ctx, dlogits):
         h, table = ctx.saved_tensors
         axes, plain = ctx.cfg
-        tf = M.all_gather(table, axes, "z", dim=1)
-        dh = M.psum(_mm(dlogits, tf, plain=plain).to(h.dtype), axes, "y")
-        dt = M.psum_scatter(_mm_tn(dlogits, h, plain=plain), axes, "z",
-                            dim=1)
+        ov = axes.overlap
+        ring, ar = _zring(axes, ov.tied_logits), _arring(axes, "y")
+        if ring is None:
+            tf = M.all_gather(table, axes, "z", dim=1)
+            if ar is not None:
+                dh = CMM.ar_matmul(dlogits, tf, axes, ar,
+                                   chunks=ov.ar_chunks, plain=plain)
+            else:
+                dh = M.psum(_mm(dlogits, tf, plain=plain).to(h.dtype), axes,
+                            "y")
+            dt = M.psum_scatter(_mm_tn(dlogits, h, plain=plain), axes, "z",
+                                dim=1)
+        else:
+            dh = CMM.ag_matmul_tied_dh(dlogits, table, axes, ring,
+                                       chunks=ov.z_chunks, plain=plain)
+            dh = _ar(dh.to(h.dtype), axes, "y")
+            dt = CMM.rs_matmul_tied_dt(
+                dlogits.reshape(-1, dlogits.shape[-1]),
+                h.reshape(-1, h.shape[-1]), axes, ring,
+                block_w=table.shape[1], chunks=ov.z_chunks, plain=plain)
         return dh, dt.to(table.dtype), None, None
 
 

@@ -25,13 +25,18 @@ weight, its collectives over gloo:
       --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-1.7b \
       --preset full --mesh 1,2,2,1 --backend gloo
 
+``--overlap`` runs both modes' steps with the overlapped schedule
+(``OverlapConfig.all_on``: the z weight gathers and the x/y activation
+all-reduces as rings of hops whose GEMMs run as the blocks arrive),
+``--z-chunks`` and ``--ar-chunks`` sub-rings per block; on a mesh of one
+rank every ring is the plain GEMM.
+
 Only rank 0 prints; on a mesh its last line before ``SERVE OK`` is one
 JSON object ``{"serve": {...}}``: the served ids, tokens/s, TTFT and
 latency, one hash of the sequence of plans, and each rank's collective
 seconds and bytes, peak memory, kernel launches and parameter hash, all of
 the timed run. Not ported yet (each raises ``NotImplementedError``;
-ROADMAP.md lists them): ``--overlap``, ``--telemetry`` and ``--backend
-nccl``.
+ROADMAP.md lists them): ``--telemetry`` and ``--backend nccl``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import mesh as M
+from repro_torch.core.overlap import OverlapConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
 from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
@@ -97,7 +103,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
     ap.add_argument("--overlap", action="store_true",
-                    help="ring-decomposed collective matmuls: not ported")
+                    help="ring-decomposed collective matmuls in the "
+                         "prefill/decode steps (core/overlap.py: "
+                         "overlapped z weight gathers + x/y activation "
+                         "all-reduce rings)")
+    ap.add_argument("--z-chunks", type=int, default=1,
+                    help="sub-rings per z weight block (with --overlap)")
+    ap.add_argument("--ar-chunks", type=int, default=1,
+                    help="sub-rings per activation all-reduce block "
+                         "(with --overlap)")
     ap.add_argument("--telemetry", action="store_true",
                     help="per-step JSONL telemetry: not ported")
     return ap
@@ -123,13 +137,18 @@ def make_requests(args, vocab_size: int):
 
 def _refuse_unported(args) -> M.MeshAxes:
     """The mesh of ``--mesh``; raises on the flags not ported."""
-    for flag, item in (("overlap", "overlapped schedule"),
-                       ("telemetry", "runtime tooling")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to PyTorch yet: it waits for the "
-                f"ROADMAP.md §1 item '{item}'")
+    if args.telemetry:
+        raise NotImplementedError(
+            "--telemetry is not ported to PyTorch yet: it waits for the "
+            "ROADMAP.md §1 item 'runtime tooling'")
     return mesh_axes(args.mesh)
+
+
+def overlap_config(args) -> OverlapConfig:
+    """``--overlap``'s schedule, as the JAX driver maps it."""
+    return (OverlapConfig.all_on(z_chunks=args.z_chunks,
+                                 ar_chunks=args.ar_chunks)
+            if args.overlap else OverlapConfig())
 
 
 def _setup(args, device=None):
@@ -199,9 +218,10 @@ def run_fixed(args, model=None) -> FixedResult:
     cfg, axes = model.cfg, model.axes
     dev = next(model.parameters()).device
     S_max = args.prompt_len + args.gen
-    pre_fn, ct = ST.make_prefill_step(cfg, axes)(args.batch, args.prompt_len,
-                                                 S_max)
-    dec_fn, _ = ST.make_decode_step(cfg, axes)(args.batch, S_max)
+    ov = overlap_config(args)
+    pre_fn, ct = ST.make_prefill_step(cfg, axes, overlap=ov)(
+        args.batch, args.prompt_len, S_max)
+    dec_fn, _ = ST.make_decode_step(cfg, axes, overlap=ov)(args.batch, S_max)
     rng = np.random.RandomState(args.seed)
     tokens = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
@@ -259,7 +279,8 @@ def run_continuous(args, model=None):
     cfg, axes = model.cfg, model.axes
     scfg = ServeConfig(slots=args.slots, page_size=args.page_size,
                        pages_per_shard=args.pages, chunk=args.chunk)
-    engine = PagedEngine(cfg, axes, model, scfg)
+    engine = PagedEngine(cfg, axes, model, scfg,
+                         overlap=overlap_config(args))
     t0 = time.time()
     engine.warmup()
     _say(f"warmup in {time.time() - t0:.2f}s")
@@ -292,7 +313,7 @@ def _report(args, run, model, serve: dict, mine: dict) -> None:
     dist.all_gather_object(ranks, mine)
     _say(json.dumps({"serve": dict(
         serve, arch=model.cfg.name, mode=args.mode, mesh=args.mesh,
-        backend=args.backend, ranks=ranks)}))
+        backend=args.backend, overlap=args.overlap, ranks=ranks)}))
 
 
 def main(argv=None):

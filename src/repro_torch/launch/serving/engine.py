@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mesh as M
+from repro_torch.core.overlap import OverlapConfig
 from repro_torch.launch import steps as ST
 from repro_torch.launch.serving.pages import PageAllocator
 from repro_torch.launch.serving.scheduler import Request, Scheduler
@@ -80,7 +81,8 @@ def percentiles(xs: List[float]) -> tuple:
 class PagedEngine:
     def __init__(self, cfg, axes: M.MeshAxes, model,
                  scfg: ServeConfig = ServeConfig(), *,
-                 dtype=torch.float32):
+                 dtype=torch.float32,
+                 overlap: OverlapConfig = OverlapConfig()):
         shards = axes.batch_shards
         if scfg.slots % shards:
             raise ValueError(
@@ -88,7 +90,7 @@ class PagedEngine:
                 f"shards g_data*g_z={shards} (slots shard over data x z)")
         self.model, self.scfg, self.axes = model, scfg, axes
         self.device = model.embed.device
-        build = ST.make_paged_step(cfg, axes, dtype=dtype)
+        build = ST.make_paged_step(cfg, axes, dtype=dtype, overlap=overlap)
         self.step_fn, ct = build(shards * scfg.pages_per_shard,
                                  scfg.page_size)
         self.pools = ST.zeros_caches(ct, self.device)

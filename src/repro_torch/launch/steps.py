@@ -4,9 +4,12 @@
 PyTorch runs eagerly, so where the JAX package builds a jitted,
 shard_map'ped step, ``make_train_step``, ``make_paged_step``,
 ``make_prefill_step`` and ``make_decode_step`` only bind the configuration
-and return the step. A serving step takes the global batch, as the JAX
-step does, and runs this rank's rows of it: the rows of batch shard
-``axis_index((data, z))``, first-name-major (``mesh.batch_shard``).
+and return the step. Each binds its overlapped schedule
+(``core/overlap.py``) with ``axes.with_overlap``, as the JAX steps do, and
+the step runs the model under it (``decoder.overlap_bound``). A serving
+step takes the global batch, as the JAX step does, and runs this rank's
+rows of it: the rows of batch shard ``axis_index((data, z))``,
+first-name-major (``mesh.batch_shard``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import mesh as M
 from repro_torch.core.overdecompose import split_batch
+from repro_torch.core.overlap import OverlapConfig
 from repro_torch.core.partition import param_spec, z_reduce_grads
 from repro_torch.models import decoder as D
 from repro_torch.models.base import ArchConfig
@@ -64,10 +68,11 @@ class TrainOptions:
     remat_policy: str = "full"  # only "full" is ported
     xent_chunks: int = 1
     dtype: torch.dtype = torch.bfloat16
-    # not ported; each raises in make_train_step: the ring-decomposed
-    # collective matmuls, and the data-parallel sync modes other than the
-    # blocking psum ("zero", "zero3", "stream")
-    overlap: bool = False
+    # ring-decomposed collective matmuls, the seq ring and weight-gather
+    # caching (core/overlap.py; rides down to the layers on the axes)
+    overlap: OverlapConfig = OverlapConfig()
+    # not ported; raises in make_train_step: the data-parallel sync modes
+    # other than the blocking psum ("zero", "zero3", "stream")
     gradsync: str = "blocking"
 
 
@@ -132,12 +137,9 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
     bfloat16 with more than one microbatch a separate fp32 one is, as the
     JAX step casts each microbatch's gradients to fp32 before summing.
     With one microbatch the gradients keep their dtype and are reduced in
-    it, as the JAX step's are."""
-    if opts.overlap:
-        raise NotImplementedError(
-            "the overlapped schedule (TrainOptions.overlap) is not ported "
-            "to PyTorch yet: it waits for the ROADMAP.md §1 item "
-            "'overlapped schedule'")
+    it, as the JAX step's are. ``opts.overlap`` picks the overlapped
+    schedule's rings; ``OverlapConfig()`` is the blocking schedule."""
+    axes = axes.with_overlap(opts.overlap)
     if opts.gradsync != "blocking":
         raise NotImplementedError(
             f"gradient sync {opts.gradsync!r} (ZeRO, ZeRO-3, streamed "
@@ -146,6 +148,10 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
     loss_fn = _loss_fn(cfg, axes, opts)
 
     def step(model, opt_state, batch, plain: bool = False):
+        with D.overlap_bound(model, axes.overlap):
+            return _step(model, opt_state, batch, plain)
+
+    def _step(model, opt_state, batch, plain):
         params = dict(model.named_parameters())
         dtypes = {p.dtype for p in params.values()}
         if dtypes != {opts.dtype}:
@@ -209,7 +215,8 @@ def gather_logits(logits, axes: M.MeshAxes):
 
 
 def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,
-                    dtype=torch.float32):
+                    dtype=torch.float32,
+                    overlap: OverlapConfig = OverlapConfig()):
     """``build(n_pages, page_size)`` returns ``(step, cache_specs)``:
     step(model, tokens, pools, positions, q_len, table) -> (logits, pools),
     the continuous-batching step over the paged KV cache, and the (shape,
@@ -218,14 +225,18 @@ def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,
     global rows (R, ...), the table holding each shard's local page ids,
     and runs this rank's batch shard of them: logits (R / (g_data g_z), 1,
     V/y). The engine runs the same step at two row widths: T = chunk while
-    prefill work is pending, T = 1 for pure decode."""
+    prefill work is pending, T = 1 for pure decode. ``overlap``: the
+    overlapped schedule of the step's tp matmuls."""
+    axes = axes.with_overlap(overlap)
+
     def step(model, tokens, pools, positions, q_len, table, *,
              plain: bool = False):
         tokens, positions, q_len, table = (
             M.batch_shard(t, axes) for t in (tokens, positions, q_len,
                                                table))
-        return D.paged_step(model, tokens, pools, positions, q_len, table,
-                            plain=plain)
+        with D.overlap_bound(model, axes.overlap):
+            return D.paged_step(model, tokens, pools, positions, q_len,
+                                table, plain=plain)
 
     def build(n_pages: int, page_size: int):
         return step, D.decoder_paged_cache_specs(
@@ -234,37 +245,47 @@ def make_paged_step(cfg: ArchConfig, axes: M.MeshAxes, *,
 
 
 def make_prefill_step(cfg: ArchConfig, axes: M.MeshAxes, *,
-                      dtype=torch.float32):
+                      dtype=torch.float32,
+                      overlap: OverlapConfig = OverlapConfig()):
     """``build(batch, seq, cache_seq)`` returns ``(step, cache_specs)``:
     step(model, caches, tokens) -> (last-row logits, caches), the prefill
     of the global ``batch`` prompts (batch, seq) of ``seq`` tokens into
     fixed-batch caches of ``cache_seq`` positions, and the (shape, dtype)
     of this rank's caches (:func:`decoder.decoder_cache_specs`). The step
-    runs this rank's batch shard: logits (batch / (g_data g_z), 1, V/y)."""
+    runs this rank's batch shard: logits (batch / (g_data g_z), 1, V/y).
+    ``overlap``: the overlapped schedule of the step's tp matmuls."""
+    axes = axes.with_overlap(overlap)
+
     def build(batch: int, seq: int, cache_seq: int):
         if seq > cache_seq:
             raise ValueError(f"prompt of {seq} tokens exceeds the cache's "
                              f"{cache_seq} positions")
 
         def step(model, caches, tokens, plain: bool = False):
-            return D.prefill(model, M.batch_shard(tokens, axes), caches,
-                             plain=plain)
+            with D.overlap_bound(model, axes.overlap):
+                return D.prefill(model, M.batch_shard(tokens, axes), caches,
+                                 plain=plain)
         return step, D.decoder_cache_specs(cfg, axes, batch, cache_seq,
                                            dtype=dtype)
     return build
 
 
 def make_decode_step(cfg: ArchConfig, axes: M.MeshAxes, *,
-                     dtype=torch.float32):
+                     dtype=torch.float32,
+                     overlap: OverlapConfig = OverlapConfig()):
     """``build(batch, seq)`` returns ``(step, cache_specs)``: step(model,
     caches, tokens, pos) -> (logits, caches), one greedy decode step of the
     global ``batch`` sequences' tokens (batch, 1) at position ``pos``, run
     on this rank's batch shard (logits (batch / (g_data g_z), 1, V/y)), and
-    the (shape, dtype) of this rank's caches of ``seq`` positions."""
+    the (shape, dtype) of this rank's caches of ``seq`` positions.
+    ``overlap``: the overlapped schedule of the step's tp matmuls."""
+    axes = axes.with_overlap(overlap)
+
     def build(batch: int, seq: int):
         def step(model, caches, tokens, pos, plain: bool = False):
-            return D.decode_step(model, M.batch_shard(tokens, axes), caches,
-                                 pos, plain=plain)
+            with D.overlap_bound(model, axes.overlap):
+                return D.decode_step(model, M.batch_shard(tokens, axes),
+                                     caches, pos, plain=plain)
         return step, D.decoder_cache_specs(cfg, axes, batch, seq,
                                            dtype=dtype)
     return build

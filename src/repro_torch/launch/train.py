@@ -27,7 +27,8 @@ Every rank builds the same global batch, stripes it and trains on its
 shard; ranks beyond the card count share cards, and their collectives go
 through host memory (gloo). Only rank 0 prints; its last line is one JSON
 object with the losses, step times and each rank's communication by kind
-and by axis, peak memory, kernel launches and parameter hash.
+and by axis (and the ring hops of the overlapped schedule by axis), peak
+memory, kernel launches and parameter hash.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
 §1 item it waits for): ZeRO and checkpoints (``--zero*``,
@@ -50,6 +51,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import mesh as M
+from repro_torch.core.overlap import OverlapConfig
 from repro_torch.core.partition import param_spec, spec_names
 from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
 from repro_torch.kernels import ops
@@ -162,15 +164,20 @@ class TrainResult:
     comm_bytes: List[int] = dataclasses.field(default_factory=list)
     comm_by_kind: List[dict] = dataclasses.field(default_factory=list)
     comm_by_axis: List[dict] = dataclasses.field(default_factory=list)
+    # the ring hops of each step by axis, counted in comm_by_axis too
+    hops_by_axis: List[dict] = dataclasses.field(default_factory=list)
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
     # every rank's report (the "ranks" list of the JSON line)
     ranks: List[dict] = dataclasses.field(default_factory=list)
 
 
-def main(argv=None, cfg=None) -> TrainResult:
+def main(argv=None, cfg=None,
+         overlap: OverlapConfig = OverlapConfig()) -> TrainResult:
     """Train as the flags ``argv`` say; ``cfg``, when given, is the model's
     configuration in place of ``--arch`` and ``--preset``'s (a cut of a
-    supported model's depth, say)."""
+    supported model's depth, say). ``overlap`` is the step's overlapped
+    schedule (``TrainOptions.overlap``; the JAX driver has no flag for it,
+    nor has this one)."""
     args = build_parser().parse_args(argv)
     for flag, item in REFUSED.items():
         if getattr(args, flag):
@@ -181,12 +188,12 @@ def main(argv=None, cfg=None) -> TrainResult:
     cfg = cfg or preset_config(get_config(args.arch), args.preset)
     run = init_mesh(axes, backend=args.backend, device=args.device)
     try:
-        return _train(args, axes, cfg, run)
+        return _train(args, axes, cfg, run, overlap)
     finally:
         close_mesh()
 
 
-def _train(args, axes, cfg, run) -> TrainResult:
+def _train(args, axes, cfg, run, overlap) -> TrainResult:
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     rank0, multi = run["rank"] == 0, run["world"] > 1
 
@@ -210,7 +217,7 @@ def _train(args, axes, cfg, run) -> TrainResult:
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                       total_steps=args.steps)
     step_fn = ST.make_train_step(cfg, axes, opt, ST.TrainOptions(
-        overdecompose=args.overdecompose, dtype=dtype))
+        overdecompose=args.overdecompose, dtype=dtype, overlap=overlap))
     data = SyntheticText(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=args.seq,
                                     global_batch=args.batch))
@@ -225,19 +232,20 @@ def _train(args, axes, cfg, run) -> TrainResult:
         batch = ST.stripe_batch(
             {k: torch.from_numpy(v).to(dev) for k, v in
              make_batch(cfg, step, data, dtype=np.float32).items()}, axes)
-        comm0 = copy.deepcopy((M.COMM, M.COMM_AXES))
+        comm0 = copy.deepcopy((M.COMM, M.COMM_AXES, M.HOPS))
         t0 = time.perf_counter()
         metrics = step_fn(model, state, batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         if cuda:
             torch.cuda.synchronize(dev)
         res.step_s.append(time.perf_counter() - t0)
-        by_kind, by_axis = (
+        by_kind, by_axis, hops = (
             {k: {n: c[n] - before.get(k, {}).get(n, 0) for n in c}
              for k, c in now.items()}
-            for now, before in zip((M.COMM, M.COMM_AXES), comm0))
+            for now, before in zip((M.COMM, M.COMM_AXES, M.HOPS), comm0))
         res.comm_by_kind.append(by_kind)
         res.comm_by_axis.append(by_axis)
+        res.hops_by_axis.append(hops)
         res.comm_s.append(sum(c["seconds"] for c in by_kind.values()))
         res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
@@ -256,6 +264,7 @@ def _train(args, axes, cfg, run) -> TrainResult:
     mine = dict(rank=run["rank"], device=str(dev), comm_s=res.comm_s,
                 comm_bytes=res.comm_bytes, comm_by_kind=res.comm_by_kind,
                 comm_by_axis=res.comm_by_axis,
+                hops_by_axis=res.hops_by_axis,
                 max_memory_bytes=res.max_memory_bytes,
                 launches=res.launches,
                 param_sha256=param_sha256(model) if multi else None)

@@ -266,17 +266,84 @@ class _SeqAttention(torch.autograd.Function):
                 None, None)
 
 
+class _SeqRingAttention(torch.autograd.Function):
+    """The ring schedule of ``seq_attn`` (``overlap.ring_attention``) over
+    kernel K4, forward and backward. Forward: p - 1 hops circulate K and V
+    to the right; each hop is posted before K4 runs on the block in hand
+    (after s hops, seq-rank (r - s) mod p's, keys at ``local + owner``),
+    chaining the fp32 carry. The blocks in hand are kept for the backward,
+    as the gathered K and V are in the blocking schedule. Backward: K4's
+    backward per hop in reverse hop order (the first call closes the
+    chain), dQ summed in one fp32 buffer; each hop's dK and dV go back one
+    step along the reverse ring, added as ``dK4_s + recv``, so that each
+    block's gradient ends with its owner."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, axes, window, plain):
+        B, C, nq, hd = q.shape
+        p, r = axes.gseq, M.axis_index(axes, "seq")
+        carry = FA.attn_partial_init(B, C, nq, hd, device=q.device)
+        ks, vs = [], []
+        cur_k, cur_v, host_k, host_v = k, v, None, None
+        for s in range(p):
+            hops = ((M.Hop(cur_k, axes, "seq", host=host_k),
+                     M.Hop(cur_v, axes, "seq", host=host_v))
+                    if s < p - 1 else ())
+            carry = ops.flash_attention_partial(
+                q, cur_k, cur_v, *carry, q_pos0=r, q_stride=p,
+                k_pos0=(r - s) % p, k_stride=p, window=window, plain=plain)
+            ks.append(cur_k)
+            vs.append(cur_v)
+            if hops:
+                cur_k, cur_v = (h.wait() for h in hops)
+                host_k, host_v = (h.recv for h in hops)
+        out = FA.attn_partial_finalize(carry, q.dtype)
+        ctx.save_for_backward(q, out, *carry[:2], *ks, *vs)
+        ctx.cfg = (axes, r, window, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, out, m, l, *kv = ctx.saved_tensors
+        axes, r, window, plain = ctx.cfg
+        p = axes.gseq
+        ks, vs = kv[:p], kv[p:]
+        B, C, nq, hd = q.shape
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        f32 = dict(dtype=torch.float32, device=q.device)
+        lse, delta = torch.empty((2, B, nq, C), **f32)
+        dq = torch.zeros((B, C, nq, hd), **f32)
+        hops = ()
+        for s in reversed(range(p)):
+            dk, dv = ops.flash_attention_partial_bwd(
+                q, ks[s], vs[s], dout, lse, delta, dq,
+                close=(out, m, l) if s == p - 1 else None, q_pos0=r,
+                q_stride=p, k_pos0=(r - s) % p, k_stride=p, window=window,
+                plain=plain)
+            if hops:
+                dk, dv = (d + h.wait() for d, h in zip((dk, dv), hops))
+            if s > 0:
+                hops = (M.Hop(dk, axes, "seq", -1),
+                        M.Hop(dv, axes, "seq", -1))
+        return (dq.to(q.dtype), dk.to(ks[0].dtype), dv.to(vs[0].dtype),
+                None, None, None)
+
+
 def seq_attn(q, k, v, axes: M.MeshAxes, *, window: int = 0,
              plain: bool = False):
     """Context-parallel causal attention over the seq axis (port of
-    ``repro.layers.attention.seq_attn``'s blocking schedule): q (B, C, nq,
-    hd), k/v (B, C, nkv, hd) hold this rank's stripe (global positions r,
-    r + p, ...; ``mesh.stripe_seq``). The result equals attention over the
-    whole sequence up to fp32 reassociation: the JAX package runs one
-    partial pass over the gathered (non-monotone) position vector, the
-    port one K4 call per gathered block. The ring schedule
-    (``overlap.ring_attention``) is refused with the train step's
-    ``overlap``."""
+    ``repro.layers.attention.seq_attn``): q (B, C, nq, hd), k/v (B, C,
+    nkv, hd) hold this rank's stripe (global positions r, r + p, ...;
+    ``mesh.stripe_seq``). Two schedules, both kernel K4 forward and
+    backward, equal to attention over the whole sequence up to fp32
+    reassociation: the blocking one (:class:`_SeqAttention`, one
+    all-gather of K and V; the JAX package runs one partial pass over the
+    gathered non-monotone position vector, the port one K4 call per
+    gathered block) and, under ``axes.overlap.ring_attention``, the ring
+    (:class:`_SeqRingAttention`)."""
+    if axes.overlap.ring_attention:
+        return _SeqRingAttention.apply(q, k, v, axes, window, plain)
     return _SeqAttention.apply(q, k, v, axes, window, plain)
 
 

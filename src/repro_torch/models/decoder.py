@@ -14,12 +14,15 @@ serving functions run this rank's batch shard: their logits are (R_local,
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
+from repro_torch.core.overlap import OverlapConfig
 from repro_torch.layers import attention as A
 from repro_torch.layers.mamba import Mamba, mamba_state_spec
 from repro_torch.layers.mlp import MLP
@@ -151,6 +154,25 @@ class Decoder(nn.Module):
             else:
                 h = blk(h, **kw)
         return self.final_norm(h, plain=plain)
+
+
+@contextlib.contextmanager
+def overlap_bound(model: nn.Module, overlap: OverlapConfig):
+    """Every module of ``model`` sees its axes with ``overlap`` (``axes.
+    with_overlap``) while the block runs, and its own axes after: the
+    steps bind the schedule this way, as the JAX steps bind it on the axes
+    their layers are traced with. Remat's recompute runs inside the
+    step's backward, so it sees the same schedule."""
+    mods = [m for m in model.modules()
+            if isinstance(getattr(m, "axes", None), M.MeshAxes)]
+    saved = [m.axes for m in mods]
+    for m in mods:
+        m.axes = m.axes.with_overlap(overlap)
+    try:
+        yield
+    finally:
+        for m, axes in zip(mods, saved):
+            m.axes = axes
 
 
 def lm_logits(model: Decoder, h, *, plain: bool = False):

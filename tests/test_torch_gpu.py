@@ -323,7 +323,9 @@ def test_train_step_kernels_match_plain(cuda):
 def _operands(cuda, layout, M, K, N, dtype, seed=0, shift=0):
     """a (M, K) and b (K, N) in ``layout``: NT reads b and TN reads a
     through a transposed view, SN reads a as a column slice (row stride K
-    + 32). ``shift`` > 0 starts both that many elements into their
+    + 32); ST reads a as the second half of rows of 2 K and b transposed,
+    TS a transposed and b as the second half of rows of 2 N (a ring hop's
+    slices). ``shift`` > 0 starts both that many elements into their
     storage, so that neither base is 16-byte aligned."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
@@ -331,9 +333,11 @@ def _operands(cuda, layout, M, K, N, dtype, seed=0, shift=0):
         x = torch.randn((shape[0], shape[1] + shift), generator=gen,
                         device=cuda).to(dtype)
         return x[:, shift:]
-    a = (rand(K, M).t() if layout == "TN" else
-         rand(M, K + 32)[:, :K] if layout == "SN" else rand(M, K))
-    b = rand(N, K).t() if layout == "NT" else rand(K, N)
+    a = (rand(K, M).t() if layout in ("TN", "TS") else
+         rand(M, K + 32)[:, :K] if layout == "SN" else
+         rand(M, 2 * K)[:, K:] if layout == "ST" else rand(M, K))
+    b = (rand(N, K).t() if layout in ("NT", "ST") else
+         rand(K, 2 * N)[:, N:] if layout == "TS" else rand(K, N))
     return a, b
 
 
@@ -386,6 +390,30 @@ def test_block_matmul_kernel_is_deterministic(cuda, M, layout):
     shapes whose plan splits K (decode) or not."""
     a, b = _operands(cuda, layout, M, 4096, 1024, torch.float32)
     assert torch.equal(block_matmul_kernel(a, b), block_matmul_kernel(a, b))
+
+
+# chip_smoke.py's RING_MATMUL_SHAPES: K1 on one ring hop of the overlapped
+# schedule on (1,2,2,2) at full width (M, K, N, layout, fp32 output)
+RING_HOPS = [(512, 1024, 1536, "NN", False), (512, 1536, 1024, "ST", False),
+             (1024, 512, 1536, "TS", True), (512, 512, 76032, "ST", True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,layout,f32_out", RING_HOPS)
+def test_block_matmul_kernel_at_the_ring_hop_shapes(cuda, M, K, N, layout,
+                                                    f32_out, dtype):
+    """The overlapped schedule's per-hop GEMMs: the forward on a z block,
+    dX on a column slice of dY against the block transposed, dW against a
+    column slice of dY (fp32 out), the tied head's hop on a column slice
+    of h (fp32 out); held to the plain version, two calls bitwise."""
+    a, b = _operands(cuda, layout, M, K, N, dtype)
+    out = torch.float32 if f32_out else None
+    got = ops.matmul(a, b, out_dtype=out)
+    want = block_matmul_plain(a, b, out_dtype=out)
+    tol = 1e-5 if f32_out or dtype == torch.float32 else 1e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(
+        want.float().abs().max())
+    assert torch.equal(block_matmul_kernel(a, b, out_dtype=out), got)
 
 
 def test_embedding_backward_repeats_bitwise(cuda):

@@ -360,8 +360,21 @@ def test_run_fixed_returns_the_greedy_ids():
     assert torch.isfinite(res.logits).all() and res.prefill_s >= 0
 
 
-@pytest.mark.parametrize("flag,item", [("--overlap", "overlapped schedule"),
-                                       ("--telemetry", "runtime tooling")])
+def test_fixed_serving_of_the_hybrid_decoder_with_overlap_on_one_rank():
+    """``serve.py --mode fixed --overlap`` serves Jamba's hybrid decoder on
+    one CPU rank (it raised before the overlapped schedule was ported):
+    every ring is inert on one rank, so the greedy ids and the last
+    logits are bitwise those of the run without ``--overlap``."""
+    model = ST.init_model(get_config(JAMBA).reduced(), seed=0, device="cpu")
+    flags = ["--arch", JAMBA, "--mode", "fixed", "--device", "cpu",
+             "--batch", "2", "--prompt-len", "5", "--gen", "3"]
+    off, on = (serve.run_fixed(serve.build_parser().parse_args(flags + f),
+                               model) for f in ([], ["--overlap"]))
+    assert np.array_equal(off.ids, on.ids)
+    assert torch.equal(off.logits, on.logits)
+
+
+@pytest.mark.parametrize("flag,item", [("--telemetry", "runtime tooling")])
 def test_run_fixed_with_a_model_refuses_unported_flags(flag, item):
     """A caller's model skips building, not the refusals of the CLI."""
     model = ST.init_model(get_config(JAMBA).reduced(), seed=0, device="cpu")

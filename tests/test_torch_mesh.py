@@ -650,14 +650,38 @@ def test_mamba_on_the_tensor_axes_is_refused():
         ST.init_model(cfg, MeshAxes((1, 2, 1, 1)), device="cpu")
 
 
+def test_training_on_the_tensor_axes_takes_the_overlapped_schedule():
+    """``TrainOptions(overlap=OverlapConfig.all_on())`` on the tensor axes
+    builds the step (it raised before; ``tests/test_torch_overlap.py``
+    trains it on four meshes), and on a mesh of one rank a step under it
+    gives the blocking step's loss, grad norm and parameter bits."""
+    from repro_torch.core.overlap import OverlapConfig
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    cfg = get_config(ARCH).reduced()
+    on = ST.TrainOptions(dtype=torch.float32,
+                         overlap=OverlapConfig.all_on(ar_chunks=2))
+    assert callable(ST.make_train_step(cfg, MeshAxes((1, 2, 1, 1)),
+                                       AdamWConfig(), on))
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    runs = []
+    for opts in (ST.TrainOptions(dtype=torch.float32), on):
+        model = ST.init_model(cfg, device="cpu")
+        step = ST.make_train_step(cfg, MeshAxes(), AdamWConfig(), opts)
+        m = step(model, init_state(dict(model.named_parameters())),
+                 {"tokens": toks, "labels": toks})
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     ST.param_sha256(model)))
+    assert runs[0] == runs[1]
+
+
 @pytest.mark.parametrize("opts,item", [
-    (dict(overlap=True), "overlapped schedule"),
     (dict(gradsync="zero"), "rest of the training stack")])
 def test_training_on_the_tensor_axes_is_refused(opts, item):
-    """Training on the tensor axes runs the blocking schedule
-    (``tests/test_torch_mesh_train.py``); the overlapped schedule and the
-    sharded gradient sync stay refused there, naming their ROADMAP
-    items."""
+    """Training on the tensor axes runs the blocking or the overlapped
+    schedule (``tests/test_torch_mesh_train.py``,
+    ``tests/test_torch_overlap.py``); the sharded gradient sync stays
+    refused there, naming its ROADMAP item."""
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config(ARCH).reduced()
     axes = MeshAxes((1, 2, 1, 1))

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.mesh import MeshAxes
+from repro_torch.core.overlap import OverlapConfig
 from repro_torch.launch import serve
 from repro_torch.launch import steps as ST
 from repro_torch.launch import train
@@ -76,8 +77,7 @@ def test_serve_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--arch", "jamba-v0.1-52b"],
-                                   ["--overlap"], ["--telemetry"],
-                                   ["--mesh", "1,2,1,1"]])
+                                   ["--telemetry"], ["--mesh", "1,2,1,1"]])
 def test_serve_rejects_what_is_not_ported(flags):
     """The unported flags raise naming their ROADMAP item; a mesh of more
     than one rank is served, but only under torch.distributed.run, and
@@ -91,6 +91,48 @@ def test_serve_rejects_what_is_not_ported(flags):
         exc, match = NotImplementedError, "not ported"
     with pytest.raises(exc, match=match):
         serve.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
+
+
+def test_serve_overlap_on_one_rank_is_the_blocking_run():
+    """``--overlap --z-chunks 2 --ar-chunks 2`` serves (it raised before the
+    overlapped schedule was ported); on a mesh of one rank every ring is
+    the plain GEMM, so the served ids and the last logits are bitwise
+    those of the run without it."""
+    flags = ["--arch", "qwen3-1.7b", "--device", "cpu", "--requests", "3",
+             "--prompt-len", "6", "--gen", "3", "--slots", "2",
+             "--page-size", "4", "--pages", "12", "--chunk", "4"]
+    runs = []
+    for extra in ([], ["--overlap", "--z-chunks", "2", "--ar-chunks", "2"]):
+        args = serve.build_parser().parse_args(flags + extra)
+        engine, stats, reqs = serve.run_continuous(args)
+        runs.append(([r.generated for r in reqs], engine.last_logits))
+    assert serve.overlap_config(args) == OverlapConfig.all_on(
+        z_chunks=2, ar_chunks=2)
+    (ids, logits), (ids_on, logits_on) = runs
+    assert ids == ids_on and torch.equal(logits, logits_on)
+
+
+def test_train_step_with_the_overlap_on_one_rank_is_the_blocking_step():
+    """``TrainOptions(overlap=OverlapConfig.all_on())`` trains (it raised
+    before); on one rank its three steps end with the blocking step's
+    losses, grad norms and parameter bits."""
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    cfg = get_config("qwen3-1.7b").reduced()
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32))
+    runs = []
+    for ov in (OverlapConfig(), OverlapConfig.all_on(z_chunks=2)):
+        model = ST.init_model(cfg, device="cpu")
+        state = init_state(dict(model.named_parameters()))
+        step = ST.make_train_step(
+            cfg, MeshAxes(), AdamWConfig(lr=1e-3, warmup_steps=1,
+                                         total_steps=10),
+            ST.TrainOptions(dtype=torch.float32, overlap=ov))
+        metrics = [{k: float(v) for k, v in step(
+            model, state, {"tokens": toks, "labels": toks}).items()}
+            for _ in range(3)]
+        runs.append((metrics, ST.param_sha256(model)))
+    assert runs[0] == runs[1]
 
 
 def test_train_cli_on_cpu(capsys):
@@ -133,7 +175,6 @@ def test_train_on_a_mesh_needs_its_ranks(mesh):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(overlap=True), "overlapped schedule"),
     (dict(gradsync="zero"), "rest of the training stack"),
     (dict(remat_policy="dots"), "training on the multi-rank mesh")])
 def test_train_step_refuses_what_is_not_ported(opts, item):
@@ -214,6 +255,14 @@ def test_data_copy_matches_the_jax_package():
     """data/synthetic.py is a copy (it imports only numpy)."""
     ours = (PORT / "data" / "synthetic.py").read_text()
     theirs = (ROOT / "src" / "repro" / "data" / "synthetic.py").read_text()
+    assert ours == theirs
+
+
+def test_overlap_config_copy_matches_the_jax_package():
+    """core/overlap.py is a byte-for-byte copy (it imports only
+    dataclasses)."""
+    ours = (PORT / "core" / "overlap.py").read_bytes()
+    theirs = (ROOT / "src" / "repro" / "core" / "overlap.py").read_bytes()
     assert ours == theirs
 
 
