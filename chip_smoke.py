@@ -29,9 +29,14 @@ a hard failure:
      stats and apply passes at the local shapes of training on (1,2,2,2)
      (phase 12), K1's float32 output for bf16 operands at the dW shapes,
      K1 at the ring-hop shapes of phase 13a (a column slice of dY or h
-     as an operand);
-     K6 selective scan at the prefill and decode shapes (y and final
-     state; two runs give the same bits);
+     as an operand); K1 at Jamba's local shapes on (1,2,2,1) and
+     (2,1,2,1) and K2's forward at its mesh prefill (phase 14); K5 with
+     its log-sum-exp at the seq-sharded decode's shard of 262,144 keys
+     (a row with every key, a few, none, past the table; the output
+     bitwise the call without the lse);
+     K6 selective scan at the prefill and decode shapes, also at the
+     4,096 channels of g_y = 2 (y and final state; two runs give the
+     same bits);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
      prefill chunk and 4 decode steps through ``paged_step`` with the
      kernels and with the plain versions; logits must agree;
@@ -122,7 +127,22 @@ a hard failure:
      flags: the teacher-forced logits under the schedule within
      OVERLAP_TF_TOL of max|logit| of one card's, the greedy ids equal to
      phase 11's fixed run's, launches, calls and ring hops the code's;
- 14. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 14. Jamba on the 4D mesh and long-context decode: (a) ``serve.py --mode
+     fixed`` of ``jamba-v0.1-52b-dense-ffn`` at full width and depth on
+     (1,2,2,1) (the Mamba layers' inner channels over y), four gloo ranks
+     on the card, phase 9's batch and prompt and 8 new tokens: phase 9's
+     one-card run fed through the mesh (teacher-forced logits within
+     MESH_TF_TOL of max|logit| of one card's), then the served run, its
+     greedy ids held to one card's above the margin, launches (K6 28 a
+     forward) and collective calls the code's; (b)
+     ``make_decode_step(seqshard=True)`` of one sequence at the reference's
+     long_500k context (524,288 positions, the KV cache's sequence dim
+     over data) on (2,1,2,1), Jamba at full width cut to one period (8
+     layers): 8 steps against one card's mode "decode" over the whole
+     cache on the same weights and seeded caches, logits within
+     LOGIT_TOL and ids equal, launches (K5 with its lse) and collectives
+     by axis the code's;
+ 15. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -184,18 +204,23 @@ FIXED_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset", "full",
 # 512 tokens) and its q-norm rows (x 16 heads); Jamba's prefill (4 x 512)
 # and decode (4) norms
 RMS_SHAPES = [(8, 2048), (128, 128), (1024, 2048), (16384, 128),
-              (2048, 4096), (4, 4096)]
+              (2048, 4096), (4, 4096), (1, 4096)]
 # K3's stats and apply passes at the mesh path's local width d / g_x =
 # 1024 (qwen3-1.7b on (1,2,2,1)): the decode step's norms (8 slots) and a
 # prefill chunk's (8 x 32 rows)
-RMS_SPLIT_SHAPES = [(8, 1024), (256, 1024), (512, 1024)]
+RMS_SPLIT_SHAPES = [(8, 1024), (256, 1024), (512, 1024), (4, 2048),
+                    (2048, 2048)]
 # K6 against its sequential plain version: y and the state of f32 within
 # the 2e-4 of tests/test_kernels.py (exp and the FMA contractions round
 # otherwise than PyTorch's kernels); bf16 y rounds once more on the way out
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # K6 at the fixed-serving path's shapes: (name, Bt, T, d, N, with s0)
 SCAN_SHAPES = [("prefill", 4, 512, 8192, 16, False),
-               ("decode", 4, 1, 8192, 16, True)]
+               ("decode", 4, 1, 8192, 16, True),
+               # Jamba on g_y = 2 (phase 14): the rank's 4096 channels
+               ("prefill, y-sharded", 4, 512, 4096, 16, False),
+               ("decode, y-sharded", 4, 1, 4096, 16, True),
+               ("long-context decode, y-sharded", 1, 1, 4096, 16, True)]
 # K6 timed at both shapes in float32 and at the prefill in bfloat16
 SCAN_TIMED = ([(torch.float32, s) for s in SCAN_SHAPES]
               + [(torch.bfloat16, SCAN_SHAPES[0])])
@@ -274,7 +299,10 @@ ATTN_CASES = {"train (B 2, T 512, 16/8 heads, hd 128, causal)": ATTN_MAIN,
               # a microbatch of training on (1,2,2,2): one sequence, the
               # local heads
               "mesh train (B 1, T 512, 8/4 heads, hd 128, causal)":
-                  (1, 512, 512, 8, 4, 128, True, 0, 0)}
+                  (1, 512, 512, 8, 4, 128, True, 0, 0),
+              # Jamba's local heads on (1,2,2,1), its prefill (phase 14a)
+              "Jamba mesh prefill (B 4, T 512, 16/4 heads, hd 128, "
+              "causal)": (4, 512, 512, 16, 4, 128, True, 0, 0)}
 # context parallelism: the seq axis, and K4 at its path's shape, per rank
 # and microbatch (B 2, C = 512 / p queries, p gathered blocks of C keys,
 # 16/8 heads, hd 128), causal and with a window
@@ -336,7 +364,50 @@ MESH_TRAIN_DIR = ROOT / "build" / "chip_smoke_mesh_train"
 OVERLAP_TRAIN_TOL = {"loss": 1e-6, "grad_norm": 1e-5, "later_loss": 1e-4}
 OVERLAP_TF_TOL = 3e-6
 DENSE_DECODE = {"Jamba": ((4, 32, 8, 128), [513, 527, 538, 544]),
-                "mesh fixed": ((4, 8, 4, 128), [129, 131, 134, 136])}
+                "mesh fixed": ((4, 8, 4, 128), [129, 131, 134, 136]),
+                "Jamba mesh": ((4, 16, 4, 128), [513, 515, 517, 520])}
+# 14a: Jamba's fixed serving on the (1,2,2,1) mesh at full width and
+# depth, phase 9's batch and prompt; --gen cut from phase 9's 32 to phase
+# 11's 8 for the script's time
+HYBRID_MESH_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset",
+                     "full", "--batch", "4", "--prompt-len", "512", "--gen",
+                     "8", "--seed", str(SEED), "--mesh", MESH, "--backend",
+                     "gloo"]
+HYBRID_MESH_DIR = ROOT / "build" / "chip_smoke_hybrid_mesh"
+# 14b: decode of one sequence at the reference's long_500k context, its KV
+# cache's sequence dim sharded over data (make_decode_step(seqshard=True)),
+# Jamba at full width cut to one period of its layer pattern (7 Mamba
+# layers and 1 attention layer): two data replicas of the full depth and
+# the cache do not fit the card. The attention layer's K/V holds seeded
+# keys at positions below LONG_P0; LONG_STEPS steps decode from there
+LONG_MESH = "2,1,2,1"
+LONG_CONTEXT = 524288
+LONG_LAYERS = 8
+LONG_STEPS = 8
+LONG_P0 = LONG_CONTEXT - LONG_STEPS
+LONG_DIR = ROOT / "build" / "chip_smoke_long"
+LONG_TIMEOUT_S = 400
+# 14b's logits against one card's, as tests/test_torch_serving.py holds
+# logits (float32: the shards' softmaxes merge in another order)
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# K1 at the local shapes of Jamba's mesh paths, float32: 14a on (1,2,2,1)
+# (prefill 4 x 512 rows and decode 4 rows, d / g_x = 2048 in, d_inner /
+# g_y = 4096), 14b on (2,1,2,1) (one row, d 4096 in); the untied head's
+# V / g_y = 32768 columns
+HYBRID_MESH_MATMUL_SHAPES = [
+    (f"{tag} {w}", M, K, N, layout)
+    for tag, M, d in (("jamba mesh prefill", 2048, 2048),
+                      ("jamba mesh decode", 4, 2048),
+                      ("jamba long decode", 1, 4096))
+    for w, K, N, layout in (
+        ("x.W_in|W_gate", d, 4096, "NN"), ("x.W_x", 4096, 288, "NN"),
+        ("dt.W_dt", 256, 4096, "SN"), ("y.W_out", 4096, d, "NN"),
+        ("x.Wq|Wo", d, 2048, "NN"), ("x.Wk|Wv", d, 512, "NN"),
+        ("x.Wi|Wg", d, 7168, "NN"), ("h.Wdown", 7168, d, "NN"),
+        ("head h.W", d, 32768, "NN"))]
+# K5 at 14b's shape: one row against a shard of 262,144 keys (524,288
+# over g_data 2), the local 16/4 heads, hd 128
+SEQ_K5 = dict(nq=16, nkv=4, hd=128, keys=LONG_CONTEXT // 2)
 
 
 def log(msg: str) -> None:
@@ -660,6 +731,7 @@ def phase_kernels(gen):
             log(f"  {str(dtype)[6:]} {nq}/{nkv} heads chunked (0-5, 5-17, "
                 f"17-32) == one-shot: bitwise")
     phase_kernels_dense_decode(gen, errs)
+    phase_kernels_seqshard(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_scan(gen, errs)
     return errs
@@ -729,6 +801,55 @@ def phase_kernels_dense_decode(gen, errs):
                 PAGED_TOL[dtype])
             if dtype == torch.float32:
                 errs["paged_attention"] = max(errs["paged_attention"], e)
+
+
+def seqshard_inputs(gen, dtype, q_pos):
+    """K5's inputs at 14b's shape: one query row against one shard's dense
+    cache seen as pages of DENSE_PAGE rows, at the local position
+    ``q_pos``."""
+    from repro_torch.layers.attention import dense_page_view
+    c = SEQ_K5
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q = rand(1, 1, c["nq"], c["hd"])
+    kc, vc = (rand(1, c["keys"], c["nkv"], c["hd"]) for _ in range(2))
+    (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
+    return (q, kp, vp, table,
+            torch.tensor([[q_pos]], dtype=torch.int32, device="cuda"),
+            torch.ones((1,), dtype=torch.int32, device="cuda"))
+
+
+def phase_kernels_seqshard(gen, errs):
+    """K5 as the seq-sharded decode runs it (14b): one row over a shard of
+    262,144 keys, with the rows' log-sum-exp, at local positions that see
+    every key, a few keys, none (a shard past the query: out 0, lse
+    NEG_INF) and a position past the shard's table; the output bitwise the
+    call without the lse."""
+    from repro_torch.kernels.flash_attention import (
+        NEG_INF, paged_attention_kernel, paged_attention_plain)
+    c = SEQ_K5
+    log(f"[kernels] K5 with its lse at the seq-sharded decode's shape (1 row"
+        f", {c['keys']} keys a shard, {c['nq']}/{c['nkv']} heads, hd "
+        f"{c['hd']}, pages of 32)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_pos in (c["keys"] - 1, 1000, -5, c["keys"] + 1000):
+            args = seqshard_inputs(gen, dtype, q_pos)
+            out, lse = paged_attention_kernel(*args, return_lse=True)
+            want, wlse = paged_attention_plain(*args, return_lse=True)
+            tag = f"{dtype_name(dtype)} q_pos {q_pos}"
+            e = check_close(f"{tag} out", out, want, PAGED_TOL[dtype])
+            check_close(f"{tag} lse", lse, wlse, PAGED_TOL[torch.float32])
+            if not torch.equal(out, paged_attention_kernel(*args)):
+                raise AssertionError("K5's out differs with the lse asked")
+            if q_pos < 0 and not (bool((lse == NEG_INF).all())
+                                  and not out.any()):
+                raise AssertionError("a row with no key must give out 0 "
+                                     "and lse NEG_INF")
+            if dtype == torch.float32:
+                errs["paged_attention"] = max(errs["paged_attention"], e)
+            del args, out, want
+        log(f"  {dtype_name(dtype)}: out bitwise the call without the lse")
 
 
 def phase_kernels_scan(gen, errs):
@@ -817,6 +938,17 @@ def phase_kernels_train(gen, errs):
                       got, block_matmul_plain(a, b, out_dtype=out),
                       MATMUL_TOL[f32])
         if not torch.equal(got, block_matmul_kernel(a, b, out_dtype=out)):
+            raise AssertionError(f"K1 {name}: two runs differ")
+        errs["block_matmul"] = max(errs["block_matmul"], e)
+        del a, b, got
+    log("[kernels] K1 at the local shapes of Jamba on (1,2,2,1) and "
+        "(2,1,2,1) (phase 14), float32, each run twice")
+    for name, M, K, N, layout in HYBRID_MESH_MATMUL_SHAPES:
+        a, b = matmul_inputs(gen, M, K, N, layout, f32)
+        got = block_matmul_kernel(a, b)
+        e = check_rel(f"float32 {name} ({M}, {K}) x ({K}, {N}) {layout}",
+                      got, block_matmul_plain(a, b), MATMUL_TOL[f32])
+        if not torch.equal(got, block_matmul_kernel(a, b)):
             raise AssertionError(f"K1 {name}: two runs differ")
         errs["block_matmul"] = max(errs["block_matmul"], e)
         del a, b, got
@@ -1085,11 +1217,53 @@ def phase_timings(gen, n_layers):
                [p[1] for p in pools], table, q_pos,
                torch.ones((B,), dtype=torch.int32, device="cuda"))
     del pools, kp, vp, kc, vc
+    time_seqshard(gen)
     phase_timings_train(gen, out)
     log("[timings] K6 at the fixed-serving shapes: device time from a "
         "replayed CUDA graph / eager calls back to back")
     phase_timings_scan(gen, out)
     return out
+
+
+def time_seqshard(gen):
+    """K5 with its lse at 14b's shape, the row seeing every key of the
+    shard (the ranks' view of the owning shard's and earlier shards'
+    keys). The library yardstick is SDPA over the same keys, KV heads
+    repeated to the query heads (as ``time_paged``'s); the bound reads K
+    and V once (1.07 GB)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        paged_attention_kernel, paged_attention_plain)
+    c = SEQ_K5
+    args = seqshard_inputs(gen, torch.float32, c["keys"] - 1)
+    q, kp, vp = args[:3]
+    g = c["nq"] // c["nkv"]
+    kg, vg = (p.reshape(1, c["keys"], c["nkv"], c["hd"]).transpose(1, 2)
+              .repeat_interleave(g, dim=1) for p in (kp, vp))
+    nbytes = (2 * c["keys"] * c["nkv"] * c["hd"] * 4
+              + 2 * c["nq"] * c["hd"] * 4 + c["nq"] * 4
+              + args[3].numel() * 4 + 8)
+    t, eager = timings(
+        lambda: paged_attention_kernel(*args, return_lse=True),
+        lambda: paged_attention_plain(*args, return_lse=True),
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kg, vg),
+        nbytes, 4 * c["hd"] * c["nq"] * c["keys"], torch.float32, iters=20,
+        eager_iters=20)
+    log(f"  paged_attention with lse (seq-sharded decode, 1 row, "
+        f"{c['keys']} keys a shard, {c['nq']}/{c['nkv']} heads, "
+        f"{args[3].shape[1]} pages of 32; workspace "
+        f"{workspace_bytes(args) / 1e6:.1f} MB): " + fmt(t, eager)
+        + f"; {t['ms'] / t['library_ms']:.2f}x SDPA")
+    return t
+
+
+def workspace_bytes(args):
+    """Bytes of the fp32 workspace K5 allocates for these inputs."""
+    from repro_torch.kernels.flash_attention import _launcher
+    q, kp, _, table = args[:4]
+    R, T, nq, hd = q.shape
+    return 4 * _launcher()[1](R, T, nq, kp.shape[2], hd, table.shape[1],
+                              kp.shape[1])
 
 
 def phase_timings_rmsnorm(gen):
@@ -1893,7 +2067,8 @@ def mesh_launches(cfg, prefills, decodes):
     qk-norm's rows are whole, one pass each."""
     want = fixed_launches(cfg, prefills, decodes)
     fwd = prefills + decodes
-    want["rmsnorm"] = fwd * 2 * cfg.n_layers
+    want["rmsnorm"] = fwd * (2 * cfg.mixers().count("attn")
+                             if cfg.qk_norm else 0)
     want["rmsnorm_stats"] = want["rmsnorm_apply"] = fwd * (
         2 * cfg.n_layers + 1)
     return want
@@ -1901,11 +2076,13 @@ def mesh_launches(cfg, prefills, decodes):
 
 def mesh_collectives(cfg):
     """Collective calls of one forward on a rank of (1,2,2,1), counted from
-    the code: per layer the psums over x of q, k and v, of the two norms'
-    sums of squares and of the MLP's gate and up, and over y of the
-    attention's and the MLP's down projections (9); then the embedding's
-    psum over y, the final norm's over x, the head's over x and the
-    logits' gather over y."""
+    the code: per attention layer the psums over x of q, k and v, of the
+    two norms' sums of squares and of the MLP's gate and up, and over y of
+    the attention's and the MLP's down projections (9); per Mamba layer
+    the psums over x of w_in, w_gate, the two norms' and the MLP's gate
+    and up, and over y of w_x, w_out and the MLP's down projection (9);
+    then the embedding's psum over y, the final norm's over x, the head's
+    over x and the logits' gather over y."""
     return 9 * cfg.n_layers + 4
 
 
@@ -2081,12 +2258,20 @@ def mesh_report(lines, expect, want, units, unit, cfg, smi, hops=0):
                       if ln.startswith('{"serve"')][-1])["serve"]
     ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
     got = [r["param_sha256"] for r in ranks]
-    if got != expect["hashes"]:
+    if "hashes" not in expect:
+        # Jamba's 9.3 B parameters are too many to hash on the host here;
+        # tests/test_torch_mesh_hybrid.py checks the shards are slices
+        if len(set(got)) != len(got):
+            raise AssertionError(f"two ranks hold the same shards: {got}")
+        log(f"  {len(got)} distinct parameter shards (sha256 "
+            f"{', '.join(h[:12] for h in got)})")
+    elif got != expect["hashes"]:
         raise AssertionError(f"the ranks' parameter shards are not the "
                              f"one-card model's blocks: {got} against "
                              f"{expect['hashes']}")
-    log(f"  every rank's parameter shards == the one-card model's blocks "
-        f"(sha256 {', '.join(h[:12] for h in got)})")
+    else:
+        log(f"  every rank's parameter shards == the one-card model's "
+            f"blocks (sha256 {', '.join(h[:12] for h in got)})")
     plans = {r["plan_sha256"] for r in ranks}
     if len(plans) != 1:
         raise AssertionError(f"the ranks ran different plans: {plans}")
@@ -2617,6 +2802,308 @@ def phase_mesh_data(cfg, smi, one):
             f"{r['max_memory_bytes'] / 2**30:.2f} GiB on {smi}")
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: Jamba on the 4D mesh, and long-context seq-sharded decode
+# ---------------------------------------------------------------------- #
+
+def fixed_teacher_forced(model, prompts, ids):
+    """Fixed-batch serving's logits at each position a greedy run of
+    ``ids`` (B, gen) chose its id: the prompts (B, T) prefilled, then
+    ids[:, j] fed at T + j for j < gen - 1. On a mesh each rank runs its
+    batch shard and the logits are gathered. Returns (B, gen, V) float32
+    on the CPU."""
+    from repro_torch.launch import steps as ST
+    cfg, axes, dev = model.cfg, model.axes, model.embed.device
+    B, T = prompts.shape
+    gen = ids.shape[1]
+    pre, ct = ST.make_prefill_step(cfg, axes)(B, T, T + gen)
+    dec, _ = ST.make_decode_step(cfg, axes)(B, T + gen)
+    caches = ST.zeros_caches(ct, dev)
+    logits, caches = pre(model, caches, prompts.to(dev))
+    out = [ST.gather_logits(logits, axes).float().cpu()]
+    for j in range(gen - 1):
+        logits, caches = dec(model, caches, ids[:, j:j + 1].to(dev), T + j)
+        out.append(ST.gather_logits(logits, axes).float().cpu())
+    return torch.cat(out, 1)
+
+
+def hybrid_mesh_expectations(model, cfg):
+    """What 14a holds its ranks to, from phase 9's one-card model: the
+    fixed run of HYBRID_MESH_FLAGS on one card (its prompts and greedy
+    ids) and the teacher-forced logits of its positions."""
+    from repro_torch.launch import serve
+    t0 = time.time()
+    args = serve.build_parser().parse_args(
+        HYBRID_MESH_FLAGS[:HYBRID_MESH_FLAGS.index("--mesh")])
+    fixed = serve.run_fixed(args, model)
+    prompts = torch.from_numpy(fixed.prompts)
+    ids = torch.from_numpy(fixed.ids.astype("int32"))
+    logits = fixed_teacher_forced(model, prompts, ids)
+    log(f"[hybrid mesh expectations] {cfg.name}: the one-card fixed run's "
+        f"ids {tuple(ids.shape)} and teacher-forced logits "
+        f"{tuple(logits.shape)}, in {time.time() - t0:.1f}s")
+    return dict(prompts=prompts, ids=ids, logits=logits,
+                margin=top2_margin(logits))
+
+
+def hybrid_mesh_worker(outdir: Path) -> int:
+    """One rank of 14a's teacher-forced run (started by
+    ``phase_hybrid_mesh`` under torch.distributed.run): Jamba drawn from
+    seed 0 on (1,2,2,1), phase 9's one-card prompts and ids fed through
+    the fixed-batch steps; rank 0 saves the gathered logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
+    axes = mesh_axes(MESH)
+    run = init_mesh(axes, device="cuda")
+    try:
+        model = ST.init_model(get_config(HYBRID), axes, seed=SEED,
+                              device=run["device"])
+        job = torch.load(outdir / "job.pt")
+        logits = fixed_teacher_forced(model, job["prompts"], job["ids"])
+        if run["rank"] == 0:
+            torch.save(logits, outdir / "mesh_logits.pt")
+    finally:
+        close_mesh()
+    return 0
+
+
+def phase_hybrid_mesh(cfg, smi, expect):
+    """14a: ``serve.py --mode fixed`` of Jamba at full width and depth on
+    (1,2,2,1), four gloo ranks on this card, each holding its shard of
+    every weight (the Mamba layers' inner channels over y). The
+    teacher-forced logits of phase 9's one-card run against one card's
+    (MESH_TF_TOL of max|logit|), then the served run: its greedy ids held
+    to one card's above the margin, launches (K6 28 a forward) and
+    collective calls per forward the code's, prefill and decode times,
+    comm by axis and each rank's peak memory."""
+    HYBRID_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(prompts=expect["prompts"], ids=expect["ids"]),
+               HYBRID_MESH_DIR / "job.pt")
+    launch_ranks([str(ROOT / "chip_smoke.py"), "--hybrid-mesh-worker",
+                  str(HYBRID_MESH_DIR)], "hybrid mesh teacher-forced",
+                 MESH_RANKS, MESH_TIMEOUT_S)
+    mesh = torch.load(HYBRID_MESH_DIR / "mesh_logits.pt")
+    one = expect["logits"]
+    err, scale = max_err(mesh, one), float(one.abs().max())
+    log(f"  teacher-forced logits {tuple(mesh.shape)}: max|mesh - one "
+        f"card| = {err:.3e}, max|logit| = {scale:.3e}, {err / scale:.3e} of"
+        f" it (tol {MESH_TF_TOL:g}); TF32 off")
+    if not (math.isfinite(err) and err <= MESH_TF_TOL * scale):
+        raise AssertionError("the mesh's Jamba logits differ from one card's")
+    thr = MESH_MARGIN * err
+    del mesh
+    lines = launch_ranks(["-m", "repro_torch.launch.serve",
+                          *HYBRID_MESH_FLAGS], "hybrid mesh fixed serve",
+                         MESH_RANKS, MESH_TIMEOUT_S)
+    gen = int(HYBRID_MESH_FLAGS[HYBRID_MESH_FLAGS.index("--gen") + 1])
+    rep = mesh_report(lines, {}, mesh_launches(cfg, 1, gen - 1),
+                      lambda r: (1, gen), "run", cfg, smi)
+    check_ids(rep["ids"], expect["ids"].tolist(), expect["margin"], thr,
+              "hybrid fixed, against phase 9's one-card model")
+    B, T = expect["prompts"].shape
+    log(f"  prefill {B} x {T}: {rep['prefill_s']:.4f} s; decode {gen - 1} "
+        f"steps x batch {B}: {rep['decode_s']:.4f} s, "
+        f"{rep['tokens_per_s']:.2f} tokens/s, "
+        f"{1e3 * rep['decode_s'] / (gen - 1):.1f} ms/step, on {smi}")
+    return sorted(rep["ranks"], key=lambda r: r["rank"])[0]["launches"]
+
+
+def long_config(cfg):
+    """14b's model: ``cfg`` at full width, one period of its pattern."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=LONG_LAYERS)
+
+
+def long_caches(cfg, axes, device):
+    """14b's caches for one sequence of LONG_CONTEXT positions, drawn from
+    the seed as whole (global) tensors in layer order, each rank keeping
+    its shard of them: the attention layer's K and V random below LONG_P0
+    and 0 from it on (positions over data, KV heads over y), the Mamba
+    layers' conv inputs and scan states random (their channels over y,
+    replicated over data)."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.core.partition import keep_shard
+    from repro_torch.layers.attention import SEQ_CACHE_SPEC
+    from repro_torch.layers.mamba import SEQ_STATE_SPECS
+    from repro_torch.models.decoder import decoder_cache_specs
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    caches = []
+    for layer in decoder_cache_specs(cfg, MeshAxes(), 1, LONG_CONTEXT):
+        out = {}
+        for name, (shape, dt) in layer.items():
+            v = torch.randn(shape, generator=gen, device=device, dtype=dt)
+            if name in ("k", "v"):
+                v[:, LONG_P0:] = 0
+                spec = SEQ_CACHE_SPEC
+            else:
+                v.mul_(0.5 if name == "conv" else 0.1)
+                spec = SEQ_STATE_SPECS[name]
+            out[name] = keep_shard(v, axes, spec)
+            del v
+        caches.append(out)
+    return caches
+
+
+def long_collectives(cfg):
+    """Collective calls by axis of one step of 14b on a rank of (2,1,2,1)
+    (x of 1: no norm psums), counted from the code: over data the
+    attention layer's pmax of the shards' lse and psum of (num, den);
+    over y the psums of each Mamba layer's w_x, w_out and MLP down
+    projection, of each attention layer's output and MLP down
+    projections, the embedding's psum and the logits' gather."""
+    n_attn = cfg.mixers().count("attn")
+    n_mamba = cfg.mixers().count("mamba")
+    return {"data": 2 * n_attn, "y": 3 * n_mamba + 2 * n_attn + 2}
+
+
+def long_worker(outdir: Path) -> int:
+    """One rank of 14b (started by ``phase_long_context`` under
+    torch.distributed.run): the cut Jamba drawn from seed 0 on (2,1,2,1)
+    with its shard of the seeded caches, LONG_STEPS steps of
+    ``make_decode_step(seqshard=True)`` fed one card's ids; each rank
+    saves its report, rank 0 the logits gathered over y."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import mesh as M
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
+    axes = mesh_axes(LONG_MESH)
+    run = init_mesh(axes, device="cuda")
+    try:
+        dev = run["device"]
+        cfg = long_config(get_config(HYBRID))
+        model = ST.init_model(cfg, axes, seed=SEED, device=dev)
+        caches = long_caches(cfg, axes, dev)
+        step, ct = ST.make_decode_step(cfg, axes, seqshard=True)(
+            1, LONG_CONTEXT)
+        shapes = [{k: tuple(v.shape) for k, v in c.items()} for c in caches]
+        if shapes != [{k: v[0] for k, v in c.items()} for c in ct]:
+            raise AssertionError(f"caches {shapes} against the specs {ct}")
+        toks = torch.load(outdir / "job.pt")["tokens"]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        M.reset_comm()
+        logits, step_s = [], []
+        for j in range(LONG_STEPS):
+            t0 = time.time()
+            lg, caches = step(model, caches, toks[j].to(dev), LONG_P0 + j)
+            lg = ST.gather_logits(lg, axes, seqshard=True)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            logits.append(lg.float().cpu())
+        rep = dict(rank=run["rank"], step_s=step_s,
+                   launches=ops.launches(), comm_axes=M.COMM_AXES,
+                   resident=resident,
+                   peak=torch.cuda.max_memory_allocated(dev),
+                   cache_bytes=sum(v.numel() * v.element_size()
+                                   for c in caches for v in c.values()))
+        torch.save(rep, outdir / f"rank{run['rank']}.pt")
+        if run["rank"] == 0:
+            torch.save(torch.cat(logits, 1), outdir / "logits.pt")
+    finally:
+        close_mesh()
+    return 0
+
+
+def phase_long_context(hcfg, smi):
+    """14b: ``make_decode_step(seqshard=True)`` of one sequence at 524,288
+    positions on (2,1,2,1), four gloo ranks on this card (two data shards
+    of the cache's positions, two y shards of the heads and channels),
+    Jamba at full width cut to one period (LONG_LAYERS). First one card's
+    ``make_decode_step`` (mode "decode": K5 over the whole cache) takes
+    LONG_STEPS greedy steps from LONG_P0 on the same weights and caches;
+    then the ranks take the same steps fed its ids. Every step's logits
+    within LOGIT_TOL of one card's and their greedy ids equal above the
+    margin; launches (K5 one a step with its lse, K6 7) and collectives
+    by axis the code's; ms a step and memory a rank."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    cfg = long_config(hcfg)
+    n_attn = cfg.mixers().count("attn")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    caches = long_caches(cfg, MeshAxes(), "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    cache_gb = sum(v.numel() * v.element_size() for c in caches
+                   for v in c.values()) / 1e9
+    log(f"[long context] {cfg.name} at full width cut to one period "
+        f"({LONG_LAYERS} layers: {cfg.mixers().count('mamba')} Mamba, "
+        f"{n_attn} attention; {n_params / 1e9:.3f} B parameters), one "
+        f"sequence at {LONG_CONTEXT} positions (long_500k), keys seeded "
+        f"below {LONG_P0}; caches {cache_gb:.2f} GB; built in "
+        f"{time.time() - t0:.1f}s")
+    step, _ = ST.make_decode_step(cfg, MeshAxes())(1, LONG_CONTEXT)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), generator=torch.
+                        Generator().manual_seed(SEED + 14),
+                        dtype=torch.int32).cuda()
+    toks, one, one_s = [], [], []
+    ops.reset_launches()
+    for j in range(LONG_STEPS):
+        toks.append(tok.cpu())
+        t0 = time.time()
+        lg, caches = step(model, caches, tok, LONG_P0 + j)
+        torch.cuda.synchronize()
+        one_s.append(time.time() - t0)
+        one.append(lg.float().cpu())
+        tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+    check_launches(ops.launches(), dict(fixed_launches(cfg, 0, 1),
+                                        rmsnorm_stats=0, rmsnorm_apply=0),
+                   LONG_STEPS, "step")
+    one = torch.cat(one, 1)
+    log(f"  one card (mode decode, K5 over {LONG_CONTEXT} keys): "
+        f"{1e3 * sum(one_s[1:]) / (LONG_STEPS - 1):.2f} ms a step after the "
+        f"first ({1e3 * one_s[0]:.2f} ms), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {smi}")
+    del model, caches, step
+    free_memory()
+    LONG_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(tokens=toks), LONG_DIR / "job.pt")
+    launch_ranks([str(ROOT / "chip_smoke.py"), "--long-worker",
+                  str(LONG_DIR)], "long context seqshard decode "
+                 f"({LONG_MESH})", MESH_RANKS, LONG_TIMEOUT_S)
+    mesh = torch.load(LONG_DIR / "logits.pt")
+    err, scale = max_err(mesh, one), float(one.abs().max())
+    ok = torch.allclose(mesh, one, **LOGIT_TOL)
+    log(f"  logits of {LONG_STEPS} steps {tuple(mesh.shape)}: max|seqshard "
+        f"- one card| = {err:.3e}, max|logit| = {scale:.3e} (rtol "
+        f"{LOGIT_TOL['rtol']:g}, atol {LOGIT_TOL['atol']:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the seq-sharded decode's logits differ from "
+                             "one card's")
+    check_ids([mesh[0].argmax(-1).tolist()], [one[0].argmax(-1).tolist()],
+              top2_margin(one), MESH_MARGIN * err,
+              "seq-sharded greedy ids, against one card's")
+    want = dict(fixed_launches(cfg, 0, 1), rmsnorm_stats=0, rmsnorm_apply=0)
+    calls = long_collectives(cfg)
+    for r in range(MESH_RANKS):
+        rep = torch.load(LONG_DIR / f"rank{r}.pt")
+        log(f"  rank {r}:")
+        check_launches(rep["launches"], want, LONG_STEPS, "step")
+        got = {a: v["calls"] / LONG_STEPS for a, v in
+               rep["comm_axes"].items()}
+        log("    collectives a step by axis: " + ", ".join(
+            f"{a} {v['calls'] / LONG_STEPS:g} calls "
+            f"{1e3 * v['seconds'] / LONG_STEPS:.2f} ms "
+            f"{v['bytes'] / LONG_STEPS / 1e3:.2f} kB"
+            for a, v in sorted(rep["comm_axes"].items()))
+            + f" (expected calls {calls})")
+        if got != calls:
+            raise AssertionError(f"rank {r}: collectives a step {got}, "
+                                 f"expected {calls}")
+        s = rep["step_s"]
+        log(f"    {1e3 * sum(s[1:]) / (len(s) - 1):.2f} ms a step after the "
+            f"first ({1e3 * s[0]:.2f} ms); K5 {rep['launches']['paged_attention']}"
+            f" launches, each with its lse; caches {rep['cache_bytes'] / 1e9:.3f}"
+            f" GB, resident {rep['resident'] / 2**30:.2f} GiB, "
+            f"max_memory_allocated {rep['peak'] / 2**30:.2f} GiB, on {smi}")
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -2672,6 +3159,7 @@ def main() -> int:
     phase_fixed_parity(hybrid, hcfg)
     fixed_launches_run = phase_fixed_serve(hybrid, hcfg, smi)
     phase_fixed_profile(hybrid, hcfg)
+    hybrid_expect = hybrid_mesh_expectations(hybrid, hcfg)
     del hybrid
     free_memory()
 
@@ -2693,6 +3181,11 @@ def main() -> int:
     phase_overlap_seq(cfg, smi, train_res, seq_rep)
     free_memory()
     phase_overlap_serve(cfg, smi, mesh_expect, mesh_fixed)
+    free_memory()
+    phase_hybrid_mesh(hcfg, smi, hybrid_expect)
+    del hybrid_expect
+    free_memory()
+    phase_long_context(hcfg, smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
@@ -2746,4 +3239,8 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--mesh-train-worker"]:
         sys.exit(mesh_train_worker(Path(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--hybrid-mesh-worker"]:
+        sys.exit(hybrid_mesh_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--long-worker"]:
+        sys.exit(long_worker(Path(sys.argv[2])))
     sys.exit(main())

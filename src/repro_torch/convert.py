@@ -19,9 +19,11 @@ step decides weight decay on these paths, as the JAX ``adamw._no_decay``
 does, and the tests compare gradients leaf by leaf through them.
 ``caches_from_jax`` maps the JAX fixed-batch caches onto the port's
 per-layer ones. On a mesh, both keep one rank's block of each global JAX
-leaf: a parameter's by its PartitionSpec (``partition.param_spec``), a
-cache's by the JAX cache spec (batch over (data, z), KV heads and Mamba
-channels over y), first-name-major over each tuple of axes.
+leaf: a parameter's by its PartitionSpec (``partition.param_spec``; the
+Mamba layer's per-channel leaves over y), a cache's by the JAX cache spec
+(batch over (data, z), KV heads and Mamba channels over y; with
+``seqshard`` the K/V's positions over data and the Mamba states
+replicated over data), first-name-major over each tuple of axes.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ from torch.nn import functional as F
 
 from repro_torch.core import mesh as M
 from repro_torch.core.partition import param_spec
-from repro_torch.layers.attention import CACHE_SPEC, DENSE_PAGE
-from repro_torch.layers.mamba import STATE_SPECS
+from repro_torch.layers.attention import CACHE_SPEC, DENSE_PAGE, \
+    SEQ_CACHE_SPEC
+from repro_torch.layers.mamba import SEQ_STATE_SPECS, STATE_SPECS
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.decoder import Decoder
 
@@ -106,26 +109,33 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device,
     return model
 
 
-# each fixed-batch cache leaf's spec, as the layers lay the caches out
-CACHE_SPECS = {"k": CACHE_SPEC, "v": CACHE_SPEC, **STATE_SPECS}
+# each fixed-batch cache leaf's spec, as the layers lay the caches out,
+# without and with ``seqshard``
+CACHE_SPECS = {False: {"k": CACHE_SPEC, "v": CACHE_SPEC, **STATE_SPECS},
+               True: {"k": SEQ_CACHE_SPEC, "v": SEQ_CACHE_SPEC,
+                      **SEQ_STATE_SPECS}}
 
 
 def caches_from_jax(caches: Dict[str, Any], cfg: ArchConfig, device="cpu",
-                    axes: M.MeshAxes = M.MeshAxes(), rank: int = 0
+                    axes: M.MeshAxes = M.MeshAxes(), rank: int = 0, *,
+                    seqshard: bool = False
                     ) -> List[Dict[str, torch.Tensor]]:
     """Rank ``rank``'s per-layer fixed-batch caches from the JAX ones
     (global numpy leaves stacked (n_periods, ...) under ``seg{s}/pos{i}``).
     The JAX dense K/V caches hold exactly ``seq`` rows; the port's are
-    padded to a multiple of ``attention.DENSE_PAGE`` with zeros."""
+    padded with zeros to a multiple of ``attention.DENSE_PAGE`` (times
+    g_data under ``seqshard``, before the positions are sharded), as
+    ``attention.attn_cache_spec`` sizes them."""
+    specs = CACHE_SPECS[seqshard]
+    unit = DENSE_PAGE * (axes.dp if seqshard else 1)
     out = []
     for s, i, p in cfg.layer_slots():
         layer = {}
         for k, v in caches[f"seg{s}"][f"pos{i}"].items():
-            t = M.shard(torch.tensor(np.asarray(v)[p]), axes, CACHE_SPECS[k],
-                        rank).contiguous().to(device)
+            t = torch.tensor(np.asarray(v)[p])
             if k in ("k", "v"):
-                pad = -t.shape[1] % DENSE_PAGE
-                t = F.pad(t, (0, 0, 0, 0, 0, pad))
-            layer[k] = t
+                t = F.pad(t, (0, 0, 0, 0, 0, -t.shape[1] % unit))
+            layer[k] = M.shard(t, axes, specs[k], rank).contiguous().to(
+                device)
         out.append(layer)
     return out

@@ -428,7 +428,13 @@ def tp_linear_init(gen: torch.Generator, k: int, n: int, axes: M.MeshAxes,
                    dtype=torch.float32) -> torch.Tensor:
     """A (k, n) weight drawn from N(0, 1) * scale (default 1/sqrt(k));
     this rank keeps its block by ``partition.wspec(in_shard,
-    out_shard)``: k over the contraction shard, n over (output shard, z)."""
+    out_shard)``: k over the contraction shard, n over (output shard, z).
+    A width that does not shard is refused in the reference's words."""
+    denom = axes.size(out_shard) * axes.gz
+    if n % denom:
+        raise ValueError(f"weight n={n} not divisible by out*z={denom}")
+    if k % axes.size(in_shard):
+        raise ValueError(f"weight k={k} not divisible by in={in_shard}")
     s = scale if scale is not None else 1.0 / math.sqrt(k)
     v = torch.randn((k, n), generator=gen, device=gen.device,
                     dtype=torch.float32)

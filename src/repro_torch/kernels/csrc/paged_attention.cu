@@ -42,7 +42,12 @@
 //  * paged_combine_kernel: one warp per (slot, row, query head) merges the
 //    row's splits in ascending order, from the first split its window
 //    reaches to the last that holds a key at or before its q_pos, and
-//    divides by l. A row's bits so depend only on its own keys.
+//    divides by l. A row's bits so depend only on its own keys. Where the
+//    caller asks for it, the row's log-sum-exp m + log l goes to lse
+//    (NEG_INF for a row with no key): the merge of partial softmaxes over
+//    shards of a long cache (flash decoding across ranks) needs it. A
+//    query position below 0 reads no key (l = 0); one past the table sees
+//    every key of it.
 // Every row runs the same instructions in the same order whatever T is and
 // wherever the row sits in its chunk or tile, and no kernel uses atomics,
 // so chunked prefill equals one-shot prefill bitwise and repeated calls
@@ -300,14 +305,16 @@ paged_split_kernel(const T* __restrict__ q, int64_t q_sr, int64_t q_st,
   }
 }
 
-// out (R, T, nq, HD) contiguous: one warp per (r, t, hq)
+// out (R, T, nq, HD) contiguous: one warp per (r, t, hq); lse (R, T, nq)
+// fp32, or null
 template <typename T, int HD>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 paged_combine_kernel(const float* __restrict__ part,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ q_len, T* __restrict__ out,
-                     int n_slots, int n_t, int nq, int nkv, int window,
-                     int split_keys, int n_splits, int key_cap) {
+                     float* __restrict__ lse, int n_slots, int n_t, int nq,
+                     int nkv, int window, int split_keys, int n_splits,
+                     int key_cap) {
   constexpr int N = HD / 32;
   const int lane = threadIdx.x & 31;
   const int64_t gr = (int64_t)blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
@@ -319,7 +326,7 @@ paged_combine_kernel(const float* __restrict__ part,
   float acc[N];
 #pragma unroll
   for (int c = 0; c < N; ++c) acc[c] = 0.f;
-  float l = 0.f;
+  float l = 0.f, m = kNegInf;
   if (t < q_len[r]) {
     // the row's keys are [first, last]: no split outside them is read
     const int pos = q_pos[r * n_t + t];
@@ -330,7 +337,6 @@ paged_combine_kernel(const float* __restrict__ part,
     const int64_t n_part = (int64_t)n_slots * nkv * n_splits * n_rows;
     const int64_t row = ((int64_t)r * nkv + hq / g) * n_splits * n_rows +
                         t * g + hq % g;
-    float m = kNegInf;
     for (int s = s_lo; s <= s_hi; ++s) {
       const int64_t idx = row + (int64_t)s * n_rows;
       const float ms = part[n_part * HD + idx * 2];
@@ -348,6 +354,7 @@ paged_combine_kernel(const float* __restrict__ part,
   T* o = out + gr * HD + lane * N;
 #pragma unroll
   for (int c = 0; c < N; ++c) store(o + c, acc[c] * inv);
+  if (lse != nullptr && lane == 0) lse[gr] = l > 0.f ? m + logf(l) : kNegInf;
 }
 
 int n_splits_of(int n_pages, int page) {
@@ -358,9 +365,9 @@ int n_splits_of(int n_pages, int page) {
 template <typename T, int HD>
 int launch(const void* q, long long q_sr, long long q_st, long long q_sh,
            const void* kpool, const void* vpool, const void* table,
-           const void* q_pos, const void* q_len, void* out, void* work,
-           int n_slots, int n_t, int nq, int nkv, int n_pages, int page,
-           int n_phys, int window, float scale, cudaStream_t s) {
+           const void* q_pos, const void* q_len, void* out, void* lse,
+           void* work, int n_slots, int n_t, int nq, int nkv, int n_pages,
+           int page, int n_phys, int window, float scale, cudaStream_t s) {
   const int n_splits = n_splits_of(n_pages, page);
   const int tiles = (n_t * (nq / nkv) + kRows - 1) / kRows;
   float* part = static_cast<float*>(work);
@@ -378,8 +385,8 @@ int launch(const void* q, long long q_sr, long long q_st, long long q_sh,
                                      kCombineWarps);
   paged_combine_kernel<T, HD><<<blocks, kCombineWarps * 32, 0, s>>>(
       part, static_cast<const int*>(q_pos), static_cast<const int*>(q_len),
-      static_cast<T*>(out), n_slots, n_t, nq, nkv, window,
-      split_pages(page) * page, n_splits, n_pages * page);
+      static_cast<T*>(out), static_cast<float*>(lse), n_slots, n_t, nq,
+      nkv, window, split_pages(page) * page, n_splits, n_pages * page);
   return (int)cudaGetLastError();
 }
 
@@ -398,13 +405,14 @@ extern "C" long long paged_attention_workspace(int n_slots, int n_t, int nq,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it). head_dim
-// 64 or 128; page <= 32; the pools' base 16-byte aligned. work: the fp32
-// workspace of paged_attention_workspace's size. Returns
-// cudaGetLastError().
+// 64 or 128; page <= 32; the pools' base 16-byte aligned. lse: null, or
+// (R, T, nq) fp32 for each row's log-sum-exp (out's bits are the same
+// either way). work: the fp32 workspace of paged_attention_workspace's
+// size. Returns cudaGetLastError().
 extern "C" int paged_attention_launch(
     const void* q, long long q_sr, long long q_st, long long q_sh,
     const void* kpool, const void* vpool, const void* table,
-    const void* q_pos, const void* q_len, void* out, void* work,
+    const void* q_pos, const void* q_len, void* out, void* lse, void* work,
     int n_slots, int n_t, int nq, int nkv, int head_dim, int n_pages,
     int page, int n_phys, int window, float scale, int dtype, void* stream) {
   if (n_slots <= 0 || n_t <= 0) return 0;
@@ -415,8 +423,8 @@ extern "C" int paged_attention_launch(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define K5_ARGS q, q_sr, q_st, q_sh, kpool, vpool, table, q_pos, q_len, out, \
-                work, n_slots, n_t, nq, nkv, n_pages, page, n_phys, window,  \
-                scale, s
+                lse, work, n_slots, n_t, nq, nkv, n_pages, page, n_phys,     \
+                window, scale, s
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(K5_ARGS);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(K5_ARGS);
   if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(K5_ARGS);

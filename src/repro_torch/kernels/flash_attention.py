@@ -44,14 +44,16 @@ MAX_PAGE = 32
 
 
 def paged_attn_core(q, k, v, *, q_pos, q_len, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, return_lse: bool = False):
     """Port of ``repro.layers.attention.paged_attn_core``: attention of
     q (R, T, nq, d) over per-slot keys k/v (R, S, nkv, dv) gathered in
     page-table order (key index j is global position j), in one fp32
     softmax over the fixed length S. Masked scores contribute exactly 0,
     and a row with no valid key gives 0. Reducing over the fixed S makes
     every chunking of a prompt reduce the same score vector per row, so
-    chunked prefill equals one-shot prefill bitwise."""
+    chunked prefill equals one-shot prefill bitwise. ``return_lse``: also
+    each row's fp32 log-sum-exp (R, T, nq), m + log l, NEG_INF for a row
+    with no valid key."""
     R, T, nq, d = q.shape
     S, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
@@ -71,19 +73,23 @@ def paged_attn_core(q, k, v, *, q_pos, q_len, window: int = 0,
     l = torch.sum(p, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     o = o / torch.clamp(l, min=1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(R, T, nq, v.shape[-1]
-                                            ).to(q.dtype)
+    out = o.permute(0, 3, 1, 2, 4).reshape(R, T, nq, v.shape[-1]
+                                           ).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, NEG_INF))
+    return out, lse.permute(0, 3, 1, 2).reshape(R, T, nq)
 
 
 def paged_attention_plain(q, k_pages, v_pages, table, q_pos, q_len, *,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, return_lse: bool = False):
     """The plain version of K5, as the JAX serving path computes it: gather
     each slot's pages in table order, then :func:`paged_attn_core`."""
     R = q.shape[0]
     kc = k_pages[table.long()].reshape(R, -1, *k_pages.shape[2:])
     vc = v_pages[table.long()].reshape(R, -1, *v_pages.shape[2:])
     return paged_attn_core(q, kc, vc, q_pos=q_pos, q_len=q_len,
-                           window=window)
+                           window=window, return_lse=return_lse)
 
 
 def _launcher():
@@ -93,7 +99,7 @@ def _launcher():
     fn, work = lib.paged_attention_launch, lib.paged_attention_workspace
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, ll, p, p, p, p, p, p, p,
+        fn.argtypes = [p, ll, ll, ll, p, p, p, p, p, p, p, p,
                        i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         work.argtypes = [i] * 7
@@ -102,11 +108,13 @@ def _launcher():
 
 
 def paged_attention_kernel(q, k_pages, v_pages, table, q_pos, q_len, *,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0, return_lse: bool = False):
     """Launch the CUDA kernels on CUDA tensors: the split page walk, then
     the combine of each row's splits; raises on what they do not take.
     ``paged_attention_kernel.launches`` counts the calls, each one launch
-    of both kernels.
+    of both kernels. ``return_lse``: (out, lse), the combine also writing
+    each row's fp32 log-sum-exp (R, T, nq); out has the same bits either
+    way.
 
     The split grid and the fp32 workspace grow with the table's width,
     not with the keys the rows reach: pass only the columns that hold
@@ -150,16 +158,18 @@ def paged_attention_kernel(q, k_pages, v_pages, table, q_pos, q_len, *,
     n_pages = table.shape[1]
     work = torch.empty((workspace(R, T, nq, nkv, hd, n_pages, page),),
                        dtype=torch.float32, device=q.device)
+    lse = (torch.empty((R, T, nq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     sr, st, sh, _ = q.stride()
     err = launch(
         q.data_ptr(), sr, st, sh, k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), q_pos.data_ptr(), q_len.data_ptr(), out.data_ptr(),
-        work.data_ptr(), R, T, nq, nkv, hd, n_pages, page, P, window,
-        1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if lse is None else lse.data_ptr(), work.data_ptr(), R, T, nq,
+        nkv, hd, n_pages, page, P, window, 1.0 / math.sqrt(hd),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention_kernel")
     paged_attention_kernel.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention_kernel.launches = 0

@@ -120,12 +120,16 @@ def flash_attention_partial_bwd(q, k, v, dout, lse, delta, dq, *,
 
 
 def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,
-                          window: int = 0, plain: bool = False):
+                          window: int = 0, return_lse: bool = False,
+                          plain: bool = False):
     """Paged variable-length attention in the model's layouts (K5): q
     (R, T, nq, hd), pools (P, page, nkv, hd), table (R, n_pages) int32,
-    q_pos (R, T) int32, q_len (R,) int32 -> (R, T, nq, hd)."""
+    q_pos (R, T) int32, q_len (R,) int32 -> (R, T, nq, hd); with
+    ``return_lse`` also each row's fp32 log-sum-exp (R, T, nq), NEG_INF
+    where the row sees no key."""
     fn = paged_attention_plain if _plain(q, plain) else paged_attention_kernel
-    return fn(q, k_pages, v_pages, table, q_pos, q_len, window=window)
+    return fn(q, k_pages, v_pages, table, q_pos, q_len, window=window,
+              return_lse=return_lse)
 
 
 def selective_scan(x, dt, A, B, C, s0=None, *, plain: bool = False):

@@ -206,11 +206,15 @@ def param_sha256(model) -> str:
     return h.hexdigest()
 
 
-def gather_logits(logits, axes: M.MeshAxes):
+def gather_logits(logits, axes: M.MeshAxes, *, seqshard: bool = False):
     """This rank's logits (R_local, ..., V/y) as the global (R, ..., V):
     gathered over y (vocab) and over the batch axes (rows), as the JAX
-    step's ``out_specs`` assemble them. Every rank gets the same bits."""
+    step's ``out_specs`` assemble them. Every rank gets the same bits.
+    ``seqshard``: the rows are replicated over the batch axes (the
+    seq-sharded decode step's), so only y is gathered."""
     logits = M.all_gather(logits, axes, "y", dim=-1)
+    if seqshard:
+        return logits
     return M.all_gather(logits, axes, axes.batch_axes(), dim=0)
 
 
@@ -271,23 +275,28 @@ def make_prefill_step(cfg: ArchConfig, axes: M.MeshAxes, *,
 
 
 def make_decode_step(cfg: ArchConfig, axes: M.MeshAxes, *,
-                     dtype=torch.float32,
+                     seqshard: bool = False, dtype=torch.float32,
                      overlap: OverlapConfig = OverlapConfig()):
     """``build(batch, seq)`` returns ``(step, cache_specs)``: step(model,
     caches, tokens, pos) -> (logits, caches), one greedy decode step of the
     global ``batch`` sequences' tokens (batch, 1) at position ``pos``, run
     on this rank's batch shard (logits (batch / (g_data g_z), 1, V/y)), and
     the (shape, dtype) of this rank's caches of ``seq`` positions.
+    ``seqshard`` (the reference's ``long_500k`` decode): the K/V caches'
+    sequence dim is sharded over data instead, the tokens are replicated
+    and every rank returns the whole batch's logits (batch, 1, V/y).
     ``overlap``: the overlapped schedule of the step's tp matmuls."""
     axes = axes.with_overlap(overlap)
 
     def build(batch: int, seq: int):
         def step(model, caches, tokens, pos, plain: bool = False):
+            if not seqshard:
+                tokens = M.batch_shard(tokens, axes)
             with D.overlap_bound(model, axes.overlap):
-                return D.decode_step(model, M.batch_shard(tokens, axes),
-                                     caches, pos, plain=plain)
+                return D.decode_step(model, tokens, caches, pos,
+                                     seqshard=seqshard, plain=plain)
         return step, D.decoder_cache_specs(cfg, axes, batch, seq,
-                                           dtype=dtype)
+                                           dtype=dtype, seqshard=seqshard)
     return build
 
 

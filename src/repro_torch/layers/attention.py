@@ -6,7 +6,7 @@ projection is a "transposed" layer (§4.1). Where G_y exceeds the KV heads
 (G_y a multiple of n_kv_heads), the KV heads are duplicated across y
 ranks, as in the JAX package: one (d, 2 nkv hd) projection ``wkv_dup``,
 sharded over x and replicated over y, from which each y rank keeps the one
-head its query heads read; its caches hold one KV head. Four modes are
+head its query heads read; its caches hold one KV head. Five modes are
 ported:
 
   * ``"train"``: causal (optionally sliding-window) attention over each
@@ -22,7 +22,12 @@ ported:
     K/V at rows 0..T-1; decode writes row ``pos`` and attends to keys
     0..pos through K5, the contiguous cache seen as pages of
     ``DENSE_PAGE`` rows (S is rounded up to a multiple of it; rows past
-    ``pos`` are masked, so the extra rows change nothing).
+    ``pos`` are masked, so the extra rows change nothing);
+  * ``"decode_seqshard"``: long-context decode of one sequence whose
+    cache's *sequence* dim is sharded over data (the ``long_500k`` shape):
+    the shard that owns ``pos`` writes the token's K/V, each shard runs K5
+    over its keys with the row's log-sum-exp, and
+    :func:`decode_core_seqsharded` merges the shards over data.
 
 qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
 ``attn_core`` (and ``attn_core_chunked``, the same function, with its
@@ -153,6 +158,8 @@ class Attention(nn.Module):
             cache["v"][:, :T] = v.to(cache["v"].dtype)
         elif mode == "decode":
             out = self._decode(q, k, v, positions, cache, plain)
+        elif mode == "decode_seqshard":
+            out = self._decode_seqshard(q, k, v, positions, cache, plain)
         else:
             raise ValueError(f"attention mode {mode!r}")
         return PP.tp_matmul(out.reshape(R, T, self.nq_l * hd), self.wo,
@@ -190,6 +197,23 @@ class Attention(nn.Module):
         return ops.flash_attention_paged(
             q, kp, vp, table, positions.to(torch.int32).contiguous(), q_len,
             window=self.cfg.sliding_window, plain=plain)
+
+    def _decode_seqshard(self, q, k, v, positions, cache, plain):
+        """The reference's owner-only write: the token's K/V lands in the
+        shard with 0 <= pos - shard S_local < S_local; every other shard
+        writes its own row back (a clamped index, no host sync)."""
+        kc, vc = cache["k"], cache["v"]
+        S_local = kc.shape[1]
+        local = positions[:1, 0].long() - M.axis_index(self.axes, "data") \
+            * S_local
+        owns = (local >= 0) & (local < S_local)
+        safe = torch.clamp(local, 0, S_local - 1)
+        for c, new in ((kc, k), (vc, v)):
+            c.index_copy_(1, safe, torch.where(owns, new.to(c.dtype),
+                                               c.index_select(1, safe)))
+        return decode_core_seqsharded(q, kc, vc, positions[0, 0], self.axes,
+                                      window=self.cfg.sliding_window,
+                                      plain=plain)
 
 
 def partial_chain(q, kg, vg, rank: int, p: int, *, window: int = 0,
@@ -347,6 +371,42 @@ def seq_attn(q, k, v, axes: M.MeshAxes, *, window: int = 0,
     return _SeqAttention.apply(q, k, v, axes, window, plain)
 
 
+def decode_core_seqsharded(q, kc, vc, pos, axes: M.MeshAxes, *,
+                           window: int = 0, plain: bool = False):
+    """Port of ``repro.layers.attention.decode_core_seqsharded``: one
+    query token per sequence, q (B, 1, nq, hd), against a cache kc/vc (B,
+    S_local, nkv, hd) whose sequence dim is sharded over data (shard s
+    holds global positions s S_local + j), at the global position ``pos``
+    (an int or a 0-d tensor; keys past it are masked, and outside the
+    window where one is set).
+
+    Each shard runs K5 over its own keys, seen as pages of ``DENSE_PAGE``
+    rows, at the local position pos - s S_local, which returns the
+    shard's normalised output and its rows' log-sum-exp (a shard wholly
+    past ``pos`` sees no key: output 0, lse NEG_INF). The shards merge as
+    the flash-decoding combine: M = pmax(lse), w = exp(lse - M) (0 for a
+    shard with no key), out = psum(out_s w) / psum(w), the two sums in
+    one psum of their concatenation over data. This is the reference's
+    sum of exp(scores - M) v over every key, regrouped by shard. In
+    bfloat16 K5 rounds each shard's output before the merge, where the
+    reference merges fp32 sums: one more bf16 rounding of the output."""
+    B, _, nq, hd = q.shape
+    S_local = kc.shape[1]
+    kp, table = dense_page_view(kc)
+    vp, _ = dense_page_view(vc)
+    shard = M.axis_index(axes, "data")
+    q_pos = (torch.as_tensor(pos, device=q.device).to(torch.int32)
+             - shard * S_local).expand(B, 1).contiguous()
+    q_len = torch.ones((B,), dtype=torch.int32, device=q.device)
+    out, lse = ops.flash_attention_paged(q, kp, vp, table, q_pos, q_len,
+                                         window=window, return_lse=True,
+                                         plain=plain)
+    m = M.pmax(lse, axes, "data")                        # (B, 1, nq)
+    w = torch.exp(lse - m)[..., None]
+    num_den = M.psum(torch.cat([out.float() * w, w], dim=-1), axes, "data")
+    return (num_den[..., :hd] / num_den[..., hd:]).to(q.dtype)
+
+
 def dense_page_view(cache):
     """A dense cache (B, S, nkv, hd), S a multiple of ``DENSE_PAGE``, seen
     as K5's page pool (B·S/DENSE_PAGE, DENSE_PAGE, nkv, hd) with no copy,
@@ -362,20 +422,26 @@ def dense_page_view(cache):
 
 # the layout of the dense and paged K/V caches (the JAX
 # ``attn_cache_spec``): sequences or pages over the batch axes, KV heads
-# over y
+# over y; under ``seqshard`` the sequence's positions over data
 CACHE_SPEC = (M.MeshAxes.batch_axes(), None, "y", None)
+SEQ_CACHE_SPEC = (None, "data", "y", None)
 
 
 def attn_cache_spec(cfg, axes: M.MeshAxes, batch: int, seq: int, *,
-                    dtype=torch.float32):
+                    dtype=torch.float32, seqshard: bool = False):
     """(shape, dtype) of this rank's dense K and V caches for a global
     ``batch``: (batch / (g_data g_z), S, local kv heads, head_dim), S =
     ``seq`` rounded up to a multiple of ``DENSE_PAGE``; KV heads shard
-    over y (one duplicated head a y rank where G_y > n_kv_heads)."""
+    over y (one duplicated head a y rank where G_y > n_kv_heads). With
+    ``seqshard`` every rank holds all ``batch`` rows and S / g_data
+    positions, S rounded up to a multiple of g_data ``DENSE_PAGE`` (the
+    reference's shards are S / g_data; they agree where the rounding
+    changes nothing)."""
     _, nkv_l, _ = kv_layout(cfg, axes)
-    S = -(-seq // DENSE_PAGE) * DENSE_PAGE
+    unit = DENSE_PAGE * (axes.dp if seqshard else 1)
+    S = -(-seq // unit) * unit
     shape = M.local_shape((batch, S, nkv_l * axes.gy, cfg.head_dim_), axes,
-                          CACHE_SPEC)
+                          SEQ_CACHE_SPEC if seqshard else CACHE_SPEC)
     return {"k": (shape, dtype), "v": (shape, dtype)}
 
 

@@ -6,6 +6,13 @@ and runs as kernel K6, for the whole prompt in prefill and as one step from
 the carried state in decode. The depthwise causal convolution stays in
 PyTorch ops, as the JAX package computes it outside any kernel. Training
 needs a backward for K6 and is not ported.
+
+On a mesh the inner channels shard over y: each rank holds d_inner / g_y
+of them, with their slices of ``w_in``, ``w_gate`` (outputs), ``w_x`` and
+``w_out`` (inputs) and ``w_dt`` (outputs) and of the per-channel
+parameters; the convolution and the scan run on the rank's channels
+alone. ``w_x``'s product sums over y, so every y rank sees the whole dt,
+B and C.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from torch.nn import functional as F
 
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
+from repro_torch.core import partition as PT
 from repro_torch.kernels import ops
 
 
@@ -36,11 +44,6 @@ class Mamba(nn.Module):
     def __init__(self, cfg, axes: M.MeshAxes, *, gen: torch.Generator,
                  dtype=torch.float32):
         super().__init__()
-        if axes.tensor > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a Mamba layer on a mesh with x, y or z above 1 "
-                f"(mesh {axes.sizes}) is not ported to PyTorch yet: it "
-                f"waits for the ROADMAP.md §1 item 'multi-rank mesh'")
         self.cfg, self.axes = cfg, axes
         mc = cfg.mamba
         d, di, N, dtr = cfg.d_model, mc.expand * cfg.d_model, mc.d_state, \
@@ -53,15 +56,21 @@ class Mamba(nn.Module):
         self.w_in, self.w_gate = lin(d, di), lin(d, di)
         self.w_x, self.w_dt, self.w_out = lin(di, dtr + 2 * N, "y", None), \
             lin(dtr, di, None, "y"), lin(di, d, "y", "x")
-        self.conv_w = nn.Parameter((torch.randn(
-            (di, mc.d_conv), generator=gen, device=dev) * 0.1).to(dtype))
-        self.conv_b = nn.Parameter(torch.zeros(di, dtype=dtype, device=dev))
+
+        def per_channel(name, full):
+            """This rank's y block of the whole tensor ``full``."""
+            return nn.Parameter(PT.keep_shard(full, axes,
+                                              PT.LEAF_SPECS[name].spec))
         f32 = torch.float32
-        self.b_dt = nn.Parameter(torch.full((di,), -4.6, dtype=f32,
-                                            device=dev))  # softplus^-1(.01)
-        self.A_log = nn.Parameter(torch.log(torch.arange(
+        self.conv_w = per_channel("conv_w", (torch.randn(
+            (di, mc.d_conv), generator=gen, device=dev) * 0.1).to(dtype))
+        self.conv_b = per_channel("conv_b", torch.zeros(di, dtype=dtype,
+                                                        device=dev))
+        self.b_dt = per_channel("b_dt", torch.full(
+            (di,), -4.6, dtype=f32, device=dev))  # softplus^-1(.01)
+        self.A_log = per_channel("A_log", torch.log(torch.arange(
             1, N + 1, dtype=f32, device=dev)).expand(di, N).contiguous())
-        self.D = nn.Parameter(torch.ones(di, dtype=f32, device=dev))
+        self.D = per_channel("D", torch.ones(di, dtype=f32, device=dev))
 
     def _dt_bc(self, xc, plain):
         """w_x, then w_dt on the low-rank part: (dt fp32, B, C), B and C as
@@ -120,21 +129,25 @@ class Mamba(nn.Module):
 
 
 # the layout of the decode state (the JAX ``mamba_state_spec``): sequences
-# over the batch axes, inner channels over y
+# over the batch axes, inner channels over y; under ``seqshard`` (one
+# sequence) replicated over the batch axes
 STATE_SPECS = {"conv": (M.MeshAxes.batch_axes(), None, "y"),
                "ssm": (M.MeshAxes.batch_axes(), "y", None)}
+SEQ_STATE_SPECS = {"conv": (None, None, "y"), "ssm": (None, "y", None)}
 
 
 def mamba_state_spec(cfg, axes: M.MeshAxes, batch: int, *,
-                     dtype=torch.float32):
+                     dtype=torch.float32, seqshard: bool = False):
     """(shape, dtype) of this rank's decode state for a global ``batch``:
-    the conv's last K-1 inputs (B, K-1, d_inner) in the model's dtype and
-    the scan state (B, d_inner, N) in fp32, B = batch / (g_data g_z)."""
+    the conv's last K-1 inputs (B, K-1, d_inner / g_y) in the model's
+    dtype and the scan state (B, d_inner / g_y, N) in fp32, B = batch /
+    (g_data g_z), or ``batch`` under ``seqshard``."""
     mc = cfg.mamba
     di = mc.expand * cfg.d_model
     shapes = {"conv": (batch, mc.d_conv - 1, di),
               "ssm": (batch, di, mc.d_state)}
     dtypes = {"conv": dtype, "ssm": torch.float32}
-    return {k: (M.local_shape(v, axes, STATE_SPECS[k]), dtypes[k])
+    specs = SEQ_STATE_SPECS if seqshard else STATE_SPECS
+    return {k: (M.local_shape(v, axes, specs[k]), dtypes[k])
             for k, v in shapes.items()}
 

@@ -76,7 +76,11 @@ class Block(nn.Module):
                 plain: bool = False):
         hn = self.norm1(h, plain=plain)
         if self.kind == "mamba":
-            o = self.mixer(hn, mode=mode, state=cache, plain=plain)
+            # seq-sharded decode changes only the attention cache's layout:
+            # the recurrent state takes its plain step (the reference's
+            # ``sub_mode``)
+            sub = "decode" if mode.startswith("decode") else mode
+            o = self.mixer(hn, mode=sub, state=cache, plain=plain)
         else:
             o = self.mixer(hn, positions=positions, mode=mode, cache=cache,
                            paged=paged, plain=plain)
@@ -118,9 +122,10 @@ class Decoder(nn.Module):
         the backward
         (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of policy
         "full"). ``mode="paged"``: writes each layer's K/V into ``pools``
-        (see :func:`decoder_paged_cache_specs`). ``mode="prefill"`` and
-        ``"decode"``: ``pools`` is the list of per-layer caches of
-        :func:`decoder_cache_specs`, updated in place."""
+        (see :func:`decoder_paged_cache_specs`). ``mode="prefill"``,
+        ``"decode"`` and ``"decode_seqshard"``: ``pools`` is the list of
+        per-layer caches of :func:`decoder_cache_specs`, updated in
+        place."""
         if mode == "train" and remat and remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy {remat_policy!r} is not ported to PyTorch "
@@ -147,7 +152,7 @@ class Decoder(nn.Module):
                       plain=plain)
             if mode == "paged":
                 kw["cache"] = {"k": pools["k"][i], "v": pools["v"][i]}
-            elif mode in ("prefill", "decode"):
+            elif mode in ("prefill", "decode", "decode_seqshard"):
                 kw["cache"] = pools[i]
             if mode == "train" and remat:
                 h = checkpoint(blk, h, use_reentrant=False, **kw)
@@ -282,20 +287,25 @@ def paged_step(model: Decoder, tokens, pools, positions, q_len, table, *,
 # ---------------------------------------------------------------------- #
 
 def decoder_cache_specs(cfg: ArchConfig, axes: M.MeshAxes, batch: int,
-                        seq: int, *, dtype=torch.float32):
+                        seq: int, *, dtype=torch.float32,
+                        seqshard: bool = False):
     """(shape, dtype) of this rank's fixed-batch decode cache for a global
     ``batch``, one dict per layer (the JAX tree stacks them (n_periods,
     ...) per segment position; ``convert.caches_from_jax`` maps one onto
     the other): an attention layer's dense K and V (batch / (g_data g_z),
     S, local kv heads, head_dim), S = ``seq``
     rounded up to a multiple of ``attention.DENSE_PAGE``; a Mamba layer's
-    conv and scan states."""
+    conv and scan states. ``seqshard``: the K/V's sequence dim shards over
+    data and every rank holds the whole batch (the Mamba states
+    replicated over data), as the reference lays out ``long_500k``."""
     out = []
     for mixer in cfg.mixers():
         if mixer == "attn":
-            out.append(A.attn_cache_spec(cfg, axes, batch, seq, dtype=dtype))
+            out.append(A.attn_cache_spec(cfg, axes, batch, seq, dtype=dtype,
+                                         seqshard=seqshard))
         elif mixer == "mamba":
-            out.append(mamba_state_spec(cfg, axes, batch, dtype=dtype))
+            out.append(mamba_state_spec(cfg, axes, batch, dtype=dtype,
+                                        seqshard=seqshard))
         else:
             raise NotImplementedError(
                 f"{cfg.name}: mixer {mixer!r} is not ported to PyTorch yet: "
@@ -315,13 +325,16 @@ def prefill(model: Decoder, tokens, caches, *, plain: bool = False):
 
 @torch.inference_mode()
 def decode_step(model: Decoder, tokens, caches, pos, *,
-                plain: bool = False):
+                seqshard: bool = False, plain: bool = False):
     """One serving step: tokens (B, 1) at absolute position ``pos`` (the
     same for every sequence, an int or a 0-d tensor). Returns (logits (B,
-    1, V/y), caches), the caches updated in place."""
+    1, V/y), caches), the caches updated in place. ``seqshard``: the
+    attention caches' sequence dim is sharded over data (mode
+    ``"decode_seqshard"``)."""
     B = tokens.shape[0]
     positions = torch.as_tensor(pos, dtype=torch.int32,
                                 device=tokens.device).expand(B, 1)
-    h = model.hidden(tokens, mode="decode", positions=positions,
+    mode = "decode_seqshard" if seqshard else "decode"
+    h = model.hidden(tokens, mode=mode, positions=positions,
                      pools=caches, plain=plain)
     return lm_logits(model, h, plain=plain), caches

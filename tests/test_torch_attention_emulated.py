@@ -45,24 +45,26 @@ def paged(tmp_path_factory):
                          tmp_path_factory.mktemp("k5_emulated"))
     fn, work = lib.paged_attention_launch, lib.paged_attention_workspace
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, ll, ll, ll, p, p, p, p, p, p, p,
+    fn.argtypes = [p, ll, ll, ll, p, p, p, p, p, p, p, p,
                    i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     work.argtypes = [i] * 7
     work.restype = ll
 
-    def run(q, kp, vp, table, q_pos, q_len, window=0):
+    def run(q, kp, vp, table, q_pos, q_len, window=0, return_lse=False):
         R, T, nq, hd = q.shape
         P, page, nkv, _ = kp.shape
         n_tab = table.shape[1]
         ws = torch.full((work(R, T, nq, nkv, hd, n_tab, page),), math.nan)
         out = torch.full_like(q, math.nan)
+        lse = torch.full((R, T, nq), math.nan) if return_lse else None
         err = fn(q.data_ptr(), *q.stride()[:3], kp.data_ptr(), vp.data_ptr(),
                  table.data_ptr(), q_pos.data_ptr(), q_len.data_ptr(),
-                 out.data_ptr(), ws.data_ptr(), R, T, nq, nkv, hd, n_tab,
-                 page, P, window, 1.0 / math.sqrt(hd), DTYPE[q.dtype], None)
+                 out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 ws.data_ptr(), R, T, nq, nkv, hd, n_tab, page, P, window,
+                 1.0 / math.sqrt(hd), DTYPE[q.dtype], None)
         assert err == 0
-        return out
+        return (out, lse) if return_lse else out
     return run
 
 
@@ -169,6 +171,66 @@ def test_k5_source_ignores_table_columns_past_the_rows(paged, T, window):
     wide = torch.cat([table, extra], 1).contiguous()
     assert torch.equal(paged(q, kp, vp, wide, q_pos, ql, window=window),
                        paged(*args, window=window))
+
+
+# (T, g, hd, dtype, page, window, ctx, q_len, shift): the rows' q_pos
+# less ``shift``, as a shard of a sequence-sharded cache sees the query:
+# decode and chunked rows, q_len 0, a position below 0 (a shard past the
+# query, no key: lse NEG_INF), one past the table (every key), windows
+# across split boundaries
+LSE_CASES = {
+    "decode g2 hd128 f32": (1, 2, 128, F32, 16, 0, [64, 65, 200, 1, 9],
+                            [1, 1, 1, 1, 0], [0, 0, 0, 0, 0]),
+    "decode g4 hd128 f32 negative and past the table": (
+        1, 4, 128, F32, 32, 0, [64, 96, 40, 33], [1, 1, 1, 1],
+        [70, 0, -500, 1]),
+    "decode g4 hd64 bf16 window 20": (1, 4, 64, BF16, 16, 20,
+                                      [70, 64, 130, 5], [1, 1, 1, 1],
+                                      [0, -10, 3, 0]),
+    "chunk T7 g2 hd128 f32 window 30": (7, 2, 128, F32, 16, 30,
+                                        [70, 129, 0, 40], [7, 7, 0, 2],
+                                        [0, 0, 0, 0]),
+    "chunk T5 g2 hd64 f32 rows below 0": (5, 2, 64, F32, 16, 0,
+                                          [66, 20, 150], [5, 3, 5],
+                                          [64, 0, -40]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LSE_CASES))
+def test_k5_source_lse_matches_the_plain_log_sum_exp(paged, case):
+    """The combine's lse against the plain version's m + log l (NEG_INF
+    where a row sees no key), and the output bitwise the call without the
+    lse pointer."""
+    T, g, hd, dtype, page, window, ctx, q_len, shift = LSE_CASES[case]
+    q, kp, vp, table, q_pos, ql = paged_inputs(
+        len(case), T=T, g=g, hd=hd, dtype=dtype, ctx=ctx, q_len=q_len,
+        page=page)
+    q_pos = (q_pos - torch.tensor(shift, dtype=torch.int32)[:, None]
+             ).contiguous()
+    args = (q, kp, vp, table, q_pos, ql)
+    out, lse = paged(*args, window=window, return_lse=True)
+    assert torch.equal(out, paged(*args, window=window))
+    want, want_lse = paged_attention_plain(*args, window=window,
+                                           return_lse=True)
+    rows = torch.arange(T)[None, :] < ql[:, None]
+    tol = PAGED_TOL[dtype]
+    torch.testing.assert_close(out[rows].float(), want[rows].float(),
+                               rtol=tol, atol=tol)
+    empty = want_lse == NEG_INF
+    assert torch.equal(lse == NEG_INF, empty)
+    assert empty[~rows].all() and not out[~rows].any()
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=1e-5,
+                               atol=1e-5)
+    # a row below every key of the table sees none; past it, all of them
+    below = (q_pos < 0) & rows
+    assert empty[below].all() and not out[below].any()
+    past = (q_pos >= table.shape[1] * page) & rows
+    if window == 0 and past.any():
+        full = paged_attention_plain(q, kp, vp, table, torch.full_like(
+            q_pos, table.shape[1] * page - 1), ql, return_lse=True)[1]
+        torch.testing.assert_close(lse[past], full[past], rtol=1e-5,
+                                   atol=1e-5)
+    assert torch.equal(paged(*args, window=window, return_lse=True)[1], lse)
 
 
 # ---------------------------------------------------------------------- #

@@ -259,6 +259,37 @@ def test_paged_attention_kernel_table_width_changes_no_bit(cuda, case):
         paged_attention_kernel(q, kp, vp, table, q_pos, ql, window=window))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_LONG))
+@pytest.mark.parametrize("shift", [0, 100, -400])
+def test_paged_attention_kernel_lse_matches_plain(cuda, case, dtype, shift):
+    """K5's log-sum-exp (the seq-sharded decode's merge reads it): the
+    rows' q_pos less ``shift``, as a shard of a sequence-sharded cache
+    sees the query (below 0: no key, lse NEG_INF and out 0; past the
+    table: every key), against the plain version's m + log l; out
+    bitwise the call without the lse."""
+    T, g, hd, page, window, ctx, q_len = PAGED_LONG[case]
+    q, kp, vp, table, q_pos, ql = _paged_long(
+        cuda, dtype, T=T, g=g, hd=hd, page=page, ctx=ctx,
+        q_len=np.array(q_len, np.int32))
+    table = table.clamp(0, kp.shape[0] - 1).contiguous()
+    q_pos = (q_pos - shift).contiguous()
+    args = (q, kp, vp, table, q_pos, ql)
+    out, lse = ops.flash_attention_paged(*args, window=window,
+                                         return_lse=True)
+    assert torch.equal(out, paged_attention_kernel(*args, window=window))
+    want, want_lse = paged_attention_plain(*args, window=window,
+                                           return_lse=True)
+    rows = torch.arange(T, device=cuda)[None] < ql[:, None]
+    torch.testing.assert_close(out[rows], want[rows], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    empty = want_lse == FA.NEG_INF
+    assert torch.equal(lse == FA.NEG_INF, empty)
+    assert not out[(q_pos < 0) & rows].any()
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_paged_attention_kernel_refuses_unsupported_shapes(cuda):
     q, kp, vp, table, q_pos, q_len = _paged(cuda, torch.float32, 2, 128)
     big = torch.zeros((4, 64, 2, 128), device=cuda)      # page 64 > 32

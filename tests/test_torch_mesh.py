@@ -20,6 +20,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import signal
 import subprocess
 import sys
@@ -644,10 +645,30 @@ def test_meshes_the_reference_refuses_are_refused_in_its_words(sizes, kw,
         ST.init_model(cfg, MeshAxes(sizes), device="cpu")
 
 
-def test_mamba_on_the_tensor_axes_is_refused():
-    cfg = get_config("jamba-v0.1-52b-dense-ffn").reduced()
-    with pytest.raises(NotImplementedError, match="'multi-rank mesh'"):
-        ST.init_model(cfg, MeshAxes((1, 2, 1, 1)), device="cpu")
+@pytest.mark.parametrize("sizes,d_model,match", [
+    ((1, 1, 4, 1), 255, "weight n=510 not divisible by out*z=4"),
+    ((1, 1, 4, 1), 253, "weight n=506 not divisible by out*z=4"),
+    ((1, 2, 1, 1), 255, "d_model 255 % gx 2")])
+def test_mamba_meshes_the_reference_refuses_are_refused_in_its_words(
+        sizes, d_model, match):
+    """Jamba's Mamba layers run on the tensor axes; a mesh whose y (times
+    z) does not divide the inner width d_inner = 2 d_model, or whose x
+    does not divide d_model, is refused with the reference's message (its
+    ``axes_ok``, else its ``tp_linear_init``)."""
+    kw = dict(d_model=d_model, head_dim=64)
+    jcfg = dataclasses.replace(jax_get_config("jamba-v0.1-52b").reduced(),
+                               moe=None, **kw)
+    cfg = dataclasses.replace(
+        get_config("jamba-v0.1-52b-dense-ffn").reduced(), **kw)
+    jaxes = _jax_axes(sizes)
+    want = jcfg.axes_ok(jaxes)
+    if want is None:
+        with pytest.raises(ValueError) as err:
+            JST.init_model(jcfg, jaxes, abstract=True, dtype=jnp.float32)
+        want = str(err.value)
+    assert want == match
+    with pytest.raises(ValueError, match=re.escape(match)):
+        ST.init_model(cfg, MeshAxes(sizes), device="cpu")
 
 
 def test_training_on_the_tensor_axes_takes_the_overlapped_schedule():
