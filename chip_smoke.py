@@ -105,7 +105,8 @@ a hard failure:
      ``torch.distributed.run``, each holding its block of every weight,
      at full width and MESH_LAYERS layers (one card's run of the same cut
      model, in this process, is what they are held to); each runs
-     ``train.main`` in ``chip_smoke.py --mesh-train-worker DIR WHICH``:
+     ``train.train_on`` in ``chip_smoke.py --mesh-train-worker DIR WHICH``
+     (13a's run follows 12a's in its launch):
      (a) on (1,2,2,2) (x, y and z of 2, eight ranks) with phase 8's
      flags: step 1's loss and grad norm within MESH_TRAIN_TOL of one
      card's, the later losses within 1e-3, each kernel's launches per rank
@@ -142,7 +143,25 @@ a hard failure:
      cache on the same weights and seeded caches, logits within
      LOGIT_TOL and ids equal, launches (K5 with its lse) and collectives
      by axis the code's;
- 15. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 15. the rest of the training stack: (a) ``train.py --zero`` (bucketed
+     data-parallel sync, ZeRO-1 AdamW state) of qwen3-1.7b at full width
+     and ZERO_LAYERS layers on (2,2,2,1), eight gloo ranks on the card,
+     phase 8's flags for 2 steps: held to phase 8's first two steps by
+     MESH_TRAIN_TOL, the data replicas of every block bitwise equal, each
+     rank's peak memory, data-axis reduce-scatter/all-gather calls and
+     bytes, optimizer-state bytes and step time logged; (b) checkpoint and
+     resume at ``--preset 100m``: run A 3 of 4 steps on (2,1,2,1) with
+     ``--zero --ckpt`` (``train.main(stop_after=3)``), run B ``--resume``
+     on (1,1,2,1) without ``--zero`` for the 4th, run C the 4 steps on one
+     card; A's and B's losses within MESH_TRAIN_TOL's later-step bound of
+     C's, the file verified, its bytes and the save and restore seconds
+     logged (the file lives in a temporary directory, removed after); (c)
+     remat policy "dots" through ``make_train_step`` at phase 8's shape:
+     losses bitwise phase 8's and those of "full" through the same step,
+     the parameters after 3 steps bitwise "full"'s, K1 21L + 3 a
+     microbatch (28L + 3 under "full"), step time and peak memory beside
+     phase 8's;
+ 16. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -199,6 +218,28 @@ TRAIN_FLAGS = ["--arch", ARCH, "--preset", "full", "--steps", "3",
 FIXED_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset", "full",
                "--batch", "4", "--prompt-len", "512", "--gen", "32",
                "--seed", str(SEED)]
+# phase 15: 15a trains with --zero on (2,2,2,1) at full width and
+# ZERO_LAYERS layers (28: full depth), phase 8's flags for 2 steps; 15b
+# checkpoints and resumes at --preset 100m across meshes; 15c trains phase
+# 8's run under remat "dots"
+ZERO_MESH = "2,2,2,1"
+ZERO_LAYERS = 28
+ZERO_STEPS = 2
+
+
+def with_steps(flags, steps):
+    """``flags`` with ``--steps`` set to ``steps``."""
+    i = flags.index("--steps")
+    return [*flags[:i], "--steps", str(steps), *flags[i + 2:]]
+
+
+ZERO_FLAGS = with_steps(TRAIN_FLAGS, ZERO_STEPS) + [
+    "--mesh", ZERO_MESH, "--backend", "gloo", "--zero"]
+CKPT_FLAGS = ["--arch", ARCH, "--preset", "100m", "--steps", "4",
+              "--batch", "4", "--seq", "512", "--overdecompose", "2",
+              "--dtype", "float32", "--log-every", "1"]
+CKPT_A_MESH, CKPT_B_MESH = "2,1,2,1", "1,1,2,1"
+CKPT_A_STEPS = 3
 # K3's timed shapes (rows, d): the serving step's norm1/norm2 (8 slots) and
 # qk-norm rows (8 x 16 heads); training's norm1/norm2 per microbatch (2 x
 # 512 tokens) and its q-norm rows (x 16 heads); Jamba's prefill (4 x 512)
@@ -410,7 +451,14 @@ HYBRID_MESH_MATMUL_SHAPES = [
 SEQ_K5 = dict(nq=16, nkv=4, hd=128, keys=LONG_CONTEXT // 2)
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header ("[...] ...") gets the script's
+    elapsed seconds, so the log shows where the time limit goes."""
+    if msg.startswith("["):
+        msg = f"{msg}  (t={time.time() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -1965,16 +2013,16 @@ def seq_launches(cfg):
             "selective_scan": 0}
 
 
-def launch_ranks(args, label, ranks, timeout):
+def launch_ranks(args, label, ranks, timeout, env=None):
     """``args`` under torch.distributed.run on ``ranks`` ranks sharing this
     card, in a session of its own (a time limit stops the launcher and
     every rank together): rank 0's output lines, its JSON reports and
-    served ids left out of the log."""
+    served ids left out of the log. ``env``: more environment."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(ranks), *args]
     log(f"[{label}] python -m torch.distributed.run --standalone "
         f"--nproc-per-node {ranks} {' '.join(args)}")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [x for x in os.environ.get(
             "PYTHONPATH", "").split(os.pathsep) if x]))
     t0 = time.time()
@@ -2563,8 +2611,10 @@ def phase_mesh_train(cfg, smi, one):
     held to one card's run ``one`` of the same model."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import mesh_axes
-    rep = run_mesh_train("mesh", f"mesh train ({MESH_TRAIN}, {MESH_LAYERS} "
-                         f"layers)", MESH_TRAIN_RANKS)
+    # 13a's run follows in the same launch
+    rep = run_mesh_train("mesh", f"mesh train, then 13a's ({MESH_TRAIN}, "
+                         f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS,
+                         then=("mesh-overlap",))
     check_mesh_losses(rep, one, "(1,2,2,2) against one card")
     args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
     want = mesh_train_collectives(cfg, mesh_axes(MESH_TRAIN),
@@ -2660,8 +2710,9 @@ def phase_overlap_train(cfg, smi, one, blocking):
     code's; side by side with 12a (``blocking``)."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import mesh_axes
-    rep = run_mesh_train("mesh-overlap", f"overlap train ({MESH_TRAIN}, "
-                         f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS)
+    log(f"[overlap train ({MESH_TRAIN}, {MESH_LAYERS} layers)] the run after "
+        f"12a's, in its launch")
+    rep = mesh_train_report("mesh-overlap")
     check_mesh_losses(rep, one, "overlapped (1,2,2,2) against one card",
                       OVERLAP_TRAIN_TOL)
     args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
@@ -2738,39 +2789,86 @@ def cut_config(cfg):
 
 
 def mesh_train_worker(outdir: Path, which: str) -> int:
-    """One rank of a training run on a mesh (started by
-    ``run_mesh_train`` under torch.distributed.run): ``train.main`` with
-    the flags, depth and schedule of ``which`` ("mesh": 12a, "data": 12b,
-    "mesh-overlap": 13a, "seq-overlap": 13b); rank 0 saves the report."""
+    """One rank of training runs on a mesh (started by ``run_mesh_train``
+    under torch.distributed.run): ``train.train_on`` with the flags, depth
+    and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
+    "mesh-overlap": 13a, "seq-overlap": 13b, "zero": 15a, "ckpt-a": 15b's
+    run A, which checkpoints into ``outdir``; several runs on one mesh
+    joined by "+", one after the other on the mesh set up once, each
+    run's memory freed before the next); rank 0 saves each run's
+    report."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.overlap import OverlapConfig
     from repro_torch.launch import train
-    flags, cut, ov = {
-        "mesh": (MESH_TRAIN_FLAGS, True, OverlapConfig()),
-        "data": (MESH_DATA_FLAGS, True, OverlapConfig()),
-        "mesh-overlap": (MESH_TRAIN_FLAGS, True, OverlapConfig.all_on()),
-        "seq-overlap": (SEQ_FLAGS, False,
-                        OverlapConfig(ring_attention=True))}[which]
-    res = train.main(flags, cfg=cut_config(get_config(ARCH)) if cut
-                     else None, overlap=ov)
-    if int(os.environ["RANK"]) == 0:
-        (outdir / f"{which}.json").write_text(json.dumps(dict(
-            losses=res.losses, grad_norms=res.grad_norms, step_s=res.step_s,
-            tokens_per_step=res.tokens_per_step, n_params=res.n_params,
-            ranks=res.ranks)))
+    from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
+    blocking = OverlapConfig()
+    runs = {
+        "mesh": (MESH_TRAIN_FLAGS, MESH_LAYERS, blocking, None),
+        "data": (MESH_DATA_FLAGS, MESH_LAYERS, blocking, None),
+        "mesh-overlap": (MESH_TRAIN_FLAGS, MESH_LAYERS,
+                         OverlapConfig.all_on(), None),
+        "seq-overlap": (SEQ_FLAGS, None, OverlapConfig(ring_attention=True),
+                        None),
+        "zero": (ZERO_FLAGS, ZERO_LAYERS, blocking, None),
+        "ckpt-a": (CKPT_FLAGS + ["--mesh", CKPT_A_MESH, "--backend", "gloo",
+                                 "--zero", "--ckpt",
+                                 str(outdir / "ckpt.npz")], None, blocking,
+                   CKPT_A_STEPS)}
+    names = which.split("+")
+    parser = train.build_parser()
+    first = parser.parse_args(runs[names[0]][0])
+    axes = mesh_axes(first.mesh)
+    run = init_mesh(axes, backend=first.backend, device=first.device)
+    try:
+        for name in names:
+            flags, layers, ov, stop = runs[name]
+            args = parser.parse_args(flags)
+            if args.mesh != first.mesh:
+                raise ValueError(f"{which}: one mesh for all runs")
+            cfg = (dataclasses.replace(get_config(ARCH), n_layers=layers)
+                   if layers else preset_cfg(args))
+            res = train.train_on(args, axes, cfg, run, ov, stop)
+            if run["rank"] == 0:
+                (outdir / f"{name}.json").write_text(json.dumps(dict(
+                    losses=res.losses, grad_norms=res.grad_norms,
+                    step_s=res.step_s, tokens_per_step=res.tokens_per_step,
+                    n_params=res.n_params, ckpt=res.ckpt,
+                    ranks=res.ranks)))
+            del res
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        close_mesh()
     return 0
 
 
-def run_mesh_train(which, label, ranks):
+def preset_cfg(args):
+    """The model of ``--arch`` and ``--preset``, as ``train.main`` builds
+    it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    return train.preset_config(get_config(args.arch), args.preset)
+
+
+def run_mesh_train(which, label, ranks, outdir=MESH_TRAIN_DIR, env=None,
+                   then=()):
     """``mesh_train_worker``'s run ``which`` on ``ranks`` ranks sharing
-    this card; its report. This process's cached memory is freed
-    first."""
+    this card, and after it in the same launch the runs ``then`` (read
+    later with :func:`mesh_train_report`); ``which``'s report. This
+    process's cached memory is freed first."""
     free_memory()
-    MESH_TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    outdir.mkdir(parents=True, exist_ok=True)
     launch_ranks([str(ROOT / "chip_smoke.py"), "--mesh-train-worker",
-                  str(MESH_TRAIN_DIR), which], label, ranks,
-                 MESH_TRAIN_TIMEOUT_S)
-    return json.loads((MESH_TRAIN_DIR / f"{which}.json").read_text())
+                  str(outdir), "+".join((which, *then))], label, ranks,
+                 MESH_TRAIN_TIMEOUT_S, env=env)
+    return mesh_train_report(which, outdir)
+
+
+def mesh_train_report(which, outdir=MESH_TRAIN_DIR):
+    """The report of the run ``which`` of an earlier launch."""
+    return json.loads((outdir / f"{which}.json").read_text())
 
 
 def phase_mesh_data(cfg, smi, one):
@@ -3104,6 +3202,210 @@ def phase_long_context(hcfg, smi):
             f"max_memory_allocated {rep['peak'] / 2**30:.2f} GiB, on {smi}")
 
 
+# ---------------------------------------------------------------------- #
+# phase 15: ZeRO-1 on the mesh, checkpoints across meshes, remat "dots"
+# ---------------------------------------------------------------------- #
+
+def log_data_axis(r):
+    """A rank's data-axis traffic: the bucketed sync's reduce-scatters and
+    all-gathers (calls, bytes, seconds) of each step, and the data axis's
+    collectives in all."""
+    for i, (dp, by_axis) in enumerate(zip(r["dp_sync"], r["comm_by_axis"])):
+        data = by_axis.get("data", {})
+        log(f"    step {i}: "
+            + ", ".join(f"{k} {c['calls']} calls {c['bytes'] / 1e9:.3f} GB "
+                        f"{c['seconds']:.3f} s" for k, c in sorted(dp.items()))
+            + f"; data axis in all {data.get('calls', 0)} calls "
+            f"{data.get('bytes', 0) / 1e9:.3f} GB "
+            f"{data.get('seconds', 0.0):.3f} s")
+
+
+def phase_zero_train(cfg, smi, one):
+    """15a: ``train.py --zero`` on (2,2,2,1), eight gloo ranks on this
+    card, at full width and ZERO_LAYERS layers, held to phase 8's run
+    ``one`` for its ZERO_STEPS steps; the data replicas bitwise equal."""
+    import types
+    from repro_torch.launch.mesh import mesh_axes
+    # a launch of its own, so each rank's peak is this run's alone; eight
+    # ranks' caching allocators share the card: segments that grow in
+    # place keep each one's reserve near its allocation
+    rep = run_mesh_train("zero", f"zero train ({ZERO_MESH}, {ZERO_LAYERS} "
+                         f"layers, --zero)", MESH_TRAIN_RANKS,
+                         env={"PYTORCH_CUDA_ALLOC_CONF":
+                              "expandable_segments:True"})
+    check_mesh_losses(rep, types.SimpleNamespace(
+        losses=one.losses[:ZERO_STEPS], grad_norms=one.grad_norms[
+            :ZERO_STEPS]), f"({ZERO_MESH}) --zero against phase 8")
+    axes = mesh_axes(ZERO_MESH)
+    blocks = {}
+    for r in rep["ranks"]:
+        blocks.setdefault(axes.coords(r["rank"])[1:], set()).add(
+            r["param_sha256"])
+    if not (all(len(h) == 1 for h in blocks.values())
+            and len(blocks) == MESH_TRAIN_RANKS // axes.dp):
+        raise AssertionError(f"the data replicas differ: {blocks}")
+    log(f"  the {axes.dp} data replicas of each of the {len(blocks)} blocks "
+        f"bitwise equal after {len(rep['losses'])} steps")
+    for r in sorted(rep["ranks"], key=lambda r: r["rank"]):
+        sb = r["state_bytes"]
+        log(f"  rank {r['rank']}: max_memory_allocated "
+            f"{r['max_memory_bytes'] / 2**30:.2f} GiB; parameters "
+            f"{sb['params'] / 2**30:.3f} GiB, optimizer state (ZeRO-1 "
+            f"shards) {sb['opt_state'] / 2**30:.3f} GiB; comm in all "
+            f"{[round(x, 3) for x in r['comm_s']]} s "
+            f"{[round(b / 1e9, 3) for b in r['comm_bytes']]} GB per step")
+        log_data_axis(r)
+    steady = rep["step_s"][1:] or rep["step_s"]
+    log(f"  rank 0 step times {[round(x, 3) for x in rep['step_s']]} s; "
+        f"steady step {sum(steady) / len(steady):.3f} s, "
+        f"{rep['n_params'] / 1e9:.3f} B parameters, on {smi}")
+
+
+def phase_ckpt_resume(smi):
+    """15b: run A (3 of 4 steps, --zero --ckpt, (2,1,2,1)), run B
+    (--resume without --zero on (1,1,2,1)), run C (4 steps, one card) at
+    --preset 100m; the file verified and removed after."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    outdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                   dir=ROOT / "build"))
+    try:
+        a = run_mesh_train("ckpt-a", f"ckpt A ({CKPT_A_MESH}, --zero "
+                           f"--ckpt, {CKPT_A_STEPS} of 4 steps)", 4, outdir)
+        path = outdir / "ckpt.npz"
+        t0 = time.perf_counter()
+        info = ckpt.verify(str(path))
+        verify_s = time.perf_counter() - t0
+        log(f"  verify: {info}, {verify_s:.3f} s; {path.stat().st_size} "
+            f"bytes ({path.stat().st_size / 2**20:.1f} MiB); save "
+            f"{[round(x, 3) for x in a['ckpt']['save_s']]} s (rank 0)")
+        if not (info["checksummed"] and info["step"] == CKPT_A_STEPS - 1):
+            raise AssertionError(f"checkpoint {info}")
+        b = train_report(launch_ranks(
+            ["-m", "repro_torch.launch.train", *CKPT_FLAGS, "--mesh",
+             CKPT_B_MESH, "--backend", "gloo", "--ckpt", str(path),
+             "--resume"], f"ckpt B (--resume on {CKPT_B_MESH})", 2,
+            MESH_TRAIN_TIMEOUT_S))
+        free_memory()
+        log(f"[ckpt C] one card, python -m repro_torch.launch.train "
+            f"{' '.join(CKPT_FLAGS)}")
+        c = train.main(CKPT_FLAGS)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    log(f"  A {a['losses']} (steps 0-{CKPT_A_STEPS - 1}), B {b['losses']} "
+        f"(from step {b['first_step']}), C {c.losses}")
+    later = MESH_TRAIN_TOL["later_loss"]
+    gaps = [abs(x - y) for x, y in zip(a["losses"] + b["losses"], c.losses)]
+    log(f"  max |loss - C| {max(gaps):.3e} (tol {later:g}); B's step "
+        f"{b['first_step']}: {b['losses'][0]!r} against C's "
+        f"{c.losses[-1]!r}; restore {b['ckpt']['restore_s']:.3f} s, B's "
+        f"final save {b['ckpt']['save_s']} s, {b['ckpt']['bytes']} bytes "
+        f"on {smi}")
+    if not (b["first_step"] == CKPT_A_STEPS and len(gaps) == 4
+            and max(gaps) <= later):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+
+
+def phase_dots_train(cfg, smi, one, one_launches):
+    """15c: phase 8's run through ``make_train_step`` under remat "full"
+    and then "dots": losses bitwise phase 8's and each other's, the
+    parameters bitwise, K1 21L + 3 a microbatch under "dots"."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.data.synthetic import DataConfig, SyntheticText, \
+        make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    import numpy as np
+    args = train.build_parser().parse_args(TRAIN_FLAGS)
+    data = SyntheticText(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=args.seq,
+                                    global_batch=args.batch))
+    opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
+                      total_steps=args.steps)
+    from repro_torch.models.decoder import lm_loss
+    runs = {}
+    for policy in ("full", "dots"):
+        free_memory()
+        model = ST.init_model(cfg, seed=0, device="cuda")
+        # one microbatch of the first batch alone: what the forward leaves
+        # for the backward (the tapes of "dots" among it), and the peak
+        mb = {k: torch.from_numpy(v[:args.batch // args.overdecompose]
+                                  ).cuda() for k, v in make_batch(
+            cfg, 0, data, dtype=np.float32).items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = lm_loss(model, mb["tokens"], mb["labels"], remat=True,
+                          remat_policy=policy)
+        kept = torch.cuda.memory_allocated() - base
+        taped = sum(o.numel() * o.element_size() for t in gc.get_objects()
+                    if isinstance(t, ops.K1Tape) for o, _ in t.saved)
+        loss.backward()
+        torch.cuda.synchronize()
+        probe = (kept, taped, torch.cuda.max_memory_allocated() - base)
+        del loss, mb
+        model.zero_grad(set_to_none=True)
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(dict(model.named_parameters()))
+        step = ST.make_train_step(cfg, MeshAxes(), opt, ST.TrainOptions(
+            overdecompose=args.overdecompose, dtype=torch.float32,
+            remat_policy=policy))
+        ops.reset_launches()
+        losses, times = [], []
+        for i in range(args.steps):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in make_batch(
+                cfg, i, data, dtype=np.float32).items()}
+            t0 = time.perf_counter()
+            losses.append(float(step(model, state, batch)["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        # the parameters wait on the host for the comparison, so the next
+        # run's peak counts its own model alone
+        runs[policy] = (losses, times, launches, peak, model.cpu())
+        log(f"  [{policy}] losses {losses}, step times "
+            f"{[round(x, 4) for x in times]} s, K1 "
+            f"{launches['block_matmul'] / (args.steps * args.overdecompose):g}"
+            f" a microbatch, max_memory_allocated {peak / 2**30:.2f} GiB; "
+            f"one microbatch's forward keeps {probe[0] / 2**30:.3f} GiB "
+            f"(K1 tapes {probe[1] / 2**30:.3f}), its forward and backward "
+            f"peak {probe[2] / 2**30:.3f} GiB above the parameters")
+    (lf, tf, kf, pf, mf), (ld, td, kd, pd, md) = runs["full"], runs["dots"]
+    same = all(torch.equal(a, b) for a, b in zip(mf.parameters(),
+                                                  md.parameters()))
+    del runs, mf, md
+    free_memory()
+    L = cfg.n_layers
+    per_mb = {"block_matmul": 21 * L + 3, "flash_attention": 2 * L,
+              "flash_attention_bwd": L, "rmsnorm": 8 * L + 1}
+    check_launches(kd, per_mb, args.steps * args.overdecompose,
+                   "microbatch")
+    units = args.steps * args.overdecompose
+    steady = lambda t: sum(t[1:]) / len(t[1:])  # noqa: E731
+    same_losses = ld == lf == one.losses
+    log(f"  dots: losses {'bitwise equal' if same_losses else 'DIFFER'}"
+        f" to full's and phase 8's; parameters after {args.steps} steps "
+        f"{'bitwise equal' if same else 'DIFFER'}; K1 a microbatch "
+        f"{kd['block_matmul'] / units:g} against full's "
+        f"{kf['block_matmul'] / units:g} and phase 8's "
+        f"{one_launches['block_matmul'] / units:g}; steady step "
+        f"{steady(td):.4f} s against full's {steady(tf):.4f} s and phase 8's "
+        f"{steady(one.step_s):.4f} s; max_memory_allocated "
+        f"{pd / 2**30:.2f} GiB against {pf / 2**30:.2f} GiB "
+        f"(+{(pd - pf) / 2**30:.2f}; phase 8 "
+        f"{one.max_memory_bytes / 2**30:.2f} GiB) on {smi}")
+    if not (same_losses and same):
+        raise AssertionError("remat 'dots' differs from 'full'")
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3186,6 +3488,12 @@ def main() -> int:
     del hybrid_expect
     free_memory()
     phase_long_context(hcfg, smi)
+    free_memory()
+    phase_zero_train(cfg, smi, train_res)
+    phase_ckpt_resume(smi)
+    free_memory()
+    log("[dots] remat 'dots' through make_train_step, phase 8's run")
+    phase_dots_train(cfg, smi, train_res, train_launches)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;

@@ -18,7 +18,17 @@ period-1 decoder, ``segments/seg0/pos3/mixer/wq`` for Jamba). The train
 step decides weight decay on these paths, as the JAX ``adamw._no_decay``
 does, and the tests compare gradients leaf by leaf through them.
 ``caches_from_jax`` maps the JAX fixed-batch caches onto the port's
-per-layer ones. On a mesh, both keep one rank's block of each global JAX
+per-layer ones.
+
+The other direction, for checkpoints in the reference's format
+(``checkpoint/ckpt.py``): ``params_to_jax`` and ``opt_state_to_jax`` gather
+each of this rank's blocks over its spec's axes and stack the layers into
+the global JAX leaves (numpy, keyed by JAX path); ``load_params_from_jax``
+and ``opt_state_from_jax`` take a rank's blocks back out of such trees with
+``params_from_jax``'s slicing, on any mesh. ``jax_specs`` and
+``jax_structs`` give the JAX tree's PartitionSpecs and global shapes. A
+bfloat16 parameter crosses as float32 (numpy has no bfloat16; the widening
+is exact). On a mesh, both keep one rank's block of each global JAX
 leaf: a parameter's by its PartitionSpec (``partition.param_spec``; the
 Mamba layer's per-channel leaves over y), a cache's by the JAX cache spec
 (batch over (data, z), KV heads and Mamba channels over y; with
@@ -27,6 +37,7 @@ replicated over data), first-name-major over each tuple of axes.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, List
 
 import numpy as np
@@ -73,6 +84,36 @@ def jax_paths(model: Decoder) -> Dict[str, str]:
     return {n: jax_path(n, model.cfg) for n, _ in model.named_parameters()}
 
 
+def _flat_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A nested JAX-path tree's leaves keyed "a/b/c"."""
+    return {k.replace(".", "/"): v for k, v in _flatten(tree).items()}
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _block(flat: Dict[str, Any], name: str, cfg: ArchConfig,
+           axes: M.MeshAxes, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of the port parameter ``name`` from the global
+    JAX leaves ``flat`` (keyed "a/b/c"), as a CPU tensor view."""
+    leaf = np.asarray(flat[jax_path(name, cfg)])
+    if name.startswith("layers."):
+        leaf = leaf[_slot(name, cfg)[2]]
+    with warnings.catch_warnings():
+        # a read-only array (np.load's): the block is only read
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(np.ascontiguousarray(leaf))
+    return M.shard(t, axes, param_spec(name), rank)
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device,
                     axes: M.MeshAxes = M.MeshAxes(), rank: int = 0
                     ) -> Decoder:
@@ -87,17 +128,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device,
     dtype = torch.from_numpy(np.zeros(0, np.asarray(tree["embed"]).dtype)
                              ).dtype
     model = Decoder(cfg, axes, gen=torch.Generator(device=dev), dtype=dtype)
+    slash = _flat_tree(tree)
     for name, _ in model.named_parameters():
         path = jax_path(name, cfg).replace("/", ".")
-        leaf = np.asarray(flat[path])
-        if name.startswith("layers."):
-            p = _slot(name, cfg)[2]
-            leaf = leaf[p]
-            used.add((path, p))
-        else:
-            used.add((path, None))
-        state[name] = M.shard(torch.tensor(leaf), axes, param_spec(name),
-                              rank).contiguous()
+        used.add((path, _slot(name, cfg)[2] if name.startswith("layers.")
+                  else None))
+        state[name] = _block(slash, name, cfg, axes, rank).clone(
+            memory_format=torch.contiguous_format)
     want = {(k, p) for k, v in flat.items() if k.startswith("segments.")
             for p in range(np.shape(v)[0])}
     want |= {(k, None) for k in flat if not k.startswith("segments.")}
@@ -139,3 +176,166 @@ def caches_from_jax(caches: Dict[str, Any], cfg: ArchConfig, device="cpu",
                 device)
         out.append(layer)
     return out
+
+
+# ---------------------------------------------------------------------- #
+# the port's state as the reference's global trees (checkpoints)
+# ---------------------------------------------------------------------- #
+
+def _global(v: torch.Tensor, axes: M.MeshAxes, spec) -> torch.Tensor:
+    """The global tensor of this rank's block ``v`` under ``spec``: one
+    all-gather over each sharded dim's axes (first-name-major, the
+    inverse of ``mesh.shard``). Every rank of the mesh calls it."""
+    for i, axis in enumerate(spec):
+        if axes.size(axis) > 1:
+            v = M.all_gather(v, axes, axis, dim=i)
+    return v
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _stacked_tree(model: Decoder, get, keep: bool):
+    """{JAX path: global leaf} of ``get(name)`` (a tensor of this rank's
+    block of each parameter), the layers of a stacked leaf stacked in
+    period order; None unless ``keep``."""
+    cfg, axes = model.cfg, model.axes
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    flat: Dict[str, Any] = {}
+    for name, _ in model.named_parameters():
+        full = _global(get(name), axes, param_spec(name))
+        if not keep:
+            continue
+        path = jax_path(name, cfg)
+        if name.startswith("layers."):
+            layers.setdefault(path, {})[_slot(name, cfg)[2]] = \
+                _to_numpy(full)
+        else:
+            flat[path] = _to_numpy(full)
+    if not keep:
+        return None
+    for path, by_period in layers.items():
+        flat[path] = np.stack([by_period[p] for p in sorted(by_period)])
+    return flat
+
+
+def params_to_jax(model: Decoder, *, keep: bool = True):
+    """The model's parameters as the JAX tree of ``repro.launch.steps.
+    init_model`` (global, layer-stacked numpy leaves): each rank's blocks
+    gathered over their spec's axes. Every rank of the mesh calls it; with
+    ``keep`` False this rank returns None (only the writer keeps the
+    arrays)."""
+    params = dict(model.named_parameters())
+    flat = _stacked_tree(model, lambda n: params[n], keep)
+    return None if flat is None else _nest(flat)
+
+
+def opt_state_to_jax(state, model: Decoder, *, keep: bool = True):
+    """The replicated-layout AdamW state of ``adamw.init_state`` ({"opt":
+    {name: {"m", "v", "master"}}, "step"}, this rank's blocks) as the
+    reference's ``init_state`` tree: {"opt": the params' tree with each
+    leaf a {"m", "v", "master"} dict, "step": int32 0-d}, global and
+    stacked. Collective, as :func:`params_to_jax`."""
+    flat = {}
+    for k in ("m", "v", "master"):
+        part = _stacked_tree(model, lambda n: state["opt"][n][k], keep)
+        if part is not None:
+            flat.update({f"{path}/{k}": v for path, v in part.items()})
+    if not keep:
+        return None
+    return {"opt": _nest(flat),
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+@torch.no_grad()
+def load_params_from_jax(model: Decoder, tree: Dict[str, Any],
+                         rank: int = None) -> None:
+    """Copy rank ``rank``'s (default: this process's) blocks of the JAX
+    tree's global leaves into the model's parameters, in place."""
+    rank = M.process_rank() if rank is None else rank
+    flat = _flat_tree(tree)
+    for name, p in model.named_parameters():
+        p.copy_(_block(flat, name, model.cfg, model.axes, rank))
+
+
+def opt_state_from_jax(tree: Dict[str, Any], model: Decoder,
+                       rank: int = None):
+    """The inverse of :func:`opt_state_to_jax` on rank ``rank`` (default:
+    this process's): {"opt": {name: {"m", "v", "master"}}, "step": int},
+    fp32 blocks on the model's device."""
+    rank = M.process_rank() if rank is None else rank
+    flat = _flat_tree_opt(tree["opt"])
+    dev = model.embed.device
+    opt = {}
+    for name, _ in model.named_parameters():
+        opt[name] = {k: _block(flat[k], name, model.cfg, model.axes, rank
+                               ).to(dev, torch.float32, copy=True)
+                     for k in ("m", "v", "master")}
+    return {"opt": opt, "step": int(np.asarray(tree["step"]))}
+
+
+def _flat_tree_opt(opt: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """{"m" | "v" | "master": {JAX path: leaf}} of an ``opt`` tree whose
+    leaves are {"m", "v", "master"} dicts."""
+    out: Dict[str, Dict[str, Any]] = {"m": {}, "v": {}, "master": {}}
+    for path, v in _flat_tree(opt).items():
+        head, k = path.rsplit("/", 1)
+        out[k][head] = v
+    return out
+
+
+def jax_specs(model: Decoder) -> Dict[str, Any]:
+    """The JAX tree's PartitionSpec of each leaf as a tuple (a stacked
+    leaf's starts with None for the layer dim), nested by path."""
+    flat = {}
+    for name, _ in model.named_parameters():
+        stacked = name.startswith("layers.")
+        flat[jax_path(name, model.cfg)] = ((None,) if stacked else ()) \
+            + tuple(param_spec(name))
+    return _nest(flat)
+
+
+def jax_structs(model: Decoder) -> Dict[str, Any]:
+    """Each JAX leaf's global shape and dtype (a :class:`Struct`; float32,
+    the dtype the port writes), nested by path: the template
+    ``ckpt.restore`` reads a checkpoint into."""
+    cfg, axes = model.cfg, model.axes
+    flat, periods = {}, {}
+    for name, p in model.named_parameters():
+        spec = param_spec(name)
+        shape = tuple(s * axes.size(a) for s, a in zip(p.shape, spec))
+        path = jax_path(name, cfg)
+        if name.startswith("layers."):
+            periods[path] = periods.get(path, 0) + 1
+        flat[path] = (shape, np.dtype(np.float32))
+    return _nest({path: Struct((periods[path],) + shape if path in periods
+                               else shape, dt)
+                  for path, (shape, dt) in flat.items()})
+
+
+def jax_opt_structs(model: Decoder) -> Dict[str, Any]:
+    """The template of the reference's AdamW state tree: {"opt": each
+    leaf's m, v and master as :func:`jax_structs`, "step": int32 0-d}."""
+    def opt(tree):
+        return {k: opt(v) if isinstance(v, dict) else
+                {"m": v, "v": v, "master": v} for k, v in tree.items()}
+    return {"opt": opt(jax_structs(model)), "step": Struct((), np.int32)}
+
+
+class Struct(tuple):
+    """A leaf template: ``.shape`` and ``.dtype`` (numpy)."""
+
+    def __new__(cls, shape, dtype):
+        return super().__new__(cls, (tuple(shape), np.dtype(dtype)))
+
+    @property
+    def shape(self):
+        return self[0]
+
+    @property
+    def dtype(self):
+        return self[1]

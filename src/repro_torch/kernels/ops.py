@@ -5,9 +5,17 @@ tensor to the CUDA kernel, which raises on what it cannot take; there is no
 fallback from the kernel to the plain version. ``plain=True`` asks for the
 plain version on any device: the comparisons of the kernels with their
 plain versions on the card use it.
+
+:class:`K1Tape` is remat policy "dots" (``decoder.Decoder.hidden``): while
+a rematerialized block's forward runs under ``tape.record()``,
+:func:`matmul` keeps each K1 product it makes; its recompute runs under
+``tape.replay()`` and gets the same tensors back in the same order,
+launching no K1. Outside a tape (serving, the backward) :func:`matmul`
+calls the kernel directly.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 from repro_torch.kernels.block_matmul import (block_matmul_kernel,
@@ -53,9 +61,65 @@ def matmul(a, b, *, out_dtype=None, plain: bool = False):
     """(M, K) @ (K, N) with fp32 accumulation, in ``out_dtype`` (default:
     a's dtype; float32 for bfloat16 operands rounds nothing) (K1). Either
     operand may be a transposed view: the kernel reads both through their
-    strides."""
+    strides. Under a :class:`K1Tape` the product is recorded or
+    replayed."""
+    if _TAPE is not None:
+        return _TAPE.matmul(a, b, out_dtype, plain)
     fn = block_matmul_plain if _plain(a, plain) else block_matmul_kernel
     return fn(a, b, out_dtype=out_dtype)
+
+
+_TAPE: Optional["K1Tape"] = None
+
+
+class K1Tape:
+    """The K1 products of one rematerialized block's forward, for remat
+    policy "dots" (the reference's ``dots_with_no_batch_dims_saveable``:
+    every product with no batch dims is saved; attention's batched
+    products run in K2, outside the tape). ``record()`` keeps each product
+    :func:`matmul` makes, in call order; ``replay()``, the recompute,
+    returns them in the same order and launches nothing. K1 is
+    deterministic and the recompute makes the same calls on the same
+    values, so the bits are those of policy "full". A recorded product
+    changed in place since raises. The tape empties after its replay."""
+
+    def __init__(self):
+        self.saved = []
+        self.replaying = False
+        self.pos = 0
+
+    @contextlib.contextmanager
+    def _bound(self, replaying: bool):
+        global _TAPE
+        prev, _TAPE = _TAPE, self
+        self.replaying, self.pos = replaying, 0
+        try:
+            yield
+        finally:
+            _TAPE = prev
+            if replaying:
+                self.saved = []
+
+    def record(self):
+        return self._bound(False)
+
+    def replay(self):
+        return self._bound(True)
+
+    def matmul(self, a, b, out_dtype, plain):
+        if not self.replaying:
+            fn = block_matmul_plain if _plain(a, plain) else \
+                block_matmul_kernel
+            out = fn(a, b, out_dtype=out_dtype)
+            self.saved.append((out, out._version))
+            return out
+        out, version = self.saved[self.pos]
+        self.pos += 1
+        if out._version != version or out.shape != (a.shape[0], b.shape[1]):
+            raise RuntimeError("remat 'dots': a saved K1 product was changed "
+                               "in place or the recompute differs from the "
+                               "forward")
+        return out
 
 
 def rmsnorm(x, gamma, *, full_dim: Optional[int] = None, eps: float = 1e-6,

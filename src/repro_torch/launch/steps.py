@@ -15,11 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch import convert
+from repro_torch.core import gradsync as GS
 from repro_torch.core import mesh as M
 from repro_torch.core.overdecompose import split_batch
 from repro_torch.core.overlap import OverlapConfig
@@ -65,15 +66,15 @@ def init_model(cfg: ArchConfig, axes: Optional[M.MeshAxes] = None,
 class TrainOptions:
     overdecompose: int = 2      # paper §4.2 (2 batch-shards); 1 = off
     remat: bool = True
-    remat_policy: str = "full"  # only "full" is ported
+    remat_policy: str = "full"  # "full" or "dots" (decoder.Decoder.hidden)
     xent_chunks: int = 1
     dtype: torch.dtype = torch.bfloat16
     # ring-decomposed collective matmuls, the seq ring and weight-gather
     # caching (core/overlap.py; rides down to the layers on the axes)
     overlap: OverlapConfig = OverlapConfig()
-    # not ported; raises in make_train_step: the data-parallel sync modes
-    # other than the blocking psum ("zero", "zero3", "stream")
-    gradsync: str = "blocking"
+    # data-parallel gradient sync (core/gradsync.py): the default is the
+    # blocking per-leaf psum; zero3 raises in make_train_step
+    gradsync: GS.GradSyncConfig = GS.GradSyncConfig()
 
 
 def _loss_fn(cfg: ArchConfig, axes: M.MeshAxes, opts: TrainOptions):
@@ -117,35 +118,76 @@ def sync_grads(grads, axes: M.MeshAxes):
     return z_reduce_grads(grads, axes)
 
 
+def train_plan(params: Dict[str, torch.Tensor], cfg: ArchConfig,
+               axes: M.MeshAxes, gs: GS.GradSyncConfig) -> GS.BucketPlan:
+    """The bucket plan of the train step of ``gs`` for the model whose
+    parameters (this rank's blocks) are ``params``: the reference's
+    ``make_plan`` of the same model and mesh."""
+    return GS.make_plan(GS.model_leaves(params, cfg), axes, gs.bucket_bytes,
+                        no_decay=OPT._no_decay)
+
+
 def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
                     opt_cfg: OPT.AdamWConfig,
-                    opts: TrainOptions = TrainOptions()):
-    """The plain mode of the JAX ``make_train_step``, the blocking
-    collective schedule: ``step(model, opt_state, batch, plain=False) ->
-    metrics``. ``batch`` is the global batch, striped by
+                    opts: TrainOptions = TrainOptions(), *,
+                    tools: Optional["GradSyncTools"] = None):
+    """The JAX ``make_train_step``: ``step(model, opt_state, batch,
+    plain=False) -> metrics``. ``batch`` is the global batch, striped by
     :func:`stripe_batch` on a seq axis; each rank takes its rows (batch
     shard ``axis_index((data, z))``) and then its contiguous shard of the
     sequence, as the JAX step's ``shard_map`` in_specs do. It splits them
-    into ``opts.overdecompose`` microbatches, accumulates their gradients
-    in fp32 and divides by their count, psums over data and seq, reduces
-    over z and y by each parameter's layout (``partition.z_reduce_grads``)
-    and applies AdamW, whose gradient norm psums each block over its
-    spec's axes. The model's parameters (this rank's blocks) and
-    ``opt_state`` (``adamw.init_state`` of ``model.named_parameters()``)
-    are updated in place; every rank holding the same block ends with the
-    same bits. In float32 the parameters' ``.grad`` is the accumulator; in
-    bfloat16 with more than one microbatch a separate fp32 one is, as the
-    JAX step casts each microbatch's gradients to fp32 before summing.
-    With one microbatch the gradients keep their dtype and are reduced in
-    it, as the JAX step's are. ``opts.overlap`` picks the overlapped
-    schedule's rings; ``OverlapConfig()`` is the blocking schedule."""
+    into ``opts.overdecompose`` microbatches and runs their forward and
+    backward. The model's parameters (this rank's blocks) and
+    ``opt_state`` are updated in place; every rank holding the same block
+    ends with the same bits. ``opts.overlap`` picks the overlapped
+    schedule's rings; ``OverlapConfig()`` is the blocking schedule.
+
+    ``opts.gradsync`` picks the data-parallel sync:
+
+    * ``GradSyncConfig()``, the blocking schedule: the gradients
+      accumulate in fp32 and are divided by the microbatch count, psum'd
+      over data and seq, reduced over z and y by each parameter's layout
+      (``partition.z_reduce_grads``); AdamW (``adamw.apply_updates`` on
+      ``adamw.init_state``'s state), whose gradient norm psums each block
+      over its spec's axes. In float32 the parameters' ``.grad`` is the
+      accumulator; in bfloat16 with more than one microbatch a separate
+      fp32 one is, as the JAX step casts each microbatch's gradients to
+      fp32 before summing. With one microbatch the gradients keep their
+      dtype and are reduced in it, as the JAX step's are.
+    * ``bucketed`` or ``zero`` (``core/gradsync.py``): with ``stream``
+      each microbatch's gradients are reduce-scattered over data into fp32
+      bucket shards right after its backward and ``p.grad`` is freed;
+      without it they accumulate as above and one reduce-scatter runs.
+      The shards are psum'd over seq, then reduced over y and z as whole
+      buckets. ``zero``: ``adamw.apply_updates_sharded`` on
+      ``gradsync.init_sharded_state``'s state (:func:`make_gradsync_tools`),
+      which rebuilds the parameters by an all-gather over data;
+      ``bucketed`` alone all-gathers the gradients, then ``apply_updates``.
+      The bucket plan is ``tools.plan`` when ``tools`` is given (the one
+      the state was made with; the step checks the state's shard sizes
+      against it), else :func:`train_plan` of the model the first call
+      gets, kept for later calls.
+    * ``zero3`` is not ported and raises."""
     axes = axes.with_overlap(opts.overlap)
-    if opts.gradsync != "blocking":
+    gs = opts.gradsync
+    if gs.zero3:
         raise NotImplementedError(
-            f"gradient sync {opts.gradsync!r} (ZeRO, ZeRO-3, streamed "
-            f"buckets) is not ported to PyTorch yet: it waits for the "
-            f"ROADMAP.md §1 item 'rest of the training stack'")
+            "gradient sync zero3 (ZeRO-3 parameter-shard streaming) is not "
+            "ported to PyTorch yet: it waits for the ROADMAP.md §1 item "
+            "'rest of the training stack'")
     loss_fn = _loss_fn(cfg, axes, opts)
+    plans = [tools.plan] if tools is not None else []
+
+    def plan_of(params, opt_state):
+        if not plans:
+            plans.append(train_plan(params, cfg, axes, gs))
+        plan = plans[0]
+        if gs.zero and [st["master"].numel() for st in opt_state["buckets"]
+                        ] != list(plan.shard_sizes):
+            raise ValueError("the optimizer state's shards are not the "
+                             "step's bucket plan's: make the state and the "
+                             "step from one GradSyncTools")
+        return plan
 
     def step(model, opt_state, batch, plain: bool = False):
         with D.overlap_bound(model, axes.overlap):
@@ -157,21 +199,32 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
         if dtypes != {opts.dtype}:
             raise TypeError(f"TrainOptions.dtype is {opts.dtype}, the model's "
                             f"parameters are {sorted(map(str, dtypes))}")
+        plan = plan_of(params, opt_state) if gs.enabled else None
+        stream = gs.enabled and gs.stream
         n = opts.overdecompose
         mbs = split_batch({k: M.seq_shard(M.batch_shard(v, axes), axes)
                            for k, v in batch.items()}, n, axes=axes)
         acc = None
-        if n > 1 and opts.dtype != torch.float32:
+        if n > 1 and opts.dtype != torch.float32 and not stream:
             acc = {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        loss = metrics = None
+        loss = metrics = shards = None
         for i in range(n):
             li, mi = loss_fn(model, {k: v[i] for k, v in mbs.items()},
                              plain=plain)
             li.backward()
-            if acc is not None:
+            if stream and n > 1:
+                # this microbatch's buckets leave now, in fp32 shards
+                si = GS.reduce_scatter_grads(
+                    {k: p.grad for k, p in params.items()}, plan, axes,
+                    ring=gs.ring)
+                for p in params.values():
+                    p.grad = None
+                shards = si if shards is None else [
+                    a.add_(b) for a, b in zip(shards, si)]
+            elif acc is not None:
                 for k, p in params.items():
                     acc[k] += p.grad.float()
                     p.grad = None
@@ -179,22 +232,160 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
             loss = li if loss is None else loss + li
             metrics = mi if metrics is None else {
                 k: metrics[k] + mi[k] for k in metrics}
-        grads = {k: (p.grad if acc is None else acc[k])
-                 for k, p in params.items()}
+        grads = None
+        if shards is None:
+            grads = {k: (p.grad if acc is None else acc[k])
+                     for k, p in params.items()}
         if n > 1:
             loss = loss / n
             metrics = {k: v / n for k, v in metrics.items()}
-            grads = {k: g.div_(n) for k, g in grads.items()}
-        grads = sync_grads(grads, axes)
-        om = OPT.apply_updates(params, grads, opt_state, opt_cfg,
-                               no_decay=no_decay_names(model),
-                               specs={k: param_spec(k) for k in params},
-                               axes=axes)
+            if shards is not None:
+                shards = [s.div_(n) for s in shards]
+            else:
+                grads = {k: g.div_(n) for k, g in grads.items()}
+        if not gs.enabled:
+            grads = sync_grads(grads, axes)
+            om = OPT.apply_updates(params, grads, opt_state, opt_cfg,
+                                   no_decay=no_decay_names(model),
+                                   specs={k: param_spec(k) for k in params},
+                                   axes=axes)
+        else:
+            if shards is None:
+                shards = GS.reduce_scatter_grads(grads, plan, axes,
+                                                 ring=gs.ring)
+            del grads
+            for p in params.values():
+                p.grad = None
+            if axes.gseq > 1:
+                # parameters are replicated over seq; each seq-rank's
+                # shards hold only its own tokens' contributions
+                shards = [M.psum(s, axes, "seq") for s in shards]
+            shards = GS.tensor_reduce_shards(shards, plan, axes)
+            if gs.zero:
+                om = OPT.apply_updates_sharded(shards, opt_state, plan, axes,
+                                               opt_cfg, params=params,
+                                               ring=gs.ring)
+            else:
+                grads = GS.all_gather_grads(shards, plan, axes, ring=gs.ring)
+                om = OPT.apply_updates(
+                    params, grads, opt_state, opt_cfg,
+                    no_decay=no_decay_names(model),
+                    specs={k: param_spec(k) for k in params}, axes=axes)
         for p in params.values():
             p.grad = None
         return dict(metrics, loss=loss, **om)
 
     return step
+
+
+# ---------------------------------------------------------------------- #
+# optimizer state: replicated AdamW or ZeRO-1 data-sharded
+# ---------------------------------------------------------------------- #
+
+def state_layouts(cfg: ArchConfig, axes: M.MeshAxes, params,
+                  opts: TrainOptions = TrainOptions()) -> dict:
+    """This rank's persistent training state, in bytes, for the train step
+    of ``opts`` and the model whose parameters are ``params``: its
+    parameter blocks and its optimizer state (fp32 m/v/master: each block
+    whole, or under ``gradsync.zero`` its 1/g_data shard of every
+    bucket, padding included), as the reference's ``state_layouts`` sizes
+    them."""
+    params = dict(params)
+    p_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    if opts.gradsync.state_sharded:
+        plan = train_plan(params, cfg, axes, opts.gradsync)
+        s_elems = sum(plan.shard_sizes)
+    else:
+        s_elems = sum(p.numel() for p in params.values())
+    return {"params": p_bytes, "opt_state": 3 * 4 * s_elems}
+
+
+@dataclasses.dataclass(frozen=True)
+class GradSyncTools:
+    """Companions of a ZeRO-sharded train step, on this rank's tensors.
+
+    ``init(params)`` builds the scattered fp32 state from the full
+    (replicated-over-data) parameters (name -> this rank's block);
+    ``gather(state)`` / ``scatter(full_state)`` convert to/from the
+    replicated per-parameter layout of ``adamw.init_state`` (the
+    checkpoint format — ckpt.py save_sharded/restore_sharded); ``plan`` is
+    the bucket layout the step was built with. ``gather`` runs collectives
+    over data: every rank calls it."""
+
+    plan: GS.BucketPlan
+    init: Callable
+    gather: Callable
+    scatter: Callable
+
+
+def make_gradsync_tools(cfg: ArchConfig, axes: M.MeshAxes, params,
+                        opts: TrainOptions = TrainOptions()
+                        ) -> GradSyncTools:
+    """Build the ZeRO state helpers for the same (cfg, axes, opts) a train
+    step was made with and the model whose parameters are ``params`` (the
+    bucket plan must match)."""
+    axes = axes.with_overlap(opts.overlap)
+    plan = train_plan(dict(params), cfg, axes, opts.gradsync)
+    return GradSyncTools(
+        plan=plan,
+        init=lambda p: GS.init_sharded_state(dict(p), plan, axes),
+        gather=lambda s: GS.gather_sharded_state(s, plan, axes),
+        scatter=lambda s: GS.scatter_full_state(s, plan, axes))
+
+
+# ---------------------------------------------------------------------- #
+# snapshot / restore (the replicated layout == the checkpoint layout)
+# ---------------------------------------------------------------------- #
+
+def snapshot_state(model, opt_state, tools: Optional[GradSyncTools],
+                   opts: TrainOptions, *, step: int = 0,
+                   keep: bool = True) -> dict:
+    """Host snapshot of the run state in the reference's REPLICATED
+    per-leaf layout: global, layer-stacked numpy trees keyed by JAX paths
+    (``convert.params_to_jax`` / ``opt_state_to_jax``; the optimizer state
+    gathered through ``tools.gather`` first when it is sharded). This is
+    the tree ``ckpt.save`` persists; the plan fingerprint rides along so
+    :func:`restore_state` can reject a rebuild whose tensor partitioning
+    (not just g_data) changed. Every rank takes part in the gathers; with
+    ``keep`` False this rank keeps nothing (its trees are None)."""
+    gs = opts.gradsync
+    fp = None
+    if gs.state_sharded:
+        assert tools is not None, "sharded state needs GradSyncTools"
+        full_s = tools.gather(opt_state)
+        fp = GS.plan_fingerprint(tools.plan)
+    else:
+        full_s = opt_state
+    return {"params": convert.params_to_jax(model, keep=keep),
+            "opt_state": convert.opt_state_to_jax(full_s, model, keep=keep),
+            "step": int(step), "fingerprint": fp}
+
+
+def restore_state(snapshot: dict, cfg: ArchConfig, axes: M.MeshAxes,
+                  tools: Optional[GradSyncTools], opts: TrainOptions,
+                  model):
+    """Re-shard a :func:`snapshot_state` snapshot (or a checkpoint read
+    into that form) onto this rank of ``axes``: the model's parameters
+    take their blocks of the snapshot's in place; returns the optimizer
+    state in the layout the train step of ``opts`` expects on that mesh,
+    scattered through the new mesh's own ``tools.scatter`` when it is
+    sharded, so restoring from the in-memory snapshot and from a
+    checkpoint of the same step give the same bits."""
+    gs = opts.gradsync
+    if gs.state_sharded:
+        assert tools is not None, "sharded state needs GradSyncTools"
+        want = snapshot.get("fingerprint")
+        if want is not None:
+            have = GS.plan_fingerprint(tools.plan)
+            if have != want:
+                raise ValueError(
+                    f"elastic restore: bucket-plan fingerprint {have} != "
+                    f"snapshot's {want} — the rebuild changed the tensor "
+                    f"partitioning, not just the data axis; the snapshot "
+                    f"cannot be re-sharded onto this mesh")
+    convert.load_params_from_jax(model, snapshot["params"])
+    full = convert.opt_state_from_jax(snapshot["opt_state"], model)
+    return tools.scatter(full) if gs.state_sharded else full
 
 
 def param_sha256(model) -> str:

@@ -30,11 +30,20 @@ object with the losses, step times and each rank's communication by kind
 and by axis (and the ring hops of the overlapped schedule by axis), peak
 memory, kernel launches and parameter hash.
 
+``--zero`` runs the bucketed data-parallel sync with ZeRO-1 sharded AdamW
+state (``core/gradsync.py``, buckets of ``--dp-bucket-mb`` MiB);
+``--ckpt PATH`` saves a checkpoint in the reference's ``.npz`` format at
+the end (and every ``--ckpt-every`` steps); ``--resume`` restores it first
+and continues from the saved step + 1, on any mesh (the state re-shards
+through the replicated checkpoint layout):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --preset smoke --device cpu --steps 4 --zero --ckpt run.npz
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
-§1 item it waits for): ZeRO and checkpoints (``--zero*``,
-``--dp-bucket-mb``, ``--ckpt*``, ``--resume``), the runtime tooling
-(``--chaos``, ``--probe-every``, ``--telemetry``, ``--log-file``,
-``--profile-steps``, ``--calib``) and ``--backend nccl``.
+§1 item it waits for): ZeRO-3 (``--zero3``, ``--zero3-prefetch``), the
+runtime tooling (``--chaos``, ``--probe-every``, ``--telemetry``,
+``--log-file``, ``--profile-steps``, ``--calib``) and ``--backend nccl``.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -49,7 +59,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config
+from repro_torch.core import gradsync as GS
 from repro_torch.core import mesh as M
 from repro_torch.core.overlap import OverlapConfig
 from repro_torch.core.partition import param_spec, spec_names
@@ -62,13 +75,8 @@ from repro_torch.optim.adamw import AdamWConfig, init_state
 
 # flag -> the ROADMAP.md §1 item it waits for
 REFUSED = {
-    "zero": "rest of the training stack",
     "zero3": "rest of the training stack",
     "zero3_prefetch": "rest of the training stack",
-    "dp_bucket_mb": "rest of the training stack",
-    "ckpt": "rest of the training stack",
-    "ckpt_every": "rest of the training stack",
-    "resume": "rest of the training stack",
     "chaos": "runtime tooling",
     "probe_every": "runtime tooling",
     "telemetry": "runtime tooling",
@@ -129,16 +137,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="steps between metric log lines")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: the card)")
+    ap.add_argument("--zero", action="store_true",
+                    help="ZeRO-sharded DP sync: bucketed gradient "
+                         "reduce-scatter rings streamed through the "
+                         "overdecompose loop, AdamW state sharded over "
+                         "the data axis (core/gradsync.py)")
+    ap.add_argument("--dp-bucket-mb", type=float, default=4.0,
+                    help="fp32 gradient bucket bound in MiB "
+                         "(with --zero/--zero3)")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint path (.npz) to save at the end "
+                         "(atomic write + per-leaf checksums; see also "
+                         "--ckpt-every / --resume)")
+    ap.add_argument("--ckpt-every", type=int, default=0, metavar="N",
+                    help="also checkpoint every N steps (0 = off); the "
+                         "write is atomic, so a crash mid-save keeps "
+                         "the previous checkpoint")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore from --ckpt before training (verifies "
+                         "checksums first) and continue from the saved "
+                         "step; the mesh may differ from the saving "
+                         "run's — the state re-shards through the "
+                         "replicated checkpoint layout")
     # flags of repro.launch.train that the port refuses (REFUSED)
-    ap.add_argument("--zero", action="store_true", help="not ported")
     ap.add_argument("--zero3", action="store_true", help="not ported")
     ap.add_argument("--zero3-prefetch", action="store_true",
                     help="not ported")
-    ap.add_argument("--dp-bucket-mb", type=float, default=None,
-                    help="not ported")
-    ap.add_argument("--ckpt", default="", help="not ported")
-    ap.add_argument("--ckpt-every", type=int, default=0, help="not ported")
-    ap.add_argument("--resume", action="store_true", help="not ported")
     ap.add_argument("--chaos", default="", help="not ported")
     ap.add_argument("--probe-every", type=int, default=0, help="not ported")
     ap.add_argument("--telemetry", action="store_true", help="not ported")
@@ -167,33 +191,65 @@ class TrainResult:
     # the ring hops of each step by axis, counted in comm_by_axis too
     hops_by_axis: List[dict] = dataclasses.field(default_factory=list)
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the bucketed sync's data-axis traffic of each step
+    # (gradsync.DP_SYNC: {"reduce_scatter" | "all_gather": {"calls",
+    # "bytes", "seconds"}})
+    dp_sync: List[dict] = dataclasses.field(default_factory=list)
+    # this rank's persistent state in bytes (steps.state_layouts)
+    state_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the checkpoint: {"bytes", "save_s": [...], "restore_s"} (--ckpt)
+    ckpt: Dict[str, object] = dataclasses.field(default_factory=dict)
+    first_step: int = 0          # the step this run started at
     # every rank's report (the "ranks" list of the JSON line)
     ranks: List[dict] = dataclasses.field(default_factory=list)
 
 
-def main(argv=None, cfg=None,
-         overlap: OverlapConfig = OverlapConfig()) -> TrainResult:
+def _ckpt_snapshot(path: str, model) -> dict:
+    """Load a checkpoint into the host replicated-layout snapshot form of
+    ``launch.steps.snapshot_state`` — verifying every leaf's checksum
+    first, so a corrupt file is rejected with the offending leaf named
+    instead of scattering garbage onto the mesh."""
+    ckpt.verify(path)
+    params, step = ckpt.restore(path, convert.jax_structs(model))
+    state, _ = ckpt.restore(path, convert.jax_opt_structs(model),
+                            root="opt_state")
+    return {"params": params, "opt_state": state, "step": int(step),
+            "fingerprint": None}
+
+
+def main(argv=None, cfg=None, overlap: OverlapConfig = OverlapConfig(), *,
+         stop_after: Optional[int] = None) -> TrainResult:
     """Train as the flags ``argv`` say; ``cfg``, when given, is the model's
     configuration in place of ``--arch`` and ``--preset``'s (a cut of a
     supported model's depth, say). ``overlap`` is the step's overlapped
     schedule (``TrainOptions.overlap``; the JAX driver has no flag for it,
-    nor has this one)."""
+    nor has this one). ``stop_after``: end this run after that many steps,
+    as a run stopped early (the reference's shutdown on a signal) does:
+    the final checkpoint holds the last step run, and ``--resume`` with
+    the same flags continues the schedule of ``--steps``."""
     args = build_parser().parse_args(argv)
     for flag, item in REFUSED.items():
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
                 f"it waits for the ROADMAP.md §1 item '{item}'")
+    if args.resume and not args.ckpt:
+        raise SystemExit("--resume needs --ckpt")
     axes = mesh_axes(args.mesh)
     cfg = cfg or preset_config(get_config(args.arch), args.preset)
     run = init_mesh(axes, backend=args.backend, device=args.device)
     try:
-        return _train(args, axes, cfg, run, overlap)
+        return train_on(args, axes, cfg, run, overlap, stop_after)
     finally:
         close_mesh()
 
 
-def _train(args, axes, cfg, run, overlap) -> TrainResult:
+def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
+             stop_after: Optional[int] = None) -> TrainResult:
+    """Train on the mesh ``axes`` that ``launch.mesh.init_mesh`` set up
+    (its ``run``) as the parsed flags ``args`` say: :func:`main`, after it
+    checks the flags and sets up the mesh. A caller that trains several
+    runs on one mesh calls it once a run."""
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     rank0, multi = run["rank"] == 0, run["world"] > 1
 
@@ -213,39 +269,85 @@ def _train(args, axes, cfg, run, overlap) -> TrainResult:
         say(f"backend={args.backend} "
             f"ranks_per_card={run['ranks_per_card'] or '-'} "
             f"ranks={run['world']}")
-    state = init_state(params)
+    gs = (GS.GradSyncConfig(zero=True, bucket_mb=args.dp_bucket_mb)
+          if args.zero else GS.GradSyncConfig())
+    topts = ST.TrainOptions(overdecompose=args.overdecompose, dtype=dtype,
+                            overlap=overlap, gradsync=gs)
+    tools = (ST.make_gradsync_tools(cfg, axes, params, topts)
+             if gs.state_sharded else None)
+    state = tools.init(params) if gs.state_sharded else init_state(params)
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                       total_steps=args.steps)
-    step_fn = ST.make_train_step(cfg, axes, opt, ST.TrainOptions(
-        overdecompose=args.overdecompose, dtype=dtype, overlap=overlap))
+    step_fn = ST.make_train_step(cfg, axes, opt, topts, tools=tools)
+    tokens = args.batch * args.seq
+    res = TrainResult([], [], [], tokens, n_params, None)
+    res.state_bytes = ST.state_layouts(cfg, axes, params, topts)
+    specs = convert.jax_specs(model)
+
+    def save_checkpoint(at_step: int) -> None:
+        # every rank takes part in the gathers, only rank 0 writes; a
+        # sharded opt state travels in the replicated per-leaf layout so
+        # the run can resume under a different g_data
+        t0 = time.perf_counter()
+        snap = ST.snapshot_state(model, state, tools, topts, step=at_step,
+                                 keep=rank0)
+        if rank0:
+            ckpt.save(args.ckpt, snap["params"], snap["opt_state"],
+                      step=at_step, pspecs=specs, extra=dict(
+                          dp_bucket_mb=args.dp_bucket_mb, zero3=False,
+                          mesh=[int(x) for x in args.mesh.split(",")],
+                          zero=True) if gs.state_sharded else None)
+        del snap
+        if multi:
+            dist.barrier()
+        res.ckpt.setdefault("save_s", []).append(time.perf_counter() - t0)
+        if rank0:
+            path = args.ckpt if args.ckpt.endswith(".npz") \
+                else args.ckpt + ".npz"
+            res.ckpt["bytes"] = os.path.getsize(path)
+
+    start_step = 0
+    if args.resume:
+        t0 = time.perf_counter()
+        snap = _ckpt_snapshot(args.ckpt, model)
+        state = ST.restore_state(snap, cfg, axes, tools, topts, model)
+        start_step = snap["step"] + 1
+        del snap
+        res.ckpt["restore_s"] = time.perf_counter() - t0
+        say(f"resumed {args.ckpt} at step {start_step - 1} "
+            f"(mesh {args.mesh})")
+    res.first_step = start_step
     data = SyntheticText(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=args.seq,
                                     global_batch=args.batch))
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    tokens = args.batch * args.seq
-    res = TrainResult([], [], [], tokens, n_params, None)
     ops.reset_launches()
     M.reset_comm()
-    for step in range(args.steps):
+    GS.reset_dp_sync()
+    last = args.steps if stop_after is None else min(
+        args.steps, start_step + stop_after)
+    for step in range(start_step, last):
         batch = ST.stripe_batch(
             {k: torch.from_numpy(v).to(dev) for k, v in
              make_batch(cfg, step, data, dtype=np.float32).items()}, axes)
-        comm0 = copy.deepcopy((M.COMM, M.COMM_AXES, M.HOPS))
+        comm0 = copy.deepcopy((M.COMM, M.COMM_AXES, M.HOPS, GS.DP_SYNC))
         t0 = time.perf_counter()
         metrics = step_fn(model, state, batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
         if cuda:
             torch.cuda.synchronize(dev)
         res.step_s.append(time.perf_counter() - t0)
-        by_kind, by_axis, hops = (
+        by_kind, by_axis, hops, dp_sync = (
             {k: {n: c[n] - before.get(k, {}).get(n, 0) for n in c}
              for k, c in now.items()}
-            for now, before in zip((M.COMM, M.COMM_AXES, M.HOPS), comm0))
+            for now, before in zip((M.COMM, M.COMM_AXES, M.HOPS,
+                                    GS.DP_SYNC), comm0))
         res.comm_by_kind.append(by_kind)
         res.comm_by_axis.append(by_axis)
         res.hops_by_axis.append(hops)
+        res.dp_sync.append(dp_sync)
         res.comm_s.append(sum(c["seconds"] for c in by_kind.values()))
         res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
@@ -258,26 +360,36 @@ def _train(args, axes, cfg, run, overlap) -> TrainResult:
                 f"({res.step_s[-1] * 1e3:.1f} ms"
                 + (f", comm {res.comm_s[-1] * 1e3:.1f} ms"
                    if multi else "") + ")")
+        if (args.ckpt and args.ckpt_every > 0 and step > 0
+                and step % args.ckpt_every == 0):
+            save_checkpoint(step)
     res.launches = ops.launches()
     if cuda:
         res.max_memory_bytes = torch.cuda.max_memory_allocated(dev)
+    # the final save comes after the timed window
+    if args.ckpt and res.losses:
+        save_checkpoint(start_step + len(res.losses) - 1)
+        say("saved", args.ckpt)
     mine = dict(rank=run["rank"], device=str(dev), comm_s=res.comm_s,
                 comm_bytes=res.comm_bytes, comm_by_kind=res.comm_by_kind,
                 comm_by_axis=res.comm_by_axis,
                 hops_by_axis=res.hops_by_axis,
                 max_memory_bytes=res.max_memory_bytes,
-                launches=res.launches,
+                launches=res.launches, dp_sync=res.dp_sync,
+                state_bytes=res.state_bytes,
                 param_sha256=param_sha256(model) if multi else None)
     res.ranks = [mine]
     if multi:
         res.ranks = [None] * run["world"]
         dist.all_gather_object(res.ranks, mine)
-    say("final loss:", res.losses[-1])
+    if res.losses:
+        say("final loss:", res.losses[-1])
     say(json.dumps({"train": dict(
         arch=cfg.name, mesh=args.mesh, backend=args.backend if multi
-        else None, losses=res.losses, grad_norms=res.grad_norms,
+        else None, zero=args.zero, first_step=start_step,
+        losses=res.losses, grad_norms=res.grad_norms,
         step_s=res.step_s, tokens_per_step=tokens, n_params=n_params,
-        ranks=res.ranks)}))
+        ckpt=res.ckpt, ranks=res.ranks)}))
     return res
 
 

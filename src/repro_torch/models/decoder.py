@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
 from repro_torch.core.overlap import OverlapConfig
+from repro_torch.kernels import ops
 from repro_torch.layers import attention as A
 from repro_torch.layers.mamba import Mamba, mamba_state_spec
 from repro_torch.layers.mlp import MLP
@@ -126,11 +127,10 @@ class Decoder(nn.Module):
         ``"decode"`` and ``"decode_seqshard"``: ``pools`` is the list of
         per-layer caches of :func:`decoder_cache_specs`, updated in
         place."""
-        if mode == "train" and remat and remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r} is not ported to PyTorch "
-                f"yet (only 'full'): it waits for the ROADMAP.md §1 item "
-                f"'training on the multi-rank mesh'")
+        if mode == "train" and remat and remat_policy not in ("full",
+                                                              "dots"):
+            raise ValueError(f"remat_policy {remat_policy!r}: 'full' or "
+                             f"'dots'")
         axes = self.axes
         if axes.gseq > 1 and mode != "train":
             raise NotImplementedError(
@@ -154,7 +154,12 @@ class Decoder(nn.Module):
                 kw["cache"] = {"k": pools["k"][i], "v": pools["v"][i]}
             elif mode in ("prefill", "decode", "decode_seqshard"):
                 kw["cache"] = pools[i]
-            if mode == "train" and remat:
+            if mode == "train" and remat and remat_policy == "dots":
+                tape = ops.K1Tape()
+                h = checkpoint(blk, h, use_reentrant=False,
+                               context_fn=lambda t=tape: (t.record(),
+                                                          t.replay()), **kw)
+            elif mode == "train" and remat:
                 h = checkpoint(blk, h, use_reentrant=False, **kw)
             else:
                 h = blk(h, **kw)

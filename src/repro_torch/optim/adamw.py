@@ -8,6 +8,12 @@ its block of every parameter and of its state. Gradients arrive at
 their layout asks) by the train step. The update is the JAX package's, element by element; it
 runs in place on the state and the parameters (the JAX step returns new
 trees; updating in place saves a copy of the state and the parameters).
+
+:func:`apply_updates_sharded` is the ZeRO-1 variant on top of
+:mod:`repro_torch.core.gradsync`: gradients arrive as data-axis-scattered
+fp32 bucket shards, each rank updates only its ``1/G_data`` slice of the
+fp32 state, and the updated parameters are rebuilt by an all-gather over
+data. The per-element math is :func:`apply_updates`'s, op for op.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Collection, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import gradsync as GS
 from repro_torch.core import mesh as M
 from repro_torch.core.partition import Spec, spec_names
 
@@ -116,5 +123,53 @@ def apply_updates(params: Dict[str, torch.Tensor],
             upd += cfg.weight_decay * st["master"]
         st["master"].sub_(lr * upd)
         p.copy_(st["master"])
+    state["step"] = step + 1
+    return {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def apply_updates_sharded(shards, state, plan, axes: M.MeshAxes,
+                          cfg: AdamWConfig, *,
+                          params: Dict[str, torch.Tensor],
+                          ring: bool = True, rebuild: bool = True):
+    """One ZeRO-1 AdamW step on data-axis-scattered gradient shards.
+
+    ``shards`` are the per-bucket fp32 gradients (already reduced over
+    data/z/y, scaled by 1/microbatches); ``state`` holds m/v/master only
+    for this rank's shard of each bucket (``gradsync.init_sharded_state``)
+    and is updated in place. Element-wise math is identical to
+    :func:`apply_updates`; weight decay uses the plan's per-element
+    group-id masks in place of the per-leaf path check (so it keeps the
+    reference's exemption of every stacked layer leaf, ROADMAP.md §3).
+    The model's parameters ``params`` (name -> tensor) are rebuilt from
+    the updated master shards by an all-gather over data
+    (``gradsync.rebuild_params``). ``rebuild=False`` (ZeRO-3, the new
+    parameters being the cast master shards) is not ported. Returns the
+    metrics {"grad_norm", "lr"}."""
+    if not rebuild:
+        raise NotImplementedError(
+            "apply_updates_sharded(rebuild=False) (ZeRO-3 parameter "
+            "shards) is not ported to PyTorch yet: it waits for the "
+            "ROADMAP.md §1 item 'rest of the training stack'")
+    step = state["step"]
+    lr = lr_at(cfg, step)
+    gnorm = GS.sharded_grad_norm(shards, plan, axes)
+    scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
+             if cfg.grad_clip else 1.0)
+    t = np.float32(step + 1)
+    bc1 = float(1 - np.float32(cfg.b1) ** t)
+    bc2 = float(1 - np.float32(cfg.b2) ** t)
+    for b, g, st in zip(plan.buckets, shards, state["buckets"]):
+        gf = g.float() * scale
+        m = st["m"].mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+        v = st["v"].mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if cfg.weight_decay:
+            mask = GS.decay_mask(b, GS.gid_shard(plan, b, axes,
+                                                 device=g.device))
+            upd += cfg.weight_decay * st["master"] * mask
+        st["master"].sub_(lr * upd)
+    GS.rebuild_params([st["master"] for st in state["buckets"]], plan, axes,
+                      params, ring=ring)
     state["step"] = step + 1
     return {"grad_norm": gnorm, "lr": lr}

@@ -821,3 +821,27 @@ def test_fixed_serving_kernels_match_plain(cuda):
     assert after["selective_scan"] - before["selective_scan"] == 7 * GEN
     assert after["flash_attention"] - before["flash_attention"] == 1
     assert after["paged_attention"] - before["paged_attention"] == GEN - 1
+
+
+def test_remat_dots_is_full_bitwise_with_fewer_k1_launches(cuda):
+    """Remat policy "dots" on the card at the reduced size: the loss and
+    every gradient bitwise "full"'s, and per microbatch 21 K1 products a
+    layer where "full" launches 28 (the recompute launches none)."""
+    from repro_torch.models.decoder import lm_loss
+    cfg = get_config("qwen3-1.7b").reduced()
+    gen = torch.Generator().manual_seed(1)
+    tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 64),
+                                    generator=gen).cuda() for _ in range(2))
+    runs = {}
+    for policy in ("full", "dots"):
+        model = ST.init_model(cfg, seed=0, device="cuda")
+        n = block_matmul_kernel.launches
+        loss, _ = lm_loss(model, tokens, labels, remat=True,
+                          remat_policy=policy)
+        loss.backward()
+        runs[policy] = (float(loss.detach()), block_matmul_kernel.launches - n,
+                        [p.grad for p in model.parameters()])
+    (lf, kf, gf), (ld, kd, gd) = runs["full"], runs["dots"]
+    assert lf == ld and all(torch.equal(a, b) for a, b in zip(gf, gd))
+    L = cfg.n_layers
+    assert (kf, kd) == (28 * L + 3, 21 * L + 3)

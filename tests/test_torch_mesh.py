@@ -44,6 +44,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
+from repro_torch.core.gradsync import GradSyncConfig
 from repro_torch.core.mesh import MeshAxes
 from repro_torch.core.partition import param_spec
 from repro_torch.launch import serve
@@ -697,12 +698,13 @@ def test_training_on_the_tensor_axes_takes_the_overlapped_schedule():
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(gradsync="zero"), "rest of the training stack")])
+    (dict(gradsync=GradSyncConfig(zero3=True)), "rest of the training stack")])
 def test_training_on_the_tensor_axes_is_refused(opts, item):
     """Training on the tensor axes runs the blocking or the overlapped
     schedule (``tests/test_torch_mesh_train.py``,
-    ``tests/test_torch_overlap.py``); the sharded gradient sync stays
-    refused there, naming its ROADMAP item."""
+    ``tests/test_torch_overlap.py``) and the bucketed sync and ZeRO-1
+    (``tests/test_torch_gradsync.py``); ZeRO-3's parameter streaming
+    stays refused there, naming its ROADMAP item."""
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config(ARCH).reduced()
     axes = MeshAxes((1, 2, 1, 1))

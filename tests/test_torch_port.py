@@ -1,6 +1,7 @@
 """The port's boundaries: what it imports, where its entry points run,
 what it refuses, and its copies of the JAX package's numpy-only modules."""
 import ast
+import dataclasses
 import itertools
 import math
 import pathlib
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.gradsync import GradSyncConfig
 from repro_torch.core.mesh import MeshAxes
 from repro_torch.core.overlap import OverlapConfig
 from repro_torch.launch import serve
@@ -147,11 +149,8 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--zero"], "rest of the training stack"),
     (["--zero3"], "rest of the training stack"),
-    (["--ckpt", "run.npz"], "rest of the training stack"),
-    (["--ckpt-every", "5"], "rest of the training stack"),
-    (["--resume"], "rest of the training stack"),
+    (["--zero3-prefetch"], "rest of the training stack"),
     (["--chaos", "seed=0"], "runtime tooling"),
     (["--probe-every", "2"], "runtime tooling"),
     (["--telemetry"], "runtime tooling"),
@@ -175,8 +174,7 @@ def test_train_on_a_mesh_needs_its_ranks(mesh):
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(gradsync="zero"), "rest of the training stack"),
-    (dict(remat_policy="dots"), "training on the multi-rank mesh")])
+    (dict(gradsync=GradSyncConfig(zero3=True)), "rest of the training stack")])
 def test_train_step_refuses_what_is_not_ported(opts, item):
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config("qwen3-1.7b").reduced()
@@ -264,6 +262,19 @@ def test_overlap_config_copy_matches_the_jax_package():
     ours = (PORT / "core" / "overlap.py").read_bytes()
     theirs = (ROOT / "src" / "repro" / "core" / "overlap.py").read_bytes()
     assert ours == theirs
+
+
+def test_gradsync_config_copy_matches_the_jax_package():
+    """core/gradsync.py's GradSyncConfig is a copy of the reference's
+    class: the same source, fields, defaults and properties."""
+    import inspect
+
+    from repro.core import gradsync as JGS
+    assert inspect.getsource(GradSyncConfig) == inspect.getsource(
+        JGS.GradSyncConfig)
+    assert [(f.name, f.default) for f in dataclasses.fields(GradSyncConfig)
+            ] == [(f.name, f.default)
+                  for f in dataclasses.fields(JGS.GradSyncConfig)]
 
 
 def test_serving_records_no_graph():

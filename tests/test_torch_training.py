@@ -291,9 +291,9 @@ def test_remat_changes_no_gradient(models):
 OPT_CFG = dict(lr=1e-3, warmup_steps=1, total_steps=50)
 
 
-def _jax_trajectory(jcfg, tree, batch, jax_mesh, steps):
+def _jax_trajectory(jcfg, tree, batch, jax_mesh, steps, **topts):
     """conftest.train_smoke's step on the smoke mesh: (loss, grad_norm)
-    per step."""
+    per step; ``topts``: more TrainOptions (remat_policy)."""
     mesh, axes = jax_mesh
     _, specs = JST.init_model(jcfg, axes, abstract=True, dtype=jnp.float32)
     params = JST.device_put_tree(mesh, jax.tree.map(jnp.asarray, tree),
@@ -301,7 +301,7 @@ def _jax_trajectory(jcfg, tree, batch, jax_mesh, steps):
     state = JOPT.init_state(params)
     step_fn, _, _ = JST.make_train_step(
         jcfg, mesh, axes, JOPT.AdamWConfig(**OPT_CFG),
-        JST.TrainOptions(overdecompose=2, dtype=jnp.float32))
+        JST.TrainOptions(overdecompose=2, dtype=jnp.float32, **topts))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     out = []
     for _ in range(steps):
@@ -334,6 +334,55 @@ def test_three_step_trajectory_matches_make_train_step(models, jax_mesh):
             JOPT.AdamWConfig(**OPT_CFG), i)), rel=1e-7)
     assert want[2][0] < want[0][0]
     assert state["step"] == 3
+
+
+def test_remat_dots_is_full_bitwise_and_matches_jax_dots(models, jax_mesh,
+                                                         monkeypatch):
+    """Remat policy "dots" keeps each K1 product of a block's forward for
+    its recompute: the loss and every gradient are bitwise "full"'s, with
+    7 of the 28 products a layer fewer; its 3-step trajectory matches the
+    JAX step's under "dots" (``dots_with_no_batch_dims_saveable``) within
+    the trajectory bounds."""
+    from repro_torch.kernels import ops
+    _, tree, tcfg = models
+    tokens, labels = map(torch.from_numpy, _batch(tcfg.vocab_size, seed=1))
+    plain, calls = ops.block_matmul_plain, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+    monkeypatch.setattr(ops, "block_matmul_plain", counted)
+    runs = {}
+    for policy in ("full", "dots"):
+        model = convert.params_from_jax(tree, tcfg, "cpu")
+        calls[0] = 0
+        loss, _ = D.lm_loss(model, tokens, labels, remat=True,
+                            remat_policy=policy)
+        loss.backward()
+        runs[policy] = (float(loss.detach()), calls[0],
+                        [p.grad for p in model.parameters()])
+    (lf, cf, gf), (ld, cd, gd) = runs["full"], runs["dots"]
+    assert lf == ld and all(torch.equal(a, b) for a, b in zip(gf, gd))
+    L = tcfg.n_layers
+    assert (cf, cd) == (28 * L + 3, 21 * L + 3)
+    monkeypatch.undo()
+    jcfg = models[0]
+    rng = np.random.RandomState(0)
+    batch = {k: rng.randint(0, tcfg.vocab_size, (8, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    want = _jax_trajectory(jcfg, tree, batch, jax_mesh, 3,
+                           remat_policy="dots")
+    model = convert.params_from_jax(tree, tcfg, "cpu")
+    state = OPT.init_state(dict(model.named_parameters()))
+    step = ST.make_train_step(tcfg, MeshAxes(), OPT.AdamWConfig(**OPT_CFG),
+                              ST.TrainOptions(overdecompose=2,
+                                              dtype=torch.float32,
+                                              remat_policy="dots"))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for i, (jloss, jgn) in enumerate(want):
+        m = step(model, state, tb)
+        assert abs(float(m["loss"]) - jloss) <= TRAJ_RTOL * abs(jloss), i
+        assert abs(float(m["grad_norm"]) - jgn) <= TRAJ_RTOL * jgn, i
 
 
 def test_decay_set_matches_jax(models):
