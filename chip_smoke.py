@@ -84,10 +84,13 @@ a hard failure:
      block fully masks keeps its carry bit for bit; two runs give the same
      bits), K4's times (the backward chain also replayed from a CUDA
      graph); then ``launch/train.py --mesh 1,1,1,1,2`` as two
-     gloo ranks sharing the card under ``torch.distributed.run`` (qwen3-1.7b
-     at full width and depth, the flags, seed and data of phase 8): losses
-     within 1e-3 of phase 8's, both ranks' parameters bitwise equal, each
-     kernel's launches per rank exactly the code's per microbatch;
+     gloo ranks sharing the card under ``torch.distributed.run``
+     (qwen3-1.7b at full width and MESH_LAYERS layers, full depth until
+     phase 16 took its place in the script's time; the flags, seed and
+     data of phase 8), in one launch with 13b's run: losses within 1e-3 of
+     one card's run of the same model (run first), both ranks' parameters
+     bitwise equal, each kernel's launches per rank exactly the code's per
+     microbatch;
  11. serving on the 4D mesh (1,2,2,1): four gloo ranks sharing the card
      under ``torch.distributed.run``, each holding its shard of every
      weight. First phase 5's sequences fed whole (teacher-forced) through
@@ -122,7 +125,7 @@ a hard failure:
      calls per step and axis the code's (``mesh_train_hops``), its step
      time, exposed comm seconds and bytes by axis beside 12a's; (b) phase
      10's run with the seq ring (``OverlapConfig(ring_attention=True)``):
-     losses held to phase 8's and phase 10's, both ranks bitwise equal,
+     losses held to one card's and phase 10's, both ranks bitwise equal,
      K4's launches and the seq hops the code's, beside phase 10's; (c)
      ``serve.py --mesh 1,2,2,1 --mode fixed --overlap`` with phase 11's
      flags: the teacher-forced logits under the schedule within
@@ -145,23 +148,36 @@ a hard failure:
      by axis the code's;
  15. the rest of the training stack: (a) ``train.py --zero`` (bucketed
      data-parallel sync, ZeRO-1 AdamW state) of qwen3-1.7b at full width
-     and ZERO_LAYERS layers on (2,2,2,1), eight gloo ranks on the card,
-     phase 8's flags for 2 steps: held to phase 8's first two steps by
+     and MESH_LAYERS layers on (2,2,2,1), after 12b in its launch, phase
+     8's flags for 2 steps: held to one card's run of the same model by
      MESH_TRAIN_TOL, the data replicas of every block bitwise equal, each
      rank's peak memory, data-axis reduce-scatter/all-gather calls and
-     bytes, optimizer-state bytes and step time logged; (b) checkpoint and
-     resume at ``--preset 100m``: run A 3 of 4 steps on (2,1,2,1) with
-     ``--zero --ckpt`` (``train.main(stop_after=3)``), run B ``--resume``
-     on (1,1,2,1) without ``--zero`` for the 4th, run C the 4 steps on one
-     card; A's and B's losses within MESH_TRAIN_TOL's later-step bound of
-     C's, the file verified, its bytes and the save and restore seconds
-     logged (the file lives in a temporary directory, removed after); (c)
-     remat policy "dots" through ``make_train_step`` at phase 8's shape:
-     losses bitwise phase 8's and those of "full" through the same step,
-     the parameters after 3 steps bitwise "full"'s, K1 21L + 3 a
-     microbatch (28L + 3 under "full"), step time and peak memory beside
-     phase 8's;
- 16. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+     bytes, optimizer-state bytes and step time logged; (b) checkpoints at
+     ``--preset 100m``: run A 3 of 4 steps on (2,1,2,1) with ``--zero
+     --ckpt`` (``train.main(stop_after=3)``), run C the 4 steps on one
+     card; A's losses within MESH_TRAIN_TOL's later-step bound of C's, the
+     file verified, its bytes and save seconds logged (files live in a
+     temporary directory, removed after); (c) remat policy "dots" through
+     ``make_train_step`` at phase 8's shape: losses bitwise phase 8's
+     ("full"), K1 21L + 3 a microbatch (28L + 3 under "full"), step time
+     and peak memory beside phase 8's;
+ 16. ZeRO-3: (a) ``train.py --zero3`` of qwen3-1.7b at full width and
+     depth on (8,1,1,1), where ZeRO-1 cannot fit, batch 8 x 512 in one
+     microbatch a rank, 2 steps, eight gloo ranks, then (b) ``--zero3
+     --zero3-prefetch`` for one step in the same launch: both held to one
+     card's run of the same batch (four microbatches, run first) by
+     MESH_TRAIN_TOL, (b)'s step bitwise (a)'s first, each run's gathered
+     parameters hashing alike on every rank, K1 28L + 3 a microbatch, the
+     data axis's bytes a step exactly the leaf plan's count by the copied
+     ``comm_model.dp_sync_volume`` (streamed layers 3 passes, 2 with
+     prefetch: (b)'s 2/3 of (a)'s), each rank's peak device and host
+     memory, shard and state bytes, calls, bytes and exposed seconds by
+     kind logged; (c) in 15b's launches, run A 3 of 4 steps with
+     ``--zero3 --ckpt`` on (4,1,1,1), run B ``--resume`` with ``--zero``
+     on (2,1,2,1) for the 4th (in 15b's A's launch): A's and B's losses
+     within MESH_TRAIN_TOL's later-step bound of 15b's C, the file
+     verified, restore seconds logged;
+ 17. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -219,18 +235,23 @@ FIXED_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset", "full",
                "--batch", "4", "--prompt-len", "512", "--gen", "32",
                "--seed", str(SEED)]
 # phase 15: 15a trains with --zero on (2,2,2,1) at full width and
-# ZERO_LAYERS layers (28: full depth), phase 8's flags for 2 steps; 15b
-# checkpoints and resumes at --preset 100m across meshes; 15c trains phase
-# 8's run under remat "dots"
+# MESH_LAYERS layers (full depth until phase 16's ZeRO-3 took its place in
+# the script's time), phase 8's flags for 2 steps, in 12b's launch; 15b
+# checkpoints at --preset 100m; 15c trains phase 8's run under remat
+# "dots"
 ZERO_MESH = "2,2,2,1"
-ZERO_LAYERS = 28
 ZERO_STEPS = 2
+
+
+def with_flag(flags, flag, value):
+    """``flags`` with ``flag`` set to ``value``."""
+    i = flags.index(flag)
+    return [*flags[:i], flag, str(value), *flags[i + 2:]]
 
 
 def with_steps(flags, steps):
     """``flags`` with ``--steps`` set to ``steps``."""
-    i = flags.index("--steps")
-    return [*flags[:i], "--steps", str(steps), *flags[i + 2:]]
+    return with_flag(flags, "--steps", steps)
 
 
 ZERO_FLAGS = with_steps(TRAIN_FLAGS, ZERO_STEPS) + [
@@ -238,8 +259,25 @@ ZERO_FLAGS = with_steps(TRAIN_FLAGS, ZERO_STEPS) + [
 CKPT_FLAGS = ["--arch", ARCH, "--preset", "100m", "--steps", "4",
               "--batch", "4", "--seq", "512", "--overdecompose", "2",
               "--dtype", "float32", "--log-every", "1"]
-CKPT_A_MESH, CKPT_B_MESH = "2,1,2,1", "1,1,2,1"
+CKPT_A_MESH = "2,1,2,1"
 CKPT_A_STEPS = 3
+# phase 16: ZeRO-3 on (8,1,1,1) at full width and depth, where ZeRO-1
+# cannot fit (16.0 GiB a rank); 16a without prefetch for ZERO3_STEPS
+# steps, then 16b with it for one, in one launch of eight ranks, held to
+# one card's run of the same batch (ZERO3_ONE_FLAGS: four microbatches of
+# phase 8's size, so it fits); 16c a ZeRO-3 checkpoint at --preset 100m
+# on (4,1,1,1) (run A, 3 of 4 steps; one microbatch, as one row a rank
+# does not split) resumed with --zero on (2,1,2,1)
+ZERO3_MESH = "8,1,1,1"
+ZERO3_RANKS = 8
+ZERO3_STEPS = 2
+ZERO3_ONE_FLAGS = with_flag(with_flag(with_steps(
+    TRAIN_FLAGS, ZERO3_STEPS), "--batch", 8), "--overdecompose", 4)
+ZERO3_FLAGS = with_flag(ZERO3_ONE_FLAGS, "--overdecompose", 1) + [
+    "--mesh", ZERO3_MESH, "--backend", "gloo", "--zero3"]
+ZERO3_PREFETCH_FLAGS = with_steps(ZERO3_FLAGS, 1) + ["--zero3-prefetch"]
+ZERO3_CKPT_A_MESH = "4,1,1,1"
+ZERO3_CKPT_B_MESH = CKPT_A_MESH
 # K3's timed shapes (rows, d): the serving step's norm1/norm2 (8 slots) and
 # qk-norm rows (8 x 16 heads); training's norm1/norm2 per microbatch (2 x
 # 512 tokens) and its q-norm rows (x 16 heads); Jamba's prefill (4 x 512)
@@ -351,8 +389,7 @@ SEQ_P = 2
 PARTIAL_MAIN = (2, 512 // SEQ_P, 16, 8, 128, SEQ_P)
 PARTIAL_WINDOWS = (0, 128)
 SEQ_FLAGS = TRAIN_FLAGS + ["--mesh", f"1,1,1,1,{SEQ_P}", "--backend", "gloo"]
-SEQ_TIMEOUT_S = 600
-# the seq run's losses against phase 8's, absolute: the reference holds
+# the seq run's losses against one card's, absolute: the reference holds
 # seq-parallel against unsharded training to the same 1e-3
 # (tests/test_ring_attention.py::test_train_loss_parity_seq_vs_unsharded)
 SEQ_LOSS_TOL = 1e-3
@@ -397,7 +434,7 @@ MESH_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "later_loss": 1e-3}
 MESH_TRAIN_DIR = ROOT / "build" / "chip_smoke_mesh_train"
 # the overlapped schedule (phase 13): 13a trains with
 # OverlapConfig.all_on() on MESH_TRAIN, 13b with the seq ring alone on
-# phase 10's mesh at full depth (train.py has no flag for the schedule:
+# phase 10's mesh at MESH_LAYERS (train.py has no flag for the schedule:
 # both run ``train.main`` in ``chip_smoke.py --mesh-train-worker DIR
 # WHICH``), 13c serves MESH_FIXED_FLAGS with --overlap; step 1 against one
 # card's (relative), later losses absolute; the overlapped serving's
@@ -1627,6 +1664,20 @@ def phase_train_parity(cfg):
         raise AssertionError("kernel gradients disagree with plain")
 
 
+def train_launch_counts(cfg):
+    """Each kernel's launches per microbatch of the training step on one
+    card (or a rank of a mesh with x, y and z 1): K1 = forward 7L + 1
+    (tied head), remat recompute 7L, backward 2 (dX, dW) x (7L + 1); K2
+    forward + recompute 2L, backward L; K3 = 4L + 1 forward (norm1, norm2,
+    q/k-norm; final) + 4L recompute; no other kernel."""
+    L = cfg.n_layers
+    return {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
+            "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
+            "paged_attention": 0, "paged_attention_combine": 0,
+            "selective_scan": 0, "partial_attention": 0,
+            "partial_attention_bwd": 0}
+
+
 def phase_train(cfg, smi):
     """The port's training entry point at full width, kernels counted."""
     from repro_torch.kernels import ops
@@ -1637,18 +1688,9 @@ def phase_train(cfg, smi):
     launches = ops.launches()
     if not all(math.isfinite(x) for x in res.losses + res.grad_norms):
         raise AssertionError("non-finite loss or grad norm")
-    L = cfg.n_layers
-    # per microbatch: K1 = forward 7L + 1 (tied head), remat recompute 7L,
-    # backward 2 (dX, dW) x (7L + 1); K2 forward + recompute 2L, backward
-    # L; K3 = 4L + 1 forward (norm1, norm2, q/k-norm; final) + 4L recompute
-    per_mb = {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
-              "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
-              "paged_attention": 0, "paged_attention_combine": 0,
-              "selective_scan": 0, "partial_attention": 0,
-              "partial_attention_bwd": 0}
     args = train.build_parser().parse_args(TRAIN_FLAGS)
-    check_launches(launches, per_mb, args.steps * args.overdecompose,
-                   "microbatch")
+    check_launches(launches, train_launch_counts(cfg),
+                   args.steps * args.overdecompose, "microbatch")
     steady = res.step_s[1:] or res.step_s
     step_s = sum(steady) / len(steady)
     tok_s = res.tokens_per_step / step_s
@@ -2046,22 +2088,17 @@ def launch_ranks(args, label, ranks, timeout, env=None):
     return lines
 
 
-def train_report(lines):
-    """Rank 0's ``{"train"}`` report among a training run's lines."""
-    return json.loads([ln for ln in lines
-                       if ln.startswith('{"train"')][-1])["train"]
-
-
 def phase_seq_train(cfg, smi, losses_one_card):
-    """``launch/train.py`` on a seq axis of 2: two gloo ranks on this card,
-    started by torch.distributed.run, each holding the whole model and
-    half of every sequence."""
+    """``launch/train.py``'s run on a seq axis of 2 (``train.train_on`` in
+    the mesh-train worker): two gloo ranks on this card, each holding the
+    whole model (``cfg``, MESH_LAYERS layers) and half of every sequence,
+    held to one card's losses of the same model; 13b's run follows in the
+    launch."""
     from repro_torch.launch import train
-    rep = train_report(launch_ranks(
-        ["-m", "repro_torch.launch.train", *SEQ_FLAGS], "seq train", SEQ_P,
-        SEQ_TIMEOUT_S))
+    rep = run_mesh_train("seq", "seq train, then 13b's (seq ring)", SEQ_P,
+                         then=("seq-overlap",))
     log(f"  losses {rep['losses']}, "
-        f"one card (phase 8) {losses_one_card}")
+        f"one card {losses_one_card}")
     gap = max(abs(a - b) for a, b in zip(rep["losses"], losses_one_card))
     if not (len(rep["losses"]) == len(losses_one_card)
             and all(math.isfinite(x) for x in rep["losses"])
@@ -2744,16 +2781,16 @@ def phase_overlap_train(cfg, smi, one, blocking):
 
 def phase_overlap_seq(cfg, smi, one, blocking):
     """13b: phase 10's run with the seq ring (``OverlapConfig(
-    ring_attention=True)``), two gloo ranks on this card: losses within
-    SEQ_LOSS_TOL of phase 8's and of phase 10's (``blocking``), both
-    ranks' parameters bitwise equal, K4 forward and backward launches per
-    hop the code's, the seq hops and blocking calls the code's, and the
-    exposed seq seconds beside phase 10's."""
+    ring_attention=True)``), two gloo ranks on this card (after phase 10
+    in its launch): losses within SEQ_LOSS_TOL of one card's run ``one``
+    of the same model and of phase 10's (``blocking``), both ranks'
+    parameters bitwise equal, K4 forward and backward launches per hop the
+    code's, the seq hops and blocking calls the code's, and the exposed
+    seq seconds beside phase 10's."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import mesh_axes
-    rep = run_mesh_train("seq-overlap", "overlap seq train (seq ring)",
-                         SEQ_P)
-    for ref, losses in (("phase 8", one.losses),
+    rep = mesh_train_report("seq-overlap")
+    for ref, losses in (("one card", one.losses),
                         ("phase 10", blocking["losses"])):
         gap = max(abs(a - b) for a, b in zip(rep["losses"], losses))
         log(f"  losses {rep['losses']} against {ref}'s {losses}: max "
@@ -2793,7 +2830,9 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     under torch.distributed.run): ``train.train_on`` with the flags, depth
     and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
     "mesh-overlap": 13a, "seq-overlap": 13b, "zero": 15a, "ckpt-a": 15b's
-    run A, which checkpoints into ``outdir``; several runs on one mesh
+    run A, which checkpoints into ``outdir``, "zero3": 16a,
+    "zero3-prefetch": 16b, "zero3-ckpt-a" and "zero3-ckpt-b": 16c's runs A
+    and B, through ``outdir``'s "zero3.npz"; several runs on one mesh
     joined by "+", one after the other on the mesh set up once, each
     run's memory freed before the next); rank 0 saves each run's
     report."""
@@ -2808,13 +2847,24 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
         "data": (MESH_DATA_FLAGS, MESH_LAYERS, blocking, None),
         "mesh-overlap": (MESH_TRAIN_FLAGS, MESH_LAYERS,
                          OverlapConfig.all_on(), None),
-        "seq-overlap": (SEQ_FLAGS, None, OverlapConfig(ring_attention=True),
-                        None),
-        "zero": (ZERO_FLAGS, ZERO_LAYERS, blocking, None),
+        "seq": (SEQ_FLAGS, MESH_LAYERS, blocking, None),
+        "seq-overlap": (SEQ_FLAGS, MESH_LAYERS,
+                        OverlapConfig(ring_attention=True), None),
+        "zero": (ZERO_FLAGS, MESH_LAYERS, blocking, None),
         "ckpt-a": (CKPT_FLAGS + ["--mesh", CKPT_A_MESH, "--backend", "gloo",
                                  "--zero", "--ckpt",
                                  str(outdir / "ckpt.npz")], None, blocking,
-                   CKPT_A_STEPS)}
+                   CKPT_A_STEPS),
+        "zero3": (ZERO3_FLAGS, None, blocking, None),
+        "zero3-prefetch": (ZERO3_PREFETCH_FLAGS, None, blocking, None),
+        "zero3-ckpt-a": (with_flag(CKPT_FLAGS, "--overdecompose", 1) + [
+            "--mesh", ZERO3_CKPT_A_MESH, "--backend", "gloo", "--zero3",
+            "--ckpt", str(outdir / "zero3.npz")], None, blocking,
+            CKPT_A_STEPS),
+        "zero3-ckpt-b": (CKPT_FLAGS + [
+            "--mesh", ZERO3_CKPT_B_MESH, "--backend", "gloo", "--zero",
+            "--ckpt", str(outdir / "zero3.npz"), "--resume"], None,
+            blocking, None)}
     names = which.split("+")
     parser = train.build_parser()
     first = parser.parse_args(runs[names[0]][0])
@@ -2834,7 +2884,7 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
                     losses=res.losses, grad_norms=res.grad_norms,
                     step_s=res.step_s, tokens_per_step=res.tokens_per_step,
                     n_params=res.n_params, ckpt=res.ckpt,
-                    ranks=res.ranks)))
+                    first_step=res.first_step, ranks=res.ranks)))
             del res
             gc.collect()
             if torch.cuda.is_available():
@@ -2877,8 +2927,14 @@ def phase_mesh_data(cfg, smi, one):
     replicas of every block end bitwise equal, and the run matches one
     card's run ``one`` of the same model."""
     from repro_torch.launch.mesh import mesh_axes
+    # 15a's run follows in the same launch; eight ranks' caching
+    # allocators share the card: segments that grow in place keep each
+    # one's reserve near its allocation
     rep = run_mesh_train("data", f"mesh train data ({MESH_DATA}, "
-                         f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS)
+                         f"{MESH_LAYERS} layers), then 15a's --zero",
+                         MESH_TRAIN_RANKS, then=("zero",),
+                         env={"PYTORCH_CUDA_ALLOC_CONF":
+                              "expandable_segments:True"})
     check_mesh_losses(rep, one, f"({MESH_DATA}) against one card")
     axes = mesh_axes(MESH_DATA)
     blocks = {}
@@ -3222,20 +3278,15 @@ def log_data_axis(r):
 
 def phase_zero_train(cfg, smi, one):
     """15a: ``train.py --zero`` on (2,2,2,1), eight gloo ranks on this
-    card, at full width and ZERO_LAYERS layers, held to phase 8's run
-    ``one`` for its ZERO_STEPS steps; the data replicas bitwise equal."""
+    card, at full width and MESH_LAYERS layers (``cfg``; run after 12b in
+    its launch), held to one card's run ``one`` of the same model for its
+    ZERO_STEPS steps; the data replicas bitwise equal."""
     import types
     from repro_torch.launch.mesh import mesh_axes
-    # a launch of its own, so each rank's peak is this run's alone; eight
-    # ranks' caching allocators share the card: segments that grow in
-    # place keep each one's reserve near its allocation
-    rep = run_mesh_train("zero", f"zero train ({ZERO_MESH}, {ZERO_LAYERS} "
-                         f"layers, --zero)", MESH_TRAIN_RANKS,
-                         env={"PYTORCH_CUDA_ALLOC_CONF":
-                              "expandable_segments:True"})
+    rep = mesh_train_report("zero")
     check_mesh_losses(rep, types.SimpleNamespace(
         losses=one.losses[:ZERO_STEPS], grad_norms=one.grad_norms[
-            :ZERO_STEPS]), f"({ZERO_MESH}) --zero against phase 8")
+            :ZERO_STEPS]), f"({ZERO_MESH}) --zero against one card")
     axes = mesh_axes(ZERO_MESH)
     blocks = {}
     for r in rep["ranks"]:
@@ -3261,58 +3312,77 @@ def phase_zero_train(cfg, smi, one):
         f"{rep['n_params'] / 1e9:.3f} B parameters, on {smi}")
 
 
+def verify_ckpt(path, run):
+    """Verify the checkpoint ``path`` that ``run`` (a launch's report)
+    saved after its step CKPT_A_STEPS - 1; log its size and times."""
+    from repro_torch.checkpoint import ckpt
+    t0 = time.perf_counter()
+    info = ckpt.verify(str(path))
+    verify_s = time.perf_counter() - t0
+    log(f"  {path.name}: verify {info}, {verify_s:.3f} s; "
+        f"{path.stat().st_size} bytes ({path.stat().st_size / 2**20:.1f} "
+        f"MiB); save {[round(x, 3) for x in run['ckpt']['save_s']]} s "
+        f"(rank 0)")
+    if not (info["checksummed"] and info["step"] == CKPT_A_STEPS - 1):
+        raise AssertionError(f"checkpoint {info}")
+
+
 def phase_ckpt_resume(smi):
-    """15b: run A (3 of 4 steps, --zero --ckpt, (2,1,2,1)), run B
-    (--resume without --zero on (1,1,2,1)), run C (4 steps, one card) at
-    --preset 100m; the file verified and removed after."""
+    """15b and 16c at --preset 100m: 16c's run A (3 of 4 steps, --zero3
+    --ckpt, (4,1,1,1)); then one launch on (2,1,2,1) of 15b's run A (3 of
+    4 steps, --zero --ckpt) and 16c's run B (A's ZeRO-3 file resumed with
+    --zero for the 4th step); run C, the 4 steps on one card. Each file
+    verified; both removed after. (15b's run B, a resume without --zero
+    on (1,1,2,1), is cut for the script's time: 16c's B resumes across
+    modes and meshes.)"""
     import shutil
     import tempfile
-    from repro_torch.checkpoint import ckpt
     from repro_torch.launch import train
     outdir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
                                    dir=ROOT / "build"))
     try:
+        z3a = run_mesh_train("zero3-ckpt-a", f"zero3 ckpt A "
+                             f"({ZERO3_CKPT_A_MESH}, --zero3 --ckpt, "
+                             f"{CKPT_A_STEPS} of 4 steps)", 4, outdir)
+        verify_ckpt(outdir / "zero3.npz", z3a)
         a = run_mesh_train("ckpt-a", f"ckpt A ({CKPT_A_MESH}, --zero "
-                           f"--ckpt, {CKPT_A_STEPS} of 4 steps)", 4, outdir)
-        path = outdir / "ckpt.npz"
-        t0 = time.perf_counter()
-        info = ckpt.verify(str(path))
-        verify_s = time.perf_counter() - t0
-        log(f"  verify: {info}, {verify_s:.3f} s; {path.stat().st_size} "
-            f"bytes ({path.stat().st_size / 2**20:.1f} MiB); save "
-            f"{[round(x, 3) for x in a['ckpt']['save_s']]} s (rank 0)")
-        if not (info["checksummed"] and info["step"] == CKPT_A_STEPS - 1):
-            raise AssertionError(f"checkpoint {info}")
-        b = train_report(launch_ranks(
-            ["-m", "repro_torch.launch.train", *CKPT_FLAGS, "--mesh",
-             CKPT_B_MESH, "--backend", "gloo", "--ckpt", str(path),
-             "--resume"], f"ckpt B (--resume on {CKPT_B_MESH})", 2,
-            MESH_TRAIN_TIMEOUT_S))
+                           f"--ckpt, {CKPT_A_STEPS} of 4 steps), then zero3 "
+                           f"ckpt B (--resume with --zero)", 4, outdir,
+                           then=("zero3-ckpt-b",))
+        z3b = mesh_train_report("zero3-ckpt-b", outdir)
+        verify_ckpt(outdir / "ckpt.npz", a)
         free_memory()
         log(f"[ckpt C] one card, python -m repro_torch.launch.train "
             f"{' '.join(CKPT_FLAGS)}")
         c = train.main(CKPT_FLAGS)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
-    log(f"  A {a['losses']} (steps 0-{CKPT_A_STEPS - 1}), B {b['losses']} "
-        f"(from step {b['first_step']}), C {c.losses}")
     later = MESH_TRAIN_TOL["later_loss"]
-    gaps = [abs(x - y) for x, y in zip(a["losses"] + b["losses"], c.losses)]
-    log(f"  max |loss - C| {max(gaps):.3e} (tol {later:g}); B's step "
-        f"{b['first_step']}: {b['losses'][0]!r} against C's "
-        f"{c.losses[-1]!r}; restore {b['ckpt']['restore_s']:.3f} s, B's "
-        f"final save {b['ckpt']['save_s']} s, {b['ckpt']['bytes']} bytes "
-        f"on {smi}")
-    if not (b["first_step"] == CKPT_A_STEPS and len(gaps) == 4
+    gaps = [abs(x - y) for x, y in zip(a["losses"], c.losses)]
+    log(f"  15b: A {a['losses']} (steps 0-{CKPT_A_STEPS - 1}), C {c.losses};"
+        f" max |loss - C| {max(gaps):.3e} (tol {later:g})")
+    if not (len(gaps) == CKPT_A_STEPS and max(gaps) <= later):
+        raise AssertionError("15b's run A differs from one card's")
+    gaps = [abs(x - y) for x, y in zip(z3a["losses"] + z3b["losses"],
+                                       c.losses)]
+    same = z3b["losses"][0] == c.losses[-1]
+    log(f"  16c: A {z3a['losses']} (steps 0-{CKPT_A_STEPS - 1}), B "
+        f"{z3b['losses']} (from step {z3b['first_step']}); max |loss - C| "
+        f"{max(gaps):.3e} (tol {later:g}); B's step {z3b['first_step']} "
+        f"{z3b['losses'][0]!r} against C's {c.losses[-1]!r} "
+        f"({'bitwise' if same else 'not bitwise'}); restore "
+        f"{z3b['ckpt']['restore_s']:.3f} s, on {smi}")
+    if not (z3b["first_step"] == CKPT_A_STEPS and len(gaps) == 4
             and max(gaps) <= later):
         raise AssertionError("the resumed run differs from the "
                              "uninterrupted one")
 
 
 def phase_dots_train(cfg, smi, one, one_launches):
-    """15c: phase 8's run through ``make_train_step`` under remat "full"
-    and then "dots": losses bitwise phase 8's and each other's, the
-    parameters bitwise, K1 21L + 3 a microbatch under "dots"."""
+    """15c: phase 8's run through ``make_train_step`` under remat "dots":
+    losses bitwise phase 8's ("full"), K1 21L + 3 a microbatch. (The
+    same run under "full", whose parameters the "dots" run's were held
+    to bitwise, is cut for the script's time.)"""
     from repro_torch.core.mesh import MeshAxes
     from repro_torch.data.synthetic import DataConfig, SyntheticText, \
         make_batch
@@ -3329,7 +3399,7 @@ def phase_dots_train(cfg, smi, one, one_launches):
                       total_steps=args.steps)
     from repro_torch.models.decoder import lm_loss
     runs = {}
-    for policy in ("full", "dots"):
+    for policy in ("dots",):
         free_memory()
         model = ST.init_model(cfg, seed=0, device="cuda")
         # one microbatch of the first batch alone: what the forward leaves
@@ -3368,9 +3438,8 @@ def phase_dots_train(cfg, smi, one, one_launches):
         launches = ops.launches()
         peak = torch.cuda.max_memory_allocated()
         del state
-        # the parameters wait on the host for the comparison, so the next
-        # run's peak counts its own model alone
-        runs[policy] = (losses, times, launches, peak, model.cpu())
+        runs[policy] = (losses, times, launches, peak)
+        del model
         log(f"  [{policy}] losses {losses}, step times "
             f"{[round(x, 4) for x in times]} s, K1 "
             f"{launches['block_matmul'] / (args.steps * args.overdecompose):g}"
@@ -3378,10 +3447,8 @@ def phase_dots_train(cfg, smi, one, one_launches):
             f"one microbatch's forward keeps {probe[0] / 2**30:.3f} GiB "
             f"(K1 tapes {probe[1] / 2**30:.3f}), its forward and backward "
             f"peak {probe[2] / 2**30:.3f} GiB above the parameters")
-    (lf, tf, kf, pf, mf), (ld, td, kd, pd, md) = runs["full"], runs["dots"]
-    same = all(torch.equal(a, b) for a, b in zip(mf.parameters(),
-                                                  md.parameters()))
-    del runs, mf, md
+    ld, td, kd, pd = runs["dots"]
+    del runs
     free_memory()
     L = cfg.n_layers
     per_mb = {"block_matmul": 21 * L + 3, "flash_attention": 2 * L,
@@ -3390,20 +3457,141 @@ def phase_dots_train(cfg, smi, one, one_launches):
                    "microbatch")
     units = args.steps * args.overdecompose
     steady = lambda t: sum(t[1:]) / len(t[1:])  # noqa: E731
-    same_losses = ld == lf == one.losses
+    same_losses = ld == one.losses
+    pf = one.max_memory_bytes
     log(f"  dots: losses {'bitwise equal' if same_losses else 'DIFFER'}"
-        f" to full's and phase 8's; parameters after {args.steps} steps "
-        f"{'bitwise equal' if same else 'DIFFER'}; K1 a microbatch "
-        f"{kd['block_matmul'] / units:g} against full's "
-        f"{kf['block_matmul'] / units:g} and phase 8's "
+        f" to phase 8's (remat 'full'); K1 a microbatch "
+        f"{kd['block_matmul'] / units:g} against phase 8's "
         f"{one_launches['block_matmul'] / units:g}; steady step "
-        f"{steady(td):.4f} s against full's {steady(tf):.4f} s and phase 8's "
-        f"{steady(one.step_s):.4f} s; max_memory_allocated "
-        f"{pd / 2**30:.2f} GiB against {pf / 2**30:.2f} GiB "
-        f"(+{(pd - pf) / 2**30:.2f}; phase 8 "
-        f"{one.max_memory_bytes / 2**30:.2f} GiB) on {smi}")
-    if not (same_losses and same):
+        f"{steady(td):.4f} s against phase 8's {steady(one.step_s):.4f} s; "
+        f"max_memory_allocated {pd / 2**30:.2f} GiB against phase 8's "
+        f"{pf / 2**30:.2f} GiB (+{(pd - pf) / 2**30:.2f}) on {smi}")
+    if not same_losses:
         raise AssertionError("remat 'dots' differs from 'full'")
+
+
+# ---------------------------------------------------------------------- #
+# phase 16: ZeRO-3 parameter-shard streaming, with and without prefetch
+# ---------------------------------------------------------------------- #
+
+def zero3_volumes(cfg):
+    """(bytes, streamed bytes) the data axis counts a rank and step (each
+    hop's bytes sent and received) in 16a and 16b, by the copied
+    ``comm_model.dp_sync_volume`` over the leaf plan's padded buffers: a
+    streamed leaf (one that stacks layers) 3 passes a microbatch, 2 with
+    prefetch; a resident one 2. The plan is that of a ZeRO-3 model drawn
+    on this card (its shards alone, 0.80 GiB), freed after."""
+    import dataclasses
+    from repro_torch.core import comm_model as CM
+    from repro_torch.core.gradsync import GradSyncConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    axes = mesh_axes(ZERO3_MESH)
+    model = ST.init_model(cfg, axes, seed=SEED, device="cuda", zero3=True)
+    out = {}
+    for which, flags in (("zero3", ZERO3_FLAGS),
+                         ("zero3-prefetch", ZERO3_PREFETCH_FLAGS)):
+        args = train.build_parser().parse_args(flags)
+        gs = GradSyncConfig(zero3=True, prefetch=args.zero3_prefetch,
+                            bucket_mb=args.dp_bucket_mb)
+        plan = ST.train_plan(dict(model.named_parameters()), cfg, axes, gs)
+        vol = {True: 0.0, False: 0.0}
+        for b in plan.buckets:
+            streamed = b.stack > 1
+            mine = gs if streamed else dataclasses.replace(gs, prefetch=True)
+            vol[streamed] += CM.dp_sync_volume(
+                axes.dp, b.padded * b.stack, mine, args.overdecompose)
+        out[which] = (2 * 4 * (vol[True] + vol[False]), 2 * 4 * vol[True])
+    del model
+    free_memory()
+    return out
+
+
+def phase_zero3_train(cfg, smi):
+    """16a and 16b: ``train.py --zero3`` on (8,1,1,1) at full width and
+    depth for ZERO3_STEPS steps, then ``--zero3 --zero3-prefetch`` for one,
+    eight gloo ranks on this card in one launch; both held to one card's
+    run of the same batch (taken first in this process, its memory freed
+    before the launch); 16b's step bitwise 16a's first; every rank's
+    gathered parameters hashing alike; K1 28L + 3 a microbatch; the data
+    axis's bytes the plan's count (``zero3_volumes``)."""
+    import types
+    from repro_torch.launch import train
+    import resource
+    want = zero3_volumes(cfg)
+    log(f"  this process's peak host RSS so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+        f" GiB")
+    log(f"[zero3 one card] python -m repro_torch.launch.train "
+        f"{' '.join(ZERO3_ONE_FLAGS)}")
+    one = train.main(ZERO3_ONE_FLAGS)
+    one_peak = one.max_memory_bytes
+    free_memory()
+    rep = run_mesh_train("zero3", f"zero3 train ({ZERO3_MESH}, full depth, "
+                         f"--zero3; then --zero3-prefetch)", ZERO3_RANKS,
+                         env={"PYTORCH_CUDA_ALLOC_CONF":
+                              "expandable_segments:True"},
+                         then=("zero3-prefetch",))
+    pre = mesh_train_report("zero3-prefetch")
+    check_mesh_losses(rep, one, f"({ZERO3_MESH}) --zero3 against one card")
+    check_mesh_losses(pre, types.SimpleNamespace(
+        losses=one.losses[:1], grad_norms=one.grad_norms[:1]),
+        f"({ZERO3_MESH}) --zero3 --zero3-prefetch against one card")
+    log(f"  one card: step times {[round(x, 3) for x in one.step_s]} s, "
+        f"max_memory_allocated {one_peak / 2**30:.2f} GiB")
+    same = (pre["losses"][0] == rep["losses"][0]
+            and pre["grad_norms"][0] == rep["grad_norms"][0])
+    log(f"  16b's step {pre['losses'][0]!r} / {pre['grad_norms'][0]!r} "
+        f"against 16a's first {rep['losses'][0]!r} / "
+        f"{rep['grad_norms'][0]!r}: {'bitwise' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("prefetch changed the step")
+    args = train.build_parser().parse_args(ZERO3_FLAGS)
+    units = {"zero3": args.steps * args.overdecompose, "zero3-prefetch": 1}
+    counted = {}
+    for which, r_ in (("zero3", rep), ("zero3-prefetch", pre)):
+        hashes = {r["param_sha256"] for r in r_["ranks"]}
+        log(f"  [{which}] the {len(r_['ranks'])} ranks' gathered parameters"
+            f" hash {'alike' if len(hashes) == 1 else 'APART'}: "
+            f"{sorted(hashes)[0][:16]}")
+        if len(hashes) != 1:
+            raise AssertionError(f"{which}: the ranks' parameters differ")
+        total, streamed = want[which]
+        for r in sorted(r_["ranks"], key=lambda r: r["rank"]):
+            sb = r["state_bytes"]
+            log(f"  rank {r['rank']}: max_memory_allocated "
+                f"{r['max_memory_bytes'] / 2**30:.2f} GiB; parameter shards "
+                f"{sb['params'] / 2**30:.3f} GiB, optimizer state "
+                f"{sb['opt_state'] / 2**30:.3f} GiB; peak host RSS "
+                f"{r['max_rss_bytes'] / 2**30:.2f} GiB")
+            check_launches(r["launches"], train_launch_counts(cfg),
+                           units[which], "microbatch")
+            for i, (dp, t) in enumerate(zip(r["dp_sync"], r_["step_s"])):
+                got = sum(c["bytes"] for c in dp.values())
+                secs = sum(c["seconds"] for c in dp.values())
+                log(f"    step {i}: " + ", ".join(
+                    f"{k} {c['calls']} calls {c['bytes'] / 1e9:.3f} GB "
+                    f"{c['seconds']:.3f} s" for k, c in sorted(dp.items()))
+                    + f"; data axis {got / 1e9:.3f} GB (the plan's "
+                    f"{total / 1e9:.3f}), {secs:.3f} s exposed of a "
+                    f"{t:.3f} s step ({100 * secs / t:.1f}%)")
+                if got != total:
+                    raise AssertionError(f"{which} rank {r['rank']} step {i}"
+                                         f": data-axis bytes {got}, the "
+                                         f"plan's {total}")
+        counted[which] = streamed
+        steady = r_["step_s"][1:] or r_["step_s"]
+        log(f"  [{which}] rank 0 step times "
+            f"{[round(x, 3) for x in r_['step_s']]} s; steady "
+            f"{sum(steady) / len(steady):.3f} s, {r_['n_params'] / 1e9:.3f} B "
+            f"parameters, on {smi}")
+    ratio = counted["zero3-prefetch"] / counted["zero3"]
+    log(f"  streamed leaves' data-axis bytes a step: 16b "
+        f"{counted['zero3-prefetch'] / 1e9:.3f} GB against 16a's "
+        f"{counted['zero3'] / 1e9:.3f} GB ({ratio:.4f}; 2/3 expected)")
+    if abs(ratio - 2 / 3) > 1e-9:
+        raise AssertionError("prefetch did not drop remat's re-gather")
 
 
 def free_memory():
@@ -3468,19 +3656,20 @@ def main() -> int:
     phase_kernels_partial(gen, errs)
     phase_timings_partial(gen, times)
     free_memory()
-    seq_launches_run, seq_rep = phase_seq_train(cfg, smi, train_res.losses)
+    from repro_torch.launch import train
+    cut = cut_config(cfg)
+    log(f"[mesh train] one card, the {MESH_LAYERS}-layer model of phases "
+        f"10, 12, 13a, 13b and 15a, phase 8's flags")
+    one_cut = train.main(TRAIN_FLAGS, cfg=cut)
+    free_memory()
+    seq_launches_run, seq_rep = phase_seq_train(cut, smi, one_cut.losses)
     free_memory()
     mesh_launches_run, mesh_fixed = phase_mesh_serve(cfg, smi, mesh_expect)
     free_memory()
-    from repro_torch.launch import train
-    cut = cut_config(cfg)
-    log(f"[mesh train] one card, the {MESH_LAYERS}-layer model of phases 12 "
-        f"and 13a, phase 8's flags")
-    one_cut = train.main(TRAIN_FLAGS, cfg=cut)
     _, mesh_train_rep = phase_mesh_train(cut, smi, one_cut)
     phase_mesh_data(cut, smi, one_cut)
     phase_overlap_train(cut, smi, one_cut, mesh_train_rep)
-    phase_overlap_seq(cfg, smi, train_res, seq_rep)
+    phase_overlap_seq(cut, smi, one_cut, seq_rep)
     free_memory()
     phase_overlap_serve(cfg, smi, mesh_expect, mesh_fixed)
     free_memory()
@@ -3489,11 +3678,13 @@ def main() -> int:
     free_memory()
     phase_long_context(hcfg, smi)
     free_memory()
-    phase_zero_train(cfg, smi, train_res)
+    phase_zero_train(cut, smi, one_cut)
     phase_ckpt_resume(smi)
     free_memory()
     log("[dots] remat 'dots' through make_train_step, phase 8's run")
     phase_dots_train(cfg, smi, train_res, train_launches)
+    free_memory()
+    phase_zero3_train(cfg, smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;

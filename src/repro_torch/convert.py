@@ -199,18 +199,19 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _stacked_tree(model: Decoder, get, keep: bool):
-    """{JAX path: global leaf} of ``get(name)`` (a tensor of this rank's
-    block of each parameter), the layers of a stacked leaf stacked in
-    period order; None unless ``keep``."""
+def _stacked_tree(model: Decoder, items, keep: bool):
+    """{JAX path (+ "/" + key where one is given): global leaf} of
+    ``items``, (parameter name, key or None, this rank's block) triples in
+    any order, each block converted as it comes; the layers of a stacked
+    leaf stacked in period order. None unless ``keep``."""
     cfg, axes = model.cfg, model.axes
     layers: Dict[str, Dict[int, np.ndarray]] = {}
     flat: Dict[str, Any] = {}
-    for name, _ in model.named_parameters():
-        full = _global(get(name), axes, param_spec(name))
+    for name, key, block in items:
+        full = _global(block, axes, param_spec(name))
         if not keep:
             continue
-        path = jax_path(name, cfg)
+        path = jax_path(name, cfg) + ("" if key is None else f"/{key}")
         if name.startswith("layers."):
             layers.setdefault(path, {})[_slot(name, cfg)[2]] = \
                 _to_numpy(full)
@@ -223,32 +224,46 @@ def _stacked_tree(model: Decoder, get, keep: bool):
     return flat
 
 
-def params_to_jax(model: Decoder, *, keep: bool = True):
+def params_to_jax(model: Decoder, *, keep: bool = True, blocks=None):
     """The model's parameters as the JAX tree of ``repro.launch.steps.
     init_model`` (global, layer-stacked numpy leaves): each rank's blocks
-    gathered over their spec's axes. Every rank of the mesh calls it; with
-    ``keep`` False this rank returns None (only the writer keeps the
-    arrays)."""
-    params = dict(model.named_parameters())
-    flat = _stacked_tree(model, lambda n: params[n], keep)
+    gathered over their spec's axes. ``blocks``: (name, this rank's
+    block) pairs in place of the model's parameters (under ZeRO-3 each
+    gathered from its shard as it is reached). Every rank of the mesh
+    calls it; with ``keep`` False this rank returns None (only the writer
+    keeps the arrays)."""
+    pairs = model.named_parameters() if blocks is None else blocks
+    flat = _stacked_tree(model, ((n, None, b) for n, b in pairs), keep)
     return None if flat is None else _nest(flat)
 
 
 def opt_state_to_jax(state, model: Decoder, *, keep: bool = True):
     """The replicated-layout AdamW state of ``adamw.init_state`` ({"opt":
-    {name: {"m", "v", "master"}}, "step"}, this rank's blocks) as the
-    reference's ``init_state`` tree: {"opt": the params' tree with each
-    leaf a {"m", "v", "master"} dict, "step": int32 0-d}, global and
-    stacked. Collective, as :func:`params_to_jax`."""
-    flat = {}
-    for k in ("m", "v", "master"):
-        part = _stacked_tree(model, lambda n: state["opt"][n][k], keep)
-        if part is not None:
-            flat.update({f"{path}/{k}": v for path, v in part.items()})
+    {name: {"m", "v", "master"}}, "step"}, this rank's blocks; "opt" may
+    also be an iterable of (name, {"m", "v", "master"}) pairs in any
+    order, such as ``gradsync.iter_full_state``'s, each converted as it
+    comes) as the reference's ``init_state`` tree: {"opt": the params'
+    tree with each leaf a {"m", "v", "master"} dict, "step": int32 0-d},
+    global and stacked. Collective, as :func:`params_to_jax`."""
+    opt = state["opt"]
+    pairs = opt.items() if isinstance(opt, dict) else opt
+    flat = _stacked_tree(model, ((n, k, st[k]) for n, st in pairs
+                                 for k in ("m", "v", "master")), keep)
     if not keep:
         return None
     return {"opt": _nest(flat),
             "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def param_blocks_from_jax(model: Decoder, tree: Dict[str, Any],
+                          rank: int = None):
+    """(name, rank ``rank``'s (default: this process's) block of it) for
+    each of the model's parameters, from the JAX tree's global leaves: CPU
+    views, one at a time."""
+    rank = M.process_rank() if rank is None else rank
+    flat = _flat_tree(tree)
+    for name, _ in model.named_parameters():
+        yield name, _block(flat, name, model.cfg, model.axes, rank)
 
 
 @torch.no_grad()
@@ -256,20 +271,19 @@ def load_params_from_jax(model: Decoder, tree: Dict[str, Any],
                          rank: int = None) -> None:
     """Copy rank ``rank``'s (default: this process's) blocks of the JAX
     tree's global leaves into the model's parameters, in place."""
-    rank = M.process_rank() if rank is None else rank
-    flat = _flat_tree(tree)
-    for name, p in model.named_parameters():
-        p.copy_(_block(flat, name, model.cfg, model.axes, rank))
+    params = dict(model.named_parameters())
+    for name, block in param_blocks_from_jax(model, tree, rank):
+        params[name].copy_(block)
 
 
 def opt_state_from_jax(tree: Dict[str, Any], model: Decoder,
-                       rank: int = None):
+                       rank: int = None, *, device=None):
     """The inverse of :func:`opt_state_to_jax` on rank ``rank`` (default:
     this process's): {"opt": {name: {"m", "v", "master"}}, "step": int},
-    fp32 blocks on the model's device."""
+    fp32 blocks on ``device`` (default: the model's)."""
     rank = M.process_rank() if rank is None else rank
     flat = _flat_tree_opt(tree["opt"])
-    dev = model.embed.device
+    dev = model.device if device is None else torch.device(device)
     opt = {}
     for name, _ in model.named_parameters():
         opt[name] = {k: _block(flat[k], name, model.cfg, model.axes, rank

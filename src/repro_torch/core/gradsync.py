@@ -36,9 +36,19 @@ not. Their leaves keep the reference's class (so the plan and its
 fingerprint are the reference's); :func:`tensor_reduce_shards` psums their
 elements over y within their bucket.
 
-ZeRO-3 (``zero3``, ``prefetch``; ``make_leaf_plan``, ``ParamStreamer``,
-the shard/unshard helpers) is not ported: ``launch/steps.make_train_step``
-refuses it, naming the ROADMAP.md §1 item 'rest of the training stack'.
+ZeRO-3 (``zero3``): the parameters themselves live as 1/G_data shards.
+:func:`make_leaf_plan` makes one bucket a JAX leaf, a stacked leaf sharded
+per layer (its state is ``(stack, padded/dp)``, row i layer i's); the
+port keeps each parameter's shard as a 1-D tensor of ``padded/dp``
+elements (:func:`shard_tensor`, row i of the reference's shard for layer
+i). :func:`gather_param_leaf` assembles a working copy over data (an
+autograd Function whose backward reduce-scatters the gradient over data,
+the JAX transpose); :class:`ParamStreamer` is the policy the model's
+forward follows: which leaves stream layer by layer, and with
+``prefetch`` layer i+1's exchange posted before layer i computes
+(``mesh.GatherAsync``) and the copy kept on the host for the backward.
+The update writes the cast masters into the shards
+(:func:`shards_to_tree`); no collective.
 """
 from __future__ import annotations
 
@@ -53,9 +63,12 @@ import torch
 from repro_torch.core import mesh as M
 
 # this process's data-axis traffic of the bucketed sync, by kind
-# ("reduce_scatter": the gradients' buckets, "all_gather": the gathered
-# gradients or the rebuilt parameters): {"calls": one a bucket, "bytes"
-# and "seconds": the data axis's counts in mesh.COMM_AXES over those calls}
+# ("reduce_scatter": the gradients' buckets, or under ZeRO-3 a leaf's
+# gradient in the gather's backward; "all_gather": the gathered gradients,
+# the rebuilt parameters, or under ZeRO-3 a leaf's working copy in the
+# forward; "regather": under ZeRO-3 a streamed leaf gathered again by
+# remat's recompute): {"calls": one a bucket or leaf, "bytes" and
+# "seconds": the data axis's counts in mesh.COMM_AXES over those calls}
 DP_SYNC: Dict[str, Dict[str, float]] = {}
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
@@ -248,10 +261,11 @@ class Segment:
 
 @dataclasses.dataclass(eq=False)
 class Bucket:
-    """A flat ``(padded,)`` fp32 buffer of whole leaves (the gradient plan;
-    the reference's stacked ``stack > 1`` buckets belong to ZeRO-3's leaf
-    plan, not ported). ``group_of[k]`` is segment k's group in
-    ``groups``; :attr:`gid` spells it out per element."""
+    """A flat ``(padded,)`` fp32 buffer of whole leaves (the gradient
+    plan), or in ZeRO-3's leaf plan one leaf, ``(stack, padded)`` when it
+    stacks ``stack`` layers (each row one layer's, padded on its own).
+    ``group_of[k]`` is segment k's group in ``groups``; :attr:`gid` spells
+    it out per element of a row."""
 
     segments: Tuple[Segment, ...]
     size: int                 # unpadded elements
@@ -285,6 +299,12 @@ class BucketPlan:
     def shard_sizes(self) -> Tuple[int, ...]:
         """Per-rank fp32 elements per bucket, per stack slot."""
         return tuple(b.padded // self.dp for b in self.buckets)
+
+    @property
+    def shard_elements(self) -> int:
+        """Per-rank fp32 elements of every bucket's shard, stacks
+        included (the size of each of m, v and master)."""
+        return sum(b.padded // self.dp * b.stack for b in self.buckets)
 
     @property
     def total_elements(self) -> int:
@@ -394,6 +414,39 @@ def make_plan(leaves: Sequence[Leaf], axes: M.MeshAxes, bucket_bytes: int,
                       n_leaves=len(leaves))
 
 
+def make_leaf_plan(leaves: Sequence[Leaf], axes: M.MeshAxes, *,
+                   no_decay: Optional[Callable[[str], bool]] = None
+                   ) -> BucketPlan:
+    """The ZeRO-3 parameter-shard layout: one bucket a leaf, in the JAX
+    tree's order (``plan.buckets[i]`` <-> ``plan.leaves[i]``). A leaf that
+    stacks more than one layer (its path under ``segments/``) is sharded
+    per stack slot: bucket ``stack`` is its layer count, ``size`` and
+    ``padded`` one layer's, so each layer's shard is its own
+    ``padded // dp`` elements. A segment of one period (``n_periods ==
+    1``) plans as unstacked, its shape keeping the leading 1, as the
+    reference's ``_stack_of`` does. The per-element metadata, the state's
+    helpers and the checkpoint's gather and scatter work on this plan as
+    on :func:`make_plan`'s."""
+    dp = max(axes.dp, 1)
+    done: List[Bucket] = []
+    for i, lf in enumerate(leaves):
+        stack = lf.shape[0] if _stacked(lf) and lf.shape[0] > 1 else 1
+        slot = tuple(lf.shape[1:]) if stack > 1 else tuple(lf.shape)
+        size = math.prod(slot)
+        meta = GroupMeta(decay=(no_decay is None or not no_decay(lf.path)),
+                         norm_names=_norm_names(lf.spec))
+        done.append(Bucket(
+            segments=(Segment(leaf=i, offset=0, size=size, shape=slot),),
+            size=size, padded=-(-size // dp) * dp,
+            z_reduced=bool(lf.z_reduced), y_reduce=bool(lf.y_reduce),
+            dtype=lf.dtype, groups=(meta,), group_of=(0,),
+            y_heads=(((0, size),) if lf.y_heads and not lf.y_reduce
+                     else ()),
+            stack=stack))
+    return BucketPlan(buckets=tuple(done), leaves=tuple(leaves), dp=dp,
+                      n_leaves=len(leaves))
+
+
 # ---------------------------------------------------------------------- #
 # flatten / unflatten (this rank's local blocks)
 # ---------------------------------------------------------------------- #
@@ -402,8 +455,17 @@ def make_plan(leaves: Sequence[Leaf], axes: M.MeshAxes, bucket_bytes: int,
 def flatten_bucket(tensors: Dict[str, torch.Tensor], bucket: Bucket,
                    plan: BucketPlan, *, dtype=torch.float32) -> torch.Tensor:
     """Concat the bucket's leaves (raveled, a stacked leaf's layers in
-    period order, cast) + zero padding: ``(padded,)``. ``tensors``: port
-    parameter name -> tensor (parameters or their gradients)."""
+    period order, cast) + zero padding: ``(padded,)``; a leaf-plan bucket
+    of ``stack`` layers gives ``(stack, padded)``, a row a layer.
+    ``tensors``: port parameter name -> tensor (parameters or their
+    gradients)."""
+    if bucket.stack > 1:
+        names = plan.leaves[bucket.segments[0].leaf].names
+        out = torch.zeros((bucket.stack, bucket.padded), dtype=dtype,
+                          device=tensors[names[0]].device)
+        for k, n in enumerate(names):
+            out[k, :bucket.size] = tensors[n].reshape(-1)
+        return out
     parts = [tensors[n].reshape(-1)
              for s in bucket.segments for n in plan.leaves[s.leaf].names]
     if bucket.padded > bucket.size:
@@ -415,7 +477,11 @@ def flatten_bucket(tensors: Dict[str, torch.Tensor], bucket: Bucket,
 def unflatten_bucket(flat: torch.Tensor, bucket: Bucket, plan: BucketPlan
                      ) -> List[Tuple[str, torch.Tensor]]:
     """Full (padded) flat bucket -> [(port parameter name, view of its
-    local shape)]."""
+    local shape)]; a stacked bucket's row k is its layer k's."""
+    if bucket.stack > 1:
+        lf = plan.leaves[bucket.segments[0].leaf]
+        return [(n, flat[k, :bucket.size].view(_local_shape(lf)))
+                for k, n in enumerate(lf.names)]
     out = []
     for s in bucket.segments:
         lf = plan.leaves[s.leaf]
@@ -502,11 +568,11 @@ def _psum_ranges(shard, plan, bucket, axes):
     if not cuts:
         # the y ranks share this shard's index, so each skips alike
         return shard
-    pieces = torch.cat([shard[a:b] for a, b in cuts])
+    pieces = torch.cat([shard[..., a:b] for a, b in cuts], dim=-1)
     summed = M.psum(pieces, axes, "y")
     out, k = shard.clone(), 0
     for a, b in cuts:
-        out[a:b] = summed[k:k + b - a]
+        out[..., a:b] = summed[..., k:k + b - a]
         k += b - a
     return out
 
@@ -545,6 +611,185 @@ def rebuild_params(master_shards: Sequence[torch.Tensor], plan: BucketPlan,
             full = _gather(s.to(b.dtype), axes, ring)
         for n, arr in unflatten_bucket(full, b, plan):
             params[n].copy_(arr)
+
+
+# ---------------------------------------------------------------------- #
+# ZeRO-3 parameter-shard streaming (leaf plans, make_leaf_plan)
+# ---------------------------------------------------------------------- #
+
+def shard_tensor(t: torch.Tensor, axes: M.MeshAxes) -> torch.Tensor:
+    """This rank's ZeRO-3 shard of one local parameter ``t``: its raveled
+    elements zero-padded to a multiple of g_data, block
+    ``flat_ring_index(data)`` of ``ceil(numel / g_data)`` elements, in
+    t's dtype, on t's device (a new tensor; the padded whole is never
+    built). For a layer of a stacked leaf this is row ``layer`` of the
+    reference's ``(stack, padded/dp)`` shard."""
+    flat = t.detach().reshape(-1)
+    n = flat.numel()
+    ln = -(-n // max(axes.dp, 1))
+    lo = _shard_index(axes) * ln
+    out = flat.new_zeros((ln,))
+    if min(lo + ln, n) > lo:
+        out[:min(lo + ln, n) - lo] = flat[lo:lo + ln]
+    return out
+
+
+def shard_params(params: Dict[str, torch.Tensor], axes: M.MeshAxes
+                 ) -> Dict[str, torch.Tensor]:
+    """Full local parameters (name -> tensor) -> this rank's shard of
+    each (:func:`shard_tensor`)."""
+    return {n: shard_tensor(p, axes) for n, p in params.items()}
+
+
+def leaf_shapes(plan: BucketPlan) -> Dict[str, Tuple[int, ...]]:
+    """Each port parameter's local shape, by name."""
+    return {n: _local_shape(lf) for lf in plan.leaves for n in lf.names}
+
+
+class _Fetch:
+    """Where one leaf's working copy comes from each time the forward or
+    remat's recompute asks for it (a call returns the ``(padded,)`` whole
+    on the shard's device): a gather over data, counted "all_gather" the
+    first time and "regather" after; or an exchange posted earlier
+    (``pending``, a ``mesh.GatherAsync``), counted "all_gather" when it
+    lands, whose host copy is kept and copied back for each later call
+    with no collective."""
+
+    def __init__(self, shard, axes: M.MeshAxes, ring: bool, pending=None):
+        self.shard, self.axes, self.ring = shard.detach(), axes, ring
+        self.pending, self.kept, self.calls = pending, None, 0
+
+    def __call__(self) -> torch.Tensor:
+        self.calls += 1
+        if self.kept is not None:
+            return self.kept.to(self.shard.device)
+        if self.pending is not None:
+            with _Counted("all_gather"):
+                full = self.pending.wait()
+            self.kept, self.pending = self.pending.host, None
+            return full
+        with _Counted("all_gather" if self.calls == 1 else "regather"):
+            return _gather(self.shard, self.axes, self.ring)
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """shard -> the leaf's working copy (``fetch``); backward: the
+    gradient zero-padded and reduce-scattered over data in its own dtype
+    (the JAX transpose of the gather), counted "reduce_scatter"."""
+
+    @staticmethod
+    def forward(ctx, shard, fetch, shape, axes, ring):
+        n = math.prod(shape)
+        full = fetch()
+        ctx.meta = (n, full.shape[-1], axes, ring)
+        out = full[:n].view(shape)
+        return out.clone() if out.data_ptr() == shard.data_ptr() else out
+
+    @staticmethod
+    def backward(ctx, g):
+        n, padded, axes, ring = ctx.meta
+        if padded == n:
+            flat = g.reshape(-1)
+        else:
+            flat = g.new_zeros((padded,))
+            flat[:n] = g.reshape(-1)
+        with _Counted("reduce_scatter"):
+            if ring:
+                out = M.ring_reduce_scatter(flat, axes, "data", dim=-1)
+            else:
+                out = M.psum_scatter(flat, axes, "data", dim=-1)
+        return out, None, None, None, None
+
+
+def gather_param_leaf(shard: torch.Tensor, shape, axes: M.MeshAxes, *,
+                      ring: bool = True, fetch=None) -> torch.Tensor:
+    """Assemble one leaf's working copy (its local ``shape``) from this
+    rank's shard: gathered over data (a ring of ``ppermute`` hops, the z
+    rings' send-right convention, or the blocking gather), trimmed and
+    reshaped; ``fetch`` (a :class:`_Fetch`) says where the whole comes
+    from instead. Differentiable: the backward reduce-scatters the
+    gradient over data, so the data-parallel sync falls out of autograd
+    and the shard's ``.grad`` is this rank's block of the data sum."""
+    fetch = fetch or _Fetch(shard, axes, ring)
+    return _GatherLeaf.apply(shard, fetch, tuple(shape), axes, ring)
+
+
+@torch.no_grad()
+def unshard_params(shards: Dict[str, torch.Tensor], plan: BucketPlan,
+                   axes: M.MeshAxes, *, ring: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+    """Shards -> full local parameters (name -> tensor; the checkpoint
+    path and the escape back to the replicated layout)."""
+    shapes = leaf_shapes(plan)
+    return {n: gather_param_leaf(s, shapes[n], axes, ring=ring)
+            for n, s in shards.items()}
+
+
+@torch.no_grad()
+def shards_to_tree(masters: Sequence[torch.Tensor], plan: BucketPlan,
+                   shards: Dict[str, torch.Tensor]) -> None:
+    """Write the updated fp32 master shards (bucket order) into the
+    parameter shards ``shards`` (name -> tensor), cast to each leaf's
+    dtype, in place: ZeRO-3's replacement for :func:`rebuild_params`, with
+    no collective (the new parameters are the shards)."""
+    for b, m in zip(plan.buckets, masters):
+        names = plan.leaves[b.segments[0].leaf].names
+        for k, n in enumerate(names):
+            shards[n].copy_(m[k] if b.stack > 1 else m)
+
+
+@dataclasses.dataclass(eq=False)
+class ParamStreamer:
+    """The ZeRO-3 policy a train step hands to the model's forward
+    (``decoder.lm_loss(..., pstream=...)``): which parameters stream
+    layer by layer (those of a leaf that stacks layers, bucket ``stack >
+    1``) and which are gathered once a microbatch, outside remat
+    (:meth:`resident`: the embedding, the final norm, an untied head, the
+    layers of a one-period segment), how the gathers run (``ring``), and
+    ``prefetch``.
+
+    Without prefetch the forward gathers each streamed layer inside its
+    rematerialized block: released after the layer, gathered again by
+    the recompute, then reduce-scattered by the backward (3 data passes a
+    microbatch). With it, layer i+1's exchanges are posted before layer i
+    computes (:meth:`post`) and the copy that lands is kept on the host
+    for the recompute (2 passes); either way the device holds at most two
+    streamed layers' weights."""
+
+    plan: BucketPlan
+    axes: M.MeshAxes
+    ring: bool = True
+    prefetch: bool = False
+
+    def __post_init__(self):
+        self.shapes = leaf_shapes(self.plan)
+        self._stack = {n: b.stack for b in self.plan.buckets
+                       for n in self.plan.leaves[b.segments[0].leaf].names}
+
+    def streamed(self, name: str) -> bool:
+        return self._stack[name] > 1
+
+    def post(self, shards: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        """Post the exchanges of ``shards`` (name -> shard) now; each
+        lands when :meth:`gather` is given it."""
+        return {n: M.GatherAsync(s, self.axes, "data", ring=self.ring)
+                for n, s in shards.items()}
+
+    def fetcher(self, shard, pending=None) -> _Fetch:
+        """A leaf's source for one microbatch: :func:`gather_param_leaf`'s
+        gather, or the posted exchange ``pending``."""
+        return _Fetch(shard, self.axes, self.ring, pending)
+
+    def gather(self, shard, name: str, fetch=None) -> torch.Tensor:
+        return gather_param_leaf(shard, self.shapes[name], self.axes,
+                                 ring=self.ring, fetch=fetch)
+
+    def resident(self, shards: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Every parameter that does not stream, gathered (in the plan's
+        order)."""
+        return {n: self.gather(shards[n], n) for lf in self.plan.leaves
+                for n in lf.names if not self.streamed(n)}
 
 
 # ---------------------------------------------------------------------- #
@@ -610,7 +855,8 @@ def sharded_grad_norm(shards: Sequence[torch.Tensor], plan: BucketPlan,
 
 def init_sharded_state(params: Dict[str, torch.Tensor], plan: BucketPlan,
                        axes: M.MeshAxes):
-    """m/v/master fp32 shards per bucket + step."""
+    """m/v/master fp32 shards per bucket + step, from the full local
+    parameters (name -> tensor)."""
     buckets = []
     with torch.no_grad():
         for b in plan.buckets:
@@ -622,18 +868,44 @@ def init_sharded_state(params: Dict[str, torch.Tensor], plan: BucketPlan,
     return {"buckets": buckets, "step": 0}
 
 
-def gather_sharded_state(state, plan: BucketPlan, axes: M.MeshAxes):
-    """Sharded state -> the replicated-AdamW layout of
-    ``optim.adamw.init_state`` (per-parameter fp32 m/v/master, data
-    replicated) for checkpointing (blocking gathers: the save path)."""
-    per: Dict[str, dict] = {}
+def init_state_from_shards(shards: Dict[str, torch.Tensor],
+                           plan: BucketPlan):
+    """ZeRO-3's m/v/master per bucket + step from the parameter shards
+    (name -> this rank's shard): the bits :func:`init_sharded_state`
+    makes from the full parameters, with no parameter ever whole."""
+    buckets = []
+    for b in plan.buckets:
+        names = plan.leaves[b.segments[0].leaf].names
+        rows = [shards[n].detach().to(torch.float32, copy=True)
+                for n in names]
+        master = torch.stack(rows) if b.stack > 1 else rows[0]
+        buckets.append({"m": torch.zeros_like(master),
+                        "v": torch.zeros_like(master), "master": master})
+    return {"buckets": buckets, "step": 0}
+
+
+def iter_full_state(state, plan: BucketPlan, axes: M.MeshAxes):
+    """(name, {"m", "v", "master"}) of every parameter in the replicated
+    layout of ``optim.adamw.init_state``, one bucket gathered over data
+    at a time (blocking gathers): the save path holds one bucket's state
+    whole at once, never the model's. Views into that bucket's gathered
+    buffers; every rank of the data axis iterates it to the end."""
     for b, st in zip(plan.buckets, state["buckets"]):
         fulls = {k: M.all_gather(st[k], axes, "data", dim=-1)
                  for k in ("m", "v", "master")}
         views = {k: dict(unflatten_bucket(fulls[k], b, plan))
                  for k in fulls}
         for n in views["m"]:
-            per[n] = {k: views[k][n].clone() for k in ("m", "v", "master")}
+            yield n, {k: views[k][n] for k in ("m", "v", "master")}
+
+
+def gather_sharded_state(state, plan: BucketPlan, axes: M.MeshAxes):
+    """Sharded state -> the replicated-AdamW layout of
+    ``optim.adamw.init_state`` (per-parameter fp32 m/v/master, data
+    replicated), all of it at once (:func:`iter_full_state` a leaf at a
+    time)."""
+    per = {n: {k: t.clone() for k, t in st.items()}
+           for n, st in iter_full_state(state, plan, axes)}
     names = [n for lf in plan.leaves for n in lf.names]
     return {"opt": {n: per[n] for n in names}, "step": state["step"]}
 

@@ -29,7 +29,8 @@ The ring helpers of the overlapped schedule (:func:`ppermute_ring`,
 which does not go through :func:`_run`: it stages a CUDA block on a side
 stream after an event, so the compute stream runs on while the block
 crosses gloo (kind "ppermute"; its seconds are the host's time blocked in
-the hop, the exposed part).
+the hop, the exposed part). :class:`GatherAsync` posts a whole all-gather
+at once and completes it later (ZeRO-3's prefetch).
 """
 from __future__ import annotations
 
@@ -459,6 +460,67 @@ class Hop:
         compute.wait_stream(side)
         out.record_stream(compute)
         return out
+
+
+class GatherAsync:
+    """:func:`all_gather` of ``v`` over ``axis`` along its last dim,
+    posted now and completed by :meth:`wait`, so the caller computes while
+    gloo's threads move the blocks (ZeRO-3's prefetch). ``ring``: each rank
+    sends its block to, and receives a block from, every other rank of
+    the axis, all posted at once (``isend``/``irecv`` under one tag of
+    the group's hop counter): the bytes of :func:`ring_all_gather`'s p - 1
+    hops, counted as p - 1 "ppermute" calls. Otherwise one gloo
+    ``all_gather`` work handle, counted as "all_gather" as :func:`_run`
+    counts it. A CUDA ``v`` is copied to the host first, after the work
+    queued on its stream. After :meth:`wait`, :attr:`host` holds the
+    gathered tensor on the host (``wait(device=False)`` returns it there);
+    the seconds counted are the host's time posting and blocked in
+    :meth:`wait`."""
+
+    def __init__(self, v: torch.Tensor, axes: MeshAxes, axis: Axis, *,
+                 ring: bool = True):
+        t0 = time.perf_counter()
+        self.axis, self.device, self.ring = axis, v.device, ring
+        self.p, self.host = axes.size(axis), None
+        self.send = (v.detach().to("cpu") if v.is_cuda
+                     else v.detach().contiguous())
+        group, self.works = _group(axes, axis), []
+        if group is None:
+            self.parts = [self.send]
+        elif ring:
+            names = _live(axes, axis)
+            ranks, i = _RANKS[names], axis_index(axes, axis)
+            tag = _HOP_TAGS.get(names, 0)
+            _HOP_TAGS[names] = (tag + 1) % (1 << 30)
+            self.parts = [self.send if j == i else torch.empty_like(self.send)
+                          for j in range(self.p)]
+            peers = [j for j in range(self.p) if j != i]
+            self.works = (
+                [dist.isend(self.send, ranks[j], group=group, tag=tag)
+                 for j in peers]
+                + [dist.irecv(self.parts[j], ranks[j], group=group, tag=tag)
+                   for j in peers])
+        else:
+            self.parts = [torch.empty_like(self.send) for _ in range(self.p)]
+            self.works = [dist.all_gather(self.parts, self.send, group=group,
+                                          async_op=True)]
+        self.seconds = time.perf_counter() - t0
+
+    def wait(self, device: bool = True) -> torch.Tensor:
+        t0 = time.perf_counter()
+        for w in self.works:
+            w.wait()
+        self.host = torch.cat(self.parts, dim=-1)
+        self.seconds += time.perf_counter() - t0
+        nbytes = self.send.numel() * self.send.element_size()
+        if self.p > 1 and self.ring:
+            for k in range(self.p - 1):
+                _count("ppermute", self.axis, 2 * nbytes,
+                       self.seconds if k == 0 else 0.0)
+        elif self.p > 1:
+            _count("all_gather", self.axis, (1 + self.p) * nbytes,
+                   self.seconds)
+        return self.host.to(self.device) if device else self.host
 
 
 def ring_perm(p: int, shift: int = 1):

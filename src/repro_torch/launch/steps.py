@@ -46,16 +46,28 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def init_model(cfg: ArchConfig, axes: Optional[M.MeshAxes] = None,
-               seed: int = 0, *, device="cuda",
-               dtype=torch.float32) -> D.Decoder:
+               seed: int = 0, *, device="cuda", dtype=torch.float32,
+               zero3: bool = False) -> D.Decoder:
     """Random weights from ``seed``, drawn on ``device`` from the JAX
     package's distributions (N(0, 1/k) projections, N(0, 0.02^2)
     embedding, unit norms). The values differ from ``jax.random``'s. On a
     mesh each rank keeps its block of every parameter by its
-    PartitionSpec: the slices of the one-card model of the same seed."""
+    PartitionSpec: the slices of the one-card model of the same seed.
+    ``zero3``: each part is sharded over data as soon as it is drawn
+    (``Decoder(shard=...)``, ``gradsync.shard_tensor``), so the whole
+    local model is never on the device; the shards are bitwise those of
+    sharding the model drawn whole."""
     dev = resolve_device(device)
+    axes = axes or M.MeshAxes()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return D.Decoder(cfg, axes or M.MeshAxes(), gen=gen, dtype=dtype)
+    return D.Decoder(cfg, axes, gen=gen, dtype=dtype, shard=(
+        (lambda t: GS.shard_tensor(t, axes)) if zero3 else None))
+
+
+def shard_model(model: D.Decoder) -> D.Decoder:
+    """``model`` moved to the ZeRO-3 layout in place: every parameter
+    replaced by this rank's shard over data (``model.shards``)."""
+    return model.shard_(lambda t: GS.shard_tensor(t, model.axes))
 
 
 # ---------------------------------------------------------------------- #
@@ -73,16 +85,17 @@ class TrainOptions:
     # caching (core/overlap.py; rides down to the layers on the axes)
     overlap: OverlapConfig = OverlapConfig()
     # data-parallel gradient sync (core/gradsync.py): the default is the
-    # blocking per-leaf psum; zero3 raises in make_train_step
+    # blocking per-leaf psum
     gradsync: GS.GradSyncConfig = GS.GradSyncConfig()
 
 
 def _loss_fn(cfg: ArchConfig, axes: M.MeshAxes, opts: TrainOptions):
-    def f(model, batch, plain: bool = False):
+    def f(model, batch, plain: bool = False, pstream=None):
         return D.lm_loss(model, batch["tokens"], batch["labels"],
                          image_embeds=batch.get("image_embeds"),
                          remat=opts.remat, xent_chunks=opts.xent_chunks,
-                         remat_policy=opts.remat_policy, plain=plain)
+                         remat_policy=opts.remat_policy, pstream=pstream,
+                         plain=plain)
     return f
 
 
@@ -121,10 +134,54 @@ def sync_grads(grads, axes: M.MeshAxes):
 def train_plan(params: Dict[str, torch.Tensor], cfg: ArchConfig,
                axes: M.MeshAxes, gs: GS.GradSyncConfig) -> GS.BucketPlan:
     """The bucket plan of the train step of ``gs`` for the model whose
-    parameters (this rank's blocks) are ``params``: the reference's
-    ``make_plan`` of the same model and mesh."""
-    return GS.make_plan(GS.model_leaves(params, cfg), axes, gs.bucket_bytes,
+    parameters (this rank's blocks, or under ZeRO-3 the module tree's
+    meta tensors) are ``params``: the reference's ``make_plan`` of the
+    same model and mesh, under ``zero3`` its ``make_leaf_plan``."""
+    leaves = GS.model_leaves(params, cfg)
+    if gs.zero3:
+        return GS.make_leaf_plan(leaves, axes, no_decay=OPT._no_decay)
+    return GS.make_plan(leaves, axes, gs.bucket_bytes,
                         no_decay=OPT._no_decay)
+
+
+def _shard_rows(acc, shards, plan: GS.BucketPlan):
+    """(shard, its row of its bucket's accumulator) for every shard."""
+    for buf, b in zip(acc, plan.buckets):
+        for k, n in enumerate(plan.leaves[b.segments[0].leaf].names):
+            yield shards[n], (buf[k] if b.stack > 1 else buf)
+
+
+def shard_grad_buffers(shards, plan: GS.BucketPlan, fp32: bool):
+    """ZeRO-3's zeroed per-bucket gradient accumulators ((stack,
+    padded/dp) or (padded/dp,)), in fp32 when ``fp32`` (more than one
+    microbatch: each is cast before the sum, so two microbatches never add
+    in bf16), else in the leaves' dtype (one microbatch, as the
+    reference). Where a shard's dtype is its accumulator's, its ``.grad``
+    is bound to its row, and autograd adds each microbatch's gradient
+    into it in place (no copy)."""
+    acc = [torch.zeros((b.stack, b.padded // plan.dp) if b.stack > 1
+                       else (b.padded // plan.dp,),
+                       dtype=torch.float32 if fp32 else b.dtype,
+                       device=shards[plan.leaves[b.segments[0].leaf]
+                                     .names[0]].device)
+           for b in plan.buckets]
+    for p, row in _shard_rows(acc, shards, plan):
+        p.grad = row if p.dtype == row.dtype else None
+    return acc
+
+
+def add_shard_grads(acc, shards, plan: GS.BucketPlan) -> None:
+    """After a microbatch's backward: each shard's ``.grad``, this rank's
+    block of the data sum (the gathers' backward), is in its accumulator
+    row: already there when bound to it, else cast, added and cleared."""
+    for p, row in _shard_rows(acc, shards, plan):
+        if p.dtype == row.dtype:
+            if p.grad is None or p.grad.data_ptr() != row.data_ptr():
+                raise RuntimeError("a shard's gradient left its "
+                                   "accumulator row")
+        elif p.grad is not None:
+            row.add_(p.grad.to(row.dtype))
+            p.grad = None
 
 
 def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
@@ -167,14 +224,21 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
       the state was made with; the step checks the state's shard sizes
       against it), else :func:`train_plan` of the model the first call
       gets, kept for later calls.
-    * ``zero3`` is not ported and raises."""
+    * ``zero3``: the model holds its parameters as shards over data
+      (``init_model(zero3=True)`` or :func:`shard_model`; ``model.shards``,
+      updated in place), and ``opt_state`` is ``tools.init(model.shards)``.
+      Each microbatch's forward gathers the working copies as a
+      ``gradsync.ParamStreamer`` says (``prefetch``: one layer ahead, kept
+      for the backward), and the gathers' backward reduce-scatters each
+      gradient over data, so a shard's ``.grad`` is this rank's block of
+      the data sum. Those are added into fp32 accumulators after each
+      microbatch (in the leaf's dtype at one microbatch, as the reference
+      does), divided by the microbatch count, psum'd over seq and reduced
+      over y and z (``tensor_reduce_shards``); then
+      ``adamw.apply_updates_sharded(rebuild=False)`` writes the new
+      shards. The plan is the reference's ``make_leaf_plan``."""
     axes = axes.with_overlap(opts.overlap)
     gs = opts.gradsync
-    if gs.zero3:
-        raise NotImplementedError(
-            "gradient sync zero3 (ZeRO-3 parameter-shard streaming) is not "
-            "ported to PyTorch yet: it waits for the ROADMAP.md §1 item "
-            "'rest of the training stack'")
     loss_fn = _loss_fn(cfg, axes, opts)
     plans = [tools.plan] if tools is not None else []
 
@@ -182,8 +246,9 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
         if not plans:
             plans.append(train_plan(params, cfg, axes, gs))
         plan = plans[0]
-        if gs.zero and [st["master"].numel() for st in opt_state["buckets"]
-                        ] != list(plan.shard_sizes):
+        if gs.state_sharded and [st["master"].numel()
+                                 for st in opt_state["buckets"]] != [
+                b.padded // plan.dp * b.stack for b in plan.buckets]:
             raise ValueError("the optimizer state's shards are not the "
                              "step's bucket plan's: make the state and the "
                              "step from one GradSyncTools")
@@ -199,23 +264,39 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
         if dtypes != {opts.dtype}:
             raise TypeError(f"TrainOptions.dtype is {opts.dtype}, the model's "
                             f"parameters are {sorted(map(str, dtypes))}")
+        if gs.zero3 != (model.shards is not None):
+            raise ValueError(
+                "a zero3 step takes a model in the ZeRO-3 layout "
+                "(init_model(zero3=True) or steps.shard_model), and only a "
+                "zero3 step does" if gs.zero3 else
+                "a model in the ZeRO-3 layout needs GradSyncConfig(zero3="
+                "True)")
         plan = plan_of(params, opt_state) if gs.enabled else None
-        stream = gs.enabled and gs.stream
+        pstream = (GS.ParamStreamer(plan, axes, ring=gs.ring,
+                                    prefetch=gs.prefetch)
+                   if gs.zero3 else None)
+        trained = model.shards if gs.zero3 else params
+        stream = gs.enabled and not gs.zero3 and gs.stream
         n = opts.overdecompose
         mbs = split_batch({k: M.seq_shard(M.batch_shard(v, axes), axes)
                            for k, v in batch.items()}, n, axes=axes)
         acc = None
-        if n > 1 and opts.dtype != torch.float32 and not stream:
+        if (n > 1 and opts.dtype != torch.float32 and not stream
+                and not gs.zero3):
             acc = {k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.items()}
-        for p in params.values():
+        for p in trained.values():
             p.grad = None
         loss = metrics = shards = None
+        if gs.zero3:
+            shards = shard_grad_buffers(model.shards, plan, n > 1)
         for i in range(n):
             li, mi = loss_fn(model, {k: v[i] for k, v in mbs.items()},
-                             plain=plain)
+                             plain=plain, pstream=pstream)
             li.backward()
-            if stream and n > 1:
+            if gs.zero3:
+                add_shard_grads(shards, model.shards, plan)
+            elif stream and n > 1:
                 # this microbatch's buckets leave now, in fp32 shards
                 si = GS.reduce_scatter_grads(
                     {k: p.grad for k, p in params.items()}, plan, axes,
@@ -254,14 +335,20 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
                 shards = GS.reduce_scatter_grads(grads, plan, axes,
                                                  ring=gs.ring)
             del grads
-            for p in params.values():
+            for p in trained.values():
                 p.grad = None
             if axes.gseq > 1:
                 # parameters are replicated over seq; each seq-rank's
                 # shards hold only its own tokens' contributions
                 shards = [M.psum(s, axes, "seq") for s in shards]
-            shards = GS.tensor_reduce_shards(shards, plan, axes)
-            if gs.zero:
+            # ZeRO-3's one microbatch kept the leaf's dtype to here
+            shards = GS.tensor_reduce_shards([s.float() for s in shards],
+                                             plan, axes)
+            if gs.zero3:
+                om = OPT.apply_updates_sharded(shards, opt_state, plan, axes,
+                                               opt_cfg, params=model.shards,
+                                               ring=gs.ring, rebuild=False)
+            elif gs.zero:
                 om = OPT.apply_updates_sharded(shards, opt_state, plan, axes,
                                                opt_cfg, params=params,
                                                ring=gs.ring)
@@ -271,7 +358,7 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
                     params, grads, opt_state, opt_cfg,
                     no_decay=no_decay_names(model),
                     specs={k: param_spec(k) for k in params}, axes=axes)
-        for p in params.values():
+        for p in trained.values():
             p.grad = None
         return dict(metrics, loss=loss, **om)
 
@@ -285,16 +372,21 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
 def state_layouts(cfg: ArchConfig, axes: M.MeshAxes, params,
                   opts: TrainOptions = TrainOptions()) -> dict:
     """This rank's persistent training state, in bytes, for the train step
-    of ``opts`` and the model whose parameters are ``params``: its
-    parameter blocks and its optimizer state (fp32 m/v/master: each block
-    whole, or under ``gradsync.zero`` its 1/g_data shard of every
-    bucket, padding included), as the reference's ``state_layouts`` sizes
-    them."""
+    of ``opts`` and the model whose parameters are ``params`` (under
+    ZeRO-3 the module tree's meta tensors): its parameter blocks, under
+    ``gradsync.zero3`` their 1/g_data shards, and its optimizer state
+    (fp32 m/v/master: each block whole, or under ``zero``/``zero3`` its
+    1/g_data shard of every bucket), padding included, as the reference's
+    ``state_layouts`` sizes them."""
     params = dict(params)
     p_bytes = sum(p.numel() * p.element_size() for p in params.values())
     if opts.gradsync.state_sharded:
         plan = train_plan(params, cfg, axes, opts.gradsync)
-        s_elems = sum(plan.shard_sizes)
+        s_elems = plan.shard_elements
+        if opts.gradsync.zero3:
+            p_bytes = sum(b.padded // plan.dp * b.stack
+                          * torch.finfo(b.dtype).bits // 8
+                          for b in plan.buckets)
     else:
         s_elems = sum(p.numel() for p in params.values())
     return {"params": p_bytes, "opt_state": 3 * 4 * s_elems}
@@ -305,17 +397,23 @@ class GradSyncTools:
     """Companions of a ZeRO-sharded train step, on this rank's tensors.
 
     ``init(params)`` builds the scattered fp32 state from the full
-    (replicated-over-data) parameters (name -> this rank's block);
+    (replicated-over-data) parameters (name -> this rank's block), under
+    ZeRO-3 from the parameter shards (``model.shards``; the same bits);
     ``gather(state)`` / ``scatter(full_state)`` convert to/from the
     replicated per-parameter layout of ``adamw.init_state`` (the
     checkpoint format — ckpt.py save_sharded/restore_sharded); ``plan`` is
-    the bucket layout the step was built with. ``gather`` runs collectives
-    over data: every rank calls it."""
+    the bucket layout the step was built with. Under ZeRO-3
+    ``shard_params(full)`` / ``unshard_params(shards)`` convert parameters
+    (name -> tensor) to/from their shards (checkpoints stay replicated, so
+    g_data may change across a resume). ``gather`` and ``unshard_params``
+    run collectives over data: every rank calls them."""
 
     plan: GS.BucketPlan
     init: Callable
     gather: Callable
     scatter: Callable
+    shard_params: Optional[Callable] = None
+    unshard_params: Optional[Callable] = None
 
 
 def make_gradsync_tools(cfg: ArchConfig, axes: M.MeshAxes, params,
@@ -326,11 +424,17 @@ def make_gradsync_tools(cfg: ArchConfig, axes: M.MeshAxes, params,
     bucket plan must match)."""
     axes = axes.with_overlap(opts.overlap)
     plan = train_plan(dict(params), cfg, axes, opts.gradsync)
-    return GradSyncTools(
+    tools = GradSyncTools(
         plan=plan,
         init=lambda p: GS.init_sharded_state(dict(p), plan, axes),
         gather=lambda s: GS.gather_sharded_state(s, plan, axes),
         scatter=lambda s: GS.scatter_full_state(s, plan, axes))
+    if not opts.gradsync.zero3:
+        return tools
+    return dataclasses.replace(
+        tools, init=lambda s: GS.init_state_from_shards(dict(s), plan),
+        shard_params=lambda p: GS.shard_params(dict(p), axes),
+        unshard_params=lambda s: GS.unshard_params(dict(s), plan, axes))
 
 
 # ---------------------------------------------------------------------- #
@@ -347,16 +451,23 @@ def snapshot_state(model, opt_state, tools: Optional[GradSyncTools],
     the tree ``ckpt.save`` persists; the plan fingerprint rides along so
     :func:`restore_state` can reject a rebuild whose tensor partitioning
     (not just g_data) changed. Every rank takes part in the gathers; with
-    ``keep`` False this rank keeps nothing (its trees are None)."""
+    ``keep`` False this rank keeps nothing (its trees are None). A
+    sharded state is gathered and converted one bucket at a time
+    (``gradsync.iter_full_state``), and ZeRO-3's parameters one at a time
+    through ``tools.unshard_params``, so no rank holds the whole
+    replicated state on its device at once."""
     gs = opts.gradsync
-    fp = None
+    fp, blocks, full_s = None, None, opt_state
     if gs.state_sharded:
         assert tools is not None, "sharded state needs GradSyncTools"
-        full_s = tools.gather(opt_state)
+        full_s = {"opt": GS.iter_full_state(opt_state, tools.plan,
+                                            model.axes),
+                  "step": opt_state["step"]}
         fp = GS.plan_fingerprint(tools.plan)
-    else:
-        full_s = opt_state
-    return {"params": convert.params_to_jax(model, keep=keep),
+    if gs.zero3:
+        blocks = ((n, tools.unshard_params({n: s})[n])
+                  for n, s in model.shards.items())
+    return {"params": convert.params_to_jax(model, keep=keep, blocks=blocks),
             "opt_state": convert.opt_state_to_jax(full_s, model, keep=keep),
             "step": int(step), "fingerprint": fp}
 
@@ -369,8 +480,11 @@ def restore_state(snapshot: dict, cfg: ArchConfig, axes: M.MeshAxes,
     take their blocks of the snapshot's in place; returns the optimizer
     state in the layout the train step of ``opts`` expects on that mesh,
     scattered through the new mesh's own ``tools.scatter`` when it is
-    sharded, so restoring from the in-memory snapshot and from a
-    checkpoint of the same step give the same bits."""
+    sharded (built on the host, then moved to the model's device), so
+    restoring from the in-memory snapshot and from a checkpoint of the
+    same step give the same bits. Under ZeRO-3 each parameter's block is
+    sharded on the host (``tools.shard_params``) and copied into
+    ``model.shards``."""
     gs = opts.gradsync
     if gs.state_sharded:
         assert tools is not None, "sharded state needs GradSyncTools"
@@ -383,17 +497,38 @@ def restore_state(snapshot: dict, cfg: ArchConfig, axes: M.MeshAxes,
                     f"snapshot's {want} — the rebuild changed the tensor "
                     f"partitioning, not just the data axis; the snapshot "
                     f"cannot be re-sharded onto this mesh")
-    convert.load_params_from_jax(model, snapshot["params"])
-    full = convert.opt_state_from_jax(snapshot["opt_state"], model)
-    return tools.scatter(full) if gs.state_sharded else full
+    if gs.zero3:
+        with torch.no_grad():
+            for n, block in convert.param_blocks_from_jax(
+                    model, snapshot["params"]):
+                model.shards[n].copy_(tools.shard_params({n: block})[n])
+    else:
+        convert.load_params_from_jax(model, snapshot["params"])
+    if not gs.state_sharded:
+        return convert.opt_state_from_jax(snapshot["opt_state"], model)
+    state = tools.scatter(convert.opt_state_from_jax(
+        snapshot["opt_state"], model, device="cpu"))
+    state["buckets"] = [{k: t.to(model.device) for k, t in b.items()}
+                        for b in state["buckets"]]
+    return state
 
 
+@torch.no_grad()
 def param_sha256(model) -> str:
     """SHA-256 of every parameter's bytes, in order: equal on two ranks
-    only if their parameters are bitwise equal."""
+    only if their parameters are bitwise equal. Under ZeRO-3 each is
+    gathered from its shards onto the host first (``mesh.GatherAsync``, a
+    collective over data: every rank calls it), so the digest is the
+    unsharded model's."""
     h = hashlib.sha256()
-    for p in model.parameters():
-        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
+    for n, p in model.named_parameters():
+        if model.shards is not None:
+            p = M.GatherAsync(model.shards[n], model.axes, "data").wait(
+                device=False)[:p.numel()]
+        # a piece at a time: ranks sharing a host do not each copy a
+        # whole leaf there at once
+        for piece in p.detach().reshape(-1).split(1 << 24):
+            h.update(piece.cpu().view(torch.uint8).numpy())
     return h.hexdigest()
 
 

@@ -32,6 +32,11 @@ memory, kernel launches and parameter hash.
 
 ``--zero`` runs the bucketed data-parallel sync with ZeRO-1 sharded AdamW
 state (``core/gradsync.py``, buckets of ``--dp-bucket-mb`` MiB);
+``--zero3`` also shards the parameters over data (each part sharded as
+it is drawn; each layer's weights gathered just in time in the forward
+and again in remat's recompute, the gradient reduce-scattered by the
+gather's backward), and ``--zero3-prefetch`` posts layer i+1's gathers
+before layer i computes and keeps the copy on the host for the backward;
 ``--ckpt PATH`` saves a checkpoint in the reference's ``.npz`` format at
 the end (and every ``--ckpt-every`` steps); ``--resume`` restores it first
 and continues from the saved step + 1, on any mesh (the state re-shards
@@ -41,8 +46,7 @@ through the replicated checkpoint layout):
       --preset smoke --device cpu --steps 4 --zero --ckpt run.npz
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
-§1 item it waits for): ZeRO-3 (``--zero3``, ``--zero3-prefetch``), the
-runtime tooling (``--chaos``, ``--probe-every``, ``--telemetry``,
+§1 item it waits for): the runtime tooling (``--chaos``, ``--probe-every``, ``--telemetry``,
 ``--log-file``, ``--profile-steps``, ``--calib``) and ``--backend nccl``.
 """
 from __future__ import annotations
@@ -52,6 +56,7 @@ import copy
 import dataclasses
 import json
 import os
+import resource
 import time
 from typing import Dict, List, Optional
 
@@ -75,8 +80,6 @@ from repro_torch.optim.adamw import AdamWConfig, init_state
 
 # flag -> the ROADMAP.md §1 item it waits for
 REFUSED = {
-    "zero3": "rest of the training stack",
-    "zero3_prefetch": "rest of the training stack",
     "chaos": "runtime tooling",
     "probe_every": "runtime tooling",
     "telemetry": "runtime tooling",
@@ -142,6 +145,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "reduce-scatter rings streamed through the "
                          "overdecompose loop, AdamW state sharded over "
                          "the data axis (core/gradsync.py)")
+    ap.add_argument("--zero3", action="store_true",
+                    help="ZeRO-3 param-shard streaming: params live as "
+                         "1/G_data shards, each layer's working copy "
+                         "ring-all-gathered just-in-time in the forward "
+                         "(core/gradsync.py); implies the --zero state "
+                         "sharding")
+    ap.add_argument("--zero3-prefetch", action="store_true",
+                    help="with --zero3: post layer i+1's gathers before "
+                         "layer i computes; the copy is kept (on the host) "
+                         "for the backward, no re-gather")
     ap.add_argument("--dp-bucket-mb", type=float, default=4.0,
                     help="fp32 gradient bucket bound in MiB "
                          "(with --zero/--zero3)")
@@ -160,9 +173,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "run's — the state re-shards through the "
                          "replicated checkpoint layout")
     # flags of repro.launch.train that the port refuses (REFUSED)
-    ap.add_argument("--zero3", action="store_true", help="not ported")
-    ap.add_argument("--zero3-prefetch", action="store_true",
-                    help="not ported")
     ap.add_argument("--chaos", default="", help="not ported")
     ap.add_argument("--probe-every", type=int, default=0, help="not ported")
     ap.add_argument("--telemetry", action="store_true", help="not ported")
@@ -181,6 +191,8 @@ class TrainResult:
     tokens_per_step: int
     n_params: int
     max_memory_bytes: Optional[int]   # CUDA only
+    # this process's peak resident host memory (getrusage), at the end
+    max_rss_bytes: Optional[int] = None
     # collectives of each step: host-clock seconds and bytes, in all, by
     # kind of collective and by axis ({kind or axis: {"seconds", "bytes",
     # "calls"}})
@@ -256,9 +268,16 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     def say(*a, **kw):
         if rank0:
             print(*a, **kw, flush=True)
+    if args.zero3:
+        gs = GS.GradSyncConfig(zero3=True, prefetch=args.zero3_prefetch,
+                               bucket_mb=args.dp_bucket_mb)
+    elif args.zero:
+        gs = GS.GradSyncConfig(zero=True, bucket_mb=args.dp_bucket_mb)
+    else:
+        gs = GS.GradSyncConfig()
     model = ST.init_model(cfg, axes, seed=0, device=run["device"],
-                          dtype=dtype)
-    dev = model.embed.device
+                          dtype=dtype, zero3=gs.zero3)
+    dev = model.device
     params = dict(model.named_parameters())
     # the global count: each block times the ranks it is split over
     n_params = sum(p.numel() * axes.size(spec_names(param_spec(n)))
@@ -269,13 +288,14 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         say(f"backend={args.backend} "
             f"ranks_per_card={run['ranks_per_card'] or '-'} "
             f"ranks={run['world']}")
-    gs = (GS.GradSyncConfig(zero=True, bucket_mb=args.dp_bucket_mb)
-          if args.zero else GS.GradSyncConfig())
     topts = ST.TrainOptions(overdecompose=args.overdecompose, dtype=dtype,
                             overlap=overlap, gradsync=gs)
     tools = (ST.make_gradsync_tools(cfg, axes, params, topts)
              if gs.state_sharded else None)
-    state = tools.init(params) if gs.state_sharded else init_state(params)
+    if gs.state_sharded:
+        state = tools.init(model.shards if gs.zero3 else params)
+    else:
+        state = init_state(params)
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                       total_steps=args.steps)
     step_fn = ST.make_train_step(cfg, axes, opt, topts, tools=tools)
@@ -292,9 +312,10 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         snap = ST.snapshot_state(model, state, tools, topts, step=at_step,
                                  keep=rank0)
         if rank0:
+            # the reference's trainer: its save_sharded adds "zero"
             ckpt.save(args.ckpt, snap["params"], snap["opt_state"],
                       step=at_step, pspecs=specs, extra=dict(
-                          dp_bucket_mb=args.dp_bucket_mb, zero3=False,
+                          dp_bucket_mb=args.dp_bucket_mb, zero3=gs.zero3,
                           mesh=[int(x) for x in args.mesh.split(",")],
                           zero=True) if gs.state_sharded else None)
         del snap
@@ -370,12 +391,14 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     if args.ckpt and res.losses:
         save_checkpoint(start_step + len(res.losses) - 1)
         say("saved", args.ckpt)
+    res.max_rss_bytes = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
     mine = dict(rank=run["rank"], device=str(dev), comm_s=res.comm_s,
                 comm_bytes=res.comm_bytes, comm_by_kind=res.comm_by_kind,
                 comm_by_axis=res.comm_by_axis,
                 hops_by_axis=res.hops_by_axis,
                 max_memory_bytes=res.max_memory_bytes,
-                launches=res.launches, dp_sync=res.dp_sync,
+                max_rss_bytes=res.max_rss_bytes, launches=res.launches, dp_sync=res.dp_sync,
                 state_bytes=res.state_bytes,
                 param_sha256=param_sha256(model) if multi else None)
     res.ranks = [mine]
@@ -386,7 +409,8 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         say("final loss:", res.losses[-1])
     say(json.dumps({"train": dict(
         arch=cfg.name, mesh=args.mesh, backend=args.backend if multi
-        else None, zero=args.zero, first_step=start_step,
+        else None, zero=args.zero, zero3=gs.zero3, prefetch=gs.prefetch,
+        first_step=start_step,
         losses=res.losses, grad_norms=res.grad_norms,
         step_s=res.step_s, tokens_per_step=tokens, n_params=n_params,
         ckpt=res.ckpt, ranks=res.ranks)}))

@@ -11,6 +11,13 @@ is untied (``convert`` maps one onto the other). On a mesh every module
 is built at this rank's local shapes (``partition.LEAF_SPECS``), and the
 serving functions run this rank's batch shard: their logits are (R_local,
 1, V/y).
+
+Under ZeRO-3 (``Decoder(..., shard=...)`` or :meth:`Decoder.shard_`) the
+module tree keeps only the parameters' shapes and dtypes (meta tensors);
+:attr:`Decoder.shards` holds this rank's 1/g_data shard of each, and the
+training forward runs every block on working copies gathered from them
+(``torch.func.functional_call``) as the train step's
+``gradsync.ParamStreamer`` says.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import contextlib
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import mesh as M
@@ -92,27 +100,68 @@ class Block(nn.Module):
 class Decoder(nn.Module):
     """``decoder_init``'s text path: embedding, blocks, final norm, and the
     LM head: the tied embedding, or an untied ``lm_head`` (d, V) drawn
-    from N(0, 0.02^2)."""
+    from N(0, 0.02^2).
+
+    ``shard`` (ZeRO-3): as soon as each part is drawn (the embedding, a
+    layer, the final norm, the head), its parameters are replaced by
+    :meth:`shard_`, so the whole model is never on the device at once;
+    the shards are those of sharding the model drawn whole."""
 
     def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, *,
-                 gen: torch.Generator, dtype=torch.float32):
+                 gen: torch.Generator, dtype=torch.float32, shard=None):
         super().__init__()
         cfg.validate_axes(axes)
         self.cfg, self.axes = cfg, axes
+        self.shards = None
         self.embed = nn.Parameter(PP.embedding_init(
             gen, cfg.padded_vocab, cfg.d_model, axes, dtype=dtype))
-        self.layers = nn.ModuleList(
-            Block(cfg, axes, kinds, gen=gen, dtype=dtype)
-            for kinds in cfg.layer_kinds())
+        self.shard_(shard, "embed")
+        self.layers = nn.ModuleList()
+        for i, kinds in enumerate(cfg.layer_kinds()):
+            self.layers.append(Block(cfg, axes, kinds, gen=gen, dtype=dtype))
+            self.shard_(shard, f"layers.{i}")
         self.final_norm = RMSNorm(cfg, axes, device=gen.device, dtype=dtype)
+        self.shard_(shard, "final_norm")
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(PP.tp_linear_init(
                 gen, cfg.d_model, cfg.padded_vocab, axes, scale=0.02,
                 dtype=dtype))
+            self.shard_(shard, "lm_head")
+
+    @torch.no_grad()
+    def shard_(self, shard, prefix: str = "") -> "Decoder":
+        """ZeRO-3: each parameter under ``prefix`` ("": all) moves to
+        :attr:`shards` as ``shard(its tensor)`` (a trainable parameter,
+        e.g. ``gradsync.shard_tensor``'s) and is replaced in the module
+        tree by a meta tensor of its shape and dtype. :attr:`shards`
+        keeps ``named_parameters``' order. A no-op when ``shard`` is
+        None."""
+        if shard is None:
+            return self
+        shards = self.shards or {}
+        for name, p in list(self.named_parameters()):
+            if p.is_meta or not (prefix in ("", name)
+                                 or name.startswith(prefix + ".")):
+                continue
+            shards[name] = nn.Parameter(shard(p))
+            owner, _, leaf = name.rpartition(".")
+            self.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+                torch.empty_like(p, device="meta"), requires_grad=False)
+        self.shards = {n: shards[n] for n, _ in self.named_parameters()
+                       if n in shards}
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        """Where the parameters (under ZeRO-3 their shards) live."""
+        if self.shards:
+            return next(iter(self.shards.values())).device
+        return self.embed.device
 
     def hidden(self, tokens, *, mode: str = "train", positions=None,
                pools=None, paged=None, remat: bool = True,
-               remat_policy: str = "full", plain: bool = False):
+               remat_policy: str = "full", plain: bool = False,
+               pstream=None, resident=None):
         """``decoder_hidden``: (B, T) tokens -> (B, T, d/x) final-normed
         hidden states.
 
@@ -126,7 +175,13 @@ class Decoder(nn.Module):
         (see :func:`decoder_paged_cache_specs`). ``mode="prefill"``,
         ``"decode"`` and ``"decode_seqshard"``: ``pools`` is the list of
         per-layer caches of :func:`decoder_cache_specs`, updated in
-        place."""
+        place.
+
+        ``pstream`` (a ``gradsync.ParamStreamer``; training under ZeRO-3):
+        the blocks run on working copies of their parameters, gathered
+        from :attr:`shards` per layer as the streamer says; ``resident``
+        holds the parameters gathered once a microbatch (its
+        ``resident``)."""
         if mode == "train" and remat and remat_policy not in ("full",
                                                               "dots"):
             raise ValueError(f"remat_policy {remat_policy!r}: 'full' or "
@@ -146,7 +201,19 @@ class Decoder(nn.Module):
             if mode == "train" and axes.gseq > 1:
                 positions = positions * axes.gseq + M.axis_index(axes, "seq")
             positions = positions.expand(B, T)
-        h = PP.embedding_lookup(tokens, self.embed, self.axes)
+        if pstream is not None and mode != "train":
+            raise ValueError("ZeRO-3 parameter streaming is a training-path "
+                             "feature")
+        streamed = [i for i, blk in enumerate(self.layers)
+                    if pstream is not None and pstream.streamed(
+                        f"layers.{i}.{next(blk.named_parameters())[0]}")]
+        posted = {}
+        if streamed and pstream.prefetch:
+            posted[streamed[0]] = pstream.post(self._layer_shards(
+                streamed[0]))
+        embed = self.embed if resident is None else resident["embed"]
+        h = PP.embedding_lookup(tokens, embed, self.axes)
+        remat = mode == "train" and remat
         for i, blk in enumerate(self.layers):
             kw = dict(positions=positions, mode=mode, paged=paged,
                       plain=plain)
@@ -154,16 +221,60 @@ class Decoder(nn.Module):
                 kw["cache"] = {"k": pools["k"][i], "v": pools["v"][i]}
             elif mode in ("prefill", "decode", "decode_seqshard"):
                 kw["cache"] = pools[i]
-            if mode == "train" and remat and remat_policy == "dots":
+            if pstream is None:
+                fn, args = blk, (h,)
+            else:
+                fn, args = self._zero3_block(i, h, kw, pstream, resident,
+                                             streamed, posted)
+                kw = {}
+            if remat and remat_policy == "dots":
                 tape = ops.K1Tape()
-                h = checkpoint(blk, h, use_reentrant=False,
+                h = checkpoint(fn, *args, use_reentrant=False,
                                context_fn=lambda t=tape: (t.record(),
                                                           t.replay()), **kw)
-            elif mode == "train" and remat:
-                h = checkpoint(blk, h, use_reentrant=False, **kw)
+            elif remat:
+                h = checkpoint(fn, *args, use_reentrant=False, **kw)
             else:
-                h = blk(h, **kw)
-        return self.final_norm(h, plain=plain)
+                h = fn(*args, **kw)
+        if resident is None:
+            return self.final_norm(h, plain=plain)
+        return functional_call(self.final_norm,
+                               {"g": resident["final_norm.g"]}, (h,),
+                               {"plain": plain})
+
+    def _layer_shards(self, i: int):
+        return {n: s for n, s in self.shards.items()
+                if n.startswith(f"layers.{i}.")}
+
+    def _zero3_block(self, i, h, kw, pstream, resident, streamed, posted):
+        """(fn, args) of layer i under ZeRO-3: the block run on its
+        gathered weights. A streamed layer gathers inside ``fn`` (so
+        remat's recompute asks again); with prefetch, the next streamed
+        layer's exchanges are posted first. A resident layer takes its
+        weights from ``resident`` as inputs."""
+        blk = self.layers[i]
+        names = [(short, f"layers.{i}.{short}")
+                 for short, _ in blk.named_parameters()]
+        if i not in streamed:
+            def run(h, *ws, _blk=blk, _names=names, _kw=kw):
+                return functional_call(
+                    _blk, {s: w for (s, _), w in zip(_names, ws)}, (h,),
+                    _kw)
+            return run, (h, *(resident[f] for _, f in names))
+        pending = posted.pop(i, {})
+        k = streamed.index(i)
+        if pstream.prefetch and k + 1 < len(streamed):
+            posted[streamed[k + 1]] = pstream.post(self._layer_shards(
+                streamed[k + 1]))
+        shards = [self.shards[f] for _, f in names]
+        fetches = [pstream.fetcher(s, pending.get(f))
+                   for (_, f), s in zip(names, shards)]
+
+        def run(h, *sh, _blk=blk, _names=names, _kw=kw):
+            ws = {s: pstream.gather(x, f, fe)
+                  for (s, f), x, fe in zip(_names, sh, fetches)}
+            return functional_call(_blk, ws, (h,), _kw)
+        return run, (h, *shards)
 
 
 @contextlib.contextmanager
@@ -185,12 +296,14 @@ def overlap_bound(model: nn.Module, overlap: OverlapConfig):
             m.axes = axes
 
 
-def lm_logits(model: Decoder, h, *, plain: bool = False):
+def lm_logits(model: Decoder, h, *, plain: bool = False, weights=None):
     """(..., d/x) -> (..., V/y) logits through the tied embedding or the
-    untied head."""
+    untied head (under ZeRO-3 their working copies in ``weights``)."""
     if model.cfg.tie_embeddings:
-        return PP.tied_lm_logits(h, model.embed, model.axes, plain=plain)
-    return PP.tp_matmul(h, model.lm_head, model.axes, "x", "y", plain=plain)
+        w = model.embed if weights is None else weights["embed"]
+        return PP.tied_lm_logits(h, w, model.axes, plain=plain)
+    w = model.lm_head if weights is None else weights["lm_head"]
+    return PP.tp_matmul(h, w, model.axes, "x", "y", plain=plain)
 
 
 def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
@@ -198,25 +311,32 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
             remat_policy: str = "full", mtp_weight: float = 0.0,
             pstream=None, plain: bool = False):
     """Mean cross-entropy over the *global* batch. Returns (loss, metrics)
-    with metrics {"xent", "aux"}; a dense decoder has no aux loss."""
+    with metrics {"xent", "aux"}; a dense decoder has no aux loss.
+
+    With ``pstream`` (ZeRO-3; ``model.shards`` hold the parameters) the
+    parameters that do not stream (embedding, final norm, an untied head,
+    a one-period segment's layers) are gathered once here, outside remat,
+    the tied embedding's one copy feeding both the lookup and the head;
+    the layers stream through :meth:`Decoder.hidden`."""
     for what, on, item in (
             ("image_embeds", image_embeds is not None,
              "other mixers and architectures"),
             ("the MTP loss (mtp_weight > 0)", mtp_weight > 0.0,
-             "MoE and the expert axis"),
-            ("ZeRO-3 parameter streaming (pstream)", pstream is not None,
-             "rest of the training stack")):
+             "MoE and the expert axis")):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet: it waits for the "
                 f"ROADMAP.md §1 item '{item}'")
     cfg, axes = model.cfg, model.axes
+    resident = (None if pstream is None
+                else pstream.resident(model.shards))
     h = model.hidden(tokens, mode="train", remat=remat,
-                     remat_policy=remat_policy, plain=plain)
+                     remat_policy=remat_policy, plain=plain,
+                     pstream=pstream, resident=resident)
     B, T = labels.shape
 
     def chunk_loss(hc, lc):
-        logits = lm_logits(model, hc, plain=plain)
+        logits = lm_logits(model, hc, plain=plain, weights=resident)
         return torch.sum(PP.vocab_parallel_xent(logits, lc, axes,
                                                 cfg.vocab_size))
 

@@ -13,7 +13,8 @@ trees; updating in place saves a copy of the state and the parameters).
 :mod:`repro_torch.core.gradsync`: gradients arrive as data-axis-scattered
 fp32 bucket shards, each rank updates only its ``1/G_data`` slice of the
 fp32 state, and the updated parameters are rebuilt by an all-gather over
-data. The per-element math is :func:`apply_updates`'s, op for op.
+data (ZeRO-1), or under ZeRO-3 written straight into the parameter
+shards. The per-element math is :func:`apply_updates`'s, op for op.
 """
 from __future__ import annotations
 
@@ -132,7 +133,7 @@ def apply_updates_sharded(shards, state, plan, axes: M.MeshAxes,
                           cfg: AdamWConfig, *,
                           params: Dict[str, torch.Tensor],
                           ring: bool = True, rebuild: bool = True):
-    """One ZeRO-1 AdamW step on data-axis-scattered gradient shards.
+    """One ZeRO-1/3 AdamW step on data-axis-scattered gradient shards.
 
     ``shards`` are the per-bucket fp32 gradients (already reduced over
     data/z/y, scaled by 1/microbatches); ``state`` holds m/v/master only
@@ -141,16 +142,13 @@ def apply_updates_sharded(shards, state, plan, axes: M.MeshAxes,
     :func:`apply_updates`; weight decay uses the plan's per-element
     group-id masks in place of the per-leaf path check (so it keeps the
     reference's exemption of every stacked layer leaf, ROADMAP.md §3).
-    The model's parameters ``params`` (name -> tensor) are rebuilt from
-    the updated master shards by an all-gather over data
-    (``gradsync.rebuild_params``). ``rebuild=False`` (ZeRO-3, the new
-    parameters being the cast master shards) is not ported. Returns the
-    metrics {"grad_norm", "lr"}."""
-    if not rebuild:
-        raise NotImplementedError(
-            "apply_updates_sharded(rebuild=False) (ZeRO-3 parameter "
-            "shards) is not ported to PyTorch yet: it waits for the "
-            "ROADMAP.md §1 item 'rest of the training stack'")
+    With ``rebuild`` the model's parameters ``params`` (name -> tensor)
+    are rebuilt from the updated master shards by an all-gather over data
+    (``gradsync.rebuild_params``, ZeRO-1); without it (ZeRO-3) ``params``
+    are the parameter shards (name -> this rank's shard), and the updated
+    masters, cast to each leaf's dtype, are written into them in place
+    (``gradsync.shards_to_tree``): no collective. Returns the metrics
+    {"grad_norm", "lr"}."""
     step = state["step"]
     lr = lr_at(cfg, step)
     gnorm = GS.sharded_grad_norm(shards, plan, axes)
@@ -169,7 +167,10 @@ def apply_updates_sharded(shards, state, plan, axes: M.MeshAxes,
                                                  device=g.device))
             upd += cfg.weight_decay * st["master"] * mask
         st["master"].sub_(lr * upd)
-    GS.rebuild_params([st["master"] for st in state["buckets"]], plan, axes,
-                      params, ring=ring)
+    masters = [st["master"] for st in state["buckets"]]
+    if rebuild:
+        GS.rebuild_params(masters, plan, axes, params, ring=ring)
+    else:
+        GS.shards_to_tree(masters, plan, params)
     state["step"] = step + 1
     return {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,55 @@
+"""K2's backward (``csrc/flash_attention.cu``) run on the CPU.
+
+The source is compiled with g++ against the CPU stand-ins of
+``tests/cuda_emu/`` (one thread per CUDA thread, blocks in turn) and
+launched through its C interface on CPU tensors (``cuda_emu.attention``'s
+``flash`` fixture). Each case is held to autograd of the plain
+``attn_core`` with the card's tolerance (``chip_smoke.py``'s FLASH_TOL)
+and must repeat bitwise. The workspace and every output start as NaN, so
+a read of an entry that no block wrote shows. The card runs the same
+source in ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from cuda_emu.attention import (  # noqa: F401 (flash: the fixture)
+    BF16, F32, FLASH_CASES, FLASH_TOL, flash, flash_inputs, rel_close)
+
+
+# the backward's own cases beside FLASH_CASES: a window without the causal
+# mask, S > T under it, and the first port's one case (B, T, S, nq, nkv,
+# hd, causal, window, kv_len, dtype, shift)
+BWD_CASES = dict(FLASH_CASES, **{
+    "non-causal window 20 g4 hd128 f32": (1, 70, 70, 4, 1, 128, False, 20,
+                                          0, F32, 0),
+    "causal S 100 > T 40 g2 hd64 bf16": (2, 40, 100, 4, 2, 64, True, 0, 0,
+                                         BF16, 0),
+    "causal g2 hd64 f32 T 70": (1, 70, 70, 4, 2, 64, True, 0, 0, F32, 0),
+})
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k2_backward_source_matches_autograd_on_the_cpu(flash, case):
+    """dq, dk and dv against autograd of the plain attn_core: windows,
+    kv_len < S, T not a multiple of the 64-row tile, non-causal, GQA g 1,
+    2 and 4, head_dim 64 and 128, float32 and bfloat16, rows on and off 16
+    bytes. The workspace and the outputs start as NaN, so a read of an
+    entry no block wrote shows; a second call gives the same bits."""
+    from repro_torch.kernels.flash_attention import attn_core
+    B, T, S, nq, nkv, hd, causal, window, kv_len, dtype, shift = \
+        BWD_CASES[case]
+    forward, backward = flash
+    q, k, v = flash_inputs(len(case) + 7, B, T, S, nq, nkv, hd, dtype, shift)
+    dout = torch.from_numpy(np.random.RandomState(len(case)).randn(
+        B, T, nq, hd + 8)).to(dtype)[..., shift:shift + hd]
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    out, lse = forward(q, k, v, causal, window, kv_len)
+    grads = backward(q, k, v, out, lse, dout, causal, window, kv_len)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attn_core(*leaves, **kw), leaves, dout)
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and not g.float().isnan().any()
+        rel_close(g, w, FLASH_TOL[dtype])
+    again = backward(q, k, v, out, lse, dout, causal, window, kv_len)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))

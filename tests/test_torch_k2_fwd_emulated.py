@@ -1,0 +1,33 @@
+"""K2's forward (``csrc/flash_attention.cu``) run on the CPU.
+
+The source is compiled with g++ against the CPU stand-ins of
+``tests/cuda_emu/`` (one thread per CUDA thread, blocks in turn) and
+launched through its C interface on CPU tensors (``cuda_emu.attention``'s
+``flash`` fixture). Each case (``FLASH_CASES``) is held to the plain
+``attn_core`` with the card's tolerance (``chip_smoke.py``'s FLASH_TOL),
+its lse to the plain log-sum-exp, and must repeat bitwise. Every output
+starts as NaN, so a read of an entry that no block wrote shows. The card
+runs the same source in ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``.
+"""
+import pytest
+import torch
+
+from cuda_emu.attention import (  # noqa: F401 (flash: the fixture)
+    FLASH_CASES, FLASH_TOL, flash, flash_inputs, plain_lse, rel_close)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_k2_forward_source_matches_plain_on_the_cpu(flash, case):
+    from repro_torch.kernels.flash_attention import attn_core
+    B, T, S, nq, nkv, hd, causal, window, kv_len, dtype, shift = \
+        FLASH_CASES[case]
+    q, k, v = flash_inputs(len(case), B, T, S, nq, nkv, hd, dtype, shift)
+    forward, _ = flash
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    out, lse = forward(q, k, v, causal, window, kv_len)
+    rel_close(out, attn_core(q, k, v, **kw), FLASH_TOL[dtype])
+    want = plain_lse(q, k, causal, window, kv_len)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+    again, lse2 = forward(q, k, v, causal, window, kv_len)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)

@@ -698,20 +698,26 @@ def test_training_on_the_tensor_axes_takes_the_overlapped_schedule():
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(gradsync=GradSyncConfig(zero3=True)), "rest of the training stack")])
+    (dict(gradsync=GradSyncConfig(zero3=True)), r"init_model\(zero3=True\)")])
 def test_training_on_the_tensor_axes_is_refused(opts, item):
     """Training on the tensor axes runs the blocking or the overlapped
     schedule (``tests/test_torch_mesh_train.py``,
-    ``tests/test_torch_overlap.py``) and the bucketed sync and ZeRO-1
-    (``tests/test_torch_gradsync.py``); ZeRO-3's parameter streaming
-    stays refused there, naming its ROADMAP item."""
+    ``tests/test_torch_overlap.py``), the bucketed sync and ZeRO-1
+    (``tests/test_torch_gradsync.py``) and ZeRO-3
+    (``tests/test_torch_zero3.py``). A ZeRO-3 step refuses a model whose
+    parameters are not sharded, naming how to make one, before any
+    collective."""
     from repro_torch.optim.adamw import AdamWConfig
     cfg = get_config(ARCH).reduced()
     axes = MeshAxes((1, 2, 1, 1))
     assert callable(ST.make_train_step(cfg, axes, AdamWConfig(),
                                        ST.TrainOptions()))
-    with pytest.raises(NotImplementedError, match=f"'{item}'"):
-        ST.make_train_step(cfg, axes, AdamWConfig(), ST.TrainOptions(**opts))
+    step = ST.make_train_step(cfg, axes, AdamWConfig(),
+                              ST.TrainOptions(dtype=torch.float32, **opts))
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match=item):
+        step(ST.init_model(cfg, axes, device="cpu"), None,
+             {"tokens": toks, "labels": toks})
 
 
 if __name__ == "__main__":

@@ -149,8 +149,7 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--zero3"], "rest of the training stack"),
-    (["--zero3-prefetch"], "rest of the training stack"),
+    (["--log-file", "run.log"], "runtime tooling"),
     (["--chaos", "seed=0"], "runtime tooling"),
     (["--probe-every", "2"], "runtime tooling"),
     (["--telemetry"], "runtime tooling"),
@@ -173,18 +172,22 @@ def test_train_on_a_mesh_needs_its_ranks(mesh):
                     mesh])
 
 
-@pytest.mark.parametrize("opts,item", [
-    (dict(gradsync=GradSyncConfig(zero3=True)), "rest of the training stack")])
-def test_train_step_refuses_what_is_not_ported(opts, item):
-    from repro_torch.optim.adamw import AdamWConfig
+@pytest.mark.parametrize("extra,item", [
+    (dict(image_embeds=torch.zeros((2, 1, 64))),
+     "other mixers and architectures")])
+def test_train_step_refuses_what_is_not_ported(extra, item):
+    """A batch the port's train step cannot train yet raises naming its
+    ROADMAP.md §1 item (ZeRO-3, refused here before, is ported:
+    ``tests/test_torch_zero3.py``)."""
+    from repro_torch.optim.adamw import AdamWConfig, init_state
     cfg = get_config("qwen3-1.7b").reduced()
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
         step = ST.make_train_step(cfg, MeshAxes(), AdamWConfig(),
-                                  ST.TrainOptions(dtype=torch.float32,
-                                                  **opts))
+                                  ST.TrainOptions(dtype=torch.float32))
         model = ST.init_model(cfg, device="cpu")
         toks = torch.zeros((2, 4), dtype=torch.int32)
-        step(model, None, {"tokens": toks, "labels": toks})
+        step(model, init_state(dict(model.named_parameters())),
+             {"tokens": toks, "labels": toks, **extra})
 
 
 @pytest.mark.parametrize("sizes", [(2, 1, 1, 1), (1, 1, 2, 1),
@@ -275,6 +278,31 @@ def test_gradsync_config_copy_matches_the_jax_package():
     assert [(f.name, f.default) for f in dataclasses.fields(GradSyncConfig)
             ] == [(f.name, f.default)
                   for f in dataclasses.fields(JGS.GradSyncConfig)]
+
+
+def test_comm_model_copy_matches_the_jax_package():
+    """core/comm_model.py (the paper's analytical model) is a copy of the
+    reference's apart from its two import lines, which take the port's
+    GradSyncConfig and OverlapConfig."""
+    ours = (PORT / "core" / "comm_model.py").read_text().splitlines()
+    theirs = (ROOT / "src" / "repro" / "core" / "comm_model.py"
+              ).read_text().splitlines()
+    imports = {"from repro.core.gradsync import GradSyncConfig":
+               "from repro_torch.core.gradsync import GradSyncConfig",
+               "from repro.core.overlap import OverlapConfig":
+               "from repro_torch.core.overlap import OverlapConfig"}
+    assert sum(line in imports for line in theirs) == 2
+    assert ours == [imports.get(line, line) for line in theirs]
+    from repro.core import comm_model as JCM
+    from repro_torch.core import comm_model as CM
+    assert CM.GradSyncConfig is GradSyncConfig
+    for gs in (GradSyncConfig(), GradSyncConfig(zero=True),
+               GradSyncConfig(zero3=True),
+               GradSyncConfig(zero3=True, prefetch=True)):
+        jgs = JCM.GradSyncConfig(**dataclasses.asdict(gs))
+        for mb in (1, 3):
+            assert CM.dp_sync_volume(8, 1e6, gs, mb) == \
+                JCM.dp_sync_volume(8, 1e6, jgs, mb)
 
 
 def test_serving_records_no_graph():
