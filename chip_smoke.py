@@ -84,29 +84,32 @@ a hard failure:
      block fully masks keeps its carry bit for bit; two runs give the same
      bits), K4's times (the backward chain also replayed from a CUDA
      graph); then ``launch/train.py --mesh 1,1,1,1,2`` as two
-     gloo ranks sharing the card under ``torch.distributed.run``
+     gloo ranks sharing the card (``launch_ranks``)
      (qwen3-1.7b at full width and MESH_LAYERS layers, full depth until
      phase 16 took its place in the script's time; the flags, seed and
      data of phase 8), in one launch with 13b's run: losses within 1e-3 of
      one card's run of the same model (run first), both ranks' parameters
      bitwise equal, each kernel's launches per rank exactly the code's per
      microbatch;
- 11. serving on the 4D mesh (1,2,2,1): four gloo ranks sharing the card
-     under ``torch.distributed.run``, each holding its shard of every
-     weight. First phase 5's sequences fed whole (teacher-forced) through
-     the mesh: logits within MESH_TF_TOL of one card's (taken in phase 5);
-     then ``serve.py --mesh 1,2,2,1`` with phase 5's flags: every rank's
-     parameter shards hash to the one-card model's blocks, every rank ran
-     the same plans, each kernel's launches (K3's stats and apply passes
-     among them) and the collective calls per step are the code's, and
-     the greedy ids equal phase 5's wherever phase 5's top-2 margin
-     exceeds MESH_MARGIN times the teacher-forced error; then ``--mode
-     fixed`` (batch 4, prompt 128, 8 new tokens) with the same checks, its
-     greedy ids held the same way to the fixed run of the same flags on
-     one card (taken in phase 5, with the margins of its positions);
- 12. training on the 4D mesh, gloo ranks sharing the card under
-     ``torch.distributed.run``, each holding its block of every weight,
-     at full width and MESH_LAYERS layers (one card's run of the same cut
+ 11. serving on the 4D mesh (1,2,2,1): qwen3-1.7b at full width and
+     MESH_SERVE_LAYERS layers, four gloo ranks sharing the card
+     (``launch_ranks``), each holding its shard of every weight, each rank ``serve.main`` with the cut model's config (``chip_smoke.py
+     --serve-worker LAYERS FLAGS``). One card's runs of the same cut model
+     come first, in this process: phase 5's flags served, and the fixed
+     run below. Then the one-card run's sequences fed whole
+     (teacher-forced) through the mesh: logits within MESH_TF_TOL of one
+     card's; then ``serve.py --mesh 1,2,2,1`` with phase 5's flags: every
+     rank's parameter shards hash to the one-card model's blocks, every
+     rank ran the same plans, each kernel's launches (K3's stats and apply
+     passes among them) and the collective calls per step are the code's,
+     and the greedy ids equal one card's wherever its top-2 margin exceeds
+     MESH_MARGIN times the teacher-forced error; then ``--mode fixed``
+     (batch 4, prompt 128, 8 new tokens) with the same checks, its greedy
+     ids held the same way to the fixed run of the same flags on one card
+     (with the margins of its positions);
+ 12. training on the 4D mesh, gloo ranks sharing the card
+     (``launch_ranks``), each holding its block of every weight, at full
+     width and MESH_LAYERS layers (one card's run of the same cut
      model, in this process, is what they are held to); each runs
      ``train.train_on`` in ``chip_smoke.py --mesh-train-worker DIR WHICH``
      (13a's run follows 12a's in its launch):
@@ -132,12 +135,13 @@ a hard failure:
      OVERLAP_TF_TOL of max|logit| of one card's, the greedy ids equal to
      phase 11's fixed run's, launches, calls and ring hops the code's;
  14. Jamba on the 4D mesh and long-context decode: (a) ``serve.py --mode
-     fixed`` of ``jamba-v0.1-52b-dense-ffn`` at full width and depth on
-     (1,2,2,1) (the Mamba layers' inner channels over y), four gloo ranks
-     on the card, phase 9's batch and prompt and 8 new tokens: phase 9's
-     one-card run fed through the mesh (teacher-forced logits within
-     MESH_TF_TOL of max|logit| of one card's), then the served run, its
-     greedy ids held to one card's above the margin, launches (K6 28 a
+     fixed`` of ``jamba-v0.1-52b-dense-ffn`` at full width and
+     HYBRID_MESH_LAYERS layers (one period of its pattern) on (1,2,2,1)
+     (the Mamba layers' inner channels over y), four gloo ranks on the
+     card, phase 9's batch and prompt and 8 new tokens: the one-card run
+     of the same cut model fed through the mesh (teacher-forced logits
+     within MESH_TF_TOL of max|logit| of one card's), then the served run,
+     its greedy ids held to one card's above the margin, launches (K6 7 a
      forward) and collective calls the code's; (b)
      ``make_decode_step(seqshard=True)`` of one sequence at the reference's
      long_500k context (524,288 positions, the KV cache's sequence dim
@@ -177,7 +181,26 @@ a hard failure:
      on (2,1,2,1) for the 4th (in 15b's A's launch): A's and B's losses
      within MESH_TRAIN_TOL's later-step bound of 15b's C, the file
      verified, restore seconds logged;
- 17. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 17. the paper's analytical model calibrated on the card: (a)
+     ``launch/calibrate.py --quick`` on (1,2,2,2), eight gloo ranks sharing
+     the card (run before phase 10): γ, α, ``link_bw``, K1's ``flops`` (a
+     rank's share of the card) and r², overall and per axis, finite and
+     non-negative (``link_bw`` positive); the overlap and cross-step
+     efficiencies; each collective kind's ring hops counted in
+     ``mesh.HOPS`` equal to the code's count (``calibrate.ring_hops``);
+     the card's name, power limit and ranks per card; (b) 12a's and 16a's
+     runs take ``--calib`` with (a)'s profile, ``--telemetry`` and
+     ``--log-file`` (in their launches), whose JSONL passes
+     ``telemetry.validate_file``; then, for phases 10, 12a, 13a (with its
+     ``OverlapConfig``), 15a and 16a, the model's step time priced with
+     each run's own flags (``train.predict_step``; 12a's and 16a's equal
+     to their runs' own predictions) against the measured steady step,
+     their ratio, and the Spearman correlation over the five; (c) in
+     (a)'s launch, ``--validate --steps 2``: the reference's fig5 grid of
+     7 decompositions of 8 ranks x S in {64, 128, 256} of the reduced
+     qwen3-1.7b, its ``rank_correlation`` and ``predicted_best`` against
+     the measured ``best``;
+ 18. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -195,9 +218,28 @@ import sys
 import time
 from pathlib import Path
 
-import torch
-
 ROOT = Path(__file__).resolve().parent
+PYCACHE = ROOT / "build" / "pycache"
+
+
+def keep_bytecode() -> None:
+    """Cache compiled bytecode under PYCACHE, for this process and every
+    process it starts. Each rank of a launch (and the launcher) imports
+    torch anew, and where the environment forbids writing bytecode
+    (PYTHONDONTWRITEBYTECODE) every such import compiles torch's sources
+    again: ~9 s a process on the H100 machine, twice a launch. Here this
+    process's import writes the cache and later processes read it."""
+    sys.pycache_prefix = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+if __name__ == "__main__":
+    keep_bytecode()
+
+import torch  # noqa: E402
+
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "qwen3-1.7b"
@@ -278,6 +320,21 @@ ZERO3_FLAGS = with_flag(ZERO3_ONE_FLAGS, "--overdecompose", 1) + [
 ZERO3_PREFETCH_FLAGS = with_steps(ZERO3_FLAGS, 1) + ["--zero3-prefetch"]
 ZERO3_CKPT_A_MESH = "4,1,1,1"
 ZERO3_CKPT_B_MESH = CKPT_A_MESH
+# phase 17: the calibration's launch (17a, then 17c's fig5 grid) and its
+# profile, which 12a's and 16a's runs read (--calib) and merge their drift
+# into
+CALIB_MESH = "1,2,2,2"
+CALIB_RANKS = 8
+CALIB_VALIDATE_STEPS = 2
+CALIB_TIMEOUT_S = 300
+CALIB_PROFILE = ROOT / "build" / "chip_smoke_calib" / "cuda.json"
+
+
+def calib_flags(outdir, name):
+    """17b's flags on a run of the mesh-train worker: 17a's profile,
+    telemetry into ``outdir``'s ``<name>.jsonl``."""
+    return ["--calib", str(CALIB_PROFILE), "--telemetry", "--log-file",
+            str(Path(outdir) / f"{name}.jsonl")]
 # K3's timed shapes (rows, d): the serving step's norm1/norm2 (8 slots) and
 # qk-norm rows (8 x 16 heads); training's norm1/norm2 per microbatch (2 x
 # 512 tokens) and its q-norm rows (x 16 heads); Jamba's prefill (4 x 512)
@@ -401,12 +458,17 @@ MESH_FIXED_FLAGS = ["--arch", ARCH, "--mode", "fixed", "--preset", "full",
                     "--batch", "4", "--prompt-len", "128", "--gen", "8",
                     "--seed", str(SEED), "--mesh", MESH, "--backend", "gloo"]
 MESH_TIMEOUT_S = 400
+# phases 11 and 13c serve qwen3-1.7b at full width and MESH_SERVE_LAYERS
+# layers, held to one card's runs of the same cut model: at full depth
+# they took 161 s of the script's time with start-up (on an H100 80GB
+# HBM3 at 700 W)
+MESH_SERVE_LAYERS = 4
 # teacher-forced logits of the mesh against one card's, max|dlogit| over
 # max|logit|, float32 with TF32 off: phase 4's bound, for the same cause
 # (each product and each norm's sum of squares is summed in another order:
 # two x ranks' halves added through gloo)
 MESH_TF_TOL = 1e-3
-# the mesh's greedy ids must equal phase 5's wherever phase 5's top-2
+# the mesh's greedy ids must equal one card's wherever one card's top-2
 # margin exceeds this many times the teacher-forced max|dlogit|
 MESH_MARGIN = 10
 MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
@@ -444,9 +506,12 @@ OVERLAP_TF_TOL = 3e-6
 DENSE_DECODE = {"Jamba": ((4, 32, 8, 128), [513, 527, 538, 544]),
                 "mesh fixed": ((4, 8, 4, 128), [129, 131, 134, 136]),
                 "Jamba mesh": ((4, 16, 4, 128), [513, 515, 517, 520])}
-# 14a: Jamba's fixed serving on the (1,2,2,1) mesh at full width and
-# depth, phase 9's batch and prompt; --gen cut from phase 9's 32 to phase
-# 11's 8 for the script's time
+# 14a: Jamba's fixed serving on the (1,2,2,1) mesh at full width, phase
+# 9's batch and prompt; for the script's time --gen is cut from phase 9's
+# 32 to phase 11's 8, and the depth to one period of the layer pattern
+# (7 Mamba layers, 1 attention layer; at full depth 14a took 90 s with
+# start-up on an H100 80GB HBM3 at 700 W)
+HYBRID_MESH_LAYERS = 8
 HYBRID_MESH_FLAGS = ["--arch", HYBRID, "--mode", "fixed", "--preset",
                      "full", "--batch", "4", "--prompt-len", "512", "--gen",
                      "8", "--seed", str(SEED), "--mesh", MESH, "--backend",
@@ -2055,37 +2120,110 @@ def seq_launches(cfg):
             "selective_scan": 0}
 
 
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def launch_ranks(args, label, ranks, timeout, env=None):
-    """``args`` under torch.distributed.run on ``ranks`` ranks sharing this
-    card, in a session of its own (a time limit stops the launcher and
-    every rank together): rank 0's output lines, its JSON reports and
-    served ids left out of the log. ``env``: more environment."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(ranks), *args]
-    log(f"[{label}] python -m torch.distributed.run --standalone "
-        f"--nproc-per-node {ranks} {' '.join(args)}")
-    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
+    """``python args`` as ``ranks`` ranks sharing this card, each process
+    given its rank, the world size and rank 0's address on localhost in
+    the environment, as ``torch.distributed.run --standalone`` gives them
+    (and one OpenMP thread a rank, as it sets), but started from here:
+    the launcher's own import of torch would add seconds to every launch.
+    Each rank runs in a session of its own; when one fails, or the time
+    limit passes, every rank is stopped. Returns rank 0's output lines,
+    each logged with the seconds since the launch began, its JSON reports
+    and served ids left out of the log. ``env``: more environment."""
+    import contextlib
+    import tempfile
+    import threading
+    log(f"[{label}] {ranks} ranks: python {' '.join(args)}")
+    base = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [x for x in os.environ.get(
-            "PYTHONPATH", "").split(os.pathsep) if x]))
+            "PYTHONPATH", "").split(os.pathsep) if x]),
+        WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks),
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    base.setdefault("OMP_NUM_THREADS", "1")
     t0 = time.time()
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"{label} ran past {timeout} s")
-    lines = out.strip().splitlines()
-    for ln in lines:
-        if not ln.startswith(('{"serve"', '{"train"', "req ")):
-            log(f"  | {ln}")
-    if proc.returncode:
-        log(err[-6000:])
-        raise AssertionError(f"{label} exited with {proc.returncode}")
+    lines, procs = [], []
+
+    def read(stream):
+        for ln in stream:
+            ln = ln.rstrip("\n")
+            lines.append(ln)
+            if ln.strip() and not ln.startswith(
+                    ('{"serve"', '{"train"', "req ")):
+                log(f"  | {time.time() - t0:6.1f}s {ln}")
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
+        errs = [st.enter_context(open(Path(tmp) / f"rank{r}.err", "w+"))
+                for r in range(ranks)]
+        try:
+            for r in range(ranks):
+                procs.append(subprocess.Popen(
+                    [sys.executable, *args], cwd=ROOT,
+                    env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                    stdout=subprocess.PIPE if r == 0 else errs[r],
+                    stderr=errs[r], text=True, start_new_session=True))
+            reader = threading.Thread(target=read, args=(procs[0].stdout,))
+            reader.start()
+            failed = None
+            while failed is None and any(p.poll() is None for p in procs):
+                failed = next((r for r, p in enumerate(procs)
+                               if p.poll()), None)
+                if time.time() - t0 > timeout:
+                    failed = "time"
+                time.sleep(0.2)
+            if failed is None:
+                failed = next((r for r, p in enumerate(procs)
+                               if p.returncode), None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        reader.join()
+        if failed == "time":
+            raise AssertionError(f"{label} ran past {timeout} s")
+        if failed is not None:
+            errs[failed].seek(0)
+            log(errs[failed].read()[-6000:])
+            raise AssertionError(f"{label}: rank {failed} exited with "
+                                 f"{procs[failed].returncode}")
     log(f"  {time.time() - t0:.1f}s with start-up")
     return lines
+
+
+def depth_cut(cfg, layers):
+    """``cfg`` at full width and ``layers`` layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def serve_worker(layers: int, argv) -> int:
+    """One rank of ``serve.py`` with the flags ``argv`` at ``layers``
+    layers (started by :func:`launch_serve`):
+    ``serve.main`` given the cut model's config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.preset == "smoke":
+        cfg = cfg.reduced()
+    serve.main(argv, cfg=depth_cut(cfg, layers))
+    return 0
+
+
+def launch_serve(flags, layers, label):
+    """``serve.py`` with ``flags`` on MESH_RANKS ranks sharing this card,
+    its model cut to ``layers`` layers: rank 0's output lines."""
+    return launch_ranks([str(ROOT / "chip_smoke.py"), "--serve-worker",
+                         str(layers), *flags], label, MESH_RANKS,
+                        MESH_TIMEOUT_S)
 
 
 def phase_seq_train(cfg, smi, losses_one_card):
@@ -2212,19 +2350,31 @@ def teacher_forced(model, seqs, n_out, *, slots=8, chunk=32, page=16):
     return torch.cat(out, 0)
 
 
-def mesh_expectations(model, cfg, generated):
-    """What the mesh phase holds its ranks to, from the one-card model of
-    phase 5: each rank's parameter-shard hash (the blocks of every
-    parameter by its PartitionSpec, hashed in parameter order, as
-    ``steps.param_sha256`` hashes a rank's own), phase 5's sequences and
-    ids, and their teacher-forced logits at the generated positions."""
+def mesh_expectations(cfg):
+    """What phases 11 and 13c hold their ranks to, from the one-card model
+    of ``cfg`` (qwen3-1.7b at MESH_SERVE_LAYERS layers, drawn from the
+    seed): each rank's parameter-shard hash (the blocks of every parameter
+    by its PartitionSpec, hashed in parameter order, as
+    ``steps.param_sha256`` hashes a rank's own), the sequences and ids of
+    the continuous run of phase 5's flags on one card, and their
+    teacher-forced logits at the generated positions."""
     import hashlib
     import numpy as np
     from repro_torch.core import mesh as M
     from repro_torch.core.partition import param_spec
     from repro_torch.launch import serve
+    from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import mesh_axes
     t0 = time.time()
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    args = serve.build_parser().parse_args(SERVE_FLAGS)
+    engine, _, reqs, _, _ = serve_run(model, cfg, args)
+    del engine
+    if not all(r.state == "done" and len(r.generated) == r.max_new
+               for r in reqs):
+        raise AssertionError("a request of the one-card run did not "
+                             "complete")
+    generated = [r.generated for r in reqs]
     axes = mesh_axes(MESH)
     hashes = []
     for r in range(MESH_RANKS):
@@ -2233,8 +2383,6 @@ def mesh_expectations(model, cfg, generated):
             h.update(M.shard(p.detach(), axes, param_spec(n), r).contiguous(
             ).cpu().view(torch.uint8).numpy())
         hashes.append(h.hexdigest())
-    args = serve.build_parser().parse_args(SERVE_FLAGS)
-    reqs = serve.make_requests(args, cfg.vocab_size)
     seqs = torch.from_numpy(np.stack([
         np.concatenate([r.prompt, np.asarray(g[:-1], np.int32)])
         for r, g in zip(reqs, generated)]))
@@ -2247,9 +2395,10 @@ def mesh_expectations(model, cfg, generated):
     fseqs = torch.from_numpy(np.concatenate(
         [fixed.prompts, fixed.ids[:, :-1]], axis=1).astype(np.int32))
     flogits = teacher_forced(model, fseqs, fargs.gen, slots=fargs.batch)
-    log(f"[mesh expectations] {MESH_RANKS} ranks' shard hashes of the "
-        f"one-card model, the teacher-forced logits {tuple(logits.shape)}"
-        f" of phase 5's sequences, and the one-card fixed run's ids "
+    log(f"[mesh expectations] {cfg.name} at {cfg.n_layers} layers on one "
+        f"card: {MESH_RANKS} ranks' shard hashes, the continuous run of "
+        f"phase 5's flags and the teacher-forced logits "
+        f"{tuple(logits.shape)} of its sequences, the fixed run's ids "
         f"{fixed.ids.shape} with its margins, in {time.time() - t0:.1f}s")
     return dict(hashes=hashes, seqs=seqs, ids=generated, logits=logits,
                 n_out=args.gen, fixed_ids=fixed.ids.tolist(),
@@ -2292,18 +2441,22 @@ def check_ids(got_ids, base_ids, margin, thr, label):
 
 
 def mesh_worker(outdir: Path) -> int:
-    """One rank of the teacher-forced run on the mesh (started by
-    ``phase_mesh_serve`` under torch.distributed.run): the model drawn
-    from seed 0 on (1,2,2,1), phase 5's sequences fed through it; rank 0
-    saves the gathered logits."""
+    """One rank of the teacher-forced runs on the mesh (started by
+    ``phase_mesh_serve``): the model of
+    ``mesh_expectations`` drawn from seed 0 on (1,2,2,1), its one-card
+    run's sequences fed through it, blocking and overlapped; then 14a's
+    Jamba at HYBRID_MESH_LAYERS layers, the prompts and ids of its
+    one-card fixed run (``hybrid_mesh_expectations``) fed through its
+    fixed-batch steps. Rank 0 saves the gathered logits."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
     axes = mesh_axes(MESH)
     run = init_mesh(axes, device="cuda")
     try:
-        model = ST.init_model(get_config(ARCH), axes, seed=SEED,
-                              device=run["device"])
+        model = ST.init_model(depth_cut(get_config(ARCH),
+                                        MESH_SERVE_LAYERS), axes,
+                              seed=SEED, device=run["device"])
         job = torch.load(outdir / "seqs.pt")
         logits = teacher_forced(model, job["seqs"], job["n_out"])
         if run["rank"] == 0:
@@ -2316,6 +2469,15 @@ def mesh_worker(outdir: Path) -> int:
             logits = teacher_forced(model, job["seqs"], job["n_out"])
         if run["rank"] == 0:
             torch.save(logits, outdir / "overlap_logits.pt")
+        del model, logits
+        # 14a: Jamba's one-card fixed run fed through its fixed-batch steps
+        model = ST.init_model(depth_cut(get_config(HYBRID),
+                                        HYBRID_MESH_LAYERS), axes,
+                              seed=SEED, device=run["device"])
+        job = torch.load(HYBRID_MESH_DIR / "job.pt")
+        logits = fixed_teacher_forced(model, job["prompts"], job["ids"])
+        if run["rank"] == 0:
+            torch.save(logits, HYBRID_MESH_DIR / "mesh_logits.pt")
     finally:
         close_mesh()
     return 0
@@ -2344,7 +2506,7 @@ def mesh_report(lines, expect, want, units, unit, cfg, smi, hops=0):
     ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
     got = [r["param_sha256"] for r in ranks]
     if "hashes" not in expect:
-        # Jamba's 9.3 B parameters are too many to hash on the host here;
+        # Jamba's shards are not hashed on one card here;
         # tests/test_torch_mesh_hybrid.py checks the shards are slices
         if len(set(got)) != len(got):
             raise AssertionError(f"two ranks hold the same shards: {got}")
@@ -2404,17 +2566,22 @@ def mesh_report(lines, expect, want, units, unit, cfg, smi, hops=0):
     return rep
 
 
-def phase_mesh_serve(cfg, smi, expect):
-    """``serve.py`` on the (1,2,2,1) mesh, four gloo ranks on this card:
-    the teacher-forced logits of phase 5's sequences against one card's,
-    then the continuous run of phase 5's flags (its greedy ids held to
-    phase 5's above the margin) and a fixed-batch run."""
+def phase_mesh_serve(cfg, smi, expect, hybrid_expect):
+    """``serve.py`` on the (1,2,2,1) mesh of ``cfg`` (MESH_SERVE_LAYERS
+    layers), four gloo ranks on this card: the teacher-forced logits of
+    the one-card run's sequences against one card's, then the continuous
+    run of phase 5's flags (its greedy ids held to one card's above the
+    margin) and a fixed-batch run. 14a's teacher-forced run of
+    ``hybrid_expect``'s job follows in the first launch."""
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     torch.save(dict(seqs=expect["seqs"], n_out=expect["n_out"]),
                MESH_DIR / "seqs.pt")
+    HYBRID_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(prompts=hybrid_expect["prompts"],
+                    ids=hybrid_expect["ids"]), HYBRID_MESH_DIR / "job.pt")
     launch_ranks([str(ROOT / "chip_smoke.py"), "--mesh-worker",
-                  str(MESH_DIR)], "mesh teacher-forced", MESH_RANKS,
-                 MESH_TIMEOUT_S)
+                  str(MESH_DIR)], "mesh teacher-forced, then 14a's",
+                 MESH_RANKS, MESH_TIMEOUT_S)
     mesh = torch.load(MESH_DIR / "mesh_logits.pt")
     one = expect["logits"]
     err, scale = max_err(mesh, one), float(one.abs().max())
@@ -2427,19 +2594,15 @@ def phase_mesh_serve(cfg, smi, expect):
     thr = MESH_MARGIN * err
     del mesh, one
 
-    lines = launch_ranks(["-m", "repro_torch.launch.serve",
-                          *MESH_SERVE_FLAGS], "mesh serve", MESH_RANKS,
-                         MESH_TIMEOUT_S)
+    lines = launch_serve(MESH_SERVE_FLAGS, cfg.n_layers, "mesh serve")
     rep = mesh_report(lines, expect, mesh_launches(cfg, 0, 1),
                       lambda r: (r["n_steps"], r["n_steps"]), "step", cfg,
                       smi)
     check_ids(rep["ids"], expect["ids"], margin, thr,
-              f"continuous, against phase 5 (margin {MESH_MARGIN} x "
+              f"continuous, against one card's (margin {MESH_MARGIN} x "
               f"{err:.3e})")
 
-    lines = launch_ranks(["-m", "repro_torch.launch.serve",
-                          *MESH_FIXED_FLAGS], "mesh fixed serve", MESH_RANKS,
-                         MESH_TIMEOUT_S)
+    lines = launch_serve(MESH_FIXED_FLAGS, cfg.n_layers, "mesh fixed serve")
     gen = int(MESH_FIXED_FLAGS[MESH_FIXED_FLAGS.index("--gen") + 1])
     fixed = mesh_report(lines, expect, mesh_launches(cfg, 1, gen - 1),
                         lambda r: (1, gen), "run", cfg, smi)
@@ -2473,8 +2636,7 @@ def phase_overlap_serve(cfg, smi, expect, blocking):
                              "card's")
     del mesh, block
     flags = MESH_FIXED_FLAGS + ["--overlap"]
-    lines = launch_ranks(["-m", "repro_torch.launch.serve", *flags],
-                         "overlap fixed serve", MESH_RANKS, MESH_TIMEOUT_S)
+    lines = launch_serve(flags, cfg.n_layers, "overlap fixed serve")
     gen = int(flags[flags.index("--gen") + 1])
     rep = mesh_report(lines, expect, mesh_launches(cfg, 1, gen - 1),
                       lambda r: (1, gen), "run", cfg, smi,
@@ -2821,13 +2983,12 @@ def phase_overlap_seq(cfg, smi, one, blocking):
 
 
 def cut_config(cfg):
-    import dataclasses
-    return dataclasses.replace(cfg, n_layers=MESH_LAYERS)
+    return depth_cut(cfg, MESH_LAYERS)
 
 
 def mesh_train_worker(outdir: Path, which: str) -> int:
     """One rank of training runs on a mesh (started by ``run_mesh_train``
-    under torch.distributed.run): ``train.train_on`` with the flags, depth
+    through ``launch_ranks``): ``train.train_on`` with the flags, depth
     and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
     "mesh-overlap": 13a, "seq-overlap": 13b, "zero": 15a, "ckpt-a": 15b's
     run A, which checkpoints into ``outdir``, "zero3": 16a,
@@ -2843,7 +3004,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
     blocking = OverlapConfig()
     runs = {
-        "mesh": (MESH_TRAIN_FLAGS, MESH_LAYERS, blocking, None),
+        "mesh": (MESH_TRAIN_FLAGS + calib_flags(outdir, "mesh"),
+                 MESH_LAYERS, blocking, None),
         "data": (MESH_DATA_FLAGS, MESH_LAYERS, blocking, None),
         "mesh-overlap": (MESH_TRAIN_FLAGS, MESH_LAYERS,
                          OverlapConfig.all_on(), None),
@@ -2855,7 +3017,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
                                  "--zero", "--ckpt",
                                  str(outdir / "ckpt.npz")], None, blocking,
                    CKPT_A_STEPS),
-        "zero3": (ZERO3_FLAGS, None, blocking, None),
+        "zero3": (ZERO3_FLAGS + calib_flags(outdir, "zero3"), None, blocking,
+                  None),
         "zero3-prefetch": (ZERO3_PREFETCH_FLAGS, None, blocking, None),
         "zero3-ckpt-a": (with_flag(CKPT_FLAGS, "--overdecompose", 1) + [
             "--mesh", ZERO3_CKPT_A_MESH, "--backend", "gloo", "--zero3",
@@ -2884,7 +3047,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
                     losses=res.losses, grad_norms=res.grad_norms,
                     step_s=res.step_s, tokens_per_step=res.tokens_per_step,
                     n_params=res.n_params, ckpt=res.ckpt,
-                    first_step=res.first_step, ranks=res.ranks)))
+                    first_step=res.first_step, predicted=res.predicted,
+                    ranks=res.ranks)))
             del res
             gc.collect()
             if torch.cuda.is_available():
@@ -2981,80 +3145,59 @@ def fixed_teacher_forced(model, prompts, ids):
     return torch.cat(out, 1)
 
 
-def hybrid_mesh_expectations(model, cfg):
-    """What 14a holds its ranks to, from phase 9's one-card model: the
-    fixed run of HYBRID_MESH_FLAGS on one card (its prompts and greedy
-    ids) and the teacher-forced logits of its positions."""
+def hybrid_mesh_expectations(cfg):
+    """What 14a holds its ranks to, from the one-card model of ``cfg``
+    (Jamba at HYBRID_MESH_LAYERS layers, drawn from the seed): the fixed
+    run of HYBRID_MESH_FLAGS on one card (its prompts and greedy ids) and
+    the teacher-forced logits of its positions."""
     from repro_torch.launch import serve
+    from repro_torch.launch import steps as ST
     t0 = time.time()
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
     args = serve.build_parser().parse_args(
         HYBRID_MESH_FLAGS[:HYBRID_MESH_FLAGS.index("--mesh")])
     fixed = serve.run_fixed(args, model)
     prompts = torch.from_numpy(fixed.prompts)
     ids = torch.from_numpy(fixed.ids.astype("int32"))
     logits = fixed_teacher_forced(model, prompts, ids)
-    log(f"[hybrid mesh expectations] {cfg.name}: the one-card fixed run's "
-        f"ids {tuple(ids.shape)} and teacher-forced logits "
+    del model
+    log(f"[hybrid mesh expectations] {cfg.name} at {cfg.n_layers} layers: "
+        f"the one-card fixed run's ids {tuple(ids.shape)} and teacher-forced"
+        f" logits "
         f"{tuple(logits.shape)}, in {time.time() - t0:.1f}s")
     return dict(prompts=prompts, ids=ids, logits=logits,
                 margin=top2_margin(logits))
 
 
-def hybrid_mesh_worker(outdir: Path) -> int:
-    """One rank of 14a's teacher-forced run (started by
-    ``phase_hybrid_mesh`` under torch.distributed.run): Jamba drawn from
-    seed 0 on (1,2,2,1), phase 9's one-card prompts and ids fed through
-    the fixed-batch steps; rank 0 saves the gathered logits."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import steps as ST
-    from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
-    axes = mesh_axes(MESH)
-    run = init_mesh(axes, device="cuda")
-    try:
-        model = ST.init_model(get_config(HYBRID), axes, seed=SEED,
-                              device=run["device"])
-        job = torch.load(outdir / "job.pt")
-        logits = fixed_teacher_forced(model, job["prompts"], job["ids"])
-        if run["rank"] == 0:
-            torch.save(logits, outdir / "mesh_logits.pt")
-    finally:
-        close_mesh()
-    return 0
-
-
 def phase_hybrid_mesh(cfg, smi, expect):
-    """14a: ``serve.py --mode fixed`` of Jamba at full width and depth on
-    (1,2,2,1), four gloo ranks on this card, each holding its shard of
-    every weight (the Mamba layers' inner channels over y). The
-    teacher-forced logits of phase 9's one-card run against one card's
-    (MESH_TF_TOL of max|logit|), then the served run: its greedy ids held
-    to one card's above the margin, launches (K6 28 a forward) and
-    collective calls per forward the code's, prefill and decode times,
-    comm by axis and each rank's peak memory."""
-    HYBRID_MESH_DIR.mkdir(parents=True, exist_ok=True)
-    torch.save(dict(prompts=expect["prompts"], ids=expect["ids"]),
-               HYBRID_MESH_DIR / "job.pt")
-    launch_ranks([str(ROOT / "chip_smoke.py"), "--hybrid-mesh-worker",
-                  str(HYBRID_MESH_DIR)], "hybrid mesh teacher-forced",
-                 MESH_RANKS, MESH_TIMEOUT_S)
+    """14a: ``serve.py --mode fixed`` of Jamba at full width and
+    HYBRID_MESH_LAYERS layers (``cfg``) on (1,2,2,1), four gloo ranks on
+    this card, each holding its shard of every weight (the Mamba layers'
+    inner channels over y). The teacher-forced logits of the one-card
+    run (taken in phase 11's first launch) against one card's
+    (MESH_TF_TOL of max|logit|), then the served
+    run: its greedy ids held to one card's above the margin, launches (K6
+    once a Mamba layer a forward) and collective calls per forward the
+    code's, prefill and decode times, comm by axis and each rank's peak
+    memory."""
     mesh = torch.load(HYBRID_MESH_DIR / "mesh_logits.pt")
     one = expect["logits"]
     err, scale = max_err(mesh, one), float(one.abs().max())
-    log(f"  teacher-forced logits {tuple(mesh.shape)}: max|mesh - one "
+    log(f"[hybrid mesh teacher-forced] taken in phase 11's launch: "
+        f"logits {tuple(mesh.shape)}: max|mesh - one "
         f"card| = {err:.3e}, max|logit| = {scale:.3e}, {err / scale:.3e} of"
         f" it (tol {MESH_TF_TOL:g}); TF32 off")
     if not (math.isfinite(err) and err <= MESH_TF_TOL * scale):
         raise AssertionError("the mesh's Jamba logits differ from one card's")
     thr = MESH_MARGIN * err
     del mesh
-    lines = launch_ranks(["-m", "repro_torch.launch.serve",
-                          *HYBRID_MESH_FLAGS], "hybrid mesh fixed serve",
-                         MESH_RANKS, MESH_TIMEOUT_S)
+    lines = launch_serve(HYBRID_MESH_FLAGS, cfg.n_layers,
+                         "hybrid mesh fixed serve")
     gen = int(HYBRID_MESH_FLAGS[HYBRID_MESH_FLAGS.index("--gen") + 1])
     rep = mesh_report(lines, {}, mesh_launches(cfg, 1, gen - 1),
                       lambda r: (1, gen), "run", cfg, smi)
     check_ids(rep["ids"], expect["ids"].tolist(), expect["margin"], thr,
-              "hybrid fixed, against phase 9's one-card model")
+              "hybrid fixed, against the one-card model's")
     B, T = expect["prompts"].shape
     log(f"  prefill {B} x {T}: {rep['prefill_s']:.4f} s; decode {gen - 1} "
         f"steps x batch {B}: {rep['decode_s']:.4f} s, "
@@ -3065,8 +3208,7 @@ def phase_hybrid_mesh(cfg, smi, expect):
 
 def long_config(cfg):
     """14b's model: ``cfg`` at full width, one period of its pattern."""
-    import dataclasses
-    return dataclasses.replace(cfg, n_layers=LONG_LAYERS)
+    return depth_cut(cfg, LONG_LAYERS)
 
 
 def long_caches(cfg, axes, device):
@@ -3112,8 +3254,8 @@ def long_collectives(cfg):
 
 
 def long_worker(outdir: Path) -> int:
-    """One rank of 14b (started by ``phase_long_context`` under
-    torch.distributed.run): the cut Jamba drawn from seed 0 on (2,1,2,1)
+    """One rank of 14b (started by ``phase_long_context`` through
+    ``launch_ranks``): the cut Jamba drawn from seed 0 on (2,1,2,1)
     with its shard of the seeded caches, LONG_STEPS steps of
     ``make_decode_step(seqshard=True)`` fed one card's ids; each rank
     saves its report, rank 0 the logits gathered over y."""
@@ -3594,6 +3736,159 @@ def phase_zero3_train(cfg, smi):
         raise AssertionError("prefetch did not drop remat's re-gather")
 
 
+# ---------------------------------------------------------------------- #
+# phase 17: the analytical model calibrated on the card
+# ---------------------------------------------------------------------- #
+
+def phase_calibrate(smi):
+    """17a and 17c: ``launch/calibrate.py --quick --validate`` on
+    CALIB_MESH, eight gloo ranks on this card; the fitted profile's
+    constants, probes and counted hops checked and logged; the fig5 grid's
+    rank correlations and best decompositions."""
+    from repro_torch.core import calibrate as CB
+    CALIB_PROFILE.parent.mkdir(parents=True, exist_ok=True)
+    lines = launch_ranks(
+        ["-m", "repro_torch.launch.calibrate", "--mesh", CALIB_MESH,
+         "--quick", "--out", str(CALIB_PROFILE), "--validate", "--steps",
+         str(CALIB_VALIDATE_STEPS)],
+        f"calibrate ({CALIB_MESH}, --quick), then 17c's --validate",
+        CALIB_RANKS, CALIB_TIMEOUT_S)
+    prof = CB.CalibrationProfile.load(str(CALIB_PROFILE))
+    per_card = prof.probes.get("ranks_per_card")
+    log(f"  [17a] on {smi}, {'-' if per_card is None else f'{per_card:g}'} "
+        f"ranks per card over gloo, mesh "
+        f"{prof.mesh_shape}: gamma {prof.gamma:.4e} s/call, alpha "
+        f"{prof.alpha:.4e} s/hop, link_bw {prof.link_bw:.4e} B/s, flops "
+        f"{prof.flops:.4e} FLOP/s (K1 fp32, one rank's share of the card), "
+        f"r2 {prof.fit_r2:.4f}, {len(prof.samples)} samples")
+    for f in prof.axis_fits:
+        log(f"    axis {f.axis} (p={f.p}): gamma {f.gamma:.4e} alpha "
+            f"{f.alpha:.4e} link_bw {f.link_bw:.4e} r2 {f.r2:.4f} "
+            f"n={f.n_samples}")
+    log(f"    overlap_efficiency {prof.overlap_efficiency:.4f} (z ring "
+        f"{prof.probes['overlap_z_hidden']:.4f}, all-reduce ring "
+        f"{prof.probes['overlap_ar_hidden']:.4f} hidden), z_claims_first "
+        f"{prof.z_claims_first}, cross_step_efficiency "
+        f"{prof.cross_step_efficiency:.4f}"
+        + ("; link_bw taken from the largest message (beta fit to 0)"
+           if "link_bw_of_largest_message" in prof.probes else ""))
+    bad = [k for k, v in (("gamma", prof.gamma), ("alpha", prof.alpha),
+                          ("flops", prof.flops))
+           if not (math.isfinite(v) and v >= 0)]
+    if bad or not (0 < prof.link_bw < math.inf and prof.flops > 0):
+        raise AssertionError(f"the fitted profile is not physical: {bad}, "
+                             f"link_bw {prof.link_bw}, flops {prof.flops}")
+    p_of = {f.axis: f.p for f in prof.axis_fits}
+    hops = {k[len("hops:"):]: v for k, v in prof.probes.items()
+            if k.startswith("hops:")}
+    if len(hops) != len(CB._KINDS) * len(p_of):
+        raise AssertionError(f"hops counted for {sorted(hops)}")
+    for key, counted in sorted(hops.items()):
+        kind, axis = key.split("@")
+        code = CB.ring_hops(kind, p_of[axis])
+        log(f"    hops {key}: counted {counted:g} a call, the code's {code} "
+            f"(the model's geometry "
+            f"{CB.collective_geometry(kind, p_of[axis], 1.0)[0]})")
+        if counted != code:
+            raise AssertionError(f"{key}: {counted} hops a call, the code "
+                                 f"makes {code}")
+    rows = {}
+    for ln in lines:
+        if ln.startswith("fig5_measured/"):
+            label, val, derived = ln.split(",", 2)
+            rows[label[len("fig5_measured/"):]] = (float(val), derived)
+    need = ("best", "predicted_best", "rank_correlation",
+            "rank_correlation_decomp")
+    if any(k not in rows or not math.isfinite(rows[k][0]) for k in need):
+        raise AssertionError(f"17c printed {sorted(rows)}")
+    log(f"  [17c] fig5 grid ({len(rows) - len(need)} configurations, "
+        f"{CALIB_VALIDATE_STEPS} steps x 3 rounds): rank_correlation "
+        f"{rows['rank_correlation'][0]:.4f}, decompositions at S=64 "
+        f"{rows['rank_correlation_decomp'][0]:.4f}; measured best "
+        f"{rows['best'][1]} at {rows['best'][0]:.1f} us/step, predicted "
+        f"{rows['predicted_best'][1]} at "
+        f"{rows['predicted_best'][0]:.1f} us/step, on {smi}")
+
+
+def model_counts(args, cfg):
+    """(collective calls, ring hops, wire bytes) a rank and step that the
+    analytical model charges the run ``args`` makes of ``cfg``: its step
+    priced (``train.predict_step``, blocking) with one unit constant at a
+    time and nothing hidden."""
+    from repro_torch.core import calibrate as CB
+    from repro_torch.launch import train
+
+    def price(**unit):
+        base = dict(backend="cuda", n_devices=1, mesh_shape=(1, 1, 1, 1),
+                    alpha=0.0, gamma=0.0, link_bw=1e300, flops=1e300,
+                    overlap_efficiency=0.0, cross_step_efficiency=0.0)
+        prof = CB.CalibrationProfile(**dict(base, **unit))
+        return train.predict_step(prof, args, cfg).exposed_comm
+    return price(gamma=1.0), price(alpha=1.0), price(link_bw=1.0)
+
+
+def phase_calib_steps(smi):
+    """17b: 12a's and 16a's telemetry files valid; for phases 10, 12a, 13a,
+    15a and 16a the model's step time on 17a's profile, priced with each
+    run's flags, depth and schedule, against the run's measured steady
+    step (the first step excluded), and the Spearman correlation of the
+    two over the five."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibrate as CB
+    from repro_torch.core.overlap import OverlapConfig
+    from repro_torch.launch import telemetry as TL
+    from repro_torch.launch import train
+    log("[17b] the calibrated model against the measured mesh steps")
+    prof = CB.CalibrationProfile.load(str(CALIB_PROFILE))
+    for which in ("mesh", "zero3"):
+        path = MESH_TRAIN_DIR / f"{which}.jsonl"
+        log(f"  [17b] {path.name}: {TL.validate_file(str(path))} telemetry "
+            f"records, valid")
+    cut = cut_config(get_config(ARCH))
+    phases = [("10", "seq", SEQ_FLAGS, cut, OverlapConfig()),
+              ("12a", "mesh", MESH_TRAIN_FLAGS, cut, OverlapConfig()),
+              ("13a", "mesh-overlap", MESH_TRAIN_FLAGS, cut,
+               OverlapConfig.all_on()),
+              ("15a", "zero", ZERO_FLAGS, cut, OverlapConfig()),
+              ("16a", "zero3", ZERO3_FLAGS, get_config(ARCH),
+               OverlapConfig())]
+    pred, meas = [], []
+    for label, which, flags, cfg, ov in phases:
+        args = train.build_parser().parse_args(flags)
+        p = train.predict_step(prof, args, cfg, ov)
+        rep = mesh_train_report(which)
+        own = rep.get("predicted")
+        if own is not None and own["total"] != p.total:
+            raise AssertionError(f"{label}: the run predicted {own}, the "
+                                 f"script {p}")
+        steady = rep["step_s"][1:] or rep["step_s"]
+        m = sum(steady) / len(steady)
+        pred.append(p.total)
+        meas.append(m)
+        log(f"  [17b] {label} ({args.mesh}, {cfg.n_layers} layers"
+            + (", overlapped" if ov.any_enabled else "")
+            + (", --zero3" if args.zero3 else ", --zero" if args.zero
+               else "")
+            + f"): predicted {p.total:.4f} s (compute {p.compute:.4f} + "
+            f"exposed {p.exposed_comm:.4f}, hidden {p.hidden_comm:.4f}), "
+            f"measured {m:.4f} s ({len(steady)} steady steps), measured/"
+            f"predicted {m / p.total:.4f}"
+            + (" [the run's own prediction, bitwise]" if own else ""))
+        calls, hops, wire = model_counts(args, cfg)
+        last = rep["ranks"][0]["comm_by_kind"][-1]
+        log(f"        the model charges {calls:.0f} calls, {hops:.0f} hops, "
+            f"{wire / 1e9:.4f} GB sent a step (blocking); rank 0 made "
+            f"{sum(c['calls'] for c in last.values())} calls (ring hops "
+            f"{last.get('ppermute', {}).get('calls', 0)}), "
+            f"{sum(c['bytes'] for c in last.values()) / 2e9:.4f} GB sent "
+            f"(half of sent + received) in its last step")
+    log(f"  [17b] Spearman(predicted, measured) over phases 10, 12a, 13a, "
+        f"15a, 16a: {CB.spearman(pred, meas):.4f}, on {smi}")
+    for k, v in sorted(prof.probes.items()):
+        if k.startswith("drift:"):
+            log(f"    {k} {v:.4f} (telemetry's rolling measured/predicted)")
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3627,8 +3922,9 @@ def main() -> int:
     del engine
     free_memory()
     phase_serve_pool(model, cfg, smi, served)
-    mesh_expect = mesh_expectations(model, cfg, served[0])
     del model
+    free_memory()
+    mesh_expect = mesh_expectations(depth_cut(cfg, MESH_SERVE_LAYERS))
     free_memory()
     times = phase_timings(gen, cfg.n_layers)
     free_memory()
@@ -3649,8 +3945,10 @@ def main() -> int:
     phase_fixed_parity(hybrid, hcfg)
     fixed_launches_run = phase_fixed_serve(hybrid, hcfg, smi)
     phase_fixed_profile(hybrid, hcfg)
-    hybrid_expect = hybrid_mesh_expectations(hybrid, hcfg)
     del hybrid
+    free_memory()
+    hybrid_expect = hybrid_mesh_expectations(
+        depth_cut(hcfg, HYBRID_MESH_LAYERS))
     free_memory()
 
     phase_kernels_partial(gen, errs)
@@ -3662,18 +3960,22 @@ def main() -> int:
         f"10, 12, 13a, 13b and 15a, phase 8's flags")
     one_cut = train.main(TRAIN_FLAGS, cfg=cut)
     free_memory()
+    phase_calibrate(smi)
     seq_launches_run, seq_rep = phase_seq_train(cut, smi, one_cut.losses)
     free_memory()
-    mesh_launches_run, mesh_fixed = phase_mesh_serve(cfg, smi, mesh_expect)
+    scfg = depth_cut(cfg, MESH_SERVE_LAYERS)
+    mesh_launches_run, mesh_fixed = phase_mesh_serve(scfg, smi, mesh_expect,
+                                                     hybrid_expect)
     free_memory()
     _, mesh_train_rep = phase_mesh_train(cut, smi, one_cut)
     phase_mesh_data(cut, smi, one_cut)
     phase_overlap_train(cut, smi, one_cut, mesh_train_rep)
     phase_overlap_seq(cut, smi, one_cut, seq_rep)
     free_memory()
-    phase_overlap_serve(cfg, smi, mesh_expect, mesh_fixed)
+    phase_overlap_serve(scfg, smi, mesh_expect, mesh_fixed)
     free_memory()
-    phase_hybrid_mesh(hcfg, smi, hybrid_expect)
+    phase_hybrid_mesh(depth_cut(hcfg, HYBRID_MESH_LAYERS), smi,
+                      hybrid_expect)
     del hybrid_expect
     free_memory()
     phase_long_context(hcfg, smi)
@@ -3685,6 +3987,7 @@ def main() -> int:
     phase_dots_train(cfg, smi, train_res, train_launches)
     free_memory()
     phase_zero3_train(cfg, smi)
+    phase_calib_steps(smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
@@ -3738,8 +4041,8 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--mesh-train-worker"]:
         sys.exit(mesh_train_worker(Path(sys.argv[2]), sys.argv[3]))
-    if sys.argv[1:2] == ["--hybrid-mesh-worker"]:
-        sys.exit(hybrid_mesh_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--serve-worker"]:
+        sys.exit(serve_worker(int(sys.argv[2]), sys.argv[3:]))
     if sys.argv[1:2] == ["--long-worker"]:
         sys.exit(long_worker(Path(sys.argv[2])))
     sys.exit(main())

@@ -25,12 +25,14 @@ host-clock seconds it spends and the calls (:data:`COMM`,
 
 The ring helpers of the overlapped schedule (:func:`ppermute_ring`,
 :func:`ring_all_gather`, :func:`ring_reduce_scatter`,
-:func:`ring_all_reduce`) move blocks one hop at a time with :class:`Hop`,
-which does not go through :func:`_run`: it stages a CUDA block on a side
-stream after an event, so the compute stream runs on while the block
-crosses gloo (kind "ppermute"; its seconds are the host's time blocked in
-the hop, the exposed part). :class:`GatherAsync` posts a whole all-gather
-at once and completes it later (ZeRO-3's prefetch).
+:func:`ring_all_reduce`, :func:`ring_all_to_all`) move blocks one hop at
+a time with :class:`Hop`, which does not go through :func:`_run`: it
+stages a CUDA block on a side stream after an event, so the compute stream
+runs on while the block crosses gloo (kind "ppermute"; its seconds are the
+host's time blocked in the hop, the exposed part). :func:`all_to_all` is
+the blocking form of the MoE dispatch's exchange (kind "all_to_all").
+:class:`GatherAsync` posts a whole all-gather at once and completes it
+later (ZeRO-3's prefetch).
 """
 from __future__ import annotations
 
@@ -49,8 +51,8 @@ AXES = ("data", "x", "y", "z", "seq")
 Axis = Union[str, Tuple[str, ...], None]
 
 # this process's communication by kind of collective ("all_reduce",
-# "all_gather", "psum_scatter", "broadcast", and "ppermute" for a ring
-# hop), and by axis (its names joined by "+"):
+# "all_gather", "psum_scatter", "all_to_all", "broadcast", and "ppermute"
+# for a ring hop), and by axis (its names joined by "+"):
 # {"bytes": handed to and taken back from gloo, "seconds": host clock in
 # the collective, staging and any wait for the other ranks included,
 # "calls"}
@@ -210,6 +212,21 @@ def clear_groups() -> None:
     _HOP_TAGS.clear()
 
 
+def save_groups() -> tuple:
+    """This rank's group tables (the groups :func:`init_groups` made, their
+    ranks and their hop tags) as they stand, for :func:`restore_groups`: a
+    caller that runs several meshes in one world makes each mesh's groups
+    once and switches between them."""
+    return dict(_GROUPS), dict(_RANKS), dict(_HOP_TAGS)
+
+
+def restore_groups(saved: tuple) -> None:
+    """Make ``saved`` (:func:`save_groups`) this rank's group tables."""
+    clear_groups()
+    for table, entries in zip((_GROUPS, _RANKS, _HOP_TAGS), saved):
+        table.update(entries)
+
+
 def _group(axes: MeshAxes, axis: Axis):
     """The process group of ``axis``, or None when it has one rank."""
     live = _live(axes, axis)
@@ -346,6 +363,29 @@ def psum_scatter(v, axes: MeshAxes, axis: Axis, *, dim: int):
         dist.all_reduce(h, group=group)
         return h.chunk(n, dim)[r].contiguous()
     return _run(v, reduce_scatter, "psum_scatter", axis)
+
+
+def all_to_all(v, axes: MeshAxes, axis: Axis, *, dim: int = 0):
+    """Blocking all-to-all over ``axis``: ``dim`` (p equal blocks, block k
+    destined for ring position k) is exchanged so that the result's block
+    k holds what position k sent here, the MoE dispatch/combine primitive
+    (gloo's ``all_to_all_single`` over ``dim`` moved to the front). The
+    identity on an axis of one rank."""
+    group = _group(axes, axis)
+    if group is None:
+        return v
+    n = axes.size(axis)
+    dim %= v.dim()
+    if v.shape[dim] % n:
+        raise ValueError(f"all_to_all: dim {dim} of size {v.shape[dim]} "
+                         f"not divisible by {n}")
+
+    def exchange(h):
+        front = h.movedim(dim, 0).contiguous()
+        out = torch.empty_like(front)
+        dist.all_to_all_single(out, front, group=group)
+        return out.movedim(0, dim).contiguous()
+    return _run(v, exchange, "all_to_all", axis)
 
 
 def axis_index(axes: MeshAxes, axis: Axis, rank: Optional[int] = None
@@ -550,12 +590,24 @@ def ppermute_ring(v, axes: MeshAxes, axis: Axis, shift: int = 1):
     return Hop(v, axes, axis, shift).wait()
 
 
-def ring_all_gather(v, axes: MeshAxes, axis: Axis, *, dim: int):
+def _posted(under: Optional[Callable[[], object]]) -> None:
+    """Run ``under`` (work independent of the ring, queued once the ring's
+    first hop is posted, so that its staging copy is not queued behind
+    it), if given."""
+    if under is not None:
+        under()
+
+
+def ring_all_gather(v, axes: MeshAxes, axis: Axis, *, dim: int,
+                    under: Optional[Callable[[], object]] = None):
     """:func:`all_gather` as p - 1 ring hops, the same blocks in the same
     places (bitwise). Each hop is posted before the block it forwards is
-    placed, and a received block is forwarded from host memory."""
+    placed, and a received block is forwarded from host memory. ``under``
+    is called once, after the first hop is posted (the calibration's
+    overlap probes queue their GEMM there)."""
     p = axes.size(axis)
     if p == 1:
+        _posted(under)
         return v
     dim %= v.dim()
     idx, chunk = axis_index(axes, axis), v.shape[dim]
@@ -563,18 +615,23 @@ def ring_all_gather(v, axes: MeshAxes, axis: Axis, *, dim: int):
     cur, host = v, None
     for s in range(p):
         hop = Hop(cur, axes, axis, host=host) if s < p - 1 else None
+        if s == 0:
+            _posted(under)
         out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(cur)
         if hop is not None:
             cur, host = hop.wait(), hop.recv
     return out
 
 
-def ring_reduce_scatter(v, axes: MeshAxes, axis: Axis, *, dim: int):
+def ring_reduce_scatter(v, axes: MeshAxes, axis: Axis, *, dim: int,
+                        under: Optional[Callable[[], object]] = None):
     """:func:`psum_scatter` as p - 1 ring hops: the partial sum for block
     j passes through every rank, which adds its slice (``recv + g``), and
-    ends at rank j. Raises where ``dim`` does not split over p."""
+    ends at rank j. Raises where ``dim`` does not split over p. ``under``
+    as in :func:`ring_all_gather`."""
     p = axes.size(axis)
     if p == 1:
+        _posted(under)
         return v
     dim %= v.dim()
     if v.shape[dim] % p:
@@ -587,26 +644,63 @@ def ring_reduce_scatter(v, axes: MeshAxes, axis: Axis, *, dim: int):
     part = block(1)
     for s in range(1, p):
         hop = Hop(part, axes, axis)
+        if s == 1:
+            _posted(under)
         part = hop.wait() + block(s + 1 if s < p - 1 else 0)
     return part
 
 
-def ring_all_reduce(v, axes: MeshAxes, axis: Axis, *, dim: int = -1):
+def ring_all_reduce(v, axes: MeshAxes, axis: Axis, *, dim: int = -1,
+                    under: Optional[Callable[[], object]] = None):
     """:func:`psum` as a reduce-scatter ring and an all-gather ring over
     ``dim``, 2 (p - 1) hops. p == 2 is one exchange, ``v + recv``,
     bitwise the psum (two addends commute). Falls back to the blocking
     psum where ``dim`` does not split over p; the identity on an axis of
-    one rank."""
+    one rank. ``under`` as in :func:`ring_all_gather`."""
+    p = axes.size(axis)
+    if p == 1:
+        _posted(under)
+        return v
+    if p == 2:
+        hop = Hop(v, axes, axis)
+        _posted(under)
+        return v + hop.wait()
+    dim %= v.dim()
+    if v.shape[dim] % p:
+        out = psum(v, axes, axis)
+        _posted(under)
+        return out
+    return ring_all_gather(ring_reduce_scatter(v, axes, axis, dim=dim,
+                                               under=under), axes,
+                           axis, dim=dim)
+
+
+def ring_all_to_all(v, axes: MeshAxes, axis: Axis, *, dim: int = 0):
+    """:func:`all_to_all` as p - 1 pairwise hops: shift s sends this rank's
+    block destined s positions ahead straight there (``Hop(..., shift=s)``)
+    and places the block from s positions behind, the same blocks in the
+    same places as the blocking exchange (bitwise: each block travels once
+    either way). Every hop is posted before the first is waited for (each
+    group posts its hops in one order, so their tags meet). Falls back to
+    the blocking :func:`all_to_all` where ``dim`` does not split over p;
+    the identity on an axis of one rank."""
     p = axes.size(axis)
     if p == 1:
         return v
-    if p == 2:
-        return v + ppermute_ring(v, axes, axis)
     dim %= v.dim()
     if v.shape[dim] % p:
-        return psum(v, axes, axis)
-    return ring_all_gather(ring_reduce_scatter(v, axes, axis, dim=dim), axes,
-                           axis, dim=dim)
+        return all_to_all(v, axes, axis, dim=dim)
+    idx, chunk = axis_index(axes, axis), v.shape[dim] // p
+
+    def block(j):
+        return v.narrow(dim, j * chunk, chunk)
+    hops = [Hop(block((idx + s) % p), axes, axis, shift=s)
+            for s in range(1, p)]
+    out = torch.empty_like(v)
+    out.narrow(dim, idx * chunk, chunk).copy_(block(idx))
+    for s, hop in enumerate(hops, start=1):
+        out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(hop.wait())
+    return out
 
 
 def shard(v: torch.Tensor, axes: MeshAxes, spec, rank: Optional[int] = None

@@ -31,12 +31,19 @@ all-reduces as rings of hops whose GEMMs run as the blocks arrive),
 ``--z-chunks`` and ``--ar-chunks`` sub-rings per block; on a mesh of one
 rank every ring is the plain GEMM.
 
+``--telemetry`` (``--mode continuous``) writes rank 0's per-iteration
+JSONL (``launch/telemetry.py``: step kind, new tokens, queue depth,
+active slots, page-pool use, preemptions, and a summary whose tokens/s,
+TTFT and latency are the engine's own) to ``runs/telemetry/<run>.jsonl``
+or ``--log-file``.
+
 Only rank 0 prints; on a mesh its last line before ``SERVE OK`` is one
 JSON object ``{"serve": {...}}``: the served ids, tokens/s, TTFT and
 latency, one hash of the sequence of plans, and each rank's collective
 seconds and bytes, peak memory, kernel launches and parameter hash, all of
 the timed run. Not ported yet (each raises ``NotImplementedError``;
-ROADMAP.md lists them): ``--telemetry`` and ``--backend nccl``.
+ROADMAP.md lists them): ``--telemetry`` in ``--mode fixed`` and
+``--backend nccl``.
 """
 from __future__ import annotations
 
@@ -113,7 +120,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sub-rings per activation all-reduce block "
                          "(with --overlap)")
     ap.add_argument("--telemetry", action="store_true",
-                    help="per-step JSONL telemetry: not ported")
+                    help="per-step scheduler counters (queue depth, page "
+                         "utilization, preemptions) + tokens/s as "
+                         "schema'd JSONL under runs/telemetry/ "
+                         "(--mode continuous; launch/telemetry.py)")
+    ap.add_argument("--log-file", default=None,
+                    help="telemetry JSONL path (implies --telemetry; "
+                         "default runs/telemetry/<run>.jsonl)")
     return ap
 
 
@@ -137,10 +150,11 @@ def make_requests(args, vocab_size: int):
 
 def _refuse_unported(args) -> M.MeshAxes:
     """The mesh of ``--mesh``; raises on the flags not ported."""
-    if args.telemetry:
+    if (args.telemetry or args.log_file) and args.mode != "continuous":
         raise NotImplementedError(
-            "--telemetry is not ported to PyTorch yet: it waits for the "
-            "ROADMAP.md §1 item 'runtime tooling'")
+            "--telemetry and --log-file record the continuous engine's "
+            "iterations; --mode fixed's are not ported to PyTorch yet: they "
+            "wait for the ROADMAP.md §1 item 'runtime tooling'")
     return mesh_axes(args.mesh)
 
 
@@ -151,13 +165,15 @@ def overlap_config(args) -> OverlapConfig:
             if args.overlap else OverlapConfig())
 
 
-def _setup(args, device=None):
+def _setup(args, device=None, cfg=None):
     """(cfg, axes, model): float32 weights from seed 0 on ``device``
-    (default ``--device``), this rank's shards of them."""
+    (default ``--device``), this rank's shards of them; the model of
+    ``--arch`` and ``--preset``, or ``cfg``."""
     axes = _refuse_unported(args)
-    cfg = get_config(args.arch)
-    if args.preset == "smoke":
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.preset == "smoke":
+            cfg = cfg.reduced()
     return cfg, axes, ST.init_model(cfg, axes, seed=0,
                                     device=device or args.device)
 
@@ -285,9 +301,37 @@ def run_continuous(args, model=None):
     engine.warmup()
     _say(f"warmup in {time.time() - t0:.2f}s")
     reqs = make_requests(args, cfg.vocab_size)
+    telem = None
+    if (args.telemetry or args.log_file) and M.process_rank() == 0:
+        from repro_torch.core import comm_model as CM
+        from repro_torch.launch import telemetry as TL
+        dev = engine.device
+        telem = TL.Telemetry(
+            f"serve-{cfg.name}-{time.strftime('%Y%m%d-%H%M%S')}",
+            path=args.log_file,
+            tokens_per_step=0,  # serve steps carry their own new_tokens
+            flops_per_token=CM.model_flops_per_token(cfg, "serve"),
+            peak_flops_per_device=TL.card_peak_flops(dev, "float32"),
+            n_devices=(min(axes.world, torch.cuda.device_count())
+                       if dev.type == "cuda" else 1),
+            meta={"arch": cfg.name, "mesh": args.mesh, "mode": "continuous",
+                  "slots": args.slots, "pages": args.pages,
+                  "requests": args.requests, "rate": args.rate},
+            device=dev)
     ops.reset_launches()
     M.reset_comm()
-    stats = engine.run(reqs)
+    stats = engine.run(reqs, telemetry=telem)
+    if telem is not None:
+        # the summary's tokens/s is the engine's open-loop figure, so the
+        # JSONL agrees with the printed stats
+        telem.close(extra={
+            "tok_s": stats.tokens_per_s, "wall_s": stats.wall_s,
+            "steps": stats.n_steps, "tokens": stats.total_new_tokens,
+            "preemptions": stats.n_preemptions,
+            "ttft_p50_ms": stats.ttft_p50_ms,
+            "ttft_p99_ms": stats.ttft_p99_ms,
+            "latency_p50_ms": stats.latency_p50_ms,
+            "latency_p99_ms": stats.latency_p99_ms})
     for r in reqs[: min(4, len(reqs))]:
         _say(f"req {r.rid}: {np.asarray(r.generated, np.int32)}")
     _say(f"served {stats.n_requests} requests / "
@@ -316,18 +360,20 @@ def _report(args, run, model, serve: dict, mine: dict) -> None:
         backend=args.backend, overlap=args.overlap, ranks=ranks)}))
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """Serve as the flags ``argv`` say; ``cfg``: the model's config in
+    place of ``--arch`` and ``--preset``'s (a caller cutting its depth)."""
     args = build_parser().parse_args(argv)
     axes = _refuse_unported(args)
     run = init_mesh(axes, backend=args.backend, device=args.device)
     try:
-        _serve(args, run)
+        _serve(args, run, cfg)
     finally:
         close_mesh()
 
 
-def _serve(args, run) -> None:
-    _, _, model = _setup(args, run["device"])
+def _serve(args, run, cfg=None) -> None:
+    _, _, model = _setup(args, run["device"], cfg)
     if args.mode == "fixed":
         res = run_fixed(args, model)
         logits = res.logits

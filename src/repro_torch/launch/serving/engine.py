@@ -141,16 +141,23 @@ class PagedEngine:
             s.commit(plan, self._run_plan(plan), now=0.0)
 
     def run(self, requests: List[Request], *,
-            time_fn=time.time) -> ServeStats:
+            time_fn=time.time, telemetry=None) -> ServeStats:
         """Serve ``requests`` (``arrival`` in seconds relative to start) to
         completion; open loop: the clock keeps running whether or not the
-        engine keeps up."""
+        engine keeps up.
+
+        ``telemetry`` (a ``launch.telemetry.Telemetry``) receives one
+        ``serve_step`` record per executed plan: step kind, new tokens,
+        queue depth, active slots, page-pool utilization and the
+        cumulative preemption count, timed on its clock (the card
+        synchronized)."""
         s = self.sched
         for r in sorted(requests, key=lambda r: r.arrival):
             s.submit(r)
         t0 = time_fn()
         n_steps = 0
         total_new = 0
+        page_cap = sum(a.n_pages - 1 for a in s.allocators)
         self.plan_hash = hashlib.sha256()
         while not s.all_done():
             # every rank admits by rank 0's clock, so the plans agree
@@ -164,9 +171,18 @@ class PagedEngine:
                 continue
             for a in (plan.tokens, plan.positions, plan.q_len, plan.table):
                 self.plan_hash.update(np.ascontiguousarray(a).tobytes())
+            t_plan = telemetry.clock() if telemetry is not None else None
             sampled = self._run_plan(plan)
             n_steps += 1
-            total_new += s.commit(plan, sampled, now=time_fn() - t0)
+            new = s.commit(plan, sampled, now=time_fn() - t0)
+            total_new += new
+            if telemetry is not None:
+                telemetry.serve_step(
+                    n_steps - 1, telemetry.clock() - t_plan, new_tokens=new,
+                    queue_depth=len(s.queue), active=plan.n_active,
+                    page_util=(sum(a.n_used for a in s.allocators)
+                               / max(page_cap, 1)),
+                    preemptions=s.n_preemptions, step_kind=plan.kind)
         wall = time_fn() - t0
         lat = [r.t_done - r.arrival for r in requests]
         ttft = [r.t_first - r.arrival for r in requests]

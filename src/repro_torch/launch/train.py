@@ -45,9 +45,23 @@ through the replicated checkpoint layout):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --preset smoke --device cpu --steps 4 --zero --ckpt run.npz
 
+``--calib <path|auto>`` prices this run with the analytical model
+(``core/comm_model.predict_step_time``) on a profile that
+``launch/calibrate.py`` fitted, before the first step, and prints the
+predicted step against the measured one at the end (``calib[...]:``);
+``--telemetry`` writes rank 0's per-step JSONL (``launch/telemetry.py``:
+step time, tokens/s, MFU, loss, grad norm, peak memory and, with
+``--calib``, the drift of measured over predicted, which is merged into
+the profile's ``probes`` at the end) to ``runs/telemetry/<run>.jsonl`` or
+``--log-file``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --preset smoke --device cpu --steps 4 --calib runs/calib/cpu.json \
+      --telemetry --log-file run.jsonl
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
-§1 item it waits for): the runtime tooling (``--chaos``, ``--probe-every``, ``--telemetry``,
-``--log-file``, ``--profile-steps``, ``--calib``) and ``--backend nccl``.
+§1 item it waits for): the rest of the runtime tooling (``--chaos``,
+``--probe-every``, ``--profile-steps``) and ``--backend nccl``.
 """
 from __future__ import annotations
 
@@ -67,6 +81,8 @@ import torch.distributed as dist
 from repro_torch import convert
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config
+from repro_torch.core import calibrate as CB
+from repro_torch.core import comm_model as CM
 from repro_torch.core import gradsync as GS
 from repro_torch.core import mesh as M
 from repro_torch.core.overlap import OverlapConfig
@@ -74,6 +90,7 @@ from repro_torch.core.partition import param_spec, spec_names
 from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
+from repro_torch.launch import telemetry as TL
 from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
 from repro_torch.launch.steps import param_sha256
 from repro_torch.optim.adamw import AdamWConfig, init_state
@@ -82,10 +99,7 @@ from repro_torch.optim.adamw import AdamWConfig, init_state
 REFUSED = {
     "chaos": "runtime tooling",
     "probe_every": "runtime tooling",
-    "telemetry": "runtime tooling",
-    "log_file": "runtime tooling",
     "profile_steps": "runtime tooling",
-    "calib": "runtime tooling",
 }
 
 
@@ -104,6 +118,35 @@ def preset_config(cfg, preset: str):
             d_ff=2048, vocab_size=32000,
             n_layers=max(cfg.reduced().n_layers, 4))
     raise ValueError(preset)
+
+
+def grad_sync_config(args) -> GS.GradSyncConfig:
+    """The data-parallel sync of ``--zero``, ``--zero3`` and their
+    options."""
+    if args.zero3:
+        return GS.GradSyncConfig(zero3=True, prefetch=args.zero3_prefetch,
+                                 bucket_mb=args.dp_bucket_mb)
+    if args.zero:
+        return GS.GradSyncConfig(zero=True, bucket_mb=args.dp_bucket_mb)
+    return GS.GradSyncConfig()
+
+
+def predict_step(prof: CB.CalibrationProfile, args, cfg,
+                 overlap: OverlapConfig = OverlapConfig()) -> CM.StepTime:
+    """The analytical model's step time of the run that the flags ``args``
+    make of ``cfg`` under the schedule ``overlap``, priced with the
+    calibration profile ``prof`` at the run's dtype: the reference
+    trainer's ``predict_step_time`` of ``comm_layers()``, the global batch
+    in tokens, the mesh, the data-parallel sync and the microbatches."""
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    hw = dataclasses.replace(
+        prof.hardware_params(),
+        bytes_per_elem=float(torch.empty((), dtype=dtype).element_size()))
+    return CM.predict_step_time(
+        list(cfg.comm_layers()), args.batch * args.seq,
+        CM.Decomposition(*mesh_axes(args.mesh).sizes), hw,
+        gradsync=grad_sync_config(args), microbatches=args.overdecompose,
+        overlap=overlap if overlap.any_enabled else None)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -172,13 +215,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "step; the mesh may differ from the saving "
                          "run's — the state re-shards through the "
                          "replicated checkpoint layout")
+    ap.add_argument("--calib", default="", metavar="PATH|auto",
+                    help="price this run with the analytical model on a "
+                         "calibration profile (launch/calibrate.py; 'auto' "
+                         "= runs/calib/<backend>.json if present): the "
+                         "predicted step time, printed against the measured "
+                         "one at the end, and the drift with --telemetry")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-step JSONL telemetry to runs/telemetry/"
+                         "<run>.jsonl (launch/telemetry.py, rank 0): step "
+                         "time EMA + p50/p99, tokens/s, MFU, loss/grad-norm, "
+                         "peak device bytes, and, with --calib, the "
+                         "predicted-vs-measured drift ratio")
+    ap.add_argument("--log-file", default="",
+                    help="telemetry JSONL path (implies --telemetry; "
+                         "default runs/telemetry/<run>.jsonl)")
     # flags of repro.launch.train that the port refuses (REFUSED)
     ap.add_argument("--chaos", default="", help="not ported")
     ap.add_argument("--probe-every", type=int, default=0, help="not ported")
-    ap.add_argument("--telemetry", action="store_true", help="not ported")
-    ap.add_argument("--log-file", default="", help="not ported")
     ap.add_argument("--profile-steps", default="", help="not ported")
-    ap.add_argument("--calib", default="", help="not ported")
     return ap
 
 
@@ -212,6 +267,9 @@ class TrainResult:
     # the checkpoint: {"bytes", "save_s": [...], "restore_s"} (--ckpt)
     ckpt: Dict[str, object] = dataclasses.field(default_factory=dict)
     first_step: int = 0          # the step this run started at
+    # the analytical model's step time for this run under --calib
+    # ({"total", "compute", "exposed_comm", "hidden_comm"} in seconds)
+    predicted: Optional[Dict[str, float]] = None
     # every rank's report (the "ranks" list of the JSON line)
     ranks: List[dict] = dataclasses.field(default_factory=list)
 
@@ -268,13 +326,13 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     def say(*a, **kw):
         if rank0:
             print(*a, **kw, flush=True)
-    if args.zero3:
-        gs = GS.GradSyncConfig(zero3=True, prefetch=args.zero3_prefetch,
-                               bucket_mb=args.dp_bucket_mb)
-    elif args.zero:
-        gs = GS.GradSyncConfig(zero=True, bucket_mb=args.dp_bucket_mb)
-    else:
-        gs = GS.GradSyncConfig()
+    # the calibration profile first: a bad --calib path fails before the
+    # model is built; 'auto' with no profile saved runs uncalibrated
+    prof = CB.resolve(args.calib) if args.calib else None
+    if args.calib and prof is None:
+        say(f"calib[{args.calib}]: no profile at {CB.default_path()}; "
+            f"no prediction")
+    gs = grad_sync_config(args)
     model = ST.init_model(cfg, axes, seed=0, device=run["device"],
                           dtype=dtype, zero3=gs.zero3)
     dev = model.device
@@ -301,6 +359,32 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     step_fn = ST.make_train_step(cfg, axes, opt, topts, tools=tools)
     tokens = args.batch * args.seq
     res = TrainResult([], [], [], tokens, n_params, None)
+    pred = None
+    if prof is not None:
+        # the α-β model's step time for THIS run: seeds the drift monitor
+        # and the end-of-run print
+        pred = predict_step(prof, args, cfg, overlap)
+        res.predicted = dict(dataclasses.asdict(pred), total=pred.total)
+    telem = None
+    if (args.telemetry or args.log_file) and rank0:
+        cards = (min(run["world"], torch.cuda.device_count())
+                 if dev.type == "cuda" else 1)
+        telem = TL.Telemetry(
+            f"{cfg.name}-{time.strftime('%Y%m%d-%H%M%S')}",
+            path=args.log_file or None, tokens_per_step=tokens,
+            flops_per_token=CM.model_flops_per_token(cfg),
+            # a profile's rate is one rank's (its share of a shared card);
+            # without one, the card's own peak for the dtype, per card
+            peak_flops_per_device=(prof.flops if prof is not None
+                                   else TL.card_peak_flops(dev, args.dtype)),
+            n_devices=run["world"] if prof is not None else cards,
+            drift=(TL.DriftMonitor(pred.total)
+                   if pred is not None and pred.total > 0 else None),
+            meta={"arch": cfg.name, "mesh": [int(x) for x in
+                                             args.mesh.split(",")],
+                  "n_devices": run["world"], "batch": args.batch,
+                  "seq": args.seq, "dtype": args.dtype,
+                  "calib": args.calib or None}, device=dev)
     res.state_bytes = ST.state_layouts(cfg, axes, params, topts)
     specs = convert.jax_specs(model)
 
@@ -349,6 +433,7 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     GS.reset_dp_sync()
     last = args.steps if stop_after is None else min(
         args.steps, start_step + stop_after)
+    t_warm = t_step = None     # after this run's first step; the last one
     for step in range(start_step, last):
         batch = ST.stripe_batch(
             {k: torch.from_numpy(v).to(dev) for k, v in
@@ -373,6 +458,13 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
         res.grad_norms.append(gn)
+        now = time.time()
+        if t_warm is None:
+            # the first step pays the kernels' first calls: not timed
+            t_warm = now
+        elif telem is not None:
+            telem.train_step(step, now - t_step, loss=loss, grad_norm=gn)
+        t_step = now
         if not np.isfinite(loss):
             raise RuntimeError(f"step {step}: non-finite loss {loss}")
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -387,6 +479,23 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     res.launches = ops.launches()
     if cuda:
         res.max_memory_bytes = torch.cuda.max_memory_allocated(dev)
+    if pred is not None and len(res.losses) > 1:
+        # the α-β model priced with the --calib profile against this run's
+        # wall clock (the first step excluded)
+        measured_s = (t_step - t_warm) / (len(res.losses) - 1)
+        say(f"calib[{args.calib}]: predicted step {pred.total * 1e3:.2f} ms "
+            f"(compute {pred.compute * 1e3:.2f} + exposed "
+            f"{pred.exposed_comm * 1e3:.2f}), measured "
+            f"{measured_s * 1e3:.2f} ms/step")
+    if telem is not None:
+        telem.close()
+        if telem.drift is not None and telem.drift.n:
+            # fold the measured/predicted verdict into the profile's probes
+            # as it is now (the fitted constants stay untouched)
+            path = CB.default_path() if args.calib == "auto" else args.calib
+            CB.merge_drift(CB.resolve(path), telem.drift.record(
+                workload=f"{cfg.name}@{args.mesh}")).save(path)
+            say(f"drift record merged into {path}")
     # the final save comes after the timed window
     if args.ckpt and res.losses:
         save_checkpoint(start_step + len(res.losses) - 1)
@@ -410,7 +519,7 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     say(json.dumps({"train": dict(
         arch=cfg.name, mesh=args.mesh, backend=args.backend if multi
         else None, zero=args.zero, zero3=gs.zero3, prefetch=gs.prefetch,
-        first_step=start_step,
+        first_step=start_step, predicted=res.predicted,
         losses=res.losses, grad_norms=res.grad_norms,
         step_s=res.step_s, tokens_per_step=tokens, n_params=n_params,
         ckpt=res.ckpt, ranks=res.ranks)}))

@@ -2,16 +2,20 @@
 
 Only the fields and methods the ported slices read are kept: dense
 all-attention decoders and Jamba's hybrid Mamba/attention decoder, with
-RMSNorm, gated SiLU and a tied or untied LM head. The
-communication-model fields and methods of the JAX ``ArchConfig`` are not
-carried over; ``__post_init__`` rejects what the slices cannot run. A
-configuration with MoE FFNs can be made (so that the registry holds the
-published Jamba), but the model refuses to be built from it.
+RMSNorm, gated SiLU and a tied or untied LM head. ``comm_layers`` and
+``tp_constraints`` describe a configuration to the analytical model
+(``core/comm_model.py``) as the JAX ``ArchConfig``'s do, for the mixers
+and FFNs the port builds; ``__post_init__`` rejects what the slices
+cannot run. A configuration with MoE FFNs can be made (so that the
+registry holds the published Jamba), but the model refuses to be built
+from it, and ``comm_layers`` refuses to price it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+from repro_torch.core.comm_model import Constraints, LayerShape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +225,66 @@ class ArchConfig:
                 total += (mc.n_experts * per + mc.n_shared * per
                           + d * mc.n_experts)
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared only), as the JAX
+        ``active_param_count``."""
+        if self.moe is None:
+            return self.param_count()
+        mc = self.moe
+        per = 3 * self.d_model * mc.d_expert
+        n_moe = sum(1 for f in self.ffns() if f == "moe")
+        return self.param_count() - n_moe * (mc.n_experts - mc.top_k) * per
+
+    def comm_layers(self) -> Tuple[LayerShape, ...]:
+        """LayerShapes for the communication model (paper §5), as the JAX
+        ``comm_layers`` gives them for attention (its ``kv_ring_width``
+        prices the seq axis's KV circulation), Mamba and the MLP. MoE
+        FFNs are refused: their expert bank and all-to-all wait for the
+        MoE slice."""
+        d = self.d_model
+        hd = self.head_dim_
+        out = []
+        for mixer, ffn in self.layer_kinds():
+            if mixer == "attn":
+                out.append(LayerShape(
+                    d, (self.n_heads + 2 * self.n_kv_heads) * hd,
+                    kv_ring_width=2 * self.n_kv_heads * hd))
+                out.append(LayerShape(self.n_heads * hd, d,
+                                      transposed=True))
+            elif mixer == "mamba":
+                di = self.mamba.expand * d
+                out.append(LayerShape(d, 2 * di))
+                out.append(LayerShape(di, d, transposed=True))
+            else:
+                item = ("MoE and the expert axis" if mixer == "mla"
+                        else "other mixers and architectures")
+                raise NotImplementedError(
+                    f"{self.name}: comm_layers of mixer {mixer!r} is not "
+                    f"ported to PyTorch yet: it waits for the ROADMAP.md "
+                    f"§1 item '{item}'")
+            if ffn == "mlp":
+                mult = 2 if self.gated_mlp else 1
+                out.append(LayerShape(d, mult * self.d_ff))
+                out.append(LayerShape(self.d_ff, d, transposed=True))
+            else:
+                raise NotImplementedError(
+                    f"{self.name}: comm_layers of ffn {ffn!r} is not "
+                    f"ported to PyTorch yet: it waits for the ROADMAP.md §1 "
+                    f"item 'MoE and the expert axis'")
+        return tuple(out)
+
+    def tp_constraints(self, global_batch: int) -> Constraints:
+        """The JAX ``tp_constraints``: x divides d_model and d_ff, y the
+        query heads (the KV heads may be duplicated over y) and the
+        experts."""
+        divs = [self.d_model, self.d_ff or self.d_model]
+        y_divs = [self.n_heads]
+        if self.moe:
+            y_divs.append(self.moe.n_experts)
+        return Constraints(global_batch=global_batch,
+                           x_divides=tuple(divs),
+                           y_divides=tuple(y_divs))
 
     def reduced(self) -> "ArchConfig":
         """The JAX package's smoke variant: d_model <= 256, at most 4

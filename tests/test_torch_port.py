@@ -79,11 +79,13 @@ def test_serve_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--arch", "jamba-v0.1-52b"],
-                                   ["--telemetry"], ["--mesh", "1,2,1,1"]])
+                                   ["--mode", "fixed", "--telemetry"],
+                                   ["--mesh", "1,2,1,1"]])
 def test_serve_rejects_what_is_not_ported(flags):
-    """The unported flags raise naming their ROADMAP item; a mesh of more
-    than one rank is served, but only under torch.distributed.run, and
-    outside it raises naming WORLD_SIZE."""
+    """The unported flags raise naming their ROADMAP item (``--telemetry``
+    is ported for ``--mode continuous`` only); a mesh of more than one
+    rank is served, but only under torch.distributed.run, and outside it
+    raises naming WORLD_SIZE."""
     if "--mesh" in flags:
         exc, match = ValueError, "WORLD_SIZE"
     elif "--arch" in flags:
@@ -149,14 +151,17 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--log-file", "run.log"], "runtime tooling"),
+    (["--log-file", "run.log", "--profile-steps", "0:1"], "runtime tooling"),
     (["--chaos", "seed=0"], "runtime tooling"),
     (["--probe-every", "2"], "runtime tooling"),
-    (["--telemetry"], "runtime tooling"),
+    (["--telemetry", "--probe-every", "2"], "runtime tooling"),
     (["--profile-steps", "0:1"], "runtime tooling"),
-    (["--calib", "auto"], "runtime tooling"),
+    (["--calib", "auto", "--chaos", "seed=0"], "runtime tooling"),
     (["--backend", "nccl"], "multi-rank mesh")])
 def test_train_refuses_what_is_not_ported(flags, item):
+    """The unported flags raise naming their ROADMAP item, beside the
+    ported ``--log-file``, ``--telemetry`` and ``--calib`` too
+    (tests/test_torch_telemetry.py runs those)."""
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
         train.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
 
