@@ -200,7 +200,20 @@ a hard failure:
      7 decompositions of 8 ranks x S in {64, 128, 256} of the reduced
      qwen3-1.7b, its ``rank_correlation`` and ``predicted_best`` against
      the measured ``best``;
- 18. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 18. the tracing half (``core/trace.py``'s scopes, ``launch/roofline``'s
+     dispatch hook, ``train.py --profile-steps``): 13a's run once more in
+     12a's launch, with ``--profile-steps 2:2`` (3 steps, eight ranks):
+     every rank's chrome trace written, rank 0's holding the ring hops',
+     the GEMM chunks' and the embedding gather's ranges; each rank's
+     recorded calls by scope summing to the hook's totals, which equal
+     ``mesh.COMM``'s for the window in calls and bytes; the losses and
+     grad norms bitwise 13a's; printed: rank 0's tally by scope class,
+     kind and axis (calls, raw and wire bytes, host seconds in the scope's
+     ranges, K1's device time inside ``gemm/chunk`` ranges), the unscoped
+     remainder beside the calls and bytes the analytical model charges the
+     step, the hook's totals against 13a's calls a step, and the profiled
+     step's wall time against step 1's;
+ 19. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -2813,7 +2826,7 @@ def phase_mesh_train(cfg, smi, one):
     # 13a's run follows in the same launch
     rep = run_mesh_train("mesh", f"mesh train, then 13a's ({MESH_TRAIN}, "
                          f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS,
-                         then=("mesh-overlap",))
+                         then=("mesh-overlap", "mesh-overlap-profile"))
     check_mesh_losses(rep, one, "(1,2,2,2) against one card")
     args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
     want = mesh_train_collectives(cfg, mesh_axes(MESH_TRAIN),
@@ -2990,7 +3003,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     """One rank of training runs on a mesh (started by ``run_mesh_train``
     through ``launch_ranks``): ``train.train_on`` with the flags, depth
     and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
-    "mesh-overlap": 13a, "seq-overlap": 13b, "zero": 15a, "ckpt-a": 15b's
+    "mesh-overlap": 13a, "mesh-overlap-profile": 18, "seq-overlap": 13b,
+    "zero": 15a, "ckpt-a": 15b's
     run A, which checkpoints into ``outdir``, "zero3": 16a,
     "zero3-prefetch": 16b, "zero3-ckpt-a" and "zero3-ckpt-b": 16c's runs A
     and B, through ``outdir``'s "zero3.npz"; several runs on one mesh
@@ -3009,6 +3023,9 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
         "data": (MESH_DATA_FLAGS, MESH_LAYERS, blocking, None),
         "mesh-overlap": (MESH_TRAIN_FLAGS, MESH_LAYERS,
                          OverlapConfig.all_on(), None),
+        "mesh-overlap-profile": (MESH_TRAIN_FLAGS + ["--profile-steps",
+                                                     PROFILE_STEPS],
+                                 MESH_LAYERS, OverlapConfig.all_on(), None),
         "seq": (SEQ_FLAGS, MESH_LAYERS, blocking, None),
         "seq-overlap": (SEQ_FLAGS, MESH_LAYERS,
                         OverlapConfig(ring_attention=True), None),
@@ -3048,6 +3065,7 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
                     step_s=res.step_s, tokens_per_step=res.tokens_per_step,
                     n_params=res.n_params, ckpt=res.ckpt,
                     first_step=res.first_step, predicted=res.predicted,
+                    profile=res.profile,
                     ranks=res.ranks)))
             del res
             gc.collect()
@@ -3889,6 +3907,175 @@ def phase_calib_steps(smi):
             log(f"    {k} {v:.4f} (telemetry's rolling measured/predicted)")
 
 
+# ---------------------------------------------------------------------- #
+# phase 18: the tracing half
+# ---------------------------------------------------------------------- #
+
+PROFILE_STEPS = "2:2"
+# ranges rank 0's trace must hold: a z gather ring's second hop, the dW
+# ring's first, a hop's GEMM, the embedding's z gather
+PROFILE_LABELS = ("ring_ag[z]/hop1", "ring_rs[z]/hop0", "gemm/chunk0",
+                  "embed_gather[z]")
+K1_KERNELS = tuple(k for k, g in KERNEL_GROUPS if g == "K1 block_matmul")
+
+
+def trace_spans(path):
+    """One rank's chrome trace (``torch.profiler``'s export): the names of
+    its ``record_function`` ranges; the host seconds inside each scope
+    class's ranges (a class's ranges can hold another's: ``gemm/chunk``
+    inside ``ring_ag[z]/hop``); and K1's kernels (its tiles, decode
+    kernels and split sums: a wrapper launch can run two) and their device
+    seconds, in all and those whose launch call (found by the kernel's
+    correlation id) lies inside a ``gemm/chunk`` range of its thread."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    # the scopes' ranges (gloo's own ranges, "gloo:send" and the like,
+    # carry a colon, which no scope label has)
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("ph") == "X" and ":" not in e["name"]]
+    host, gemm = {}, {}
+    for e in ranges:
+        cls = e["name"].split("/", 1)[0]
+        host[cls] = host.get(cls, 0.0) + e["dur"] / 1e6
+        if e["name"].startswith("gemm/"):
+            gemm.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    k1 = {"kernels": 0, "s": 0.0, "in_gemm": 0, "in_gemm_s": 0.0}
+    for e in events:
+        if e.get("cat") != "kernel" or not any(
+                k in e.get("name", "") for k in K1_KERNELS):
+            continue
+        k1["kernels"] += 1
+        k1["s"] += e["dur"] / 1e6
+        call = calls.get(e.get("args", {}).get("correlation"))
+        if call is not None and any(
+                a <= call["ts"] <= b
+                for a, b in gemm.get((call["pid"], call["tid"]), ())):
+            k1["in_gemm"] += 1
+            k1["in_gemm_s"] += e["dur"] / 1e6
+    return {e["name"] for e in ranges}, host, k1
+
+
+def window_comm(r, steps, first_step=0):
+    """``mesh.COMM``'s calls and bytes by kind over the window ``steps``
+    (A, B) of rank report ``r``: {kind: {"calls", "bytes"}}, kinds with
+    calls only."""
+    out = {}
+    for i in range(steps[0] - first_step, steps[1] - first_step + 1):
+        for k, c in r["comm_by_kind"][i].items():
+            row = out.setdefault(k, {"calls": 0, "bytes": 0.0})
+            row["calls"] += c["calls"]
+            row["bytes"] += c["bytes"]
+    return {k: v for k, v in out.items() if v["calls"]}
+
+
+def phase_profile_train(cfg, smi):
+    """18: 13a's run with ``--profile-steps 2:2`` (the last run of 12a's
+    launch): every rank's trace on disk, rank 0's ranges, the hook's calls
+    by scope summing to its totals and those equal to ``mesh.COMM``'s for
+    the window, the losses bitwise 13a's; the tally, the unscoped remainder
+    beside the model's charge, the totals against 13a's, the overhead."""
+    from repro_torch.launch import train
+    log(f"[18 profile] 13a's run ({MESH_TRAIN}, {MESH_LAYERS} layers, "
+        f"overlapped) with --profile-steps {PROFILE_STEPS}, the last run "
+        f"of 12a's launch")
+    rep = mesh_train_report("mesh-overlap-profile")
+    base = mesh_train_report("mesh-overlap")
+    if (rep["losses"], rep["grad_norms"]) != (base["losses"],
+                                              base["grad_norms"]):
+        raise AssertionError(f"the profiled run's losses {rep['losses']} / "
+                             f"{rep['grad_norms']} are not 13a's "
+                             f"{base['losses']} / {base['grad_norms']}")
+    log(f"  losses {rep['losses']} and grad norms {rep['grad_norms']}: "
+        f"13a's, bit for bit")
+    window, first = rep["profile"]["steps"], rep["first_step"]
+    pdir = ROOT / rep["profile"]["dir"]
+    missing = [r for r in range(MESH_TRAIN_RANKS)
+               if not (pdir / f"rank{r}.json").is_file()]
+    if missing:
+        raise AssertionError(f"no trace in {pdir} for ranks {missing}")
+    log(f"  {MESH_TRAIN_RANKS} traces in {rep['profile']['dir']}: "
+        + ", ".join(f"{(pdir / f'rank{r}.json').stat().st_size / 1e6:.1f}"
+                    for r in range(MESH_TRAIN_RANKS)) + " MB")
+    ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
+    for r in ranks:
+        counts = r["collectives"]["counts"]
+        total = sum(counts.values())
+        if not total:
+            raise AssertionError(f"rank {r['rank']}: the hook saw no "
+                                 f"collective in the window")
+        scoped = sum(x["calls"] for x in r["comm_by_scope"] if x["scope"])
+        unscoped = sum(x["calls"] for x in r["comm_by_scope"]
+                       if not x["scope"])
+        if scoped + unscoped != total:
+            raise AssertionError(f"rank {r['rank']}: {scoped} scoped + "
+                                 f"{unscoped} unscoped calls, the hook "
+                                 f"{total}")
+        got = {k: (v["calls"], v["bytes"])
+               for k, v in r["collectives_mesh"].items()}
+        want = {k: (v["calls"], v["bytes"])
+                for k, v in window_comm(r, window, first).items()}
+        if got != want:
+            raise AssertionError(f"rank {r['rank']}: the hook's calls and "
+                                 f"bytes {got}, mesh.COMM's {want}")
+        log(f"  rank {r['rank']}: the hook recorded {total} calls ({scoped} "
+            f"scoped, {unscoped} not) = mesh.COMM's calls and bytes by kind "
+            + ", ".join(f"{k} {n} calls {b / 1e9:.4f} GB"
+                        for k, (n, b) in sorted(want.items()))
+            + f"; by HLO kind {counts}")
+    names, host, k1 = trace_spans(pdir / "rank0.json")
+    lacking = [n for n in PROFILE_LABELS if n not in names]
+    if lacking:
+        raise AssertionError(f"rank 0's trace lacks the ranges {lacking}")
+    log(f"  rank 0's trace holds {', '.join(PROFILE_LABELS)} among "
+        f"{len(names)} distinct ranges")
+    r0 = ranks[0]
+    log(f"  rank 0's window by scope class, kind and axis (calls, raw MB, "
+        f"wire MB; host s in the class's ranges), on {smi}:")
+    for row in r0["comm_by_scope"]:
+        cls = row["scope"]
+        log(f"    {cls or '(no scope)':<22} {row['kind']:<19} "
+            f"{row['axis'] or '-':<16} p {row['group_size']}: "
+            f"{row['calls']:5d} calls {row['raw_bytes'] / 1e6:10.3f} MB raw "
+            f"{row['wire_bytes'] / 1e6:10.3f} MB wire"
+            + (f"; host {host.get(cls, 0.0):.4f} s" if cls else ""))
+    log("    host s by scope class: " + ", ".join(
+        f"{c} {s_:.4f}" for c, s_ in sorted(host.items())))
+    log(f"    K1: {k1['kernels']} kernels, {k1['s'] * 1e3:.3f} ms on the "
+        f"device in the window; launched inside a gemm/chunk range: "
+        f"{k1['in_gemm']}, {k1['in_gemm_s'] * 1e3:.3f} ms"
+        + ("" if k1["kernels"] else " (the trace holds no K1 kernel: "
+           "device time not measured)"))
+    args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
+    calls, hops, wire = model_counts(args, cfg)
+    rest = {}
+    for row in r0["comm_by_scope"]:
+        if not row["scope"]:
+            k = (row["kind"], row["group_size"])
+            n, b = rest.get(k, (0, 0.0))
+            rest[k] = (n + row["calls"], b + row["wire_bytes"])
+    log(f"  rank 0's unscoped remainder (kind, group size: calls, wire GB): "
+        + ", ".join(f"{k} p {p}: {n} calls {b / 1e9:.4f} GB"
+                    for (k, p), (n, b) in sorted(rest.items()))
+        + f"; {sum(n for n, _ in rest.values())} calls "
+        f"{sum(b for _, b in rest.values()) / 1e9:.4f} GB in all, beside the "
+        f"model's charge for the step: {calls:.0f} calls, {hops:.0f} hops, "
+        f"{wire / 1e9:.4f} GB sent (blocking; phase 17b's count)")
+    stats = r0["collectives"]
+    base_calls = sum(c["calls"] for c in
+                     base["ranks"][0]["comm_by_kind"][-1].values())
+    log(f"  rank 0's hook totals {sum(stats['counts'].values())} calls, "
+        f"{sum(stats['bytes_by_kind'].values()) / 1e9:.4f} GB wire, against "
+        f"13a's last step: {base_calls} calls (mesh.COMM)")
+    i = window[0] - first
+    log(f"  overhead: the profiled step {rep['step_s'][i]:.3f} s against "
+        f"step 1's {rep['step_s'][1]:.3f} s ("
+        f"{rep['step_s'][i] / rep['step_s'][1]:.3f}x); 13a's step {i} "
+        f"{base['step_s'][i]:.3f} s; step times {rep['step_s']}, on {smi}")
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3988,6 +4175,7 @@ def main() -> int:
     free_memory()
     phase_zero3_train(cfg, smi)
     phase_calib_steps(smi)
+    phase_profile_train(cut, smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;

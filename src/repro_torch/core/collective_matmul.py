@@ -31,7 +31,16 @@ patterns:
 :func:`effective_chunks`. Partials are fp32 (K1's ``out_dtype``) and are
 summed in the reference's order, so a ring matches the blocking schedule
 within fp32 reassociation; the place ring and the gathers are pure data
-movement. ``p == 1`` is the plain GEMM. The batched (per-expert) rings
+movement. ``p == 1`` is the plain GEMM.
+
+With tracing on (``core/trace.py``) the rings open the reference's scopes:
+``ring_ag[name]/hop{s}`` around each step of the place and accumulate
+rings, ``ring_rs[name]/hop{s}`` and ``ring_rs[name]/local`` in the
+reduce-scatter ring, ``ring_ar[name]/exchange`` and ``ring_ar[name]``,
+and ``gemm/chunk{q}`` around each hop's GEMM. A hop's send belongs to the
+scope it is made in (``mesh.Hop``). The dX and dW rings of
+``core/parallel.py``'s backwards are these drivers, so they open the same
+scopes on autograd's thread. The batched (per-expert) rings
 and ``ring_a2a_expert`` wait for the MoE layers (ROADMAP.md §1 item 'MoE
 and the expert axis').
 """
@@ -42,6 +51,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import mesh as M
+from repro_torch.core import trace
 from repro_torch.kernels import ops
 
 
@@ -79,16 +89,18 @@ def ring_place(block, axes: M.MeshAxes, name, mm: Callable, *, gdim: int,
     curs = [(block.narrow(gdim, q * m, m), None) for q in range(chunks)]
     out = None
     for s in range(p):
-        j = (idx - s) % p
-        hops = ([M.Hop(c, axes, name, host=h) for c, h in curs]
-                if s < p - 1 else [])
-        for q, (cur, _) in enumerate(curs):
-            y = mm(cur)
-            if out is None:
-                w = y.shape[-1]
-                out = y.new_empty((*y.shape[:-1], p * chunks * w))
-            out[..., (j * chunks + q) * w:(j * chunks + q + 1) * w] = y
-        curs = [(h.wait(), h.recv) for h in hops]
+        with trace.scope("ring_ag", name, f"hop{s}"):
+            j = (idx - s) % p
+            hops = ([M.Hop(c, axes, name, host=h) for c, h in curs]
+                    if s < p - 1 else [])
+            for q, (cur, _) in enumerate(curs):
+                with trace.scope("gemm", None, f"chunk{q}"):
+                    y = mm(cur)
+                if out is None:
+                    w = y.shape[-1]
+                    out = y.new_empty((*y.shape[:-1], p * chunks * w))
+                out[..., (j * chunks + q) * w:(j * chunks + q + 1) * w] = y
+            curs = [(h.wait(), h.recv) for h in hops]
     return out
 
 
@@ -110,13 +122,16 @@ def ring_accumulate(lhs, block, axes: M.MeshAxes, name, mm: Callable, *,
     curs = [(block.narrow(gdim, q * m, m), None) for q in range(chunks)]
     acc = None
     for s in range(p):
-        j = (idx - s) % p
-        hops = ([M.Hop(c, axes, name, host=h) for c, h in curs]
-                if s < p - 1 else [])
-        for q, (cur, _) in enumerate(curs):
-            y = mm(lhs.narrow(ldim, (j * chunks + q) * m_l, m_l), cur)
-            acc = y if acc is None else acc + y
-        curs = [(h.wait(), h.recv) for h in hops]
+        with trace.scope("ring_ag", name, f"hop{s}"):
+            j = (idx - s) % p
+            hops = ([M.Hop(c, axes, name, host=h) for c, h in curs]
+                    if s < p - 1 else [])
+            for q, (cur, _) in enumerate(curs):
+                seg = lhs.narrow(ldim, (j * chunks + q) * m_l, m_l)
+                with trace.scope("gemm", None, f"chunk{q}"):
+                    y = mm(seg, cur)
+                acc = y if acc is None else acc + y
+            curs = [(h.wait(), h.recv) for h in hops]
     return acc
 
 
@@ -138,11 +153,21 @@ def ring_reduce_scatter_mm(axes: M.MeshAxes, name, mm: Callable, *,
     for q in range(chunks):
         def start(s):      # the slice that leaves this rank at step s
             return ((idx - s) % p) * block_w + q * m
-        part = mm(start(1), m)
+        with trace.scope("ring_rs", name, "hop0"):
+            with trace.scope("gemm", None, f"chunk{q}"):
+                part = mm(start(1), m)
         for s in range(1, p):
-            hop = M.Hop(part, axes, name)
-            g = mm(start(s + 1 if s < p - 1 else 0), m)
-            part = hop.wait() + g
+            # hop s - 1 carries the partial made so far while the GEMM of
+            # the next slice (the rank's own, "local", after the last hop)
+            # is queued
+            last = s == p - 1
+            with trace.scope("ring_rs", name, f"hop{s - 1}"):
+                hop = M.Hop(part, axes, name)
+            with trace.scope("ring_rs", name, "local" if last
+                             else f"hop{s}"):
+                with trace.scope("gemm", None, f"chunk{q}"):
+                    g = mm(start(s + 1 if not last else 0), m)
+                part = hop.wait() + g
         outs.append(part)
     return outs[0] if chunks == 1 else torch.cat(outs, dim=-1)
 
@@ -158,13 +183,15 @@ def ring_all_reduce_mm(axes: M.MeshAxes, name, mm: Callable, *, out_w: int,
     if p == 1:
         return mm(0, out_w).to(dtype)
     if p == 2:
-        y = mm(0, out_w).to(dtype)
-        return y + M.ppermute_ring(y, axes, name)
+        with trace.scope("ring_ar", name, "exchange"):
+            y = mm(0, out_w).to(dtype)
+            return y + M.ppermute_ring(y, axes, name)
     if out_w % p:
         return M.psum(mm(0, out_w).to(dtype), axes, name)
-    scat = ring_reduce_scatter_mm(axes, name, mm, block_w=out_w // p,
-                                  chunks=chunks).to(dtype)
-    return M.ring_all_gather(scat, axes, name, dim=-1)
+    with trace.scope("ring_ar", name):
+        scat = ring_reduce_scatter_mm(axes, name, mm, block_w=out_w // p,
+                                      chunks=chunks).to(dtype)
+        return M.ring_all_gather(scat, axes, name, dim=-1)
 
 
 # ---------------------------------------------------------------------- #

@@ -49,6 +49,17 @@ forward follows: which leaves stream layer by layer, and with
 (``mesh.GatherAsync``) and the copy kept on the host for the backward.
 The update writes the cast masters into the shards
 (:func:`shards_to_tree`); no collective.
+
+With tracing on (``core/trace.py``) the collectives open the reference's
+scopes: ``dp_rs/bucket{i}`` around each bucket's reduce-scatter,
+``dp_ag/bucket{i}`` around each gather of :func:`all_gather_grads` and
+:func:`rebuild_params`, ``zero3_ag[data]/leaf{n}`` around a leaf's gather
+(also in remat's recompute), inside ``zero3_stream/jit`` or
+``zero3_stream/prefetch`` (:class:`ParamStreamer`; a prefetched leaf's
+exchange is posted under both). Backward scope: the gather's backward
+(``_GatherLeaf.backward``) reduce-scatters the leaf's gradient under
+``zero3_ag[data]/leaf{n}``, the scope the reference's transpose of the
+gather inherits.
 """
 from __future__ import annotations
 
@@ -61,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mesh as M
+from repro_torch.core import trace
 
 # this process's data-axis traffic of the bucketed sync, by kind
 # ("reduce_scatter": the gradients' buckets, or under ZeRO-3 a leaf's
@@ -527,8 +539,9 @@ def reduce_scatter_grads(grads: Dict[str, torch.Tensor], plan: BucketPlan,
     fp32 shards (this rank's ``1/G_data`` block of each data-summed
     bucket)."""
     out = []
-    for b in plan.buckets:
-        with _Counted("reduce_scatter"):
+    for i, b in enumerate(plan.buckets):
+        with _Counted("reduce_scatter"), trace.scope("dp_rs", None,
+                                                     f"bucket{i}"):
             flat = flatten_bucket(grads, b, plan)
             if ring:
                 s = M.ring_reduce_scatter(flat, axes, "data", dim=-1)
@@ -589,8 +602,9 @@ def all_gather_grads(shards: Sequence[torch.Tensor], plan: BucketPlan,
     """Scattered fp32 shards -> full per-parameter gradients (fp32, name
     -> local-shaped tensor)."""
     out: Dict[str, torch.Tensor] = {}
-    for b, s in zip(plan.buckets, shards):
-        with _Counted("all_gather"):
+    for i, (b, s) in enumerate(zip(plan.buckets, shards)):
+        with _Counted("all_gather"), trace.scope("dp_ag", None,
+                                                 f"bucket{i}"):
             full = _gather(s, axes, ring)
         for n, arr in unflatten_bucket(full, b, plan):
             out[n] = arr
@@ -606,8 +620,9 @@ def rebuild_params(master_shards: Sequence[torch.Tensor], plan: BucketPlan,
     leaf into the model's parameter ``params[name]`` in place. (Cast, then
     gather: half the wire bytes of gathering fp32 for bf16 parameters;
     the cast is element-wise, so the result is unchanged.)"""
-    for b, s in zip(plan.buckets, master_shards):
-        with _Counted("all_gather"):
+    for i, (b, s) in enumerate(zip(plan.buckets, master_shards)):
+        with _Counted("all_gather"), trace.scope("dp_ag", None,
+                                                 f"bucket{i}"):
             full = _gather(s.to(b.dtype), axes, ring)
         for n, arr in unflatten_bucket(full, b, plan):
             params[n].copy_(arr)
@@ -646,6 +661,12 @@ def leaf_shapes(plan: BucketPlan) -> Dict[str, Tuple[int, ...]]:
     return {n: _local_shape(lf) for lf in plan.leaves for n in lf.names}
 
 
+def leaf_index(plan: BucketPlan) -> Dict[str, int]:
+    """The index of each port parameter's JAX leaf in the plan, by name
+    (a stacked leaf's layers share it)."""
+    return {n: i for i, lf in enumerate(plan.leaves) for n in lf.names}
+
+
 class _Fetch:
     """Where one leaf's working copy comes from each time the forward or
     remat's recompute asks for it (a call returns the ``(padded,)`` whole
@@ -675,43 +696,52 @@ class _Fetch:
 class _GatherLeaf(torch.autograd.Function):
     """shard -> the leaf's working copy (``fetch``); backward: the
     gradient zero-padded and reduce-scattered over data in its own dtype
-    (the JAX transpose of the gather), counted "reduce_scatter"."""
+    (the JAX transpose of the gather), counted "reduce_scatter". Both
+    under the scope ``zero3_ag[data]/leaf{leaf}``."""
 
     @staticmethod
-    def forward(ctx, shard, fetch, shape, axes, ring):
+    def forward(ctx, shard, fetch, shape, axes, ring, leaf):
         n = math.prod(shape)
-        full = fetch()
-        ctx.meta = (n, full.shape[-1], axes, ring)
+        with _leaf_scope(leaf):
+            full = fetch()
+        ctx.meta = (n, full.shape[-1], axes, ring, leaf)
         out = full[:n].view(shape)
         return out.clone() if out.data_ptr() == shard.data_ptr() else out
 
     @staticmethod
     def backward(ctx, g):
-        n, padded, axes, ring = ctx.meta
+        n, padded, axes, ring, leaf = ctx.meta
         if padded == n:
             flat = g.reshape(-1)
         else:
             flat = g.new_zeros((padded,))
             flat[:n] = g.reshape(-1)
-        with _Counted("reduce_scatter"):
+        with _Counted("reduce_scatter"), _leaf_scope(leaf):
             if ring:
                 out = M.ring_reduce_scatter(flat, axes, "data", dim=-1)
             else:
                 out = M.psum_scatter(flat, axes, "data", dim=-1)
-        return out, None, None, None, None
+        return out, None, None, None, None, None
+
+
+def _leaf_scope(leaf: Optional[int]):
+    return trace.scope("zero3_ag", "data",
+                       None if leaf is None else f"leaf{leaf}")
 
 
 def gather_param_leaf(shard: torch.Tensor, shape, axes: M.MeshAxes, *,
-                      ring: bool = True, fetch=None) -> torch.Tensor:
+                      ring: bool = True, fetch=None,
+                      leaf: Optional[int] = None) -> torch.Tensor:
     """Assemble one leaf's working copy (its local ``shape``) from this
     rank's shard: gathered over data (a ring of ``ppermute`` hops, the z
     rings' send-right convention, or the blocking gather), trimmed and
     reshaped; ``fetch`` (a :class:`_Fetch`) says where the whole comes
     from instead. Differentiable: the backward reduce-scatters the
     gradient over data, so the data-parallel sync falls out of autograd
-    and the shard's ``.grad`` is this rank's block of the data sum."""
+    and the shard's ``.grad`` is this rank's block of the data sum.
+    ``leaf``: the leaf's index in the plan, which names its trace scope."""
     fetch = fetch or _Fetch(shard, axes, ring)
-    return _GatherLeaf.apply(shard, fetch, tuple(shape), axes, ring)
+    return _GatherLeaf.apply(shard, fetch, tuple(shape), axes, ring, leaf)
 
 
 @torch.no_grad()
@@ -720,8 +750,9 @@ def unshard_params(shards: Dict[str, torch.Tensor], plan: BucketPlan,
                    ) -> Dict[str, torch.Tensor]:
     """Shards -> full local parameters (name -> tensor; the checkpoint
     path and the escape back to the replicated layout)."""
-    shapes = leaf_shapes(plan)
-    return {n: gather_param_leaf(s, shapes[n], axes, ring=ring)
+    shapes, leaves = leaf_shapes(plan), leaf_index(plan)
+    return {n: gather_param_leaf(s, shapes[n], axes, ring=ring,
+                                 leaf=leaves[n])
             for n, s in shards.items()}
 
 
@@ -763,6 +794,7 @@ class ParamStreamer:
 
     def __post_init__(self):
         self.shapes = leaf_shapes(self.plan)
+        self.leaves = leaf_index(self.plan)
         self._stack = {n: b.stack for b in self.plan.buckets
                        for n in self.plan.leaves[b.segments[0].leaf].names}
 
@@ -772,8 +804,15 @@ class ParamStreamer:
     def post(self, shards: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """Post the exchanges of ``shards`` (name -> shard) now; each
         lands when :meth:`gather` is given it."""
-        return {n: M.GatherAsync(s, self.axes, "data", ring=self.ring)
-                for n, s in shards.items()}
+        out = {}
+        for n, s in shards.items():
+            with self._scope(), _leaf_scope(self.leaves[n]):
+                out[n] = M.GatherAsync(s, self.axes, "data", ring=self.ring)
+        return out
+
+    def _scope(self):
+        return trace.scope("zero3_stream",
+                           detail="prefetch" if self.prefetch else "jit")
 
     def fetcher(self, shard, pending=None) -> _Fetch:
         """A leaf's source for one microbatch: :func:`gather_param_leaf`'s
@@ -781,8 +820,10 @@ class ParamStreamer:
         return _Fetch(shard, self.axes, self.ring, pending)
 
     def gather(self, shard, name: str, fetch=None) -> torch.Tensor:
-        return gather_param_leaf(shard, self.shapes[name], self.axes,
-                                 ring=self.ring, fetch=fetch)
+        with self._scope():
+            return gather_param_leaf(shard, self.shapes[name], self.axes,
+                                     ring=self.ring, fetch=fetch,
+                                     leaf=self.leaves[name])
 
     def resident(self, shards: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:

@@ -33,18 +33,25 @@ host's time blocked in the hop, the exposed part). :func:`all_to_all` is
 the blocking form of the MoE dispatch's exchange (kind "all_to_all").
 :class:`GatherAsync` posts a whole all-gather at once and completes it
 later (ZeRO-3's prefetch).
+
+With tracing on (``core/trace.py``) the ring helpers open the reference's
+scopes: ``ring_ag[axis]/hop{s}``, ``ring_rs[axis]/hop{s}`` and
+``ring_rs[axis]/local``, ``ring_ar[axis]/exchange`` (p == 2) and
+``ring_ar[axis]``, ``a2a[axis]`` and ``ring_a2a[axis]/shift{s}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import trace
 from repro_torch.core.overlap import OverlapConfig
 
 AXES = ("data", "x", "y", "z", "seq")
@@ -71,6 +78,9 @@ _RANKS: Dict[Tuple[str, ...], List[int]] = {}
 # the tag of each group's next hop: every rank of a group posts its hops
 # in one order, so a hop's send and receive meet by tag
 _HOP_TAGS: Dict[Tuple[str, ...], int] = {}
+# the kind of collective that :func:`_run` is counting on this thread
+# while its gloo call runs (``_TALLY.kind``; :func:`counting`)
+_TALLY = threading.local()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +237,25 @@ def restore_groups(saved: tuple) -> None:
         table.update(entries)
 
 
+def group_axis(group) -> Optional[str]:
+    """The axes of the process group ``group`` as :data:`COMM_AXES` keys
+    them (names joined by "+"; every axis for the default group), or None
+    for a group the mesh did not make."""
+    for names, g in _GROUPS.items():
+        if g is group:
+            return "+".join(names)
+    if dist.is_initialized() and group is dist.group.WORLD:
+        return "+".join(AXES)
+    return None
+
+
+def counting() -> Optional[str]:
+    """The kind of collective under which :func:`_run` counts the gloo
+    call running on this thread (None outside :func:`_run`: a ring hop or
+    a posted gather, which count themselves)."""
+    return getattr(_TALLY, "kind", None)
+
+
 def _group(axes: MeshAxes, axis: Axis):
     """The process group of ``axis``, or None when it has one rank."""
     live = _live(axes, axis)
@@ -277,7 +306,11 @@ def _run(v: torch.Tensor, op: Callable[[torch.Tensor], torch.Tensor],
         host.copy_(x)
     else:
         host = x.clone(memory_format=torch.contiguous_format)
-    out = op(host)
+    _TALLY.kind = kind
+    try:
+        out = op(host)
+    finally:
+        _TALLY.kind = None
     if x.is_cuda:
         out = out.to(x.device)
     _count(kind, axis, (host.numel() + out.numel()) * host.element_size(),
@@ -385,7 +418,8 @@ def all_to_all(v, axes: MeshAxes, axis: Axis, *, dim: int = 0):
         out = torch.empty_like(front)
         dist.all_to_all_single(out, front, group=group)
         return out.movedim(0, dim).contiguous()
-    return _run(v, exchange, "all_to_all", axis)
+    with trace.scope("a2a", axis):
+        return _run(v, exchange, "all_to_all", axis)
 
 
 def axis_index(axes: MeshAxes, axis: Axis, rank: Optional[int] = None
@@ -438,7 +472,10 @@ class Hop:
     Counted in :data:`COMM` as "ppermute" and in :data:`COMM_AXES` by
     axis: one call, the bytes sent and received, and the seconds the host
     was blocked in the hop (waiting for the staging copy and for gloo),
-    the part of the hop that no compute hid."""
+    the part of the hop that no compute hid. With tracing on, the send and
+    receive are posted under the trace scopes open where the hop was made
+    (``trace.restored``), also when :meth:`wait` posts them inside a later
+    hop's scope."""
 
     def __init__(self, v: torch.Tensor, axes: MeshAxes, axis: Axis,
                  shift: int = 1, *, host: Optional[torch.Tensor] = None):
@@ -454,6 +491,7 @@ class Hop:
         self.tag = _HOP_TAGS.get(names, 0)
         _HOP_TAGS[names] = (self.tag + 1) % (1 << 30)
         self.seconds, self.works, self.staged = 0.0, None, None
+        self.scopes = trace.snapshot() if trace.enabled() else None
         cuda = v.is_cuda
         if host is not None:
             self.send = host
@@ -477,10 +515,17 @@ class Hop:
         t0 = time.perf_counter()
         if self.staged is not None:
             self.staged.synchronize()
-        self.works = [
+        if self.scopes is None:
+            self.works = self._isend_irecv()
+        else:
+            with trace.restored(self.scopes):
+                self.works = self._isend_irecv()
+        self.seconds += time.perf_counter() - t0
+
+    def _isend_irecv(self):
+        return [
             dist.isend(self.send, self.dst, group=self.group, tag=self.tag),
             dist.irecv(self.recv, self.src, group=self.group, tag=self.tag)]
-        self.seconds += time.perf_counter() - t0
 
     def wait(self) -> torch.Tensor:
         if self.works is None:
@@ -614,12 +659,13 @@ def ring_all_gather(v, axes: MeshAxes, axis: Axis, *, dim: int,
     out = v.new_empty((*v.shape[:dim], p * chunk, *v.shape[dim + 1:]))
     cur, host = v, None
     for s in range(p):
-        hop = Hop(cur, axes, axis, host=host) if s < p - 1 else None
-        if s == 0:
-            _posted(under)
-        out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(cur)
-        if hop is not None:
-            cur, host = hop.wait(), hop.recv
+        with trace.scope("ring_ag", axis, f"hop{s}"):
+            hop = Hop(cur, axes, axis, host=host) if s < p - 1 else None
+            if s == 0:
+                _posted(under)
+            out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(cur)
+            if hop is not None:
+                cur, host = hop.wait(), hop.recv
     return out
 
 
@@ -643,11 +689,15 @@ def ring_reduce_scatter(v, axes: MeshAxes, axis: Axis, *, dim: int,
         return v.narrow(dim, ((idx - s) % p) * chunk, chunk)
     part = block(1)
     for s in range(1, p):
-        hop = Hop(part, axes, axis)
-        if s == 1:
-            _posted(under)
-        part = hop.wait() + block(s + 1 if s < p - 1 else 0)
-    return part
+        with trace.scope("ring_rs", axis, f"hop{s - 1}"):
+            hop = Hop(part, axes, axis)
+            if s == 1:
+                _posted(under)
+            recv = hop.wait()
+            if s < p - 1:
+                part = recv + block(s + 1)
+    with trace.scope("ring_rs", axis, "local"):
+        return recv + block(0)
 
 
 def ring_all_reduce(v, axes: MeshAxes, axis: Axis, *, dim: int = -1,
@@ -662,17 +712,19 @@ def ring_all_reduce(v, axes: MeshAxes, axis: Axis, *, dim: int = -1,
         _posted(under)
         return v
     if p == 2:
-        hop = Hop(v, axes, axis)
-        _posted(under)
-        return v + hop.wait()
+        with trace.scope("ring_ar", axis, "exchange"):
+            hop = Hop(v, axes, axis)
+            _posted(under)
+            return v + hop.wait()
     dim %= v.dim()
     if v.shape[dim] % p:
         out = psum(v, axes, axis)
         _posted(under)
         return out
-    return ring_all_gather(ring_reduce_scatter(v, axes, axis, dim=dim,
-                                               under=under), axes,
-                           axis, dim=dim)
+    with trace.scope("ring_ar", axis):
+        return ring_all_gather(ring_reduce_scatter(v, axes, axis, dim=dim,
+                                                   under=under), axes,
+                               axis, dim=dim)
 
 
 def ring_all_to_all(v, axes: MeshAxes, axis: Axis, *, dim: int = 0):
@@ -694,12 +746,15 @@ def ring_all_to_all(v, axes: MeshAxes, axis: Axis, *, dim: int = 0):
 
     def block(j):
         return v.narrow(dim, j * chunk, chunk)
-    hops = [Hop(block((idx + s) % p), axes, axis, shift=s)
-            for s in range(1, p)]
+    hops = []
+    for s in range(1, p):
+        with trace.scope("ring_a2a", axis, f"shift{s}"):
+            hops.append(Hop(block((idx + s) % p), axes, axis, shift=s))
     out = torch.empty_like(v)
     out.narrow(dim, idx * chunk, chunk).copy_(block(idx))
     for s, hop in enumerate(hops, start=1):
-        out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(hop.wait())
+        with trace.scope("ring_a2a", axis, f"shift{s}"):
+            out.narrow(dim, ((idx - s) % p) * chunk, chunk).copy_(hop.wait())
     return out
 
 

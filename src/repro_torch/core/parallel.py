@@ -41,6 +41,7 @@ import torch
 from repro_torch.core import collective_matmul as CMM
 from repro_torch.core import mesh as M
 from repro_torch.core import partition as PT
+from repro_torch.core import trace
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -223,7 +224,8 @@ class _EmbeddingLookup(torch.autograd.Function):
         # a ring puts the same blocks in the same places (bitwise)
         gather = (M.ring_all_gather if axes.overlap.embed_gather
                   else M.all_gather)
-        tf = gather(table, axes, "z", dim=1)
+        with trace.scope("embed_gather", "z"):
+            tf = gather(table, axes, "z", dim=1)
         local, ok = _local_ids(tokens, axes, tf.shape[0])
         emb = tf[local.clamp(0, tf.shape[0] - 1)]
         emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
@@ -251,7 +253,10 @@ def embedding_lookup(tokens, table, axes: M.MeshAxes):
     sharded over x, replicated over y; the table gathered over z by a
     ring under ``overlap.embed_gather``. The table's gradient is an fp32
     sum in token order (:func:`segment_sum`), reduce-scattered over z by
-    the blocking collective, as in the reference's ``_emb_bwd``."""
+    the blocking collective, as in the reference's ``_emb_bwd``. With
+    tracing on, the gather runs under the reference's scope
+    ``embed_gather[z]``; the backward's reduce-scatter, like the
+    reference's, under none."""
     return _EmbeddingLookup.apply(tokens, table, axes)
 
 

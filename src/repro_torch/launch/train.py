@@ -59,13 +59,26 @@ the profile's ``probes`` at the end) to ``runs/telemetry/<run>.jsonl`` or
       --preset smoke --device cpu --steps 4 --calib runs/calib/cpu.json \
       --telemetry --log-file run.jsonl
 
+``--profile-steps A:B`` captures a ``torch.profiler`` trace of steps A
+to B (inclusive) with the trace scopes of ``core/trace.py`` enabled, so
+the ring hops, buckets and gathers are named ranges in it: each rank
+writes ``runs/profiles/<run>/rank<r>.json`` (a chrome trace), and the
+window's collectives are recorded by ``launch/roofline.record_collectives``
+into each rank's ``comm_by_scope`` (calls and bytes by scope class, kind,
+group size and axis) and ``collectives`` (counts and wire bytes by kind)
+in the ``{"train"}`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --preset smoke --device cpu --steps 3 --profile-steps 1:1
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP.md
-§1 item it waits for): the rest of the runtime tooling (``--chaos``,
-``--probe-every``, ``--profile-steps``) and ``--backend nccl``.
+§1 item it waits for): the elastic half of the runtime tooling
+(``--chaos``, ``--probe-every``) and ``--backend nccl``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -85,11 +98,13 @@ from repro_torch.core import calibrate as CB
 from repro_torch.core import comm_model as CM
 from repro_torch.core import gradsync as GS
 from repro_torch.core import mesh as M
+from repro_torch.core import trace
 from repro_torch.core.overlap import OverlapConfig
 from repro_torch.core.partition import param_spec, spec_names
 from repro_torch.data.synthetic import DataConfig, SyntheticText, make_batch
 from repro_torch.kernels import ops
 from repro_torch.launch import steps as ST
+from repro_torch.launch import roofline as RL
 from repro_torch.launch import telemetry as TL
 from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
 from repro_torch.launch.steps import param_sha256
@@ -99,7 +114,6 @@ from repro_torch.optim.adamw import AdamWConfig, init_state
 REFUSED = {
     "chaos": "runtime tooling",
     "probe_every": "runtime tooling",
-    "profile_steps": "runtime tooling",
 }
 
 
@@ -118,6 +132,19 @@ def preset_config(cfg, preset: str):
             d_ff=2048, vocab_size=32000,
             n_layers=max(cfg.reduced().n_layers, 4))
     raise ValueError(preset)
+
+
+def profile_window(args) -> Optional[tuple]:
+    """``--profile-steps A:B`` as (A, B), or None without the flag; exits
+    with the reference's message unless 0 <= A <= B."""
+    if not args.profile_steps:
+        return None
+    a, _, b = args.profile_steps.partition(":")
+    window = (int(a), int(b))
+    if not (0 <= window[0] <= window[1]):
+        raise SystemExit(f"--profile-steps {args.profile_steps}: "
+                         f"need 0 <= A <= B")
+    return window
 
 
 def grad_sync_config(args) -> GS.GradSyncConfig:
@@ -230,10 +257,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-file", default="",
                     help="telemetry JSONL path (implies --telemetry; "
                          "default runs/telemetry/<run>.jsonl)")
+    ap.add_argument("--profile-steps", default="", metavar="A:B",
+                    help="capture a torch.profiler trace of steps A..B "
+                         "(inclusive) to runs/profiles/<run>/rank<r>.json, "
+                         "with named-scope attribution (core/trace.py) "
+                         "enabled so ring hops/buckets/gathers are labeled "
+                         "in the trace, and the window's collectives "
+                         "counted by scope (launch/roofline.py)")
     # flags of repro.launch.train that the port refuses (REFUSED)
     ap.add_argument("--chaos", default="", help="not ported")
     ap.add_argument("--probe-every", type=int, default=0, help="not ported")
-    ap.add_argument("--profile-steps", default="", help="not ported")
     return ap
 
 
@@ -270,6 +303,15 @@ class TrainResult:
     # the analytical model's step time for this run under --calib
     # ({"total", "compute", "exposed_comm", "hidden_comm"} in seconds)
     predicted: Optional[Dict[str, float]] = None
+    # --profile-steps: the window (A, B), the directory of the rank traces,
+    # and the window's collectives as the dispatch hook recorded them: by
+    # scope (roofline.scope_rows), their CollectiveStats ({"counts",
+    # "bytes_by_kind"}) and the same ops in mesh.COMM's terms
+    # (roofline.mesh_totals)
+    profile: Optional[Dict[str, object]] = None
+    comm_by_scope: List[dict] = dataclasses.field(default_factory=list)
+    collectives: Optional[Dict[str, dict]] = None
+    collectives_mesh: Optional[Dict[str, dict]] = None
     # every rank's report (the "ranks" list of the JSON line)
     ranks: List[dict] = dataclasses.field(default_factory=list)
 
@@ -303,6 +345,7 @@ def main(argv=None, cfg=None, overlap: OverlapConfig = OverlapConfig(), *,
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
                 f"it waits for the ROADMAP.md §1 item '{item}'")
+    profile_window(args)
     if args.resume and not args.ckpt:
         raise SystemExit("--resume needs --ckpt")
     axes = mesh_axes(args.mesh)
@@ -322,6 +365,7 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
     runs on one mesh calls it once a run."""
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     rank0, multi = run["rank"] == 0, run["world"] > 1
+    window = profile_window(args)
 
     def say(*a, **kw):
         if rank0:
@@ -426,6 +470,15 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
                                     seq_len=args.seq,
                                     global_batch=args.batch))
     cuda = dev.type == "cuda"
+    prof_dir, profiling, traced = None, None, trace.enabled()
+    if window is not None:
+        # every rank names the run by rank 0's clock
+        stamp = time.localtime(M.from_rank0(time.time()))
+        prof_dir = os.path.join(
+            "runs", "profiles",
+            f"{cfg.name}-{time.strftime('%Y%m%d-%H%M%S', stamp)}")
+        # the captured window attributes its ring hops
+        trace.enable()
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -435,6 +488,8 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         args.steps, start_step + stop_after)
     t_warm = t_step = None     # after this run's first step; the last one
     for step in range(start_step, last):
+        if window is not None and step == window[0]:
+            profiling = _start_profile(cuda)
         batch = ST.stripe_batch(
             {k: torch.from_numpy(v).to(dev) for k, v in
              make_batch(cfg, step, data, dtype=np.float32).items()}, axes)
@@ -458,6 +513,9 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
         res.grad_norms.append(gn)
+        if profiling is not None and step == window[1]:
+            _stop_profile(profiling, res, window, prof_dir, run["rank"], say)
+            profiling = None
         now = time.time()
         if t_warm is None:
             # the first step pays the kernels' first calls: not timed
@@ -476,6 +534,13 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         if (args.ckpt and args.ckpt_every > 0 and step > 0
                 and step % args.ckpt_every == 0):
             save_checkpoint(step)
+    if profiling is not None:
+        # the window ran off the end of the run (B >= the last step)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        _stop_profile(profiling, res, window, prof_dir, run["rank"], say)
+    if window is not None:
+        trace.enable(traced)
     res.launches = ops.launches()
     if cuda:
         res.max_memory_bytes = torch.cuda.max_memory_allocated(dev)
@@ -509,7 +574,10 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
                 max_memory_bytes=res.max_memory_bytes,
                 max_rss_bytes=res.max_rss_bytes, launches=res.launches, dp_sync=res.dp_sync,
                 state_bytes=res.state_bytes,
-                param_sha256=param_sha256(model) if multi else None)
+                param_sha256=param_sha256(model) if multi else None,
+                comm_by_scope=res.comm_by_scope,
+                collectives=res.collectives,
+                collectives_mesh=res.collectives_mesh)
     res.ranks = [mine]
     if multi:
         res.ranks = [None] * run["world"]
@@ -520,10 +588,39 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         arch=cfg.name, mesh=args.mesh, backend=args.backend if multi
         else None, zero=args.zero, zero3=gs.zero3, prefetch=gs.prefetch,
         first_step=start_step, predicted=res.predicted,
-        losses=res.losses, grad_norms=res.grad_norms,
+        profile=res.profile, losses=res.losses, grad_norms=res.grad_norms,
         step_s=res.step_s, tokens_per_step=tokens, n_params=n_params,
         ckpt=res.ckpt, ranks=res.ranks)}))
     return res
+
+
+def _start_profile(cuda: bool) -> contextlib.ExitStack:
+    """A ``torch.profiler`` capture (the CPU, and the card's kernels on
+    it) and the collective hook, started; both end when the returned
+    stack closes, the hook's ops in its ``ops``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    stack = contextlib.ExitStack()
+    stack.prof = stack.enter_context(torch.profiler.profile(
+        activities=acts, record_shapes=False))
+    stack.ops = stack.enter_context(RL.record_collectives())
+    return stack
+
+
+def _stop_profile(stack: contextlib.ExitStack, res: TrainResult, window,
+                  prof_dir: str, rank: int, say) -> None:
+    """End the capture: this rank's chrome trace written to
+    ``prof_dir/rank<rank>.json``, the window's collectives into ``res``."""
+    stack.close()
+    os.makedirs(prof_dir, exist_ok=True)
+    stack.prof.export_chrome_trace(os.path.join(prof_dir, f"rank{rank}.json"))
+    stats = RL.collective_stats(stack.ops)
+    res.profile = {"steps": list(window), "dir": prof_dir}
+    res.comm_by_scope = RL.scope_rows(stack.ops)
+    res.collectives = dataclasses.asdict(stats)
+    res.collectives_mesh = RL.mesh_totals(stack.ops)
+    say(f"profile: steps {window[0]}..{window[1]} -> {prof_dir}")
 
 
 if __name__ == "__main__":

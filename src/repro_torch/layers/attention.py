@@ -42,6 +42,7 @@ from torch import nn
 
 from repro_torch.core import mesh as M
 from repro_torch.core import parallel as PP
+from repro_torch.core import trace
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.layers.rotary import apply_rope
@@ -300,7 +301,13 @@ class _SeqRingAttention(torch.autograd.Function):
     backward per hop in reverse hop order (the first call closes the
     chain), dQ summed in one fp32 buffer; each hop's dK and dV go back one
     step along the reverse ring, added as ``dK4_s + recv``, so that each
-    block's gradient ends with its owner."""
+    block's gradient ends with its owner.
+
+    With tracing on, step s runs under ``ring_exchange[seq]/hop{s}`` as in
+    the reference. Backward scopes: K4's backward of block s under
+    ``ring_exchange[seq]/hop{s}``, and the hops that send block s's dK and
+    dV back under ``ring_exchange[seq]/hop{s-1}``, the scope of the forward
+    hop whose transpose they are."""
 
     @staticmethod
     def forward(ctx, q, k, v, axes, window, plain):
@@ -310,17 +317,19 @@ class _SeqRingAttention(torch.autograd.Function):
         ks, vs = [], []
         cur_k, cur_v, host_k, host_v = k, v, None, None
         for s in range(p):
-            hops = ((M.Hop(cur_k, axes, "seq", host=host_k),
-                     M.Hop(cur_v, axes, "seq", host=host_v))
-                    if s < p - 1 else ())
-            carry = ops.flash_attention_partial(
-                q, cur_k, cur_v, *carry, q_pos0=r, q_stride=p,
-                k_pos0=(r - s) % p, k_stride=p, window=window, plain=plain)
-            ks.append(cur_k)
-            vs.append(cur_v)
-            if hops:
-                cur_k, cur_v = (h.wait() for h in hops)
-                host_k, host_v = (h.recv for h in hops)
+            with trace.scope("ring_exchange", "seq", f"hop{s}"):
+                hops = ((M.Hop(cur_k, axes, "seq", host=host_k),
+                         M.Hop(cur_v, axes, "seq", host=host_v))
+                        if s < p - 1 else ())
+                carry = ops.flash_attention_partial(
+                    q, cur_k, cur_v, *carry, q_pos0=r, q_stride=p,
+                    k_pos0=(r - s) % p, k_stride=p, window=window,
+                    plain=plain)
+                ks.append(cur_k)
+                vs.append(cur_v)
+                if hops:
+                    cur_k, cur_v = (h.wait() for h in hops)
+                    host_k, host_v = (h.recv for h in hops)
         out = FA.attn_partial_finalize(carry, q.dtype)
         ctx.save_for_backward(q, out, *carry[:2], *ks, *vs)
         ctx.cfg = (axes, r, window, plain)
@@ -340,16 +349,19 @@ class _SeqRingAttention(torch.autograd.Function):
         dq = torch.zeros((B, C, nq, hd), **f32)
         hops = ()
         for s in reversed(range(p)):
-            dk, dv = ops.flash_attention_partial_bwd(
-                q, ks[s], vs[s], dout, lse, delta, dq,
-                close=(out, m, l) if s == p - 1 else None, q_pos0=r,
-                q_stride=p, k_pos0=(r - s) % p, k_stride=p, window=window,
-                plain=plain)
-            if hops:
-                dk, dv = (d + h.wait() for d, h in zip((dk, dv), hops))
+            with trace.scope("ring_exchange", "seq", f"hop{s}"):
+                dk, dv = ops.flash_attention_partial_bwd(
+                    q, ks[s], vs[s], dout, lse, delta, dq,
+                    close=(out, m, l) if s == p - 1 else None, q_pos0=r,
+                    q_stride=p, k_pos0=(r - s) % p, k_stride=p,
+                    window=window, plain=plain)
+                if hops:
+                    dk, dv = (d + h.wait() for d, h in zip((dk, dv), hops))
             if s > 0:
-                hops = (M.Hop(dk, axes, "seq", -1),
-                        M.Hop(dv, axes, "seq", -1))
+                # the transpose of forward hop s - 1, which brought block s
+                with trace.scope("ring_exchange", "seq", f"hop{s - 1}"):
+                    hops = (M.Hop(dk, axes, "seq", -1),
+                            M.Hop(dv, axes, "seq", -1))
         return (dq.to(q.dtype), dk.to(ks[0].dtype), dv.to(vs[0].dtype),
                 None, None, None)
 

@@ -151,17 +151,16 @@ def test_train_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--log-file", "run.log", "--profile-steps", "0:1"], "runtime tooling"),
     (["--chaos", "seed=0"], "runtime tooling"),
     (["--probe-every", "2"], "runtime tooling"),
     (["--telemetry", "--probe-every", "2"], "runtime tooling"),
-    (["--profile-steps", "0:1"], "runtime tooling"),
     (["--calib", "auto", "--chaos", "seed=0"], "runtime tooling"),
     (["--backend", "nccl"], "multi-rank mesh")])
 def test_train_refuses_what_is_not_ported(flags, item):
     """The unported flags raise naming their ROADMAP item, beside the
-    ported ``--log-file``, ``--telemetry`` and ``--calib`` too
-    (tests/test_torch_telemetry.py runs those)."""
+    ported ``--telemetry`` and ``--calib`` too
+    (tests/test_torch_telemetry.py runs those; tests/test_torch_trace.py
+    runs the ported ``--profile-steps``)."""
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
         train.main(["--arch", "qwen3-1.7b", "--device", "cpu", *flags])
 
@@ -308,6 +307,18 @@ def test_comm_model_copy_matches_the_jax_package():
         for mb in (1, 3):
             assert CM.dp_sync_volume(8, 1e6, gs, mb) == \
                 JCM.dp_sync_volume(8, 1e6, jgs, mb)
+
+
+def test_trace_label_copy_matches_the_jax_package():
+    """core/trace.py's ``label`` and ``_axis_str`` (plain Python) are the
+    reference's, source for source."""
+    import inspect
+
+    from repro.core import trace as JT
+    from repro_torch.core import trace
+    for name in ("label", "_axis_str"):
+        assert inspect.getsource(getattr(trace, name)) == \
+            inspect.getsource(getattr(JT, name))
 
 
 def test_serving_records_no_graph():
