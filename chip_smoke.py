@@ -213,7 +213,29 @@ a hard failure:
      remainder beside the calls and bytes the analytical model charges the
      step, the hook's totals against 13a's calls a step, and the profiled
      step's wall time against step 1's;
- 19. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 19. the dense config variants at full width: right after phase 6, K1 at
+     GPT-20B's one-card products (held to the float64 product at its K
+     of 32,768 and 51,200, where two float32 orders differ by more than
+     MATMUL_TOL; its split-K workspace logged), K2 forward and backward
+     at GPT's (B 1, T 2048, 64/64 heads), StableLM's (32/32, hd 64) and
+     Nemotron's (48/8) attention, K5 at StableLM's decode (g 1) and
+     Nemotron's dense decode (g 6), each checked against its plain
+     version and timed; last, (c) ``nemotron-4-15b`` at full depth where
+     10 GiB of the card stay free beside its 58.2 GiB of parameters
+     (else NEMOTRON_CUT_LAYERS): phase 9's parity and ``serve.py --mode
+     fixed`` (batch 4, prompt 512, 8 new), launches the config's count;
+     (b) ``stablelm-1.6b`` at full width and depth: phase 4's parity and
+     phase 5's run (launches ``paged_launches``); (a) ``gpt-paper-20b``
+     at full width and GPT_LAYERS layers, the paper's sequence of 2048:
+     ``train.py`` for 2 steps of 2 sequences in 2 microbatches on one
+     card (launches the config's count, step time, tokens/s, MFU, peak
+     memory), then the same batch on (1,2,2,2) with
+     ``OverlapConfig.all_on()`` (eight gloo ranks, one microbatch a
+     rank, the second step profiled): step 1 within MESH_TRAIN_TOL of
+     one card's, launches, ring hops and blocking calls by axis the
+     code's, per rank the step's calls, seconds and bytes by axis, and
+     the profiled step's collectives by scope class;
+ 20. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -564,6 +586,54 @@ HYBRID_MESH_MATMUL_SHAPES = [
 # K5 at 14b's shape: one row against a shard of 262,144 keys (524,288
 # over g_data 2), the local 16/4 heads, hd 128
 SEQ_K5 = dict(nq=16, nkv=4, hd=128, keys=LONG_CONTEXT // 2)
+# phase 19, the dense config variants. 19a: the paper's GPT-20B at full
+# width, GPT_LAYERS layers (2.45 B parameters: with AdamW's state, the
+# gradients and the activations of a 2048-token microbatch about 54 GB
+# of the card; 4 layers would not leave room), the paper's sequence of
+# 2048, 2 steps of 2 sequences in 2 microbatches on one card; then on
+# (1,2,2,2) with the overlapped schedule, where the 2 sequences split
+# over z (one a rank: one microbatch), the second step profiled for the
+# collectives by scope
+GPT = "gpt-paper-20b"
+STABLELM = "stablelm-1.6b"
+NEMOTRON = "nemotron-4-15b"
+GPT_LAYERS = 2
+GPT_TRAIN_FLAGS = ["--arch", GPT, "--preset", "full", "--steps", "2",
+                   "--batch", "2", "--seq", "2048", "--overdecompose", "2",
+                   "--dtype", "float32", "--log-every", "1"]
+GPT_MESH_FLAGS = with_flag(GPT_TRAIN_FLAGS, "--overdecompose", 1) + [
+    "--mesh", MESH_TRAIN, "--backend", "gloo", "--profile-steps", "1:1"]
+# 19b: StableLM-2-1.6B served at full width and depth with phase 5's flags
+STABLELM_SERVE_FLAGS = with_flag(SERVE_FLAGS, "--arch", STABLELM)
+# 19c: Nemotron-4-15B's fixed serving at full width, phase 9's batch and
+# prompt and 8 new tokens; full depth (15.6 B float32 parameters, 62.5 GB)
+# where the card keeps NEMOTRON_HEADROOM free beside them, else
+# NEMOTRON_CUT_LAYERS layers
+NEMOTRON_FIXED_FLAGS = with_flag(with_flag(FIXED_FLAGS, "--arch", NEMOTRON),
+                                 "--gen", 8)
+NEMOTRON_HEADROOM = 10 * 2**30
+NEMOTRON_CUT_LAYERS = 16
+# phase 19's kernel shapes, each checked against its plain version and
+# timed beside it: K1 at GPT's one-card products (a 2048-token microbatch:
+# the MLP's up and down projections, the untied head, its dX and dW); K2
+# at GPT's training shape (forward and backward), StableLM's MHA (32/32
+# heads, hd 64) and Nemotron's prefill (48/8 heads); K5 at StableLM's
+# serving decode (phase 5's 8 slots of 144 tokens) and Nemotron's dense
+# decode (context 520, pages of 32)
+GPT_MATMUL_SHAPES = [("gpt x.Wi", 2048, 8192, 32768, "NN"),
+                     ("gpt h.Wo", 2048, 32768, 8192, "NN"),
+                     ("gpt head h.W", 2048, 8192, 51200, "NN"),
+                     ("gpt head dX dY.W^T", 2048, 51200, 8192, "NT"),
+                     ("gpt head dW h^T.dY", 8192, 2048, 51200, "TN")]
+ATTN_GPT = (1, 2048, 2048, 64, 64, 128, True, 0, 0)
+ATTN_VARIANTS = {
+    "GPT train (B 1, T 2048, 64/64 heads, hd 128, causal)": ATTN_GPT,
+    "StableLM (B 2, T 512, 32/32 heads, hd 64, causal)":
+        (2, 512, 512, 32, 32, 64, True, 0, 0),
+    "Nemotron prefill (B 4, T 512, 48/8 heads, hd 128, causal)":
+        (4, 512, 512, 48, 8, 128, True, 0, 0)}
+STABLELM_K5 = dict(nq=32, nkv=32, hd=64, layers=24)
+NEMOTRON_DECODE = ((4, 48, 8, 128), 520)
 
 
 _T0 = time.time()
@@ -1042,8 +1112,6 @@ def phase_kernels_train(gen, errs):
     """K1 at the training and decode shapes, K2 forward and backward."""
     from repro_torch.kernels.block_matmul import (block_matmul_kernel,
                                                   block_matmul_plain)
-    from repro_torch.kernels.flash_attention import (
-        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
     f32 = torch.float32
     log("[kernels] K1 block_matmul vs plain (torch.matmul on fp32 operands); "
         "each run twice")
@@ -1094,51 +1162,80 @@ def phase_kernels_train(gen, errs):
     log("[kernels] K1 at the ring-hop shapes of the overlapped schedule on "
         "(1,2,2,2), float32, each run twice")
     for name, M, K, N, layout in RING_MATMUL_SHAPES:
-        a, b = matmul_inputs(gen, M, K, N, layout, f32)
-        out = f32 if layout == "TS" else None
-        got = block_matmul_kernel(a, b, out_dtype=out)
-        e = check_rel(f"float32 {name} ({M}, {K}) x ({K}, {N}) {layout}",
-                      got, block_matmul_plain(a, b, out_dtype=out),
-                      MATMUL_TOL[f32])
-        if not torch.equal(got, block_matmul_kernel(a, b, out_dtype=out)):
-            raise AssertionError(f"K1 {name}: two runs differ")
-        errs["block_matmul"] = max(errs["block_matmul"], e)
-        del a, b, got
+        check_matmul(gen, name, M, K, N, layout, errs,
+                     out=f32 if layout == "TS" else None)
     log("[kernels] K1 at the local shapes of Jamba on (1,2,2,1) and "
         "(2,1,2,1) (phase 14), float32, each run twice")
     for name, M, K, N, layout in HYBRID_MESH_MATMUL_SHAPES:
-        a, b = matmul_inputs(gen, M, K, N, layout, f32)
-        got = block_matmul_kernel(a, b)
-        e = check_rel(f"float32 {name} ({M}, {K}) x ({K}, {N}) {layout}",
-                      got, block_matmul_plain(a, b), MATMUL_TOL[f32])
-        if not torch.equal(got, block_matmul_kernel(a, b)):
-            raise AssertionError(f"K1 {name}: two runs differ")
-        errs["block_matmul"] = max(errs["block_matmul"], e)
-        del a, b, got
+        check_matmul(gen, name, M, K, N, layout, errs)
     log("[kernels] K2 flash attention forward and backward vs plain "
         "(autograd of the plain forward)")
     for dtype in (f32, torch.bfloat16):
         for name, case in ATTN_CASES.items():
-            B, T, S, nq, nkv, hd, causal, window, kv_len = case
-            q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, dtype)
-            kw = dict(causal=causal, window=window, kv_len=kv_len)
-            out, lse = flash_attention_kernel(q, k, v, **kw)
-            again, _ = flash_attention_kernel(q, k, v, **kw)
-            if not torch.equal(out, again):
-                raise AssertionError("K2 forward is not deterministic")
-            grads = flash_attention_bwd_kernel(q, k, v, out, lse, dout, **kw)
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            want = attn_core(*qkv, **kw)
-            wgrads = torch.autograd.grad(want, qkv, dout)
-            tag = f"{dtype_name(dtype)} {name}"
-            e = check_rel(f"{tag} out", out, want.detach(), FLASH_TOL[dtype])
-            eb = max(check_rel(f"{tag} d{n}", g, w, FLASH_TOL[dtype])
-                     for n, g, w in zip("qkv", grads, wgrads))
-            log(f"  {tag}: forward run twice: bitwise equal")
-            if dtype == f32:
-                errs["flash_attention"] = max(errs["flash_attention"], e)
-                errs["flash_attention_bwd"] = max(
-                    errs["flash_attention_bwd"], eb)
+            check_flash(gen, name, case, dtype, errs)
+
+
+def check_flash(gen, name, case, dtype, errs):
+    """K2's forward (run twice: the same bits) and backward against the
+    plain forward and its autograd at ``case``; the float32 errors into
+    ``errs``."""
+    from repro_torch.kernels.flash_attention import (
+        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
+    B, T, S, nq, nkv, hd, causal, window, kv_len = case
+    q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, dtype)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    out, lse = flash_attention_kernel(q, k, v, **kw)
+    again, _ = flash_attention_kernel(q, k, v, **kw)
+    if not torch.equal(out, again):
+        raise AssertionError("K2 forward is not deterministic")
+    grads = flash_attention_bwd_kernel(q, k, v, out, lse, dout, **kw)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = attn_core(*qkv, **kw)
+    wgrads = torch.autograd.grad(want, qkv, dout)
+    tag = f"{dtype_name(dtype)} {name}"
+    e = check_rel(f"{tag} out", out, want.detach(), FLASH_TOL[dtype])
+    eb = max(check_rel(f"{tag} d{n}", g, w, FLASH_TOL[dtype])
+             for n, g, w in zip("qkv", grads, wgrads))
+    log(f"  {tag}: forward run twice: bitwise equal")
+    if dtype == torch.float32:
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], eb)
+
+
+def check_matmul(gen, name, M, K, N, layout, errs, out=None, exact=False):
+    """K1 in float32 against its plain version at one shape (``out``: the
+    output's dtype), run twice: the same bits; the error into ``errs``.
+    ``exact``: at a K so deep that two float32 summation orders differ by
+    more than MATMUL_TOL of the product (GPT's K of 32,768 and 51,200),
+    the kernel is held to the float64 product instead: within MATMUL_TOL
+    of its largest entry, or within twice the plain version's (cuBLAS's)
+    own distance from it."""
+    from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                                  block_matmul_plain)
+    a, b = matmul_inputs(gen, M, K, N, layout, torch.float32)
+    got = block_matmul_kernel(a, b, out_dtype=out)
+    want = block_matmul_plain(a, b, out_dtype=out)
+    tag = f"float32 {name} ({M}, {K}) x ({K}, {N}) {layout}"
+    if exact:
+        ref = torch.matmul(a.double(), b.double())
+        scale = float(ref.abs().max())
+        e_kernel, e_plain = max_err(got, ref), max_err(want, ref)
+        limit = max(MATMUL_TOL[torch.float32] * scale, 2 * e_plain)
+        ok = e_kernel <= limit and math.isfinite(e_kernel)
+        log(f"  {tag}: against the float64 product (max {scale:.3e}) "
+            f"kernel {e_kernel:.3e}, plain {e_plain:.3e} (limit "
+            f"{limit:.3e}); max|kernel - plain| = {max_err(got, want):.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: kernel further from the exact "
+                                 f"product than allowed")
+        e = max_err(got, want)
+        del ref
+    else:
+        e = check_rel(tag, got, want, MATMUL_TOL[torch.float32])
+    if not torch.equal(got, block_matmul_kernel(a, b, out_dtype=out)):
+        raise AssertionError(f"K1 {name}: two runs differ")
+    errs["block_matmul"] = max(errs["block_matmul"], e)
 
 
 def phase_parity(model, cfg):
@@ -1187,26 +1284,37 @@ def phase_parity(model, cfg):
     log(f"  greedy-token agreement {agree}/{total}")
 
 
-def phase_serve(model, cfg, smi):
+def paged_launches(cfg):
+    """Each kernel's launches per continuous-batching step, from the
+    config: per layer the residual RMSNorms (K3; a LayerNorm runs PyTorch
+    ops) and qk-norm's two, the layer's products and the head (K1), and
+    attention over the pages (K5's split walk, then its combine). No K2:
+    the engine is paged only."""
+    L = cfg.n_layers
+    return {"paged_attention": L, "paged_attention_combine": L,
+            "rmsnorm": ((2 * L + 1 if cfg.norm == "rmsnorm" else 0)
+                        + (2 * L if cfg.qk_norm else 0)),
+            "block_matmul": layer_products(cfg) * L + 1,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "selective_scan": 0, "partial_attention": 0,
+            "partial_attention_bwd": 0}
+
+
+def phase_serve(model, cfg, smi, flags=SERVE_FLAGS, label="serve"):
+    """Phase 5's run (``flags``) of the continuous-batching engine on
+    ``model``: every request completes, finite logits, each kernel's
+    launches ``paged_launches`` a step; tokens/s, TTFT, latency,
+    memory."""
     from repro_torch.launch import serve
-    args = serve.build_parser().parse_args(SERVE_FLAGS)
-    log(f"[serve] {' '.join(SERVE_FLAGS)}")
+    args = serve.build_parser().parse_args(flags)
+    log(f"[{label}] {' '.join(flags)}")
     engine, stats, reqs, launches, transient = serve_run(model, cfg, args)
     if not all(r.state == "done" and len(r.generated) == r.max_new
                for r in reqs):
         raise AssertionError("a request did not complete")
     if not torch.isfinite(engine.last_logits).all():
         raise AssertionError("non-finite logits")
-    L = cfg.n_layers
-    # per step: per layer norm1, norm2, q/k-norm; 7 projections; the tied
-    # head; attention over the pages (K5's split walk, then its combine).
-    # No K2: the engine is paged only
-    per_step = {"paged_attention": L, "paged_attention_combine": L,
-                "rmsnorm": 4 * L + 1,
-                "block_matmul": 7 * L + 1, "flash_attention": 0,
-                "flash_attention_bwd": 0, "selective_scan": 0,
-                "partial_attention": 0, "partial_attention_bwd": 0}
-    check_launches(launches, per_step, stats.n_steps, "step")
+    check_launches(launches, paged_launches(cfg), stats.n_steps, "step")
     log(f"  served {stats.n_requests} requests / {stats.total_new_tokens} "
         f"tokens in {stats.wall_s:.3f}s ({stats.n_steps} steps, "
         f"{stats.n_preemptions} preemptions) on {smi}")
@@ -1488,16 +1596,9 @@ def phase_timings_rms_split(gen):
 
 
 def phase_timings_train(gen, out):
-    """K1 at the training and decode shapes; K2 forward and backward at the
-    training shape. K2's backward runs eagerly for all three versions (the
-    plain and library backwards are autograd's, which a graph captured
-    apart from its forward cannot replay), as the median of 7 rounds (the
-    plain version's of 5)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.block_matmul import (block_matmul_kernel,
-                                                  block_matmul_plain)
-    from repro_torch.kernels.flash_attention import (
-        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
+    """K1 at the training and decode shapes; K2's forward at Jamba's
+    prefill shape, its forward and backward at the training shape
+    (:func:`time_flash`)."""
     f32 = torch.float32
     log("[timings] float32, training shapes: device time from a replayed "
         "CUDA graph / eager calls back to back")
@@ -1509,49 +1610,72 @@ def phase_timings_train(gen, out):
         if c[0] in MATMUL_BF16_TIMED] + [
         (bf16, out, *c) for c in mesh if c[4] == "TN" for out in (None, f32)]
     for dtype, out_dtype, name, M, K, N, layout in shapes:
-        a, b = matmul_inputs(gen, M, K, N, layout, dtype)
-        heavy = N > 100_000 and M > 64
-        elt, out_elt = a.element_size(), (4 if out_dtype else
-                                          a.element_size())
-        t, eager = timings(lambda: block_matmul_kernel(a, b,
-                                                       out_dtype=out_dtype),
-                           lambda: block_matmul_plain(a, b,
-                                                      out_dtype=out_dtype),
-                           lambda: torch.matmul(a, b),
-                           elt * (M * K + K * N) + out_elt * M * N,
-                           2 * M * N * K, dtype, iters=5 if heavy else 50,
-                           eager_iters=5 if heavy else 100)
-        tag = dtype_name(dtype) + (" -> float32" if out_dtype else "")
-        log(f"  block_matmul {tag} {name} ({M}, {K}) x ({K}, {N}) {layout}: "
-            + fmt(t, eager) + f"; {2 * M * N * K / t['ms'] / 1e9:.1f} "
-            f"TFLOP/s, {t['bound_ms'] / t['ms']:.3f} of the bound")
+        t = time_matmul(gen, name, M, K, N, layout, dtype, out_dtype)
         if dtype == f32:
             out.setdefault("block_matmul", t)
-        del a, b
-    for case in (ATTN_JAMBA, ATTN_MAIN):
-        B, T, S, nq, nkv, hd, causal, window, kv_len = case
-        q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, f32)
-        kw = dict(causal=causal, window=window, kv_len=kv_len)
-        pairs, fwd_bytes = attn_work(*case, 4)
-        lse_bytes = B * nq * T * 4
-        g = nq // nkv
-        ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1)
-                  for t in (k, v))
-        qs = q.transpose(1, 2)
-        with sdpa_backend():
-            t, eager = timings(
-                lambda: flash_attention_kernel(q, k, v, **kw),
-                lambda: attn_core(q, k, v, **kw),
-                lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                       is_causal=True),
-                fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
-                eager_iters=50)
-        log(f"  flash_attention forward (B {B}, T {T}, {nq}/{nkv} heads, hd "
-            f"{hd}, causal): " + fmt(t, eager)
-            + f"; {t['ms'] / t['library_ms']:.2f}x {SDPA_NAME}; "
-            f"{4 * hd * pairs / t['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
-    out["flash_attention"] = t
+    time_flash(gen, ATTN_JAMBA)
+    out["flash_attention"], out["flash_attention_bwd"] = time_flash(
+        gen, ATTN_MAIN, backward=True)
+
+
+def time_matmul(gen, name, M, K, N, layout, dtype=torch.float32,
+                out_dtype=None):
+    """K1's times at one shape beside its plain version and
+    ``torch.matmul``; the bound counts each operand and the output once.
+    A product of more than 2e11 operations is replayed 5 times."""
+    from repro_torch.kernels.block_matmul import (block_matmul_kernel,
+                                                  block_matmul_plain)
+    a, b = matmul_inputs(gen, M, K, N, layout, dtype)
+    heavy = 2 * M * N * K > 2e11
+    elt, out_elt = a.element_size(), (4 if out_dtype else a.element_size())
+    t, eager = timings(lambda: block_matmul_kernel(a, b, out_dtype=out_dtype),
+                       lambda: block_matmul_plain(a, b, out_dtype=out_dtype),
+                       lambda: torch.matmul(a, b),
+                       elt * (M * K + K * N) + out_elt * M * N,
+                       2 * M * N * K, dtype, iters=5 if heavy else 50,
+                       eager_iters=5 if heavy else 100)
+    tag = dtype_name(dtype) + (" -> float32" if out_dtype else "")
+    log(f"  block_matmul {tag} {name} ({M}, {K}) x ({K}, {N}) {layout}: "
+        + fmt(t, eager) + f"; {2 * M * N * K / t['ms'] / 1e9:.1f} "
+        f"TFLOP/s, {t['bound_ms'] / t['ms']:.3f} of the bound")
+    return t
+
+
+def time_flash(gen, case, backward=False):
+    """K2's forward at ``case`` (a causal one), float32, beside the plain
+    version and SDPA (KV heads repeated); with ``backward`` also its
+    backward, eagerly for all three versions (the plain and library
+    backwards are autograd's, which a graph captured apart from its
+    forward cannot replay), as the median of 7 rounds (the plain
+    version's of 5). Returns the forward's times and the backward's (or
+    None)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
+    f32 = torch.float32
+    B, T, S, nq, nkv, hd, causal, window, kv_len = case
+    q, k, v, dout = attn_inputs(gen, B, T, S, nq, nkv, hd, f32)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    pairs, fwd_bytes = attn_work(*case, 4)
+    lse_bytes = B * nq * T * 4
+    g = nq // nkv
+    ks, vs = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
+    qs = q.transpose(1, 2)
+    with sdpa_backend():
+        t, eager = timings(
+            lambda: flash_attention_kernel(q, k, v, **kw),
+            lambda: attn_core(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            fwd_bytes + lse_bytes, 4 * hd * pairs, f32, iters=20,
+            eager_iters=50)
+    log(f"  flash_attention forward (B {B}, T {T}, {nq}/{nkv} heads, hd "
+        f"{hd}, causal): " + fmt(t, eager)
+        + f"; {t['ms'] / t['library_ms']:.2f}x {SDPA_NAME}; "
+        f"{4 * hd * pairs / t['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+    if not backward:
+        return t, None
     o, lse = flash_attention_kernel(q, k, v, **kw)
     qkv = [x.clone().requires_grad_() for x in (q, k, v)]
     plain_out = attn_core(*qkv, **kw)
@@ -1575,7 +1699,7 @@ def phase_timings_train(gen, out):
         f"{10 * hd * pairs / bwd['ms'] / 1e9:.1f} TFLOP/s, bound "
         f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']}), "
         f"{bwd['bound_ms'] / bwd['ms']:.3f} of it")
-    out["flash_attention_bwd"] = bwd
+    return t, bwd
 
 
 def sm_clocks_mhz():
@@ -1742,15 +1866,37 @@ def phase_train_parity(cfg):
         raise AssertionError("kernel gradients disagree with plain")
 
 
+def mlp_inputs(cfg):
+    """The MLP's input projections: gate and up, or up alone."""
+    return 2 if cfg.gated_mlp else 1
+
+
+def layer_products(cfg):
+    """K1 products of an attention layer's forward: q, k, v, o, the MLP's
+    input projections and its down projection (7 for qwen3-1.7b, 6 for
+    an ungated MLP)."""
+    return 4 + mlp_inputs(cfg) + 1
+
+
+def norm_params(cfg):
+    """Parameters of a residual norm: RMSNorm's gain, or LayerNorm's gain
+    and bias."""
+    return 2 if cfg.norm == "layernorm" else 1
+
+
 def train_launch_counts(cfg):
     """Each kernel's launches per microbatch of the training step on one
-    card (or a rank of a mesh with x, y and z 1): K1 = forward 7L + 1
-    (tied head), remat recompute 7L, backward 2 (dX, dW) x (7L + 1); K2
-    forward + recompute 2L, backward L; K3 = 4L + 1 forward (norm1, norm2,
-    q/k-norm; final) + 4L recompute; no other kernel."""
-    L = cfg.n_layers
-    return {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
-            "flash_attention_bwd": L, "rmsnorm": 8 * L + 1,
+    card (or a rank of a mesh with x, y and z 1), from the config: K1 =
+    forward PL + 1 (the head, tied or not), remat recompute PL, backward 2
+    (dX, dW) x (PL + 1), P = ``layer_products``; K2 forward + recompute
+    2L, backward L; K3 = RMSNorm's 2L + 1 forward (norm1, norm2; final) +
+    2L recompute, and qk-norm's 2L + 2L (a LayerNorm runs PyTorch ops, no
+    kernel); no other kernel."""
+    L, P = cfg.n_layers, layer_products(cfg)
+    rms = 4 * L + 1 if cfg.norm == "rmsnorm" else 0
+    return {"block_matmul": 4 * P * L + 3, "flash_attention": 2 * L,
+            "flash_attention_bwd": L,
+            "rmsnorm": rms + (4 * L if cfg.qk_norm else 0),
             "paged_attention": 0, "paged_attention_combine": 0,
             "selective_scan": 0, "partial_attention": 0,
             "partial_attention_bwd": 0}
@@ -1825,16 +1971,19 @@ def fixed_launches(cfg, prefills, decodes):
     decode steps of fixed-batch serving, counted from the code: per layer
     norm1 and norm2 (K3), an attention layer's q/k/v/o projections (K1),
     its q/k-norm (K3, if the config has it) and K2 at prefill or K5 (and
-    its combine) at decode; a Mamba layer's w_in, w_gate, w_x, w_dt and w_out (K1) and one
-    scan (K6); the MLP's three projections (K1); then the final norm (K3)
-    and the head (K1), on the last row only at prefill."""
+    its combine) at decode; a Mamba layer's w_in, w_gate, w_x, w_dt and
+    w_out (K1) and one scan (K6); the MLP's projections (K1: three, two
+    ungated); then the final norm (K3) and the head (K1), on the last row
+    only at prefill. The residual norms are K3 where they are RMSNorms (a
+    LayerNorm runs PyTorch ops)."""
     n_attn = cfg.mixers().count("attn")
     n_mamba = cfg.mixers().count("mamba")
     fwd = prefills + decodes
+    rms = 2 * cfg.n_layers + 1 if cfg.norm == "rmsnorm" else 0
     return {"block_matmul": fwd * (4 * n_attn + 5 * n_mamba
-                                   + 3 * cfg.n_layers + 1),
-            "rmsnorm": fwd * (2 * cfg.n_layers + 1
-                              + (2 * n_attn if cfg.qk_norm else 0)),
+                                   + (mlp_inputs(cfg) + 1) * cfg.n_layers
+                                   + 1),
+            "rmsnorm": fwd * (rms + (2 * n_attn if cfg.qk_norm else 0)),
             "selective_scan": fwd * n_mamba,
             "flash_attention": prefills * n_attn,
             "paged_attention": decodes * n_attn,
@@ -1892,13 +2041,14 @@ def phase_fixed_parity(model, cfg):
         raise AssertionError("kernel caches disagree with plain")
 
 
-def phase_fixed_serve(model, cfg, smi):
-    """``serve.py --mode fixed`` at full width, kernels counted."""
+def phase_fixed_serve(model, cfg, smi, flags=FIXED_FLAGS):
+    """``serve.py --mode fixed`` with ``flags`` at full width (``model``,
+    of ``cfg``), kernels counted."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    args = serve.build_parser().parse_args(FIXED_FLAGS)
+    args = serve.build_parser().parse_args(flags)
     log(f"[fixed serve] python -m repro_torch.launch.serve "
-        f"{' '.join(FIXED_FLAGS)}")
+        f"{' '.join(flags)}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     res = serve.run_fixed(args, model)
@@ -2126,11 +2276,9 @@ def seq_launches(cfg):
     the code: K4 p per layer forward and again in remat's recompute, its
     backward p per layer; K1 and K3 as on one card (phase 8); no K2."""
     L, p = cfg.n_layers, SEQ_P
-    return {"partial_attention": 2 * p * L, "partial_attention_bwd": p * L,
-            "block_matmul": 28 * L + 3, "rmsnorm": 8 * L + 1,
-            "flash_attention": 0, "flash_attention_bwd": 0,
-            "paged_attention": 0, "paged_attention_combine": 0,
-            "selective_scan": 0}
+    return dict(train_launch_counts(cfg), partial_attention=2 * p * L,
+                partial_attention_bwd=p * L, flash_attention=0,
+                flash_attention_bwd=0)
 
 
 def free_port() -> int:
@@ -2306,7 +2454,7 @@ def mesh_launches(cfg, prefills, decodes):
     want["rmsnorm"] = fwd * (2 * cfg.mixers().count("attn")
                              if cfg.qk_norm else 0)
     want["rmsnorm_stats"] = want["rmsnorm_apply"] = fwd * (
-        2 * cfg.n_layers + 1)
+        2 * cfg.n_layers + 1 if cfg.norm == "rmsnorm" else 0)
     return want
 
 
@@ -2677,52 +2825,57 @@ def phase_overlap_serve(cfg, smi, expect, blocking):
 def mesh_train_launches(cfg):
     """Each kernel's launches per microbatch on one rank of a mesh with x
     above 1, counted from the code: K1 and K2 as on one card (phase 8);
-    each residual norm (two a layer, forward and remat's recompute, and
+    each residual RMSNorm (two a layer, forward and remat's recompute, and
     the final one) runs K3's stats and apply passes around the psum over
     x, qk-norm's whole rows one pass each (q and k, forward and
-    recompute)."""
+    recompute); a LayerNorm runs no kernel."""
     L = cfg.n_layers
-    return {"block_matmul": 28 * L + 3, "flash_attention": 2 * L,
-            "flash_attention_bwd": L, "rmsnorm": 4 * L,
-            "rmsnorm_stats": 4 * L + 1, "rmsnorm_apply": 4 * L + 1,
-            "paged_attention": 0, "paged_attention_combine": 0,
-            "selective_scan": 0, "partial_attention": 0,
-            "partial_attention_bwd": 0}
+    split = 4 * L + 1 if cfg.norm == "rmsnorm" else 0
+    return dict(train_launch_counts(cfg),
+                rmsnorm=4 * L if cfg.qk_norm else 0, rmsnorm_stats=split,
+                rmsnorm_apply=split)
 
 
 def mesh_train_collectives(cfg, axes, microbatches):
     """Collective calls of one train step on a rank, by axis (the keys of
     ``core.mesh.COMM_AXES``), counted from the code for a dense decoder
-    with qk-norm whose KV heads split over y. A microbatch: per layer, the
-    forward (again in remat's recompute) gathers its 7 weights over z,
-    psums q, k, v, the MLP's gate and up (its "normal" layers) and the two
-    norms' sums of squares over x and the two "transposed" outputs over
-    y; the backward re-gathers the 7 weights over z and reduce-scatters
-    their gradients there, psums dX over the output axis (y for the 5
-    normal layers, x for the 2 transposed) and each norm's two sums over
-    x. Outside the layers: the embedding's gather over z and psum over y,
-    the final norm's psum over x, the tied head's gather over z and psum
+    whose KV heads split over y (qwen3-1.7b's numbers in parentheses: 7
+    products a layer, 5 of them "normal", RMSNorm, qk-norm, a tied head).
+    A microbatch: per layer, the forward (again in remat's recompute)
+    gathers its P weights over z (7), psums q, k, v and the MLP's input
+    projections (its "normal" layers) and each norm's statistics over x
+    (an RMSNorm's sum of squares, a LayerNorm's mean and centred
+    variance) and the two "transposed" outputs over y; the backward
+    re-gathers the P weights over z and reduce-scatters their gradients
+    there, psums dX over the output axis (y for the normal layers, x for
+    the 2 transposed) and each norm's two sums over x. Outside the
+    layers: the embedding's gather over z and psum over y, the final
+    norm's psums over x, the head's (tied or not) gather over z and psum
     over x, the loss's pmax and two psums over y and its two means over
     the token axes; backward, the head's re-gather and reduce-scatter
     over z and its dh over y, the final norm's two psums over x, the
-    embedding's reduce-scatter over z. Then the step: each of the 11 L + 2
-    gradients psum'd over (data, seq), q_norm and k_norm over y, the
-    gains (4 L + 1, the qk-norm ones among them) over z, and the gradient
-    norm's psum of each set of axes a spec shards over (x, y, z and x
-    alone; the replicated gains need none). A size-1 axis costs no
-    call. Without qk-norm, 2 L leaves fewer: none over y, 2 L + 1 gains
-    over z."""
+    embedding's reduce-scatter over z. Then the step: each gradient (11 L
+    + 2) psum'd over (data, seq), q_norm and k_norm over y, the norms'
+    parameters (4 L + 1, the qk-norm gains among them) over z, and the
+    gradient norm's psum of each set of axes a spec shards over (x, y, z
+    and x alone; the replicated gains need none). A size-1 axis costs no
+    call."""
     L, qk = cfg.n_layers, int(cfg.qk_norm)
+    P, normal, npar = layer_products(cfg), 3 + mlp_inputs(cfg), \
+        norm_params(cfg)
+    stats = 2 if cfg.norm == "layernorm" else 1
     live = {a: axes.size(a) > 1 for a in ("data", "x", "y", "z", "seq")}
-    per_mb = {"z": 28 * L + 5, "x": 20 * L + 4, "y": 9 * L + 5,
-              "data+z+seq": 2}
+    per_mb = {"z": 4 * P * L + 5,
+              "x": (2 * (normal + 2 * stats) + 6) * L + stats + 3,
+              "y": (4 + normal) * L + 5, "data+z+seq": 2}
     per_mb["data+z+seq"] *= live["data"] or live["z"] or live["seq"]
     want = {k: v * microbatches for k, v in per_mb.items()
             if all(live[a] for a in k.split("+")) or k == "data+z+seq"}
-    sync = {"data+seq": ((9 + 2 * qk) * L + 2)
-            * (live["data"] or live["seq"]),
-            "y": 2 * L * qk * live["y"], "z": ((2 + 2 * qk) * L + 1)
-            * live["z"],
+    leaves = ((P + 2 * npar + 2 * qk) * L + 1 + npar
+              + (0 if cfg.tie_embeddings else 1))
+    sync = {"data+seq": leaves * (live["data"] or live["seq"]),
+            "y": 2 * L * qk * live["y"],
+            "z": ((2 * npar + 2 * qk) * L + npar) * live["z"],
             "x+y+z": int(live["x"] or live["y"] or live["z"]),
             "x": int(live["x"])}
     for k, v in sync.items():
@@ -2747,9 +2900,10 @@ def mesh_train_hops(cfg, axes, microbatches, *, z_chunks=1, ar_chunks=1):
     """(ring hops, blocking calls) of one train step on a rank under
     ``OverlapConfig.all_on(z_chunks, ar_chunks)``, each by axis, counted
     from the code for the decoder of ``mesh_train_collectives`` (the
-    blocks' widths split over every ring). Each tp matmul (5 "normal" and
-    2 "transposed" a layer, forward twice with remat's recompute; the tied
-    head, forward once, counts as a normal one): with z above 1, a z ring
+    blocks' widths split over every ring). Each tp matmul (3 + the MLP's
+    input projections "normal" and 2 "transposed" a layer, forward twice
+    with remat's recompute; the head, tied or not, forward once, counts
+    as a normal one): with z above 1, a z ring
     of (g_z - 1) z_chunks hops in the forward, two in the backward (dX's
     accumulate ring, dW's reduce-scatter ring), and the activation
     all-reduces as rings (forward over the contraction axis, dX over the
@@ -2780,11 +2934,11 @@ def mesh_train_hops(cfg, axes, microbatches, *, z_chunks=1, ar_chunks=1):
         sites[in_ax] += fwd
         sites[out_ax] += 1
     for _ in range(L):
-        for _ in range(5):
+        for _ in range(3 + mlp_inputs(cfg)):
             matmul("x", "y", 2)
         for _ in range(2):
             matmul("y", "x", 2)
-    matmul("x", "y", 1)                  # the tied head
+    matmul("x", "y", 1)                  # the head
     hops["z"] += gz - 1                  # the embedding's table
     sites["z"] += 1
     hops["seq"] += 6 * (axes.gseq - 1) * L
@@ -3004,7 +3158,7 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     through ``launch_ranks``): ``train.train_on`` with the flags, depth
     and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
     "mesh-overlap": 13a, "mesh-overlap-profile": 18, "seq-overlap": 13b,
-    "zero": 15a, "ckpt-a": 15b's
+    "zero": 15a, "gpt-mesh-overlap": 19a, "ckpt-a": 15b's
     run A, which checkpoints into ``outdir``, "zero3": 16a,
     "zero3-prefetch": 16b, "zero3-ckpt-a" and "zero3-ckpt-b": 16c's runs A
     and B, through ``outdir``'s "zero3.npz"; several runs on one mesh
@@ -3012,7 +3166,6 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     run's memory freed before the next); rank 0 saves each run's
     report."""
     import dataclasses
-    from repro_torch.configs import get_config
     from repro_torch.core.overlap import OverlapConfig
     from repro_torch.launch import train
     from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
@@ -3030,6 +3183,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
         "seq-overlap": (SEQ_FLAGS, MESH_LAYERS,
                         OverlapConfig(ring_attention=True), None),
         "zero": (ZERO_FLAGS, MESH_LAYERS, blocking, None),
+        "gpt-mesh-overlap": (GPT_MESH_FLAGS, GPT_LAYERS,
+                             OverlapConfig.all_on(), None),
         "ckpt-a": (CKPT_FLAGS + ["--mesh", CKPT_A_MESH, "--backend", "gloo",
                                  "--zero", "--ckpt",
                                  str(outdir / "ckpt.npz")], None, blocking,
@@ -3056,8 +3211,9 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
             args = parser.parse_args(flags)
             if args.mesh != first.mesh:
                 raise ValueError(f"{which}: one mesh for all runs")
-            cfg = (dataclasses.replace(get_config(ARCH), n_layers=layers)
-                   if layers else preset_cfg(args))
+            cfg = preset_cfg(args)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
             res = train.train_on(args, axes, cfg, run, ov, stop)
             if run["rank"] == 0:
                 (outdir / f"{name}.json").write_text(json.dumps(dict(
@@ -4076,6 +4232,217 @@ def phase_profile_train(cfg, smi):
         f"{base['step_s'][i]:.3f} s; step times {rep['step_s']}, on {smi}")
 
 
+# ---------------------------------------------------------------------- #
+# phase 19: the dense config variants
+# ---------------------------------------------------------------------- #
+
+def phase_variant_kernels(gen, errs):
+    """Phase 6 at phase 19's shapes: K1 at GPT's one-card products (its
+    plan's split-K workspace logged beside the card's memory), K2 forward
+    and backward at GPT's, StableLM's and Nemotron's attention, K5 at
+    StableLM's decode and Nemotron's dense decode; each checked against
+    its plain version (K1 and K2 forward twice: the same bits; float32
+    and bfloat16 for K2 and K5), then timed beside it, the library call
+    and the bound. The float32 errors go into ``errs``."""
+    from repro_torch.kernels import block_matmul as BM
+    from repro_torch.kernels.flash_attention import (
+        paged_attention_kernel, paged_attention_plain)
+    from repro_torch.layers.attention import DENSE_PAGE, dense_page_view
+    f32 = torch.float32
+    props = torch.cuda.get_device_properties(0)
+    log("[19 kernels] K1 at gpt-paper-20b's one-card products, float32: "
+        "checked (run twice), then timed (device/eager)")
+    for name, M, K, N, layout in GPT_MATMUL_SHAPES:
+        plan = BM.plan(M, N, K, props.multi_processor_count)
+        work = plan.splits * M * N * 4 if plan.splits > 1 else 0
+        log(f"  {name}: path {plan.path}, {plan.splits} K split(s), split "
+            f"workspace {work / 2**30:.3f} GiB of the card's "
+            f"{props.total_memory / 2**30:.1f} GiB")
+        check_matmul(gen, name, M, K, N, layout, errs, exact=True)
+        time_matmul(gen, name, M, K, N, layout)
+        free_memory()
+    log("[19 kernels] K2 forward and backward at GPT's, StableLM's and "
+        "Nemotron's attention: checked, then timed (the backward at GPT's)")
+    for name, case in ATTN_VARIANTS.items():
+        for dtype in (f32, torch.bfloat16):
+            check_flash(gen, name, case, dtype, errs)
+        time_flash(gen, case, backward=case is ATTN_GPT)
+        free_memory()
+    c = STABLELM_K5
+    log(f"[19 kernels] K5 at StableLM's serving shapes ({c['nq']}/"
+        f"{c['nkv']} heads, hd {c['hd']}: a 16-row decode tile holds one "
+        f"row), 8 slots: decode of 144 tokens, a chunk of 32")
+    heads = dict(nq=c["nq"], nkv=c["nkv"], hd=c["hd"])
+    for dtype, (T, q_len) in itertools.product((f32, torch.bfloat16),
+                                               ((1, 1), (32, 32))):
+        q, kp, vp, table, q_pos, ql = paged_inputs(
+            gen, ctx=[144] * 8, q_len=[q_len] * 8, T=T, dtype=dtype, **heads)
+        e = check_close(f"{dtype_name(dtype)} T={T}",
+                        paged_attention_kernel(q, kp[0], vp[0], table, q_pos,
+                                               ql),
+                        paged_attention_plain(q, kp[0], vp[0], table, q_pos,
+                                              ql), PAGED_TOL[dtype])
+        if dtype == f32:
+            errs["paged_attention"] = max(errs["paged_attention"], e)
+    q, kp, vp, table, q_pos, ql = paged_inputs(
+        gen, ctx=[144] * 8, q_len=[1] * 8, T=1, dtype=f32,
+        n_layers=c["layers"], **heads)
+    time_paged(f"StableLM decode, 8 slots x 144 tokens, {c['nq']}/"
+               f"{c['nkv']} heads, hd {c['hd']}", q, list(kp), list(vp),
+               table, q_pos, ql)
+    del q, kp, vp
+    (B, nq, nkv, hd), ctx = NEMOTRON_DECODE
+    log(f"[19 kernels] K5 over Nemotron's dense decode cache (B {B}, "
+        f"{nq}/{nkv} heads, hd {hd}, context {ctx}, pages of {DENSE_PAGE})")
+    q_pos = torch.full((B, 1), ctx - 1, dtype=torch.int32, device="cuda")
+    ones = torch.ones((B,), dtype=torch.int32, device="cuda")
+    S = -(-ctx // DENSE_PAGE) * DENSE_PAGE      # the cache's rows
+    pools = []
+    for i in range(8):         # 8 layers' caches, 142 MB over the L2
+        dtype = torch.bfloat16 if i == 1 else f32
+        kc, vc = (torch.randn((B, S, nkv, hd), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        (kp, table), (vp, _) = dense_page_view(kc), dense_page_view(vc)
+        if i < 2:
+            qd = torch.randn((B, 1, nq, hd), generator=gen,
+                             device="cuda").to(dtype)
+            e = check_close(f"{dtype_name(dtype)} dense decode",
+                            paged_attention_kernel(qd, kp, vp, table, q_pos,
+                                                   ones),
+                            paged_attention_plain(qd, kp, vp, table, q_pos,
+                                                  ones), PAGED_TOL[dtype])
+            if dtype == f32:
+                errs["paged_attention"] = max(errs["paged_attention"], e)
+        if dtype == f32:
+            pools.append((kp, vp))
+    q = torch.randn((B, 1, nq, hd), generator=gen, device="cuda")
+    time_paged(f"Nemotron dense decode, B {B}, context {ctx}, {nq}/{nkv} "
+               f"heads, page {DENSE_PAGE}", q, [p[0] for p in pools],
+               [p[1] for p in pools], table, q_pos, ones)
+    del pools, kp, vp, kc, vc
+    free_memory()
+
+
+def phase_gpt_train(smi):
+    """19a: ``gpt-paper-20b`` at full width and GPT_LAYERS layers through
+    ``train.py`` on one card (each kernel's launches the config's count;
+    step time, tokens/s, MFU over the float32 peak on the reference's
+    parameter count, peak memory), then on (1,2,2,2) with the overlapped
+    schedule, eight gloo ranks on the card: step 1 within 12a's
+    tolerances of one card's, launches, ring hops and blocking calls the
+    code's; per rank the step time, calls, seconds and bytes by axis and
+    memory; the profiled step's collectives by scope class."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm_model as CM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    cfg = depth_cut(get_config(GPT), GPT_LAYERS)
+    log(f"[19a gpt train] python -m repro_torch.launch.train "
+        f"{' '.join(GPT_TRAIN_FLAGS)} at {GPT_LAYERS} layers "
+        f"({cfg.param_count() / 1e9:.3f} B parameters)")
+    ops.reset_launches()
+    one = train.main(GPT_TRAIN_FLAGS, cfg=cfg)
+    launches = ops.launches()
+    if not all(math.isfinite(x) for x in one.losses + one.grad_norms):
+        raise AssertionError("non-finite loss or grad norm")
+    args = train.build_parser().parse_args(GPT_TRAIN_FLAGS)
+    check_launches(launches, train_launch_counts(cfg),
+                   args.steps * args.overdecompose, "microbatch")
+    steady = one.step_s[1:] or one.step_s
+    step_s = sum(steady) / len(steady)
+    flops = CM.model_flops_per_token(cfg) * one.tokens_per_step
+    log(f"  losses {one.losses}, grad norms {one.grad_norms}")
+    log(f"  step times {[round(x, 4) for x in one.step_s]} s; steady step "
+        f"{step_s:.4f} s, {one.tokens_per_step / step_s:.1f} tokens/s, MFU "
+        f"{100 * flops / step_s / PEAK_OPS_PER_S[torch.float32]:.2f}% of "
+        f"the 67 TFLOP/s float32 peak (6 x {cfg.param_count() / 1e9:.3f} B "
+        f"FLOPs a token), max_memory_allocated "
+        f"{one.max_memory_bytes / 2**30:.2f} GiB on {smi}")
+    free_memory()
+    rep = run_mesh_train("gpt-mesh-overlap", f"19a gpt train, {MESH_TRAIN} "
+                         f"overlapped, {GPT_LAYERS} layers",
+                         MESH_TRAIN_RANKS)
+    check_mesh_losses(rep, one, f"{GPT} on {MESH_TRAIN} overlapped against "
+                                f"one card")
+    margs = train.build_parser().parse_args(GPT_MESH_FLAGS)
+    axes = mesh_axes(MESH_TRAIN)
+    share = torch.cuda.get_device_properties(0).total_memory \
+        / MESH_TRAIN_RANKS
+    ranks = sorted(rep["ranks"], key=lambda r: r["rank"])
+    for r in ranks:
+        log(f"  rank {r['rank']} on {r['device']}:")
+        check_launches(r["launches"], overlap_train_launches(cfg, axes),
+                       margs.steps * margs.overdecompose, "microbatch")
+        last = r["comm_by_axis"][-1]
+        log(f"    comm {[round(x, 3) for x in r['comm_s']]} s, "
+            f"{[round(b / 1e9, 3) for b in r['comm_bytes']]} GB a step; "
+            f"last step by axis: "
+            + ", ".join(f"{a} {c['calls']} calls {c['seconds']:.3f} s "
+                        f"{c['bytes'] / 1e9:.3f} GB"
+                        for a, c in sorted(last.items()))
+            + f"; max_memory_allocated {r['max_memory_bytes'] / 2**30:.2f} "
+            f"GiB (an eighth of the card {share / 2**30:.2f} GiB)")
+    check_step_calls(rep, *mesh_train_hops(cfg, axes, margs.overdecompose))
+    log(f"  rank 0 step times {[round(x, 3) for x in rep['step_s']]} s "
+        f"(step {margs.profile_steps.split(':')[0]} profiled), "
+        f"{rep['tokens_per_step'] / rep['step_s'][0]:.1f} tokens/s in step "
+        f"0 over the 8 ranks, on {smi}")
+    log("  rank 0's profiled step by scope class, kind and axis (calls, raw "
+        "MB, wire MB):")
+    for row in ranks[0]["comm_by_scope"]:
+        log(f"    {row['scope'] or '(no scope)':<22} {row['kind']:<19} "
+            f"{row['axis'] or '-':<16} p {row['group_size']}: "
+            f"{row['calls']:5d} calls {row['raw_bytes'] / 1e6:10.3f} MB raw "
+            f"{row['wire_bytes'] / 1e6:10.3f} MB wire")
+    if not ranks[0]["comm_by_scope"]:
+        raise AssertionError("the profiled step recorded no collective")
+
+
+def phase_variants(smi):
+    """19: the dense config variants at full width: (c) Nemotron-4-15B's
+    fixed serving (depth by the card's free memory), kernels against
+    plain and ``serve.py --mode fixed``; (b) StableLM-2-1.6B's
+    continuous serving at full depth, kernels against plain through
+    ``paged_step`` and phase 5's run; (a) GPT-20B's training
+    (``phase_gpt_train``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    ncfg = get_config(NEMOTRON)
+    heads = 1 if ncfg.tie_embeddings else 2
+    need = 4 * (ncfg.param_count() + heads * ncfg.d_model
+                * (ncfg.padded_vocab - ncfg.vocab_size))
+    free, _ = torch.cuda.mem_get_info()
+    cfg = (ncfg if free - need >= NEMOTRON_HEADROOM
+           else depth_cut(ncfg, NEMOTRON_CUT_LAYERS))
+    log(f"[19c nemotron] {need / 2**30:.1f} GiB of float32 parameters at "
+        f"full depth, {free / 2**30:.1f} GiB free: {cfg.n_layers} of "
+        f"{ncfg.n_layers} layers (full depth needs "
+        f"{NEMOTRON_HEADROOM / 2**30:.0f} GiB left beside them)")
+    t0 = time.time()
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters, init {time.time() - t0:.1f}s")
+    phase_fixed_parity(model, cfg)
+    phase_fixed_serve(model, cfg, smi, NEMOTRON_FIXED_FLAGS)
+    del model
+    free_memory()
+    scfg = get_config(STABLELM)
+    t0 = time.time()
+    model = ST.init_model(scfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[19b stablelm] {scfg.name} full width and depth, float32, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters, init {time.time() - t0:.1f}s")
+    phase_parity(model, scfg)
+    engine, *_ = phase_serve(model, scfg, smi, STABLELM_SERVE_FLAGS,
+                             "19b serve")
+    del engine, model
+    free_memory()
+    phase_gpt_train(smi)
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -4115,6 +4482,7 @@ def main() -> int:
     free_memory()
     times = phase_timings(gen, cfg.n_layers)
     free_memory()
+    phase_variant_kernels(gen, errs)
     phase_train_parity(cfg)
     free_memory()
     train_launches, train_res = phase_train(cfg, smi)
@@ -4176,6 +4544,8 @@ def main() -> int:
     phase_zero3_train(cfg, smi)
     phase_calib_steps(smi)
     phase_profile_train(cut, smi)
+    free_memory()
+    phase_variants(smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;

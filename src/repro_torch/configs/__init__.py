@@ -16,20 +16,24 @@ _MODULES = {
     "qwen3-1.7b": ("qwen3_1_7b", "CONFIG"),
     "jamba-v0.1-52b": ("jamba_v0_1_52b", "CONFIG"),
     "jamba-v0.1-52b-dense-ffn": ("jamba_v0_1_52b", "DENSE_FFN"),
+    "gpt-paper-20b": ("gpt_paper_20b", "CONFIG"),
+    "stablelm-1.6b": ("stablelm_1_6b", "CONFIG"),
+    "nemotron-4-15b": ("nemotron_4_15b", "CONFIG"),
 }
 
 # known to the JAX package, not yet ported: the ROADMAP.md §1 item each
 # one waits for
 _NOT_PORTED = {
-    "stablelm-1.6b": "dense config variants",
-    "gpt-paper-20b": "dense config variants",
     "h2o-danube-3-4b": "dense config variants",
-    "nemotron-4-15b": "dense config variants",
     "deepseek-v2-lite-16b": "MoE and the expert axis",
     "deepseek-v3-671b": "MoE and the expert axis",
     "xlstm-350m": "other mixers and architectures",
     "internvl2-26b": "other mixers and architectures",
     "whisper-small": "other mixers and architectures",
+}
+# what an item's arch still lacks, where the item is under way
+_WAITS_FOR = {
+    "h2o-danube-3-4b": "head_dim 120 in kernels K2, K4 and K5",
 }
 
 
@@ -37,7 +41,9 @@ def get_config(name: str) -> ArchConfig:
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to PyTorch yet: it waits for the "
-            f"ROADMAP.md §1 item '{_NOT_PORTED[name]}'. Ported: "
+            f"ROADMAP.md §1 item '{_NOT_PORTED[name]}'"
+            + (f" ({_WAITS_FOR[name]})" if name in _WAITS_FOR else "")
+            + f". Ported: "
             f"{sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")

@@ -14,7 +14,9 @@ Every local product, forward and backward, goes through ``ops.matmul``
 kernel K3 forward (its single pass over a whole row, or on a row sharded
 over x its stats and apply passes around the psum of the sum of squares)
 and its backward in PyTorch ops, as the JAX backward is jnp outside any
-kernel. ``plain=True`` runs the kernels' plain versions on any device.
+kernel; ``layer_norm`` is PyTorch ops forward and backward (the JAX
+package's is jnp too). ``plain=True`` runs the kernels' plain versions on
+any device.
 
 The overlapped schedule rides on ``axes.overlap`` (``core/overlap.py``),
 as in the JAX package: ``matmul`` and ``tied_logits`` run the z
@@ -379,7 +381,7 @@ def vocab_parallel_xent(logits, labels, axes: M.MeshAxes,
 
 
 # ---------------------------------------------------------------------- #
-# feature-sharded RMSNorm (stats psum'd over x)
+# feature-sharded RMSNorm / LayerNorm (stats psum'd over x)
 # ---------------------------------------------------------------------- #
 
 class _RmsNorm(torch.autograd.Function):
@@ -422,6 +424,52 @@ def rms_norm(x, gamma, axes: M.MeshAxes, full_dim: int, eps: float = 1e-6,
     return _RmsNorm.apply(x, gamma, axes, axis, full_dim, eps, plain)
 
 
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, axes, axis, full_dim, eps):
+        xf = x.float()
+        mu = M.psum(torch.sum(xf, dim=-1), axes, axis) / full_dim
+        xc = xf - mu[..., None]
+        # the centred variance, a second pass over the row (not E[x^2] -
+        # mu^2)
+        var = M.psum(torch.sum(xc * xc, dim=-1), axes, axis) / full_dim
+        r = torch.rsqrt(var + eps)
+        xhat = xc * r[..., None]
+        ctx.save_for_backward(xhat, gamma, r)
+        ctx.cfg = (axes, axis, full_dim)
+        return (xhat * gamma.float() + beta.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, gamma, r = ctx.saved_tensors
+        axes, axis, full_dim = ctx.cfg
+        dyf = dy.float() * gamma.float()
+        # means over the FULL feature dim -> psums over the sharded axis
+        mean_dy = M.psum(torch.sum(dyf, dim=-1), axes, axis) / full_dim
+        mean_dyx = M.psum(torch.sum(dyf * xhat, dim=-1), axes,
+                          axis) / full_dim
+        dx = (r[..., None] * (dyf - mean_dy[..., None]
+                              - xhat * mean_dyx[..., None])).to(dy.dtype)
+        d = dy.shape[-1]
+        dg = torch.sum((dy.float() * xhat).reshape(-1, d), dim=0)
+        db = torch.sum(dy.float().reshape(-1, d), dim=0)
+        return (dx, dg.to(gamma.dtype), db.to(gamma.dtype), None, None, None,
+                None)
+
+
+def layer_norm(x, gamma, beta, axes: M.MeshAxes, full_dim: int,
+               eps: float = 1e-5, *, axis: Optional[str] = "x"):
+    """LayerNorm over a feature dim sharded across ``axis``, in PyTorch
+    ops in the reference's order (no kernel: the JAX package computes it
+    in jnp): the mean and the centred variance each a psum of the local
+    row sums, computed in fp32, the output in x's dtype. The backward
+    psums the means of dy * gamma and of dy * gamma * x-hat and returns dx
+    in dy's dtype; the gain's and bias's gradients are this rank's fp32
+    sums cast to their dtype (the step's gradient sync reduces them, as it
+    does the RMSNorm gain's)."""
+    return _LayerNorm.apply(x, gamma, beta, axes, axis, full_dim, eps)
+
+
 # ---------------------------------------------------------------------- #
 # init: the JAX package's distributions, drawn from a torch.Generator
 # ---------------------------------------------------------------------- #
@@ -459,7 +507,7 @@ def embedding_init(gen: torch.Generator, vocab: int, hidden: int,
 
 def norm_param_init(hidden: int, axes: M.MeshAxes, *, device,
                     dtype=torch.float32, value: float = 1.0) -> torch.Tensor:
-    """A per-feature gain, this rank's slice over x (the residual
-    layout)."""
+    """A per-feature gain (``value`` 1) or bias (0), this rank's slice
+    over x (the residual layout)."""
     return torch.full((hidden // axes.gx,), value, dtype=dtype,
                       device=device)

@@ -66,6 +66,7 @@ LEAF_SPECS: Dict[str, ParamSpec] = {
     "embed": _tp(("y", ("x", "z"))),   # vocab over y, features over (x, z)
     "lm_head": _tp(NORMAL),            # the untied head, d -> V
     "g": ParamSpec(("x",)),            # norm gains: the residual layout
+    "b": ParamSpec(("x",)),            # LayerNorm biases: the same
     # attention: separate q/k/v, or the duplicated-KV layout's one kv
     # projection (replicated over y, its grads psum'd over y)
     "wq": _tp(NORMAL), "wk": _tp(NORMAL), "wv": _tp(NORMAL),
@@ -75,7 +76,8 @@ LEAF_SPECS: Dict[str, ParamSpec] = {
     # (attention.attn_init) reduces them over data and z alone
     "q_norm": ParamSpec((None,), y_heads=True),
     "k_norm": ParamSpec((None,), y_heads=True),
-    # the gated MLP (its "wo" is the transposed down projection too)
+    # the MLP (its "wo" is the transposed down projection too; "wg" only
+    # where it is gated)
     "wi": _tp(NORMAL), "wg": _tp(NORMAL),
     # Mamba: projections, then per-inner-channel params over y
     "w_in": _tp(NORMAL), "w_gate": _tp(NORMAL), "w_x": _tp(wspec("y", None)),

@@ -28,7 +28,7 @@ predicted against measured step times over the whole grid
 (``rank_correlation``) and over the decompositions at S = 64
 (``rank_correlation_decomp``). One departure: the model is
 ``qwen3-1.7b`` at ``--preset smoke`` (``ArchConfig.reduced()``), not
-``stablelm-1.6b``, whose layernorm the port does not build yet. All the
+``stablelm-1.6b``. All the
 decompositions run in this one world of 8 ranks: each one's process
 groups are made once (``core.mesh.init_groups``) and brought back
 between rounds (``core.mesh.save_groups``/``restore_groups``).

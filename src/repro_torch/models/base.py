@@ -2,7 +2,8 @@
 
 Only the fields and methods the ported slices read are kept: dense
 all-attention decoders and Jamba's hybrid Mamba/attention decoder, with
-RMSNorm, gated SiLU and a tied or untied LM head. ``comm_layers`` and
+RMSNorm or LayerNorm, a gated or ungated MLP of SiLU, GELU or squared
+ReLU, and a tied or untied LM head. ``comm_layers`` and
 ``tp_constraints`` describe a configuration to the analytical model
 (``core/comm_model.py``) as the JAX ``ArchConfig``'s do, for the mixers
 and FFNs the port builds; ``__post_init__`` rejects what the slices
@@ -71,16 +72,17 @@ class ArchConfig:
         unsupported = []
         if self.arch_type not in ("dense", "hybrid"):
             unsupported.append(f"arch_type {self.arch_type!r}")
-        if self.norm != "rmsnorm":
+        if self.norm not in ("rmsnorm", "layernorm"):
             unsupported.append(f"norm {self.norm!r}")
-        if self.act != "silu" or not self.gated_mlp:
-            unsupported.append("an MLP other than gated SiLU")
+        if self.act not in ("silu", "gelu", "squared_relu"):
+            unsupported.append(f"act {self.act!r}")
         if unsupported:
             raise NotImplementedError(
                 f"{self.name}: the PyTorch port serves dense and hybrid "
-                f"decoders with RMSNorm and gated SiLU only (got "
-                f"{', '.join(unsupported)}); they wait for the ROADMAP.md §1 "
-                f"item 'dense config variants'")
+                f"decoders with RMSNorm or LayerNorm and a SiLU, GELU or "
+                f"squared-ReLU MLP only (got {', '.join(unsupported)}); "
+                f"they wait for the ROADMAP.md §1 item 'dense config "
+                f"variants'")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not a "
                              f"multiple of n_kv_heads {self.n_kv_heads}")
@@ -218,13 +220,18 @@ class ArchConfig:
                 total += d * 2 * di + di * (dtr + 2 * self.mamba.d_state)
                 total += dtr * di + di * d
             if ffn == "mlp":
-                total += 3 * d * self.d_ff
+                total += (self._mlp_mult + 1) * d * self.d_ff
             elif ffn == "moe":
                 mc = self.moe
-                per = 3 * d * mc.d_expert
+                per = (self._mlp_mult + 1) * d * mc.d_expert
                 total += (mc.n_experts * per + mc.n_shared * per
                           + d * mc.n_experts)
         return total
+
+    @property
+    def _mlp_mult(self) -> int:
+        """Input projections of an MLP: gate and up, or up alone."""
+        return 2 if self.gated_mlp else 1
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: top_k + shared only), as the JAX
@@ -232,7 +239,7 @@ class ArchConfig:
         if self.moe is None:
             return self.param_count()
         mc = self.moe
-        per = 3 * self.d_model * mc.d_expert
+        per = (self._mlp_mult + 1) * self.d_model * mc.d_expert
         n_moe = sum(1 for f in self.ffns() if f == "moe")
         return self.param_count() - n_moe * (mc.n_experts - mc.top_k) * per
 
@@ -264,8 +271,7 @@ class ArchConfig:
                     f"ported to PyTorch yet: it waits for the ROADMAP.md "
                     f"§1 item '{item}'")
             if ffn == "mlp":
-                mult = 2 if self.gated_mlp else 1
-                out.append(LayerShape(d, mult * self.d_ff))
+                out.append(LayerShape(d, self._mlp_mult * self.d_ff))
                 out.append(LayerShape(self.d_ff, d, transposed=True))
             else:
                 raise NotImplementedError(

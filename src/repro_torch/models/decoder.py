@@ -4,8 +4,10 @@ serving (port of ``repro.models.decoder``).
 The JAX package scans over layers stacked (n_periods, ...) per segment
 position; here the layers are an ``nn.ModuleList`` and the scan is a Python
 loop. Each layer's (mixer, ffn) kind comes from ``cfg.layer_kinds()``:
-softmax attention or Mamba, and the gated MLP. Parameter names follow the
-JAX tree with the stacking undone: ``embed``, ``layers.<i>.norm1.g``,
+softmax attention or Mamba, and the MLP (gated or not); the residual
+norms are RMSNorm or LayerNorm, as ``cfg.norm`` says. Parameter names
+follow the JAX tree with the stacking undone: ``embed``,
+``layers.<i>.norm1.g`` (and a LayerNorm's ``.b``),
 ``layers.<i>.mixer.wq``, ..., ``final_norm.g``, ``lm_head`` when the head
 is untied (``convert`` maps one onto the other). On a mesh every module
 is built at this rank's local shapes (``partition.LEAF_SPECS``), and the
@@ -52,6 +54,32 @@ class RMSNorm(nn.Module):
         return PP.rms_norm(h, self.g, self.axes, self.full_dim, plain=plain)
 
 
+class LayerNorm(nn.Module):
+    """A feature-sharded LayerNorm over the residual stream (gain ``g``,
+    bias ``b``; PyTorch ops, as the reference's is jnp)."""
+
+    def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        self.axes, self.full_dim = axes, cfg.d_model
+        self.g = nn.Parameter(PP.norm_param_init(cfg.d_model, axes,
+                                                 device=device, dtype=dtype))
+        self.b = nn.Parameter(PP.norm_param_init(cfg.d_model, axes,
+                                                 device=device, dtype=dtype,
+                                                 value=0.0))
+
+    def forward(self, h, *, plain: bool = False):
+        return PP.layer_norm(h, self.g, self.b, self.axes, self.full_dim)
+
+
+def make_norm(cfg: ArchConfig, axes: M.MeshAxes, *, device,
+              dtype=torch.float32) -> nn.Module:
+    """The residual norm ``cfg.norm`` names (``_norm_init``/``_apply_norm``
+    of the reference)."""
+    cls = LayerNorm if cfg.norm == "layernorm" else RMSNorm
+    return cls(cfg, axes, device=device, dtype=dtype)
+
+
 class Block(nn.Module):
     """Pre-norm mixer + MLP block (``_block_apply``): the mixer is softmax
     attention or Mamba, as ``kinds`` = (mixer, ffn) says."""
@@ -68,7 +96,7 @@ class Block(nn.Module):
                 f"with the dense MLP)")
         dev = gen.device
         self.kind = mixer
-        self.norm1 = RMSNorm(cfg, axes, device=dev, dtype=dtype)
+        self.norm1 = make_norm(cfg, axes, device=dev, dtype=dtype)
         if mixer == "attn":
             self.mixer = A.Attention(cfg, axes, gen=gen, dtype=dtype)
         elif mixer == "mamba":
@@ -78,8 +106,9 @@ class Block(nn.Module):
                 f"{cfg.name}: mixer {mixer!r} is not ported to PyTorch yet: "
                 f"it waits for the ROADMAP.md §1 item 'other mixers and "
                 f"architectures'")
-        self.norm2 = RMSNorm(cfg, axes, device=dev, dtype=dtype)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, axes, gen=gen, dtype=dtype)
+        self.norm2 = make_norm(cfg, axes, device=dev, dtype=dtype)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, axes, gen=gen, act=cfg.act,
+                       gated=cfg.gated_mlp, dtype=dtype)
 
     def forward(self, h, *, positions, mode: str, cache=None, paged=None,
                 plain: bool = False):
@@ -120,7 +149,8 @@ class Decoder(nn.Module):
         for i, kinds in enumerate(cfg.layer_kinds()):
             self.layers.append(Block(cfg, axes, kinds, gen=gen, dtype=dtype))
             self.shard_(shard, f"layers.{i}")
-        self.final_norm = RMSNorm(cfg, axes, device=gen.device, dtype=dtype)
+        self.final_norm = make_norm(cfg, axes, device=gen.device,
+                                    dtype=dtype)
         self.shard_(shard, "final_norm")
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(PP.tp_linear_init(
@@ -238,9 +268,10 @@ class Decoder(nn.Module):
                 h = fn(*args, **kw)
         if resident is None:
             return self.final_norm(h, plain=plain)
-        return functional_call(self.final_norm,
-                               {"g": resident["final_norm.g"]}, (h,),
-                               {"plain": plain})
+        return functional_call(
+            self.final_norm, {n: resident[f"final_norm.{n}"]
+                              for n, _ in self.final_norm.named_parameters()},
+            (h,), {"plain": plain})
 
     def _layer_shards(self, i: int):
         return {n: s for n, s in self.shards.items()

@@ -26,6 +26,9 @@ BWD_CASES = dict(FLASH_CASES, **{
     "causal S 100 > T 40 g2 hd64 bf16": (2, 40, 100, 4, 2, 64, True, 0, 0,
                                          BF16, 0),
     "causal g2 hd64 f32 T 70": (1, 70, 70, 4, 2, 64, True, 0, 0, F32, 0),
+    # a GQA group of 6 (Nemotron's 48/8 heads)
+    "causal g6 hd128 bf16 T 70": (1, 70, 70, 6, 1, 128, True, 0, 0, BF16,
+                                  0),
 })
 
 
@@ -33,7 +36,7 @@ BWD_CASES = dict(FLASH_CASES, **{
 def test_k2_backward_source_matches_autograd_on_the_cpu(flash, case):
     """dq, dk and dv against autograd of the plain attn_core: windows,
     kv_len < S, T not a multiple of the 64-row tile, non-causal, GQA g 1,
-    2 and 4, head_dim 64 and 128, float32 and bfloat16, rows on and off 16
+    2, 4 and 6, head_dim 64 and 128, float32 and bfloat16, rows on and off 16
     bytes. The workspace and the outputs start as NaN, so a read of an
     entry no block wrote shows; a second call gives the same bits."""
     from repro_torch.kernels.flash_attention import attn_core

@@ -3,7 +3,8 @@
 The source is compiled with g++ against the CPU stand-ins of
 ``tests/cuda_emu/`` (one thread per CUDA thread, blocks in turn) and
 launched through its C interface on CPU tensors (``cuda_emu.attention``'s
-``flash`` fixture). Each case (``FLASH_CASES``) is held to the plain
+``flash`` fixture). Each case (``FLASH_CASES`` and a GQA group of 6) is
+held to the plain
 ``attn_core`` with the card's tolerance (``chip_smoke.py``'s FLASH_TOL),
 its lse to the plain log-sum-exp, and must repeat bitwise. Every output
 starts as NaN, so a read of an entry that no block wrote shows. The card
@@ -14,14 +15,21 @@ import pytest
 import torch
 
 from cuda_emu.attention import (  # noqa: F401 (flash: the fixture)
-    FLASH_CASES, FLASH_TOL, flash, flash_inputs, plain_lse, rel_close)
+    F32, FLASH_CASES, FLASH_TOL, flash, flash_inputs, plain_lse, rel_close)
+
+# the forward's own case beside FLASH_CASES: Nemotron's prefill groups 6
+# query heads on a KV head (B, T, S, nq, nkv, hd, causal, window, kv_len,
+# dtype, shift)
+FWD_CASES = dict(FLASH_CASES, **{
+    "causal g6 hd128 f32 T 70": (1, 70, 70, 6, 1, 128, True, 0, 0, F32, 0),
+})
 
 
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
 def test_k2_forward_source_matches_plain_on_the_cpu(flash, case):
     from repro_torch.kernels.flash_attention import attn_core
     B, T, S, nq, nkv, hd, causal, window, kv_len, dtype, shift = \
-        FLASH_CASES[case]
+        FWD_CASES[case]
     q, k, v = flash_inputs(len(case), B, T, S, nq, nkv, hd, dtype, shift)
     forward, _ = flash
     kw = dict(causal=causal, window=window, kv_len=kv_len)

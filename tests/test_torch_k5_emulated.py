@@ -94,6 +94,12 @@ PAGED_CASES = {
     "decode g2 hd128 bf16 page 32": (1, 2, 128, BF16, 32, 0,
                                      [33, 128, 129, 300], [1, 1, 1, 1],
                                      False),
+    # StableLM's MHA (g 1: a 16-row decode tile holds one row) and
+    # Nemotron's 48/8 heads (g 6)
+    "decode g1 hd64 f32": (1, 1, 64, F32, 16, 0, [64, 65, 200, 1, 9],
+                           [1, 1, 1, 1, 0], False),
+    "decode g6 hd128 f32": (1, 6, 128, F32, 16, 0, [70, 64, 130, 5],
+                            [1, 1, 1, 1], False),
     "chunk T5 g2 hd64 f32 bad entries": (5, 2, 64, F32, 16, 0,
                                          [66, 20, 150], [5, 3, 5], True),
     "chunk T7 g4 hd128 bf16 window 30": (7, 4, 128, BF16, 16, 30,

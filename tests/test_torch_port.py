@@ -226,7 +226,7 @@ def test_mesh_admits_a_seq_axis():
             MeshAxes(bad)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "xlstm-350m",
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "xlstm-350m",
                                   "deepseek-v3-671b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

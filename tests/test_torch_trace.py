@@ -193,7 +193,8 @@ def _train_setup(cfg, axes, gs, ov=OverlapConfig()):
 def _dp_steps(axes):
     """One step of the blocking, ZeRO-1 and ZeRO-3 schedules on the
     reduced qwen3-1.7b (the reference's tests run stablelm-1.6b, whose
-    layernorm the port refuses): each step's recorded ops, and ZeRO-3's
+    plans tests/test_torch_variants.py holds to the reference): each
+    step's recorded ops, and ZeRO-3's
     largest gathered unit and whole plan in bytes."""
     cfg = get_config(ARCH).reduced()
     batch = _batch(cfg, axes, 8, 32)
@@ -666,7 +667,7 @@ def _permutes(ops):
 
 def test_zero_has_no_data_allreduce(world):
     """tests/test_gradsync.py::test_zero_hlo_collective_permute_no_data_
-    allreduce on (4,1,2,1) (reduced qwen3-1.7b: the port refuses the
+    allreduce on (4,1,2,1) (reduced qwen3-1.7b in place of the
     reference's stablelm-1.6b)."""
     ranks, _, _ = world
     for r in ranks:
