@@ -202,7 +202,7 @@ a hard failure:
      the measured ``best``;
  18. the tracing half (``core/trace.py``'s scopes, ``launch/roofline``'s
      dispatch hook, ``train.py --profile-steps``): 13a's run once more in
-     12a's launch, with ``--profile-steps 2:2`` (3 steps, eight ranks):
+     12a's launch, with ``--profile-steps 1:1`` (2 steps, eight ranks):
      every rank's chrome trace written, rank 0's holding the ring hops',
      the GEMM chunks' and the embedding gather's ranges; each rank's
      recorded calls by scope summing to the hook's totals, which equal
@@ -212,7 +212,7 @@ a hard failure:
      ranges, K1's device time inside ``gemm/chunk`` ranges), the unscoped
      remainder beside the calls and bytes the analytical model charges the
      step, the hook's totals against 13a's calls a step, and the profiled
-     step's wall time against step 1's;
+     step's wall time against 13a's same step;
  19. the dense config variants at full width: right after phase 6, K1 at
      GPT-20B's one-card products (held to the float64 product at its K
      of 32,768 and 51,200, where two float32 orders differ by more than
@@ -235,7 +235,31 @@ a hard failure:
      one card's, launches, ring hops and blocking calls by axis the
      code's, per rank the step's calls, seconds and bytes by axis, and
      the profiled step's collectives by scope class;
- 20. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 20. MoE and the expert axis: K1's batched entry (E products in one
+     launch) at DeepSeek-V2-Lite's expert products (64 experts of 120
+     places: the up and down projections, dX and dW) and at Jamba's
+     prefill and decode, and K2 at MLA's widths (q/k 192, v 128), forward
+     and backward, each against its plain version (run twice: the same
+     bits) and timed beside ``torch.bmm`` or SDPA and the bound; (a)
+     ``deepseek-v2-lite-16b`` at full width and DSV2_LAYERS layers
+     (layer 0 dense, 3 MoE) through ``train.py``, phase 8's batch: each
+     kernel's launches the config's count (every expert product on the
+     batched entry), step time, tokens/s, MFU over the active
+     parameters, peak memory, dropped (token, slot) pairs; then the
+     expert meshes at a cut of DSV2_MESH_LAYERS layers where nothing
+     drops and without the load-balance term (``dsv2_mesh_cut``), held
+     to one card's run of that cut: 2 steps on (1,1,1,1,1,2) under the
+     blocking all-to-all and with the expert ring
+     (``OverlapConfig(expert_a2a=True, batched_matmul=True)``), whose
+     losses and grad norms must be the blocking run's bit for bit, and 1
+     step on (1,1,2,1,1,2), profiled: step 1 within MESH_TRAIN_TOL of one
+     card's, nothing dropped, each rank's launches, calls and bytes
+     by kind and axis, the profiled step's collectives by scope; (b)
+     ``jamba-v0.1-52b`` with its experts at full width and one period of
+     8 layers (4 MoE): phase 9's parity (prefill 4 x 512 and 4 decode
+     steps, kernels against plain, ids equal) and ``serve.py --mode
+     fixed`` (8 new tokens), launches the config's count;
+ 21. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -518,7 +542,11 @@ MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
 # 13a took 166 and 145 s with start-up on an H100 80GB HBM3 at 700 W), and
 # 12b's full depth does not fit eight ranks on the card without ZeRO
 MESH_TRAIN = "1,2,2,2"
-MESH_TRAIN_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_TRAIN, "--backend", "gloo"]
+# 12a, 13a and 18 run 2 of phase 8's 3 steps (phase 20 took the third's
+# place in the script's time), held to one card's first 2
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_FLAGS = with_steps(TRAIN_FLAGS, MESH_TRAIN_STEPS) + [
+    "--mesh", MESH_TRAIN, "--backend", "gloo"]
 MESH_DATA = "2,2,2,1"
 MESH_LAYERS = 4
 MESH_DATA_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_DATA, "--backend", "gloo"]
@@ -634,6 +662,54 @@ ATTN_VARIANTS = {
         (4, 512, 512, 48, 8, 128, True, 0, 0)}
 STABLELM_K5 = dict(nq=32, nkv=32, hd=64, layers=24)
 NEMOTRON_DECODE = ((4, 48, 8, 128), 520)
+
+# phase 20, MoE and the expert axis. 20a: DeepSeek-V2-Lite at full width,
+# DSV2_LAYERS of its 27 layers (layer 0 dense, 3 MoE: 2.25 B parameters,
+# 36 GiB with AdamW's float32 state), phase 8's batch (4 x 512 in 2
+# microbatches), its capacity factor 1.25, on one card. The expert meshes
+# are held to one card's run of a cut of their own (DSV2_MESH_LAYERS:
+# layer 0 dense, 1 MoE), at a capacity factor above E / top_k, where an
+# expert's queue holds every token and nothing drops on one card or on a
+# rank (each source rank has its own capacity; at 4.0, 4 layers dropped
+# 2,081-11,059 pairs a step on one card: the synthetic text's 64 distinct
+# tokens a sequence route alike), and without the load-balance term (a
+# product of two means over the batch, which a batch split over expert
+# ranks computes per shard, as the reference does: 7.6e-4 of step 1's
+# loss at 4 layers), for 2 steps on (1,1,1,1,1,2), blocking and with the
+# expert ring, and 1 step, profiled, on (1,1,2,1,1,2)
+DSV2 = "deepseek-v2-lite-16b"
+JAMBA_MOE = "jamba-v0.1-52b"
+DSV2_LAYERS = 4
+DSV2_FLAGS = with_flag(TRAIN_FLAGS, "--arch", DSV2)
+DSV2_MESH_LAYERS = 2
+DSV2_NO_DROP = 11.0
+DSV2_MESH_STEPS = 2
+EXPERT_MESH = "1,1,1,1,1,2"
+EXPERT_Y_MESH = "1,1,2,1,1,2"
+DSV2_EXPERT_FLAGS = with_steps(DSV2_FLAGS, DSV2_MESH_STEPS) + [
+    "--mesh", EXPERT_MESH, "--backend", "gloo"]
+DSV2_EXPERT_Y_FLAGS = with_steps(DSV2_FLAGS, 1) + [
+    "--mesh", EXPERT_Y_MESH, "--backend", "gloo", "--profile-steps", "0:0"]
+# 20b: Jamba with its 16 top-2 experts at full width, one period of its
+# layer pattern (8 layers, 4 MoE: 13.3 B parameters, 50 GiB), phase 9's
+# batch and prompt and 8 new tokens
+JAMBA_MOE_LAYERS = 8
+JAMBA_MOE_FIXED_FLAGS = with_flag(with_flag(FIXED_FLAGS, "--arch",
+                                            JAMBA_MOE), "--gen", 8)
+# K1's batched entry at the expert products (name, E, C, K, N, layout):
+# DeepSeek's 64 experts of C = 1.25 x 1024 x 6 / 64 = 120 places at its
+# capacity factor (a microbatch of 1024 tokens), the up projection 2048 ->
+# 2 x 1408 and the down 1408 -> 2048, the up's dX (NT) and dW (TN);
+# Jamba's 16 experts at prefill (C 320 of 4 x 512 tokens) and decode (the
+# floor of 4 places), its up projection 4096 -> 2 x 14336
+BMM_SHAPES = [("dsv2 up x.W", 64, 120, 2048, 2816, "NN"),
+              ("dsv2 down h.W", 64, 120, 1408, 2048, "NN"),
+              ("dsv2 up dX dY.W^T", 64, 120, 2816, 2048, "NT"),
+              ("dsv2 up dW x^T.dY", 64, 2048, 120, 2816, "TN"),
+              ("jamba prefill up", 16, 320, 4096, 28672, "NN"),
+              ("jamba decode up", 16, 4, 4096, 28672, "NN")]
+# K2 at MLA's widths: (B, T, nq, q/k width, v width), causal
+ATTN_MLA = (2, 512, 16, 192, 128)
 
 
 _T0 = time.time()
@@ -1884,19 +1960,43 @@ def norm_params(cfg):
     return 2 if cfg.norm == "layernorm" else 1
 
 
+def forward_products(cfg):
+    """(2-D K1 products, batched K1 products) of one forward of the
+    layers: an attention layer's q, k, v, o, MLA's w_dkv, w_q, w_uk, w_uv,
+    wo or a Mamba layer's w_in, w_gate, w_x, w_dt, w_out; an MLP's input
+    projections and its down projection, or an MoE's router, its shared
+    experts' MLP (where it has them) and the expert bank's up and down
+    projections (each one batched launch)."""
+    mlp = mlp_inputs(cfg) + 1
+    two, batched = 0, 0
+    for mixer, ffn in cfg.layer_kinds():
+        two += 4 if mixer == "attn" else 5
+        if ffn == "moe":
+            two += 1 + (mlp if cfg.moe.n_shared else 0)
+            batched += 2
+        else:
+            two += mlp
+    return two, batched
+
+
 def train_launch_counts(cfg):
     """Each kernel's launches per microbatch of the training step on one
     card (or a rank of a mesh with x, y and z 1), from the config: K1 =
     forward PL + 1 (the head, tied or not), remat recompute PL, backward 2
-    (dX, dW) x (PL + 1), P = ``layer_products``; K2 forward + recompute
-    2L, backward L; K3 = RMSNorm's 2L + 1 forward (norm1, norm2; final) +
-    2L recompute, and qk-norm's 2L + 2L (a LayerNorm runs PyTorch ops, no
-    kernel); no other kernel."""
-    L, P = cfg.n_layers, layer_products(cfg)
+    (dX, dW) x (PL + 1), PL the layers' products (``forward_products``;
+    ``layer_products`` a layer of a dense decoder), the batched ones on
+    K1's batched entry; K2 forward + recompute 2L, backward L; K3 =
+    RMSNorm's 2L + 1 forward (norm1, norm2; final) + 2L recompute,
+    qk-norm's 2L + 2L and MLA's kv_norm L + L (a LayerNorm runs PyTorch
+    ops, no kernel); no other kernel."""
+    L = cfg.n_layers
+    two, batched = forward_products(cfg)
     rms = 4 * L + 1 if cfg.norm == "rmsnorm" else 0
-    return {"block_matmul": 4 * P * L + 3, "flash_attention": 2 * L,
-            "flash_attention_bwd": L,
-            "rmsnorm": rms + (4 * L if cfg.qk_norm else 0),
+    n_mla = cfg.mixers().count("mla")
+    return {"block_matmul": 4 * two + 3,
+            "block_matmul_batched": 4 * batched,
+            "flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": rms + (4 * L if cfg.qk_norm else 0) + 2 * n_mla,
             "paged_attention": 0, "paged_attention_combine": 0,
             "selective_scan": 0, "partial_attention": 0,
             "partial_attention_bwd": 0}
@@ -1973,16 +2073,18 @@ def fixed_launches(cfg, prefills, decodes):
     its q/k-norm (K3, if the config has it) and K2 at prefill or K5 (and
     its combine) at decode; a Mamba layer's w_in, w_gate, w_x, w_dt and
     w_out (K1) and one scan (K6); the MLP's projections (K1: three, two
-    ungated); then the final norm (K3) and the head (K1), on the last row
-    only at prefill. The residual norms are K3 where they are RMSNorms (a
-    LayerNorm runs PyTorch ops)."""
+    ungated), or an MoE's router and shared experts (K1) and its expert
+    bank's two products (K1's batched entry); then the final norm (K3)
+    and the head (K1), on the last row only at prefill
+    (``forward_products``). The residual norms are K3 where they are
+    RMSNorms (a LayerNorm runs PyTorch ops)."""
     n_attn = cfg.mixers().count("attn")
     n_mamba = cfg.mixers().count("mamba")
     fwd = prefills + decodes
     rms = 2 * cfg.n_layers + 1 if cfg.norm == "rmsnorm" else 0
-    return {"block_matmul": fwd * (4 * n_attn + 5 * n_mamba
-                                   + (mlp_inputs(cfg) + 1) * cfg.n_layers
-                                   + 1),
+    two, batched = forward_products(cfg)
+    return {"block_matmul": fwd * (two + 1),
+            "block_matmul_batched": fwd * batched,
             "rmsnorm": fwd * (rms + (2 * n_attn if cfg.qk_norm else 0)),
             "selective_scan": fwd * n_mamba,
             "flash_attention": prefills * n_attn,
@@ -2864,13 +2966,15 @@ def mesh_train_collectives(cfg, axes, microbatches):
     P, normal, npar = layer_products(cfg), 3 + mlp_inputs(cfg), \
         norm_params(cfg)
     stats = 2 if cfg.norm == "layernorm" else 1
-    live = {a: axes.size(a) > 1 for a in ("data", "x", "y", "z", "seq")}
+    live = {a: axes.size(a) > 1 for a in ("data", "x", "y", "z", "seq",
+                                          "expert")}
+    tokens = "data+z+seq+expert"     # the loss's means over the token axes
     per_mb = {"z": 4 * P * L + 5,
               "x": (2 * (normal + 2 * stats) + 6) * L + stats + 3,
-              "y": (4 + normal) * L + 5, "data+z+seq": 2}
-    per_mb["data+z+seq"] *= live["data"] or live["z"] or live["seq"]
+              "y": (4 + normal) * L + 5, tokens: 2}
+    per_mb[tokens] *= live["data"] or live["z"] or live["seq"]
     want = {k: v * microbatches for k, v in per_mb.items()
-            if all(live[a] for a in k.split("+")) or k == "data+z+seq"}
+            if all(live[a] for a in k.split("+")) or k == tokens}
     leaves = ((P + 2 * npar + 2 * qk) * L + 1 + npar
               + (0 if cfg.tie_embeddings else 1))
     sync = {"data+seq": leaves * (live["data"] or live["seq"]),
@@ -2950,6 +3054,13 @@ def mesh_train_hops(cfg, axes, microbatches, *, z_chunks=1, ar_chunks=1):
             {a: n for a, n in blocking.items() if n})
 
 
+def first_steps(one, n):
+    """The first ``n`` steps' losses and grad norms of the run ``one``."""
+    import types
+    return types.SimpleNamespace(losses=one.losses[:n],
+                                 grad_norms=one.grad_norms[:n])
+
+
 def check_mesh_losses(rep, one, label, t=MESH_TRAIN_TOL):
     """Step 1's loss and grad norm within ``t`` (relative) of the one-card
     run's, the later losses within its absolute bound."""
@@ -2981,7 +3092,8 @@ def phase_mesh_train(cfg, smi, one):
     rep = run_mesh_train("mesh", f"mesh train, then 13a's ({MESH_TRAIN}, "
                          f"{MESH_LAYERS} layers)", MESH_TRAIN_RANKS,
                          then=("mesh-overlap", "mesh-overlap-profile"))
-    check_mesh_losses(rep, one, "(1,2,2,2) against one card")
+    check_mesh_losses(rep, first_steps(one, MESH_TRAIN_STEPS),
+                      "(1,2,2,2) against one card")
     args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
     want = mesh_train_collectives(cfg, mesh_axes(MESH_TRAIN),
                                   args.overdecompose)
@@ -3079,7 +3191,8 @@ def phase_overlap_train(cfg, smi, one, blocking):
     log(f"[overlap train ({MESH_TRAIN}, {MESH_LAYERS} layers)] the run after "
         f"12a's, in its launch")
     rep = mesh_train_report("mesh-overlap")
-    check_mesh_losses(rep, one, "overlapped (1,2,2,2) against one card",
+    check_mesh_losses(rep, first_steps(one, MESH_TRAIN_STEPS),
+                      "overlapped (1,2,2,2) against one card",
                       OVERLAP_TRAIN_TOL)
     args = train.build_parser().parse_args(MESH_TRAIN_FLAGS)
     axes = mesh_axes(MESH_TRAIN)
@@ -3158,7 +3271,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     through ``launch_ranks``): ``train.train_on`` with the flags, depth
     and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
     "mesh-overlap": 13a, "mesh-overlap-profile": 18, "seq-overlap": 13b,
-    "zero": 15a, "gpt-mesh-overlap": 19a, "ckpt-a": 15b's
+    "zero": 15a, "gpt-mesh-overlap": 19a, "dsv2-expert",
+    "dsv2-expert-ring" and "dsv2-expert-y": 20a, "ckpt-a": 15b's
     run A, which checkpoints into ``outdir``, "zero3": 16a,
     "zero3-prefetch": 16b, "zero3-ckpt-a" and "zero3-ckpt-b": 16c's runs A
     and B, through ``outdir``'s "zero3.npz"; several runs on one mesh
@@ -3183,6 +3297,12 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
         "seq-overlap": (SEQ_FLAGS, MESH_LAYERS,
                         OverlapConfig(ring_attention=True), None),
         "zero": (ZERO_FLAGS, MESH_LAYERS, blocking, None),
+        "dsv2-expert": (DSV2_EXPERT_FLAGS, dsv2_mesh_cut, blocking, None),
+        "dsv2-expert-ring": (DSV2_EXPERT_FLAGS, dsv2_mesh_cut,
+                             OverlapConfig(expert_a2a=True,
+                                           batched_matmul=True), None),
+        "dsv2-expert-y": (DSV2_EXPERT_Y_FLAGS, dsv2_mesh_cut, blocking,
+                          None),
         "gpt-mesh-overlap": (GPT_MESH_FLAGS, GPT_LAYERS,
                              OverlapConfig.all_on(), None),
         "ckpt-a": (CKPT_FLAGS + ["--mesh", CKPT_A_MESH, "--backend", "gloo",
@@ -3212,7 +3332,9 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
             if args.mesh != first.mesh:
                 raise ValueError(f"{which}: one mesh for all runs")
             cfg = preset_cfg(args)
-            if layers:
+            if callable(layers):
+                cfg = layers(cfg)
+            elif layers:
                 cfg = dataclasses.replace(cfg, n_layers=layers)
             res = train.train_on(args, axes, cfg, run, ov, stop)
             if run["rank"] == 0:
@@ -3221,7 +3343,7 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
                     step_s=res.step_s, tokens_per_step=res.tokens_per_step,
                     n_params=res.n_params, ckpt=res.ckpt,
                     first_step=res.first_step, predicted=res.predicted,
-                    profile=res.profile,
+                    profile=res.profile, moe_dropped=res.moe_dropped,
                     ranks=res.ranks)))
             del res
             gc.collect()
@@ -4067,7 +4189,7 @@ def phase_calib_steps(smi):
 # phase 18: the tracing half
 # ---------------------------------------------------------------------- #
 
-PROFILE_STEPS = "2:2"
+PROFILE_STEPS = "1:1"
 # ranges rank 0's trace must hold: a z gather ring's second hop, the dW
 # ring's first, a hop's GEMM, the embedding's z gather
 PROFILE_LABELS = ("ring_ag[z]/hop1", "ring_rs[z]/hop0", "gemm/chunk0",
@@ -4128,7 +4250,7 @@ def window_comm(r, steps, first_step=0):
 
 
 def phase_profile_train(cfg, smi):
-    """18: 13a's run with ``--profile-steps 2:2`` (the last run of 12a's
+    """18: 13a's run with ``--profile-steps 1:1`` (the last run of 12a's
     launch): every rank's trace on disk, rank 0's ranges, the hook's calls
     by scope summing to its totals and those equal to ``mesh.COMM``'s for
     the window, the losses bitwise 13a's; the tally, the unscoped remainder
@@ -4226,10 +4348,10 @@ def phase_profile_train(cfg, smi):
         f"{sum(stats['bytes_by_kind'].values()) / 1e9:.4f} GB wire, against "
         f"13a's last step: {base_calls} calls (mesh.COMM)")
     i = window[0] - first
-    log(f"  overhead: the profiled step {rep['step_s'][i]:.3f} s against "
-        f"step 1's {rep['step_s'][1]:.3f} s ("
-        f"{rep['step_s'][i] / rep['step_s'][1]:.3f}x); 13a's step {i} "
-        f"{base['step_s'][i]:.3f} s; step times {rep['step_s']}, on {smi}")
+    log(f"  overhead: the profiled step {i} {rep['step_s'][i]:.3f} s against"
+        f" 13a's step {i} {base['step_s'][i]:.3f} s ("
+        f"{rep['step_s'][i] / base['step_s'][i]:.3f}x); step times "
+        f"{rep['step_s']}, on {smi}")
 
 
 # ---------------------------------------------------------------------- #
@@ -4443,6 +4565,283 @@ def phase_variants(smi):
     phase_gpt_train(smi)
 
 
+# ---------------------------------------------------------------------- #
+# phase 20: MoE and the expert axis
+# ---------------------------------------------------------------------- #
+
+def dsv2_mesh_cut(cfg):
+    """20a's expert meshes' model: DeepSeek-V2-Lite at full width,
+    DSV2_MESH_LAYERS layers, capacity factor DSV2_NO_DROP, no
+    load-balance term."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, n_layers=DSV2_MESH_LAYERS,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=DSV2_NO_DROP,
+                                aux_loss_coef=0.0))
+
+
+def bmm_inputs(gen, E, M, K, N, layout):
+    """a (E, M, K) and b (E, K, N); "NT" reads b and "TN" reads a through
+    a view transposed in its last two dims, as the backward does."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    a = rand(E, K, M).transpose(1, 2) if layout == "TN" else rand(E, M, K)
+    b = rand(E, N, K).transpose(1, 2) if layout == "NT" else rand(E, K, N)
+    return a, b
+
+
+def phase_moe_kernels(gen, errs, times):
+    """20's kernels: K1's batched entry at BMM_SHAPES and K2 at ATTN_MLA,
+    each against its plain version (run twice: the same bits), then
+    timed (device/eager) beside ``torch.bmm`` or SDPA and the bound;
+    their float32 errors into ``errs`` and the DeepSeek forward's and the
+    MLA attention's times into ``times``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_matmul import (
+        block_matmul_batched_kernel, block_matmul_batched_plain)
+    from repro_torch.kernels.flash_attention import (
+        attn_core, flash_attention_bwd_kernel, flash_attention_kernel)
+    f32 = torch.float32
+    log("[20 kernels] K1's batched entry (one launch for E products) at "
+        "DeepSeek-V2-Lite's and Jamba's expert products, float32: checked "
+        "(run twice), then timed (device/eager)")
+    errs["block_matmul_batched"] = 0.0
+    for name, E, M, K, N, layout in BMM_SHAPES:
+        a, b = bmm_inputs(gen, E, M, K, N, layout)
+        got = block_matmul_batched_kernel(a, b)
+        if not torch.equal(got, block_matmul_batched_kernel(a, b)):
+            raise AssertionError(f"{name}: K1's batched entry is not "
+                                 f"deterministic")
+        e = check_rel(f"{name} (E {E}, {M}, {K}) x ({K}, {N}) {layout}", got,
+                      block_matmul_batched_plain(a, b), MATMUL_TOL[f32])
+        errs["block_matmul_batched"] = max(errs["block_matmul_batched"], e)
+        del got
+        heavy = 2 * E * M * N * K > 2e11
+        t, eager = timings(lambda: block_matmul_batched_kernel(a, b),
+                           lambda: block_matmul_batched_plain(a, b),
+                           lambda: torch.bmm(a, b),
+                           4 * E * (M * K + K * N + M * N),
+                           2 * E * M * N * K, f32, iters=5 if heavy else 50,
+                           eager_iters=5 if heavy else 100)
+        log(f"  block_matmul_batched {name}: " + fmt(t, eager)
+            + f"; {2 * E * M * N * K / t['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{t['ms'] / t['library_ms']:.2f}x torch.bmm, "
+            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+        times.setdefault("block_matmul_batched", t)
+        del a, b
+        free_memory()
+    B, T, nq, dqk, dv = ATTN_MLA
+    log(f"[20 kernels] K2 at MLA's widths (B {B}, T {T}, {nq}/{nq} heads, "
+        f"q/k {dqk}, v {dv}, causal): forward (run twice) and backward "
+        f"against the plain attn_core and its autograd, then timed")
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    for dtype in (f32, torch.bfloat16):
+        q, k, v, dout = (rand(B, T, nq, dqk, dtype=dtype),
+                         rand(B, T, nq, dqk, dtype=dtype),
+                         rand(B, T, nq, dv, dtype=dtype),
+                         rand(B, T, nq, dv, dtype=dtype))
+        out, lse = flash_attention_kernel(q, k, v, causal=True)
+        if not torch.equal(out, flash_attention_kernel(q, k, v,
+                                                       causal=True)[0]):
+            raise AssertionError("K2 at MLA's widths is not deterministic")
+        grads = flash_attention_bwd_kernel(q, k, v, out, lse, dout,
+                                           causal=True)
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        want = attn_core(*qkv, causal=True)
+        wgrads = torch.autograd.grad(want, qkv, dout)
+        tag = f"{dtype_name(dtype)} MLA"
+        e = check_rel(f"{tag} out", out, want.detach(), FLASH_TOL[dtype])
+        eb = max(check_rel(f"{tag} d{n}", g, w, FLASH_TOL[dtype])
+                 for n, g, w in zip("qkv", grads, wgrads))
+        if dtype == f32:
+            errs["flash_attention_mla"] = e
+            errs["flash_attention_bwd_mla"] = eb
+    q, k, v, dout = (rand(B, T, nq, dqk), rand(B, T, nq, dqk),
+                     rand(B, T, nq, dv), rand(B, T, nq, dv))
+    pairs, _ = attn_work(B, T, T, nq, nq, dqk, True, 0, 0, 4)
+    io_bytes = 4 * B * T * nq * 2 * (dqk + dv)      # q, k, v and out
+    lse_bytes = B * nq * T * 4
+    fwd_ops = 2 * pairs * (dqk + dv)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    with sdpa_backend():
+        t, eager = timings(
+            lambda: flash_attention_kernel(q, k, v, causal=True),
+            lambda: attn_core(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            io_bytes + lse_bytes, fwd_ops, f32, iters=20, eager_iters=50)
+    log(f"  flash_attention MLA forward: " + fmt(t, eager)
+        + f"; {t['ms'] / t['library_ms']:.2f}x {SDPA_NAME}; "
+        f"{fwd_ops / t['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+    times["flash_attention_mla"] = t
+    o, lse = flash_attention_kernel(q, k, v, causal=True)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain_out = attn_core(*qkv, causal=True)
+    lib_in = [x.clone().requires_grad_() for x in (qs, ks, vs)]
+    with sdpa_backend():
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+    dout_s = dout.transpose(1, 2)
+    # S, dP, dV, dK and dQ: two products at q/k's width and one at v's
+    # recomputed S beside dP at v's, dV at v's
+    bwd_ops = 2 * pairs * (3 * dqk + 2 * dv)
+    r = dict(
+        ms=eager_rounds(lambda: flash_attention_bwd_kernel(
+            q, k, v, o, lse, dout, causal=True)),
+        plain_ms=eager_rounds(lambda: torch.autograd.grad(
+            plain_out, qkv, dout, retain_graph=True), 5, 10),
+        library_ms=eager_rounds(lambda: torch.autograd.grad(
+            lib_out, lib_in, dout_s, retain_graph=True)))
+    bwd = dict({key: r[key]["median"] for key in r},
+               **bound(2 * io_bytes + lse_bytes, bwd_ops, f32))
+    log(f"  flash_attention MLA backward (eager): kernel {spread(r['ms'])}, "
+        f"plain {spread(r['plain_ms'])}, {SDPA_NAME} backward "
+        f"{spread(r['library_ms'])}; kernel "
+        f"{bwd['ms'] / bwd['library_ms']:.2f}x the library; "
+        f"{bwd_ops / bwd['ms'] / 1e9:.1f} TFLOP/s, bound "
+        f"{bwd['bound_ms'] * 1e3:.3f} us ({bwd['bound_by']}), "
+        f"{bwd['bound_ms'] / bwd['ms']:.3f} of it")
+    times["flash_attention_bwd_mla"] = bwd
+    del q, k, v, dout, qkv, plain_out, lib_in, lib_out
+    free_memory()
+
+
+def log_mesh_comm(rep, label, cfg, units):
+    """Each rank's launches (the config's count per microbatch: x and z
+    are 1, so a rank runs one card's products), its calls and bytes by
+    kind and by axis in its last step, and its dropped (token, slot)
+    pairs, which must be none."""
+    for r in sorted(rep["ranks"], key=lambda r: r["rank"]):
+        log(f"  {label} rank {r['rank']}:")
+        check_launches(r["launches"], train_launch_counts(cfg), units,
+                       "microbatch")
+        kinds, axes_ = r["comm_by_kind"][-1], r["comm_by_axis"][-1]
+        log(f"  {label} rank {r['rank']}: last step by kind "
+            + ", ".join(f"{k} {c['calls']} calls {c['bytes'] / 1e9:.3f} GB "
+                        f"{c['seconds']:.3f} s"
+                        for k, c in sorted(kinds.items()))
+            + "; by axis " + ", ".join(
+                f"{a} {c['calls']} calls {c['bytes'] / 1e9:.3f} GB"
+                for a, c in sorted(axes_.items()))
+            + f"; dropped {r['moe_dropped']}; max_memory_allocated "
+            f"{r['max_memory_bytes'] / 2**30:.2f} GiB")
+        if any(r["moe_dropped"]):
+            raise AssertionError(f"{label} rank {r['rank']} dropped "
+                                 f"(token, slot) pairs: "
+                                 f"{r['moe_dropped']}")
+
+
+def phase_dsv2_train(smi):
+    """20a: DeepSeek-V2-Lite at full width and DSV2_LAYERS layers through
+    ``train.py`` on one card, each kernel's launches the config's count;
+    then the expert meshes at ``dsv2_mesh_cut``, each held to one card's
+    run of that cut, the ring's losses and grad norms bitwise the
+    blocking run's, nothing dropped. Returns the first run's launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(get_config(DSV2), n_layers=DSV2_LAYERS)
+    log(f"[20a dsv2 train] python -m repro_torch.launch.train "
+        f"{' '.join(DSV2_FLAGS)} at {DSV2_LAYERS} layers "
+        f"({cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{cfg.active_param_count() / 1e9:.3f} B active a token)")
+    ops.reset_launches()
+    one = train.main(DSV2_FLAGS, cfg=cfg)
+    launches = ops.launches()
+    if not all(math.isfinite(x) for x in one.losses + one.grad_norms):
+        raise AssertionError("non-finite loss or grad norm")
+    args = train.build_parser().parse_args(DSV2_FLAGS)
+    check_launches(launches, train_launch_counts(cfg),
+                   args.steps * args.overdecompose, "microbatch")
+    steady = one.step_s[1:] or one.step_s
+    step_s = sum(steady) / len(steady)
+    flops = 6 * cfg.active_param_count() * one.tokens_per_step
+    routed = (one.tokens_per_step * cfg.moe.top_k
+              * cfg.ffns().count("moe"))
+    log(f"  losses {one.losses}, grad norms {one.grad_norms}, dropped "
+        f"(token, slot) pairs a step {one.moe_dropped} of {routed} routed "
+        f"(capacity factor {cfg.moe.capacity_factor})")
+    log(f"  step times {[round(x, 4) for x in one.step_s]} s; steady step "
+        f"{step_s:.4f} s, {one.tokens_per_step / step_s:.1f} tokens/s, MFU "
+        f"{100 * flops / step_s / PEAK_OPS_PER_S[torch.float32]:.2f}% of "
+        f"the 67 TFLOP/s float32 peak (6 x "
+        f"{cfg.active_param_count() / 1e9:.3f} B active parameters a "
+        f"token), max_memory_allocated {one.max_memory_bytes / 2**30:.2f} "
+        f"GiB on {smi}")
+    free_memory()
+    mcfg = dsv2_mesh_cut(get_config(DSV2))
+    mflags = with_steps(DSV2_FLAGS, DSV2_MESH_STEPS)
+    log(f"[20a dsv2 mesh cut] one card, {DSV2_MESH_LAYERS} layers, capacity "
+        f"factor {DSV2_NO_DROP}, no load-balance term, {DSV2_MESH_STEPS} "
+        f"steps: what the expert meshes are held to")
+    base = train.main(mflags, cfg=mcfg)
+    log(f"  losses {base.losses}, grad norms {base.grad_norms}, dropped "
+        f"{base.moe_dropped}, steps {[round(x, 4) for x in base.step_s]} s")
+    if any(base.moe_dropped):
+        raise AssertionError(f"one card dropped {base.moe_dropped}")
+    free_memory()
+    mb = train.build_parser().parse_args(DSV2_EXPERT_FLAGS).overdecompose
+    block = run_mesh_train("dsv2-expert", f"20a dsv2 train, {EXPERT_MESH} "
+                           f"blocking then the expert ring", 2,
+                           then=("dsv2-expert-ring",))
+    ring = mesh_train_report("dsv2-expert-ring")
+    for key, rep in (("blocking", block), ("ring", ring)):
+        check_mesh_losses(rep, base, f"{EXPERT_MESH} {key} against one card")
+        log_mesh_comm(rep, f"{EXPERT_MESH} {key}", mcfg,
+                      DSV2_MESH_STEPS * mb)
+    if (ring["losses"], ring["grad_norms"]) != (block["losses"],
+                                                block["grad_norms"]):
+        raise AssertionError(f"the expert ring's losses {ring['losses']} / "
+                             f"{ring['grad_norms']} are not the blocking "
+                             f"run's {block['losses']} / "
+                             f"{block['grad_norms']}")
+    log(f"  the expert ring's losses and grad norms: the blocking run's, "
+        f"bit for bit")
+    compare_schedules(f"{EXPERT_MESH}, blocking against the expert ring",
+                      (("blocking", block), ("ring", ring)), smi)
+    rep = run_mesh_train("dsv2-expert-y", f"20a dsv2 train, {EXPERT_Y_MESH}",
+                         4)
+    check_mesh_losses(rep, first_steps(base, 1),
+                      f"{EXPERT_Y_MESH} against one card")
+    log_mesh_comm(rep, EXPERT_Y_MESH, mcfg, mb)
+    compare_schedules(f"{EXPERT_Y_MESH}", (("blocking", rep),), smi)
+    r0 = sorted(rep["ranks"], key=lambda r: r["rank"])[0]
+    log("  rank 0's profiled step by scope class, kind and axis (calls, raw "
+        "MB, wire MB):")
+    for row in r0["comm_by_scope"]:
+        log(f"    {row['scope'] or '(no scope)':<22} {row['kind']:<19} "
+            f"{row['axis'] or '-':<16} p {row['group_size']}: "
+            f"{row['calls']:5d} calls {row['raw_bytes'] / 1e6:10.3f} MB raw "
+            f"{row['wire_bytes'] / 1e6:10.3f} MB wire")
+    if not any(row["kind"] == "all-to-all" for row in r0["comm_by_scope"]):
+        raise AssertionError("the profiled step recorded no all-to-all")
+    return launches
+
+
+def phase_jamba_moe(smi):
+    """20b: Jamba with its experts at full width, one period (8 layers):
+    phase 9's parity and ``serve.py --mode fixed``, launches counted.
+    Returns the served run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    cfg = depth_cut(get_config(JAMBA_MOE), JAMBA_MOE_LAYERS)
+    t0 = time.time()
+    model = ST.init_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[20b jamba moe] {cfg.name} with its experts, full width, "
+        f"{cfg.n_layers} layers ({cfg.ffns().count('moe')} MoE), float32, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters, init {time.time() - t0:.1f}s")
+    phase_fixed_parity(model, cfg)
+    launches = phase_fixed_serve(model, cfg, smi, JAMBA_MOE_FIXED_FLAGS)
+    del model
+    free_memory()
+    return launches
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -4546,6 +4945,10 @@ def main() -> int:
     phase_profile_train(cut, smi)
     free_memory()
     phase_variants(smi)
+    free_memory()
+    phase_moe_kernels(gen, errs, times)
+    dsv2_launches = phase_dsv2_train(smi)
+    jamba_moe_launches = phase_jamba_moe(smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
@@ -4557,12 +4960,20 @@ def main() -> int:
         **{k: seq_launches_run[k] for k in ("partial_attention",
                                             "partial_attention_bwd")},
         **{k: mesh_launches_run[k] for k in ("rmsnorm_stats",
-                                             "rmsnorm_apply")})
+                                             "rmsnorm_apply")},
+        # MoE: the batched entry on DeepSeek's training and Jamba's
+        # serving; K2 at MLA's widths on DeepSeek's training (20a)
+        block_matmul_batched=(dsv2_launches["block_matmul_batched"]
+                              + jamba_moe_launches["block_matmul_batched"]),
+        flash_attention_mla=dsv2_launches["flash_attention"],
+        flash_attention_bwd_mla=dsv2_launches["flash_attention_bwd"])
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
                 "rmsnorm_stats": "src/repro/kernels/rmsnorm.py:19",
                 "rmsnorm_apply": "src/repro/kernels/rmsnorm.py:19",
                 "paged_attention": "src/repro/kernels/flash_attention.py:240",
                 "block_matmul": "src/repro/kernels/block_matmul.py:34",
+                "block_matmul_batched":
+                    "src/repro/kernels/block_matmul.py:34",
                 "flash_attention": "src/repro/kernels/flash_attention.py:297",
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:297",
@@ -4570,18 +4981,25 @@ def main() -> int:
                 "partial_attention":
                     "src/repro/kernels/flash_attention.py:127",
                 "partial_attention_bwd":
-                    "src/repro/kernels/flash_attention.py:127"}
+                    "src/repro/kernels/flash_attention.py:127",
+                "flash_attention_mla":
+                    "src/repro/kernels/flash_attention.py:297",
+                "flash_attention_bwd_mla":
+                    "src/repro/kernels/flash_attention.py:297"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rmsnorm": csrc + "rmsnorm.cu",
                "rmsnorm_stats": csrc + "rmsnorm.cu",
                "rmsnorm_apply": csrc + "rmsnorm.cu",
                "paged_attention": csrc + "paged_attention.cu",
                "block_matmul": csrc + "block_matmul.cu",
+               "block_matmul_batched": csrc + "block_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu",
                "flash_attention_bwd": csrc + "flash_attention.cu",
                "selective_scan": csrc + "selective_scan.cu",
                "partial_attention": csrc + "partial_attention.cu",
-               "partial_attention_bwd": csrc + "partial_attention.cu"}
+               "partial_attention_bwd": csrc + "partial_attention.cu",
+               "flash_attention_mla": csrc + "flash_attention.cu",
+               "flash_attention_bwd_mla": csrc + "flash_attention.cu"}
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

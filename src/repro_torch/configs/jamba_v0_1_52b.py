@@ -4,9 +4,8 @@ other layer: 16 experts top-2 of width 14336.
 
 ``DENSE_FFN`` is the same decoder with each MoE FFN replaced by the dense
 gated-SiLU MLP of width ``d_ff`` that Jamba's other layers use: 9.285 B
-parameters, which fit one card in float32 at full width and depth. The
-port serves it until MoE is ported (ROADMAP.md §1 item 'MoE and the
-expert axis')."""
+parameters, which fit one card in float32 at full width and depth (the
+real one's 51.56 B do not)."""
 import dataclasses
 
 from repro_torch.models.base import ArchConfig, MambaCfg, MoECfg

@@ -40,9 +40,14 @@ reduce-scatter ring, ``ring_ar[name]/exchange`` and ``ring_ar[name]``,
 and ``gemm/chunk{q}`` around each hop's GEMM. A hop's send belongs to the
 scope it is made in (``mesh.Hop``). The dX and dW rings of
 ``core/parallel.py``'s backwards are these drivers, so they open the same
-scopes on autograd's thread. The batched (per-expert) rings
-and ``ring_a2a_expert`` wait for the MoE layers (ROADMAP.md §1 item 'MoE
-and the expert axis').
+scopes on autograd's thread.
+
+The batched (per-expert) rings (``*_batched``) are the same drivers over
+(E, C, k) activations and (E, k, n) expert banks, each hop's GEMM on K1's
+batched entry (``ops.bmm``, every expert in one launch).
+:func:`ring_a2a_expert` is the MoE dispatch, expert FFN and combine with
+both expert-axis all-to-alls as pairwise shifts (``ring_a2a[name]/local``
+and ``ring_a2a[name]/shift{s}``).
 """
 from __future__ import annotations
 
@@ -61,6 +66,12 @@ def effective_chunks(width: int, chunks: int) -> int:
     while width % c:
         c -= 1
     return c
+
+
+def _bmm(a, b, *, out_dtype=None, plain: bool = False):
+    """(E, m, k) @ (E, k, n) through K1's batched entry, b possibly a
+    view."""
+    return ops.bmm(a, b, out_dtype=out_dtype, plain=plain)
 
 
 def _gemm(a, b, *, out_dtype=None, plain: bool = False):
@@ -279,3 +290,131 @@ def ar_matmul_t(x, w, axes: M.MeshAxes, name, *, chunks: int = 1,
                      out_dtype=torch.float32, plain=plain)
     return ring_all_reduce_mm(axes, name, mm, out_w=w.shape[0],
                               dtype=x.dtype, chunks=chunks)
+
+
+# ---------------------------------------------------------------------- #
+# the batched (per-expert) primitives (called from parallel.py)
+# ---------------------------------------------------------------------- #
+
+def ag_matmul_batched(x, w, axes: M.MeshAxes, name, *, chunks: int = 1,
+                      plain: bool = False):
+    """Per-expert forward: x (E, C, k) @ AG_name(w (E, k, n_loc), dim=2)
+    -> (E, C, p n_loc) in x's dtype."""
+    return ring_place(w, axes, name, lambda wb: _bmm(x, wb, plain=plain),
+                      gdim=2, chunks=chunks)
+
+
+def accum_matmul_dx_batched(dy, w, axes: M.MeshAxes, name, *,
+                            chunks: int = 1, plain: bool = False):
+    """Per-expert dX: dy (E, C, n_use) against w (E, k, n_loc) gathered
+    over ``name`` along n, without the gathered weight: fp32 (E, C, k)."""
+    def mm(seg, wb):
+        return _bmm(seg, wb.transpose(1, 2), out_dtype=torch.float32,
+                    plain=plain)
+    return ring_accumulate(dy, w, axes, name, mm, gdim=2, chunks=chunks)
+
+
+def rs_matmul_dw_batched(x, dy, axes: M.MeshAxes, name, *, block_w: int,
+                         chunks: int = 1, plain: bool = False):
+    """Per-expert dW: ``RS_name(x^T @ dy, dim=2)`` of x (E, C, k) and dy
+    (E, C, n_use) -> fp32 (E, k, block_w), each block's GEMM reading a
+    slice of dy's last dim."""
+    def mm(start, width):
+        return _bmm(x.transpose(1, 2), dy.narrow(2, start, width),
+                    out_dtype=torch.float32, plain=plain)
+    return ring_reduce_scatter_mm(axes, name, mm, block_w=block_w,
+                                  chunks=chunks)
+
+
+def ar_matmul_batched(x, w, axes: M.MeshAxes, name, *, chunks: int = 1,
+                      plain: bool = False):
+    """Per-expert ``psum_name(x @ w)``: x (E, C, c), w (E, c, n) -> (E, C,
+    n) in x's dtype."""
+    def mm(start, width):
+        return _bmm(x, w.narrow(2, start, width), out_dtype=torch.float32,
+                    plain=plain)
+    return ring_all_reduce_mm(axes, name, mm, out_w=w.shape[2],
+                              dtype=x.dtype, chunks=chunks)
+
+
+def ar_matmul_batched_t(x, w, axes: M.MeshAxes, name, *, chunks: int = 1,
+                        plain: bool = False):
+    """Per-expert ``psum_name(x @ w^T)`` (``tp_batched_matmul``'s dX
+    against the gathered weight): x (E, C, c), w (E, n, c) -> (E, C, n)
+    in x's dtype."""
+    def mm(start, width):
+        return _bmm(x, w.narrow(1, start, width).transpose(1, 2),
+                    out_dtype=torch.float32, plain=plain)
+    return ring_all_reduce_mm(axes, name, mm, out_w=w.shape[1],
+                              dtype=x.dtype, chunks=chunks)
+
+
+# ---------------------------------------------------------------------- #
+# the expert axis's all-to-all as pairwise shifts (called from
+# layers/moe.py)
+# ---------------------------------------------------------------------- #
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all over ``name`` along dim 0 as a differentiable op,
+    blocking (``mesh.all_to_all``) or as pairwise shifts
+    (``mesh.ring_all_to_all``): the exchange is its own transpose, so the
+    backward sends the gradient's blocks back the same way."""
+
+    @staticmethod
+    def forward(ctx, v, axes, name, ring):
+        ctx.cfg = (axes, name, ring)
+        exchange = M.ring_all_to_all if ring else M.all_to_all
+        return exchange(v.contiguous(), axes, name, dim=0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        axes, name, ring = ctx.cfg
+        exchange = M.ring_all_to_all if ring else M.all_to_all
+        return exchange(dy.contiguous(), axes, name, dim=0), None, None, \
+            None
+
+
+def a2a_expert(buf, axes: M.MeshAxes, name, ffn: Callable, *,
+               ring: bool = False):
+    """The MoE dispatch -> expert FFN -> combine round trip over the
+    expert axis ``name``. ``buf`` (p, e_local, C, d) is the dispatch
+    buffer, dim 0 indexed by destination expert rank; ``ffn`` maps
+    (e_local, rows, d) through this rank's experts. Returns (p, e_local,
+    C, d), ``out[j]`` rank j's experts' output for ``buf[j]``. The
+    exchanges are the blocking all-to-all (``a2a[name]``), or with
+    ``ring`` (:func:`ring_a2a_expert`) pairwise shifts, block for block
+    the same layout."""
+    p = axes.size(name)
+    if buf.shape[0] != p:
+        raise ValueError(f"dispatch buffer dim 0 ({buf.shape[0]}) must "
+                         f"equal the expert-axis ring size ({p})")
+    if p == 1:
+        return ffn(buf[0])[None]
+    _, e_local, C, d = buf.shape
+    recv = _AllToAll.apply(buf, axes, name, ring)
+    rows = recv.transpose(0, 1).reshape(e_local, p * C, d)
+    if ring:
+        with trace.scope("ring_a2a", name, "local"):
+            y = ffn(rows)
+    else:
+        y = ffn(rows)
+    y = y.reshape(e_local, p, C, d).transpose(0, 1)
+    return _AllToAll.apply(y, axes, name, ring)
+
+
+def ring_a2a_expert(buf, axes: M.MeshAxes, name, ffn: Callable):
+    """:func:`a2a_expert` with both expert-axis all-to-alls as pairwise
+    shifts (``mesh.ring_all_to_all``: shift s sends the block bound s ranks
+    ahead straight there, every shift posted before the first is waited
+    for, under ``ring_a2a[name]/shift{s}``), the FFN under
+    ``ring_a2a[name]/local``.
+
+    The FFN runs once over every source's block stacked in source order,
+    as the blocking path runs it: each expert's weight gradient is then
+    one sum over all its rows in one order, and the ring gives the
+    blocking path's bits forward and backward. (The reference runs one
+    FFN per source between the shifts, for XLA to overlap; with gloo's
+    staged hops the port would overlap nothing by it, and each weight
+    gradient would become a sum of per-source partials, in another order
+    than the blocking one's.)"""
+    return a2a_expert(buf, axes, name, ffn, ring=True)

@@ -1,10 +1,14 @@
 """Mesh axes of the 4D hybrid algorithm (port of ``repro.core.mesh``).
 
 The paper decomposes the devices as ``G_data x G_x x G_y x G_z``;
-context parallelism adds a fifth factor ``G_seq``. Every factor may be
-above 1. One process runs each rank of the mesh; rank r sits at the
-row-major coordinates of r over (data, x, y, z, seq), the device order of
-the JAX package's ``make_smoke_mesh``.
+context parallelism adds a fifth factor ``G_seq`` and expert parallelism a
+sixth, ``G_expert``: the batch shards over it as a second data axis, and
+the MoE expert bank over (y, expert). Every factor may be above 1. One
+process runs each rank of the mesh; rank r sits at the row-major
+coordinates of r over (data, x, y, z, seq, expert), the device order of
+the JAX package's ``make_smoke_mesh`` (and of
+``make_production_mesh_4d``, which appends seq and expert in that
+order).
 
 A collective over an axis of size 1 is the identity (rank 0 for
 ``axis_index``), exactly as the JAX helpers degrade on an unmapped axis.
@@ -13,7 +17,8 @@ process group: the ranks that share every other coordinate.
 :func:`init_groups` creates every such group on every rank in one fixed
 order (``launch/mesh.init_mesh`` calls it). A group lists its ranks in
 ascending order, which is first-name-major over a tuple whose names are in
-mesh order (data, x, y, z, seq): ``axis_index`` over a tuple, the block
+mesh order (data, x, y, z, seq, expert): ``axis_index`` over a tuple, the
+block
 layout of ``all_gather`` and its inverse ``psum_scatter`` all follow it,
 as in the JAX package.
 
@@ -54,7 +59,7 @@ import torch.distributed as dist
 from repro_torch.core import trace
 from repro_torch.core.overlap import OverlapConfig
 
-AXES = ("data", "x", "y", "z", "seq")
+AXES = ("data", "x", "y", "z", "seq", "expert")
 Axis = Union[str, Tuple[str, ...], None]
 
 # this process's communication by kind of collective ("all_reduce",
@@ -85,18 +90,19 @@ _TALLY = threading.local()
 
 @dataclasses.dataclass(frozen=True)
 class MeshAxes:
-    """Logical axes with their sizes (g_data, g_x, g_y, g_z[, g_seq]); a
-    4-tuple means g_seq = 1. ``overlap`` holds the overlapped schedule's
-    switches (``core/overlap.py``), read by the tp primitives and
-    ``seq_attn``; the steps bind it with :meth:`with_overlap`."""
+    """Logical axes with their sizes (g_data, g_x, g_y, g_z[, g_seq[,
+    g_expert]]); a missing factor is 1. ``overlap`` holds the
+    overlapped schedule's switches (``core/overlap.py``), read by the tp
+    primitives and ``seq_attn``; the steps bind it with
+    :meth:`with_overlap`."""
 
     sizes: Tuple[int, ...] = (1, 1, 1, 1)
     overlap: OverlapConfig = OverlapConfig()
 
     def __post_init__(self):
         sizes = tuple(int(s) for s in self.sizes)
-        if len(sizes) not in (4, 5) or min(sizes) < 1:
-            raise ValueError(f"a mesh has 4 or 5 positive factors {AXES}, "
+        if len(sizes) not in (4, 5, 6) or min(sizes) < 1:
+            raise ValueError(f"a mesh has 4 to 6 positive factors {AXES}, "
                              f"got {self.sizes}")
         sizes += (1,) * (len(AXES) - len(sizes))
         object.__setattr__(self, "sizes", sizes)
@@ -129,13 +135,17 @@ class MeshAxes:
         return self.size("seq")
 
     @property
+    def gexpert(self) -> int:
+        return self.size("expert")
+
+    @property
     def tensor(self) -> int:
         return self.gx * self.gy * self.gz
 
     @property
     def batch_shards(self) -> int:
-        """How many ways the batch is split (data x z)."""
-        return self.dp * self.gz
+        """How many ways the batch is split (data x z x expert)."""
+        return self.dp * self.gz * self.gexpert
 
     @property
     def token_shards(self) -> int:
@@ -148,20 +158,23 @@ class MeshAxes:
 
     @staticmethod
     def batch_axes() -> Tuple[str, ...]:
-        """Axes the batch dim is sharded over, first-name-major."""
-        return ("data", "z")
+        """Axes the batch dim is sharded over, first-name-major: data, z,
+        then expert (dense layers see the expert axis as a second data
+        axis; MoE layers re-gather its tokens by the dispatch
+        all-to-all)."""
+        return ("data", "z", "expert")
 
     @staticmethod
     def token_axes() -> Tuple[str, ...]:
-        """Axes the token grid is sharded over (batch axes + seq): the
-        reduction set of per-token sums like the LM loss."""
-        return ("data", "z", "seq")
+        """Axes the token grid is sharded over (batch axes + seq), in mesh
+        order: the reduction set of per-token sums like the LM loss."""
+        return ("data", "z", "seq", "expert")
 
     def with_overlap(self, overlap: OverlapConfig) -> "MeshAxes":
         return dataclasses.replace(self, overlap=overlap)
 
     def coords(self, rank: int) -> Tuple[int, ...]:
-        """Rank ``rank``'s coordinates over (data, x, y, z, seq),
+        """Rank ``rank``'s coordinates over (data, x, y, z, seq, expert),
         row-major."""
         out = []
         for s in reversed(self.sizes):
@@ -792,15 +805,15 @@ def local_shape(shape, axes: MeshAxes, spec) -> Tuple[int, ...]:
 
 
 def batch_shard(v, axes: MeshAxes, *, dim: int = 0):
-    """This rank's rows of a global batch: block ``axis_index((data,
-    z))`` of ``dim``, first-name-major, as the JAX step's batch spec
+    """This rank's rows of a global batch: block ``axis_index((data, z,
+    expert))`` of ``dim``, first-name-major, as the JAX step's batch spec
     shards it. A view; the identity with one batch shard."""
     n = axes.batch_shards
     if n == 1:
         return v
     if v.shape[dim] % n:
         raise ValueError(f"a batch of {v.shape[dim]} rows does not split "
-                         f"over {n} batch shards (data x z)")
+                         f"over {n} batch shards (data x z x expert)")
     return v.chunk(n, dim)[axis_index(axes, axes.batch_axes())]
 
 

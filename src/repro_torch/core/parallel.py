@@ -10,7 +10,9 @@ On the one-device mesh every collective is the identity (``core.mesh``);
 the calls stay where the JAX package makes them.
 
 Every local product, forward and backward, goes through ``ops.matmul``
-(kernel K1), with transposed operands read as views; ``rms_norm`` runs
+(kernel K1), with transposed operands read as views, and an expert
+bank's through ``ops.bmm`` (K1's batched entry, ``tp_batched_matmul``);
+``rms_norm`` runs
 kernel K3 forward (its single pass over a whole row, or on a row sharded
 over x its stats and apply passes around the psum of the sum of squares)
 and its backward in PyTorch ops, as the JAX backward is jnp outside any
@@ -84,6 +86,28 @@ def ar_bwd_identity(v, axes: M.MeshAxes, axis):
     the token axes data, z and seq); backward identity. Correct when the
     consumer treats the output as replicated over ``axis``."""
     return _ArBwdIdentity.apply(v, axes, axis)
+
+
+class _BwdPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, axes, axis):
+        ctx.cfg = (axes, axis)
+        return v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, dy):
+        axes, axis = ctx.cfg
+        return M.psum(dy, axes, axis), None, None
+
+
+def bwd_psum(v, axes: M.MeshAxes, axis):
+    """Forward identity, backward all-reduce over ``axis`` (Megatron's "f"
+    operator): ``v`` is replicated over ``axis`` and each rank's consumer
+    back-propagates only its own share (its y block of experts or heads),
+    so the gradient is the sum of the ranks' shares. The port's own: the
+    reference leaves these gradients partial where G_y > 1 (ROADMAP.md
+    §3)."""
+    return _BwdPsum.apply(v, axes, axis)
 
 
 # ---------------------------------------------------------------------- #
@@ -179,6 +203,91 @@ def tp_matmul(x, w, axes: M.MeshAxes, in_shard: Optional[str] = "x",
 def tp_matmul_t(x, w, axes: M.MeshAxes, *, plain: bool = False):
     """Paper 'transposed' layer: contract over y, output over x."""
     return tp_matmul(x, w, axes, "y", "x", plain=plain)
+
+
+# ---------------------------------------------------------------------- #
+# batched (per-expert) tp matmul: x (E, C, k) @ w (E, k, n/z)
+# ---------------------------------------------------------------------- #
+
+def _bmm(a, b, *, out_dtype=None, plain: bool = False):
+    """(E, m, k) @ (E, k, n) with fp32 accumulation (K1's batched entry,
+    one launch), in a's dtype or ``out_dtype``."""
+    return ops.bmm(a, b, out_dtype=out_dtype, plain=plain)
+
+
+class _TpBatchedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, axes, in_shard, out_shard, plain):
+        ov = axes.overlap
+        ring, ar = _zring(axes, ov.batched_matmul), _arring(axes, in_shard)
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (axes, out_shard, plain)
+        if ring is None:
+            wf = M.all_gather(w, axes, "z", dim=2)
+            if ar is not None:
+                return CMM.ar_matmul_batched(x, wf, axes, ar,
+                                             chunks=ov.ar_chunks, plain=plain)
+            y = _bmm(x, wf, plain=plain)
+        else:
+            y = CMM.ag_matmul_batched(x, w, axes, ring, chunks=ov.z_chunks,
+                                      plain=plain)
+        return _ar(y, axes, in_shard)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        axes, out_shard, plain = ctx.cfg
+        ov = axes.overlap
+        ring, ar = _zring(axes, ov.batched_matmul), _arring(axes, out_shard)
+        if ring is None:
+            wf = M.all_gather(w, axes, "z", dim=2)
+            if ar is not None:
+                dx = CMM.ar_matmul_batched_t(dy, wf, axes, ar,
+                                             chunks=ov.ar_chunks, plain=plain)
+            else:
+                dx = _bmm(dy, wf.transpose(1, 2), plain=plain).to(x.dtype)
+                dx = M.psum(dx, axes, out_shard)
+            dw = _bmm(x.transpose(1, 2), dy, out_dtype=torch.float32,
+                      plain=plain)
+            dw = M.psum_scatter(dw, axes, "z", dim=2)
+        else:
+            dx = CMM.accum_matmul_dx_batched(dy, w, axes, ring,
+                                             chunks=ov.z_chunks, plain=plain)
+            dx = _ar(dx.to(x.dtype), axes, out_shard)
+            dw = CMM.rs_matmul_dw_batched(x, dy, axes, ring,
+                                          block_w=w.shape[2],
+                                          chunks=ov.z_chunks, plain=plain)
+        return dx, dw.to(w.dtype), None, None, None, None
+
+
+def tp_batched_matmul(x, w, axes: M.MeshAxes, in_shard: Optional[str],
+                      out_shard: Optional[str], *, plain: bool = False):
+    """Per-expert matmul with ``tp_matmul``'s 4D collective schedule: x
+    (E_local, C, k_local), w (E_local, k_local, n_local/z); the expert dim
+    is sharded over (y, expert) by the caller (MoE), so ``in_shard`` and
+    ``out_shard`` are 'x' or None. Each product runs on K1's batched
+    entry, all E_local experts in one launch. ``axes.overlap``:
+    ``batched_matmul`` rings the z collectives as ``tp_matmul``'s
+    ``matmul`` does; ``all_reduce`` rings the activation all-reduces.
+    The weight gradient is an fp32 sum through its z reduce-scatter, cast
+    once after it."""
+    return _TpBatchedMatmul.apply(x, w, axes, in_shard, out_shard, plain)
+
+
+def tp_expert_init(gen: torch.Generator, n_experts: int, k: int, n: int,
+                   axes: M.MeshAxes, *, in_shard: Optional[str] = "x",
+                   out_shard: Optional[str] = None,
+                   dtype=torch.float32) -> torch.Tensor:
+    """The expert bank (E, k, n) drawn from N(0, 1) / sqrt(k) (the
+    reference's ``tp_expert_init``); this rank keeps its block: E over (y,
+    expert), y-major (so the layout is the y-only one at g_expert = 1), k
+    over ``in_shard``, n over (``out_shard``, z). Its gradient is
+    z-reduced by ``tp_batched_matmul``'s backward (``z_reduced``)."""
+    v = torch.randn((n_experts, k, n), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    out = ((out_shard,) if out_shard else ()) + ("z",)
+    spec = (("y", "expert"), in_shard, PT._dim(out))
+    return PT.keep_shard(v.div_(math.sqrt(k)).to(dtype), axes, spec)
 
 
 # ---------------------------------------------------------------------- #

@@ -85,6 +85,19 @@ LEAF_SPECS: Dict[str, ParamSpec] = {
     "conv_w": ParamSpec(("y", None)), "conv_b": ParamSpec(("y",)),
     "b_dt": ParamSpec(("y",)), "A_log": ParamSpec(("y", None)),
     "D": ParamSpec(("y",)),
+    # MoE: the router contracts x, its logits replicated; the expert bank
+    # (E, k, n), E over (y, expert) y-major (``parallel.tp_expert_init``),
+    # k over the contraction shard, n over (output shard, z); a shared
+    # expert is an MLP (wi, wg, wo above)
+    "w_router": _tp(wspec("x", None)),
+    "w_up": _tp((("y", "expert"), "x", "z")),
+    "w_down": _tp((("y", "expert"), None, ("x", "z"))),
+    # MLA (no q compression): q and the latent kv down projection contract
+    # x; the latent's up projections shard their heads over y; kv_norm is
+    # the latent's replicated gain
+    "w_q": _tp(NORMAL), "w_dkv": _tp(wspec("x", None)),
+    "kv_norm": ParamSpec((None,)),
+    "w_uk": _tp(wspec(None, "y")), "w_uv": _tp(wspec(None, "y")),
 }
 
 
@@ -113,6 +126,18 @@ def keep_shard(v: torch.Tensor, axes: M.MeshAxes, spec: Spec,
         return v
     return M.shard(v, axes, spec, rank).clone(
         memory_format=torch.contiguous_format)
+
+
+def expert_reduce_grads(grads: Dict[str, torch.Tensor],
+                        axes: M.MeshAxes) -> Dict[str, torch.Tensor]:
+    """psum over the expert axis the gradient of every parameter not
+    sharded over it (the reference's ``expert_reduce_grads``): for the
+    dense layers the expert axis is a second data axis (each expert rank
+    sees its own batch shard); the expert bank is sharded over it, and
+    each rank's gradient holds exactly its own experts' contributions,
+    so summing those would be wrong, not only wasteful."""
+    return {n: g if "expert" in spec_names(param_spec(n))
+            else M.psum(g, axes, "expert") for n, g in grads.items()}
 
 
 def z_reduce_grads(grads: Dict[str, torch.Tensor],

@@ -7,8 +7,10 @@ through their strides, so a transposed view (``w.t()``, ``x.t()``) costs no
 copy, and return a fresh (M, N) row-major tensor with fp32 accumulation,
 in the operands' dtype or, for bfloat16 operands, in float32 when asked
 (``out_dtype``: a weight gradient that is summed over z before its one
-rounding). The header of the CUDA source says what bounds the
-kernel on the card and how its design answers that.
+rounding). The batched entry (:func:`block_matmul_batched_kernel`) runs E such
+products, (E, M, K) @ (E, K, N), in one launch, the batch on the grid's z
+dimension: the MoE expert bank's products. The header of the CUDA source
+says what bounds the kernel on the card and how its design answers that.
 """
 from __future__ import annotations
 
@@ -57,6 +59,14 @@ def block_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
     return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
+def block_matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, *,
+                               out_dtype=None) -> torch.Tensor:
+    """a[e] @ b[e] for each e on fp32-upcast operands, cast to
+    ``out_dtype`` (default: a's dtype): the reference's ``_bmm``, a
+    ``dot_general`` with fp32 accumulation."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
+
+
 def k_granule(path: str, elt: int) -> int:
     """The k a split must be a multiple of (csrc's k_granule): the tiles'
     depth; 8 warps of 4 rows (DECODE_N); 2 steps of 32 lanes of a 16-byte
@@ -75,27 +85,34 @@ def _split(K: int, granule: int, splits: int):
 
 @functools.lru_cache(maxsize=4096)   # called once per product, per step
 def plan(M: int, N: int, K: int, n_sm: int, *, elt: int = 4,
-         b_k1: bool = False) -> Plan:
+         b_k1: bool = False, batch: int = 1) -> Plan:
     """The kernel's path for an (M, K) @ (K, N) product of ``elt``-byte
     elements on a card of ``n_sm`` SMs, and its K split. ``b_k1``: b's k
     index is contiguous (b a transposed view), which picks DECODE_K.
+    ``batch``: the products of one launch of the batched entry.
 
     Tiles: the split that minimises the estimated time, the waves of
     blocks (BLOCKS_PER_SM resident on each SM) times each split's tile
     steps at the card's float32 rate, plus the split sum's bytes; every
-    split at least MIN_SPLIT_TILES steps deep. Decode: enough K splits for
-    DECODE_BLOCKS_PER_SM blocks per SM, each split at least MIN_SPLIT_ROWS
-    deep."""
+    split at least MIN_SPLIT_TILES steps deep. A batch of products splits
+    no K on the tiles: the products give the grid its blocks, and with
+    one split each output element is one fp32 chain over k in order, so
+    a row's bits do not depend on M (the expert ring's per-source rows
+    and the blocking round trip's stacked ones agree). Decode: enough K
+    splits for DECODE_BLOCKS_PER_SM blocks per SM over the batch's
+    blocks, each split at least MIN_SPLIT_ROWS deep."""
     if M <= DECODE_M:
         path = DECODE_K if b_k1 else DECODE_N
         # columns a block owns: a 16-byte group for each of 32 lanes
         # (DECODE_N), 4 for each of 8 warps (DECODE_K)
         cols = 32 * (16 // elt) if path == DECODE_N else 8 * 4
         granule = k_granule(path, elt)
-        want = -(-DECODE_BLOCKS_PER_SM * n_sm // -(-N // cols))
+        want = -(-DECODE_BLOCKS_PER_SM * n_sm // (batch * -(-N // cols)))
         most = max(1, -(-K // max(MIN_SPLIT_ROWS, granule)))
         return Plan(path, *_split(K, granule, max(1, min(want, most))))
     path = MID if M <= MID_M else LARGE
+    if batch > 1:
+        return Plan(path, *_split(K, TILE_K, 1))
     bm, bn = TILES[path]
     tiles = -(-M // bm) * -(-N // bn)
     k_tiles = max(-(-K // TILE_K), 1)
@@ -191,3 +208,81 @@ def block_matmul_kernel(a: torch.Tensor, b: torch.Tensor, *,
 
 
 block_matmul_kernel.launches = 0
+
+
+# block_matmul_batched_launch's arguments: a and its strides (batch, m,
+# k), b and its strides (batch, k, n), out, work, E, M, N, K, splits,
+# k_split, path, vec, dtype, out_dtype, stream
+BATCHED_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
+    ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
+    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+    ctypes.c_void_p]
+
+
+def _batched_launcher():
+    fn = build.library("block_matmul").block_matmul_batched_launch
+    if fn.argtypes is None:
+        fn.argtypes = BATCHED_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _vector_ok3(t: torch.Tensor) -> bool:
+    """:func:`vector_ok` for each matrix of a batch: also the batch
+    stride a multiple of 16 bytes."""
+    return (vector_ok(t[0]) if t.shape[0] else True) and (
+        t.shape[0] == 1 or t.stride(0) * t.element_size() % 16 == 0)
+
+
+def batched_launch_args(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                        n_sm: int):
+    """(the batched launcher's arguments before the stream, the
+    workspace) for a (E, M, K), b (E, K, N) and out (E, M, N)."""
+    (E, M, K), N = a.shape, b.shape[2]
+    p = plan(M, N, K, n_sm, elt=a.element_size(),
+             b_k1=b.stride(1) == 1 and b.stride(2) != 1, batch=E)
+    work = (torch.empty((E, p.splits, M, N), dtype=torch.float32,
+                        device=a.device) if p.splits > 1 else None)
+    vec = int(_vector_ok3(a)) | 2 * int(_vector_ok3(b))
+    return (a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
+            out.data_ptr(), work.data_ptr() if work is not None else None,
+            E, M, N, K, p.splits, p.k_split, PATHS.index(p.path), vec,
+            _DTYPES[a.dtype], _DTYPES[out.dtype]), work
+
+
+def block_matmul_batched_kernel(a: torch.Tensor, b: torch.Tensor, *,
+                                out_dtype=None) -> torch.Tensor:
+    """Launch the CUDA kernel's batched entry on CUDA tensors: a (E, M, K)
+    @ b (E, K, N) -> (E, M, N), each operand through its three strides (a
+    transposed view of the last two dims, or a slice along them, costs no
+    copy), in one launch; raises on what it does not take.
+    ``out_dtype``: a's dtype (default) or float32.
+    ``block_matmul_batched_kernel.launches`` counts the calls."""
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"block_matmul_batched_kernel needs a and b on one "
+                         f"CUDA device, got {a.device} and {b.device}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"block_matmul_batched_kernel takes float32 or "
+                        f"bfloat16 operands of one dtype, got {a.dtype} and "
+                        f"{b.dtype}")
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != b.shape[1]):
+        raise ValueError(f"block_matmul_batched_kernel needs (E, M, K) @ "
+                         f"(E, K, N), got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    out_dtype = out_dtype or a.dtype
+    if out_dtype not in (a.dtype, torch.float32):
+        raise TypeError(f"block_matmul_batched_kernel writes its operands' "
+                        f"dtype or float32, not {out_dtype}")
+    out = torch.empty((a.shape[0], a.shape[1], b.shape[2]), dtype=out_dtype,
+                      device=a.device)
+    args, work = batched_launch_args(a, b, out,
+                                     _sm_count(a.device.index or 0))
+    err = _batched_launcher()(*args,
+                              torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(err, "block_matmul_batched_kernel")
+    block_matmul_batched_kernel.launches += 1
+    return out
+
+
+block_matmul_batched_kernel.launches = 0

@@ -222,7 +222,9 @@ __device__ __host__ inline bool rows_aligned(const void* p, long long sb,
 // finishes: K2's forward starts it empty and writes the normalised output,
 // K4's forward loads a chain's carry and stores it back. The caller has
 // issued the query tile Qs ([8 FR][HD] fp32, rows read as float4) before
-// the call; Ks and Vs are [BKV][HD] (K's chunks swizzled), Ps [8 FR][BKV].
+// the call; Ks is [BKV][HD] (chunks swizzled), Vs [BKV][DV], Ps [8 FR][BKV].
+// HD is the width of q and k, DV that of v and the output (MLA's 192 and
+// 128; every other caller DV = HD).
 // Thread (ty, tx) owns query rows ty + 8 i (i < FR): their scores against
 // keys tx + 16 j (j < 4) of a tile, reading Q and K as float4 along
 // head_dim, then their output columns 4 (tx + 16 c) .. + 3, reading P and
@@ -231,16 +233,16 @@ __device__ __host__ inline bool rows_aligned(const void* p, long long sb,
 // masked score gives p = 0 exactly, so a row that sees no key of a
 // tile keeps its carry bit for bit (alpha = exp(0) = 1), and a tile whose
 // every score is masked may be walked or skipped with the same bits.
-template <typename T, int HD, int FR, typename Mask>
+template <typename T, int HD, int FR, typename Mask, int DV = HD>
 __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
                                        float* Ps, const T* kb, int64_t k_st,
                                        const T* vb, int64_t v_st, int n_s,
                                        int lo, int hi, bool vec, uint4* reg,
                                        float scale, const Mask& P, int q0,
                                        float (&m)[FR], float (&l)[FR],
-                                       float4 (&acc)[FR][HD / 64]) {
-  constexpr int D4 = HD / 4;   // 16-byte chunks of a row
-  constexpr int NC = HD / 64;  // output chunks of a thread
+                                       float4 (&acc)[FR][DV / 64]) {
+  constexpr int D4 = HD / 4;   // 16-byte chunks of a q/k row
+  constexpr int NC = DV / 64;  // output chunks of a thread
   constexpr int FJ = BKV / 16; // keys a thread scores: tx + 16 j
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   if (lo < hi) {
@@ -254,7 +256,7 @@ __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
   for (int kt = lo; kt < hi; ++kt) {
     const int j0 = kt * BKV;
     // V of this tile streams in while S = Q K^T is computed
-    tile_issue<T, HD, BKV, false>(Vs, vb, v_st, j0, n_s, vec, reg);
+    tile_issue<T, DV, BKV, false>(Vs, vb, v_st, j0, n_s, vec, reg);
     cp_async_commit();
     float s[FR][FJ];
 #pragma unroll
@@ -283,7 +285,7 @@ __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
         }
       }
     }
-    tile_commit<T, HD, BKV, false>(Vs, vb, v_st, j0, n_s, vec, reg);
+    tile_commit<T, DV, BKV, false>(Vs, vb, v_st, j0, n_s, vec, reg);
     __syncthreads();  // every thread is done with Ks
     // the next K tile streams in while the softmax and P V run
     if (kt + 1 < hi)
@@ -335,7 +337,7 @@ __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           vv[c] = *reinterpret_cast<const float4*>(
-              Vs + (k4 * 4 + u) * HD + (tx + 16 * c) * 4);
+              Vs + (k4 * 4 + u) * DV + (tx + 16 * c) * 4);
 #pragma unroll
         for (int i = 0; i < FR; ++i) {
           const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
@@ -358,10 +360,10 @@ __device__ __forceinline__ void attend(const float* Qs, float* Ks, float* Vs,
 }
 
 // shared memory (bytes) of a forward over query tiles of ROWS rows: the Q
-// tile [ROWS][HD], K and V [BKV][HD] and P [ROWS][BKV], fp32
-template <int HD, int ROWS>
+// tile [ROWS][HD], K [BKV][HD], V [BKV][DV] and P [ROWS][BKV], fp32
+template <int HD, int ROWS, int DV = HD>
 constexpr size_t attend_smem() {
-  return sizeof(float) * (ROWS * HD + 2 * BKV * HD + ROWS * BKV);
+  return sizeof(float) * (ROWS * HD + BKV * HD + BKV * DV + ROWS * BKV);
 }
 
 
@@ -398,12 +400,14 @@ constexpr int BI = BK / 8;    // keys of a thread: ty + 8 i
 constexpr int BJ = BQ / 16;   // queries of a thread: tx + 16 j
 constexpr int TLD = BQ + 16;  // row stride of the P^T / dS^T tile
 
-// shared memory (bytes) of the dK/dV kernel: K and V [BK][HD], Q and dO
-// [BQ][HD], one [BK][TLD] tile for P^T and then dS^T, lse and delta [BQ];
-// 106.5 KB at head_dim 128, so that two blocks share an SM
-template <int HD>
+// shared memory (bytes) of the dK/dV kernel: K [BK][HD], V [BK][DV], Q
+// [BQ][HD] and dO [BQ][DV], one [BK][TLD] tile for P^T and then dS^T, lse
+// and delta [BQ]; 106.5 KB at head_dim 128, so that two blocks share an SM
+// (130.5 KB at MLA's (192, 128): one block an SM)
+template <int HD, int DV = HD>
 constexpr size_t dkdv_tile_smem() {
-  return sizeof(float) * (2 * BK * HD + 2 * BQ * HD + BK * TLD + 2 * BQ);
+  return sizeof(float) *
+         (BK * (HD + DV) + BQ * (HD + DV) + BK * TLD + 2 * BQ);
 }
 // of the dQ kernel: K [BK][HD] and dS^T [BK][BQ], two of each
 template <int HD>
@@ -524,7 +528,7 @@ __device__ __forceinline__ void store4(T* p, float4 v) {
 // the dS^T tile to the workspace for the dQ pass. With g == 1 it writes dK
 // and dV (TO, batch stride o_sb); with GQA its query head's share goes to
 // the workspace.
-template <typename T, typename TO, int HD, typename Mask>
+template <typename T, typename TO, int HD, typename Mask, int DV = HD>
 __global__ void __launch_bounds__(kTileThreads, 2)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                       int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
@@ -538,14 +542,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                       float* __restrict__ dvw, TO* __restrict__ dk,
                       TO* __restrict__ dv, int64_t o_sb, int n_t, int n_s,
                       int nq, int nkv, Mask P, float scale, int vec) {
-  constexpr int D4 = HD / 4;
-  constexpr int NC = HD / 64;
+  constexpr int D4 = HD / 4, D4V = DV / 4;
+  constexpr int NC = HD / 64, NCV = DV / 64;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;              // [BK][HD]
-  float* Vs = Ks + BK * HD;      // [BK][HD]
-  float* Qs = Vs + BK * HD;      // [BQ][HD], chunks swizzled
-  float* dOs = Qs + BQ * HD;     // [BQ][HD], chunks swizzled
-  float* Ts = dOs + BQ * HD;     // [BK][TLD]: P^T, then dS^T
+  float* Vs = Ks + BK * HD;      // [BK][DV]
+  float* Qs = Vs + BK * DV;      // [BQ][HD], chunks swizzled
+  float* dOs = Qs + BQ * HD;     // [BQ][DV], chunks swizzled
+  float* Ts = dOs + BQ * DV;     // [BK][TLD]: P^T, then dS^T
   float* lse_s = Ts + BK * TLD;  // [BQ]
   float* del_s = lse_s + BQ;     // [BQ]
   const int hq = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
@@ -557,23 +561,25 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
   const float* lse_h = lse + ((int64_t)b * nq + hq) * n_t;
   const float* del_h = delta + ((int64_t)b * nq + hq) * n_t;
   float* ds_h = ds + ((int64_t)b * nq + hq) * n_qt * n_kt * (BK * BQ);
-  uint4 reg[Tile<T, HD, BQ>::REGS];
+  uint4 reg[Tile<T, (HD > DV ? HD : DV), BQ>::REGS];
 
   tile_issue<T, HD, BK, false>(Ks, k + b * k_sb + hk * k_sh, k_st, j0, n_s,
                                vec, reg);
   tile_commit<T, HD, BK, false>(Ks, k + b * k_sb + hk * k_sh, k_st, j0, n_s,
                                 vec, reg);
-  tile_issue<T, HD, BK, false>(Vs, v + b * v_sb + hk * v_sh, v_st, j0, n_s,
+  tile_issue<T, DV, BK, false>(Vs, v + b * v_sb + hk * v_sh, v_st, j0, n_s,
                                vec, reg);
-  tile_commit<T, HD, BK, false>(Vs, v + b * v_sb + hk * v_sh, v_st, j0, n_s,
+  tile_commit<T, DV, BK, false>(Vs, v + b * v_sb + hk * v_sh, v_st, j0, n_s,
                                 vec, reg);
 
-  float4 dka[BI][NC], dva[BI][NC];
+  float4 dka[BI][NC], dva[BI][NCV];
 #pragma unroll
-  for (int i = 0; i < BI; ++i)
+  for (int i = 0; i < BI; ++i) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      dka[i][c] = dva[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < NC; ++c) dka[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < NCV; ++c) dva[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
@@ -583,8 +589,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
     __syncthreads();  // the last tile's readers of Qs, dOs and Ts are done
     tile_issue<T, HD, BQ, true>(Qs, qb, q_st, q0, n_t, vec, reg);
     tile_commit<T, HD, BQ, true>(Qs, qb, q_st, q0, n_t, vec, reg);
-    tile_issue<T, HD, BQ, true>(dOs, ob, do_st, q0, n_t, vec, reg);
-    tile_commit<T, HD, BQ, true>(dOs, ob, do_st, q0, n_t, vec, reg);
+    tile_issue<T, DV, BQ, true>(dOs, ob, do_st, q0, n_t, vec, reg);
+    tile_commit<T, DV, BQ, true>(dOs, ob, do_st, q0, n_t, vec, reg);
     if (threadIdx.x < BQ) {
       const int t = q0 + threadIdx.x;
       lse_s[threadIdx.x] = t < n_t ? lse_h[t] : 0.f;
@@ -599,32 +605,44 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
     for (int i = 0; i < BI; ++i)
 #pragma unroll
       for (int j = 0; j < BJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    // S^T = K Q^T over HD and dP^T = V dO^T over DV, one loop while the
+    // widths agree (the loads of a chunk of both products interleaved)
 #pragma unroll 2
-    for (int d4 = 0; d4 < D4; ++d4) {
+    for (int d4 = 0; d4 < (D4 > D4V ? D4 : D4V); ++d4) {
       float4 kv[BI], vv[BI];
 #pragma unroll
       for (int i = 0; i < BI; ++i) {
-        kv[i] = *reinterpret_cast<const float4*>(Ks + (ty + 8 * i) * HD +
-                                                 d4 * 4);
-        vv[i] = *reinterpret_cast<const float4*>(Vs + (ty + 8 * i) * HD +
-                                                 d4 * 4);
+        if (d4 < D4)
+          kv[i] = *reinterpret_cast<const float4*>(Ks + (ty + 8 * i) * HD +
+                                                   d4 * 4);
+        if (d4 < D4V)
+          vv[i] = *reinterpret_cast<const float4*>(Vs + (ty + 8 * i) * DV +
+                                                   d4 * 4);
       }
 #pragma unroll
       for (int j = 0; j < BJ; ++j) {
         const int r = tx + 16 * j;
-        const int off = r * HD + chunk_at<true>(r, d4) * 4;
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + off);
-        const float4 ov = *reinterpret_cast<const float4*>(dOs + off);
+        float4 qv, ov;
+        if (d4 < D4)
+          qv = *reinterpret_cast<const float4*>(
+              Qs + r * HD + chunk_at<true>(r, d4) * 4);
+        if (d4 < D4V)
+          ov = *reinterpret_cast<const float4*>(
+              dOs + r * DV + chunk_at<true>(r, d4) * 4);
 #pragma unroll
         for (int i = 0; i < BI; ++i) {
-          s[i][j] = fmaf(kv[i].x, qv.x, s[i][j]);
-          s[i][j] = fmaf(kv[i].y, qv.y, s[i][j]);
-          s[i][j] = fmaf(kv[i].z, qv.z, s[i][j]);
-          s[i][j] = fmaf(kv[i].w, qv.w, s[i][j]);
-          dp[i][j] = fmaf(vv[i].x, ov.x, dp[i][j]);
-          dp[i][j] = fmaf(vv[i].y, ov.y, dp[i][j]);
-          dp[i][j] = fmaf(vv[i].z, ov.z, dp[i][j]);
-          dp[i][j] = fmaf(vv[i].w, ov.w, dp[i][j]);
+          if (d4 < D4) {
+            s[i][j] = fmaf(kv[i].x, qv.x, s[i][j]);
+            s[i][j] = fmaf(kv[i].y, qv.y, s[i][j]);
+            s[i][j] = fmaf(kv[i].z, qv.z, s[i][j]);
+            s[i][j] = fmaf(kv[i].w, qv.w, s[i][j]);
+          }
+          if (d4 < D4V) {
+            dp[i][j] = fmaf(vv[i].x, ov.x, dp[i][j]);
+            dp[i][j] = fmaf(vv[i].y, ov.y, dp[i][j]);
+            dp[i][j] = fmaf(vv[i].z, ov.z, dp[i][j]);
+            dp[i][j] = fmaf(vv[i].w, ov.w, dp[i][j]);
+          }
         }
       }
     }
@@ -642,7 +660,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
       }
     }
     __syncthreads();
-    accumulate_tile<HD>(dva, Ts, dOs, ty, tx);  // dV += P^T dO
+    accumulate_tile<DV>(dva, Ts, dOs, ty, tx);  // dV += P^T dO
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < BJ; ++j)
@@ -669,13 +687,22 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
       const float4 kk = make_float4(dka[i][c].x * scale, dka[i][c].y * scale,
                                     dka[i][c].z * scale, dka[i][c].w * scale);
       if (g == 1) {
-        const int64_t off = b * o_sb + ((int64_t)j * nkv + hk) * HD + d;
-        store4(dk + off, kk);
-        store4(dv + off, dva[i][c]);
+        store4(dk + b * o_sb + ((int64_t)j * nkv + hk) * HD + d, kk);
       } else {
-        const int64_t off = (((int64_t)b * n_s + j) * nq + hq) * HD + d;
-        *reinterpret_cast<float4*>(dkw + off) = kk;
-        *reinterpret_cast<float4*>(dvw + off) = dva[i][c];
+        *reinterpret_cast<float4*>(
+            dkw + (((int64_t)b * n_s + j) * nq + hq) * HD + d) = kk;
+      }
+    }
+    // dv's batch stride: o_sb (dk's) scaled from HD to DV wide rows
+    const int64_t ov_sb = DV == HD ? o_sb : o_sb / HD * DV;
+#pragma unroll
+    for (int c = 0; c < NCV; ++c) {
+      const int d = (tx + 16 * c) * 4;
+      if (g == 1) {
+        store4(dv + b * ov_sb + ((int64_t)j * nkv + hk) * DV + d, dva[i][c]);
+      } else {
+        *reinterpret_cast<float4*>(
+            dvw + (((int64_t)b * n_s + j) * nq + hq) * DV + d) = dva[i][c];
       }
     }
   }
@@ -831,10 +858,12 @@ flash_bwd_dq_kernel(const T* __restrict__ k, int64_t k_sb, int64_t k_st,
 // sum (g > 1), dQ. work is bwd_work's workspace (16-byte aligned); lse and
 // delta (batch, nq, n_t) fp32, delta in the workspace where it is null
 // (K2's);
-// dq (batch, n_t, nq, HD) contiguous; dk, dv (batch, n_s, nkv, HD) at
-// batch stride dkv_sb, contiguous within a batch row. Returns the first
-// launch error.
-template <typename T, typename TO, int HD, bool ADD_DQ, typename Mask>
+// dq (batch, n_t, nq, HD) contiguous; dk (batch, n_s, nkv, HD) at batch
+// stride dkv_sb and dv (batch, n_s, nkv, DV) at dkv_sb / HD * DV,
+// contiguous within a batch row; o and dout DV wide. DV != HD takes g ==
+// 1 only. Returns the first launch error.
+template <typename T, typename TO, int HD, bool ADD_DQ, typename Mask,
+          int DV = HD>
 int launch_bwd(const Args<Mask>& a, const void* o, const float* m,
                const float* l, const void* dout, long long do_sb,
                long long do_st, long long do_sh, float* lse, float* delta,
@@ -849,7 +878,7 @@ int launch_bwd(const Args<Mask>& a, const void* o, const float* m,
   cudaError_t err;
   if (o != nullptr) {
     const int64_t rows = (int64_t)a.batch * a.n_t * a.nq;
-    flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + 7) / 8), kThreads, 0,
+    flash_bwd_delta_kernel<T, DV><<<(unsigned)((rows + 7) / 8), kThreads, 0,
                                     s>>>(
         static_cast<const T*>(o), static_cast<const T*>(dout), do_sb, do_st,
         do_sh, delta, m, l, lse, a.batch, a.n_t, a.nq);
@@ -861,10 +890,11 @@ int launch_bwd(const Args<Mask>& a, const void* o, const float* m,
                    rows_aligned<T>(a.v, a.v_sb, a.v_st, a.v_sh) &&
                    rows_aligned<T>(dout, do_sb, do_st, do_sh);
   const int n_qt = (a.n_t + BQ - 1) / BQ, n_kt = (a.n_s + BK - 1) / BK;
-  auto kdkdv = flash_bwd_dkdv_kernel<T, TO, HD, Mask>;
-  static const cudaError_t attr_kv = allow_smem(kdkdv, dkdv_tile_smem<HD>());
+  auto kdkdv = flash_bwd_dkdv_kernel<T, TO, HD, Mask, DV>;
+  static const cudaError_t attr_kv =
+      allow_smem(kdkdv, dkdv_tile_smem<HD, DV>());
   if (attr_kv != cudaSuccess) return (int)attr_kv;
-  kdkdv<<<dim3(a.nq, a.batch, n_kt), kTileThreads, dkdv_tile_smem<HD>(),
+  kdkdv<<<dim3(a.nq, a.batch, n_kt), kTileThreads, dkdv_tile_smem<HD, DV>(),
           s>>>(
       static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
       static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
@@ -875,7 +905,9 @@ int launch_bwd(const Args<Mask>& a, const void* o, const float* m,
       a.nkv, a.pos, a.scale, (int)vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  if (g > 1) {
+  if constexpr (DV != HD) {
+    if (g > 1) return (int)cudaErrorInvalidValue;  // no GQA sum of two widths
+  } else if (g > 1) {
     const int64_t per_b = (int64_t)a.n_s * a.nkv * HD / 4;
     const int64_t n4 = a.batch * per_b;
     flash_bwd_sum_kernel<TO, HD><<<(unsigned)((n4 + kThreads - 1) / kThreads),

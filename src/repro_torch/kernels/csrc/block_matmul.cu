@@ -53,6 +53,20 @@
 // split_sum_kernel adds the splits in order and casts to the output type. No atomics
 // anywhere, so every call on the same shapes gives the same bits
 // (rematerialization recomputes and expects them).
+//
+// The batched entry (block_matmul_batched_launch) runs E products of one
+// shape, an MoE layer's expert bank (E, C, k) . (E, k, n), in one launch:
+// the grid's z dimension walks (expert, K split) pairs, z = e * splits +
+// split, each block offsets a, b and out by its expert's batch strides and
+// then runs the one-product kernel unchanged. The products are small (C =
+// 120 places of DeepSeek's 64 experts at a microbatch of 1024 tokens), so
+// one launch per expert would pay 64 launches and 64 partial waves where
+// one launch fills the card with E x the tiles of one. The wrapper gives
+// the tile paths no K split there (the E products give the grid its
+// blocks), so each output element is one fp32 chain over k in order and a
+// row's bits do not depend on M: the expert all-to-all's ring and
+// blocking forms, which stack the source ranks' rows differently, agree
+// bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -221,7 +235,8 @@ __global__ void __launch_bounds__(C::THREADS, A_K1 && !B_N1 ? 1 : 2)
 sgemm_tile_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
                   const T* __restrict__ b, int64_t sb_k, int64_t sb_n,
                   O* __restrict__ out, float* __restrict__ work, int M, int N,
-                  int K, int k_split, int vec) {
+                  int K, int k_split, int splits, int64_t sa_e, int64_t sb_e,
+                  int vec) {
   constexpr int BK = C::BK;
   __shared__ __align__(16) float As[2][BK][C::BM + C::PAD];
   __shared__ __align__(16) float Bs[2][BK][C::BN + C::PAD];
@@ -230,7 +245,12 @@ sgemm_tile_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
   const int wn = (warp / C::WARPS_M) * C::WN;
   const int ly = lane / 8, lx = lane % 8;
   const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
-  const int k_begin = blockIdx.z * k_split;
+  // grid z walks (batch e, K split): z = e * splits + split
+  const int e = blockIdx.z / splits;
+  a += e * sa_e;
+  b += e * sb_e;
+  out += (int64_t)e * M * N;
+  const int k_begin = (blockIdx.z % splits) * k_split;
   const int k_end = min(K, k_begin + k_split);
   const bool vec_a = vec & 1, vec_b = vec & 2;
 
@@ -341,13 +361,18 @@ __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_n_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
               const T* __restrict__ b, int64_t sb_k, int64_t sb_n,
               O* __restrict__ out, float* __restrict__ work, int M, int N,
-              int K, int k_split, int vec) {
+              int K, int k_split, int splits, int64_t sa_e, int64_t sb_e,
+              int vec) {
   constexpr int V = Vec<T>::V, U = 4, COLS = 32 * V;
   __shared__ __align__(16) float As[MT][KC];
   __shared__ float red[GEMV_WARPS][COLS];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int n = blockIdx.x * COLS + lane * V;
-  const int k_begin = blockIdx.z * k_split;
+  const int e = blockIdx.z / splits;  // z = e * splits + split
+  a += e * sa_e;
+  b += e * sb_e;
+  out += (int64_t)e * M * N;
+  const int k_begin = (blockIdx.z % splits) * k_split;
   const int k_end = min(K, k_begin + k_split);
   const int n_valid = min(V, N - n);
   const bool vec_a = (vec & 1) && sa_k == 1, vec_b = (vec & 2) && sb_n == 1;
@@ -414,12 +439,17 @@ __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_k_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
               const T* __restrict__ b, int64_t sb_k, int64_t sb_n,
               O* __restrict__ out, float* __restrict__ work, int M, int N,
-              int K, int k_split, int vec) {
+              int K, int k_split, int splits, int64_t sa_e, int64_t sb_e,
+              int vec) {
   constexpr int V = Vec<T>::V, G = 4, U = 2, STEP = 32 * V;
   __shared__ __align__(16) float As[MT][KC];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int n0 = (blockIdx.x * GEMV_WARPS + warp) * G;
-  const int k_begin = blockIdx.z * k_split;
+  const int e = blockIdx.z / splits;  // z = e * splits + split
+  a += e * sa_e;
+  b += e * sb_e;
+  out += (int64_t)e * M * N;
+  const int k_begin = (blockIdx.z % splits) * k_split;
   const int k_end = min(K, k_begin + k_split);
   const bool vec_a = (vec & 1) && sa_k == 1, vec_b = (vec & 2) && sb_k == 1;
 
@@ -489,15 +519,19 @@ gemv_k_kernel(const T* __restrict__ a, int64_t sa_m, int64_t sa_k,
   }
 }
 
-// out[i] = sum over s of work[s * n + i], s in order; cast to O.
+// out[e * n + i] = sum over s of work[(e * splits + s) * n + i], s in
+// order, for each of `batch` products of n outputs; cast to O.
 template <typename O>
 __global__ void __launch_bounds__(256)
 split_sum_kernel(const float* __restrict__ work, O* __restrict__ out,
-                 int64_t n, int splits) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
+                 int64_t n, int splits, int batch) {
+  const int64_t total = n * batch;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t e = i / n, j = i % n;
+    const float* w = work + e * splits * n + j;
     float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += work[z * n + i];
+    for (int z = 0; z < splits; ++z) s += w[z * n];
     store(out + i, s);
   }
 }
@@ -518,23 +552,24 @@ int k_granule(int path) {
 
 struct Args {
   const void* a;
-  int64_t sa_m, sa_k;
+  int64_t sa_e, sa_m, sa_k;
   const void* b;
-  int64_t sb_k, sb_n;
+  int64_t sb_e, sb_k, sb_n;
   void* out;
   float* work;
-  int M, N, K, splits, k_split, vec;
+  int E, M, N, K, splits, k_split, vec;
   cudaStream_t s;
 };
 
 template <typename T, typename O, typename C, bool A_K1, bool B_N1>
 void launch_tile(const Args& g) {
   const dim3 grid((g.M + C::BM - 1) / C::BM, (g.N + C::BN - 1) / C::BN,
-                  g.splits);
+                  g.E * g.splits);
   sgemm_tile_kernel<T, O, C, A_K1, B_N1><<<grid, C::THREADS, 0, g.s>>>(
       static_cast<const T*>(g.a), g.sa_m, g.sa_k,
       static_cast<const T*>(g.b), g.sb_k, g.sb_n, static_cast<O*>(g.out),
-      g.splits > 1 ? g.work : nullptr, g.M, g.N, g.K, g.k_split, g.vec);
+      g.splits > 1 ? g.work : nullptr, g.M, g.N, g.K, g.k_split, g.splits,
+      g.sa_e, g.sb_e, g.vec);
 }
 
 template <typename T, typename O, typename C>
@@ -559,16 +594,16 @@ void launch_gemv(const Args& g, int path) {
   float* pw = g.splits > 1 ? g.work : nullptr;
   if (path == kDecodeN) {
     const int cols = 32 * Vec<T>::V;
-    const dim3 grid((g.N + cols - 1) / cols, 1, g.splits);
+    const dim3 grid((g.N + cols - 1) / cols, 1, g.E * g.splits);
     gemv_n_kernel<T, O, MT><<<grid, GEMV_THREADS, 0, g.s>>>(
         pa, g.sa_m, g.sa_k, pb, g.sb_k, g.sb_n, po, pw, g.M, g.N, g.K,
-        g.k_split, g.vec);
+        g.k_split, g.splits, g.sa_e, g.sb_e, g.vec);
   } else {
     const int cols = GEMV_WARPS * 4;
-    const dim3 grid((g.N + cols - 1) / cols, 1, g.splits);
+    const dim3 grid((g.N + cols - 1) / cols, 1, g.E * g.splits);
     gemv_k_kernel<T, O, MT><<<grid, GEMV_THREADS, 0, g.s>>>(
         pa, g.sa_m, g.sa_k, pb, g.sb_k, g.sb_n, po, pw, g.M, g.N, g.K,
-        g.k_split, g.vec);
+        g.k_split, g.splits, g.sa_e, g.sb_e, g.vec);
   }
 }
 
@@ -590,10 +625,10 @@ int launch(const Args& g, int path) {
   }
   if (g.splits > 1) {
     const int64_t n = (int64_t)g.M * g.N;
-    const int64_t want = (n + 255) / 256;
+    const int64_t want = (n * g.E + 255) / 256;
     const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
     split_sum_kernel<O><<<blocks, 256, 0, g.s>>>(
-        g.work, static_cast<O*>(g.out), n, g.splits);
+        g.work, static_cast<O*>(g.out), n, g.splits, g.E);
   }
   return (int)cudaGetLastError();
 }
@@ -605,15 +640,53 @@ bool aligned16(const void* p, int64_t stride, int elt) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (a and b share it); out_dtype: the
-// same, or 0 (float32) for bfloat16 operands. out is (M, N) row-major. path: 0 the 128 x 128 tile, 1 the 64 x 128 tile, 2 decode
-// with b's n index contiguous, 3 decode with b's k index contiguous (M <=
-// 16 for 2 and 3). vec bit 0 (1): read a 16 bytes at a time along its
-// contiguous index, bit 1 (2): b; the base and the other stride must be
-// 16-byte aligned. splits > 1 needs work: splits * M * N floats, and
+// E products out[e] (M, N) = a[e] (M, K) @ b[e] (K, N) in one launch: a[e]
+// starts sa_e elements after a[e - 1], b[e] sb_e after b[e - 1], and out is
+// (E, M, N) row-major. The batch rides the grid's z dimension beside the K
+// split (z = e * splits + split), so every product runs the plan of one
+// (M, N, K) product. dtype: 0 = float32, 1 = bfloat16 (a and b share it);
+// out_dtype: the same, or 0 (float32) for bfloat16 operands. path: 0 the
+// 128 x 128 tile, 1 the 64 x 128 tile, 2 decode with b's n index
+// contiguous, 3 decode with b's k index contiguous (M <= 16 for 2 and 3).
+// vec bit 0 (1): read a 16 bytes at a time along its contiguous index, bit
+// 1 (2): b; the base, the other stride and the batch stride must be
+// 16-byte aligned. splits > 1 needs work: E * splits * M * N floats, and
 // k_split a multiple of the path's granule (16 for the tiles, 32 for path
 // 2, 256 (float32) or 512 (bf16) for path 3) with (splits - 1) * k_split
 // < K. Returns a cudaError_t (cudaGetLastError() after the launches).
+extern "C" int block_matmul_batched_launch(
+    const void* a, long long sa_e, long long sa_m, long long sa_k,
+    const void* b, long long sb_e, long long sb_k, long long sb_n, void* out,
+    void* work, int E, int M, int N, int K, int splits, int k_split,
+    int path, int vec, int dtype, int out_dtype, void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0) return 0;
+  const int elt = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 1 || (out_dtype != dtype && out_dtype != 0) ||
+      path < 0 || path > 3 || splits < 1 || (long long)E * splits > 65535 ||
+      k_split <= 0 || (long long)(splits - 1) * k_split >= (K > 0 ? K : 1) ||
+      (splits > 1 && work == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // a 16-byte group runs along the index whose stride is 1; the other
+  // stride steps between groups, the batch stride between products
+  if (((vec & 1) && !((sa_k == 1 ? aligned16(a, sa_m, elt)
+                                 : sa_m == 1 && aligned16(a, sa_k, elt)) &&
+                      aligned16(a, sa_e, elt))) ||
+      ((vec & 2) && !((sb_n == 1 ? aligned16(b, sb_k, elt)
+                                 : sb_k == 1 && aligned16(b, sb_n, elt)) &&
+                      aligned16(b, sb_e, elt)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args g{a,   sa_e, sa_m, sa_k, b,     sb_e, sb_k,    sb_n,
+               out, static_cast<float*>(work), E, M, N, K, splits, k_split,
+               vec, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch<float, float>(g, path);
+  return out_dtype == 0 ? launch<__nv_bfloat16, float>(g, path)
+                        : launch<__nv_bfloat16, __nv_bfloat16>(g, path);
+}
+
+// One product: block_matmul_batched_launch with E = 1. out is (M, N)
+// row-major; splits > 1 needs work: splits * M * N floats.
 extern "C" int block_matmul_launch(const void* a, long long sa_m,
                                    long long sa_k, const void* b,
                                    long long sb_k, long long sb_n, void* out,
@@ -621,26 +694,7 @@ extern "C" int block_matmul_launch(const void* a, long long sa_m,
                                    int splits, int k_split, int path,
                                    int vec, int dtype, int out_dtype,
                                    void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  const int elt = dtype == 0 ? 4 : 2;
-  if (dtype < 0 || dtype > 1 || (out_dtype != dtype && out_dtype != 0) ||
-      path < 0 || path > 3 || splits < 1 ||
-      k_split <= 0 || (long long)(splits - 1) * k_split >= (K > 0 ? K : 1) ||
-      (splits > 1 && work == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // a 16-byte group runs along the index whose stride is 1; the other
-  // stride steps between groups
-  if (((vec & 1) && !(sa_k == 1 ? aligned16(a, sa_m, elt)
-                                : sa_m == 1 && aligned16(a, sa_k, elt))) ||
-      ((vec & 2) && !(sb_n == 1 ? aligned16(b, sb_k, elt)
-                                : sb_k == 1 && aligned16(b, sb_n, elt)))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Args g{a, sa_m, sa_k, b, sb_k, sb_n, out, static_cast<float*>(work),
-               M, N, K, splits, k_split, vec,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch<float, float>(g, path);
-  return out_dtype == 0 ? launch<__nv_bfloat16, float>(g, path)
-                        : launch<__nv_bfloat16, __nv_bfloat16>(g, path);
+  return block_matmul_batched_launch(a, 0, sa_m, sa_k, b, 0, sb_k, sb_n, out,
+                                     work, 1, M, N, K, splits, k_split, path,
+                                     vec, dtype, out_dtype, stream);
 }

@@ -65,6 +65,20 @@
 //    Here they store dQ, dK and dV in the inputs' dtype.
 // All inputs are read in the model's (batch, time, head, head_dim) layout
 // through strides, with unit stride in head_dim: no transposes.
+//
+// Head dims: 64 and 128, and MLA's (q/k 192, v 128), DeepSeek-V2's
+// qk_nope 128 + qk_rope 64 beside its v 128. The tiles take the two
+// widths apart (attention_tiles.cuh's HD for q and k, DV for v, the
+// output and dO): the scores and dP^T loop over their own widths, dK and
+// dQ are 192 wide and dV 128. At (192, 128) the forward's shared memory
+// is Q and K 64 x 192 and V 64 x 128 and P 64 x 64 floats, 144 KB, and
+// the dK/dV pass's 130.5 KB: one block an SM, not two, of the H100's 228
+// KB. Keeping two would take 32-row query tiles, which load every K and V
+// tile twice as often per query row; this first port keeps the 64-row
+// tiles, and PERF.md times it against SDPA. MLA has as many KV heads as
+// query heads, so a
+// width pair other than (64, 64) or (128, 128) takes g == 1 only (no GQA
+// sum of two widths).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -87,7 +101,7 @@ constexpr int FR = BQ / 8;  // query rows of a thread: ty + 8 i
 // with the most key tiles start first. The block walks the key tiles that
 // hold a visible key (attend in attention_tiles.cuh) from an empty carry
 // and writes the normalised output and each row's log-sum-exp.
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 __global__ void __launch_bounds__(kTileThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                  int64_t q_sh, const T* __restrict__ k, int64_t k_sb,
@@ -96,12 +110,12 @@ flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
                  T* __restrict__ o, float* __restrict__ lse, int n_t,
                  int n_s, int nq, int nkv, IndexMask P, float scale,
                  int vec) {
-  constexpr int NC = HD / 64;  // output chunks of a thread
+  constexpr int NC = DV / 64;  // output chunks of a thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;             // [BQ][HD]
   float* Ks = Qs + BQ * HD;     // [BKV][HD], chunks swizzled
-  float* Vs = Ks + BKV * HD;    // [BKV][HD]
-  float* Ps = Vs + BKV * HD;    // [BQ][BKV]
+  float* Vs = Ks + BKV * HD;    // [BKV][DV]
+  float* Ps = Vs + BKV * DV;    // [BQ][BKV]
   const int hq = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int hk = hq / (nq / nkv);
@@ -109,7 +123,7 @@ flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
   const T* qb = q + b * q_sb + hq * q_sh;
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
-  uint4 reg[Tile<T, HD, BQ>::REGS];
+  uint4 reg[Tile<T, (HD > DV ? HD : DV), BQ>::REGS];
 
   float m[FR], l[FR];
   float4 acc[FR][NC];
@@ -124,15 +138,16 @@ flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
   P.key_tiles<BQ, BKV>(q0, &lo, &hi);
   tile_issue<T, HD, BQ, false>(Qs, qb, q_st, q0, n_t, vec, reg);
   tile_commit<T, HD, BQ, false>(Qs, qb, q_st, q0, n_t, vec, reg);
-  attend<T, HD, FR>(Qs, Ks, Vs, Ps, kb, k_st, vb, v_st, n_s, lo, hi, vec,
-                    reg, scale, P, q0, m, l, acc);
+  attend<T, HD, FR, IndexMask, DV>(Qs, Ks, Vs, Ps, kb, k_st, vb, v_st, n_s,
+                                   lo, hi, vec, reg, scale, P, q0, m, l,
+                                   acc);
 
 #pragma unroll
   for (int i = 0; i < FR; ++i) {
     const int t = q0 + ty + 8 * i;
     if (t >= n_t) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((int64_t)b * n_t + t) * nq + hq) * HD;
+    T* orow = o + (((int64_t)b * n_t + t) * nq + hq) * DV;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       T* p = orow + (tx + 16 * c) * 4;
@@ -148,16 +163,17 @@ flash_fwd_kernel(const T* __restrict__ q, int64_t q_sb, int64_t q_st,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 int fwd(const K2Args& a, void* o, void* lse, cudaStream_t s) {
-  auto kern = flash_fwd_kernel<T, HD>;
-  static const cudaError_t attr = allow_smem(kern, attend_smem<HD, BQ>());
+  auto kern = flash_fwd_kernel<T, HD, DV>;
+  static const cudaError_t attr =
+      allow_smem(kern, attend_smem<HD, BQ, DV>());
   if (attr != cudaSuccess) return (int)attr;
   const bool vec = rows_aligned<T>(a.q, a.q_sb, a.q_st, a.q_sh) &&
                    rows_aligned<T>(a.k, a.k_sb, a.k_st, a.k_sh) &&
                    rows_aligned<T>(a.v, a.v_sb, a.v_st, a.v_sh);
   const dim3 grid(a.nq, a.batch, (a.n_t + BQ - 1) / BQ);
-  kern<<<grid, kTileThreads, attend_smem<HD, BQ>(), s>>>(
+  kern<<<grid, kTileThreads, attend_smem<HD, BQ, DV>(), s>>>(
       static_cast<const T*>(a.q), a.q_sb, a.q_st, a.q_sh,
       static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sh,
       static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sh,
@@ -166,15 +182,15 @@ int fwd(const K2Args& a, void* o, void* lse, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 int bwd(const K2Args& a, const void* o, const void* dout, long long do_sb,
         long long do_st, long long do_sh, const void* lse, void* work,
         void* dq, void* dk, void* dv, cudaStream_t s) {
-  return launch_bwd<T, T, HD, false>(
+  return launch_bwd<T, T, HD, false, IndexMask, DV>(
       a, o, nullptr, nullptr, dout, do_sb, do_st, do_sh,
       static_cast<float*>(const_cast<void*>(lse)), nullptr,
       static_cast<float*>(work), dq, dk, dv, (long long)a.n_s * a.nkv * HD,
-      s);
+      s);  // dv's batch stride n_s nkv DV follows from dk's
 }
 
 // the call's Args: keys at or past kv_len (> 0) are masked
@@ -190,9 +206,15 @@ K2Args make_args(const void* q, long long q_sb, long long q_st,
                 IndexMask{n_t, kv_hi, causal, window}, scale};
 }
 
-int check(const K2Args& a, int head_dim, int dtype) {
-  if (a.nkv <= 0 || a.nq % a.nkv || (head_dim != 64 && head_dim != 128) ||
-      (dtype != 0 && dtype != 1)) {
+// the (q/k, v) widths built: 64 and 128, and MLA's (192, 128)
+bool dims_ok(int head_dim, int v_dim) {
+  return (head_dim == v_dim && (head_dim == 64 || head_dim == 128)) ||
+         (head_dim == 192 && v_dim == 128);
+}
+
+int check(const K2Args& a, int head_dim, int v_dim, int dtype) {
+  if (a.nkv <= 0 || a.nq % a.nkv || !dims_ok(head_dim, v_dim) ||
+      (head_dim != v_dim && a.nq != a.nkv) || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -200,28 +222,31 @@ int check(const K2Args& a, int head_dim, int dtype) {
 
 }  // namespace
 
+#define K2_DIMS(FN, T, ...)                                               \
+  (head_dim == 192 ? FN<T, 192, 128>(__VA_ARGS__)                         \
+   : head_dim == 128 ? FN<T, 128, 128>(__VA_ARGS__)                       \
+                     : FN<T, 64, 64>(__VA_ARGS__))
 #define K2_DISPATCH(FN, ...)                                              \
-  (dtype == 0 ? (head_dim == 128 ? FN<float, 128>(__VA_ARGS__)            \
-                                 : FN<float, 64>(__VA_ARGS__))            \
-              : (head_dim == 128 ? FN<__nv_bfloat16, 128>(__VA_ARGS__)    \
-                                 : FN<__nv_bfloat16, 64>(__VA_ARGS__)))
+  (dtype == 0 ? K2_DIMS(FN, float, __VA_ARGS__)                           \
+              : K2_DIMS(FN, __nv_bfloat16, __VA_ARGS__))
 
-// q (batch, n_t, nq, head_dim) and k, v (batch, n_s, nkv, head_dim) through
-// their (batch, time, head) strides, unit stride in head_dim. o (batch,
-// n_t, nq, head_dim) contiguous; lse (batch, nq, n_t) fp32. Keys at or
-// past kv_len are masked (kv_len <= 0: none). dtype 0 = float32, 1 =
-// bfloat16; head_dim 64 or 128. Returns cudaGetLastError().
+// q (batch, n_t, nq, head_dim), k (batch, n_s, nkv, head_dim) and v
+// (batch, n_s, nkv, v_dim) through their (batch, time, head) strides, unit
+// stride in the last dim. o (batch, n_t, nq, v_dim) contiguous; lse
+// (batch, nq, n_t) fp32. Keys at or past kv_len are masked (kv_len <= 0:
+// none). dtype 0 = float32, 1 = bfloat16; (head_dim, v_dim) (64, 64),
+// (128, 128) or, with nq == nkv, (192, 128). Returns cudaGetLastError().
 extern "C" int flash_attention_fwd_launch(
     const void* q, long long q_sb, long long q_st, long long q_sh,
     const void* k, long long k_sb, long long k_st, long long k_sh,
     const void* v, long long v_sb, long long v_st, long long v_sh, void* o,
     void* lse, int batch, int n_t, int n_s, int nq, int nkv, int head_dim,
-    int causal, int window, int kv_len, float scale, int dtype,
+    int v_dim, int causal, int window, int kv_len, float scale, int dtype,
     void* stream) {
   const K2Args a = make_args(q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v,
                              v_sb, v_st, v_sh, batch, n_t, n_s, nq, nkv,
                              causal, window, kv_len, scale);
-  if (int bad = check(a, head_dim, dtype)) return bad;
+  if (int bad = check(a, head_dim, v_dim, dtype)) return bad;
   if (batch <= 0 || n_t <= 0 || n_s <= 0 || nq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return K2_DISPATCH(fwd, a, o, lse, s);
@@ -231,15 +256,19 @@ extern "C" int flash_attention_fwd_launch(
 // allocate; -1 on a shape the backward refuses.
 extern "C" long long flash_attention_bwd_workspace(int batch, int n_t,
                                                    int n_s, int nq, int nkv,
-                                                   int head_dim) {
-  if (nkv <= 0 || nq % nkv || (head_dim != 64 && head_dim != 128)) return -1;
+                                                   int head_dim, int v_dim) {
+  if (nkv <= 0 || nq % nkv || !dims_ok(head_dim, v_dim) ||
+      (head_dim != v_dim && nq != nkv)) {
+    return -1;
+  }
   return bwd_work(batch, n_t, n_s, nq, nkv, head_dim, true).total;
 }
 
 // The forward's inputs, its output o and lse, and dout (the gradient of
 // o, through strides). work is the fp32 workspace of
 // flash_attention_bwd_workspace floats, 16-byte aligned; dq, dk, dv are
-// contiguous in the layouts of q, k, v. Returns cudaGetLastError().
+// contiguous in the layouts of q, k, v (dv and o v_dim wide). Returns
+// cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(
     const void* q, long long q_sb, long long q_st, long long q_sh,
     const void* k, long long k_sb, long long k_st, long long k_sh,
@@ -247,12 +276,12 @@ extern "C" int flash_attention_bwd_launch(
     const void* o, const void* dout, long long do_sb, long long do_st,
     long long do_sh, const void* lse, void* work, void* dq, void* dk,
     void* dv, int batch, int n_t, int n_s, int nq, int nkv, int head_dim,
-    int causal, int window, int kv_len, float scale, int dtype,
+    int v_dim, int causal, int window, int kv_len, float scale, int dtype,
     void* stream) {
   const K2Args a = make_args(q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v,
                              v_sb, v_st, v_sh, batch, n_t, n_s, nq, nkv,
                              causal, window, kv_len, scale);
-  if (int bad = check(a, head_dim, dtype)) return bad;
+  if (int bad = check(a, head_dim, v_dim, dtype)) return bad;
   if (batch <= 0 || n_t <= 0 || n_s <= 0 || nq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return K2_DISPATCH(bwd, a, o, dout, do_sb, do_st, do_sh, lse, work, dq,

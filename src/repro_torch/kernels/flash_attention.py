@@ -40,6 +40,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+# K2's (q/k, v) widths: HEAD_DIMS, and MLA's (192, 128) with nq == nkv
+K2_DIMS = ((64, 64), (128, 128), (192, 128))
 MAX_PAGE = 32
 
 
@@ -220,20 +222,22 @@ def _fa_launcher(name: str):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         strided = [p, ll, ll, ll]
         if name == "flash_attention_fwd_launch":
-            fn.argtypes = [*strided * 3, p, p, i, i, i, i, i, i, i, i, i,
-                           ctypes.c_float, i, p]
+            fn.argtypes = [*strided * 3, p, p, *[i] * 10, ctypes.c_float, i,
+                           p]
         elif name == "flash_attention_bwd_launch":
             fn.argtypes = [*strided * 3, p, *strided, p, p, p, p, p,
-                           i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+                           *[i] * 10, ctypes.c_float, i, p]
         else:  # flash_attention_bwd_workspace
-            fn.argtypes = [i] * 6
+            fn.argtypes = [i] * 7
             fn.restype = ll
             return fn
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_qkv(what, q, k, v, extra=()):
+def _check_qkv(what, q, k, v, extra=(), *, mla: bool = False):
+    """Refuse what the attention kernels do not take; ``mla``: K2's widths
+    (``K2_DIMS``), else one head_dim in HEAD_DIMS for q, k and v."""
     tensors = (q, k, v, *extra)
     if not (q.is_cuda and all(t.device == q.device for t in tensors)):
         raise ValueError(f"{what} needs all inputs on one CUDA device, got "
@@ -242,11 +246,16 @@ def _check_qkv(what, q, k, v, extra=()):
         raise TypeError(f"{what} takes float32 or bfloat16 inputs of one "
                         f"dtype, got {[t.dtype for t in tensors]}")
     B, T, nq, hd = q.shape
-    if (hd not in HEAD_DIMS or k.shape[::3] != (B, hd) or k.shape != v.shape
+    dv = v.shape[-1]
+    dims = ((hd, dv) in K2_DIMS and (hd == dv or nq == k.shape[2])
+            if mla else hd in HEAD_DIMS and dv == hd)
+    if (not dims or k.shape[::3] != (B, hd) or k.shape[:3] != v.shape[:3]
             or k.shape[2] == 0 or nq % k.shape[2] or min(T, k.shape[1]) == 0):
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} (head_dim in "
-                         f"{HEAD_DIMS}, nq a multiple of nkv, T, S > 0)")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} ((q/k, v) "
+                         f"widths in {K2_DIMS if mla else HEAD_DIMS}, (192, "
+                         f"128) with nq == nkv; nq a multiple of nkv, T, S "
+                         f"> 0)")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{what} needs unit stride in head_dim")
 
@@ -257,18 +266,19 @@ def _strided(t):
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                            kv_len: int = 0):
-    """Launch the CUDA forward on CUDA tensors; returns (out (B, T, nq, hd)
-    in q's dtype, lse (B, nq, T) fp32). Raises on what it does not take.
+    """Launch the CUDA forward on CUDA tensors; returns (out (B, T, nq, dv)
+    in q's dtype, lse (B, nq, T) fp32), dv v's width (q's, or 128 beside
+    MLA's q/k width 192). Raises on what it does not take.
     ``flash_attention_kernel.launches`` counts the launches."""
-    _check_qkv("flash_attention_kernel", q, k, v)
+    _check_qkv("flash_attention_kernel", q, k, v, mla=True)
     B, T, nq, hd = q.shape
-    S, nkv = k.shape[1], k.shape[2]
-    out = torch.empty((B, T, nq, hd), dtype=q.dtype, device=q.device)
+    S, nkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    out = torch.empty((B, T, nq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, nq, T), dtype=torch.float32, device=q.device)
     err = _fa_launcher("flash_attention_fwd_launch")(
         *_strided(q), *_strided(k), *_strided(v), out.data_ptr(),
-        lse.data_ptr(), B, T, S, nq, nkv, hd, int(causal), window, kv_len,
-        1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+        lse.data_ptr(), B, T, S, nq, nkv, hd, dv, int(causal), window,
+        kv_len, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_kernel")
     flash_attention_kernel.launches += 1
@@ -291,26 +301,28 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *,
     (64-query, 32-key) tile pair, which the dK/dV pass writes for the dQ
     pass (B * nq * T * S floats, padded to whole tiles: 33.5 MB at B 2,
     T = S = 512, 16 heads), and under GQA each query head's dK and dV."""
-    _check_qkv("flash_attention_bwd_kernel", q, k, v, (out, dout))
+    _check_qkv("flash_attention_bwd_kernel", q, k, v, (out, dout),
+               mla=True)
     B, T, nq, hd = q.shape
-    S, nkv = k.shape[1], k.shape[2]
-    if (dout.shape != q.shape or out.shape != q.shape
+    S, nkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
+    if (dout.shape != (B, T, nq, dv_dim) or out.shape != dout.shape
             or not out.is_contiguous() or lse.shape != (B, nq, T)
             or lse.dtype != torch.float32 or not lse.is_contiguous()):
         raise ValueError("flash_attention_bwd_kernel needs out and dout "
-                         "shaped like q (out contiguous) and the forward's "
-                         "contiguous fp32 lse (B, nq, T)")
+                         "shaped like the forward's output (out "
+                         "contiguous) and its contiguous fp32 lse (B, nq, "
+                         "T)")
     n_work = _fa_launcher("flash_attention_bwd_workspace")(B, T, S, nq,
-                                                           nkv, hd)
+                                                           nkv, hd, dv_dim)
     work = torch.empty((n_work,), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, T, nq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, nkv, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, S, nkv, dv_dim), dtype=q.dtype, device=q.device)
     err = _fa_launcher("flash_attention_bwd_launch")(
         *_strided(q), *_strided(k), *_strided(v), out.data_ptr(),
         *_strided(dout), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, S, nq, nkv, hd, int(causal),
-        window, kv_len, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+        dk.data_ptr(), dv.data_ptr(), B, T, S, nq, nkv, hd, dv_dim,
+        int(causal), window, kv_len, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_kernel")
     flash_attention_bwd_kernel.launches += 1

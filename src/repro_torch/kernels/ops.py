@@ -18,8 +18,9 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
-from repro_torch.kernels.block_matmul import (block_matmul_kernel,
-                                              block_matmul_plain)
+from repro_torch.kernels.block_matmul import (
+    block_matmul_batched_kernel, block_matmul_batched_plain,
+    block_matmul_kernel, block_matmul_plain)
 from repro_torch.kernels.flash_attention import (
     FlashAttention, attn_core, flash_attention_bwd_kernel,
     flash_attention_kernel, paged_attention_kernel, paged_attention_plain,
@@ -33,6 +34,7 @@ from repro_torch.kernels.selective_scan import (selective_scan_kernel,
 
 KERNELS = (rmsnorm_kernel, rmsnorm_stats_kernel, rmsnorm_apply_kernel,
            paged_attention_kernel, block_matmul_kernel,
+           block_matmul_batched_kernel,
            flash_attention_kernel, flash_attention_bwd_kernel,
            selective_scan_kernel, partial_attention_kernel,
            partial_attention_bwd_kernel)
@@ -66,6 +68,18 @@ def matmul(a, b, *, out_dtype=None, plain: bool = False):
     if _TAPE is not None:
         return _TAPE.matmul(a, b, out_dtype, plain)
     fn = block_matmul_plain if _plain(a, plain) else block_matmul_kernel
+    return fn(a, b, out_dtype=out_dtype)
+
+
+def bmm(a, b, *, out_dtype=None, plain: bool = False):
+    """(E, M, K) @ (E, K, N) with fp32 accumulation, in ``out_dtype``
+    (default: a's dtype), the E products in one launch (K1's batched
+    entry). Either operand may be a view transposed or sliced in its last
+    two dims. Never taped: remat "dots" saves the products without batch
+    dims, as the reference's policy does, so a rematerialized block
+    recomputes its expert products."""
+    fn = (block_matmul_batched_plain if _plain(a, plain)
+          else block_matmul_batched_kernel)
     return fn(a, b, out_dtype=out_dtype)
 
 

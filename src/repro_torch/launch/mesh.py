@@ -5,7 +5,7 @@ A mesh of one rank needs no process group. A mesh of more ranks runs one
 process per rank, started by ``torch.distributed.run``, which sets
 ``RANK``, ``WORLD_SIZE`` and the rendezvous address; the world size must
 equal the mesh's product. Rank r sits at the row-major coordinates of r
-over (data, x, y, z, seq) and every rank creates the group of each axis
+over (data, x, y, z, seq, expert) and every rank creates the group of each axis
 and axis tuple (``core.mesh.init_groups``). The backend is gloo, on the
 CPU and on the card (CUDA tensors are staged through host memory by
 ``core.mesh``); NCCL with one rank per card is the ROADMAP.md §1 item
@@ -30,7 +30,7 @@ TIMEOUT_S = 60
 
 
 def mesh_axes(spec: str) -> M.MeshAxes:
-    """``"g_data,g_x,g_y,g_z[,g_seq]"`` -> MeshAxes."""
+    """``"g_data,g_x,g_y,g_z[,g_seq[,g_expert]]"`` -> MeshAxes."""
     return M.MeshAxes(tuple(int(x) for x in spec.split(",")))
 
 

@@ -24,7 +24,8 @@ from repro_torch.core import gradsync as GS
 from repro_torch.core import mesh as M
 from repro_torch.core.overdecompose import split_batch
 from repro_torch.core.overlap import OverlapConfig
-from repro_torch.core.partition import param_spec, z_reduce_grads
+from repro_torch.core.partition import (expert_reduce_grads, param_spec,
+                                        z_reduce_grads)
 from repro_torch.models import decoder as D
 from repro_torch.models.base import ArchConfig
 from repro_torch.optim import adamw as OPT
@@ -121,13 +122,17 @@ def sync_grads(grads, axes: M.MeshAxes):
     tensor): the data-parallel all-reduce (paper §3.1) and over seq, in
     place, one leaf at a time in the same order on every rank (parameters
     are replicated over seq, and each seq-rank's gradients hold only its
-    own tokens' contributions); then over z for parameters whose backward
-    has not reduced them there, and over y for those whose y ranks hold
-    parts of them (``partition.z_reduce_grads``). Every rank holding the
-    same block gets the same bits."""
+    own tokens' contributions); then over the expert axis for every
+    parameter not sharded over it (``partition.expert_reduce_grads``: for
+    the dense layers it is a second data axis), over z for parameters
+    whose backward has not reduced them there, and over y for those whose
+    y ranks hold parts of them (``partition.z_reduce_grads``). Every rank
+    holding the same block gets the same bits."""
     if axes.size(("data", "seq")) > 1:
         for g in grads.values():
             g.copy_(M.psum(g, axes, ("data", "seq")))
+    if axes.gexpert > 1:
+        grads = expert_reduce_grads(grads, axes)
     return z_reduce_grads(grads, axes)
 
 
@@ -239,6 +244,11 @@ def make_train_step(cfg: ArchConfig, axes: M.MeshAxes,
       shards. The plan is the reference's ``make_leaf_plan``."""
     axes = axes.with_overlap(opts.overlap)
     gs = opts.gradsync
+    if axes.gexpert > 1 and gs.enabled:
+        raise NotImplementedError(
+            "expert parallelism with sharded grad sync (--zero/--zero3/"
+            "stream) is not wired yet: the bucket shards lose the "
+            "per-param specs the expert-axis reduction needs")
     loss_fn = _loss_fn(cfg, axes, opts)
     plans = [tools.plan] if tools is not None else []
 

@@ -1,5 +1,5 @@
 """Training entry point of the port: the 4D-hybrid train step on one
-device, or on a mesh of ranks (data, x, y, z and seq above 1).
+device, or on a mesh of ranks (data, x, y, z, seq and expert above 1).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --preset full --steps 3 --batch 4 --seq 512 --overdecompose 2
@@ -11,12 +11,21 @@ gradients in fp32 and applies AdamW, as the JAX package's
 ``make_train_step`` does in its plain mode. The data is the JAX package's
 synthetic Markov text (``data/synthetic.py``).
 
-``--mesh d,x,y,z[,seq]`` runs one process per rank of the mesh under
-``torch.distributed.run``, with the blocking collective schedule of the
-JAX step's plain mode: each rank draws its block of every weight from the
-seed (by its PartitionSpec), the batch splits over data and z, the
+``--mesh d,x,y,z[,seq[,expert]]`` runs one process per rank of the mesh
+under ``torch.distributed.run``, with the blocking collective schedule of
+the JAX step's plain mode: each rank draws its block of every weight from
+the seed (by its PartitionSpec), the batch splits over data and z, the
 features and heads over x, y and z, a fifth factor splits each sequence
-over a seq axis (context parallelism, attention through kernel K4):
+over a seq axis (context parallelism, attention through kernel K4), and
+a sixth is the expert axis of an MoE model (``deepseek-v2-lite-16b``):
+the batch splits over it as well, and the expert bank over (y, expert),
+its tokens crossing by the all-to-all of ``layers/moe.py``:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch deepseek-v2-lite-16b --preset smoke --device cpu \
+      --mesh 1,1,2,1,1,2 --steps 3 --batch 4 --seq 64
+
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 8 -m repro_torch.launch.train --arch qwen3-1.7b \\
@@ -108,6 +117,7 @@ from repro_torch.launch import roofline as RL
 from repro_torch.launch import telemetry as TL
 from repro_torch.launch.mesh import close_mesh, init_mesh, mesh_axes
 from repro_torch.launch.steps import param_sha256
+from repro_torch.layers import moe as MOE
 from repro_torch.optim.adamw import AdamWConfig, init_state
 
 # flag -> the ROADMAP.md §1 item it waits for
@@ -195,9 +205,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4,
                     help="peak AdamW learning rate")
     ap.add_argument("--mesh", default="1,1,1,1",
-                    help="g_data,g_x,g_y,g_z[,g_seq] (a mesh of more than "
-                         "one rank runs one process per rank under "
-                         "torch.distributed.run)")
+                    help="g_data,g_x,g_y,g_z[,g_seq[,g_expert]] (a mesh of "
+                         "more than one rank runs one process per rank "
+                         "under torch.distributed.run)")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
                     help="torch.distributed backend of a mesh with more "
                          "than one rank (gloo; nccl is not ported)")
@@ -297,6 +307,9 @@ class TrainResult:
     dp_sync: List[dict] = dataclasses.field(default_factory=list)
     # this rank's persistent state in bytes (steps.state_layouts)
     state_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the (token, slot) pairs this rank's MoE layers dropped for want of
+    # capacity, each step
+    moe_dropped: List[int] = dataclasses.field(default_factory=list)
     # the checkpoint: {"bytes", "save_s": [...], "restore_s"} (--ckpt)
     ckpt: Dict[str, object] = dataclasses.field(default_factory=dict)
     first_step: int = 0          # the step this run started at
@@ -494,6 +507,7 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
             {k: torch.from_numpy(v).to(dev) for k, v in
              make_batch(cfg, step, data, dtype=np.float32).items()}, axes)
         comm0 = copy.deepcopy((M.COMM, M.COMM_AXES, M.HOPS, GS.DP_SYNC))
+        MOE.reset_dropped(model)
         t0 = time.perf_counter()
         metrics = step_fn(model, state, batch)
         loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -513,6 +527,7 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
         res.comm_bytes.append(sum(c["bytes"] for c in by_kind.values()))
         res.losses.append(loss)
         res.grad_norms.append(gn)
+        res.moe_dropped.append(MOE.dropped(model))
         if profiling is not None and step == window[1]:
             _stop_profile(profiling, res, window, prof_dir, run["rank"], say)
             profiling = None
@@ -573,7 +588,7 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
                 hops_by_axis=res.hops_by_axis,
                 max_memory_bytes=res.max_memory_bytes,
                 max_rss_bytes=res.max_rss_bytes, launches=res.launches, dp_sync=res.dp_sync,
-                state_bytes=res.state_bytes,
+                state_bytes=res.state_bytes, moe_dropped=res.moe_dropped,
                 param_sha256=param_sha256(model) if multi else None,
                 comm_by_scope=res.comm_by_scope,
                 collectives=res.collectives,

@@ -29,6 +29,11 @@ ported:
     over its keys with the row's log-sum-exp, and
     :func:`decode_core_seqsharded` merges the shards over data.
 
+:class:`MLA` is DeepSeek's multi-head latent attention in mode
+``"train"``: q/k 192 wide (128 from the latent, 64 rotary) and v 128, run
+by K2 at those widths; its serving modes (the latent cache's prefill and
+the absorbed decode) are refused.
+
 qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
 ``attn_core`` (and ``attn_core_chunked``, the same function, with its
 ``_softmax_fp32``) is K2's plain version, ``attn_core_partial`` K4's and
@@ -45,7 +50,7 @@ from repro_torch.core import parallel as PP
 from repro_torch.core import trace
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
-from repro_torch.layers.rotary import apply_rope
+from repro_torch.layers.rotary import apply_rope, apply_rope_interleaved_neox
 
 # rows of the dense decode cache per K5 page: one lane per key
 DENSE_PAGE = 32
@@ -215,6 +220,82 @@ class Attention(nn.Module):
         return decode_core_seqsharded(q, kc, vc, positions[0, 0], self.axes,
                                       window=self.cfg.sliding_window,
                                       plain=plain)
+
+
+class MLA(nn.Module):
+    """DeepSeek's multi-head latent attention (``mla_init`` and
+    ``mla_apply``'s ``"train"`` branch): q = h w_q (heads over y); the
+    latent dkv = h w_dkv (d/x -> kv_lora + rope, replicated over x and y),
+    split into c_kv, normed by ``kv_norm`` (the reference's ``_plain_rms``,
+    here K3 over rows of width kv_lora), and one rotary key k_rope shared by
+    every head; k_nope = c_kv w_uk and v = c_kv w_uv (heads over y). Both q
+    and k take NeoX rotation on their rope part. K2 attends at q/k
+    qk_nope + qk_rope and v v_dim (192 and 128 at full width) with the
+    scale 1 / sqrt(qk_nope + qk_rope).
+
+    The shared k_rope's gradient is summed over y (``parallel.bwd_psum``):
+    each y rank back-propagates only its own heads' share, which the
+    reference leaves partial where G_y > 1, so that its y ranks would
+    apply different updates to the replicated w_dkv (ROADMAP.md §3)."""
+
+    def __init__(self, cfg, axes: M.MeshAxes, *, gen: torch.Generator,
+                 dtype=torch.float32):
+        super().__init__()
+        m = cfg.mla
+        if m.q_lora_rank:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA with a compressed query (q_lora_rank "
+                f"{m.q_lora_rank}) is not ported to PyTorch yet: it waits "
+                f"for the ROADMAP.md §1 item 'MoE and the expert axis' "
+                f"(DeepSeek-V3)")
+        self.cfg, self.axes = cfg, axes
+        self.nq_l = cfg.n_heads // axes.gy
+        nq, d = cfg.n_heads, cfg.d_model
+        qk = m.qk_nope_dim + m.qk_rope_dim
+
+        def lin(k, n, in_shard, out_shard):
+            return nn.Parameter(PP.tp_linear_init(
+                gen, k, n, axes, in_shard, out_shard, dtype=dtype))
+        self.w_q = lin(d, nq * qk, "x", "y")
+        self.w_dkv = lin(d, m.kv_lora_rank + m.qk_rope_dim, "x", None)
+        self.kv_norm = nn.Parameter(torch.ones(m.kv_lora_rank, dtype=dtype,
+                                               device=gen.device))
+        self.w_uk = lin(m.kv_lora_rank, nq * m.qk_nope_dim, None, "y")
+        self.w_uv = lin(m.kv_lora_rank, nq * m.v_dim, None, "y")
+        self.wo = lin(nq * m.v_dim, d, "y", "x")
+
+    def forward(self, h, *, positions, mode: str = "train", cache=None,
+                paged=None, plain: bool = False):
+        """h (B, T, d/x) at ``positions`` (B, T) -> (B, T, d/x)."""
+        cfg, axes, m = self.cfg, self.axes, self.cfg.mla
+        if mode != "train":
+            raise NotImplementedError(
+                f"{cfg.name}: MLA in mode {mode!r} (its latent cache's "
+                f"prefill and absorbed decode) is not ported to PyTorch "
+                f"yet: it waits for the ROADMAP.md §1 item 'MLA serving'")
+        B, T = h.shape[:2]
+        nq_l = self.nq_l
+        dkv = PP.tp_matmul(h, self.w_dkv, axes, "x", None, plain=plain)
+        ckv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+        ckv = _plain_rms(ckv.contiguous(), self.kv_norm, axes, plain=plain)
+        k_rope = apply_rope_interleaved_neox(k_rope[:, :, None, :],
+                                             positions, cfg.rope_theta)
+        k_rope = PP.bwd_psum(k_rope, axes, "y")
+        q = PP.tp_matmul(h, self.w_q, axes, "x", "y", plain=plain).reshape(
+            B, T, nq_l, m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+        q_rope = apply_rope_interleaved_neox(q_rope, positions,
+                                             cfg.rope_theta)
+        k_nope = PP.tp_matmul(ckv, self.w_uk, axes, None, "y", plain=plain
+                              ).reshape(B, T, nq_l, m.qk_nope_dim)
+        v = PP.tp_matmul(ckv, self.w_uv, axes, None, "y", plain=plain
+                         ).reshape(B, T, nq_l, m.v_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(B, T, nq_l, m.qk_rope_dim)],
+                      dim=-1)
+        out = ops.flash_attention(q, k, v, causal=True, plain=plain)
+        return PP.tp_matmul(out.reshape(B, T, nq_l * m.v_dim), self.wo,
+                            axes, "y", "x", plain=plain)
 
 
 def partial_chain(q, kg, vg, rank: int, p: int, *, window: int = 0,

@@ -31,3 +31,18 @@ def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0):
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out, xp], dim=-1).to(x.dtype)
+
+
+def apply_rope_interleaved_neox(x, positions, theta: float):
+    """NeoX-style half rotation over the whole last dim (MLA's rope
+    sub-dim): the first half paired with the second. x (B, T, n, d);
+    positions (B, T) int."""
+    d = x.shape[-1]
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+    inv = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * inv
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :d // 2], x[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)

@@ -1,15 +1,13 @@
 """Architecture configuration (the port's copy of ``repro.models.base``).
 
 Only the fields and methods the ported slices read are kept: dense
-all-attention decoders and Jamba's hybrid Mamba/attention decoder, with
-RMSNorm or LayerNorm, a gated or ungated MLP of SiLU, GELU or squared
-ReLU, and a tied or untied LM head. ``comm_layers`` and
-``tp_constraints`` describe a configuration to the analytical model
-(``core/comm_model.py``) as the JAX ``ArchConfig``'s do, for the mixers
-and FFNs the port builds; ``__post_init__`` rejects what the slices
-cannot run. A configuration with MoE FFNs can be made (so that the
-registry holds the published Jamba), but the model refuses to be built
-from it, and ``comm_layers`` refuses to price it.
+all-attention decoders, DeepSeek's MLA decoders with MoE FFNs, and
+Jamba's hybrid Mamba/attention decoder with its experts, with RMSNorm or
+LayerNorm, a gated or ungated MLP of SiLU, GELU or squared ReLU, and a
+tied or untied LM head. ``comm_layers`` and ``tp_constraints`` describe a
+configuration to the analytical model (``core/comm_model.py``) as the JAX
+``ArchConfig``'s do, for the mixers and FFNs the port builds;
+``__post_init__`` rejects what the slices cannot run.
 """
 from __future__ import annotations
 
@@ -35,6 +33,15 @@ class MoECfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLACfg:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class MambaCfg:
     d_state: int = 16
     d_conv: int = 4
@@ -45,7 +52,7 @@ class MambaCfg:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                   # "dense" or "hybrid" are ported
+    arch_type: str                   # "dense", "moe" or "hybrid" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +69,7 @@ class ArchConfig:
     rotary_pct: float = 1.0
     tie_embeddings: bool = False
     max_seq: int = 131072
+    mla: Optional[MLACfg] = None
     moe: Optional[MoECfg] = None
     mamba: Optional[MambaCfg] = None
     mixer_pattern: Tuple[str, ...] = ()   # per-layer mixer kinds (or period)
@@ -70,7 +78,7 @@ class ArchConfig:
 
     def __post_init__(self):
         unsupported = []
-        if self.arch_type not in ("dense", "hybrid"):
+        if self.arch_type not in ("dense", "moe", "hybrid"):
             unsupported.append(f"arch_type {self.arch_type!r}")
         if self.norm not in ("rmsnorm", "layernorm"):
             unsupported.append(f"norm {self.norm!r}")
@@ -78,7 +86,7 @@ class ArchConfig:
             unsupported.append(f"act {self.act!r}")
         if unsupported:
             raise NotImplementedError(
-                f"{self.name}: the PyTorch port serves dense and hybrid "
+                f"{self.name}: the PyTorch port serves dense, MoE and hybrid "
                 f"decoders with RMSNorm or LayerNorm and a SiLU, GELU or "
                 f"squared-ReLU MLP only (got {', '.join(unsupported)}); "
                 f"they wait for the ROADMAP.md §1 item 'dense config "
@@ -110,6 +118,8 @@ class ArchConfig:
             if self.n_layers % len(p):
                 raise ValueError("mixer_pattern must divide n_layers")
             return tuple(p) * (self.n_layers // len(p))
+        if self.mla is not None:
+            return ("mla",) * self.n_layers
         return ("attn",) * self.n_layers
 
     def ffns(self) -> Tuple[str, ...]:
@@ -135,16 +145,18 @@ class ArchConfig:
         """Why this config cannot run on ``axes`` (None if it can): the
         JAX ``axes_ok``'s checks, in its words. x must divide d_model, y
         the query heads, and y and the KV heads must divide one another
-        (the duplicated-KV layout takes G_y a multiple of them); MoE
-        experts shard over y. Context parallelism needs softmax attention
-        everywhere (a recurrent mixer mixes across the whole sequence and
-        would see only the local shard) and a ``max_seq`` that the seq
-        axis divides."""
+        (the duplicated-KV layout takes G_y a multiple of them; MLA has no
+        KV heads to lay out); MoE experts shard over y, and over (y,
+        expert) on an expert axis, which needs an MoE architecture.
+        Context parallelism needs softmax attention everywhere (a
+        recurrent mixer mixes across the whole sequence and would see only
+        the local shard) and a ``max_seq`` that the seq axis divides."""
         if self.d_model % axes.gx:
             return f"d_model {self.d_model} % gx {axes.gx}"
         if self.n_heads % axes.gy:
             return f"heads {self.n_heads} % gy {axes.gy}"
-        if self.n_kv_heads % axes.gy and axes.gy % self.n_kv_heads:
+        if (self.mla is None and self.n_kv_heads % axes.gy
+                and axes.gy % self.n_kv_heads):
             return f"kv heads {self.n_kv_heads} vs gy {axes.gy}"
         if self.moe and self.moe.n_experts % axes.gy:
             return f"experts {self.moe.n_experts} % gy {axes.gy}"
@@ -154,6 +166,13 @@ class ArchConfig:
                         f"mixers, got {sorted(set(self.mixers()))}")
             if self.max_seq % axes.gseq:
                 return f"max_seq {self.max_seq} % g_seq {axes.gseq}"
+        if axes.gexpert > 1:
+            if self.moe is None:
+                return (f"expert axis (g_expert={axes.gexpert}) needs an "
+                        f"MoE architecture")
+            if self.moe.n_experts % (axes.gy * axes.gexpert):
+                return (f"experts {self.moe.n_experts} % gy*g_expert "
+                        f"{axes.gy * axes.gexpert}")
         return None
 
     def validate_axes(self, axes) -> None:
@@ -214,6 +233,15 @@ class ArchConfig:
             if mixer == "attn":
                 total += d * (self.n_heads + 2 * self.n_kv_heads) * hd
                 total += self.n_heads * hd * d
+            elif mixer == "mla":
+                m = self.mla
+                qk = m.qk_nope_dim + m.qk_rope_dim
+                total += d * (m.q_lora_rank or 0)
+                total += (m.q_lora_rank or d) * self.n_heads * qk
+                total += d * (m.kv_lora_rank + m.qk_rope_dim)
+                total += m.kv_lora_rank * self.n_heads * (
+                    m.qk_nope_dim + m.v_dim)
+                total += self.n_heads * m.v_dim * d
             elif mixer == "mamba":
                 di = self.mamba.expand * d
                 dtr = self.dt_rank
@@ -246,14 +274,22 @@ class ArchConfig:
     def comm_layers(self) -> Tuple[LayerShape, ...]:
         """LayerShapes for the communication model (paper §5), as the JAX
         ``comm_layers`` gives them for attention (its ``kv_ring_width``
-        prices the seq axis's KV circulation), Mamba and the MLP. MoE
-        FFNs are refused: their expert bank and all-to-all wait for the
-        MoE slice."""
+        prices the seq axis's KV circulation), MLA (its q and output
+        projections), Mamba, the MLP and MoE: the activated expert width
+        (top_k + shared experts), its bank sharded over the expert axis
+        (``expert``) and the dispatch and combine all-to-all priced on the
+        up projection (``a2a_width``, capacity slots x d a token)."""
         d = self.d_model
         hd = self.head_dim_
         out = []
         for mixer, ffn in self.layer_kinds():
-            if mixer == "attn":
+            if mixer == "mla":
+                m = self.mla
+                out.append(LayerShape(
+                    d, self.n_heads * (m.qk_nope_dim + m.qk_rope_dim)))
+                out.append(LayerShape(self.n_heads * m.v_dim, d,
+                                      transposed=True))
+            elif mixer == "attn":
                 out.append(LayerShape(
                     d, (self.n_heads + 2 * self.n_kv_heads) * hd,
                     kv_ring_width=2 * self.n_kv_heads * hd))
@@ -264,20 +300,20 @@ class ArchConfig:
                 out.append(LayerShape(d, 2 * di))
                 out.append(LayerShape(di, d, transposed=True))
             else:
-                item = ("MoE and the expert axis" if mixer == "mla"
-                        else "other mixers and architectures")
                 raise NotImplementedError(
                     f"{self.name}: comm_layers of mixer {mixer!r} is not "
                     f"ported to PyTorch yet: it waits for the ROADMAP.md "
-                    f"§1 item '{item}'")
+                    f"§1 item 'other mixers and architectures'")
             if ffn == "mlp":
                 out.append(LayerShape(d, self._mlp_mult * self.d_ff))
                 out.append(LayerShape(self.d_ff, d, transposed=True))
-            else:
-                raise NotImplementedError(
-                    f"{self.name}: comm_layers of ffn {ffn!r} is not "
-                    f"ported to PyTorch yet: it waits for the ROADMAP.md §1 "
-                    f"item 'MoE and the expert axis'")
+            elif ffn == "moe":
+                mc = self.moe
+                fa = mc.top_k * mc.d_expert + mc.n_shared * mc.d_expert
+                out.append(LayerShape(
+                    d, self._mlp_mult * fa, expert=True,
+                    a2a_width=mc.capacity_factor * mc.top_k * d))
+                out.append(LayerShape(fa, d, transposed=True, expert=True))
         return tuple(out)
 
     def tp_constraints(self, global_batch: int) -> Constraints:
@@ -294,8 +330,9 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """The JAX package's smoke variant: d_model <= 256, at most 4
-        heads, one period of layer kinds (2 layers for a dense decoder, 8
-        for Jamba), <= 4 experts."""
+        heads, one period of layer kinds (2 layers for a dense decoder or
+        DeepSeek, 8 for Jamba), <= 4 experts, MLA's latent 64 and head
+        widths 48 (q/k) and 32 (v)."""
         n_layers = max(2, self.scan_period())
         if n_layers > 8:
             n_layers = 2
@@ -312,6 +349,11 @@ class ArchConfig:
                 d_expert=128, n_shared=min(self.moe.n_shared, 1),
                 first_dense=min(self.moe.first_dense, 1)
                 if n_layers > 1 else 0)
+        if self.mla:
+            kw["mla"] = MLACfg(kv_lora_rank=64, q_lora_rank=(
+                32 if self.mla.q_lora_rank else 0), qk_nope_dim=32,
+                qk_rope_dim=16, v_dim=32)
+            kw["head_dim"] = 0
         if self.mixer_pattern:
             kw["mixer_pattern"] = tuple(
                 m for m, _ in self.layer_kinds())[:n_layers]

@@ -4,8 +4,10 @@ serving (port of ``repro.models.decoder``).
 The JAX package scans over layers stacked (n_periods, ...) per segment
 position; here the layers are an ``nn.ModuleList`` and the scan is a Python
 loop. Each layer's (mixer, ffn) kind comes from ``cfg.layer_kinds()``:
-softmax attention or Mamba, and the MLP (gated or not); the residual
-norms are RMSNorm or LayerNorm, as ``cfg.norm`` says. Parameter names
+softmax attention, MLA (training only) or Mamba, and the MLP (gated or
+not) or MoE, whose aux loss the blocks carry through the layers into
+``lm_loss``, as the reference's scan carries it; the residual norms are
+RMSNorm or LayerNorm, as ``cfg.norm`` says. Parameter names
 follow the JAX tree with the stacking undone: ``embed``,
 ``layers.<i>.norm1.g`` (and a LayerNorm's ``.b``),
 ``layers.<i>.mixer.wq``, ..., ``final_norm.g``, ``lm_head`` when the head
@@ -37,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.layers import attention as A
 from repro_torch.layers.mamba import Mamba, mamba_state_spec
 from repro_torch.layers.mlp import MLP
+from repro_torch.layers.moe import MoE
 from repro_torch.models.base import ArchConfig
 
 
@@ -81,24 +84,22 @@ def make_norm(cfg: ArchConfig, axes: M.MeshAxes, *, device,
 
 
 class Block(nn.Module):
-    """Pre-norm mixer + MLP block (``_block_apply``): the mixer is softmax
-    attention or Mamba, as ``kinds`` = (mixer, ffn) says."""
+    """Pre-norm mixer + FFN block (``_block_apply``): the mixer is softmax
+    attention, MLA or Mamba and the FFN the MLP or MoE, as ``kinds`` =
+    (mixer, ffn) says. Returns (h, aux), aux the MoE layer's aux loss (0
+    for an MLP)."""
 
     def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, kinds, *,
                  gen: torch.Generator, dtype=torch.float32):
         super().__init__()
         mixer, ffn = kinds
-        if ffn != "mlp":
-            raise NotImplementedError(
-                f"{cfg.name}: a {ffn!r} FFN is not ported to PyTorch yet: it "
-                f"waits for the ROADMAP.md §1 item 'MoE and the expert "
-                f"axis' (jamba-v0.1-52b-dense-ffn replaces Jamba's experts "
-                f"with the dense MLP)")
         dev = gen.device
-        self.kind = mixer
+        self.kind, self.ffn_kind = mixer, ffn
         self.norm1 = make_norm(cfg, axes, device=dev, dtype=dtype)
         if mixer == "attn":
             self.mixer = A.Attention(cfg, axes, gen=gen, dtype=dtype)
+        elif mixer == "mla":
+            self.mixer = A.MLA(cfg, axes, gen=gen, dtype=dtype)
         elif mixer == "mamba":
             self.mixer = Mamba(cfg, axes, gen=gen, dtype=dtype)
         else:
@@ -107,8 +108,11 @@ class Block(nn.Module):
                 f"it waits for the ROADMAP.md §1 item 'other mixers and "
                 f"architectures'")
         self.norm2 = make_norm(cfg, axes, device=dev, dtype=dtype)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, axes, gen=gen, act=cfg.act,
-                       gated=cfg.gated_mlp, dtype=dtype)
+        if ffn == "moe":
+            self.ffn = MoE(cfg, axes, gen=gen, dtype=dtype)
+        else:
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, axes, gen=gen, act=cfg.act,
+                           gated=cfg.gated_mlp, dtype=dtype)
 
     def forward(self, h, *, positions, mode: str, cache=None, paged=None,
                 plain: bool = False):
@@ -123,7 +127,13 @@ class Block(nn.Module):
             o = self.mixer(hn, positions=positions, mode=mode, cache=cache,
                            paged=paged, plain=plain)
         h = h + o
-        return h + self.ffn(self.norm2(h, plain=plain), plain=plain)
+        hn = self.norm2(h, plain=plain)
+        if self.ffn_kind == "moe":
+            o, aux = self.ffn(hn, plain=plain)
+        else:
+            o = self.ffn(hn, plain=plain)
+            aux = h.new_zeros((), dtype=torch.float32)
+        return h + o, aux
 
 
 class Decoder(nn.Module):
@@ -191,9 +201,10 @@ class Decoder(nn.Module):
     def hidden(self, tokens, *, mode: str = "train", positions=None,
                pools=None, paged=None, remat: bool = True,
                remat_policy: str = "full", plain: bool = False,
-               pstream=None, resident=None):
+               pstream=None, resident=None, return_aux: bool = False):
         """``decoder_hidden``: (B, T) tokens -> (B, T, d/x) final-normed
-        hidden states.
+        hidden states; with ``return_aux`` also the sum of the MoE
+        layers' aux losses (fp32, 0 without MoE).
 
         ``mode="train"``: positions default to 0..T-1, or on a seq axis
         of size p to this rank's stripe j * p + r (the batch was striped
@@ -244,6 +255,7 @@ class Decoder(nn.Module):
         embed = self.embed if resident is None else resident["embed"]
         h = PP.embedding_lookup(tokens, embed, self.axes)
         remat = mode == "train" and remat
+        aux = None
         for i, blk in enumerate(self.layers):
             kw = dict(positions=positions, mode=mode, paged=paged,
                       plain=plain)
@@ -259,19 +271,29 @@ class Decoder(nn.Module):
                 kw = {}
             if remat and remat_policy == "dots":
                 tape = ops.K1Tape()
-                h = checkpoint(fn, *args, use_reentrant=False,
-                               context_fn=lambda t=tape: (t.record(),
-                                                          t.replay()), **kw)
+                h, a = checkpoint(fn, *args, use_reentrant=False,
+                                  context_fn=lambda t=tape: (t.record(),
+                                                             t.replay()),
+                                  **kw)
             elif remat:
-                h = checkpoint(fn, *args, use_reentrant=False, **kw)
+                h, a = checkpoint(fn, *args, use_reentrant=False, **kw)
             else:
-                h = fn(*args, **kw)
+                h, a = fn(*args, **kw)
+            if blk.ffn_kind == "moe":
+                aux = a if aux is None else aux + a
         if resident is None:
-            return self.final_norm(h, plain=plain)
-        return functional_call(
-            self.final_norm, {n: resident[f"final_norm.{n}"]
-                              for n, _ in self.final_norm.named_parameters()},
-            (h,), {"plain": plain})
+            h = self.final_norm(h, plain=plain)
+        else:
+            h = functional_call(
+                self.final_norm,
+                {n: resident[f"final_norm.{n}"]
+                 for n, _ in self.final_norm.named_parameters()},
+                (h,), {"plain": plain})
+        if not return_aux:
+            return h
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, aux
 
     def _layer_shards(self, i: int):
         return {n: s for n, s in self.shards.items()
@@ -341,8 +363,10 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
             remat: bool = True, xent_chunks: int = 1,
             remat_policy: str = "full", mtp_weight: float = 0.0,
             pstream=None, plain: bool = False):
-    """Mean cross-entropy over the *global* batch. Returns (loss, metrics)
-    with metrics {"xent", "aux"}; a dense decoder has no aux loss.
+    """Mean cross-entropy over the *global* batch plus the MoE layers' aux
+    loss, averaged over the token shards as the reference does. Returns
+    (loss, metrics) with metrics {"xent", "aux"}; a dense decoder's aux
+    is 0.
 
     With ``pstream`` (ZeRO-3; ``model.shards`` hold the parameters) the
     parameters that do not stream (embedding, final norm, an untied head,
@@ -352,7 +376,7 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
     for what, on, item in (
             ("image_embeds", image_embeds is not None,
              "other mixers and architectures"),
-            ("the MTP loss (mtp_weight > 0)", mtp_weight > 0.0,
+            ("the MTP loss (mtp_weight > 0; DeepSeek-V3)", mtp_weight > 0.0,
              "MoE and the expert axis")):
         if on:
             raise NotImplementedError(
@@ -361,9 +385,10 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
     cfg, axes = model.cfg, model.axes
     resident = (None if pstream is None
                 else pstream.resident(model.shards))
-    h = model.hidden(tokens, mode="train", remat=remat,
-                     remat_policy=remat_policy, plain=plain,
-                     pstream=pstream, resident=resident)
+    h, aux = model.hidden(tokens, mode="train", remat=remat,
+                          remat_policy=remat_policy, plain=plain,
+                          pstream=pstream, resident=resident,
+                          return_aux=True)
     B, T = labels.shape
 
     def chunk_loss(hc, lc):
@@ -384,7 +409,6 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
     # reduces over both (with seq unmapped, the batch reductions alone)
     total = PP.ar_bwd_identity(total, axes, axes.token_axes())
     loss = total / (B * T * axes.token_shards)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     aux_mean = (PP.ar_bwd_identity(aux, axes, axes.token_axes())
                 / axes.token_shards)
     return loss + aux_mean, {"xent": loss, "aux": aux_mean}
@@ -463,10 +487,11 @@ def decoder_cache_specs(cfg: ArchConfig, axes: M.MeshAxes, batch: int,
             out.append(mamba_state_spec(cfg, axes, batch, dtype=dtype,
                                         seqshard=seqshard))
         else:
+            item = ("MLA serving" if mixer == "mla"
+                    else "other mixers and architectures")
             raise NotImplementedError(
                 f"{cfg.name}: mixer {mixer!r} is not ported to PyTorch yet: "
-                f"it waits for the ROADMAP.md §1 item 'other mixers and "
-                f"architectures'")
+                f"it waits for the ROADMAP.md §1 item '{item}'")
     return out
 
 

@@ -28,56 +28,59 @@ def flash(tmp_path_factory):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     strided = [p, ll, ll, ll]
     fwd, bwd = lib.flash_attention_fwd_launch, lib.flash_attention_bwd_launch
-    fwd.argtypes = [*strided * 3, p, p, *[i] * 9, ctypes.c_float, i, p]
-    bwd.argtypes = [*strided * 3, p, *strided, p, p, p, p, p, *[i] * 9,
+    fwd.argtypes = [*strided * 3, p, p, *[i] * 10, ctypes.c_float, i, p]
+    bwd.argtypes = [*strided * 3, p, *strided, p, p, p, p, p, *[i] * 10,
                     ctypes.c_float, i, p]
     fwd.restype = bwd.restype = ctypes.c_int
     work = lib.flash_attention_bwd_workspace
-    work.argtypes = [i] * 6
+    work.argtypes = [i] * 7
     work.restype = ll
 
-    def tail(q, k, causal, window, kv_len):
+    def tail(q, k, v, causal, window, kv_len):
         B, T, nq, hd = q.shape
-        return [B, T, k.shape[1], nq, k.shape[2], hd, int(causal), window,
-                kv_len, 1.0 / math.sqrt(hd), DTYPE[q.dtype], None]
+        return [B, T, k.shape[1], nq, k.shape[2], hd, v.shape[-1],
+                int(causal), window, kv_len, 1.0 / math.sqrt(hd),
+                DTYPE[q.dtype], None]
 
     def strided_args(t):
         return [t.data_ptr(), *t.stride()[:3]]
 
     def forward(q, k, v, causal, window, kv_len):
         B, T, nq, hd = q.shape
-        out = torch.full((B, T, nq, hd), math.nan).to(q.dtype)
+        out = torch.full((B, T, nq, v.shape[-1]), math.nan).to(q.dtype)
         lse = torch.full((B, nq, T), math.nan)
         assert fwd(*strided_args(q), *strided_args(k), *strided_args(v),
                    out.data_ptr(), lse.data_ptr(),
-                   *tail(q, k, causal, window, kv_len)) == 0
+                   *tail(q, k, v, causal, window, kv_len)) == 0
         return out, lse
 
     def backward(q, k, v, out, lse, dout, causal, window, kv_len):
         B, T, nq, hd = q.shape
-        ws = torch.full((work(B, T, k.shape[1], nq, k.shape[2], hd),),
-                        math.nan)
-        dq = torch.full_like(out, math.nan)
-        dk, dv = (torch.full(k.shape, math.nan).to(k.dtype)
-                  for _ in range(2))
+        ws = torch.full((work(B, T, k.shape[1], nq, k.shape[2], hd,
+                              v.shape[-1]),), math.nan)
+        dq = torch.full(q.shape, math.nan).to(q.dtype)
+        dk = torch.full(k.shape, math.nan).to(k.dtype)
+        dv = torch.full(v.shape, math.nan).to(v.dtype)
         assert bwd(*strided_args(q), *strided_args(k), *strided_args(v),
                    out.data_ptr(), *strided_args(dout), lse.data_ptr(),
                    ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                   dv.data_ptr(), *tail(q, k, causal, window, kv_len)) == 0
+                   dv.data_ptr(), *tail(q, k, v, causal, window,
+                                        kv_len)) == 0
         return dq, dk, dv
     return forward, backward
 
 
-def flash_inputs(seed, B, T, S, nq, nkv, hd, dtype, shift):
+def flash_inputs(seed, B, T, S, nq, nkv, hd, dtype, shift, dv=None):
     """q, k, v in the model's (B, T, H, hd) layouts as views of wider rows
     (head stride hd + 8); ``shift`` 1 moves every row off 16 bytes, which
-    sends the kernel to its element-wise loads."""
+    sends the kernel to its element-wise loads. ``dv``: v's width where it
+    is not hd (MLA's 128 beside q/k 192)."""
     rng = np.random.RandomState(seed)
 
-    def rand(n, h):
-        wide = torch.from_numpy(rng.randn(B, n, h, hd + 8)).to(dtype)
-        return wide[..., shift:shift + hd]
-    return rand(T, nq), rand(S, nkv), rand(S, nkv)
+    def rand(n, h, width=hd):
+        wide = torch.from_numpy(rng.randn(B, n, h, width + 8)).to(dtype)
+        return wide[..., shift:shift + width]
+    return rand(T, nq), rand(S, nkv), rand(S, nkv, dv or hd)
 
 
 def plain_lse(q, k, causal, window, kv_len):

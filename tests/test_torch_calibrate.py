@@ -295,10 +295,20 @@ def test_comm_layers_match_the_reference(arch, size):
 
 
 def test_comm_layers_refuse_the_moe_ffns():
-    """Jamba's published MoE FFNs wait for the MoE slice."""
+    """Jamba's published MoE FFNs, refused here until the MoE slice, are
+    priced as the reference prices them (``tests/test_torch_moe.py``
+    compares every field); a mixer the port does not build is still
+    refused, naming its item."""
+    ours = get_config("jamba-v0.1-52b").comm_layers()
+    assert [dataclasses.astuple(x) for x in ours] == [
+        dataclasses.astuple(x)
+        for x in jax_get_config("jamba-v0.1-52b").comm_layers()]
+    assert sum(x.expert for x in ours) == 2 * 16
+    odd = dataclasses.replace(get_config("qwen3-1.7b"),
+                              mixer_pattern=("mlstm",))
     with pytest.raises(NotImplementedError,
-                       match="'MoE and the expert axis'"):
-        get_config("jamba-v0.1-52b").comm_layers()
+                       match="'other mixers and architectures'"):
+        odd.comm_layers()
 
 
 # ---------------------------------------------------------------------- #

@@ -599,6 +599,71 @@ def test_flash_attention_backward_at_the_path_shapes(cuda, case, dtype):
     assert all(torch.equal(a, b) for a, b in zip(again, grads))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [512, 130])
+def test_flash_attention_at_mla_widths(cuda, T, dtype):
+    """K2 at MLA's q/k 192 and v 128 (DeepSeek-V2-Lite's 16/16 heads),
+    forward and backward against the plain attn_core and its autograd, and
+    bitwise on a repeat."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, k, v, dout = (rand(2, T, 16, 192), rand(2, T, 16, 192),
+                     rand(2, T, 16, 128), rand(2, T, 16, 128))
+    out, lse = flash_attention_kernel(q, k, v, causal=True)
+    want = attn_core(q, k, v, causal=True)
+    assert out.shape == want.shape == (2, T, 16, 128)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max()), err
+    grads = FA.flash_attention_bwd_kernel(q, k, v, out, lse, dout,
+                                          causal=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    wants = torch.autograd.grad(attn_core(*leaves, causal=True), leaves,
+                                dout)
+    for g, w in zip(grads, wants):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= FLASH_TOL[dtype] * float(w.float().abs().max()), err
+    again = FA.flash_attention_bwd_kernel(q, k, v, out, lse, dout,
+                                          causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+# K1's batched entry at the expert shapes (E, C, K, N, layout): DeepSeek's
+# up and down projections forward, dX and dW; Jamba's prefill and decode
+BMM_SHAPES = [(64, 120, 2048, 2816, "NN"), (64, 120, 1408, 2048, "NN"),
+              (64, 120, 2816, 2048, "NT"), (64, 120, 2048, 2816, "TN"),
+              (16, 320, 4096, 1024, "NN"), (16, 4, 4096, 2048, "NN"),
+              (3, 17, 100, 72, "NT")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,K,N,layout", BMM_SHAPES)
+def test_block_matmul_batched_kernel_matches_plain(cuda, E, C, K, N, layout,
+                                                   dtype):
+    """One launch for the E products, against the plain version (fp32
+    upcast) at the 2-D entry's tolerance; bitwise on a repeat; for bf16
+    the float32 output rounds to the bf16 one."""
+    from repro_torch.kernels.block_matmul import (
+        block_matmul_batched_kernel, block_matmul_batched_plain)
+    gen = torch.Generator(device=cuda).manual_seed(E + C + K + N)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    a = rand(E, K, C).transpose(1, 2) if layout == "TN" else rand(E, C, K)
+    b = rand(E, N, K).transpose(1, 2) if layout == "NT" else rand(E, K, N)
+    n = block_matmul_batched_kernel.launches
+    got = ops.bmm(a, b)
+    assert block_matmul_batched_kernel.launches == n + 1
+    want = block_matmul_batched_plain(a, b)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype] * float(want.float().abs().max()), err
+    assert torch.equal(ops.bmm(a, b), got)
+    if dtype == torch.bfloat16:
+        wide = ops.bmm(a, b, out_dtype=torch.float32)
+        assert torch.equal(wide.to(dtype), got)
+
+
 # ---------------------------------------------------------------------- #
 # K4 partial flash attention, forward and backward
 # ---------------------------------------------------------------------- #

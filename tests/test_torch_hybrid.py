@@ -41,6 +41,7 @@ from repro_torch.kernels.selective_scan import selective_scan_plain
 from repro_torch.launch import serve
 from repro_torch.launch import steps as ST
 from repro_torch.layers.mamba import Mamba, mamba_state_spec
+from repro_torch.models import decoder as D
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -452,8 +453,17 @@ def test_config_matches_jax(name):
 
 
 def test_model_refuses_moe_ffns():
+    """Jamba's MoE FFNs, refused here until the MoE slice, are built
+    (``tests/test_torch_moe.py`` serves them against the reference); what
+    of the MoE item stays refused names it: DeepSeek-V3's multi-token
+    prediction loss."""
+    model = ST.init_model(get_config("jamba-v0.1-52b").reduced(),
+                          device="cpu")
+    kinds = [type(blk.ffn).__name__ for blk in model.layers]
+    assert kinds == ["MLP", "MoE"] * 4
+    toks = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="'MoE and the expert"):
-        ST.init_model(get_config("jamba-v0.1-52b").reduced(), device="cpu")
+        D.lm_loss(model, toks, toks, mtp_weight=0.3)
 
 
 def test_params_from_jax_uses_every_leaf_once(jamba):

@@ -125,3 +125,100 @@ def test_the_cases_cover_every_path_and_both_loads():
         seen |= {p.path, ("split", p.splits > 1), ("vec", vec)}
     assert seen >= set(BM.PATHS) | {("split", True), ("split", False),
                                     ("vec", True), ("vec", False)}
+
+
+# ---------------------------------------------------------------------- #
+# the batched entry: E products in one launch
+# ---------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def batched(tmp_path_factory):
+    lib = compile_source("block_matmul",
+                         tmp_path_factory.mktemp("k1_batched_emulated"))
+    fn = lib.block_matmul_batched_launch
+    fn.argtypes = BM.BATCHED_ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def run(a, b, out_dtype=None):
+        out = torch.full((a.shape[0], a.shape[1], b.shape[2]), float("nan"),
+                         dtype=out_dtype or a.dtype)
+        args, work = BM.batched_launch_args(a, b, out, N_SM)
+        assert fn(*args, None) == 0
+        return out, BM.PATHS[args[16]], args[14], args[17]
+    return run
+
+
+def _batched_operands(E, M, K, N, layout, dtype, pad):
+    """a (E, M, K) and b (E, K, N) in ``layout`` (NN; NT, b a transposed
+    view, dX = dY W^T; TN, a a transposed view, dW = X^T dY), each a slice
+    of a batch whose stride is ``pad`` rows past the product's own."""
+    gen = torch.Generator().manual_seed(E * 131 + M * 7 + K + N)
+
+    def rand(rows, cols):
+        x = torch.randn((E, rows + pad, cols), generator=gen).to(dtype)
+        return x[:, :rows]
+    a = rand(K, M).transpose(1, 2) if layout == "TN" else rand(M, K)
+    b = rand(N, K).transpose(1, 2) if layout == "NT" else rand(K, N)
+    return a, b
+
+
+BATCHED_CASES = [  # E, M, K, N, layout, dtype, pad (batch stride beyond)
+    (1, 130, 96, 136, "NN", F32, 0),
+    (3, 4, 300, 200, "NN", F32, 3),
+    (3, 8, 512, 64, "NT", BF16, 0),
+    (3, 40, 70, 129, "TN", F32, 1),
+    (8, 17, 64, 72, "NT", F32, 2),
+    (8, 120, 48, 40, "TN", BF16, 0),
+    (3, 65, 33, 130, "NN", BF16, 5),
+    (8, 16, 100, 36, "NN", BF16, 1)]
+
+
+@pytest.mark.parametrize("E,M,K,N,layout,dtype,pad", BATCHED_CASES)
+def test_k1_batched_entry_matches_plain_on_the_cpu(batched, E, M, K, N,
+                                                   layout, dtype, pad):
+    """Each case against the plain version (the reference's _bmm) at the
+    2-D entry's tolerances, bitwise on a repeat, and bitwise each of its
+    products through the 2-D entry on the same plan: the batch only moves
+    the operands."""
+    a, b = _batched_operands(E, M, K, N, layout, dtype, pad)
+    got, path, splits, vec = batched(a, b)
+    want = BM.block_matmul_batched_plain(a, b)
+    assert path == BM.plan(M, N, K, N_SM, elt=a.element_size(),
+                           b_k1=layout == "NT", batch=E).path
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[dtype] * float(want.float().abs().max()), (path, err)
+    again, *_ = batched(a, b)
+    assert torch.equal(got, again)
+    if dtype == BF16:
+        wide, *_ = batched(a, b, torch.float32)
+        fwant = BM.block_matmul_batched_plain(a, b, out_dtype=torch.float32)
+        ferr = float((wide - fwant).abs().max())
+        assert ferr <= TOL[F32] * float(fwant.abs().max()), (path, ferr)
+        assert torch.equal(wide.to(BF16), got), path
+
+
+def test_k1_batched_rows_do_not_depend_on_m(batched):
+    """Above the decode rows, one expert's rows come out with the same
+    bits whether its product holds C rows or 2C (the ring's per-source
+    product against the blocking round trip's stacked sources)."""
+    for layout in ("NN", "NT"):
+        a, b = _batched_operands(4, 60, 200, 72, layout, F32, 0)
+        whole, *_ = batched(a, b)
+        top, *_ = batched(a[:, :30], b)
+        low, *_ = batched(a[:, 30:], b)
+        assert torch.equal(torch.cat([top, low], 1), whole), layout
+
+
+def test_the_batched_cases_cover_every_path_and_both_loads():
+    seen = set()
+    for E, M, K, N, layout, dtype, pad in BATCHED_CASES:
+        a, b = _batched_operands(E, M, K, N, layout, dtype, pad)
+        p = BM.plan(M, N, K, N_SM, elt=a.element_size(),
+                    b_k1=layout == "NT", batch=E)
+        vec = BM._vector_ok3(a) and BM._vector_ok3(b)
+        seen |= {p.path, ("split", p.splits > 1), ("vec", vec),
+                 ("E", E), layout, dtype, ("pad", pad > 0)}
+    assert seen >= set(BM.PATHS) | {("split", True), ("split", False),
+                                    ("vec", True), ("vec", False),
+                                    ("E", 1), ("E", 3), ("E", 8), "NN",
+                                    "NT", "TN", F32, BF16, ("pad", True)}

@@ -56,3 +56,35 @@ def test_k2_backward_source_matches_autograd_on_the_cpu(flash, case):
         rel_close(g, w, FLASH_TOL[dtype])
     again = backward(q, k, v, out, lse, dout, causal, window, kv_len)
     assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+# MLA's widths: q/k 192, v 128, nq == nkv (B, T, nq, dtype, shift), T not a
+# multiple of the 64-row tile
+MLA_CASES = {"causal 192/128 f32 T 70": (1, 70, 2, F32, 0),
+             "causal 192/128 bf16 T 100": (1, 100, 1, BF16, 0),
+             "unaligned causal 192/128 f32 T 65": (1, 65, 1, F32, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_k2_backward_source_at_mla_widths(flash, case):
+    """dq, dk (192 wide) and dv (128 wide) against autograd of the plain
+    attn_core; every output and the workspace start as NaN; a second call
+    gives the same bits."""
+    from repro_torch.kernels.flash_attention import attn_core
+    B, T, nq, dtype, shift = MLA_CASES[case]
+    forward, backward = flash
+    q, k, v = flash_inputs(len(case) + 7, B, T, T, nq, nq, 192, dtype,
+                           shift, dv=128)
+    dout = torch.from_numpy(np.random.RandomState(len(case)).randn(
+        B, T, nq, 136)).to(dtype)[..., shift:shift + 128]
+    out, lse = forward(q, k, v, True, 0, 0)
+    grads = backward(q, k, v, out, lse, dout, True, 0, 0)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attn_core(*leaves, causal=True), leaves,
+                               dout)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert not g.float().isnan().any()
+        rel_close(g, w, FLASH_TOL[dtype])
+    again = backward(q, k, v, out, lse, dout, True, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))

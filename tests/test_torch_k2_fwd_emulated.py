@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from cuda_emu.attention import (  # noqa: F401 (flash: the fixture)
-    F32, FLASH_CASES, FLASH_TOL, flash, flash_inputs, plain_lse, rel_close)
+    BF16, F32, FLASH_CASES, FLASH_TOL, flash, flash_inputs, plain_lse,
+    rel_close)
 
 # the forward's own case beside FLASH_CASES: Nemotron's prefill groups 6
 # query heads on a KV head (B, T, S, nq, nkv, hd, causal, window, kv_len,
@@ -38,4 +39,29 @@ def test_k2_forward_source_matches_plain_on_the_cpu(flash, case):
     want = plain_lse(q, k, causal, window, kv_len)
     torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
     again, lse2 = forward(q, k, v, causal, window, kv_len)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+# MLA's widths: q/k 192, v 128, nq == nkv (B, T, nq, dtype, shift), T not a
+# multiple of the 64-row tile
+MLA_CASES = {"causal 192/128 f32 T 70": (1, 70, 2, F32, 0),
+             "causal 192/128 bf16 T 100": (2, 100, 1, BF16, 0),
+             "unaligned causal 192/128 f32 T 65": (1, 65, 2, F32, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_k2_forward_source_at_mla_widths(flash, case):
+    """K2 at MLA's (192, 128) against the plain attn_core (its scale
+    1/sqrt(192)), its lse to the plain log-sum-exp, bitwise on a repeat."""
+    from repro_torch.kernels.flash_attention import attn_core
+    B, T, nq, dtype, shift = MLA_CASES[case]
+    q, k, v = flash_inputs(len(case), B, T, T, nq, nq, 192, dtype, shift,
+                           dv=128)
+    forward, _ = flash
+    out, lse = forward(q, k, v, True, 0, 0)
+    assert out.shape == (B, T, nq, 128)
+    rel_close(out, attn_core(q, k, v, causal=True), FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, plain_lse(q, k, True, 0, 0), rtol=1e-5,
+                               atol=1e-4)
+    again, lse2 = forward(q, k, v, True, 0, 0)
     assert torch.equal(out, again) and torch.equal(lse, lse2)

@@ -78,19 +78,21 @@ def test_serve_cli_on_cpu(capsys):
     assert "SERVE OK" in out
 
 
-@pytest.mark.parametrize("flags", [["--arch", "jamba-v0.1-52b"],
+@pytest.mark.parametrize("flags", [["--arch", "deepseek-v2-lite-16b",
+                                    "--mode", "fixed"],
                                    ["--mode", "fixed", "--telemetry"],
                                    ["--mesh", "1,2,1,1"]])
 def test_serve_rejects_what_is_not_ported(flags):
     """The unported flags raise naming their ROADMAP item (``--telemetry``
-    is ported for ``--mode continuous`` only); a mesh of more than one
-    rank is served, but only under torch.distributed.run, and outside it
-    raises naming WORLD_SIZE."""
+    is ported for ``--mode continuous`` only; MLA trains but does not
+    serve: Jamba's experts, refused here before, are served since
+    ``tests/test_torch_moe.py``); a mesh of more than one rank is served,
+    but only under torch.distributed.run, and outside it raises naming
+    WORLD_SIZE."""
     if "--mesh" in flags:
         exc, match = ValueError, "WORLD_SIZE"
     elif "--arch" in flags:
-        exc, match = NotImplementedError, \
-            "not ported.*'MoE and the expert axis'"
+        exc, match = NotImplementedError, "not ported.*'MLA serving'"
     else:
         exc, match = NotImplementedError, "not ported"
     with pytest.raises(exc, match=match):
@@ -199,30 +201,38 @@ def test_train_step_refuses_what_is_not_ported(extra, item):
                                    (1, 2, 1, 1, 2)])
 def test_mesh_factors_above_one_raise(sizes):
     """Factors above 1 on data, x, y and z are admitted (they raised
-    before the mesh was ported): the sizes, the batch and token shards,
-    the axis tuples, and the ranks' row-major coordinates."""
+    before the mesh was ported): the sizes (padded to the six factors:
+    seq and expert 1), the batch and token shards, the axis tuples, and
+    the ranks' row-major coordinates."""
     axes = MeshAxes(sizes)
-    full = tuple(sizes) + (1,) * (5 - len(sizes))
+    full = tuple(sizes) + (1,) * (6 - len(sizes))
     assert axes.sizes == full and axes.world == math.prod(full)
-    assert (axes.dp, axes.gx, axes.gy, axes.gz, axes.gseq) == full
+    assert (axes.dp, axes.gx, axes.gy, axes.gz, axes.gseq,
+            axes.gexpert) == full
     assert axes.tensor == full[1] * full[2] * full[3]
-    assert axes.batch_shards == full[0] * full[3]
-    assert axes.token_shards == full[0] * full[3] * full[4]
-    assert axes.batch_axes() == ("data", "z")
-    assert axes.token_axes() == ("data", "z", "seq")
-    assert axes.all_names() == ("data", "x", "y", "z", "seq")
+    assert axes.batch_shards == full[0] * full[3] * full[5]
+    assert axes.token_shards == full[0] * full[3] * full[4] * full[5]
+    assert axes.batch_axes() == ("data", "z", "expert")
+    assert axes.token_axes() == ("data", "z", "seq", "expert")
+    assert axes.all_names() == ("data", "x", "y", "z", "seq", "expert")
     coords = [axes.coords(r) for r in range(axes.world)]
     assert coords == list(itertools.product(*(range(n) for n in full)))
 
 
 def test_mesh_admits_a_seq_axis():
-    """A fifth factor is the seq axis; a 4-tuple means g_seq = 1."""
+    """A fifth factor is the seq axis and a sixth the expert axis; a
+    missing factor is 1."""
     axes = MeshAxes((1, 1, 1, 1, 2))
     assert (axes.gseq, axes.batch_shards, axes.token_shards) == (2, 1, 2)
-    assert axes.token_axes() == ("data", "z", "seq")
-    assert MeshAxes((1, 1, 1, 1)) == MeshAxes((1, 1, 1, 1, 1))
-    for bad in ((1, 1, 1), (1, 1, 1, 1, 1, 1), (1, 1, 1, 1, 0)):
-        with pytest.raises(ValueError, match="4 or 5 positive factors"):
+    assert axes.token_axes() == ("data", "z", "seq", "expert")
+    assert MeshAxes((1, 1, 1, 1)) == MeshAxes((1, 1, 1, 1, 1)) == \
+        MeshAxes((1, 1, 1, 1, 1, 1))
+    ex = MeshAxes((1, 1, 2, 1, 1, 2))
+    assert (ex.gexpert, ex.batch_shards, ex.world) == (2, 2, 4)
+    assert [ex.coords(r)[2::3] for r in range(4)] == [(0, 0), (0, 1),
+                                                      (1, 0), (1, 1)]
+    for bad in ((1, 1, 1), (1, 1, 1, 1, 1, 1, 1), (1, 1, 1, 1, 0)):
+        with pytest.raises(ValueError, match="4 to 6 positive factors"):
             MeshAxes(bad)
 
 
@@ -254,6 +264,16 @@ def test_serving_copies_match_the_jax_package(name):
               ).read_text()
     assert ours == theirs.replace("from repro.launch",
                                   "from repro_torch.launch")
+
+
+def test_deepseek_config_copy_matches_the_jax_package():
+    """configs/deepseek_v2_lite_16b.py is a copy; only the import path
+    moves."""
+    name = "deepseek_v2_lite_16b.py"
+    ours = (PORT / "configs" / name).read_text()
+    theirs = (ROOT / "src" / "repro" / "configs" / name).read_text()
+    assert ours == theirs.replace("from repro.models",
+                                  "from repro_torch.models")
 
 
 def test_data_copy_matches_the_jax_package():

@@ -299,36 +299,33 @@ def _jax_dense_ffn():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "jamba-v0.1-52b",
-                                  "jamba-v0.1-52b-dense-ffn", *ARCHS])
+                                  "jamba-v0.1-52b-dense-ffn", *ARCHS,
+                                  "deepseek-v2-lite-16b"])
 def test_config_matches_the_reference(arch):
     """Every field the port's ArchConfig shares with the reference's is
     equal, and so are the parameter counts (the MLP charged (mult + 1) d
-    d_ff: 20.17 B for gpt-paper-20b), comm_layers (MoE FFNs refused) and
+    d_ff: 20.17 B for gpt-paper-20b), comm_layers (MLA and MoE too) and
     reduced(), for every ported arch."""
     ours = get_config(arch)
     theirs = (_jax_dense_ffn() if arch.endswith("-dense-ffn")
               else jax_get_config(arch))
-    skip = ("moe", "mamba") + (("source",) if arch.endswith("-dense-ffn")
-                               else ())
+    skip = ("moe", "mamba", "mla") + (
+        ("source",) if arch.endswith("-dense-ffn") else ())
     shared = [f.name for f in dataclasses.fields(ours) if f.name not in skip]
     for small in (False, True):
         a, b = (ours.reduced(), theirs.reduced()) if small else (ours,
                                                                  theirs)
         for f in shared:
             assert getattr(a, f) == getattr(b, f), (arch, small, f)
-        for f in ("moe", "mamba"):
+        for f in ("moe", "mamba", "mla"):
             got, want = getattr(a, f), getattr(b, f)
             assert (got is None) == (want is None), (arch, f)
             if got is not None:
                 assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert a.param_count() == b.param_count()
         assert a.active_param_count() == b.active_param_count()
-        if a.moe is None:
-            assert [dataclasses.astuple(x) for x in a.comm_layers()] == [
-                dataclasses.astuple(x) for x in b.comm_layers()]
-        else:
-            with pytest.raises(NotImplementedError, match="MoE"):
-                a.comm_layers()
+        assert [dataclasses.astuple(x) for x in a.comm_layers()] == [
+            dataclasses.astuple(x) for x in b.comm_layers()]
     if arch == GPT:
         assert ours.param_count() == 20_166_213_632
 
