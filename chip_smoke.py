@@ -36,7 +36,7 @@ a hard failure:
      bitwise the call without the lse);
      K6 selective scan at the prefill and decode shapes, also at the
      4,096 channels of g_y = 2 (y and final state; two runs give the
-     same bits);
+     same bits); K6's backward at the training shape (phase 21);
   4. full-width qwen3-1.7b (float32, random weights from a seed): one
      prefill chunk and 4 decode steps through ``paged_step`` with the
      kernels and with the plain versions; logits must agree;
@@ -60,7 +60,7 @@ a hard failure:
      to its plain version), K2's forward also at Jamba's prefill shape;
      K6 at Jamba's prefill and decode shapes and, in bfloat16, the
      prefill, with the SFU floor (its exps at 16 a clock per SM) beside
-     the bound;
+     the bound; K6's backward at the training shapes (phase 21);
   7. full-width training parity: the loss and every gradient of one
      microbatch (2 x 512 tokens) through the kernels and through the plain
      versions, before any optimizer state exists; the kernels' run twice
@@ -166,12 +166,13 @@ a hard failure:
      ("full"), K1 21L + 3 a microbatch (28L + 3 under "full"), step time
      and peak memory beside phase 8's;
  16. ZeRO-3: (a) ``train.py --zero3`` of qwen3-1.7b at full width and
-     depth on (8,1,1,1), where ZeRO-1 cannot fit, batch 8 x 512 in one
-     microbatch a rank, 2 steps, eight gloo ranks, then (b) ``--zero3
-     --zero3-prefetch`` for one step in the same launch: both held to one
-     card's run of the same batch (four microbatches, run first) by
-     MESH_TRAIN_TOL, (b)'s step bitwise (a)'s first, each run's gathered
-     parameters hashing alike on every rank, K1 28L + 3 a microbatch, the
+     ZERO3_LAYERS layers on (8,1,1,1), where ZeRO-1 cannot fit, batch 8 x
+     512 in one microbatch a rank, 2 steps, eight gloo ranks, then (b)
+     ``--zero3 --zero3-prefetch`` for one step in the same launch: both
+     held to one card's run of the same batch (four microbatches, run
+     first) by MESH_TRAIN_TOL, (b)'s step bitwise (a)'s first (the ranks
+     hash no parameters: each would gather the model), K1 28L + 3 a
+     microbatch, the
      data axis's bytes a step exactly the leaf plan's count by the copied
      ``comm_model.dp_sync_volume`` (streamed layers 3 passes, 2 with
      prefetch: (b)'s 2/3 of (a)'s), each rank's peak device and host
@@ -247,8 +248,9 @@ a hard failure:
      batched entry), step time, tokens/s, MFU over the active
      parameters, peak memory, dropped (token, slot) pairs; then the
      expert meshes at a cut of DSV2_MESH_LAYERS layers where nothing
-     drops and without the load-balance term (``dsv2_mesh_cut``), held
-     to one card's run of that cut: 2 steps on (1,1,1,1,1,2) under the
+     drops and without the load-balance term (``dsv2_mesh_cut``) and a
+     batch of 2 x 512 in one microbatch, held to one card's run of that
+     cut: 2 steps on (1,1,1,1,1,2) under the
      blocking all-to-all and with the expert ring
      (``OverlapConfig(expert_a2a=True, batched_matmul=True)``), whose
      losses and grad norms must be the blocking run's bit for bit, and 1
@@ -259,7 +261,25 @@ a hard failure:
      8 layers (4 MoE): phase 9's parity (prefill 4 x 512 and 4 decode
      steps, kernels against plain, ids equal) and ``serve.py --mode
      fixed`` (8 new tokens), launches the config's count;
- 21. a summary: one ``{"kernels": [...]}`` line, the card's name and power
+ 21. training Jamba's hybrid decoder: in phase 3, K6's backward against
+     its plain version at the training shape (Bt 2, T 512) on 8,192 and
+     on g_y = 2's 4,096 inner channels, float32 and bfloat16 (B and C as
+     column views; two runs the same bits), and the forward with its
+     chunk states bitwise the forward without; in phase 6 its times
+     beside the bound and the plain version; then, last, (a)
+     ``jamba-v0.1-52b-dense-ffn`` at full width and HYBRID_TRAIN_LAYERS
+     layers (one period, 2.724 B parameters): one microbatch's loss and
+     every gradient through the kernels (twice: the same bits) and
+     through the plain versions, then ``train.py`` for 3 steps of phase
+     8's batch, each kernel's launches the config's count (K6 twice and
+     its backward once a Mamba layer and microbatch), losses and grad
+     norms finite, step time, tokens/s, MFU and peak memory; (b) step 1
+     on (1,2,2,1), four gloo ranks on the card, within MESH_TRAIN_TOL of
+     (a)'s, each rank's launches the code's, its calls, bytes and seconds
+     by axis; then each rank's block of the first Mamba layer's w_x and
+     conv_w gradients of one microbatch within HYBRID_GRAD_TOL of one
+     card's (the y-sum of B's and C's columns, which the grad norm hides);
+ 22. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -362,8 +382,10 @@ CKPT_FLAGS = ["--arch", ARCH, "--preset", "100m", "--steps", "4",
               "--dtype", "float32", "--log-every", "1"]
 CKPT_A_MESH = "2,1,2,1"
 CKPT_A_STEPS = 3
-# phase 16: ZeRO-3 on (8,1,1,1) at full width and depth, where ZeRO-1
-# cannot fit (16.0 GiB a rank); 16a without prefetch for ZERO3_STEPS
+# phase 16: ZeRO-3 on (8,1,1,1) at full width and ZERO3_LAYERS layers,
+# where ZeRO-1 cannot fit (16.0 GiB a rank at full depth, ~10.4 at 16
+# layers: eight ranks would need ~83 GiB; the cut from 28 layers keeps the
+# script within its time); 16a without prefetch for ZERO3_STEPS
 # steps, then 16b with it for one, in one launch of eight ranks, held to
 # one card's run of the same batch (ZERO3_ONE_FLAGS: four microbatches of
 # phase 8's size, so it fits); 16c a ZeRO-3 checkpoint at --preset 100m
@@ -371,6 +393,7 @@ CKPT_A_STEPS = 3
 # does not split) resumed with --zero on (2,1,2,1)
 ZERO3_MESH = "8,1,1,1"
 ZERO3_RANKS = 8
+ZERO3_LAYERS = 16
 ZERO3_STEPS = 2
 ZERO3_ONE_FLAGS = with_flag(with_flag(with_steps(
     TRAIN_FLAGS, ZERO3_STEPS), "--batch", 8), "--overdecompose", 4)
@@ -686,9 +709,13 @@ DSV2_NO_DROP = 11.0
 DSV2_MESH_STEPS = 2
 EXPERT_MESH = "1,1,1,1,1,2"
 EXPERT_Y_MESH = "1,1,2,1,1,2"
-DSV2_EXPERT_FLAGS = with_steps(DSV2_FLAGS, DSV2_MESH_STEPS) + [
+# the expert meshes and the one-card run they are held to: 2 sequences
+# of 512 in one microbatch (one a rank on the expert axis)
+DSV2_MESH_FLAGS = with_flag(with_flag(with_steps(
+    DSV2_FLAGS, DSV2_MESH_STEPS), "--batch", 2), "--overdecompose", 1)
+DSV2_EXPERT_FLAGS = DSV2_MESH_FLAGS + [
     "--mesh", EXPERT_MESH, "--backend", "gloo"]
-DSV2_EXPERT_Y_FLAGS = with_steps(DSV2_FLAGS, 1) + [
+DSV2_EXPERT_Y_FLAGS = with_steps(DSV2_MESH_FLAGS, 1) + [
     "--mesh", EXPERT_Y_MESH, "--backend", "gloo", "--profile-steps", "0:0"]
 # 20b: Jamba with its 16 top-2 experts at full width, one period of its
 # layer pattern (8 layers, 4 MoE: 13.3 B parameters, 50 GiB), phase 9's
@@ -702,6 +729,31 @@ JAMBA_MOE_FIXED_FLAGS = with_flag(with_flag(FIXED_FLAGS, "--arch",
 # 2 x 1408 and the down 1408 -> 2048, the up's dX (NT) and dW (TN);
 # Jamba's 16 experts at prefill (C 320 of 4 x 512 tokens) and decode (the
 # floor of 4 places), its up projection 4096 -> 2 x 14336
+# phase 21: training Jamba's hybrid decoder (``jamba-v0.1-52b-dense-ffn``)
+# at full width and one period of its pattern (8 layers, 7 Mamba: 2.724 B
+# parameters, 54.5 GB with AdamW and the gradients in float32): 21a phase
+# 8's batch (4 x 512 in 2 microbatches) for 3 steps on one card, 21b its
+# step 1 on (1,2,2,1), four gloo ranks on the card; K6's backward at the
+# training shape of a microbatch (Bt 2, T 512) on one card's 8,192 inner
+# channels and the 4,096 of g_y = 2
+HYBRID_TRAIN_LAYERS = 8
+HYBRID_TRAIN_FLAGS = with_flag(TRAIN_FLAGS, "--arch", HYBRID)
+HYBRID_MESH_TRAIN_FLAGS = with_steps(HYBRID_TRAIN_FLAGS, 1) + [
+    "--mesh", MESH, "--backend", "gloo"]
+SCAN_BWD_SHAPES = [("train", 2, 512, 8192), ("train g_y 2", 2, 512, 4096)]
+# 21b's gradient blocks: the first Mamba layer's w_x, whose B and C columns
+# a y rank would hold partial without their sum over y (about half their
+# largest entry), and conv_w, which that fault reaches; one microbatch of
+# 2 x 512 from train.py's weights, each rank's block against the same block
+# of one card's, max|dg| relative to the leaf's max|g| (the mesh sums the
+# products over x and the channels over y in another order)
+HYBRID_GRAD_LEAVES = ("layers.0.mixer.w_x", "layers.0.mixer.conv_w")
+HYBRID_GRAD_TOL = 1e-4
+# K1 at the Mamba layer's training products of a microbatch that phase 3's
+# forward shapes leave out: w_x's dX and dW (its N of 288 no tile multiple)
+HYBRID_TRAIN_MATMUL_SHAPES = [
+    ("mamba w_x dX", 1024, 288, 8192, "NT"),
+    ("mamba w_x dW", 8192, 1024, 288, "TN")]
 BMM_SHAPES = [("dsv2 up x.W", 64, 120, 2048, 2816, "NN"),
               ("dsv2 down h.W", 64, 120, 1408, 2048, "NN"),
               ("dsv2 up dX dY.W^T", 64, 120, 2816, 2048, "NT"),
@@ -890,6 +942,21 @@ def scan_work(Bt, T, d, N, dtype, with_s0):
     return nbytes, Bt * T * d * (7 * N + 1)
 
 
+def scan_bwd_work(Bt, T, d, N, dtype):
+    """(bytes, operations) of one K6 backward for its bound: x, dt, dy, B,
+    C, A and the forward's chunk states read once, dx, ddt, dB, dC and dA
+    written once; per (b, t, c, n) 18 operations (a_t's product and exp,
+    s_t, G_t, the dB and dC terms, G.B, G a s, A.(G a s) and dA's sum; a
+    fused multiply-add counts 2), per (b, t, c) 3 (dx and ddt). The
+    recomputed states and the workspace are the kernel's own choices, not
+    the function's work."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    chunks = -(-T // 32)
+    nbytes = (Bt * T * d * (3 * elt + 2 * 4) + 4 * Bt * T * N * elt
+              + 2 * d * N * 4 + Bt * chunks * d * N * 4)
+    return nbytes, Bt * T * d * (18 * N + 3)
+
+
 def attn_inputs(gen, B, T, S, nq, nkv, hd, dtype):
     """q, k, v in the model's (B, T, H, hd) layout and an output
     gradient."""
@@ -973,8 +1040,9 @@ def phase_kernels(gen):
     errs = dict.fromkeys(("rmsnorm", "rmsnorm_stats", "rmsnorm_apply",
                           "paged_attention", "block_matmul",
                           "flash_attention", "flash_attention_bwd",
-                          "selective_scan", "partial_attention",
-                          "partial_attention_bwd"), 0.0)
+                          "selective_scan", "selective_scan_bwd",
+                          "partial_attention", "partial_attention_bwd"),
+                         0.0)
     log("[kernels] K3 rmsnorm vs plain; a row alone gives its bits among "
         "1,024")
     R, T, nq = 8, 32, 16
@@ -1043,6 +1111,7 @@ def phase_kernels(gen):
     phase_kernels_seqshard(gen, errs)
     phase_kernels_train(gen, errs)
     phase_kernels_scan(gen, errs)
+    phase_kernels_scan_bwd(gen, errs)
     return errs
 
 
@@ -1182,6 +1251,51 @@ def phase_kernels_scan(gen, errs):
             log(f"  {tag}: run twice: bitwise equal")
             if dtype == torch.float32:
                 errs["selective_scan"] = max(errs["selective_scan"], e)
+
+
+def phase_kernels_scan_bwd(gen, errs):
+    """21: K1 at w_x's training products (HYBRID_TRAIN_MATMUL_SHAPES);
+    K6's backward at the training shapes, float32 and bfloat16, B
+    and C column views (row stride 288): every gradient within SCAN_TOL
+    of the plain version's largest entry (each sums T or channel terms of
+    both signs), two calls the same bits; the forward with its chunk
+    states gives the bits of the forward without them."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd_kernel, selective_scan_bwd_plain,
+        selective_scan_kernel)
+    log("[kernels] K1 at the Mamba layer's training products, float32, "
+        "each run twice")
+    for name, M, K, N, layout in HYBRID_TRAIN_MATMUL_SHAPES:
+        check_matmul(gen, name, M, K, N, layout, errs)
+    log("[kernels] K6's backward vs plain (the reverse recurrence a step at "
+        "a time), from the forward's chunk states; each run twice")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, Bt, T, d in SCAN_BWD_SHAPES:
+            x, dt, A, B, C, _ = scan_inputs(gen, Bt, T, d, 16, dtype, False)
+            dy = torch.randn((Bt, T, d), generator=gen, device="cuda"
+                             ).to(dtype)
+            y, s, chunks = selective_scan_kernel(x, dt, A, B, C,
+                                                 chunk_states=True)
+            y0, s0 = selective_scan_kernel(x, dt, A, B, C)
+            if not (torch.equal(y, y0) and torch.equal(s, s0)):
+                raise AssertionError("K6's chunk states changed y or the "
+                                     "final state")
+            got = selective_scan_bwd_kernel(x, dt, A, B, C, chunks, dy)
+            again = selective_scan_bwd_kernel(x, dt, A, B, C, chunks, dy)
+            if not all(torch.equal(g, h) for g, h in zip(got[:5],
+                                                         again[:5])):
+                raise AssertionError("K6's backward is not deterministic")
+            want = selective_scan_bwd_plain(x, dt, A, B, C, dy)
+            tag = f"{dtype_name(dtype)} {name} ({Bt}, {T}, {d}, N 16)"
+            e = max(check_rel(f"{tag} {k}", g, w, SCAN_TOL[dtype])
+                    for k, g, w in zip(("dx", "ddt", "dA", "dB", "dC"),
+                                       got[:5], want[:5]))
+            log(f"  {tag}: chunk states leave y and the final state "
+                f"bitwise; run twice: bitwise equal")
+            if dtype == torch.float32:
+                errs["selective_scan_bwd"] = max(errs["selective_scan_bwd"],
+                                                 e)
+            del got, again, want, chunks
 
 
 def phase_kernels_train(gen, errs):
@@ -1569,6 +1683,7 @@ def phase_timings(gen, n_layers):
     log("[timings] K6 at the fixed-serving shapes: device time from a "
         "replayed CUDA graph / eager calls back to back")
     phase_timings_scan(gen, out)
+    phase_timings_scan_bwd(gen, out)
     return out
 
 
@@ -1823,6 +1938,59 @@ def phase_timings_scan(gen, out):
             out.setdefault("selective_scan", t)
 
 
+def phase_timings_scan_bwd(gen, out):
+    """K6's backward at the training shapes (float32; bfloat16 at one
+    card's width) beside its plain version: device time from a replayed
+    CUDA graph and eager calls. No PyTorch call computes a selective scan's
+    gradient: the library column is null. The bound counts
+    ``scan_bwd_work``'s bytes and its operations at the float32 rate; the
+    log gives the SFU floor of the exps the kernel computes (a_t three
+    times: the walk to the sub-chunk starts, each sub-chunk's walk, the
+    walk back; 24 + 32 + 32 a 32-step chunk) beside it, and the forward
+    with its chunk states against the forward without."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd_kernel, selective_scan_bwd_plain,
+        selective_scan_kernel)
+    f32 = torch.float32
+    log("[timings] K6's backward at the training shapes: device time from "
+        "a replayed CUDA graph / eager calls back to back")
+    cases = [(f32, c) for c in SCAN_BWD_SHAPES] + [(torch.bfloat16,
+                                                    SCAN_BWD_SHAPES[0])]
+    for dtype, (name, Bt, T, d) in cases:
+        x, dt, A, B, C, _ = scan_inputs(gen, Bt, T, d, 16, dtype, False)
+        dy = torch.randn((Bt, T, d), generator=gen, device="cuda").to(dtype)
+        _, _, chunks = selective_scan_kernel(x, dt, A, B, C,
+                                             chunk_states=True)
+        t = dict(ms=graph_ms(lambda: selective_scan_bwd_kernel(
+                     x, dt, A, B, C, chunks, dy), 20),
+                 plain_ms=graph_ms(lambda: selective_scan_bwd_plain(
+                     x, dt, A, B, C, dy), 2),
+                 library_ms=None, **bound(*scan_bwd_work(Bt, T, d, 16,
+                                                         dtype), f32))
+        eager = cuda_ms(lambda: selective_scan_bwd_kernel(
+            x, dt, A, B, C, chunks, dy), 20, 3)
+        fwd = graph_ms(lambda: selective_scan_kernel(x, dt, A, B, C), 20)
+        fwd_states = graph_ms(lambda: selective_scan_kernel(
+            x, dt, A, B, C, chunk_states=True), 20)
+        fb, fo = scan_work(Bt, T, d, 16, dtype, False)
+        fwd_bound = bound(fb + Bt * -(-T // 32) * d * 16 * 4, fo, f32)
+        now, top = sm_clocks_mhz()
+        exps = Bt * -(-T // 32) * 88 * d * 16
+        log(f"  selective_scan_bwd {dtype_name(dtype)} {name} (Bt {Bt}, T "
+            f"{T}, d {d}, N 16): kernel {t['ms'] * 1e3:.2f}/"
+            f"{eager * 1e3:.2f} us (device/eager), plain "
+            f"{t['plain_ms'] * 1e3:.2f} us (device), no library call, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it; SFU floor of its "
+            f"{exps / 1e6:.0f} M exps {exps / (SFU_PER_CLOCK * top):.3f} us "
+            f"at {top:.0f} MHz; the forward {fwd * 1e3:.2f} us, with its "
+            f"chunk states {fwd_states * 1e3:.2f} us (bound "
+            f"{fwd_bound['bound_ms'] * 1e3:.3f} us, {fwd_bound['bound_by']})")
+        if dtype == f32:
+            out.setdefault("selective_scan_bwd", t)
+        del chunks
+
+
 def bound(nbytes, n_ops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -1988,18 +2156,23 @@ def train_launch_counts(cfg):
     K1's batched entry; K2 forward + recompute 2L, backward L; K3 =
     RMSNorm's 2L + 1 forward (norm1, norm2; final) + 2L recompute,
     qk-norm's 2L + 2L and MLA's kv_norm L + L (a LayerNorm runs PyTorch
-    ops, no kernel); no other kernel."""
+    ops, no kernel); K2 and its backward in the attention and MLA layers
+    alone (A of them: 2A and A), K6 in the Mamba layers (M of them: 2M,
+    the forward and the recompute, with its backward M); no other
+    kernel."""
     L = cfg.n_layers
     two, batched = forward_products(cfg)
     rms = 4 * L + 1 if cfg.norm == "rmsnorm" else 0
     n_mla = cfg.mixers().count("mla")
+    n_mamba = cfg.mixers().count("mamba")
+    n_attn = L - n_mamba
     return {"block_matmul": 4 * two + 3,
             "block_matmul_batched": 4 * batched,
-            "flash_attention": 2 * L, "flash_attention_bwd": L,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
             "rmsnorm": rms + (4 * L if cfg.qk_norm else 0) + 2 * n_mla,
             "paged_attention": 0, "paged_attention_combine": 0,
-            "selective_scan": 0, "partial_attention": 0,
-            "partial_attention_bwd": 0}
+            "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba,
+            "partial_attention": 0, "partial_attention_bwd": 0}
 
 
 def phase_train(cfg, smi):
@@ -3272,7 +3445,8 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     and schedule of each run of ``which`` ("mesh": 12a, "data": 12b,
     "mesh-overlap": 13a, "mesh-overlap-profile": 18, "seq-overlap": 13b,
     "zero": 15a, "gpt-mesh-overlap": 19a, "dsv2-expert",
-    "dsv2-expert-ring" and "dsv2-expert-y": 20a, "ckpt-a": 15b's
+    "dsv2-expert-ring" and "dsv2-expert-y": 20a, "hybrid-mesh": 21b,
+    "ckpt-a": 15b's
     run A, which checkpoints into ``outdir``, "zero3": 16a,
     "zero3-prefetch": 16b, "zero3-ckpt-a" and "zero3-ckpt-b": 16c's runs A
     and B, through ``outdir``'s "zero3.npz"; several runs on one mesh
@@ -3305,13 +3479,16 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
                           None),
         "gpt-mesh-overlap": (GPT_MESH_FLAGS, GPT_LAYERS,
                              OverlapConfig.all_on(), None),
+        "hybrid-mesh": (HYBRID_MESH_TRAIN_FLAGS, HYBRID_TRAIN_LAYERS,
+                        blocking, None),
         "ckpt-a": (CKPT_FLAGS + ["--mesh", CKPT_A_MESH, "--backend", "gloo",
                                  "--zero", "--ckpt",
                                  str(outdir / "ckpt.npz")], None, blocking,
                    CKPT_A_STEPS),
-        "zero3": (ZERO3_FLAGS + calib_flags(outdir, "zero3"), None, blocking,
-                  None),
-        "zero3-prefetch": (ZERO3_PREFETCH_FLAGS, None, blocking, None),
+        "zero3": (ZERO3_FLAGS + calib_flags(outdir, "zero3"), ZERO3_LAYERS,
+                  blocking, None),
+        "zero3-prefetch": (ZERO3_PREFETCH_FLAGS, ZERO3_LAYERS, blocking,
+                           None),
         "zero3-ckpt-a": (with_flag(CKPT_FLAGS, "--overdecompose", 1) + [
             "--mesh", ZERO3_CKPT_A_MESH, "--backend", "gloo", "--zero3",
             "--ckpt", str(outdir / "zero3.npz")], None, blocking,
@@ -3337,6 +3514,9 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
             elif layers:
                 cfg = dataclasses.replace(cfg, n_layers=layers)
             res = train.train_on(args, axes, cfg, run, ov, stop)
+            if name == "hybrid-mesh":
+                torch.save(hybrid_grad_blocks(cfg, axes),
+                           outdir / f"{name}-grads{run['rank']}.pt")
             if run["rank"] == 0:
                 (outdir / f"{name}.json").write_text(json.dumps(dict(
                     losses=res.losses, grad_norms=res.grad_norms,
@@ -3352,6 +3532,52 @@ def mesh_train_worker(outdir: Path, which: str) -> int:
     finally:
         close_mesh()
     return 0
+
+
+def hybrid_grad_blocks(cfg, axes=None):
+    """HYBRID_GRAD_LEAVES's gradients of one microbatch (2 x 512 tokens
+    from seed SEED + 2) after the train step's reductions, from
+    ``train.py``'s weights (seed 0), copied to the host; on a mesh
+    ``axes`` this rank's blocks."""
+    from repro_torch.core import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.decoder import lm_loss
+    model = ST.init_model(cfg, axes, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 512),
+                                    generator=gen).cuda() for _ in range(2))
+    if axes is not None:
+        tokens, labels = (M.batch_shard(t, axes) for t in (tokens, labels))
+    loss, _ = lm_loss(model, tokens, labels)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    if axes is not None:
+        grads = ST.sync_grads(grads, axes)
+    out = {n: grads[n].cpu() for n in HYBRID_GRAD_LEAVES}
+    del model, grads, loss
+    free_memory()
+    return out
+
+
+def check_hybrid_grad_blocks(one, outdir, axes, ranks):
+    """Each rank's HYBRID_GRAD_LEAVES blocks (``hybrid_grad_blocks`` on
+    the mesh ``axes``, saved in ``outdir``) within HYBRID_GRAD_TOL of the
+    same blocks of one card's ``one``."""
+    from repro_torch.core import mesh as M
+    from repro_torch.core.partition import param_spec
+    worst = {}
+    for r in range(ranks):
+        got = torch.load(outdir / f"hybrid-mesh-grads{r}.pt")
+        for n, g in one.items():
+            want = M.shard(g, axes, param_spec(n), r)
+            err = float((got[n] - want).abs().max()) / float(g.abs().max())
+            worst[n] = max(worst.get(n, 0.0), err)
+    log("  gradient blocks of one microbatch, every rank against one card: "
+        + ", ".join(f"{n} max|dg|/max|g| {e:.3e}" for n, e in worst.items())
+        + f" (tol {HYBRID_GRAD_TOL:g})")
+    if not all(e <= HYBRID_GRAD_TOL for e in worst.values()):
+        raise AssertionError("a rank's Mamba gradient block differs from "
+                             "one card's")
 
 
 def preset_cfg(args):
@@ -3948,25 +4174,31 @@ def zero3_volumes(cfg):
 
 def phase_zero3_train(cfg, smi):
     """16a and 16b: ``train.py --zero3`` on (8,1,1,1) at full width and
-    depth for ZERO3_STEPS steps, then ``--zero3 --zero3-prefetch`` for one,
-    eight gloo ranks on this card in one launch; both held to one card's
+    ZERO3_LAYERS layers (``cfg`` cut) for ZERO3_STEPS steps, then
+    ``--zero3 --zero3-prefetch`` for one, eight gloo ranks on this card
+    in one launch; both held to one card's
     run of the same batch (taken first in this process, its memory freed
-    before the launch); 16b's step bitwise 16a's first; every rank's
-    gathered parameters hashing alike; K1 28L + 3 a microbatch; the data
-    axis's bytes the plan's count (``zero3_volumes``)."""
+    before the launch); 16b's step bitwise 16a's first; K1 28L + 3 a
+    microbatch; the data axis's bytes the plan's count
+    (``zero3_volumes``). The ranks hash no parameters (``train.train_on``
+    does not under ZeRO-3, where each would gather the whole model onto
+    the host); the one loss and grad norm every rank reports is what holds
+    them together."""
     import types
     from repro_torch.launch import train
     import resource
+    cfg = depth_cut(cfg, ZERO3_LAYERS)
     want = zero3_volumes(cfg)
     log(f"  this process's peak host RSS so far "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
         f" GiB")
     log(f"[zero3 one card] python -m repro_torch.launch.train "
-        f"{' '.join(ZERO3_ONE_FLAGS)}")
-    one = train.main(ZERO3_ONE_FLAGS)
+        f"{' '.join(ZERO3_ONE_FLAGS)} at {cfg.n_layers} layers")
+    one = train.main(ZERO3_ONE_FLAGS, cfg=cfg)
     one_peak = one.max_memory_bytes
     free_memory()
-    rep = run_mesh_train("zero3", f"zero3 train ({ZERO3_MESH}, full depth, "
+    rep = run_mesh_train("zero3", f"zero3 train ({ZERO3_MESH}, "
+                         f"{ZERO3_LAYERS} layers, "
                          f"--zero3; then --zero3-prefetch)", ZERO3_RANKS,
                          env={"PYTORCH_CUDA_ALLOC_CONF":
                               "expandable_segments:True"},
@@ -3989,12 +4221,6 @@ def phase_zero3_train(cfg, smi):
     units = {"zero3": args.steps * args.overdecompose, "zero3-prefetch": 1}
     counted = {}
     for which, r_ in (("zero3", rep), ("zero3-prefetch", pre)):
-        hashes = {r["param_sha256"] for r in r_["ranks"]}
-        log(f"  [{which}] the {len(r_['ranks'])} ranks' gathered parameters"
-            f" hash {'alike' if len(hashes) == 1 else 'APART'}: "
-            f"{sorted(hashes)[0][:16]}")
-        if len(hashes) != 1:
-            raise AssertionError(f"{which}: the ranks' parameters differ")
         total, streamed = want[which]
         for r in sorted(r_["ranks"], key=lambda r: r["rank"]):
             sb = r["state_bytes"]
@@ -4146,8 +4372,8 @@ def phase_calib_steps(smi):
               ("13a", "mesh-overlap", MESH_TRAIN_FLAGS, cut,
                OverlapConfig.all_on()),
               ("15a", "zero", ZERO_FLAGS, cut, OverlapConfig()),
-              ("16a", "zero3", ZERO3_FLAGS, get_config(ARCH),
-               OverlapConfig())]
+              ("16a", "zero3", ZERO3_FLAGS,
+               depth_cut(get_config(ARCH), ZERO3_LAYERS), OverlapConfig())]
     pred, meas = [], []
     for label, which, flags, cfg, ov in phases:
         args = train.build_parser().parse_args(flags)
@@ -4773,11 +4999,10 @@ def phase_dsv2_train(smi):
         f"GiB on {smi}")
     free_memory()
     mcfg = dsv2_mesh_cut(get_config(DSV2))
-    mflags = with_steps(DSV2_FLAGS, DSV2_MESH_STEPS)
     log(f"[20a dsv2 mesh cut] one card, {DSV2_MESH_LAYERS} layers, capacity "
         f"factor {DSV2_NO_DROP}, no load-balance term, {DSV2_MESH_STEPS} "
-        f"steps: what the expert meshes are held to")
-    base = train.main(mflags, cfg=mcfg)
+        f"steps of 2 x 512 tokens: what the expert meshes are held to")
+    base = train.main(DSV2_MESH_FLAGS, cfg=mcfg)
     log(f"  losses {base.losses}, grad norms {base.grad_norms}, dropped "
         f"{base.moe_dropped}, steps {[round(x, 4) for x in base.step_s]} s")
     if any(base.moe_dropped):
@@ -4839,6 +5064,72 @@ def phase_jamba_moe(smi):
     launches = phase_fixed_serve(model, cfg, smi, JAMBA_MOE_FIXED_FLAGS)
     del model
     free_memory()
+    return launches
+
+
+def phase_hybrid_train(smi):
+    """21a and 21b: ``jamba-v0.1-52b-dense-ffn`` at full width and
+    HYBRID_TRAIN_LAYERS layers (one period: 7 Mamba, attention at index
+    4). First one microbatch's loss and every gradient through the kernels
+    (twice: the same bits) and through the plain versions (phase 7's
+    check, a batch cut of step 1: 2 x 512 tokens); then ``train.py`` for
+    3 steps of phase 8's batch, each kernel's launches the config's count
+    (K6 twice a Mamba layer and microbatch, its backward once); then step
+    1 on (1,2,2,1), four gloo ranks on the card, within MESH_TRAIN_TOL of
+    one card's, each rank's launches the code's and rank 0's calls, bytes
+    and seconds by axis logged, and each rank's block of the first Mamba
+    layer's gradients (``hybrid_grad_blocks``) held to one card's.
+    Returns 21a's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm_model as CM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import mesh_axes
+    cfg = depth_cut(get_config(HYBRID), HYBRID_TRAIN_LAYERS)
+    phase_train_parity(cfg)
+    free_memory()
+    log(f"[21a hybrid train] python -m repro_torch.launch.train "
+        f"{' '.join(HYBRID_TRAIN_FLAGS)} at {cfg.n_layers} layers "
+        f"({cfg.mixers().count('mamba')} Mamba, {cfg.param_count() / 1e9:.3f}"
+        f" B parameters)")
+    ops.reset_launches()
+    one = train.main(HYBRID_TRAIN_FLAGS, cfg=cfg)
+    launches = ops.launches()
+    if not all(math.isfinite(x) for x in one.losses + one.grad_norms):
+        raise AssertionError("non-finite loss or grad norm")
+    args = train.build_parser().parse_args(HYBRID_TRAIN_FLAGS)
+    check_launches(launches, train_launch_counts(cfg),
+                   args.steps * args.overdecompose, "microbatch")
+    steady = one.step_s[1:] or one.step_s
+    step_s = sum(steady) / len(steady)
+    flops = CM.model_flops_per_token(cfg) * one.tokens_per_step
+    log(f"  losses {one.losses}, grad norms {one.grad_norms}")
+    log(f"  step times {[round(x, 4) for x in one.step_s]} s; steady step "
+        f"{step_s:.4f} s, {one.tokens_per_step / step_s:.1f} tokens/s, MFU "
+        f"{100 * flops / step_s / PEAK_OPS_PER_S[torch.float32]:.2f}% of "
+        f"the 67 TFLOP/s float32 peak (6 x {cfg.param_count() / 1e9:.3f} B "
+        f"parameters a token: the scans' own operations are not counted), "
+        f"max_memory_allocated {one.max_memory_bytes / 2**30:.2f} GiB on "
+        f"{smi}")
+    free_memory()
+    grads = hybrid_grad_blocks(cfg)
+    rep = run_mesh_train("hybrid-mesh", f"21b hybrid train, {MESH}, "
+                         f"{HYBRID_TRAIN_LAYERS} layers, 1 step", MESH_RANKS)
+    check_mesh_losses(rep, first_steps(one, 1), f"({MESH}) against one card")
+    check_hybrid_grad_blocks(grads, MESH_TRAIN_DIR, mesh_axes(MESH),
+                             MESH_RANKS)
+    mb = train.build_parser().parse_args(HYBRID_MESH_TRAIN_FLAGS)
+    for r in sorted(rep["ranks"], key=lambda r: r["rank"]):
+        log(f"  rank {r['rank']}:")
+        check_launches(r["launches"], mesh_train_launches(cfg),
+                       mb.steps * mb.overdecompose, "microbatch")
+        by_axis = r["comm_by_axis"][-1]
+        log(f"  rank {r['rank']}: step 1 by axis "
+            + ", ".join(f"{a} {c['calls']} calls {c['seconds']:.3f} s "
+                        f"{c['bytes'] / 1e9:.3f} GB"
+                        for a, c in sorted(by_axis.items()))
+            + f"; step {rep['step_s'][0]:.3f} s; max_memory_allocated "
+            f"{r['max_memory_bytes'] / 2**30:.2f} GiB on {smi}")
     return launches
 
 
@@ -4949,14 +5240,18 @@ def main() -> int:
     phase_moe_kernels(gen, errs, times)
     dsv2_launches = phase_dsv2_train(smi)
     jamba_moe_launches = phase_jamba_moe(smi)
+    free_memory()
+    hybrid_train_launches = phase_hybrid_train(smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
-    # seq-parallel training, rank 0: K4); the log has every path's counts
+    # seq-parallel training, rank 0: K4; hybrid training: K6's backward);
+    # the log has every path's counts
     launches = dict(serve_launches, **{
         k: train_launches[k] for k in ("block_matmul", "flash_attention",
                                        "flash_attention_bwd")},
         selective_scan=fixed_launches_run["selective_scan"],
+        selective_scan_bwd=hybrid_train_launches["selective_scan_bwd"],
         **{k: seq_launches_run[k] for k in ("partial_attention",
                                             "partial_attention_bwd")},
         **{k: mesh_launches_run[k] for k in ("rmsnorm_stats",
@@ -4978,6 +5273,8 @@ def main() -> int:
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:297",
                 "selective_scan": "src/repro/kernels/selective_scan.py:45",
+                "selective_scan_bwd":
+                    "src/repro/kernels/selective_scan.py:45",
                 "partial_attention":
                     "src/repro/kernels/flash_attention.py:127",
                 "partial_attention_bwd":
@@ -4996,10 +5293,12 @@ def main() -> int:
                "flash_attention": csrc + "flash_attention.cu",
                "flash_attention_bwd": csrc + "flash_attention.cu",
                "selective_scan": csrc + "selective_scan.cu",
+               "selective_scan_bwd": csrc + "selective_scan.cu",
                "partial_attention": csrc + "partial_attention.cu",
                "partial_attention_bwd": csrc + "partial_attention.cu",
                "flash_attention_mla": csrc + "flash_attention.cu",
                "flash_attention_bwd_mla": csrc + "flash_attention.cu"}
+    log("[summary] the kernels' line, the card, the result")
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],
                     max_abs_err=errs[k], **times[k])

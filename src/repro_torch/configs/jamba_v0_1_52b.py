@@ -4,8 +4,11 @@ other layer: 16 experts top-2 of width 14336.
 
 ``DENSE_FFN`` is the same decoder with each MoE FFN replaced by the dense
 gated-SiLU MLP of width ``d_ff`` that Jamba's other layers use: 9.285 B
-parameters, which fit one card in float32 at full width and depth (the
-real one's 51.56 B do not)."""
+parameters, which fit one card in float32 at full width and depth for
+serving (the real one's 51.56 B do not). Training in float32 keeps about
+20 bytes a parameter (weights, gradients, their fp32 sum and AdamW's m
+and v): one card trains one period of 8 layers (2.724 B); the real
+model's period (13.29 B) needs several."""
 import dataclasses
 
 from repro_torch.models.base import ArchConfig, MambaCfg, MoECfg

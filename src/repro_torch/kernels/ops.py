@@ -18,6 +18,8 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels.block_matmul import (
     block_matmul_batched_kernel, block_matmul_batched_plain,
     block_matmul_kernel, block_matmul_plain)
@@ -29,14 +31,17 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.rmsnorm import (
     rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_kernel, rmsnorm_plain,
     rmsnorm_stats_kernel, rmsnorm_stats_plain)
-from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+from repro_torch.kernels.selective_scan import (SelectiveScan,
+                                                selective_scan_bwd_kernel,
+                                                selective_scan_kernel,
                                                 selective_scan_plain)
 
 KERNELS = (rmsnorm_kernel, rmsnorm_stats_kernel, rmsnorm_apply_kernel,
            paged_attention_kernel, block_matmul_kernel,
            block_matmul_batched_kernel,
            flash_attention_kernel, flash_attention_bwd_kernel,
-           selective_scan_kernel, partial_attention_kernel,
+           selective_scan_kernel, selective_scan_bwd_kernel,
+           partial_attention_kernel,
            partial_attention_bwd_kernel)
 
 
@@ -213,6 +218,13 @@ def flash_attention_paged(q, k_pages, v_pages, table, q_pos, q_len, *,
 def selective_scan(x, dt, A, B, C, s0=None, *, plain: bool = False):
     """The Mamba selective scan (K6): x, dt (Bt, T, d), A (d, N), B, C
     (Bt, T, N), initial state s0 (Bt, d, N) fp32 or None (zeros) -> (y
-    (Bt, T, d) in x's dtype, final state (Bt, d, N) fp32)."""
+    (Bt, T, d) in x's dtype, final state (Bt, d, N) fp32). Where autograd
+    records (grad enabled and an input requiring grad) it runs through
+    ``SelectiveScan``, whose backward is K6's backward kernel (its plain
+    version with ``plain`` or on the CPU); serving's calls launch the
+    forward alone."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, s0)):
+        return SelectiveScan.apply(x, dt, A, B, C, s0, plain)
     fn = selective_scan_plain if _plain(x, plain) else selective_scan_kernel
     return fn(x, dt, A, B, C, s0)

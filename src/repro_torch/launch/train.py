@@ -26,6 +26,14 @@ its tokens crossing by the all-to-all of ``layers/moe.py``:
       --arch deepseek-v2-lite-16b --preset smoke --device cpu \
       --mesh 1,1,2,1,1,2 --steps 3 --batch 4 --seq 64
 
+Jamba's hybrid decoder trains too (``--arch jamba-v0.1-52b``, with its
+experts, or ``jamba-v0.1-52b-dense-ffn``): the Mamba layers run their
+train mode, the scan through kernel K6 and its backward kernel, the inner
+channels over y on a mesh. The reference's own example:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
+      --preset smoke --device cpu
+
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 8 -m repro_torch.launch.train --arch qwen3-1.7b \\
@@ -589,7 +597,8 @@ def train_on(args, axes, cfg, run, overlap: OverlapConfig = OverlapConfig(),
                 max_memory_bytes=res.max_memory_bytes,
                 max_rss_bytes=res.max_rss_bytes, launches=res.launches, dp_sync=res.dp_sync,
                 state_bytes=res.state_bytes, moe_dropped=res.moe_dropped,
-                param_sha256=param_sha256(model) if multi else None,
+                param_sha256=(param_sha256(model)
+                              if multi and not args.zero3 else None),
                 comm_by_scope=res.comm_by_scope,
                 collectives=res.collectives,
                 collectives_mesh=res.collectives_mesh)

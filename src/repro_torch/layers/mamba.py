@@ -5,14 +5,21 @@ product through ``parallel.tp_matmul``; the selective scan is per channel
 and runs as kernel K6, for the whole prompt in prefill and as one step from
 the carried state in decode. The depthwise causal convolution stays in
 PyTorch ops, as the JAX package computes it outside any kernel. Training
-needs a backward for K6 and is not ported.
+runs the prefill branch from a zero state with autograd recording: the
+scan through ``kernels.selective_scan.SelectiveScan`` (K6's forward, then
+its backward kernel), the convolution, SiLU, softplus, the D term and the
+gate through autograd.
 
 On a mesh the inner channels shard over y: each rank holds d_inner / g_y
 of them, with their slices of ``w_in``, ``w_gate`` (outputs), ``w_x`` and
 ``w_out`` (inputs) and ``w_dt`` (outputs) and of the per-channel
 parameters; the convolution and the scan run on the rank's channels
 alone. ``w_x``'s product sums over y, so every y rank sees the whole dt,
-B and C.
+B and C. In the backward each rank's scan gives B's and C's gradients
+summed over its own channels only: they are summed over y
+(``parallel.bwd_psum``) before ``w_x``'s backward, once. The low-rank
+dt's gradient needs no sum: ``w_dt``'s backward sums it over y already.
+The reference passes the partial sums on (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -74,10 +81,13 @@ class Mamba(nn.Module):
 
     def _dt_bc(self, xc, plain):
         """w_x, then w_dt on the low-rank part: (dt fp32, B, C), B and C as
-        column views of w_x's output."""
+        column views of w_x's output (their gradient summed over y)."""
         N, dtr = self.cfg.mamba.d_state, self.cfg.dt_rank
         xdbc = PP.tp_matmul(xc, self.w_x, self.axes, "y", None, plain=plain)
-        dt_low, bc, cc = torch.split(xdbc, [dtr, N, N], dim=-1)
+        dt_low, bcc = torch.split(xdbc, [dtr, 2 * N], dim=-1)
+        if self.axes.gy > 1:
+            bcc = PP.bwd_psum(bcc, self.axes, "y")
+        bc, cc = torch.split(bcc, [N, N], dim=-1)
         dt = F.softplus(PP.tp_matmul(dt_low, self.w_dt, self.axes, None, "y",
                                      plain=plain) + self.b_dt.float())
         return dt, bc, cc
@@ -85,28 +95,27 @@ class Mamba(nn.Module):
     def forward(self, h, *, mode: str, state=None, plain: bool = False):
         """h (B, T, d/x) -> the mixer's output (B, T, d/x).
 
-        ``mode="prefill"``: the scan over the T rows from a zero state;
+        ``mode="train"``: the scan over the T rows from a zero state,
+        differentiable (K6's backward kernel); no state. ``mode="prefill"``:
+        the same scan;
         ``state`` (this layer's cache {"conv": (B, K-1, di), "ssm": (B, di,
         N) fp32}) is filled in place with the last K-1 inputs of the
         convolution and the final scan state. ``mode="decode"``: one row
         (T = 1) steps both from ``state`` and updates them in place (the
         JAX step returns new states; in place saves a copy per layer and
         step)."""
-        if mode not in ("prefill", "decode"):
-            raise NotImplementedError(
-                f"Mamba mode {mode!r} is not ported to PyTorch yet: it waits "
-                f"for the ROADMAP.md §1 item 'training the hybrid decoder' "
-                f"(a backward for kernel K6)")
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(mode)
         axes = self.axes
         K = self.cfg.mamba.d_conv
         xs = PP.tp_matmul(h, self.w_in, axes, "x", "y", plain=plain)
         zgate = PP.tp_matmul(h, self.w_gate, axes, "x", "y", plain=plain)
         A = -torch.exp(self.A_log.float())
-        if mode == "prefill":
+        if mode in ("train", "prefill"):
             xc = F.silu(causal_conv1d(xs, self.conv_w, self.conv_b))
             dt, bc, cc = self._dt_bc(xc, plain)
             y, s_fin = ops.selective_scan(xc, dt, A, bc, cc, plain=plain)
-            if state is not None:
+            if mode == "prefill" and state is not None:
                 # the last K-1 inputs of the conv; a prompt shorter than
                 # that keeps zeros in front, as the conv's padding has
                 tail = F.pad(xs, (0, 0, K - 1, 0))[:, -(K - 1):]

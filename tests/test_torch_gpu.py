@@ -22,8 +22,9 @@ from repro_torch.kernels.flash_attention import (attn_core,
 from repro_torch.kernels.rmsnorm import (
     rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_kernel, rmsnorm_plain,
     rmsnorm_stats_kernel, rmsnorm_stats_plain)
-from repro_torch.kernels.selective_scan import (selective_scan_kernel,
-                                                selective_scan_plain)
+from repro_torch.kernels.selective_scan import (
+    CHUNK, selective_scan_bwd_kernel, selective_scan_bwd_plain,
+    selective_scan_kernel, selective_scan_plain)
 from repro_torch.launch import steps as ST
 from repro_torch.layers.attention import partial_chain, partial_chain_bwd
 
@@ -776,7 +777,7 @@ def test_partial_attention_kernel_refuses_unsupported_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous fp32"):
         FA.partial_attention_kernel(q, kv, kv, carry[0].double(),
                                     *carry[1:])
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="widths in"):
         FA.partial_attention_kernel(q[..., :96], kv[..., :96], kv[..., :96],
                                     *FA.attn_partial_init(1, 8, 4, 96,
                                                           device=cuda))
@@ -859,6 +860,108 @@ def test_selective_scan_kernel_refuses_unsupported_inputs(cuda):
         selective_scan_kernel(x, dt.to(torch.bfloat16), A, B, C, s0)
     with pytest.raises(ValueError, match="d_state in"):
         selective_scan_kernel(x, dt, A[:, :4], B[..., :4], C[..., :4])
+
+
+def _close_scaled(got, want, tol, what):
+    """Within ``tol``, atol scaled by the gradient's largest entry (a sum
+    of T terms of both signs)."""
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=tol,
+        atol=tol * max(1.0, float(want.float().abs().max())), msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,T,d,with_s0,lead", [
+    (2, 128, 256, False, 256), (1, 77, 100, True, 5), (2, 300, 4096, False,
+                                                       256),
+    (3, 1, 130, True, 5), (1, 45, 192, True, 256)])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, Bt, T, d, with_s0,
+                                                 lead, dtype):
+    """K6's backward from the forward's chunk states against
+    ``selective_scan_bwd_plain`` (a cotangent for y and for the final
+    state), on the 16-byte path (lead 256) and the scalar one (lead 5),
+    T over many 32-step chunks with a ragged last one and T 1; the chunk
+    states the plain scan's; y and the final state the bits of the forward
+    without them; two calls the same bits."""
+    x, dt, A, B, C, s0 = _scan(cuda, Bt, T, d, 16, dtype, seed=T + d,
+                               with_s0=with_s0, lead=lead)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn((Bt, T, d), generator=gen, device=cuda).to(dtype)
+    gT = torch.randn((Bt, d, 16), generator=gen, device=cuda)
+    y, s, chunks = selective_scan_kernel(x, dt, A, B, C, s0,
+                                         chunk_states=True)
+    y0, s_0 = selective_scan_kernel(x, dt, A, B, C, s0)
+    assert torch.equal(y, y0) and torch.equal(s, s_0)
+    assert chunks.shape == (Bt, -(-T // CHUNK), d, 16)
+    k = chunks.shape[1] - 1
+    _, want = selective_scan_plain(x[:, :k * CHUNK], dt[:, :k * CHUNK], A,
+                                   B[:, :k * CHUNK], C[:, :k * CHUNK], s0)
+    torch.testing.assert_close(chunks[:, k], want, rtol=2e-4, atol=2e-4)
+    n = selective_scan_bwd_kernel.launches
+    got = selective_scan_bwd_kernel(x, dt, A, B, C, chunks, dy, s0=s0,
+                                    ds_fin=gT)
+    assert selective_scan_bwd_kernel.launches == n + 1
+    want = selective_scan_bwd_plain(x, dt, A, B, C, dy, s0, gT)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "ds0"), got,
+                          want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _close_scaled(g, w, TOL[dtype], name)
+    again = selective_scan_bwd_kernel(x, dt, A, B, C, chunks, dy, s0=s0,
+                                      ds_fin=gT)
+    assert all(g is None or torch.equal(g, h) for g, h in zip(got, again))
+
+
+def test_selective_scan_function_runs_the_kernels(cuda):
+    """``ops.selective_scan`` under autograd: the forward kernel once with
+    its chunk states, the backward kernel once, and the gradients of x,
+    dt, A, B and C those of the plain Function's."""
+    x, dt, A, B, C, _ = _scan(cuda, 2, 70, 128, 16, torch.float32,
+                              lead=256)
+    grads = {}
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A)]
+        xdbc = torch.cat([B, C], -1).clone().requires_grad_()
+        before = ops.launches()
+        y, _ = ops.selective_scan(*leaves, xdbc[..., :16], xdbc[..., 16:],
+                                  plain=plain)
+        y.square().sum().backward()
+        after = ops.launches()
+        runs = (after["selective_scan"] - before["selective_scan"],
+                after["selective_scan_bwd"] - before["selective_scan_bwd"])
+        assert runs == ((0, 0) if plain else (1, 1))
+        grads[plain] = [t.grad for t in leaves] + [xdbc.grad]
+    for g, w in zip(grads[False], grads[True]):
+        _close_scaled(g, w, TOL[torch.float32], "grad")
+
+
+def test_jamba_train_step_kernels_match_plain(cuda):
+    """Reduced Jamba (dense FFN, 8 layers) on the card: ``lm_loss`` and
+    every gradient through the kernels (K1, K2, K3, K6 and K6's
+    backward) against the plain versions; per microbatch K6 2 x 7 (the
+    forward and remat's recompute) and its backward 7."""
+    from repro_torch.models.decoder import lm_loss
+    cfg = get_config("jamba-v0.1-52b-dense-ffn").reduced()
+    gen = torch.Generator().manual_seed(2)
+    tokens, labels = (torch.randint(0, cfg.vocab_size, (2, 64),
+                                    generator=gen).cuda() for _ in range(2))
+    runs = {}
+    for plain in (False, True):
+        model = ST.init_model(cfg, seed=0, device=cuda)
+        ops.reset_launches()
+        loss, _ = lm_loss(model, tokens, labels, remat=True, plain=plain)
+        loss.backward()
+        runs[plain] = (loss.detach(), {n: p.grad for n, p in
+                                       model.named_parameters()},
+                       ops.launches())
+    (loss, grads, launched), (ploss, pgrads, _) = runs[False], runs[True]
+    assert launched["selective_scan"] == 14
+    assert launched["selective_scan_bwd"] == 7
+    torch.testing.assert_close(loss, ploss, rtol=1e-4, atol=1e-4)
+    for n, g in grads.items():
+        _close_scaled(g, pgrads[n], 1e-3, n)
 
 
 def test_fixed_serving_kernels_match_plain(cuda):

@@ -233,16 +233,6 @@ def test_mamba_calls_k6_within_its_contract(jamba, monkeypatch, dtype):
     assert calls == [7, 1] and out.dtype == dtype
 
 
-def test_mamba_refuses_training(jamba):
-    """K6 has no backward yet: the train mode names its ROADMAP item."""
-    *_, tcfg, model = jamba
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    from repro_torch.models.decoder import lm_loss
-    with pytest.raises(NotImplementedError,
-                       match="'training the hybrid decoder'"):
-        lm_loss(model, toks, toks)
-
-
 # ---------------------------------------------------------------------- #
 # the slice end to end: prefill + 4 decode steps
 # ---------------------------------------------------------------------- #

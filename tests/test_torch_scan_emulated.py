@@ -38,10 +38,10 @@ N = 16
 def scan(tmp_path_factory):
     lib = compile_source("selective_scan",
                          tmp_path_factory.mktemp("k6_emulated"))
-    fn = lib.selective_scan_launch
+    fn = lib.selective_scan_states_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, ll, ll, p, ll, ll, p, p, ll, ll, p, ll, ll, p, p, p,
-                   i, i, i, i, i, p]
+                   p, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
 
     def run(x, dt, A, B, C, s0=None):
@@ -52,8 +52,8 @@ def scan(tmp_path_factory):
                   dt.stride(0), dt.stride(1), A.data_ptr(), B.data_ptr(),
                   B.stride(0), B.stride(1), C.data_ptr(), C.stride(0),
                   C.stride(1), None if s0 is None else s0.data_ptr(),
-                  y.data_ptr(), s.data_ptr(), Bt, T, d, N, DTYPE[x.dtype],
-                  None) == 0
+                  y.data_ptr(), s.data_ptr(), None, Bt, T, d, N,
+                  DTYPE[x.dtype], None) == 0
         return y, s
     return run
 
