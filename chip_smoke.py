@@ -957,6 +957,21 @@ def scan_bwd_work(Bt, T, d, N, dtype):
     return nbytes, Bt * T * d * (18 * N + 3)
 
 
+def scan_bwd_exps(Bt, T, d, N, with_s0):
+    """(exps, launches) of one K6 backward as ``selective_scan.cu``
+    computes it. Its chunk pass walks each chunk's steps once (the chunk
+    0's only for ds0, and it is not launched when no chunk needs it); its
+    main pass walks the chunk's live 4-step sub-chunks (kSub) twice (to
+    each one's start, then each one again keeping its states and gates)
+    and walks back on the kept gates; the carry and sum passes compute
+    none."""
+    chunk_steps = [min(32, T - t0) for t0 in range(0, T, 32)]
+    walked = chunk_steps if with_s0 else chunk_steps[1:]
+    subs = [-(-n // 4) for n in chunk_steps]
+    per_state = sum(walked) + sum((2 * u - 1) * 4 for u in subs)
+    return Bt * d * N * per_state, 3 + bool(walked)
+
+
 def attn_inputs(gen, B, T, S, nq, nkv, hd, dtype):
     """q, k, v in the model's (B, T, H, hd) layout and an output
     gradient."""
@@ -1944,10 +1959,9 @@ def phase_timings_scan_bwd(gen, out):
     CUDA graph and eager calls. No PyTorch call computes a selective scan's
     gradient: the library column is null. The bound counts
     ``scan_bwd_work``'s bytes and its operations at the float32 rate; the
-    log gives the SFU floor of the exps the kernel computes (a_t three
-    times: the walk to the sub-chunk starts, each sub-chunk's walk, the
-    walk back; 24 + 32 + 32 a 32-step chunk) beside it, and the forward
-    with its chunk states against the forward without."""
+    log gives the launches of one call and the SFU floor of the exps the
+    kernel computes (``scan_bwd_exps``) beside it, and the forward with
+    its chunk states against the forward without."""
     from repro_torch.kernels.selective_scan import (
         selective_scan_bwd_kernel, selective_scan_bwd_plain,
         selective_scan_kernel)
@@ -1975,10 +1989,10 @@ def phase_timings_scan_bwd(gen, out):
         fb, fo = scan_work(Bt, T, d, 16, dtype, False)
         fwd_bound = bound(fb + Bt * -(-T // 32) * d * 16 * 4, fo, f32)
         now, top = sm_clocks_mhz()
-        exps = Bt * -(-T // 32) * 88 * d * 16
+        exps, launches = scan_bwd_exps(Bt, T, d, 16, False)
         log(f"  selective_scan_bwd {dtype_name(dtype)} {name} (Bt {Bt}, T "
-            f"{T}, d {d}, N 16): kernel {t['ms'] * 1e3:.2f}/"
-            f"{eager * 1e3:.2f} us (device/eager), plain "
+            f"{T}, d {d}, N 16): {launches} launches a call; kernel "
+            f"{t['ms'] * 1e3:.2f}/{eager * 1e3:.2f} us (device/eager), plain "
             f"{t['plain_ms'] * 1e3:.2f} us (device), no library call, bound "
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
             f"{t['bound_ms'] / t['ms']:.3f} of it; SFU floor of its "

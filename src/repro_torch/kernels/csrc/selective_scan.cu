@@ -139,52 +139,42 @@ struct Args {
   int T_len, d;
 };
 
-// stage steps [t0, t0 + kChunk) of channels [c0, c0 + kThreads) into `ch`:
-// 16-byte cp.async (VEC) or element by element; zeros past T and d
+// rows [t0, t0 + kChunk) of columns [c0, c0 + W) of a (T, d) matrix (src
+// at its batch row, time stride s_t, unit column stride) into `tile`, by
+// THREADS threads: 16-byte cp.async (VEC) or element by element; zeros
+// past T and d
+template <bool VEC, int THREADS, typename T, int W>
+__device__ __forceinline__ void stage_rows(T (&tile)[kChunk][W], const T* src,
+                                           int64_t s_t, int T_len, int d,
+                                           int c0, int t0) {
+  if constexpr (VEC) {
+    constexpr int EX = 16 / sizeof(T);  // elements in 16 bytes
+    constexpr int Q = W / EX;           // 16-byte pieces of a row
+    for (int p = threadIdx.x; p < kChunk * Q; p += THREADS) {
+      const int i = p / Q, c = c0 + (p % Q) * EX, t = t0 + i;
+      const bool ok = t < T_len && c < d;
+      cp_async16(&tile[i][c - c0], ok ? src + t * s_t + c : src, ok);
+    }
+  } else {
+    for (int p = threadIdx.x; p < kChunk * W; p += THREADS) {
+      const int i = p / W, j = p % W, t = t0 + i;
+      tile[i][j] = t < T_len && c0 + j < d ? src[t * s_t + c0 + j] : T{};
+    }
+  }
+}
+
+// stage steps [t0, t0 + kChunk) of channels [c0, c0 + kThreads) into `ch`
 template <bool VEC, typename T, int N>
 __device__ __forceinline__ void stage(Chunk<T, N>& ch, const Args<T>& a,
                                       int b, int c0, int t0) {
-  const T* x = a.x + (int64_t)b * a.sx_b;
-  const float* dt = a.dt + (int64_t)b * a.sdt_b;
-  const T* Bm = a.B + (int64_t)b * a.sb_b;
-  const T* Cm = a.C + (int64_t)b * a.sc_b;
-  if constexpr (VEC) {
-    constexpr int EX = 16 / sizeof(T);  // elements of x in 16 bytes
-    constexpr int QX = kThreads / EX;   // 16-byte pieces of an x row
-    constexpr int QD = kThreads / 4;    // of a dt row
-    constexpr int QB = N / EX;          // of a B or C row
-    for (int p = threadIdx.x; p < kChunk * QX; p += kThreads) {
-      const int i = p / QX, c = c0 + (p % QX) * EX, t = t0 + i;
-      const bool ok = t < a.T_len && c < a.d;
-      cp_async16(&ch.x[i][c - c0], ok ? x + t * a.sx_t + c : x, ok);
-    }
-    for (int p = threadIdx.x; p < kChunk * QD; p += kThreads) {
-      const int i = p / QD, c = c0 + (p % QD) * 4, t = t0 + i;
-      const bool ok = t < a.T_len && c < a.d;
-      cp_async16(&ch.dt[i][c - c0], ok ? dt + t * a.sdt_t + c : dt, ok);
-    }
-    for (int p = threadIdx.x; p < 2 * kChunk * QB; p += kThreads) {
-      const int m = p / (kChunk * QB), r = p % (kChunk * QB);
-      const int i = r / QB, n = (r % QB) * EX, t = t0 + i;
-      const bool ok = t < a.T_len;
-      const T* src = m ? Cm + t * a.sc_t + n : Bm + t * a.sb_t + n;
-      cp_async16(m ? &ch.c[i][n] : &ch.b[i][n], ok ? src : Bm, ok);
-    }
-  } else {
-    for (int p = threadIdx.x; p < kChunk * kThreads; p += kThreads) {
-      const int i = p / kThreads, j = p % kThreads, t = t0 + i;
-      const bool ok = t < a.T_len && c0 + j < a.d;
-      ch.x[i][j] = ok ? x[t * a.sx_t + c0 + j] : T{};
-      ch.dt[i][j] = ok ? dt[t * a.sdt_t + c0 + j] : 0.f;
-    }
-    for (int p = threadIdx.x; p < 2 * kChunk * N; p += kThreads) {
-      const int m = p / (kChunk * N), r = p % (kChunk * N);
-      const int i = r / N, n = r % N, t = t0 + i;
-      const bool ok = t < a.T_len;
-      const T v = !ok ? T{} : m ? Cm[t * a.sc_t + n] : Bm[t * a.sb_t + n];
-      (m ? ch.c : ch.b)[i][n] = v;
-    }
-  }
+  stage_rows<VEC, kThreads>(ch.x, a.x + (int64_t)b * a.sx_b, a.sx_t, a.T_len,
+                            a.d, c0, t0);
+  stage_rows<VEC, kThreads>(ch.dt, a.dt + (int64_t)b * a.sdt_b, a.sdt_t,
+                            a.T_len, a.d, c0, t0);
+  stage_rows<VEC, kThreads>(ch.b, a.B + (int64_t)b * a.sb_b, a.sb_t, a.T_len,
+                            N, 0, t0);
+  stage_rows<VEC, kThreads>(ch.c, a.C + (int64_t)b * a.sc_b, a.sc_t, a.T_len,
+                            N, 0, t0);
 }
 
 // M floats at p, as 16-byte loads where VEC
@@ -293,38 +283,98 @@ selective_scan_kernel(const Args<T> a) {
 //     ddt_t  = sum_n G_t (A a_t s_{t-1} + x_t B_t)
 //     dB_t   = sum_c G_t dt_t x_t,   dC_t = sum_c dy_t s_t
 //     dA     = sum_b sum_t G_t dt_t a_t s_{t-1},   ds0 = a_0 G_0
-// with a_t = exp(dt_t A). One thread per (b, c) again, G in registers,
-// the chunks walked in reverse. A chunk's states come back from the state
-// the forward saved before it: a first walk keeps the state at the start
-// of each kSub-step sub-chunk in shared memory, then each sub-chunk, last
-// first, is walked again keeping its kSub states before each step, and
-// walked back. kSub = 8 keeps the states at 32 KB a block (two blocks an
-// SM with the double-buffered tiles) for 24 + 32 more exps a chunk than
-// the 32 of the walk back; all 32 states would take 128 KB and one block.
-// dB and dC are sums over channels: each step's 2N terms are summed over
-// the warp's 32 lanes by a butterfly that leaves lane l with the sum of
-// term l (31 shuffles), written to a workspace per warp; dA's terms are
-// summed over the steps in registers and written per batch row. A second
-// kernel sums the workspace over warps and batch rows in a fixed order:
-// no atomics, so every run gives the same bits.
-// Measured on an H100 (700 W) at the training shape of a microbatch (Bt
-// 2, T 512, d 8192, N 16), float32 (chip_smoke.py, device time): 853 us,
-// 0.065 of the 55 us bound (bytes) and ~10x the 88 us SFU floor of its
-// 369 M exps; 628 us at g_y = 2's 4,096 channels; bf16 855 us. Saving the
-// chunk states costs the forward 75 -> 77 us. The grid is 256 blocks of
-// two warps, two an SM: the walk back, a chain of dependent exps, FMAs
-// and the 5 levels of shuffles a step, runs with 4 warps an SM to hide
-// its latency. Variants built side by side and timed in turns (the same
-// bits): kSub 4 ran 857-865 us against 857-867, kSub 16 (one block an
-// SM, two waves) 1,198-1,200 (600 at d 4096, against 621-623), the walk
-// back unrolled 2 or 8 times 858-868: the exps are not what bounds it,
-// the warps an SM are. More lanes a channel (more warps, fewer terms a
-// lane to shuffle) is not measured yet.
+// with a_t = exp(dt_t A).
+//
+// What bounds it: the function moves 186 MB at the training shape of a
+// microbatch (Bt 2, T 512, d 8192, N 16, float32; 55 us at 3.35 TB/s),
+// but a walk back needs each step's state, which only a walk forward from
+// the forward's saved chunk state (s_chunks, every 32 steps) gives, and
+// dB_t and dC_t are sums over the channels of 2N terms every state-step.
+// So it is bound by instructions issued: ~13 of arithmetic a state-step
+// plus the states' recomputation and the channel sums.
+//
+// Design: the only quantity that crosses chunks going back is G, and it is
+// linear. For chunk k of steps [t0, t1), with H_k = a_{t1} G_{t1} what
+// enters it from above (gT, or 0, for the last):
+//     G_t     = G^_t + (prod_{u=t+1}^{t1-1} a_u) H_k   (G^: the walk from 0)
+//     H_{k-1} = E_k + D_k H_k,   E_k = a_{t0} G^_{t0},
+//     D_k     = prod_{u=t0}^{t1-1} a_u
+// and ds0 = H_{-1}. Four launches, in this order, no atomics:
+//  (a) a block per (64 channels, chunk, batch row) walks G^ back through
+//      its chunk's dt, dy and C tiles: E_k and D_k (the product of the a_t
+//      the walk computes) into the workspace. Chunk 0's only for ds0;
+//  (b) a thread per (batch row, channel, 4 states) carries H down the
+//      chunks in turn, kCarry chunks' loads in flight (H_k over E_k);
+//  (c) a block per (64 channels, chunk, batch row) walks G back from H_k:
+//      a lane takes 4 states of two neighbouring channels, 4 lanes a
+//      channel pair, 128 threads. The chunk's x, dt, dy, B, C tiles are
+//      staged once (cp.async); a walk forward from s_chunks keeps each
+//      lane's states at the start of each kSub-step sub-chunk in shared
+//      memory; each sub-chunk, last first, is walked forward again keeping
+//      its states and gates a_t in registers, then walked back. Per step a
+//      lane adds its two channels' dB/dC terms, a 3-level butterfly sums
+//      them over the warp's 8 channel pairs, and the lane's shares of G.B
+//      and A.(G a s) go to shared memory as one 16-byte row; after each
+//      sub-chunk the block sums the warps' dB/dC (one partial per step and
+//      block into the workspace) and each channel's 4 shares into dx and
+//      ddt, written as whole rows. dA's chunk partial goes over D_k;
+//  (d) a block per (batch row, step) sums its blocks' dB/dC partials
+//      (8 warps over the blocks, then in order), and a thread per (c, n)
+//      dA's (batch row, chunk) partials.
+// Exps: (a) one a state-step, (c) 1.875 (28 + 32 steps a chunk, none in
+// the walk back): 2.81 a state-step at the training shape (378 M; the
+// SFU floor 90 us at 1980 MHz). (c) runs 3 blocks of 4 warps an SM (148
+// registers, 71 KB of shared memory), each lane with two channels'
+// independent chains; (a) up to 40 warps (a register bound). The
+// workspace: E/H and D/dA, each (Bt, chunks, d, N), and dB/dC's (Bt, T,
+// d / 64, 2N): 50 MB at the training shape, dB/dC's part half of PR 31's
+// per-warp 33.5 MB.
+// Measured on an H100 (700 W), device time of 20 calls in a replayed CUDA
+// graph, in turns with PR 31's kernel (tools/k6_bwd_turns.py): 279.0 /
+// 278.8 us against 830.0 / 829.3 at the training shape (0.199 of the 55.5
+// us bound), 153.1 / 150.4 against 628.4 / 628.2 at g_y = 2's 4,096
+// channels (147.0-153.1 over three calls); bf16 290.7 / 291.4 and 149.1 /
+// 151.0. By launch (profiler): (a) 43.7, (b) 20.0, (c) 199.6, (d) 15.2 us.
+// (c) is bound by the instructions it issues: per state-step ~13 of
+// arithmetic, the states walked 1.875 times, the butterfly's shuffles,
+// selects and adds (without it, a wrong result, the first design ran 56 us
+// faster); sharing the butterfly and the loads between two channels is
+// what two channels a lane bought.
+// Variants timed in turns (each row one call; the kept design last):
+//  * kSub 8, 2 blocks an SM: 339.3 / 341.7 against kSub 4, 3 blocks 317.3
+//    / 317.5 (one channel a lane, 256 threads; each step's G.B and A.(G a
+//    s) summed over the 4 lanes by shuffles and dx, ddt stored by them);
+//  * (b) as a thread per (b, c, n) loading a chunk at a time: 186 us alone,
+//    against 19.9 with kCarry chunks' loads in flight;
+//  * the lanes' shares through shared memory: 310.9 / 310.7 against the
+//    shuffles' 317 (one call earlier); and the sums after a sub-chunk one
+//    item a thread: 299.6 / 299.2 against 310.7 / 310.5;
+//  * keeping each step's dt, dt x and B from the walk forward for the walk
+//    back (112 registers, 2 blocks): 315.5 / 315.6 against 310.8 / 311.2;
+//  * dB/dC summed through a shared-memory transpose (one add a term, 102
+//    KB, 2 blocks): 341.7 / 341.3 against 299.6 / 299.0;
+//  * the gates recomputed in the walk back (0.94 more exps a state-step):
+//    305.0 / 304.8 against 304.7 / 304.8; at kSub 8 309.3 / 309.8;
+//  * (d) as a thread per dB/dC term walking its 128 blocks: 303.9 / 304.9
+//    against 299.2 / 301.3;
+//  * two channels a lane (161 registers, 12 warps an SM): 285.7 / 286.0
+//    against one channel's 301.0 / 300.9; with the gates recomputed 293.7
+//    / 294.3; the shares as one 16-byte row (kept): 278.1 / 277.8 against
+//    286.7 / 286.5;
+//  * the step's two channels of dt, x and dy loaded as one access, or the
+//    walk to the sub-chunk starts unrolled whole: 281.6 / 280.2 and 280.2
+//    / 280.0 against 280.9 / 280.1.
 
-constexpr int kSub = 8;                 // steps whose states a walk keeps
-constexpr int kSubs = kChunk / kSub;    // sub-chunks in a chunk
+constexpr int kLanes = 4;                     // lanes per channel
+constexpr int kQ = 4;                         // states per lane
+constexpr int kBwdCh = 64;                    // channels per block
+constexpr int kChunkThreads = kBwdCh * kLanes;  // (a)'s block: 256
+constexpr int kPair = 2;                      // (c): channels per lane
+constexpr int kMainThreads = kChunkThreads / kPair;  // (c)'s block: 128
+constexpr int kMainWarps = kMainThreads / 32;
+constexpr int kSub = 4;                       // steps a walk keeps states of
+constexpr int kSubs = kChunk / kSub;          // sub-chunks in a chunk
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kWarps = kThreads / 32;
 
 template <typename T>
 struct BwdArgs {
@@ -339,247 +389,383 @@ struct BwdArgs {
   T* dB;                 // (Bt, T, N)
   T* dC;                 // (Bt, T, N)
   float* dA;             // (d, N)
-  float* ws_bc;          // (Bt, T, warps, 2N)
-  float* ws_a;           // (Bt, d, N)
-  int warps;             // warps of channels: kWarps * blocks
+  float* ws_h;           // (Bt, chunks, d, N): E_k, then the carry H_k
+  float* ws_d;           // (Bt, chunks, d, N): D_k, then dA's chunk partials
+  float* ws_bc;          // (Bt, T, groups, 2N): dB's and dC's block partials
+  int groups;            // blocks of kBwdCh channels
 };
 
+// pass (a)'s tiles: dt, dy and C of one chunk
 template <typename T, int N>
-struct BwdSmem {
-  Chunk<T, N> buf[2];
-  T dy[2][kChunk][kThreads];
-  float bnd[kSubs][N][kThreads];   // the state at each sub-chunk's start
-  float st[kSub][N][kThreads];     // a sub-chunk's state before each step
+struct CarryTile {
+  float dt[kChunk][kBwdCh];
+  T dy[kChunk][kBwdCh];
+  T c[kChunk][N];
 };
 
-template <bool VEC, typename T>
-__device__ __forceinline__ void stage_dy(T (&dy)[kChunk][kThreads],
-                                         const BwdArgs<T>& a, int b, int c0,
-                                         int t0) {
-  const T* src = a.dy + (int64_t)b * a.sdy_b;
-  const int T_len = a.f.T_len, d = a.f.d;
-  if constexpr (VEC) {
-    constexpr int EX = 16 / sizeof(T), QX = kThreads / EX;
-    for (int p = threadIdx.x; p < kChunk * QX; p += kThreads) {
-      const int i = p / QX, c = c0 + (p % QX) * EX, t = t0 + i;
-      const bool ok = t < T_len && c < d;
-      cp_async16(&dy[i][c - c0], ok ? src + t * a.sdy_t + c : src, ok);
-    }
-  } else {
-    for (int p = threadIdx.x; p < kChunk * kThreads; p += kThreads) {
-      const int i = p / kThreads, j = p % kThreads, t = t0 + i;
-      dy[i][j] = t < T_len && c0 + j < d ? src[t * a.sdy_t + c0 + j] : T{};
-    }
-  }
-}
-
-// one step of the forward recurrence, with the forward's arithmetic (the
-// same bits as the state it computed)
+// pass (c)'s: the chunk's tiles, each lane's states at each sub-chunk's
+// start, and of a sub-chunk's steps the warps' dB/dC sums and each lane's
+// shares of G.B and A.(G a s) (a lane's two channels side by side; the 4
+// padding columns keep its 16-byte stores off each other's banks)
 template <typename T, int N>
-__device__ __forceinline__ void step_fwd(const Chunk<T, N>& cur, int i,
-                                         int ch, const float* a2, float* s) {
-  const float dtv = cur.dt[i][ch];
-  const float dx = dtv * to_f(cur.x[i][ch]);
-  float bv[N];
-  row_f32<N>(cur.b[i], bv);
-#pragma unroll
-  for (int n = 0; n < N; ++n) s[n] = fmaf(s[n], ex2(dtv * a2[n]), dx * bv[n]);
-}
+struct BwdTile {
+  T x[kChunk][kBwdCh];
+  float dt[kChunk][kBwdCh];
+  T dy[kChunk][kBwdCh];
+  T b[kChunk][N];
+  T c[kChunk][N];
+  float bnd[kSubs][kMainThreads][kPair][kQ];
+  float red[kSub][kMainWarps][2 * N];
+  float2 gq[kSub][kLanes][kBwdCh + 4];
+};
 
-// v[0..31] over the warp's lanes -> this lane's sum of term (lane): halve
-// the terms at each of 5 levels, keeping the half the lane's bit picks
-__device__ __forceinline__ float warp_reduce_scatter(float* v) {
+// v[0..7] (a lane's 2 kQ terms) summed over the warp's 8 channel pairs (lane
+// bits 2-4): halve the terms at each of 3 levels, keeping the half the
+// lane's bit picks; lane l is left with the sum of term l >> 2
+__device__ __forceinline__ float reduce_scatter_channels(float* v) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int h = 16; h >= 1; h >>= 1) {
-    const bool hi = (lane & h) != 0;
+  for (int lv = 0; lv < 3; ++lv) {
+    const int m = 16 >> lv, h = 4 >> lv;
+    const bool hi = (lane & m) != 0;
 #pragma unroll
     for (int j = 0; j < h; ++j) {
       const float keep = hi ? v[j + h] : v[j];
       const float send = hi ? v[j] : v[j + h];
-      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
     }
   }
   return v[0];
 }
 
+// this lane's kQ values of a (.., N) row at p, as one 16-byte load where
+// VEC; zeros where !live
+template <bool VEC>
+__device__ __forceinline__ void load_q(const float* p, bool live, float* v) {
+  if (live) {
+    load_f32<VEC, kQ>(p, v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) v[q] = 0.f;
+  }
+}
+
+// (a): block (channel group, chunk k0 + y, batch row) walks G back through
+// its chunk from zero: E_k = a_{t0} G_{t0} and D_k = the product of the
+// chunk's a_t, per (c, n) into ws_h and ws_d
 template <typename T, int N, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-selective_scan_bwd_kernel(const BwdArgs<T> a) {
-  static_assert(2 * N == 32, "dB and dC's 2N terms are the warp's lanes");
-  extern __shared__ __align__(16) float4 scan_smem[];
-  BwdSmem<T, N>& sm = *reinterpret_cast<BwdSmem<T, N>*>(scan_smem);
+__global__ void __launch_bounds__(kChunkThreads)
+selective_scan_bwd_chunk_kernel(const BwdArgs<T> a, int k0) {
+  static_assert(N == kLanes * kQ, "kQ states in each of kLanes lanes");
+  __shared__ __align__(16) CarryTile<T, N> tile;
   const Args<T>& f = a.f;
-  const int ch = threadIdx.x, lane = ch & 31;
-  const int b = blockIdx.y, c0 = blockIdx.x * kThreads, c = c0 + ch;
-  const int warp = blockIdx.x * kWarps + ch / 32;
+  const int h = threadIdx.x % kLanes, j = threadIdx.x / kLanes;
+  const int c0 = blockIdx.x * kBwdCh, c = c0 + j;
+  const int k = k0 + blockIdx.y, b = blockIdx.z, chunks = k0 + gridDim.y;
+  const int t0 = k * kChunk, steps = min(kChunk, f.T_len - t0);
   const bool live = c < f.d;
-  const int64_t st = ((int64_t)b * f.d + c) * N;
-  float a2[N], G[N], an[N], dA[N];
-  if (live) {
-    load_f32<VEC, N>(f.A + (int64_t)c * N, a2);
-  } else {
-#pragma unroll
-    for (int n = 0; n < N; ++n) a2[n] = 0.f;
-  }
-  if (live && a.gT != nullptr) {
-    load_f32<VEC, N>(a.gT + st, G);
-  } else {
-#pragma unroll
-    for (int n = 0; n < N; ++n) G[n] = 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a2[n] *= kLog2e;
-    an[n] = 1.f;  // a_{t+1} past the last step
-    dA[n] = 0.f;
-  }
-
-  const int chunks = (f.T_len + kChunk - 1) / kChunk;
-  if (chunks > 0) {
-    stage<VEC>(sm.buf[(chunks - 1) & 1], f, b, c0, (chunks - 1) * kChunk);
-    stage_dy<VEC>(sm.dy[(chunks - 1) & 1], a, b, c0, (chunks - 1) * kChunk);
-  }
+  stage_rows<VEC, kChunkThreads>(tile.dt, f.dt + (int64_t)b * f.sdt_b,
+                               f.sdt_t, f.T_len, f.d, c0, t0);
+  stage_rows<VEC, kChunkThreads>(tile.dy, a.dy + (int64_t)b * a.sdy_b,
+                               a.sdy_t, f.T_len, f.d, c0, t0);
+  stage_rows<VEC, kChunkThreads>(tile.c, f.C + (int64_t)b * f.sc_b, f.sc_t,
+                               f.T_len, N, 0, t0);
   cp_async_commit();
-  for (int k = chunks - 1; k >= 0; --k) {
-    Chunk<T, N>& cur = sm.buf[k & 1];
-    T(&dyt)[kChunk][kThreads] = sm.dy[k & 1];
-    const int t0 = k * kChunk, steps = min(kChunk, f.T_len - t0);
-    __syncthreads();  // chunk k+1's dx and ddt have left the other buffer
-    if (k > 0) {
-      stage<VEC>(sm.buf[(k - 1) & 1], f, b, c0, t0 - kChunk);
-      stage_dy<VEC>(sm.dy[(k - 1) & 1], a, b, c0, t0 - kChunk);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // chunk k has landed; chunk k-1 may be in flight
-    __syncthreads();
-
-    // the state at the start of each sub-chunk, from the chunk's. Steps
-    // past T have dt = x = dy = 0 in the tiles (a = 1, no input), so every
-    // walk below may take all kChunk steps
-    float s[N];
-    if (live) {
-      load_f32<VEC, N>(a.s_chunks + (((int64_t)b * chunks + k) * f.d + c) * N,
-                       s);
-    } else {
+  float a2[kQ], G[kQ], an[kQ], D[kQ];
+  load_q<VEC>(f.A + (int64_t)c * N + h * kQ, live, a2);
 #pragma unroll
-      for (int n = 0; n < N; ++n) s[n] = 0.f;
-    }
-    for (int j = 0; j < kSubs; ++j) {
+  for (int q = 0; q < kQ; ++q) {
+    a2[q] *= kLog2e;
+    G[q] = 0.f;
+    an[q] = 1.f;
+    D[q] = 1.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll 4
+  for (int i = steps - 1; i >= 0; --i) {
+    const float dtv = tile.dt[i][j];
+    const float dyv = to_f(tile.dy[i][j]);
+    float cv[kQ];
+    row_f32<kQ>(&tile.c[i][h * kQ], cv);
 #pragma unroll
-      for (int n = 0; n < N; ++n) sm.bnd[j][n][ch] = s[n];
-      if (j + 1 < kSubs) {
-        for (int i = j * kSub; i < (j + 1) * kSub; ++i)
-          step_fwd(cur, i, ch, a2, s);
-      }
-    }
-    for (int j = kSubs - 1; j >= 0; --j) {
-      if (j * kSub >= steps) continue;  // wholly past T: G passes as it is
-#pragma unroll
-      for (int n = 0; n < N; ++n) s[n] = sm.bnd[j][n][ch];
-      for (int i = 0; i < kSub; ++i) {
-#pragma unroll
-        for (int n = 0; n < N; ++n) sm.st[i][n][ch] = s[n];
-        step_fwd(cur, j * kSub + i, ch, a2, s);
-      }
-      for (int i = kSub - 1; i >= 0; --i) {
-        const int ti = j * kSub + i;
-        const float dtv = cur.dt[ti][ch];
-        const float xv = to_f(cur.x[ti][ch]);
-        const float dyv = to_f(dyt[ti][ch]);
-        const float u = dtv * xv;
-        float bv[N], cv[N], v[2 * N];
-        row_f32<N>(cur.b[ti], bv);
-        row_f32<N>(cur.c[ti], cv);
-        float gb[2] = {0.f, 0.f}, qa[2] = {0.f, 0.f};
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float sp = sm.st[i][n][ch];
-          const float at = ex2(dtv * a2[n]);
-          const float sn = fmaf(sp, at, u * bv[n]);  // s_t, as the forward
-          G[n] = fmaf(an[n], G[n], dyv * cv[n]);
-          v[n] = G[n] * u;        // dB_t's term
-          v[N + n] = dyv * sn;    // dC_t's term
-          gb[n & 1] = fmaf(G[n], bv[n], gb[n & 1]);
-          const float q = G[n] * at * sp;
-          qa[n & 1] = fmaf(a2[n], q, qa[n & 1]);
-          dA[n] = fmaf(dtv, q, dA[n]);
-          an[n] = at;
-        }
-        const float g = gb[0] + gb[1];
-        // dx over x and ddt over dt, read by this thread alone
-        store(&cur.x[ti][ch], dtv * g);
-        cur.dt[ti][ch] = fmaf(kLn2, qa[0] + qa[1], xv * g);
-        const float r = warp_reduce_scatter(v);
-        if (t0 + ti < f.T_len)
-          a.ws_bc[(((int64_t)b * f.T_len + t0 + ti) * a.warps + warp) *
-                      (2 * N) + lane] = r;
-      }
-    }
-    __syncthreads();  // the chunk's dx and ddt tiles are whole
-    T* dx = a.dx + ((int64_t)b * f.T_len + t0) * f.d + c0;
-    float* ddt = a.ddt + ((int64_t)b * f.T_len + t0) * f.d + c0;
-    if constexpr (VEC) {
-      constexpr int EX = 16 / sizeof(T), QX = kThreads / EX;
-      for (int p = threadIdx.x; p < steps * QX; p += kThreads) {
-        const int i = p / QX, j = (p % QX) * EX;
-        if (c0 + j < f.d)
-          *reinterpret_cast<uint4*>(dx + (int64_t)i * f.d + j) =
-              *reinterpret_cast<const uint4*>(&cur.x[i][j]);
-      }
-      constexpr int QD = kThreads / 4;
-      for (int p = threadIdx.x; p < steps * QD; p += kThreads) {
-        const int i = p / QD, j = (p % QD) * 4;
-        if (c0 + j < f.d)
-          *reinterpret_cast<float4*>(ddt + (int64_t)i * f.d + j) =
-              *reinterpret_cast<const float4*>(&cur.dt[i][j]);
-      }
-    } else {
-      for (int p = threadIdx.x; p < steps * kThreads; p += kThreads) {
-        const int i = p / kThreads, j = p % kThreads;
-        if (c0 + j < f.d) {
-          dx[(int64_t)i * f.d + j] = cur.x[i][j];
-          ddt[(int64_t)i * f.d + j] = cur.dt[i][j];
-        }
-      }
+    for (int q = 0; q < kQ; ++q) {
+      const float at = ex2(dtv * a2[q]);
+      G[q] = fmaf(an[q], G[q], dyv * cv[q]);
+      D[q] *= at;
+      an[q] = at;
     }
   }
   if (live) {
-    store_f32<VEC, N>(a.ws_a + st, dA);
-    if (a.ds0 != nullptr) {
-      float g0[N];
+    const int64_t o = (((int64_t)b * chunks + k) * f.d + c) * N + h * kQ;
 #pragma unroll
-      for (int n = 0; n < N; ++n) g0[n] = an[n] * G[n];
-      store_f32<VEC, N>(a.ds0 + st, g0);
+    for (int q = 0; q < kQ; ++q) G[q] *= an[q];
+    store_f32<true, kQ>(a.ws_h + o, G);
+    store_f32<true, kQ>(a.ws_d + o, D);
+  }
+}
+
+// (b): thread (b, c, 4 states) carries dL/ds down the chunks in turn: H =
+// gT (or 0) enters the last; H_k overwrites E_k; H_{k-1} = E_k + D_k H_k;
+// ds0 = H_{-1}. The loads of kCarry chunks are issued before their carry
+constexpr int kCarry = 8;
+
+__global__ void __launch_bounds__(256)
+selective_scan_bwd_carry_kernel(float* __restrict__ ws_h,
+                                const float* __restrict__ ws_d,
+                                const float* gT, float* ds0, int Bt,
+                                int chunks, int64_t dn) {
+  const int64_t p = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (p >= Bt * dn) return;
+  const int64_t b = p / dn, q = p % dn;
+  float H[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) H[n] = gT != nullptr ? gT[p + n] : 0.f;
+  for (int k1 = chunks - 1; k1 >= 0; k1 -= kCarry) {
+    float E[kCarry][4], D[kCarry][4];
+#pragma unroll
+    for (int i = 0; i < kCarry; ++i) {
+      if (k1 - i >= 0) {
+        const int64_t o = (b * chunks + k1 - i) * dn + q;
+        row_f32<4>(ws_h + o, E[i]);
+        row_f32<4>(ws_d + o, D[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCarry; ++i) {
+      if (k1 - i >= 0) {
+        store_f32<true, 4>(ws_h + (b * chunks + k1 - i) * dn + q, H);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) H[n] = fmaf(D[i][n], H[n], E[i][n]);
+      }
+    }
+  }
+  if (ds0 != nullptr) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) ds0[p + n] = H[n];
+  }
+}
+
+// one step of the forward recurrence for a lane's two channels (j, j + 1)
+// and kQ states each, with the forward's arithmetic (the same bits as the
+// state it computed); at gets the step's a_t
+template <typename T, int N>
+__device__ __forceinline__ void step_fwd(const BwdTile<T, N>& sm, int i,
+                                         int j, int h,
+                                         const float (&a2)[kPair][kQ],
+                                         float (&s)[kPair][kQ],
+                                         float (&at)[kPair][kQ]) {
+  float bv[kQ];
+  row_f32<kQ>(&sm.b[i][h * kQ], bv);
+#pragma unroll
+  for (int e = 0; e < kPair; ++e) {
+    const float dtv = sm.dt[i][j + e];
+    const float dx = dtv * to_f(sm.x[i][j + e]);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      at[e][q] = ex2(dtv * a2[e][q]);
+      s[e][q] = fmaf(s[e][q], at[e][q], dx * bv[q]);
     }
   }
 }
 
-// the workspace summed in a fixed order: thread (row, l) of a (Bt T) x 2N
-// grid sums term l of the row's warps into dB (l < N) or dC; then thread
-// (c, n) of d x N sums dA's batch rows
-template <typename T, int N>
-__global__ void __launch_bounds__(256)
-selective_scan_bwd_sum_kernel(const float* ws_bc, const float* ws_a, T* dB,
-                              T* dC, float* dA, int64_t rows, int warps,
-                              int Bt, int64_t dn) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < rows * 2 * N) {
-    const int64_t row = p / (2 * N);
-    const int l = (int)(p % (2 * N));
-    const float* w = ws_bc + row * warps * 2 * N + l;
-    float acc = 0.f;
-    for (int k = 0; k < warps; ++k) acc += w[(int64_t)k * 2 * N];
-    if (l < N) {
-      store(&dB[row * N + l], acc);
-    } else {
-      store(&dC[row * N + l - N], acc);
+// (c): block (channel group, chunk, batch row) walks G back through its
+// chunk from H_k, the chunk's states recomputed from the forward's
+// s_chunks in kSub-step sub-chunks; a lane takes kQ states of two
+// neighbouring channels, whose dB/dC terms it adds before the butterfly;
+// dx and ddt of each step, dA's chunk partial into ws_d, dB's and dC's
+// block partial of each step into ws_bc
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(kMainThreads, 3)
+selective_scan_bwd_kernel(const BwdArgs<T> a) {
+  static_assert(N == kLanes * kQ && 2 * N == 32 && kLanes == 4 &&
+                kPair == 2, "a warp's 32 sums are dB's and dC's terms; a "
+                "lane's shares are one 16-byte row, a channel's 4 rows");
+  static_assert(kSub * 2 * N <= kMainThreads &&
+                kSub * kBwdCh % kMainThreads == 0,
+                "a sub-chunk's dB/dC sums are a thread each, its dx and "
+                "ddt whole rounds of the block");
+  extern __shared__ __align__(16) float4 scan_smem[];
+  BwdTile<T, N>& sm = *reinterpret_cast<BwdTile<T, N>*>(scan_smem);
+  const Args<T>& f = a.f;
+  const int tid = threadIdx.x, h = tid % kLanes, j = tid / kLanes * kPair;
+  const int lane = tid & 31, warp = tid / 32;
+  const int c0 = blockIdx.x * kBwdCh;
+  const int k = blockIdx.y, b = blockIdx.z, chunks = gridDim.y;
+  const int t0 = k * kChunk, steps = min(kChunk, f.T_len - t0);
+  // the block's corner of dx, ddt (step t0, channel c0) and of ws_bc
+  T* dx = a.dx + ((int64_t)b * f.T_len + t0) * f.d + c0;
+  float* ddt = a.ddt + ((int64_t)b * f.T_len + t0) * f.d + c0;
+  float* ws_bc = a.ws_bc + ((int64_t)b * f.T_len * a.groups + blockIdx.x) *
+                               (2 * N);
+  stage_rows<VEC, kMainThreads>(sm.x, f.x + (int64_t)b * f.sx_b, f.sx_t,
+                                f.T_len, f.d, c0, t0);
+  stage_rows<VEC, kMainThreads>(sm.dt, f.dt + (int64_t)b * f.sdt_b,
+                                f.sdt_t, f.T_len, f.d, c0, t0);
+  stage_rows<VEC, kMainThreads>(sm.dy, a.dy + (int64_t)b * a.sdy_b,
+                                a.sdy_t, f.T_len, f.d, c0, t0);
+  stage_rows<VEC, kMainThreads>(sm.b, f.B + (int64_t)b * f.sb_b, f.sb_t,
+                                f.T_len, N, 0, t0);
+  stage_rows<VEC, kMainThreads>(sm.c, f.C + (int64_t)b * f.sc_b, f.sc_t,
+                                f.T_len, N, 0, t0);
+  cp_async_commit();
+  float a2[kPair][kQ], G[kPair][kQ], an[kPair][kQ], dA[kPair][kQ];
+  float s[kPair][kQ], at[kPair][kQ];
+  int64_t o[kPair];
+  bool live[kPair];
+#pragma unroll
+  for (int e = 0; e < kPair; ++e) {
+    const int c = c0 + j + e;
+    live[e] = c < f.d;
+    o[e] = (((int64_t)b * chunks + k) * f.d + c) * N + h * kQ;
+    load_q<VEC>(f.A + (int64_t)c * N + h * kQ, live[e], a2[e]);
+    load_q<VEC>(a.ws_h + o[e], live[e], G[e]);
+    load_q<VEC>(a.s_chunks + o[e], live[e], s[e]);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      a2[e][q] *= kLog2e;
+      an[e][q] = 1.f;  // a_{t+1} past the chunk's last step: G starts at H_k
+      dA[e][q] = 0.f;
     }
-  } else if (p - rows * 2 * N < dn) {
-    const int64_t q = p - rows * 2 * N;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the state at the start of each sub-chunk. Steps past T have dt = x =
+  // dy = 0 in the tiles (a = 1, no input), so a walk may take them
+  const int subs = (steps + kSub - 1) / kSub;  // sub-chunks holding steps
+  for (int u = 0; u < subs; ++u) {
+#pragma unroll
+    for (int e = 0; e < kPair; ++e)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) sm.bnd[u][tid][e][q] = s[e][q];
+    if (u + 1 < subs) {
+#pragma unroll 2
+      for (int i = u * kSub; i < (u + 1) * kSub; ++i)
+        step_fwd(sm, i, j, h, a2, s, at);
+    }
+  }
+  for (int u = subs - 1; u >= 0; --u) {
+    // the sub-chunk's states (st[i] before step i, st[kSub] after its
+    // last) and gates, in registers
+    float st[kSub + 1][kPair][kQ], ga[kSub][kPair][kQ];
+#pragma unroll
+    for (int e = 0; e < kPair; ++e)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) st[0][e][q] = sm.bnd[u][tid][e][q];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+#pragma unroll
+      for (int e = 0; e < kPair; ++e)
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) st[i + 1][e][q] = st[i][e][q];
+      step_fwd(sm, u * kSub + i, j, h, a2, st[i + 1], ga[i]);
+    }
+    __syncthreads();  // the last sub-chunk's sums have been read
+#pragma unroll
+    for (int i = kSub - 1; i >= 0; --i) {
+      const int ti = u * kSub + i;
+      float bv[kQ], cv[kQ], v[2 * kQ], gbq[2 * kPair];
+      row_f32<kQ>(&sm.b[ti][h * kQ], bv);
+      row_f32<kQ>(&sm.c[ti][h * kQ], cv);
+#pragma unroll
+      for (int e = 0; e < kPair; ++e) {
+        const float dtv = sm.dt[ti][j + e];
+        const float uu = dtv * to_f(sm.x[ti][j + e]);
+        const float dyv = to_f(sm.dy[ti][j + e]);
+        float gb = 0.f, qa = 0.f;
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          G[e][q] = fmaf(an[e][q], G[e][q], dyv * cv[q]);
+          // dB_t's and dC_t's terms, the lane's two channels added
+          v[q] = e ? fmaf(G[e][q], uu, v[q]) : G[e][q] * uu;
+          v[kQ + q] = e ? fmaf(dyv, st[i + 1][e][q], v[kQ + q])
+                        : dyv * st[i + 1][e][q];
+          gb = fmaf(G[e][q], bv[q], gb);
+          const float g = G[e][q] * ga[i][e][q] * st[i][e][q];
+          qa = fmaf(a2[e][q], g, qa);
+          dA[e][q] = fmaf(dtv, g, dA[e][q]);
+          an[e][q] = ga[i][e][q];
+        }
+        gbq[2 * e] = gb;
+        gbq[2 * e + 1] = qa;
+      }
+      *reinterpret_cast<float4*>(&sm.gq[i][h][j]) =
+          make_float4(gbq[0], gbq[1], gbq[2], gbq[3]);
+      const float r = reduce_scatter_channels(v);
+      const int term = lane >> 2;  // of the lane's 2 kQ: dB's, then dC's
+      sm.red[i][warp][(term < kQ ? 0 : N - kQ) + h * kQ + term] = r;
+    }
+    __syncthreads();  // the sub-chunk's shares are whole
+    if (tid < kSub * 2 * N) {
+      // thread (step, term): the dB/dC block partial, the warps in order
+      const int i = tid / (2 * N), l = tid % (2 * N), t = t0 + u * kSub + i;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMainWarps; ++w) acc += sm.red[i][w][l];
+      if (t < f.T_len) ws_bc[(int64_t)t * a.groups * (2 * N) + l] = acc;
+    }
+#pragma unroll
+    for (int p = tid; p < kSub * kBwdCh; p += kMainThreads) {
+      // thread (step, channel): dx and ddt, its lanes' shares in order
+      const int i = p / kBwdCh, jj = p % kBwdCh, ti = u * kSub + i;
+      const float2 p0 = sm.gq[i][0][jj], p1 = sm.gq[i][1][jj];
+      const float2 p2 = sm.gq[i][2][jj], p3 = sm.gq[i][3][jj];
+      const float gb = ((p0.x + p1.x) + p2.x) + p3.x;
+      const float qa = ((p0.y + p1.y) + p2.y) + p3.y;
+      if (c0 + jj < f.d && t0 + ti < f.T_len) {
+        const int64_t e = (int64_t)ti * f.d + jj;
+        store(&dx[e], sm.dt[ti][jj] * gb);
+        ddt[e] = fmaf(kLn2, qa, to_f(sm.x[ti][jj]) * gb);
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kPair; ++e)
+    if (live[e]) store_f32<VEC, kQ>(a.ws_d + o[e], dA[e]);
+}
+
+// (d): the partials summed in a fixed order. Block `row` of the first
+// Bt T sums the row's block partials: warp w the groups w, w + 8, ..., then
+// warp 0 the 8 warps' sums in order, lane l into dB (l < N) or dC; each
+// thread (c, n) of the blocks after it sums dA's (batch row, chunk)
+// partials
+constexpr int kSumWarps = 8;
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kSumWarps * 32)
+selective_scan_bwd_sum_kernel(const float* ws_bc, const float* ws_a, T* dB,
+                              T* dC, float* dA, int64_t rows, int groups,
+                              int parts, int64_t dn) {
+  static_assert(2 * N == 32, "a warp's lanes are a row's dB/dC terms");
+  __shared__ float part[kSumWarps][2 * N];
+  const int l = threadIdx.x % 32, w = threadIdx.x / 32;
+  if (blockIdx.x < rows) {
+    const int64_t row = blockIdx.x;
+    const float* p = ws_bc + row * groups * 2 * N + l;
     float acc = 0.f;
-    for (int k = 0; k < Bt; ++k) acc += ws_a[(int64_t)k * dn + q];
-    dA[q] = acc;
+#pragma unroll 8
+    for (int k = w; k < groups; k += kSumWarps) acc += p[(int64_t)k * 2 * N];
+    part[w][l] = acc;
+    __syncthreads();
+    if (w == 0) {
+      acc = part[0][l];
+#pragma unroll
+      for (int v = 1; v < kSumWarps; ++v) acc += part[v][l];
+      if (l < N) {
+        store(&dB[row * N + l], acc);
+      } else {
+        store(&dC[row * N + l - N], acc);
+      }
+    }
+  } else {
+    const int64_t q = (blockIdx.x - rows) * blockDim.x + threadIdx.x;
+    if (q < dn) {
+      float acc = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < parts; ++k) acc += ws_a[(int64_t)k * dn + q];
+      dA[q] = acc;
+    }
   }
 }
 
@@ -621,37 +807,60 @@ int launch(const Args<T>& a, int Bt, cudaStream_t stream) {
 template <typename T, int N>
 int launch_bwd(const BwdArgs<T>& a, int Bt, cudaStream_t stream) {
   constexpr int e = sizeof(T);
-  // the forward's conditions on the same rows, with dx and ddt written as
-  // y and the final state were, and dL/ds and the chunk states read
+  // the forward's conditions on the same rows, with dL/ds and the chunk
+  // states read as s0 and s_chunks were
   Args<T> f = a.f;
   f.y = a.dx;
   f.s_out = a.ddt;
   f.s0 = a.gT;
   f.s_chunks = const_cast<float*>(a.s_chunks);
   const bool vec = vec_ok<T, N>(f, Bt) && aligned16(a.dy) &&
-                   aligned16(a.ws_a) &&
-                   (a.ds0 == nullptr || aligned16(a.ds0)) &&
+                   aligned16(a.ws_h) && aligned16(a.ws_d) &&
                    step16(a.sdy_b, Bt, e) && step16(a.sdy_t, f.T_len, e);
-  const dim3 grid((unsigned)((f.d + kThreads - 1) / kThreads),
-                  (unsigned)Bt);
-  const int smem = (int)sizeof(BwdSmem<T, N>);
-  if (vec) {
-    cudaFuncSetAttribute(selective_scan_bwd_kernel<T, N, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    selective_scan_bwd_kernel<T, N, true><<<grid, kThreads, smem, stream>>>(
-        a);
-  } else {
-    cudaFuncSetAttribute(selective_scan_bwd_kernel<T, N, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    selective_scan_bwd_kernel<T, N, false><<<grid, kThreads, smem, stream>>>(
-        a);
+  const int chunks = (f.T_len + kChunk - 1) / kChunk;
+  const int64_t dn = (int64_t)f.d * N;
+  // (a) for the chunks whose carry is read: all but chunk 0 unless ds0 is
+  const int k0 = a.ds0 != nullptr ? 0 : 1;
+  const dim3 block(kChunkThreads);
+  if (chunks > k0) {
+    const dim3 grid((unsigned)a.groups, (unsigned)(chunks - k0),
+                    (unsigned)Bt);
+    if (vec) {
+      selective_scan_bwd_chunk_kernel<T, N, true><<<grid, block, 0, stream>>>(
+          a, k0);
+    } else {
+      selective_scan_bwd_chunk_kernel<T, N, false><<<grid, block, 0, stream>>>(
+          a, k0);
+    }
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
   }
-  const int err = (int)cudaGetLastError();
+  selective_scan_bwd_carry_kernel<<<(unsigned)((Bt * dn / 4 + 255) / 256),
+                                    256, 0, stream>>>(a.ws_h, a.ws_d, a.gT,
+                                                      a.ds0, Bt, chunks, dn);
+  int err = (int)cudaGetLastError();
   if (err) return err;
-  const int64_t rows = (int64_t)Bt * f.T_len, dn = (int64_t)f.d * N;
-  const unsigned blocks = (unsigned)((rows * 2 * N + dn + 255) / 256);
-  selective_scan_bwd_sum_kernel<T, N><<<blocks, 256, 0, stream>>>(
-      a.ws_bc, a.ws_a, a.dB, a.dC, a.dA, rows, a.warps, Bt, dn);
+  if (chunks > 0) {
+    const dim3 grid((unsigned)a.groups, (unsigned)chunks, (unsigned)Bt);
+    const dim3 block(kMainThreads);
+    const int smem = (int)sizeof(BwdTile<T, N>);
+    if (vec) {
+      cudaFuncSetAttribute(selective_scan_bwd_kernel<T, N, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      selective_scan_bwd_kernel<T, N, true><<<grid, block, smem, stream>>>(a);
+    } else {
+      cudaFuncSetAttribute(selective_scan_bwd_kernel<T, N, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      selective_scan_bwd_kernel<T, N, false><<<grid, block, smem, stream>>>(a);
+    }
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const int64_t rows = (int64_t)Bt * f.T_len;
+  constexpr int threads = kSumWarps * 32;
+  const unsigned blocks = (unsigned)(rows + (dn + threads - 1) / threads);
+  selective_scan_bwd_sum_kernel<T, N><<<blocks, threads, 0, stream>>>(
+      a.ws_bc, a.ws_d, a.dB, a.dC, a.dA, rows, a.groups, Bt * chunks, dn);
   return (int)cudaGetLastError();
 }
 
@@ -683,7 +892,11 @@ Args<T> make_args(const void* x, long long sx_b, long long sx_t,
                  d};
 }
 
-int warps_of(int d) { return (d + kThreads - 1) / kThreads * kWarps; }
+int groups_of(int d) { return (d + kBwdCh - 1) / kBwdCh; }
+// floats of one (Bt, chunks, d, N) array of the backward's workspace
+int64_t chunk_floats(int Bt, int T_len, int d, int N) {
+  return (int64_t)Bt * ((T_len + kChunk - 1) / kChunk) * d * N;
+}
 
 }  // namespace
 
@@ -725,11 +938,14 @@ extern "C" int selective_scan_states_launch(SCAN_FWD_ARGS, const void* s0,
   return (int)cudaErrorInvalidValue;
 }
 
-// floats of the backward's fp32 workspace: (Bt, T, warps, 2N) per-warp
-// sums of dB's and dC's terms, then (Bt, d, N) per-row sums of dA's
+// floats of the backward's fp32 workspace: per (batch row, chunk, channel,
+// state) the chunk's E_k (then its carry H_k) and D_k (then its dA
+// partial), then per (batch row, step, block of channels) dB's and dC's 2N
+// partials
 extern "C" long long selective_scan_bwd_workspace(int Bt, int T_len, int d,
                                                   int N) {
-  return (long long)Bt * T_len * warps_of(d) * 2 * N + (long long)Bt * d * N;
+  return 2 * chunk_floats(Bt, T_len, d, N) +
+         (int64_t)Bt * T_len * groups_of(d) * 2 * N;
 }
 
 // The backward of selective_scan_states_launch from its s_chunks. x,
@@ -748,8 +964,9 @@ extern "C" int selective_scan_bwd_launch(
   if (Bt <= 0 || d <= 0) return 0;
   if (N != 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws_bc = static_cast<float*>(ws);
-  float* ws_a = ws_bc + (int64_t)Bt * T_len * warps_of(d) * 2 * N;
+  float* ws_h = static_cast<float*>(ws);
+  float* ws_d = ws_h + chunk_floats(Bt, T_len, d, N);
+  float* ws_bc = ws_d + chunk_floats(Bt, T_len, d, N);
   if (dtype == 0) {
     using T = float;
     const BwdArgs<T> a{
@@ -759,7 +976,7 @@ extern "C" int selective_scan_bwd_launch(
         sdy_b, sdy_t, static_cast<const float*>(gT), static_cast<T*>(dx),
         static_cast<float*>(ddt), static_cast<float*>(ds0),
         static_cast<T*>(dB), static_cast<T*>(dC), static_cast<float*>(dA),
-        ws_bc, ws_a, warps_of(d)};
+        ws_h, ws_d, ws_bc, groups_of(d)};
     return launch_bwd<T, 16>(a, Bt, st);
   }
   if (dtype == 1) {
@@ -771,7 +988,7 @@ extern "C" int selective_scan_bwd_launch(
         sdy_b, sdy_t, static_cast<const float*>(gT), static_cast<T*>(dx),
         static_cast<float*>(ddt), static_cast<float*>(ds0),
         static_cast<T*>(dB), static_cast<T*>(dC), static_cast<float*>(dA),
-        ws_bc, ws_a, warps_of(d)};
+        ws_h, ws_d, ws_bc, groups_of(d)};
     return launch_bwd<T, 16>(a, Bt, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -99,22 +99,27 @@ def selective_scan_bwd_plain(x, dt, A, B, C, dy, s0=None, ds_fin=None):
     return dx.to(x.dtype), ddt, dA, dB.to(x.dtype), dC.to(x.dtype), ds0
 
 
-def _lib():
-    """The source's library, its entry points' ctypes signatures set."""
-    lib = build.library("selective_scan")
-    if lib.selective_scan_states_launch.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fwd = [p, ll, ll, p, ll, ll, p, p, ll, ll, p, ll, ll]
-        lib.selective_scan_states_launch.argtypes = fwd + [p, p, p, p, i, i,
-                                                           i, i, i, p]
-        lib.selective_scan_bwd_launch.argtypes = fwd + [
-            p, p, ll, ll, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.selective_scan_bwd_workspace.argtypes = [i, i, i, i]
-        lib.selective_scan_bwd_workspace.restype = ll
-        for fn in (lib.selective_scan_states_launch,
-                   lib.selective_scan_bwd_launch):
-            fn.restype = ctypes.c_int
+def bind(lib):
+    """``lib`` (a build of ``csrc/selective_scan.cu``) with its entry
+    points' ctypes signatures set."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fwd = [p, ll, ll, p, ll, ll, p, p, ll, ll, p, ll, ll]
+    lib.selective_scan_states_launch.argtypes = fwd + [p, p, p, p, i, i, i,
+                                                       i, i, p]
+    lib.selective_scan_bwd_launch.argtypes = fwd + [
+        p, p, ll, ll, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.selective_scan_bwd_workspace.argtypes = [i, i, i, i]
+    lib.selective_scan_bwd_workspace.restype = ll
+    for fn in (lib.selective_scan_states_launch,
+               lib.selective_scan_bwd_launch):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    """The source's library, bound."""
+    lib = build.library("selective_scan")
+    return lib if lib.selective_scan_states_launch.argtypes else bind(lib)
 
 
 def _fwd_args(x, dt, A, B, C):
@@ -203,8 +208,11 @@ def selective_scan_bwd_kernel(x, dt, A, B, C, chunks, dy, *,
     dtype and ``ds_fin`` (Bt, d, N) fp32 or None, the gradients (dx, ddt,
     dA, dB, dC, ds0) as :func:`selective_scan_bwd_plain` gives them, ds0
     None where s0 is. Two calls give the same bits.
-    ``selective_scan_bwd_kernel.launches`` counts the calls (each launches
-    the walk and then the sum of its workspace)."""
+    ``selective_scan_bwd_kernel.launches`` counts the calls (each makes
+    four launches: every chunk's walk from zero, the carry of dL/ds down
+    the chunks, every chunk's walk from its carry, the sum of the
+    partials; the first is left out when T is one chunk and s0 is
+    None)."""
     _check_device("selective_scan_bwd_kernel",
                   (x, dt, A, B, C, chunks, dy, s0, ds_fin))
     check_inputs(x, dt, A, B, C, s0)

@@ -42,9 +42,11 @@ struct dim3 {
   dim3() {}
   dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }

@@ -5,25 +5,27 @@ of ``tests/cuda_emu/`` (one thread per CUDA thread, blocks in turn; the
 warp shuffles of the dB/dC reduction pass through the emulator's per-warp
 buffer) and launched through its C interface on CPU tensors: the forward
 with its chunk states (``selective_scan_states_launch``), then the
-backward (``selective_scan_bwd_launch``: the reverse walk and the sum of
-its workspace). Every gradient (dx, ddt, dA, dB, dC and, from an s0, ds0)
-is held to ``selective_scan_bwd_plain`` and, through ``jax.vjp`` of the
-JAX package's ``ssm_scan_chunked``, to the reference, in float32 and
-bfloat16, on the 16-byte path (B and C at Jamba's column offsets) and the
-element-by-element one (row stride 5 + 2N, d 100 or 130), with and
-without s0 and a cotangent of the final state, and at T not a multiple of
-32. The forward's chunk states are the plain scan's states at each chunk's
-start, and asking for them leaves y and the final state's bits as they
-were. Outputs and the workspace start as NaN, so an element no thread
-wrote shows; two calls give the same bits (the cases with a final-state
-cotangent), and so do the two load paths.
+backward (``selective_scan_bwd_launch``: each chunk's walk from zero, the
+carry of dL/ds down the chunks, each chunk's walk from its carry, and the
+sum of the partials). Every gradient (dx, ddt, dA, dB, dC and, from an
+s0, ds0) is held to ``selective_scan_bwd_plain`` and, through ``jax.vjp``
+of the JAX package's ``ssm_scan_chunked``, to the reference, in float32
+and bfloat16, on the 16-byte path (B and C at Jamba's column offsets) and
+the element-by-element one (row stride 5 + 2N, d 100 or 68), with and
+without s0 and a cotangent of the final state, at T of one chunk, of a
+ragged second chunk and of three whole chunks (the final state's
+cotangent and ds0 carried across all three), and at T not a multiple of
+32. The forward's chunk states are the plain scan's states at each
+chunk's start, and asking for them leaves y and the final state's bits as
+they were. Outputs and the workspace (the carries among it) start as NaN,
+so an element no thread wrote shows; two calls give the same bits (the
+cases with a final-state cotangent), and so do the two load paths.
 
 Tolerances: ``chip_smoke.py``'s SCAN_TOL, relative, and as an absolute
 bound that share of each gradient's largest entry (the gradients sum
 hundreds of terms of both signs, so an entry near zero carries the
 rounding of the large ones).
 """
-import ctypes
 import math
 
 import numpy as np
@@ -36,7 +38,7 @@ import jax.numpy as jnp
 from cuda_emu import compile_source
 from repro.layers.mamba import ssm_scan_chunked
 from repro_torch.kernels.selective_scan import (
-    CHUNK, selective_scan_bwd_plain, selective_scan_plain)
+    CHUNK, bind, selective_scan_bwd_plain, selective_scan_plain)
 
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPE = {F32: 0, BF16: 1}
@@ -47,17 +49,8 @@ NAMES = ("dx", "ddt", "dA", "dB", "dC", "ds0")
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    lib = compile_source("selective_scan",
-                         tmp_path_factory.mktemp("k6_bwd_emulated"))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fwd = [p, ll, ll, p, ll, ll, p, p, ll, ll, p, ll, ll]
-    lib.selective_scan_states_launch.argtypes = fwd + [p, p, p, p, i, i, i,
-                                                       i, i, p]
-    lib.selective_scan_bwd_launch.argtypes = fwd + [
-        p, p, ll, ll, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.selective_scan_bwd_workspace.argtypes = [i, i, i, i]
-    lib.selective_scan_bwd_workspace.restype = ll
-    return lib
+    return bind(compile_source("selective_scan",
+                               tmp_path_factory.mktemp("k6_bwd_emulated")))
 
 
 def _ptr(t):
@@ -157,10 +150,10 @@ def _jax_grads(t):
 
 
 # (Bt, T, d, dtype, lead, with_s0, with_gT, x_pad): the 16-byte path
-# (lead 256) and the scalar one (lead 5; d 130 in bf16 is off 16 bytes
-# too); T over two and three 32-step chunks with a ragged last one, and
-# inside one sub-chunk; d not a multiple of the block's 64 channels; x,
-# dt and dy through a row stride wider than d
+# (lead 256) and the scalar one (lead 5); T of one whole chunk, over two
+# and three 32-step chunks with a ragged last one, of three whole chunks,
+# and inside one sub-chunk; d not a multiple of the block's 64 channels;
+# x, dt and dy through a row stride wider than d
 CASES = {
     "f32 16-byte T 70 d 64": (1, 70, 64, F32, 256, False, False, 0),
     "f32 16-byte T 45 d 96 s0 gT": (1, 45, 96, F32, 256, True, True, 0),
@@ -171,6 +164,9 @@ CASES = {
     "f32 scalar T 37 d 100 s0": (1, 37, 100, F32, 5, True, False, 0),
     "bf16 scalar T 33 d 68 gT": (1, 33, 68, BF16, 5, False, True, 0),
     "f32 16-byte T 5 d 64 Bt 2 s0": (2, 5, 64, F32, 256, True, False, 0),
+    "f32 16-byte T 32 d 64 gT": (1, 32, 64, F32, 256, False, True, 0),
+    "f32 16-byte T 96 d 64 s0 gT": (1, 96, 64, F32, 256, True, True, 0),
+    "bf16 scalar T 96 d 64 s0 gT": (1, 96, 64, BF16, 5, True, True, 0),
 }
 
 
