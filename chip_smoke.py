@@ -279,6 +279,24 @@ a hard failure:
      by axis; then each rank's block of the first Mamba layer's w_x and
      conv_w gradients of one microbatch within HYBRID_GRAD_TOL of one
      card's (the y-sum of B's and C's columns, which the grad norm hides);
+ 23. DeepSeek served (after phase 21, every earlier model freed): (k) K7,
+     MLA's absorbed decode over the latent cache, against its plain
+     version at V2-Lite's decode (batch 4, 16 heads, 520 rows), V3's 128
+     heads and g_y = 2's 8, positions 0, 31, 32, 300 and 519, float32 and
+     bf16 caches, each call twice (the same bits), and timed at the last
+     position beside SDPA (q of 576, one shared k of 576 and v of 512,
+     ``enable_gqa``; the backend that takes it named) and the bound; (a)
+     ``deepseek-v2-lite-16b`` at full width and depth where DSV_HEADROOM
+     stays free beside its 58.5 GiB (else DSV2_SERVE_CUT_LAYERS), (b)
+     ``deepseek-v3-671b`` at full width and DSV3_LAYERS layers (the
+     compressed query; the first MoE layer of 256 experts): each phase
+     9's parity (prefill 4 x 512 and 4 decode steps, kernels against
+     plain, greedy ids equal), the absorbed decode of token 512 against a
+     prefill of 513 tokens' last row (nothing dropped), and ``serve.py
+     --mode fixed`` (batch 4, prompt 512, 8 new), each kernel's launches
+     the config's count (K7 and its combine once an MLA layer and decode
+     step, the absorption products on K1's batched entry), prefill
+     seconds, decode ms a step and peak memory;
  22. a summary: one ``{"kernels": [...]}`` line, the card's name and power
      limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -572,7 +590,10 @@ MESH_TRAIN_FLAGS = with_steps(TRAIN_FLAGS, MESH_TRAIN_STEPS) + [
     "--mesh", MESH_TRAIN, "--backend", "gloo"]
 MESH_DATA = "2,2,2,1"
 MESH_LAYERS = 4
-MESH_DATA_FLAGS = TRAIN_FLAGS + ["--mesh", MESH_DATA, "--backend", "gloo"]
+# 12b runs 2 of phase 8's 3 steps too (phase 23 took the third's place in
+# the script's time), held to one card's first 2
+MESH_DATA_FLAGS = with_steps(TRAIN_FLAGS, MESH_TRAIN_STEPS) + [
+    "--mesh", MESH_DATA, "--backend", "gloo"]
 MESH_TRAIN_RANKS = 8
 MESH_TRAIN_TIMEOUT_S = 700
 # step 1's loss and grad norm against one card's, relative (the mesh sums
@@ -619,6 +640,10 @@ LONG_TIMEOUT_S = 400
 # 14b's logits against one card's, as tests/test_torch_serving.py holds
 # logits (float32: the shards' softmaxes merge in another order)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# a token that the kernels' and the plain versions' routers send to other
+# experts must be a near-tie: its k-th and (k+1)-th scores this close
+# (float32 sums of other orders over d_model terms move a score ~1e-6)
+ROUTING_GAP = 1e-3
 # K1 at the local shapes of Jamba's mesh paths, float32: 14a on (1,2,2,1)
 # (prefill 4 x 512 rows and decode 4 rows, d / g_x = 2048 in, d_inner /
 # g_y = 4096), 14b on (2,1,2,1) (one row, d 4096 in); the untied head's
@@ -762,6 +787,34 @@ BMM_SHAPES = [("dsv2 up x.W", 64, 120, 2048, 2816, "NN"),
               ("jamba decode up", 16, 4, 4096, 28672, "NN")]
 # K2 at MLA's widths: (B, T, nq, q/k width, v width), causal
 ATTN_MLA = (2, 512, 16, 192, 128)
+# phase 23: DeepSeek served. (a) V2-Lite at full width and depth (15.71 B
+# float32 parameters, 58.5 GiB) where the card keeps DSV_HEADROOM free
+# beside them, else DSV2_SERVE_CUT_LAYERS layers; (b) V3 at full width and
+# DSV3_LAYERS layers (3 dense, then the first MoE layer of 256 top-8
+# experts; 15.85 B with the MTP leaves, 59 GiB); each phase 9's parity,
+# the absorbed decode against the materialised prefill (ABSORBED_T prompt
+# tokens, one sequence, at a capacity where nothing drops) and ``serve.py
+# --mode fixed`` with phase 9's batch and prompt and 8 new tokens
+DSV3 = "deepseek-v3-671b"
+DSV3_LAYERS = 4
+DSV_HEADROOM = NEMOTRON_HEADROOM
+DSV2_SERVE_CUT_LAYERS = 16
+DSV2_FIXED_FLAGS = with_flag(with_flag(FIXED_FLAGS, "--arch", DSV2),
+                             "--gen", 8)
+DSV3_FIXED_FLAGS = with_flag(DSV2_FIXED_FLAGS, "--arch", DSV3)
+ABSORBED_T = 512
+# K7 at the decode shapes (name, B, local heads, cache rows): V2-Lite's 16
+# heads, V3's 128 and g_y = 2's 8 over phase 9's 4 sequences of 512 + 8;
+# each at the positions below (one key; a tile's last and the next tile's
+# first; a split's inside; the cache's last row), timed at the last;
+# against its plain version in float32 sums of other orders over 576-wide
+# dots and up to 520 keys (a bf16 cache widens alike on both sides)
+MLA_DECODE_SHAPES = [("dsv2 decode", 4, 16, 520),
+                     ("dsv3 decode", 4, 128, 520),
+                     ("dsv2 g_y 2", 4, 8, 520)]
+MLA_DECODE_POSITIONS = (0, 31, 32, 300, 519)
+MLA_DECODE_TOL = 2e-4
+MLA_SCALE = 1.0 / math.sqrt(128 + 64)
 
 
 _T0 = time.time()
@@ -2029,7 +2082,9 @@ KERNEL_GROUPS = (("sgemm_tile_kernel", "K1 block_matmul"),
                  ("rmsnorm", "K3 rmsnorm"),
                  ("paged_split_kernel", "K5 paged_attention"),
                  ("paged_combine_kernel", "K5 paged_attention"),
-                 ("selective_scan_kernel", "K6 selective_scan"))
+                 ("selective_scan_kernel", "K6 selective_scan"),
+                 ("mla_split_kernel", "K7 mla_decode"),
+                 ("mla_combine_kernel", "K7 mla_decode"))
 
 
 def dev_us(e):
@@ -2144,15 +2199,18 @@ def norm_params(cfg):
 
 def forward_products(cfg):
     """(2-D K1 products, batched K1 products) of one forward of the
-    layers: an attention layer's q, k, v, o, MLA's w_dkv, w_q, w_uk, w_uv,
-    wo or a Mamba layer's w_in, w_gate, w_x, w_dt, w_out; an MLP's input
-    projections and its down projection, or an MoE's router, its shared
+    layers: an attention layer's q, k, v, o, MLA's w_dkv, w_q (or w_dq
+    and w_uq), w_uk, w_uv, wo or a Mamba layer's w_in, w_gate, w_x, w_dt,
+    w_out; an MLP's input projections and its down projection, or an
+    MoE's router, its shared
     experts' MLP (where it has them) and the expert bank's up and down
     projections (each one batched launch)."""
     mlp = mlp_inputs(cfg) + 1
     two, batched = 0, 0
     for mixer, ffn in cfg.layer_kinds():
         two += 4 if mixer == "attn" else 5
+        if mixer == "mla" and cfg.mla.q_lora_rank:
+            two += 1                     # w_dq and w_uq in w_q's place
         if ffn == "moe":
             two += 1 + (mlp if cfg.moe.n_shared else 0)
             batched += 2
@@ -2183,7 +2241,8 @@ def train_launch_counts(cfg):
     return {"block_matmul": 4 * two + 3,
             "block_matmul_batched": 4 * batched,
             "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-            "rmsnorm": rms + (4 * L if cfg.qk_norm else 0) + 2 * n_mla,
+            "rmsnorm": rms + (4 * L if cfg.qk_norm else 0)
+            + 2 * n_mla * (2 if n_mla and cfg.mla.q_lora_rank else 1),
             "paged_attention": 0, "paged_attention_combine": 0,
             "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba,
             "partial_attention": 0, "partial_attention_bwd": 0}
@@ -2263,27 +2322,100 @@ def fixed_launches(cfg, prefills, decodes):
     ungated), or an MoE's router and shared experts (K1) and its expert
     bank's two products (K1's batched entry); then the final norm (K3)
     and the head (K1), on the last row only at prefill
-    (``forward_products``). The residual norms are K3 where they are
-    RMSNorms (a LayerNorm runs PyTorch ops)."""
+    (``forward_products``). An MLA layer: its products on K1, K3 on its
+    latents (kv_norm, and the compressed query's), K2 at prefill; at decode
+    w_uk and w_uv leave the 2-D products for K1's batched entry (the two
+    absorption products) and K7 (and its combine) attends. The residual
+    norms are K3 where they are RMSNorms (a LayerNorm runs PyTorch
+    ops)."""
     n_attn = cfg.mixers().count("attn")
+    n_mla = cfg.mixers().count("mla")
     n_mamba = cfg.mixers().count("mamba")
     fwd = prefills + decodes
     rms = 2 * cfg.n_layers + 1 if cfg.norm == "rmsnorm" else 0
+    # MLA's latent norms: kv_norm, and the compressed query's
+    mla_rms = n_mla * (2 if n_mla and cfg.mla.q_lora_rank else 1)
     two, batched = forward_products(cfg)
-    return {"block_matmul": fwd * (two + 1),
-            "block_matmul_batched": fwd * batched,
-            "rmsnorm": fwd * (rms + (2 * n_attn if cfg.qk_norm else 0)),
+    return {"block_matmul": fwd * (two + 1) - decodes * 2 * n_mla,
+            "block_matmul_batched": fwd * batched + decodes * 2 * n_mla,
+            "rmsnorm": fwd * (rms + (2 * n_attn if cfg.qk_norm else 0)
+                              + mla_rms),
             "selective_scan": fwd * n_mamba,
-            "flash_attention": prefills * n_attn,
+            "flash_attention": prefills * (n_attn + n_mla),
             "paged_attention": decodes * n_attn,
             "paged_attention_combine": decodes * n_attn,
+            "mla_decode": decodes * n_mla,
+            "mla_decode_combine": decodes * n_mla,
             "flash_attention_bwd": 0, "partial_attention": 0,
             "partial_attention_bwd": 0}
 
 
+class same_routing:
+    """Inside the block, each plain run routes every token to the experts
+    the kernel run just before it chose (:meth:`record` then
+    :meth:`replay`, MoE call by call), with its own gates at those
+    experts. A token whose top-k scores nearly tie can otherwise be
+    routed apart by a sum's order, and at a capacity one such token
+    re-queues every later token of its expert; so the kernels and the
+    plain versions are held to each other on one routing. ``apart`` counts
+    the (call, token)s the plain run's own top-k would have routed
+    otherwise and ``gap`` the widest of their scores' k-th to (k+1)-th
+    gaps."""
+
+    def __init__(self):
+        from repro_torch.layers import moe as MOE
+        self.moe, self.orig = MOE, MOE.topk_gates
+        self.chosen, self.n, self.apart, self.gap = [], None, 0, 0.0
+
+    def __enter__(self):
+        self.moe.topk_gates = self._gates
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.topk_gates = self.orig
+
+    def record(self):
+        self.chosen, self.n = [], None
+
+    def replay(self):
+        self.n = 0
+
+    def _gates(self, logits, mc):
+        gates, idx = self.orig(logits, mc)
+        if self.n is None:
+            self.chosen.append(idx)
+            return gates, idx
+        want = self.chosen[self.n]
+        self.n += 1
+        off = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+        if off.any():
+            score = (torch.sigmoid(logits) if mc.score_fn == "sigmoid"
+                     else logits)
+            top = torch.topk(score[off], mc.top_k + 1, dim=-1).values
+            self.apart += int(off.sum())
+            self.gap = max(self.gap, float((top[:, -2] - top[:, -1]).max()))
+        if mc.score_fn == "sigmoid":
+            vals = torch.sigmoid(logits).gather(-1, want)
+            gates = vals / (torch.sum(vals, -1, keepdim=True) + 1e-20)
+            return gates * mc.routed_scale, want
+        return torch.softmax(logits.gather(-1, want), dim=-1), want
+
+
 def phase_fixed_parity(model, cfg):
     """Full width, kernels vs plain versions through the fixed-batch
-    prefill and decode steps."""
+    prefill and decode steps, each plain run on its kernel run's routing
+    (:class:`same_routing`; a model without experts has none)."""
+    with same_routing() as routing:
+        _fixed_parity(model, cfg, routing)
+    if cfg.moe is not None:
+        log(f"  the plain runs' own top-k would have routed "
+            f"{routing.apart} (MoE call, token)s apart, their top-k gaps "
+            f"at most {routing.gap:.2e} (the kernel runs' routing kept)")
+        if routing.gap > ROUTING_GAP:
+            raise AssertionError("a token routed apart is no near-tie")
+
+
+def _fixed_parity(model, cfg, routing):
     from repro_torch.core.mesh import MeshAxes
     from repro_torch.launch import steps as ST
     B, T, steps = 4, 512, 4
@@ -2298,6 +2430,7 @@ def phase_fixed_parity(model, cfg):
     for step in range(steps + 1):
         out = {}
         for mode in ("kernel", "plain"):
+            (routing.record if mode == "kernel" else routing.replay)()
             t0 = time.time()
             if step == 0:
                 out[mode], _ = pre(model, caches[mode], tokens,
@@ -3635,7 +3768,8 @@ def phase_mesh_data(cfg, smi, one):
                          MESH_TRAIN_RANKS, then=("zero",),
                          env={"PYTORCH_CUDA_ALLOC_CONF":
                               "expandable_segments:True"})
-    check_mesh_losses(rep, one, f"({MESH_DATA}) against one card")
+    check_mesh_losses(rep, first_steps(one, MESH_TRAIN_STEPS),
+                      f"({MESH_DATA}) against one card")
     axes = mesh_axes(MESH_DATA)
     blocks = {}
     for r in rep["ranks"]:
@@ -5147,6 +5281,229 @@ def phase_hybrid_train(smi):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# phase 23: DeepSeek served (MLA's latent cache, K7)
+# ---------------------------------------------------------------------- #
+
+def mla_decode_inputs(gen, B, H, S, dtype):
+    """K7's inputs as the decode path hands them over: q_eff the (B, H)
+    view of K1's (H, B, 512) product, q_rope (B, H, 64), the latent cache
+    (B, S, 512) and the rotary keys (B, S, 64) in ``dtype``."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (rand(H, B, 512).transpose(0, 1), rand(B, H, 64),
+            rand(B, S, 512).to(dtype), rand(B, S, 64).to(dtype))
+
+
+def mla_decode_work(B, H, n_keys, elt):
+    """(bytes, operations) of one K7 call over ``n_keys`` keys (those at or
+    before the position): the queries and each needed cache row read
+    once, the context written once; a (key, head) pair's 576-wide dot
+    product and 512-wide p v, 2 operations a multiply-add."""
+    nbytes = (4 * B * H * (512 + 64) + elt * B * n_keys * (512 + 64)
+              + 4 * B * H * 512 + 4 * B)
+    return nbytes, B * H * n_keys * (2 * 576 + 2 * 512)
+
+
+def mla_sdpa(q_eff, q_rope, ckv, k_rope, idx):
+    """One SDPA call computing K7's function: q (B, H, 1, 576), one shared
+    k (B, 1, S, 576) and v (B, 1, S, 512) under ``enable_gqa``, keys past
+    ``idx`` masked, K7's scale. The concatenations are made once, outside
+    the call."""
+    import torch.nn.functional as F
+    q = torch.cat([q_eff, q_rope], -1)[:, :, None]
+    k = torch.cat([ckv, k_rope], -1)[:, None]
+    v = ckv[:, None]
+    mask = (torch.arange(ckv.shape[1], device="cuda") <= idx)[None, None,
+                                                              None]
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
+
+
+def sdpa_taker(call):
+    """The first SDPA backend that takes ``call`` (memory-efficient, flash,
+    cuDNN, then the math fallback), with its result."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for b in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with sdpa_kernel(b):
+                    out = call()
+                    torch.cuda.synchronize()
+            return b, out
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend takes MLA's decode")
+
+
+def phase_mla_decode_kernels(gen, errs, times):
+    """23's kernel: K7 against its plain version at MLA_DECODE_SHAPES and
+    MLA_DECODE_POSITIONS, float32 and bf16 caches (run twice: the same
+    bits), then timed (device/eager) at the last position in float32
+    beside SDPA (the backend that takes it named) and the bound."""
+    from repro_torch.kernels.mla_decode import (mla_decode_kernel,
+                                                mla_decode_plain)
+    f32 = torch.float32
+    log("[23 kernels] K7, MLA's absorbed decode over the latent cache (512 "
+        "+ 64), against its plain version (run twice), float32 and bf16 "
+        "caches, positions " + ", ".join(map(str, MLA_DECODE_POSITIONS)))
+    errs["mla_decode"] = 0.0
+    for name, B, H, S in MLA_DECODE_SHAPES:
+        for dtype in (f32, torch.bfloat16):
+            args = mla_decode_inputs(gen, B, H, S, dtype)
+            worst = 0.0
+            for idx in MLA_DECODE_POSITIONS:
+                pos = torch.full((B,), idx, dtype=torch.int32,
+                                 device="cuda")
+                got = mla_decode_kernel(*args, pos, scale=MLA_SCALE)
+                if not torch.equal(got, mla_decode_kernel(
+                        *args, pos, scale=MLA_SCALE)):
+                    raise AssertionError(f"K7 {name} is not deterministic")
+                want = mla_decode_plain(*args, pos, scale=MLA_SCALE)
+                if not torch.allclose(got, want, rtol=MLA_DECODE_TOL,
+                                      atol=MLA_DECODE_TOL):
+                    raise AssertionError(f"K7 {name} {dtype_name(dtype)} "
+                                         f"position {idx}: kernel "
+                                         f"disagrees with plain version")
+                worst = max(worst, max_err(got, want))
+            log(f"  {name} (B {B}, {H} heads, {S} rows) "
+                f"{dtype_name(dtype)}: max|kernel - plain| = {worst:.3e} "
+                f"over the positions (tol {MLA_DECODE_TOL:g}), each twice "
+                f"bitwise ok")
+            if dtype == f32:
+                errs["mla_decode"] = max(errs["mla_decode"], worst)
+            del args
+    for name, B, H, S in MLA_DECODE_SHAPES[:2]:
+        args = mla_decode_inputs(gen, B, H, S, f32)
+        idx = S - 1
+        pos = torch.full((B,), idx, dtype=torch.int32, device="cuda")
+        lib = mla_sdpa(*args, idx)
+        backend, lib_out = sdpa_taker(lib)
+        e_lib = max_err(lib_out[:, :, 0], mla_decode_plain(
+            *args, pos, scale=MLA_SCALE))
+        from torch.nn.attention import sdpa_kernel
+        nbytes, n_ops = mla_decode_work(B, H, idx + 1, 4)
+        with sdpa_kernel(backend):
+            t, eager = timings(
+                lambda: mla_decode_kernel(*args, pos, scale=MLA_SCALE),
+                lambda: mla_decode_plain(*args, pos, scale=MLA_SCALE), lib,
+                nbytes, n_ops, f32)
+        log(f"  mla_decode {name} (B {B}, {H} heads, {idx + 1} keys): "
+            + fmt(t, eager) + f"; SDPA taken by {backend.name} (its max|d| "
+            f"from plain {e_lib:.2e}): the kernel "
+            f"{t['ms'] / t['library_ms']:.2f}x it; "
+            f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s, "
+            f"{nbytes / t['ms'] / 1e6:.1f} GB/s, "
+            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+        times.setdefault("mla_decode", t)
+        del args, lib, lib_out
+        free_memory()
+
+
+class no_drop:
+    """Every MoE layer of ``model`` at a capacity where no expert queue
+    overflows (capacity factor E / top_k) while the block runs, its own
+    config after."""
+
+    def __init__(self, model):
+        import dataclasses
+
+        from repro_torch.layers.moe import MoE
+        self.mods = [m for m in model.modules() if isinstance(m, MoE)]
+        self.saved = [m.cfg for m in self.mods]
+        self.cfgs = [dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=c.moe.n_experts / c.moe.top_k))
+            for c in self.saved]
+
+    def __enter__(self):
+        for m, c in zip(self.mods, self.cfgs):
+            m.cfg = c
+
+    def __exit__(self, *exc):
+        for m, c in zip(self.mods, self.saved):
+            m.cfg = c
+
+
+def phase_absorbed_decode(model, cfg, tag):
+    """The absorbed decode (K1's batched entry and K7 over the latent
+    cache) against the materialised prefill (K2 over every head's K and
+    V): one sequence's ABSORBED_T prompt tokens prefilled, then token
+    ABSORBED_T decoded; its logits against those of a prefill of all
+    ABSORBED_T + 1 tokens' last row, at a capacity where nothing drops
+    (the two route different token counts, so a capacity that drops
+    would drop different tokens)."""
+    from repro_torch.core.mesh import MeshAxes
+    from repro_torch.launch import steps as ST
+    from repro_torch.layers import moe as MOE
+    T = ABSORBED_T
+    gen = torch.Generator().manual_seed(SEED + 5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T + 1), generator=gen,
+                           dtype=torch.int32).cuda()
+    pre, ct = ST.make_prefill_step(cfg, MeshAxes())(1, T, T + 1)
+    dec, _ = ST.make_decode_step(cfg, MeshAxes())(1, T + 1)
+    pre_all, _ = ST.make_prefill_step(cfg, MeshAxes())(1, T + 1, T + 1)
+    MOE.reset_dropped(model)
+    with no_drop(model):
+        _, caches = pre(model, ST.zeros_caches(ct, "cuda"), tokens[:, :T])
+        absorbed, caches = dec(model, caches, tokens[:, T:], T)
+        del caches
+        whole, _ = pre_all(model, ST.zeros_caches(ct, "cuda"), tokens)
+    torch.cuda.synchronize()
+    d = max_err(absorbed, whole)
+    scale = float(whole.abs().max())
+    same = bool(absorbed[0, -1].argmax() == whole[0, -1].argmax())
+    log(f"[{tag} absorbed] decode of token {T} over the latent cache "
+        f"against a prefill of {T + 1} tokens' last row: max|dlogit| = "
+        f"{d:.3e}, max|logit| = {scale:.3e} (tol 1e-3 of it), greedy id "
+        f"{'equal' if same else 'DIFFERENT'}, {MOE.dropped(model)} dropped")
+    if not (d <= 1e-3 * scale and same and MOE.dropped(model) == 0):
+        raise AssertionError("the absorbed decode disagrees with the "
+                             "materialised prefill")
+
+
+def phase_deepseek_serve(smi):
+    """23: DeepSeek served at full width, each model alone on the card:
+    (a) V2-Lite (full depth where DSV_HEADROOM stays free, else
+    DSV2_SERVE_CUT_LAYERS), (b) V3 at DSV3_LAYERS layers: phase 9's
+    parity, the absorbed decode against the materialised prefill, and
+    ``serve.py --mode fixed``, launches the config's count. Returns (a)'s
+    served run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    vcfg = get_config(DSV2)
+    need = 4 * (vcfg.param_count() + 2 * vcfg.d_model
+                * (vcfg.padded_vocab - vcfg.vocab_size))
+    free, _ = torch.cuda.mem_get_info()
+    runs = [("23a dsv2", vcfg if free - need >= DSV_HEADROOM
+             else depth_cut(vcfg, DSV2_SERVE_CUT_LAYERS), DSV2_FIXED_FLAGS),
+            ("23b dsv3", depth_cut(get_config(DSV3), DSV3_LAYERS),
+             DSV3_FIXED_FLAGS)]
+    log(f"[23a dsv2] {need / 2**30:.1f} GiB of float32 parameters at full "
+        f"depth, {free / 2**30:.1f} GiB free: {runs[0][1].n_layers} of "
+        f"{vcfg.n_layers} layers (full depth needs "
+        f"{DSV_HEADROOM / 2**30:.0f} GiB left beside them)")
+    launches = None
+    for tag, cfg, flags in runs:
+        t0 = time.time()
+        model = ST.init_model(cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers "
+            f"({cfg.ffns().count('moe')} MoE), float32, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+            f"parameters, init {time.time() - t0:.1f}s")
+        phase_fixed_parity(model, cfg)
+        phase_absorbed_decode(model, cfg, tag)
+        served = phase_fixed_serve(model, cfg, smi, flags)
+        launches = launches or served
+        del model
+        free_memory()
+    return launches
+
+
 def free_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -5256,10 +5613,15 @@ def main() -> int:
     jamba_moe_launches = phase_jamba_moe(smi)
     free_memory()
     hybrid_train_launches = phase_hybrid_train(smi)
+    free_memory()
+    phase_mla_decode_kernels(gen, errs, times)
+    free_memory()
+    dsv_launches = phase_deepseek_serve(smi)
 
     # launches: each kernel's count on the path this repo ported it for
     # (serving: K3, K5; training: K1, K2; fixed-batch hybrid serving: K6;
-    # seq-parallel training, rank 0: K4; hybrid training: K6's backward);
+    # seq-parallel training, rank 0: K4; hybrid training: K6's backward;
+    # DeepSeek's fixed serving: K7);
     # the log has every path's counts
     launches = dict(serve_launches, **{
         k: train_launches[k] for k in ("block_matmul", "flash_attention",
@@ -5275,7 +5637,9 @@ def main() -> int:
         block_matmul_batched=(dsv2_launches["block_matmul_batched"]
                               + jamba_moe_launches["block_matmul_batched"]),
         flash_attention_mla=dsv2_launches["flash_attention"],
-        flash_attention_bwd_mla=dsv2_launches["flash_attention_bwd"])
+        flash_attention_bwd_mla=dsv2_launches["flash_attention_bwd"],
+        # MLA's absorbed decode on DeepSeek-V2-Lite's fixed serving (23a)
+        mla_decode=dsv_launches["mla_decode"])
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:19",
                 "rmsnorm_stats": "src/repro/kernels/rmsnorm.py:19",
                 "rmsnorm_apply": "src/repro/kernels/rmsnorm.py:19",
@@ -5296,7 +5660,9 @@ def main() -> int:
                 "flash_attention_mla":
                     "src/repro/kernels/flash_attention.py:297",
                 "flash_attention_bwd_mla":
-                    "src/repro/kernels/flash_attention.py:297"}
+                    "src/repro/kernels/flash_attention.py:297",
+                # no TPU kernel: the reference's decode einsums
+                "mla_decode": "src/repro/layers/attention.py:835"}
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"rmsnorm": csrc + "rmsnorm.cu",
                "rmsnorm_stats": csrc + "rmsnorm.cu",
@@ -5311,7 +5677,8 @@ def main() -> int:
                "partial_attention": csrc + "partial_attention.cu",
                "partial_attention_bwd": csrc + "partial_attention.cu",
                "flash_attention_mla": csrc + "flash_attention.cu",
-               "flash_attention_bwd_mla": csrc + "flash_attention.cu"}
+               "flash_attention_bwd_mla": csrc + "flash_attention.cu",
+               "mla_decode": csrc + "mla_decode.cu"}
     log("[summary] the kernels' line, the card, the result")
     kernels = [dict(name=k, route="cuda", source=sources[k],
                     replaces=replaces[k], launches=launches[k],

@@ -20,13 +20,13 @@ _MODULES = {
     "stablelm-1.6b": ("stablelm_1_6b", "CONFIG"),
     "nemotron-4-15b": ("nemotron_4_15b", "CONFIG"),
     "deepseek-v2-lite-16b": ("deepseek_v2_lite_16b", "CONFIG"),
+    "deepseek-v3-671b": ("deepseek_v3_671b", "CONFIG"),
 }
 
 # known to the JAX package, not yet ported: the ROADMAP.md §1 item each
 # one waits for
 _NOT_PORTED = {
     "h2o-danube-3-4b": "dense config variants",
-    "deepseek-v3-671b": "MoE and the expert axis",
     "xlstm-350m": "other mixers and architectures",
     "internvl2-26b": "other mixers and architectures",
     "whisper-small": "other mixers and architectures",
@@ -34,9 +34,6 @@ _NOT_PORTED = {
 # what an item's arch still lacks, where the item is under way
 _WAITS_FOR = {
     "h2o-danube-3-4b": "head_dim 120 in kernels K2, K4 and K5",
-    "deepseek-v3-671b": "its multi-token prediction loss and compressed "
-                        "query, and at 671 B parameters a cell of many "
-                        "cards",
 }
 
 

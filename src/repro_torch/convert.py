@@ -14,9 +14,11 @@ the tests carry weights across this way.
 
 ``jax_path`` maps a port parameter's name to the path of the JAX leaf it
 comes from (``layers.3.mixer.wq`` -> ``segments/seg0/pos0/mixer/wq`` for a
-period-1 decoder, ``segments/seg0/pos3/mixer/wq`` for Jamba). The train
-step decides weight decay on these paths, as the JAX ``adamw._no_decay``
-does, and the tests compare gradients leaf by leaf through them.
+period-1 decoder, ``segments/seg0/pos3/mixer/wq`` for Jamba; MLA's
+``cq_norm`` is the reference's ``q_norm``, ``partition.JAX_LEAF_NAMES``).
+The train step decides weight decay on these paths, as the JAX
+``adamw._no_decay`` does, and the tests compare gradients leaf by leaf
+through them.
 ``caches_from_jax`` maps the JAX fixed-batch caches onto the port's
 per-layer ones.
 
@@ -45,9 +47,9 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.core import mesh as M
-from repro_torch.core.partition import param_spec
+from repro_torch.core.partition import JAX_LEAF_NAMES, param_spec
 from repro_torch.layers.attention import CACHE_SPEC, DENSE_PAGE, \
-    SEQ_CACHE_SPEC
+    MLA_CACHE_SPEC, SEQ_CACHE_SPEC
 from repro_torch.layers.mamba import SEQ_STATE_SPECS, STATE_SPECS
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.decoder import Decoder
@@ -76,6 +78,7 @@ def jax_path(name: str, cfg: ArchConfig) -> str:
     if parts[0] == "layers":
         s, i, _ = _slot(name, cfg)
         parts = ["segments", f"seg{s}", f"pos{i}", *parts[2:]]
+    parts[-1] = JAX_LEAF_NAMES.get(parts[-1], parts[-1])
     return "/".join(parts)
 
 
@@ -148,7 +151,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device,
 
 # each fixed-batch cache leaf's spec, as the layers lay the caches out,
 # without and with ``seqshard``
-CACHE_SPECS = {False: {"k": CACHE_SPEC, "v": CACHE_SPEC, **STATE_SPECS},
+CACHE_SPECS = {False: {"k": CACHE_SPEC, "v": CACHE_SPEC,
+                       "ckv": MLA_CACHE_SPEC, "k_rope": MLA_CACHE_SPEC,
+                       **STATE_SPECS},
                True: {"k": SEQ_CACHE_SPEC, "v": SEQ_CACHE_SPEC,
                       **SEQ_STATE_SPECS}}
 
@@ -162,7 +167,8 @@ def caches_from_jax(caches: Dict[str, Any], cfg: ArchConfig, device="cpu",
     The JAX dense K/V caches hold exactly ``seq`` rows; the port's are
     padded with zeros to a multiple of ``attention.DENSE_PAGE`` (times
     g_data under ``seqshard``, before the positions are sharded), as
-    ``attention.attn_cache_spec`` sizes them."""
+    ``attention.attn_cache_spec`` sizes them. An MLA layer's latent cache
+    {"ckv", "k_rope"} keeps its ``seq`` rows."""
     specs = CACHE_SPECS[seqshard]
     unit = DENSE_PAGE * (axes.dp if seqshard else 1)
     out = []

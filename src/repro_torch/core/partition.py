@@ -92,13 +92,27 @@ LEAF_SPECS: Dict[str, ParamSpec] = {
     "w_router": _tp(wspec("x", None)),
     "w_up": _tp((("y", "expert"), "x", "z")),
     "w_down": _tp((("y", "expert"), None, ("x", "z"))),
-    # MLA (no q compression): q and the latent kv down projection contract
-    # x; the latent's up projections shard their heads over y; kv_norm is
-    # the latent's replicated gain
+    # MLA: q and the latent kv down projection contract x; the latent's
+    # up projections shard their heads over y; kv_norm is the latent's
+    # replicated gain. The compressed query (DeepSeek-V3): w_dq contracts
+    # x into the replicated q latent, w_uq shards its heads over y, and
+    # the latent's gain is ``cq_norm`` (the reference's leaf ``q_norm``,
+    # ``convert.jax_path`` renames it): replicated, and whole on every y
+    # rank, since w_uq's backward psums the latent's gradient over y
     "w_q": _tp(NORMAL), "w_dkv": _tp(wspec("x", None)),
     "kv_norm": ParamSpec((None,)),
     "w_uk": _tp(wspec(None, "y")), "w_uv": _tp(wspec(None, "y")),
+    "w_dq": _tp(wspec("x", None)), "cq_norm": ParamSpec((None,)),
+    "w_uq": _tp(wspec(None, "y")),
+    # DeepSeek-V3's multi-token prediction: h and the next token's
+    # embedding each through a normal layer, summed, then a transposed one
+    # (its norms are "g", its block's leaves those above)
+    "w_comb_h": _tp(NORMAL), "w_comb_e": _tp(NORMAL),
+    "w_comb_o": _tp(TRANSPOSED),
 }
+
+# the port's leaf names that the reference's tree spells otherwise
+JAX_LEAF_NAMES = {"cq_norm": "q_norm"}
 
 
 def leaf_spec(name: str) -> ParamSpec:

@@ -28,6 +28,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_kernel, paged_attention_kernel, paged_attention_plain,
     partial_attention_bwd_kernel, partial_attention_bwd_plain,
     partial_attention_kernel, partial_attention_plain)
+from repro_torch.kernels.mla_decode import (mla_decode_kernel,
+                                            mla_decode_plain)
 from repro_torch.kernels.rmsnorm import (
     rmsnorm_apply_kernel, rmsnorm_apply_plain, rmsnorm_kernel, rmsnorm_plain,
     rmsnorm_stats_kernel, rmsnorm_stats_plain)
@@ -42,7 +44,7 @@ KERNELS = (rmsnorm_kernel, rmsnorm_stats_kernel, rmsnorm_apply_kernel,
            flash_attention_kernel, flash_attention_bwd_kernel,
            selective_scan_kernel, selective_scan_bwd_kernel,
            partial_attention_kernel,
-           partial_attention_bwd_kernel)
+           partial_attention_bwd_kernel, mla_decode_kernel)
 
 
 def reset_launches() -> None:
@@ -51,13 +53,15 @@ def reset_launches() -> None:
 
 
 def launches() -> dict:
-    """Launch count of each kernel wrapper, by kernel name. K5's wrapper
-    launches two kernels in one call, the split page walk and then the
-    combine of each row's splits: ``paged_attention_combine`` reports the
-    second, which runs exactly once with each first."""
+    """Launch count of each kernel wrapper, by kernel name. K5's and K7's
+    wrappers launch two kernels in one call, a split walk and then the
+    combine of each row's splits: ``paged_attention_combine`` and
+    ``mla_decode_combine`` report the second, which runs exactly once with
+    each first."""
     counts = {k.__name__.removesuffix("_kernel"): k.launches
               for k in KERNELS}
-    return dict(counts, paged_attention_combine=counts["paged_attention"])
+    return dict(counts, paged_attention_combine=counts["paged_attention"],
+                mla_decode_combine=counts["mla_decode"])
 
 
 def _plain(x, plain: bool) -> bool:
@@ -228,3 +232,13 @@ def selective_scan(x, dt, A, B, C, s0=None, *, plain: bool = False):
         return SelectiveScan.apply(x, dt, A, B, C, s0, plain)
     fn = selective_scan_plain if _plain(x, plain) else selective_scan_kernel
     return fn(x, dt, A, B, C, s0)
+
+
+def mla_decode(q_eff, q_rope, ckv, k_rope, q_pos, *, scale: float,
+               plain: bool = False):
+    """MLA's absorbed decode attention over the latent cache (K7): q_eff
+    (B, H, R) and q_rope (B, H, Dr) float32, the cache ckv (B, S, R) and
+    k_rope (B, S, Dr), q_pos (B,) int32 -> the context (B, H, R) float32
+    over the keys 0..q_pos."""
+    fn = mla_decode_plain if _plain(q_eff, plain) else mla_decode_kernel
+    return fn(q_eff, q_rope, ckv, k_rope, q_pos, scale=scale)

@@ -82,6 +82,7 @@ class TrainOptions:
     remat_policy: str = "full"  # "full" or "dots" (decoder.Decoder.hidden)
     xent_chunks: int = 1
     dtype: torch.dtype = torch.bfloat16
+    mtp_weight: float = 0.0     # DeepSeek MTP loss weight (0 = off)
     # ring-decomposed collective matmuls, the seq ring and weight-gather
     # caching (core/overlap.py; rides down to the layers on the axes)
     overlap: OverlapConfig = OverlapConfig()
@@ -95,7 +96,8 @@ def _loss_fn(cfg: ArchConfig, axes: M.MeshAxes, opts: TrainOptions):
         return D.lm_loss(model, batch["tokens"], batch["labels"],
                          image_embeds=batch.get("image_embeds"),
                          remat=opts.remat, xent_chunks=opts.xent_chunks,
-                         remat_policy=opts.remat_policy, pstream=pstream,
+                         remat_policy=opts.remat_policy,
+                         mtp_weight=opts.mtp_weight, pstream=pstream,
                          plain=plain)
     return f
 

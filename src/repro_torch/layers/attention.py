@@ -29,10 +29,11 @@ ported:
     over its keys with the row's log-sum-exp, and
     :func:`decode_core_seqsharded` merges the shards over data.
 
-:class:`MLA` is DeepSeek's multi-head latent attention in mode
-``"train"``: q/k 192 wide (128 from the latent, 64 rotary) and v 128, run
-by K2 at those widths; its serving modes (the latent cache's prefill and
-the absorbed decode) are refused.
+:class:`MLA` is DeepSeek's multi-head latent attention: q/k 192 wide (128
+from the latent, 64 rotary) and v 128, run by K2 at those widths in modes
+``"train"`` and ``"prefill"`` (which also fills the latent cache, c_kv and
+the rotary key); its ``"decode"`` is the absorbed decode over that cache,
+on K1's batched entry and kernel K7 (``kernels/mla_decode.py``).
 
 qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
 ``attn_core`` (and ``attn_core_chunked``, the same function, with its
@@ -41,6 +42,8 @@ qk-norm is kernel K3 with the backward of ``parallel.rms_norm``. The JAX
 ``kernels/flash_attention.py``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -224,30 +227,36 @@ class Attention(nn.Module):
 
 class MLA(nn.Module):
     """DeepSeek's multi-head latent attention (``mla_init`` and
-    ``mla_apply``'s ``"train"`` branch): q = h w_q (heads over y); the
-    latent dkv = h w_dkv (d/x -> kv_lora + rope, replicated over x and y),
-    split into c_kv, normed by ``kv_norm`` (the reference's ``_plain_rms``,
-    here K3 over rows of width kv_lora), and one rotary key k_rope shared by
-    every head; k_nope = c_kv w_uk and v = c_kv w_uv (heads over y). Both q
-    and k take NeoX rotation on their rope part. K2 attends at q/k
-    qk_nope + qk_rope and v v_dim (192 and 128 at full width) with the
-    scale 1 / sqrt(qk_nope + qk_rope).
+    ``mla_apply``): q = h w_q (heads over y), or with a compressed query
+    (DeepSeek-V3, ``q_lora_rank`` > 0) the latent c_q = h w_dq (d/x ->
+    q_lora, replicated), normed by ``cq_norm`` (the reference's ``q_norm``,
+    ``_plain_rms``: K3 over rows of width q_lora), then q = c_q w_uq
+    (heads over y); the latent dkv = h w_dkv (d/x -> kv_lora + rope,
+    replicated over x and y), split into c_kv, normed by ``kv_norm`` (K3
+    over rows of width kv_lora), and one rotary key k_rope shared by every
+    head; k_nope = c_kv w_uk and v = c_kv w_uv (heads over y). Both q and
+    k take NeoX rotation on their rope part. The scale is 1 / sqrt(qk_nope
+    + qk_rope).
+
+    ``"train"`` and ``"prefill"`` materialise the heads' K and V: K2 at
+    q/k qk_nope + qk_rope and v v_dim (192 and 128 at full width);
+    prefill then writes the normed c_kv and the rotated k_rope into the
+    layer's cache at rows 0..T-1. ``"decode"`` writes one row and attends
+    absorbed (:meth:`_decode`): the latent cache is never expanded to
+    heads.
 
     The shared k_rope's gradient is summed over y (``parallel.bwd_psum``):
     each y rank back-propagates only its own heads' share, which the
     reference leaves partial where G_y > 1, so that its y ranks would
-    apply different updates to the replicated w_dkv (ROADMAP.md §3)."""
+    apply different updates to the replicated w_dkv (ROADMAP.md §3). The
+    compressed query's latent needs no such sum: w_uq's backward psums its
+    input gradient over y, as every ``tp_matmul`` does over its output
+    axis."""
 
     def __init__(self, cfg, axes: M.MeshAxes, *, gen: torch.Generator,
                  dtype=torch.float32):
         super().__init__()
         m = cfg.mla
-        if m.q_lora_rank:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA with a compressed query (q_lora_rank "
-                f"{m.q_lora_rank}) is not ported to PyTorch yet: it waits "
-                f"for the ROADMAP.md §1 item 'MoE and the expert axis' "
-                f"(DeepSeek-V3)")
         self.cfg, self.axes = cfg, axes
         self.nq_l = cfg.n_heads // axes.gy
         nq, d = cfg.n_heads, cfg.d_model
@@ -256,23 +265,48 @@ class MLA(nn.Module):
         def lin(k, n, in_shard, out_shard):
             return nn.Parameter(PP.tp_linear_init(
                 gen, k, n, axes, in_shard, out_shard, dtype=dtype))
-        self.w_q = lin(d, nq * qk, "x", "y")
+
+        def gain(n):
+            return nn.Parameter(torch.ones(n, dtype=dtype,
+                                           device=gen.device))
+        if m.q_lora_rank:
+            self.w_dq = lin(d, m.q_lora_rank, "x", None)
+            self.cq_norm = gain(m.q_lora_rank)
+            self.w_uq = lin(m.q_lora_rank, nq * qk, None, "y")
+        else:
+            self.w_q = lin(d, nq * qk, "x", "y")
         self.w_dkv = lin(d, m.kv_lora_rank + m.qk_rope_dim, "x", None)
-        self.kv_norm = nn.Parameter(torch.ones(m.kv_lora_rank, dtype=dtype,
-                                               device=gen.device))
+        self.kv_norm = gain(m.kv_lora_rank)
         self.w_uk = lin(m.kv_lora_rank, nq * m.qk_nope_dim, None, "y")
         self.w_uv = lin(m.kv_lora_rank, nq * m.v_dim, None, "y")
         self.wo = lin(nq * m.v_dim, d, "y", "x")
 
+    def _q(self, h, positions, plain):
+        """``_mla_q``: (q_nope, q_rope rotated), each (B, T, nq_l, .)."""
+        axes, m = self.axes, self.cfg.mla
+        B, T = h.shape[:2]
+        if m.q_lora_rank:
+            cq = PP.tp_matmul(h, self.w_dq, axes, "x", None, plain=plain)
+            cq = _plain_rms(cq, self.cq_norm, axes, plain=plain)
+            q = PP.tp_matmul(cq, self.w_uq, axes, None, "y", plain=plain)
+        else:
+            q = PP.tp_matmul(h, self.w_q, axes, "x", "y", plain=plain)
+        q = q.reshape(B, T, self.nq_l, m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+        return q_nope, apply_rope_interleaved_neox(q_rope, positions,
+                                                   self.cfg.rope_theta)
+
     def forward(self, h, *, positions, mode: str = "train", cache=None,
                 paged=None, plain: bool = False):
-        """h (B, T, d/x) at ``positions`` (B, T) -> (B, T, d/x)."""
+        """h (B, T, d/x) at ``positions`` (B, T) -> (B, T, d/x).
+        ``"prefill"`` and ``"decode"``: ``cache`` holds this layer's
+        {"ckv" (B, S, kv_lora), "k_rope" (B, S, qk_rope)}, written in
+        place (the JAX step returns new caches); decode takes one row per
+        sequence, all at the same position."""
         cfg, axes, m = self.cfg, self.axes, self.cfg.mla
-        if mode != "train":
-            raise NotImplementedError(
-                f"{cfg.name}: MLA in mode {mode!r} (its latent cache's "
-                f"prefill and absorbed decode) is not ported to PyTorch "
-                f"yet: it waits for the ROADMAP.md §1 item 'MLA serving'")
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"MLA mode {mode!r}: 'train', 'prefill' or "
+                             f"'decode'")
         B, T = h.shape[:2]
         nq_l = self.nq_l
         dkv = PP.tp_matmul(h, self.w_dkv, axes, "x", None, plain=plain)
@@ -281,21 +315,59 @@ class MLA(nn.Module):
         k_rope = apply_rope_interleaved_neox(k_rope[:, :, None, :],
                                              positions, cfg.rope_theta)
         k_rope = PP.bwd_psum(k_rope, axes, "y")
-        q = PP.tp_matmul(h, self.w_q, axes, "x", "y", plain=plain).reshape(
-            B, T, nq_l, m.qk_nope_dim + m.qk_rope_dim)
-        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
-        q_rope = apply_rope_interleaved_neox(q_rope, positions,
-                                             cfg.rope_theta)
-        k_nope = PP.tp_matmul(ckv, self.w_uk, axes, None, "y", plain=plain
-                              ).reshape(B, T, nq_l, m.qk_nope_dim)
-        v = PP.tp_matmul(ckv, self.w_uv, axes, None, "y", plain=plain
-                         ).reshape(B, T, nq_l, m.v_dim)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope.expand(B, T, nq_l, m.qk_rope_dim)],
-                      dim=-1)
-        out = ops.flash_attention(q, k, v, causal=True, plain=plain)
+        q_nope, q_rope = self._q(h, positions, plain)
+        if mode == "decode":
+            out = self._decode(q_nope, q_rope, ckv, k_rope[:, :, 0],
+                               positions, cache, plain)
+        else:
+            k_nope = PP.tp_matmul(ckv, self.w_uk, axes, None, "y",
+                                  plain=plain
+                                  ).reshape(B, T, nq_l, m.qk_nope_dim)
+            v = PP.tp_matmul(ckv, self.w_uv, axes, None, "y", plain=plain
+                             ).reshape(B, T, nq_l, m.v_dim)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            k = torch.cat([k_nope, k_rope.expand(B, T, nq_l,
+                                                 m.qk_rope_dim)], dim=-1)
+            out = ops.flash_attention(q, k, v, causal=True, plain=plain)
+            if mode == "prefill":
+                cache["ckv"][:, :T] = ckv.to(cache["ckv"].dtype)
+                cache["k_rope"][:, :T] = k_rope[:, :, 0].to(
+                    cache["k_rope"].dtype)
         return PP.tp_matmul(out.reshape(B, T, nq_l * m.v_dim), self.wo,
                             axes, "y", "x", plain=plain)
+
+    def _decode(self, q_nope, q_rope, ckv, k_rope, positions, cache,
+                plain):
+        """The reference's absorbed decode of one row per sequence at
+        ``idx = positions[0, 0]``: write the row's c_kv and k_rope into the
+        cache; q_eff = q_nope W_uk (K1's batched entry, the nq_l heads the
+        batch: (nq_l, B, qk_nope) x (nq_l, qk_nope, kv_lora)); K7 attends
+        over the latent cache (scores q_eff c_kv + q_rope k_rope, keys 0..
+        idx; the context is p c_kv); the output ctx W_uv (K1's batched
+        entry again). W_uk and W_uv are gathered whole over z, as the
+        reference does; the products run in float32, as its einsums do."""
+        m, axes = self.cfg.mla, self.axes
+        B, nq_l, R = q_nope.shape[0], self.nq_l, m.kv_lora_rank
+        cc, rc = cache["ckv"], cache["k_rope"]
+        pos = positions[:1, 0].long()     # uniform across the batch, as JAX
+        cc.index_copy_(1, pos, ckv.to(cc.dtype))
+        rc.index_copy_(1, pos, k_rope.to(rc.dtype))
+        wuk = M.all_gather(self.w_uk, axes, "z", dim=1).reshape(
+            R, nq_l, m.qk_nope_dim)
+        wuv = M.all_gather(self.w_uv, axes, "z", dim=1).reshape(
+            R, nq_l, m.v_dim)
+        # (nq_l, B, qk_nope) x (nq_l, qk_nope, R) -> (nq_l, B, R), fp32
+        q_eff = ops.bmm(q_nope[:, 0].transpose(0, 1), wuk.permute(1, 2, 0),
+                        out_dtype=torch.float32, plain=plain)
+        ctx = ops.mla_decode(
+            q_eff.transpose(0, 1), q_rope[:, 0].float(), cc, rc,
+            positions[:, 0].to(torch.int32).contiguous(),
+            scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim),
+            plain=plain)
+        # (nq_l, B, R) x (nq_l, R, v) -> (nq_l, B, v)
+        out = ops.bmm(ctx.transpose(0, 1), wuv.permute(1, 0, 2).float(),
+                      plain=plain)
+        return out.transpose(0, 1)[:, None].to(q_nope.dtype)
 
 
 def partial_chain(q, kg, vg, rank: int, p: int, *, window: int = 0,
@@ -536,6 +608,24 @@ def attn_cache_spec(cfg, axes: M.MeshAxes, batch: int, seq: int, *,
     shape = M.local_shape((batch, S, nkv_l * axes.gy, cfg.head_dim_), axes,
                           SEQ_CACHE_SPEC if seqshard else CACHE_SPEC)
     return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+# the layout of MLA's latent cache (the JAX ``mla_cache_spec``): sequences
+# over the batch axes, the latent and the rotary key replicated
+MLA_CACHE_SPEC = (M.MeshAxes.batch_axes(), None, None)
+
+
+def mla_cache_spec(cfg, axes: M.MeshAxes, batch: int, seq: int, *,
+                   dtype=torch.float32):
+    """(shape, dtype) of this rank's latent cache for a global ``batch``:
+    {"ckv": (batch / (g_data g_z ...), seq, kv_lora), "k_rope": (...,
+    seq, qk_rope)}, the batch over the batch axes, as the reference lays
+    it out (``seq`` positions exactly: K7 reads the rows it needs)."""
+    m = cfg.mla
+    return {name: (M.local_shape((batch, seq, w), axes, MLA_CACHE_SPEC),
+                   dtype)
+            for name, w in (("ckv", m.kv_lora_rank),
+                            ("k_rope", m.qk_rope_dim))}
 
 
 def paged_attn_cache_spec(cfg, axes: M.MeshAxes, n_pages: int,

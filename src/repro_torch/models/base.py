@@ -74,6 +74,7 @@ class ArchConfig:
     mamba: Optional[MambaCfg] = None
     mixer_pattern: Tuple[str, ...] = ()   # per-layer mixer kinds (or period)
     ffn_pattern: Tuple[str, ...] = ()     # explicit per-layer ffn kinds
+    mtp_depth: int = 0               # deepseek-v3 multi-token prediction
     source: str = ""                 # citation
 
     def __post_init__(self):

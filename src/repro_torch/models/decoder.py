@@ -4,17 +4,18 @@ serving (port of ``repro.models.decoder``).
 The JAX package scans over layers stacked (n_periods, ...) per segment
 position; here the layers are an ``nn.ModuleList`` and the scan is a Python
 loop. Each layer's (mixer, ffn) kind comes from ``cfg.layer_kinds()``:
-softmax attention, MLA (training only) or Mamba, and the MLP (gated or
-not) or MoE, whose aux loss the blocks carry through the layers into
-``lm_loss``, as the reference's scan carries it; the residual norms are
-RMSNorm or LayerNorm, as ``cfg.norm`` says. Parameter names
-follow the JAX tree with the stacking undone: ``embed``,
-``layers.<i>.norm1.g`` (and a LayerNorm's ``.b``),
-``layers.<i>.mixer.wq``, ..., ``final_norm.g``, ``lm_head`` when the head
-is untied (``convert`` maps one onto the other). On a mesh every module
-is built at this rank's local shapes (``partition.LEAF_SPECS``), and the
-serving functions run this rank's batch shard: their logits are (R_local,
-1, V/y).
+softmax attention, MLA or Mamba, and the MLP (gated or not) or MoE, whose
+aux loss the blocks carry through the layers into ``lm_loss``, as the
+reference's scan carries it; the residual norms are RMSNorm or
+LayerNorm, as ``cfg.norm`` says. Parameter names follow the JAX tree
+with the stacking undone: ``embed``, ``layers.<i>.norm1.g`` (and a
+LayerNorm's ``.b``), ``layers.<i>.mixer.wq``, ..., ``final_norm.g``,
+``lm_head`` when the head is untied, and DeepSeek-V3's multi-token
+prediction module ``mtp.*`` where ``cfg.mtp_depth`` > 0 (``convert``
+maps one onto the other). On a mesh every module is built at this
+rank's local shapes (``partition.LEAF_SPECS``), and the serving
+functions run this rank's batch shard: their logits are (R_local, 1,
+V/y).
 
 Under ZeRO-3 (``Decoder(..., shard=...)`` or :meth:`Decoder.shard_`) the
 module tree keeps only the parameters' shapes and dtypes (meta tensors);
@@ -136,10 +137,50 @@ class Block(nn.Module):
         return h + o, aux
 
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token prediction module of depth 1
+    (``decoder_init``'s ``mtp``): the final hidden state of token t and the
+    embedding of token t+1, each normed (``norm_h``, ``norm_e``), each
+    through a normal tp layer (``w_comb_h``, ``w_comb_e``), summed, GELU
+    (tanh) and a transposed layer (``w_comb_o``; the reference's
+    paper-layout stand-in for DeepSeek's concat linear), then one extra
+    ``block`` of the last layer's mixer with a dense MLP. The shared head
+    predicts token t+2 from its output (:func:`lm_loss`)."""
+
+    def __init__(self, cfg: ArchConfig, axes: M.MeshAxes, *,
+                 gen: torch.Generator, dtype=torch.float32):
+        super().__init__()
+        dev, d = gen.device, cfg.d_model
+        self.norm_h = make_norm(cfg, axes, device=dev, dtype=dtype)
+        self.norm_e = make_norm(cfg, axes, device=dev, dtype=dtype)
+
+        def lin(in_shard, out_shard):
+            return nn.Parameter(PP.tp_linear_init(
+                gen, d, d, axes, in_shard, out_shard, dtype=dtype))
+        self.w_comb_h, self.w_comb_e = lin("x", "y"), lin("x", "y")
+        self.w_comb_o = lin("y", "x")
+        self.block = Block(cfg, axes, (cfg.mixers()[-1], "mlp"), gen=gen,
+                           dtype=dtype)
+        self.axes = axes
+
+    def forward(self, h, emb, positions, *, plain: bool = False):
+        """h (B, T, d/x), the next tokens' embeddings emb (B, T, d/x) at
+        ``positions`` (B, T) -> the extra block's output (B, T, d/x)."""
+        axes = self.axes
+        u = (PP.tp_matmul(self.norm_h(h, plain=plain), self.w_comb_h, axes,
+                          "x", "y", plain=plain)
+             + PP.tp_matmul(self.norm_e(emb, plain=plain), self.w_comb_e,
+                            axes, "x", "y", plain=plain))
+        hm = PP.tp_matmul(torch.nn.functional.gelu(u, approximate="tanh"),
+                          self.w_comb_o, axes, "y", "x", plain=plain)
+        return self.block(hm, positions=positions, mode="train",
+                          plain=plain)[0]
+
+
 class Decoder(nn.Module):
     """``decoder_init``'s text path: embedding, blocks, final norm, and the
     LM head: the tied embedding, or an untied ``lm_head`` (d, V) drawn
-    from N(0, 0.02^2).
+    from N(0, 0.02^2); with ``cfg.mtp_depth`` > 0 the :class:`MTP` module.
 
     ``shard`` (ZeRO-3): as soon as each part is drawn (the embedding, a
     layer, the final norm, the head), its parameters are replaced by
@@ -167,6 +208,9 @@ class Decoder(nn.Module):
                 gen, cfg.d_model, cfg.padded_vocab, axes, scale=0.02,
                 dtype=dtype))
             self.shard_(shard, "lm_head")
+        if cfg.mtp_depth > 0:
+            self.mtp = MTP(cfg, axes, gen=gen, dtype=dtype)
+            self.shard_(shard, "mtp")
 
     @torch.no_grad()
     def shard_(self, shard, prefix: str = "") -> "Decoder":
@@ -372,16 +416,15 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
     parameters that do not stream (embedding, final norm, an untied head,
     a one-period segment's layers) are gathered once here, outside remat,
     the tied embedding's one copy feeding both the lookup and the head;
-    the layers stream through :meth:`Decoder.hidden`."""
-    for what, on, item in (
-            ("image_embeds", image_embeds is not None,
-             "other mixers and architectures"),
-            ("the MTP loss (mtp_weight > 0; DeepSeek-V3)", mtp_weight > 0.0,
-             "MoE and the expert axis")):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet: it waits for the "
-                f"ROADMAP.md §1 item '{item}'")
+    the layers stream through :meth:`Decoder.hidden`.
+
+    ``mtp_weight`` > 0 on a model with an :class:`MTP` module (and T > 2)
+    adds ``mtp_weight`` times the reference's MTP loss, the mean
+    cross-entropy of predicting token t+2, and metrics["mtp"]."""
+    if image_embeds is not None:
+        raise NotImplementedError(
+            "image_embeds is not ported to PyTorch yet: it waits for the "
+            "ROADMAP.md §1 item 'other mixers and architectures'")
     cfg, axes = model.cfg, model.axes
     resident = (None if pstream is None
                 else pstream.resident(model.shards))
@@ -411,7 +454,41 @@ def lm_loss(model: Decoder, tokens, labels, *, image_embeds=None,
     loss = total / (B * T * axes.token_shards)
     aux_mean = (PP.ar_bwd_identity(aux, axes, axes.token_axes())
                 / axes.token_shards)
-    return loss + aux_mean, {"xent": loss, "aux": aux_mean}
+    out, metrics = loss + aux_mean, {"xent": loss, "aux": aux_mean}
+    if mtp_weight > 0.0 and hasattr(model, "mtp") and T > 2:
+        metrics["mtp"] = _mtp_loss(model, h, tokens, labels, resident, plain)
+        out = out + mtp_weight * metrics["mtp"]
+    return out, metrics
+
+
+def _mtp_loss(model: Decoder, h, tokens, labels, resident, plain):
+    """The reference's MTP term of ``lm_loss``: predict token t+2 from
+    (h_t, emb(token t+1)) through :class:`MTP` and the shared head, the
+    cross-entropy's sum psum'd over the batch axes and divided by the
+    global count of predictions. Under ZeRO-3 the module, the embedding
+    and the head run on their gathered copies in ``resident``."""
+    axes = model.axes
+    if axes.gseq != 1:
+        raise ValueError("MTP needs contiguous token shifts (no seq "
+                         "sharding)")
+    embed = model.embed if resident is None else resident["embed"]
+    emb = PP.embedding_lookup(tokens[:, 1:-1], embed, axes)
+    Bm, Tm = emb.shape[:2]
+    pos = torch.arange(Tm, dtype=torch.int32,
+                       device=tokens.device).expand(Bm, Tm)
+    args = (h[:, :-2], emb, pos)
+    if resident is None:
+        hm = model.mtp(*args, plain=plain)
+    else:
+        hm = functional_call(
+            model.mtp, {n: resident[f"mtp.{n}"]
+                        for n, _ in model.mtp.named_parameters()},
+            args, {"plain": plain})
+    logits = lm_logits(model, hm, plain=plain, weights=resident)
+    total = torch.sum(PP.vocab_parallel_xent(logits, labels[:, 1:-1], axes,
+                                             model.cfg.vocab_size))
+    total = PP.ar_bwd_identity(total, axes, axes.batch_axes())
+    return total / (Bm * Tm * axes.batch_shards)
 
 
 def decoder_paged_cache_specs(cfg: ArchConfig, axes: M.MeshAxes,
@@ -430,7 +507,9 @@ def decoder_paged_cache_specs(cfg: ArchConfig, axes: M.MeshAxes,
                 else f"arch_type {cfg.arch_type!r}")
         raise NotImplementedError(
             f"{cfg.name}: paged continuous-batching serving supports text "
-            f"decoders with softmax-attention mixers only (got {what})")
+            f"decoders with softmax-attention mixers only (got {what}). Use "
+            f"the fixed-batch path instead: python -m "
+            f"repro_torch.launch.serve --mode fixed --arch {cfg.name}")
     spec = A.paged_attn_cache_spec(cfg, axes, n_pages, page_size,
                                    dtype=dtype)
     return {name: ((cfg.n_layers, *shape), dt)
@@ -473,25 +552,29 @@ def decoder_cache_specs(cfg: ArchConfig, axes: M.MeshAxes, batch: int,
     ``batch``, one dict per layer (the JAX tree stacks them (n_periods,
     ...) per segment position; ``convert.caches_from_jax`` maps one onto
     the other): an attention layer's dense K and V (batch / (g_data g_z),
-    S, local kv heads, head_dim), S = ``seq``
-    rounded up to a multiple of ``attention.DENSE_PAGE``; a Mamba layer's
-    conv and scan states. ``seqshard``: the K/V's sequence dim shards over
-    data and every rank holds the whole batch (the Mamba states
-    replicated over data), as the reference lays out ``long_500k``."""
+    S, local kv heads, head_dim), S = ``seq`` rounded up to a multiple of
+    ``attention.DENSE_PAGE``; an MLA layer's latent cache {"ckv",
+    "k_rope"} (``attention.mla_cache_spec``); a Mamba layer's conv and
+    scan states. ``seqshard``: the K/V's sequence dim shards over data
+    and every rank holds the whole batch (the Mamba states replicated
+    over data), as the reference lays out ``long_500k``."""
     out = []
     for mixer in cfg.mixers():
         if mixer == "attn":
             out.append(A.attn_cache_spec(cfg, axes, batch, seq, dtype=dtype,
                                          seqshard=seqshard))
+        elif mixer == "mla":
+            if seqshard:
+                raise ValueError("MLA long-context seqshard unsupported")
+            out.append(A.mla_cache_spec(cfg, axes, batch, seq, dtype=dtype))
         elif mixer == "mamba":
             out.append(mamba_state_spec(cfg, axes, batch, dtype=dtype,
                                         seqshard=seqshard))
         else:
-            item = ("MLA serving" if mixer == "mla"
-                    else "other mixers and architectures")
             raise NotImplementedError(
                 f"{cfg.name}: mixer {mixer!r} is not ported to PyTorch yet: "
-                f"it waits for the ROADMAP.md §1 item '{item}'")
+                f"it waits for the ROADMAP.md §1 item 'other mixers and "
+                f"architectures'")
     return out
 
 

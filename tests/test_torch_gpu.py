@@ -15,6 +15,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.block_matmul import (block_matmul_kernel,
                                               block_matmul_plain)
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.mla_decode import (mla_decode_kernel,
+                                            mla_decode_plain)
 from repro_torch.kernels.flash_attention import (attn_core,
                                                  flash_attention_kernel,
                                                  paged_attention_kernel,
@@ -1013,3 +1015,88 @@ def test_remat_dots_is_full_bitwise_with_fewer_k1_launches(cuda):
     assert lf == ld and all(torch.equal(a, b) for a, b in zip(gf, gd))
     L = cfg.n_layers
     assert (kf, kd) == (28 * L + 3, 21 * L + 3)
+
+
+# K7 at the decode shapes: (B, local heads, cache rows, positions): V2-Lite
+# on one card, V3's 128 heads, g_y = 2's 8; positions at 0, a tile's and a
+# split's edges and the last row
+MLA_DECODE = {"dsv2 16 heads": (4, 16, 520, [0, 31, 64, 519]),
+              "dsv3 128 heads": (4, 128, 520, [300, 63, 32, 519]),
+              "g_y 2, 8 heads": (2, 8, 100, [99, 5])}
+
+
+def _mla_decode_inputs(cuda, B, H, S, pos, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q_eff = torch.randn((H, B, 512), generator=gen,
+                        device=cuda).transpose(0, 1)
+    q_rope = torch.randn((B, H, 64), generator=gen, device=cuda)
+    ckv = torch.randn((B, S, 512), generator=gen, device=cuda).to(dtype)
+    k_rope = torch.randn((B, S, 64), generator=gen, device=cuda).to(dtype)
+    return q_eff, q_rope, ckv, k_rope, torch.tensor(pos, dtype=torch.int32,
+                                                    device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MLA_DECODE))
+def test_mla_decode_kernel_matches_plain(cuda, case, dtype):
+    """K7 against its plain version (the reference's einsums) over a cache
+    in either dtype; two calls give the same bits; one launch a call."""
+    args = _mla_decode_inputs(cuda, *MLA_DECODE[case], dtype)
+    n = mla_decode_kernel.launches
+    got = ops.mla_decode(*args, scale=192 ** -0.5)
+    assert mla_decode_kernel.launches == n + 1
+    torch.testing.assert_close(got, mla_decode_plain(*args,
+                                                     scale=192 ** -0.5),
+                               rtol=2e-4, atol=2e-4)
+    assert torch.equal(mla_decode_kernel(*args, scale=192 ** -0.5), got)
+
+
+def test_mla_decode_kernel_refuses_unsupported_inputs(cuda):
+    """Widths other than 512 and 64, a float32 cache beside a bf16 one,
+    CPU tensors: each raises, naming what K7 takes."""
+    q_eff, q_rope, ckv, k_rope, pos = _mla_decode_inputs(
+        cuda, 2, 16, 40, [3, 39], torch.float32)
+    with pytest.raises(ValueError, match="latent of 512"):
+        mla_decode_kernel(q_eff[..., :64], q_rope, ckv[..., :64], k_rope,
+                          pos, scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mla_decode_kernel(q_eff, q_rope, ckv, k_rope.bfloat16(), pos,
+                          scale=1.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mla_decode_kernel(q_eff.cpu(), q_rope, ckv, k_rope, pos, scale=1.0)
+
+
+def test_mla_fixed_serving_kernels_match_plain(cuda):
+    """Reduced DeepSeek-V3 at MLA's full widths (latent 512, q/k 128 + 64,
+    v 128): prefill and 3 decode steps through the kernels (K1 and its
+    batched entry, K2 at (192, 128), K3, K7) against the plain versions;
+    K7 and its combine once a layer and decode step."""
+    import dataclasses
+
+    from repro_torch.models.base import MLACfg
+    cfg = get_config("deepseek-v3-671b").reduced()
+    cfg = dataclasses.replace(cfg, mla=MLACfg(
+        kv_lora_rank=512, q_lora_rank=64, qk_nope_dim=128, qk_rope_dim=64,
+        v_dim=128))
+    model = ST.init_model(cfg, seed=0, device=cuda)
+    B, T, GEN = 2, 70, 4
+    pre, ct = ST.make_prefill_step(cfg, model.axes)(B, T, T + GEN)
+    dec, _ = ST.make_decode_step(cfg, model.axes)(B, T + GEN)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int32).to(cuda)
+    caches = {p: ST.zeros_caches(ct, cuda) for p in (False, True)}
+    before = ops.launches()
+    out = {p: pre(model, caches[p], tokens, plain=p)[0] for p in caches}
+    for i in range(GEN - 1):
+        torch.testing.assert_close(out[False], out[True], rtol=1e-4,
+                                   atol=1e-4)
+        tok = out[True][:, -1].argmax(-1)[:, None].to(torch.int32)
+        out = {p: dec(model, caches[p], tok, T + i, plain=p)[0]
+               for p in caches}
+    torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)
+    after = ops.launches()
+    for k, n in (("mla_decode", cfg.n_layers * (GEN - 1)),
+                 ("mla_decode_combine", cfg.n_layers * (GEN - 1)),
+                 ("flash_attention", cfg.n_layers)):
+        assert after[k] - before[k] == n, k

@@ -444,16 +444,21 @@ def test_config_matches_jax(name):
 
 def test_model_refuses_moe_ffns():
     """Jamba's MoE FFNs, refused here until the MoE slice, are built
-    (``tests/test_torch_moe.py`` serves them against the reference); what
-    of the MoE item stays refused names it: DeepSeek-V3's multi-token
-    prediction loss."""
+    (``tests/test_torch_moe.py`` serves them against the reference); the
+    multi-token prediction loss, refused here until DeepSeek-V3 was
+    ported, adds nothing to a model without MTP leaves, as in the
+    reference (``"mtp" in params``)."""
     model = ST.init_model(get_config("jamba-v0.1-52b").reduced(),
                           device="cpu")
     kinds = [type(blk.ffn).__name__ for blk in model.layers]
     assert kinds == ["MLP", "MoE"] * 4
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="'MoE and the expert"):
-        D.lm_loss(model, toks, toks, mtp_weight=0.3)
+    assert not hasattr(model, "mtp")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with torch.no_grad():
+        loss, metrics = D.lm_loss(model, toks, toks, mtp_weight=0.3,
+                                  remat=False)
+        base, _ = D.lm_loss(model, toks, toks, remat=False)
+    assert torch.equal(loss, base) and "mtp" not in metrics
 
 
 def test_params_from_jax_uses_every_leaf_once(jamba):

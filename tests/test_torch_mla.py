@@ -6,7 +6,8 @@ reduced (d 256, 4 heads; MLA's latent 64, q/k 48 = 32 + 16 rotary, v 32;
 layer 0 dense, layer 1 MoE of 4 experts top-2 and one shared expert):
   * ``apply_rope_interleaved_neox`` against the reference's;
   * the ``MLA`` layer's ``"train"`` branch against ``mla_apply``: output
-    and every gradient; its serving modes refused, naming their item;
+    and every gradient (its serving modes: ``tests/test_torch_mla_serving.
+    py``);
   * the model: ``lm_loss``, its aux part and every gradient leaf against
     the reference's on (1,1,1,1), and a 3-step trajectory against the
     reference's train step;
@@ -16,7 +17,14 @@ layer 0 dense, layer 1 MoE of 4 experts top-2 and one shared expert):
 One ``torch.distributed.run --nproc-per-node 4`` launch of this file's
 ``__main__`` trains on expert meshes: (1,1,1,1,1,2) (ranks 2-3 idle) and
 (1,1,2,1,1,2) (y and expert both 2), each under the blocking all-to-all
-and with ``OverlapConfig(expert_a2a=True, batched_matmul=True)``. Each
+and with ``OverlapConfig(expert_a2a=True, batched_matmul=True)``; then
+serves reduced ``deepseek-v2-lite-16b`` and ``deepseek-v3-671b`` (fixed
+batch: a prefill of 4 x 8 and 3 decode steps of given tokens) on
+(1,2,2,1) and (1,1,2,2), each step's gathered logits held to one
+device's (rtol = atol = 1e-4), and takes one V3 step's gradients
+(``lm_loss(mtp_weight=0.3)``, the MTP module's among them) on (1,1,2,1),
+each rank's blocks held to one device's (``tests/test_torch_mla_serving.
+py`` holds one device to the reference). Each
 rank's loss and gradient blocks after the step's reductions are held to
 the one-device ones, at a capacity factor (2.0) where nothing drops (with
 the batch split over the expert axis each source rank has its own
@@ -70,22 +78,27 @@ import test_torch_telemetry as TT  # noqa: E402
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 ARCH = "deepseek-v2-lite-16b"
+V3 = "deepseek-v3-671b"
 WORLD = 4
 MESHES = {"expert": (1, 1, 1, 1, 1, 2), "y_expert": (1, 1, 2, 1, 1, 2)}
 SCHEDULES = {"blocking": OverlapConfig(),
              "ring": OverlapConfig(expert_a2a=True, batched_matmul=True)}
 NO_DROP = 2.0          # capacity factor: an expert's queue holds every token
+SERVE_MESHES = {"x_y": (1, 2, 2, 1), "y_z": (1, 1, 2, 2)}
+V3_MESH = (1, 1, 2, 1)
+MTP_WEIGHT = 0.3
+SERVE_TOL = dict(rtol=1e-4, atol=1e-4)
 FN_TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_RTOL, GRAD_REL, TRAJ_RTOL = MT.LOSS_RTOL, MT.GRAD_REL, MT.TRAJ_RTOL
 
 
-def _cfgs(capacity_factor=None):
+def _cfgs(capacity_factor=None, arch=ARCH):
     """The reduced config on both sides; with ``capacity_factor``, the
     expert meshes' config: that factor, and no load-balance term (its
     product of two means over the tokens is not a mean over the batch
     shards, so a batch split over expert ranks computes another aux than
     one device does; the z-loss, a mean of per-token terms, stays)."""
-    jcfg, tcfg = jax_get_config(ARCH).reduced(), get_config(ARCH).reduced()
+    jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
     if capacity_factor is not None:
         jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(
             c.moe, capacity_factor=capacity_factor, aux_loss_coef=0.0))
@@ -144,10 +157,50 @@ def _mesh_run(tcfg, axes, tree, ov, rank):
     return out
 
 
+def _fixed_logits(tcfg, axes, tree, rank):
+    """Fixed-batch serving of ``_serve_tokens``: a prefill of the first 8
+    tokens, then 3 decode steps fed the next ones; each step's logits
+    gathered over y and the batch axes (the whole batch's)."""
+    model = convert.params_from_jax(tree, tcfg, "cpu", axes, rank)
+    tokens = torch.from_numpy(_serve_tokens(tcfg.vocab_size))
+    (B, L), T = tokens.shape, 8
+    pre, ct = ST.make_prefill_step(tcfg, axes)(B, T, L)
+    dec, _ = ST.make_decode_step(tcfg, axes)(B, L)
+    logits, caches = pre(model, ST.zeros_caches(ct, "cpu"), tokens[:, :T])
+    out = [ST.gather_logits(logits, axes)]
+    for i in range(T, L):
+        logits, caches = dec(model, caches, tokens[:, i:i + 1], i)
+        out.append(ST.gather_logits(logits, axes))
+    assert MOE.dropped(model) == 0
+    return out
+
+
+def _serve_tokens(vocab):
+    return np.random.RandomState(31).randint(0, vocab, (4, 11)).astype(
+        np.int32)
+
+
+def _v3_grads(tcfg, axes, tree, rank):
+    """This rank's gradient blocks of one V3 step (``lm_loss`` with its
+    MTP term) after the step's reductions."""
+    model = convert.params_from_jax(tree, tcfg, "cpu", axes, rank)
+    tokens, labels = (M.batch_shard(torch.from_numpy(t), axes)
+                      for t in _batches(tcfg.vocab_size)[0])
+    loss, metrics = D.lm_loss(model, tokens, labels, remat=True,
+                              mtp_weight=MTP_WEIGHT)
+    loss.backward()
+    grads = {k: g.clone() for k, g in ST.sync_grads(
+        {n: p.grad for n, p in model.named_parameters()}, axes).items()}
+    return dict(loss=float(loss.detach()), mtp=float(metrics["mtp"]),
+                grads=grads)
+
+
 def _rank_worker(outdir: pathlib.Path):
     from repro_torch.launch.mesh import close_mesh, init_mesh
     _, tcfg = _cfgs(NO_DROP)
+    _, v3cfg = _cfgs(NO_DROP, V3)
     tree = MT._load_tree(outdir / "tree.npz")
+    v3tree = MT._load_tree(outdir / "v3_tree.npz")
     out = {}
     try:
         init_mesh(MeshAxes((1, 1, 1, 1, 1, WORLD)), device="cpu")
@@ -159,6 +212,17 @@ def _rank_worker(outdir: pathlib.Path):
                 for name, ov in SCHEDULES.items():
                     out[mesh, name] = _mesh_run(tcfg, axes, tree, ov, rank)
             torch.distributed.barrier()
+        for mesh, sizes in SERVE_MESHES.items():
+            axes = MeshAxes(sizes)
+            M.init_groups(axes)
+            for arch, cfg, tr in ((ARCH, tcfg, tree), (V3, v3cfg, v3tree)):
+                out["serve", mesh, arch] = _fixed_logits(cfg, axes, tr, rank)
+            torch.distributed.barrier()
+        axes = MeshAxes(V3_MESH)
+        M.init_groups(axes)
+        if rank < axes.world:
+            out["v3"] = _v3_grads(v3cfg, axes, v3tree, rank)
+        torch.distributed.barrier()
     finally:
         close_mesh()
     torch.save(out, outdir / f"rank{rank}.pt")
@@ -190,12 +254,21 @@ def trees():
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory, trees):
-    """The 4-rank worker; while it runs, the port's one-device run."""
+    """The 4-rank worker; while it runs, the port's one-device runs (the
+    loss and gradients, the served logits, V3's step)."""
     outdir = tmp_path_factory.mktemp("mla_ranks")
     MT._save_tree(trees[NO_DROP], outdir / "tree.npz")
+    v3cfg = _cfgs(NO_DROP, V3)
+    v3tree = MT._init_tree(v3cfg[0], (1, 1, 1, 1))
+    MT._save_tree(v3tree, outdir / "v3_tree.npz")
     proc = MT._torchrun([__file__, str(outdir)], nproc=WORLD)
     try:
-        one = _one_device(_cfgs(NO_DROP)[1], trees[NO_DROP])
+        tcfg = _cfgs(NO_DROP)[1]
+        one = _one_device(tcfg, trees[NO_DROP])
+        one["serve"] = {
+            ARCH: _fixed_logits(tcfg, MeshAxes(), trees[NO_DROP], 0),
+            V3: _fixed_logits(v3cfg[1], MeshAxes(), v3tree, 0)}
+        one["v3"] = _v3_grads(v3cfg[1], MeshAxes(), v3tree, 0)
     finally:
         MT._wait(proc)
     ranks = [torch.load(outdir / f"rank{r}.pt", weights_only=False)
@@ -299,31 +372,6 @@ def test_reference_mla_rope_gradient_holds_one_y_rank_of_heads():
         assert latent <= GRAD_REL * np.abs(w1[:, :kl]).max(), yr
         rope = np.abs(w[:, kl:] - w1[:, kl:]).max()
         assert rope > 0.1 * np.abs(w1[:, kl:]).max(), yr
-
-
-@pytest.mark.parametrize("mode", ["prefill", "decode"])
-def test_mla_serving_is_refused_naming_its_item(mode):
-    _, tcfg = _cfgs()
-    layer = A.MLA(tcfg, MeshAxes(), gen=torch.Generator())
-    with pytest.raises(NotImplementedError, match="'MLA serving'"):
-        layer(torch.zeros((1, 4, tcfg.d_model)),
-              positions=torch.zeros((1, 4), dtype=torch.int32), mode=mode)
-    with pytest.raises(NotImplementedError, match="'MLA serving'"):
-        D.decoder_cache_specs(tcfg, MeshAxes(), 2, 8)
-
-
-def test_compressed_query_and_mtp_stay_refused():
-    """DeepSeek-V3's compressed query and multi-token prediction name the
-    item they wait for."""
-    _, tcfg = _cfgs()
-    v3 = dataclasses.replace(tcfg, mla=dataclasses.replace(
-        tcfg.mla, q_lora_rank=32))
-    with pytest.raises(NotImplementedError, match="'MoE and the expert"):
-        A.MLA(v3, MeshAxes(), gen=torch.Generator())
-    model = ST.init_model(tcfg, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MTP.*'MoE and the"):
-        D.lm_loss(model, toks, toks, mtp_weight=0.3)
 
 
 # ---------------------------------------------------------------------- #
@@ -489,6 +537,43 @@ def test_expert_ring_is_the_blocking_run_bitwise(world, mesh):
                    for n, g in ring["grads"].items())
         assert ring["traj"] == block["traj"]
         assert ring["sha"] == block["sha"]
+
+
+@pytest.mark.parametrize("mesh", sorted(SERVE_MESHES))
+@pytest.mark.parametrize("arch", [ARCH, V3])
+def test_fixed_serving_on_meshes_matches_one_device(world, mesh, arch):
+    """Every rank's gathered logits of the prefill and each decode step
+    against one device's: (1,2,2,1) shards the latent's and the heads'
+    projections over x and y, (1,1,2,2) the batch and the weights over z
+    (the absorbed decode gathers W_uk and W_uv whole over z)."""
+    ranks, one = world
+    want = one["serve"][arch]
+    for r in range(MeshAxes(SERVE_MESHES[mesh]).world):
+        got = ranks[r]["serve", mesh, arch]
+        assert len(got) == len(want) == 4
+        for step, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), **SERVE_TOL,
+                                       err_msg=f"{mesh} rank {r} {step}")
+
+
+def test_v3_step_gradient_blocks_on_y_match_one_device(world):
+    """One V3 step on (1,1,2,1), its MTP term included: each rank's loss
+    and every gradient block (the compressed query's and the MTP
+    module's among them) against one device's."""
+    ranks, one = world
+    axes = MeshAxes(V3_MESH)
+    want = one["v3"]
+    for r in range(axes.world):
+        got = ranks[r]["v3"]
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["mtp"], want["mtp"], rtol=LOSS_RTOL)
+        assert got["grads"].keys() == want["grads"].keys()
+        for n, g in got["grads"].items():
+            w = MT._block(want["grads"][n].numpy(), axes, r,
+                          convert.param_spec(n))
+            err = np.abs(g.numpy() - w).max()
+            assert err <= GRAD_REL * np.abs(w).max(), (r, n, err)
+    assert any(n.endswith("cq_norm") for n in want["grads"])
 
 
 if __name__ == "__main__":

@@ -78,21 +78,23 @@ def test_serve_cli_on_cpu(capsys):
     assert "SERVE OK" in out
 
 
-@pytest.mark.parametrize("flags", [["--arch", "deepseek-v2-lite-16b",
+@pytest.mark.parametrize("flags", [["--arch", "h2o-danube-3-4b",
                                     "--mode", "fixed"],
                                    ["--mode", "fixed", "--telemetry"],
                                    ["--mesh", "1,2,1,1"]])
 def test_serve_rejects_what_is_not_ported(flags):
     """The unported flags raise naming their ROADMAP item (``--telemetry``
-    is ported for ``--mode continuous`` only; MLA trains but does not
-    serve: Jamba's experts, refused here before, are served since
-    ``tests/test_torch_moe.py``); a mesh of more than one rank is served,
+    is ported for ``--mode continuous`` only; an arch still refused by the
+    registry names its item: DeepSeek's MLA, refused here before, is
+    served since ``tests/test_torch_mla_serving.py``); a mesh of more
+    than one rank is served,
     but only under torch.distributed.run, and outside it raises naming
     WORLD_SIZE."""
     if "--mesh" in flags:
         exc, match = ValueError, "WORLD_SIZE"
     elif "--arch" in flags:
-        exc, match = NotImplementedError, "not ported.*'MLA serving'"
+        exc, match = NotImplementedError, \
+            "not ported.*'dense config variants'"
     else:
         exc, match = NotImplementedError, "not ported"
     with pytest.raises(exc, match=match):
@@ -237,7 +239,7 @@ def test_mesh_admits_a_seq_axis():
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "xlstm-350m",
-                                  "deepseek-v3-671b"])
+                                  "internvl2-26b"])
 def test_unported_archs_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
@@ -267,13 +269,13 @@ def test_serving_copies_match_the_jax_package(name):
 
 
 def test_deepseek_config_copy_matches_the_jax_package():
-    """configs/deepseek_v2_lite_16b.py is a copy; only the import path
-    moves."""
-    name = "deepseek_v2_lite_16b.py"
-    ours = (PORT / "configs" / name).read_text()
-    theirs = (ROOT / "src" / "repro" / "configs" / name).read_text()
-    assert ours == theirs.replace("from repro.models",
-                                  "from repro_torch.models")
+    """configs/deepseek_v2_lite_16b.py and deepseek_v3_671b.py are copies;
+    only the import path moves."""
+    for name in ("deepseek_v2_lite_16b.py", "deepseek_v3_671b.py"):
+        ours = (PORT / "configs" / name).read_text()
+        theirs = (ROOT / "src" / "repro" / "configs" / name).read_text()
+        assert ours == theirs.replace("from repro.models",
+                                      "from repro_torch.models"), name
 
 
 def test_data_copy_matches_the_jax_package():
