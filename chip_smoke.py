@@ -346,6 +346,7 @@ SEED = 0
 # non-tensor-core float32 rate the kernels' fp32 arithmetic runs at
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_OPS_PER_S = 495e12
 # K3: the tolerances of tests/test_kernels.py. K5: the kernel's online
 # softmax sums in another order than the plain version's single softmax;
 # bf16 inputs round once more on the way in
@@ -805,14 +806,16 @@ DSV3_FIXED_FLAGS = with_flag(DSV2_FIXED_FLAGS, "--arch", DSV3)
 ABSORBED_T = 512
 # K7 at the decode shapes (name, B, local heads, cache rows): V2-Lite's 16
 # heads, V3's 128 and g_y = 2's 8 over phase 9's 4 sequences of 512 + 8;
-# each at the positions below (one key; a tile's last and the next tile's
-# first; a split's inside; the cache's last row), timed at the last;
-# against its plain version in float32 sums of other orders over 576-wide
-# dots and up to 520 keys (a bf16 cache widens alike on both sides)
+# each at the positions below (one key; the last and the next first key of
+# a 16-key split (up to 16 heads) or tile (above): 15 16, 31 32, 63 64;
+# of a 128-key split (above 16 heads): 127 128; a split's inside; the
+# cache's last row), timed at the last; against its plain version in
+# float32 sums of other orders over 576-wide dots and up to 520 keys (a
+# bf16 cache widens alike on both sides)
 MLA_DECODE_SHAPES = [("dsv2 decode", 4, 16, 520),
                      ("dsv3 decode", 4, 128, 520),
                      ("dsv2 g_y 2", 4, 8, 520)]
-MLA_DECODE_POSITIONS = (0, 31, 32, 300, 519)
+MLA_DECODE_POSITIONS = (0, 15, 16, 31, 32, 63, 64, 127, 128, 300, 519)
 MLA_DECODE_TOL = 2e-4
 MLA_SCALE = 1.0 / math.sqrt(128 + 64)
 
@@ -2063,6 +2066,15 @@ def bound(nbytes, n_ops, dtype):
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def split_tf32_bound(nbytes, n_ops, cache_dtype):
+    """The bound of fp32 products run on the tensor cores in split TF32
+    (K7): three TF32 products per fp32 product, two where the cache is
+    bf16 (exact in TF32), at the dense TF32 rate, against the bytes."""
+    per = 2 if cache_dtype == torch.bfloat16 else 3
+    return bound(nbytes, per * n_ops * PEAK_OPS_PER_S[torch.float32]
+                 / TF32_OPS_PER_S, torch.float32)
 
 
 def fmt(t, eager):
@@ -5377,7 +5389,7 @@ def phase_mla_decode_kernels(gen, errs, times):
             if dtype == f32:
                 errs["mla_decode"] = max(errs["mla_decode"], worst)
             del args
-    for name, B, H, S in MLA_DECODE_SHAPES[:2]:
+    for name, B, H, S in MLA_DECODE_SHAPES:
         args = mla_decode_inputs(gen, B, H, S, f32)
         idx = S - 1
         pos = torch.full((B,), idx, dtype=torch.int32, device="cuda")
@@ -5392,13 +5404,17 @@ def phase_mla_decode_kernels(gen, errs, times):
                 lambda: mla_decode_kernel(*args, pos, scale=MLA_SCALE),
                 lambda: mla_decode_plain(*args, pos, scale=MLA_SCALE), lib,
                 nbytes, n_ops, f32)
+        tc = split_tf32_bound(nbytes, n_ops, f32)
         log(f"  mla_decode {name} (B {B}, {H} heads, {idx + 1} keys): "
             + fmt(t, eager) + f"; SDPA taken by {backend.name} (its max|d| "
             f"from plain {e_lib:.2e}): the kernel "
             f"{t['ms'] / t['library_ms']:.2f}x it; "
             f"{n_ops / t['ms'] / 1e9:.2f} TFLOP/s, "
             f"{nbytes / t['ms'] / 1e6:.1f} GB/s, "
-            f"{t['bound_ms'] / t['ms']:.3f} of the bound")
+            f"{t['bound_ms'] / t['ms']:.3f} of the bound; its products on "
+            f"the tensor cores in split TF32: bound "
+            f"{tc['bound_ms'] * 1e3:.3f} us ({tc['bound_by']}), "
+            f"{tc['bound_ms'] / t['ms']:.3f} of it")
         times.setdefault("mla_decode", t)
         del args, lib, lib_out
         free_memory()

@@ -1,8 +1,8 @@
-// Asynchronous 16-byte copies from global to shared memory (cp.async),
-// shared by the attention tiles (attention_tiles.cuh) and K6
-// (selective_scan.cu). A CPU build of a source (the tests' emulator)
-// takes the portable branches: the copy happens at once, commit and wait
-// do nothing.
+// Asynchronous 16-byte (and 4-byte) copies from global to shared memory
+// (cp.async), shared by the attention tiles (attention_tiles.cuh), K6
+// (selective_scan.cu) and K7 (mla_decode.cu). A CPU build of a source
+// (the tests' emulator) takes the portable branches: the copy happens at
+// once, commit and wait do nothing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +23,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
     memcpy(dst, src, 16);
   } else {
     memset(dst, 0, 16);
+  }
+#endif
+}
+// 4 bytes from src to dst (shared memory), through L1; zeros where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+#else
+  if (valid) {
+    memcpy(dst, src, 4);
+  } else {
+    memset(dst, 0, 4);
   }
 #endif
 }

@@ -29,7 +29,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the widths the kernel is compiled for: the latent (kv_lora) and the
 # rotary key (qk_rope)
 LATENT, ROPE = 512, 64
-SPLIT_KEYS = 64
+# keys a split, fixed by the key position: (at up to 16 local heads, one
+# head tile of the kernel; above), the source's kNarrowTiles and
+# kWideTiles tiles of TILE_KEYS
+TILE_KEYS = 16
+SPLIT_KEYS = (16, 128)
+
+
+def split_keys(n_heads: int) -> int:
+    """Keys a split of the kernel's walk for ``n_heads`` local heads."""
+    return SPLIT_KEYS[n_heads > 16]
 
 
 def mla_decode_plain(q_eff, q_rope, ckv, k_rope, q_pos, *, scale: float):
@@ -46,26 +55,49 @@ def mla_decode_plain(q_eff, q_rope, ckv, k_rope, q_pos, *, scale: float):
     return torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), cc)
 
 
-def _launcher():
-    """(mla_decode_launch, mla_decode_workspace) of the built library,
-    typed."""
+def bind(lib):
+    """``lib`` (a build of ``csrc/mla_decode.cu``) with its entry points'
+    ctypes signatures set."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mla_decode_launch.argtypes = [p, ll, ll, p, ll, ll, p, ll, ll, p, ll,
+                                      ll, p, p, p, i, i, i, i, i,
+                                      ctypes.c_float, i, p]
+    lib.mla_decode_launch.restype = ctypes.c_int
+    lib.mla_decode_workspace.argtypes = [i, i, i]
+    lib.mla_decode_workspace.restype = ll
+    return lib
+
+
+def _lib():
+    """The source's library, bound."""
     lib = build.library("mla_decode")
-    fn, work = lib.mla_decode_launch, lib.mla_decode_workspace
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, p, p,
-                       i, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        work.argtypes = [i, i, i]
-        work.restype = ll
-    return fn, work
+    return lib if lib.mla_decode_launch.argtypes else bind(lib)
+
+
+def launch(lib, q_eff, q_rope, ckv, k_rope, q_pos, *, scale: float):
+    """One call of ``lib``'s C entry on checked inputs: the context."""
+    B, H, R = q_eff.shape
+    S, Dr = ckv.shape[1], k_rope.shape[2]
+    out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
+    work = torch.empty((lib.mla_decode_workspace(B, H, S),),
+                       dtype=torch.float32, device=q_eff.device)
+    err = lib.mla_decode_launch(
+        q_eff.data_ptr(), *q_eff.stride()[:2], q_rope.data_ptr(),
+        *q_rope.stride()[:2], ckv.data_ptr(), *ckv.stride()[:2],
+        k_rope.data_ptr(), *k_rope.stride()[:2], q_pos.data_ptr(),
+        out.data_ptr(), work.data_ptr(), B, H, S, R, Dr, scale,
+        _DTYPES[ckv.dtype],
+        torch.cuda.current_stream(q_eff.device).cuda_stream)
+    build.check(err, "mla_decode_kernel")
+    return out
 
 
 def mla_decode_kernel(q_eff, q_rope, ckv, k_rope, q_pos, *, scale: float):
     """Launch the CUDA kernels on CUDA tensors: each split's walk over the
-    latent cache, then the combine of each (row, head)'s splits; raises on
-    what they do not take. ``mla_decode_kernel.launches`` counts the
-    calls, each one launch of both kernels."""
+    latent cache, then (as its programmatic dependent) the combine of each
+    (row, head)'s splits; raises on what they do not take.
+    ``mla_decode_kernel.launches`` counts the calls, each one launch of
+    both kernels."""
     B, H, R = q_eff.shape
     S, Dr = ckv.shape[1], k_rope.shape[2]
     tensors = (q_eff, q_rope, ckv, k_rope, q_pos)
@@ -100,18 +132,7 @@ def mla_decode_kernel(q_eff, q_rope, ckv, k_rope, q_pos, *, scale: float):
         raise ValueError("mla_decode_kernel needs unit stride along every "
                          "row, a contiguous q_pos and 16-byte aligned cache "
                          "rows")
-    launch, workspace = _launcher()
-    out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
-    work = torch.empty((workspace(B, H, S),), dtype=torch.float32,
-                       device=q_eff.device)
-    err = launch(
-        q_eff.data_ptr(), *q_eff.stride()[:2], q_rope.data_ptr(),
-        *q_rope.stride()[:2], ckv.data_ptr(), *ckv.stride()[:2],
-        k_rope.data_ptr(), *k_rope.stride()[:2], q_pos.data_ptr(),
-        out.data_ptr(), work.data_ptr(), B, H, S, R, Dr, scale,
-        _DTYPES[ckv.dtype],
-        torch.cuda.current_stream(q_eff.device).cuda_stream)
-    build.check(err, "mla_decode_kernel")
+    out = launch(_lib(), *tensors, scale=scale)
     mla_decode_kernel.launches += 1
     return out
 

@@ -1018,11 +1018,13 @@ def test_remat_dots_is_full_bitwise_with_fewer_k1_launches(cuda):
 
 
 # K7 at the decode shapes: (B, local heads, cache rows, positions): V2-Lite
-# on one card, V3's 128 heads, g_y = 2's 8; positions at 0, a tile's and a
-# split's edges and the last row
-MLA_DECODE = {"dsv2 16 heads": (4, 16, 520, [0, 31, 64, 519]),
-              "dsv3 128 heads": (4, 128, 520, [300, 63, 32, 519]),
-              "g_y 2, 8 heads": (2, 8, 100, [99, 5])}
+# on one card, V3's 128 heads, g_y = 2's 8; positions at 0, the edges of a
+# split (16 keys up to 16 heads, 128 above) and of a 16-key tile, and the
+# last row
+MLA_DECODE = {"dsv2 16 heads": (4, 16, 520, [0, 15, 16, 519]),
+              "dsv3 128 heads": (4, 128, 520, [300, 127, 128, 519]),
+              "dsv3 128 heads, tile edges": (4, 128, 200, [15, 16, 47, 48]),
+              "g_y 2, 8 heads": (4, 8, 100, [99, 31, 32, 5])}
 
 
 def _mla_decode_inputs(cuda, B, H, S, pos, dtype):
